@@ -1,13 +1,21 @@
 """blur_algorithms_tpu_torch — the PyTorch + CUDA port of blur_algorithms_tpu.
 
 The JAX package ``blur_algorithms_tpu`` is the reference this port is held
-against. The port goes one slice at a time (ROADMAP.md); it now serves the
-main path: ``blur_u8`` / ``gaussian_blur`` with the AUTO or fused engine on
-uint8 ``(..., H, W, C)`` tensors, through a hand-written Hopper kernel on a
-CUDA tensor and its plain PyTorch version on a CPU tensor.
+against. The port goes one slice at a time (ROADMAP.md); it now serves
+``blur_u8`` / ``gaussian_blur`` on uint8 ``(..., H, W, C)`` frames, ``blur``
+on float planar ``(..., H, W)`` data (differentiable), ``convolve_separable``
+and ``box_blur``, through hand-written Hopper kernels on a CUDA tensor and
+their plain PyTorch versions on a CPU tensor.
 """
 
-from blur_algorithms_tpu_torch.api import Engine, blur_u8, gaussian_blur
+from blur_algorithms_tpu_torch.api import (
+    Engine,
+    blur,
+    blur_u8,
+    box_blur,
+    convolve_separable,
+    gaussian_blur,
+)
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
 
 __version__ = "0.1.0"
@@ -15,7 +23,10 @@ __version__ = "0.1.0"
 __all__ = [
     "BlurPlan",
     "Engine",
+    "blur",
     "blur_u8",
+    "box_blur",
+    "convolve_separable",
     "gaussian_blur",
     "make_custom_plan",
     "make_plan",

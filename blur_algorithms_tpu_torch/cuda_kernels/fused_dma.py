@@ -14,9 +14,13 @@ the band dots are 1-D correlations with the integer taps
 ``q = 128 * q_hi + q_lo``: ``int8_operands`` yields those vectors, the
 requantisation shift of the rows pass and the cols scale of the epilogue.
 
-Only the int8 rung is ported. The hybrid, bf16 and bf16x3 tile bodies, the
+Only the int8 rung is ported here. The bf16x3 tile body has the numerics
+of the blocked kernel ``fused_blur._kernel`` and runs as K2
+(``cuda_kernels/fused_blur.py``). The hybrid and bf16 tile bodies, the
 other forms of the JAX kernel (strip, assemble, rows-resident, pipelined)
 and the multi-chip haloed entry point are queued in ROADMAP.md.
+``MAX_RADIUS`` (600, the JAX int8 DMA form's domain) bounds K1 and K2
+alike.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
+    MAX_RADIUS,
     _quantize_band_int8,
     int8_applicable,
     pick_int8_scale,
@@ -43,12 +48,6 @@ __all__ = [
     "blur_fused_u8_dma_ref",
     "int8_operands",
 ]
-
-# Largest support radius the kernel serves: the JAX int8 DMA form's domain
-# (``utils/hw.DeviceSpec.dma_max_radius`` there), so every call the port
-# routes has a JAX int8 counterpart to be held against.
-MAX_RADIUS = 600
-
 
 @dataclasses.dataclass(frozen=True)
 class Int8Operands:
@@ -91,13 +90,13 @@ def check_domain(plan: BlurPlan) -> None:
     rh, rw = plan.col.support_radius, plan.row.support_radius
     if rh == 0 or rw == 0:
         raise NotImplementedError(
-            "a radius-0 axis is served by the JAX blocked kernel (K2), "
-            "not ported yet (ROADMAP.md Queue 2, K2)"
+            "K1 does not serve a radius-0 axis: blur_fused_u8 routes it to "
+            "K2 (cuda_kernels/fused_blur.py)"
         )
     if not int8_applicable(plan, torch.uint8):
         raise NotImplementedError(
-            "signed or non-normalised taps need the bf16x3 body "
-            "(ROADMAP.md Queue 2, K1 hybrid/bf16x3 bodies)"
+            "K1 does not serve signed or non-normalised taps: blur_fused_u8 "
+            "routes them to K2, the bf16x3 rung (cuda_kernels/fused_blur.py)"
         )
     if max(rh, rw) > MAX_RADIUS:
         raise NotImplementedError(

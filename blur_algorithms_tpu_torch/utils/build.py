@@ -1,10 +1,12 @@
 """Build the package's CUDA sources with ``nvcc`` at first use, load with ctypes.
 
-Every ``csrc/*.cu`` file is compiled into one shared library with a plain C
-interface:
+Every ``csrc/*.cu`` file is compiled on its own, all of them at once (one
+``nvcc`` process per source), and the objects are linked into one shared
+library with a plain C interface:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC --fmad=false -Xptxas -v
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
+         -Xcompiler -fPIC --fmad=false -Xptxas -v   (each source)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared   (the link)
 
 ``--fmad=false`` keeps nvcc from contracting ``a * b + c`` into one fused
 multiply-add, which would round differently from the JAX kernel's f32
@@ -30,9 +32,10 @@ __all__ = ["NVCC_FLAGS", "build_dir", "load_library", "last_build"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "--fmad=false", "-Xptxas", "-v",
 )
+_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
@@ -67,9 +70,52 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.blur_fused_u8_int8.restype = i
+    lib.blur_fused_f32.argtypes = [
+        vp, vp, vp, vp,  # x, out, taps_row, taps_col
+        i, i,  # in_u8, out_u8
+        i, i, i, i, i,  # planes, h, w, rh, rw
+        vp,  # stream
+    ]
+    lib.blur_fused_f32.restype = i
     lib.blur_cuda_error_string.argtypes = [i]
     lib.blur_cuda_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _run(cmd: list[str], proc: subprocess.Popen) -> str:
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}{err}"
+        )
+    return out + err
+
+
+def _compile_and_link(sources: list[pathlib.Path], out_dir: pathlib.Path,
+                      target: pathlib.Path) -> str:
+    """One nvcc per source, all started together, then one link. Builds in
+    a private directory and renames the library into place: a concurrent
+    process sees either no library or a whole one."""
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        nvcc = _nvcc()
+        jobs = []
+        for src in sources:
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", f"{tmp}/{src.stem}.o", str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            log = "".join(_run(cmd, proc) for cmd, proc in jobs)
+        finally:
+            for _, proc in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = f"{tmp}/lib.so"
+        cmd = [nvcc, *_LINK_FLAGS, "-o", lib, *(f"{tmp}/{s.stem}.o" for s in sources)]
+        log += _run(cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        os.replace(lib, target)
+    return log
 
 
 def load_library() -> ctypes.CDLL:
@@ -91,22 +137,7 @@ def load_library() -> ctypes.CDLL:
     log = ""
     built = not target.exists()
     if built:
-        # build into a private file, then rename: a concurrent process sees
-        # either no library or a whole one
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-        os.close(fd)
-        try:
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}"
-                )
-            os.replace(tmp, target)
-        finally:
-            if os.path.exists(tmp):
-                os.remove(tmp)
+        log = _compile_and_link(sources, out_dir, target)
     last_build.update(
         library=str(target), built=built, seconds=time.perf_counter() - t0,
         log=log,

@@ -1,10 +1,12 @@
-"""The port's slice as a whole: ``blur_u8`` AUTO against the JAX package.
+"""The port's slice 1 as a whole: ``blur_u8`` AUTO against the JAX package.
 
 On the CPU the port's ``blur_u8`` runs the plain version of K1. It must be
 bit-equal to the JAX int8 DMA kernel (interpret mode) after the layout
 moves, and within 1 count of JAX ``blur_u8`` (which off a TPU runs the
 blocked f32 band path) and of the NumPy oracle. Every call outside the
-slice's domain raises ``NotImplementedError``.
+port's domain raises ``NotImplementedError``. Slice 2 (the float path,
+custom taps, box blur, precision pins) is tested in
+``test_torch_float_path.py``.
 """
 
 import numpy as np
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+import bench  # noqa: E402
 import blur_algorithms_tpu as jax_pkg  # noqa: E402
 import blur_algorithms_tpu_torch as port  # noqa: E402
 from blur_algorithms_tpu import oracle  # noqa: E402
@@ -21,6 +24,7 @@ from blur_algorithms_tpu.ops.plan import make_plan as j_make_plan  # noqa: E402
 from blur_algorithms_tpu.pallas_kernels import fused_dma as j_dma  # noqa: E402
 from blur_algorithms_tpu_torch import api  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fused_dma as t_dma  # noqa: E402
+from blur_algorithms_tpu_torch.utils.frames import make_frames  # noqa: E402
 from blur_algorithms_tpu_torch.utils.hw import device_spec  # noqa: E402
 
 
@@ -85,13 +89,10 @@ def test_blur_u8_launches_nothing_on_the_cpu():
 @pytest.mark.parametrize("call", [
     lambda x: port.blur_u8(x, 200.0),  # AUTO past radius 600
     lambda x: port.blur_u8(x, 200.0, engine="fused"),
-    lambda x: port.blur_u8(x, 0.1),  # radius-0 axes
-    lambda x: port.blur_u8(x, 3.0, precision="int8"),
-    lambda x: port.gaussian_blur(x.float(), 3.0),  # float input
-    lambda x: api.blur(x.float(), 3.0),
-    lambda x: api.box_blur(x, 2.0),
     lambda x: api.dft_spectrum(x, 2.0),
-    lambda x: api.convolve_separable(x, [-0.25, 1.5, -0.25]),
+    lambda x: port.blur_u8(x, 3.0, precision="hybrid"),
+    lambda x: api.blur(x[..., 0].float(), 200.0),  # float past radius 600
+    lambda x: api.box_blur(x, 25.0),  # box support radius 1250 > 600
 ])
 def test_outside_the_domain_raises(call):
     x = torch.zeros((1, 1300, 1300, 3), dtype=torch.uint8)  # sigma 200: r = 650
@@ -100,7 +101,8 @@ def test_outside_the_domain_raises(call):
 
 
 @pytest.mark.parametrize("engine", [
-    e for e in api.Engine if e not in (api.Engine.AUTO, api.Engine.FUSED)
+    e for e in api.Engine
+    if e not in (api.Engine.AUTO, api.Engine.FUSED, api.Engine.BAND)
 ])
 def test_unported_engines_raise(engine):
     x = torch.zeros((20, 30, 3), dtype=torch.uint8)
@@ -121,3 +123,13 @@ def test_blur_u8_rejects_bad_inputs():
 
 def test_engine_names_match_the_jax_package():
     assert [e.value for e in api.Engine] == [e.value for e in jax_pkg.Engine]
+
+
+def test_make_frames_is_bench_make_frames_bit_for_bit():
+    """The port's copy of the benchmark frames (``chip_smoke.py`` drives
+    them) equals ``bench.make_frames``."""
+    for shape in ((2, 48, 80), (1, 7, 5)):
+        want = bench.make_frames(*shape)
+        got = make_frames(*shape)
+        assert got.dtype == want.dtype == np.uint8
+        np.testing.assert_array_equal(got, want)

@@ -11,8 +11,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from blur_algorithms_tpu_torch import blur_u8, make_plan  # noqa: E402
-from blur_algorithms_tpu_torch.cuda_kernels import fused_dma  # noqa: E402
+from blur_algorithms_tpu_torch import (  # noqa: E402
+    blur,
+    blur_u8,
+    make_custom_plan,
+    make_plan,
+)
+from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma  # noqa: E402
 from blur_algorithms_tpu_torch.ops.layout import from_planar  # noqa: E402
 
 
@@ -68,3 +73,77 @@ def test_k1_rejects_a_non_contiguous_tensor(cuda_device):
     x = _planes((3, 96, 64), seed=8).to(cuda_device).transpose(-1, -2)
     with pytest.raises(ValueError, match="contiguous"):
         fused_dma.blur_fused_u8_dma(x, plan)
+
+
+def _f32_planes(shape, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy((rng.random(shape) * 255).astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("plan", [
+    make_plan((1080, 1920), 10.0),
+    make_plan((541, 963), (3.0, 150.0)),
+    make_plan((1210, 1205), 180.0),
+    make_custom_plan((300, 517), [0.05, 0.1, 0.5, 0.2, 0.3, -0.1, 0.02],
+                     [-0.2, 0.4, 0.9, 0.1, -0.05]),
+    make_custom_plan((257, 301), [1.0], [0.25, 0.5, 0.25]),
+    make_custom_plan((129, 77), [0.25, 0.5, 0.25], [1.0]),
+], ids=["sigma10", "aniso-wide", "r598", "asymmetric", "row-radius-0", "col-radius-0"])
+def test_k2_equals_plain_version_on_the_card(cuda_device, plan):
+    """f32 within 1e-3 * max|x| / 255; the plain version reproduces the
+    kernel's fmaf rounding, so the two agree far closer than that."""
+    x = _f32_planes((3, *plan.shape), seed=11).to(cuda_device)
+    before = fused_blur.blur_fused_f32.launches
+    got = fused_blur.blur_fused_f32(x, plan)
+    want = fused_blur.blur_fused_f32_ref(x, plan)
+    torch.cuda.synchronize()
+    assert fused_blur.blur_fused_f32.launches == before + 1
+    assert got.dtype == torch.float32 and got.device == x.device
+    assert float((got - want).abs().max()) <= 1e-3 * float(x.abs().max()) / 255
+
+
+@pytest.mark.cuda
+def test_k2_uint8_rung_within_one_count_on_the_card(cuda_device):
+    plan = make_custom_plan((480, 640), [-0.25, 1.5, -0.25])
+    x = _planes((3, 480, 640), seed=12).to(cuda_device)
+    got = fused_blur.blur_fused_f32(x, plan, out_u8=True)
+    want = fused_blur.blur_fused_f32_ref(x, plan, out_u8=True)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint8
+    assert int((got.int() - want.int()).abs().max()) <= 1
+
+
+@pytest.mark.cuda
+def test_blur_on_the_card_launches_k2_once(cuda_device):
+    x = _f32_planes((2, 3, 96, 160), seed=13)
+    k1, k2 = fused_dma.blur_fused_u8_dma.launches, fused_blur.blur_fused_f32.launches
+    got = blur(x.to(cuda_device), 4.0)
+    torch.cuda.synchronize()
+    assert fused_blur.blur_fused_f32.launches == k2 + 1
+    assert fused_dma.blur_fused_u8_dma.launches == k1
+    assert float((got.cpu() - blur(x, 4.0)).abs().max()) <= 1e-3
+
+
+@pytest.mark.cuda
+def test_backward_on_the_card_equals_the_cpu(cuda_device):
+    rng = np.random.default_rng(14)
+    x = _f32_planes((3, 80, 120), seed=15)
+    g = torch.from_numpy(rng.standard_normal((3, 80, 120)).astype(np.float32))
+    taps_r, taps_c = [0.1, 0.6, 0.2, 0.3, -0.2], [0.3, 0.9, -0.2]
+    from blur_algorithms_tpu_torch import convolve_separable
+
+    grads = []
+    for dev in ("cpu", cuda_device):
+        t = x.to(dev, copy=True).requires_grad_()
+        (convolve_separable(t, taps_r, taps_c) * g.to(dev)).sum().backward()
+        grads.append(t.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_k2_rejects_a_non_contiguous_tensor(cuda_device):
+    plan = make_plan((64, 96), 2.0)
+    x = _f32_planes((3, 96, 64), seed=16).to(cuda_device).transpose(-1, -2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_blur.blur_fused_f32(x, plan)

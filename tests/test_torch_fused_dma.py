@@ -129,7 +129,7 @@ def test_wrapper_rejects_bad_inputs():
 
 
 @pytest.mark.parametrize("plan, match", [
-    (make_plan((48, 64), 0.1), "radius-0 axis"),  # both axes radius 0
+    (make_plan((48, 64), 0.1), "radius-0 axis"),  # both axes radius 0: K2's
     (make_plan((1, 64), 3.0), "radius-0 axis"),  # the column axis only
     (make_plan((1400, 1400), 200.0), "support radius 665 > 600"),
     (make_custom_plan((16, 16), [-0.25, 1.5, -0.25]), "signed"),
@@ -147,18 +147,22 @@ def test_kernel_sources_are_built_from_csrc():
     from blur_algorithms_tpu_torch.utils import build
 
     sources = sorted(p.name for p in (build._CSRC).glob("*.cu"))
-    assert sources == ["fused_dma.cu"]
+    assert sources == ["fused_blur.cu", "fused_dma.cu"]
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.build_dir().name == "build"
+    # each source names the TPU kernel it replaces
     text = (build._CSRC / "fused_dma.cu").read_text()
-    assert "fused_dma.py:_kernel_direct" in text  # the source names the TPU kernel
+    assert "fused_dma.py:_kernel_direct" in text
+    text = (build._CSRC / "fused_blur.cu").read_text()
+    assert "fused_blur.py:_kernel" in text and "fused_dma.py:_tile_bf16x3" in text
 
 
 def test_port_imports_no_jax():
     """A static scan: no module of the port, and not ``chip_smoke.py``,
-    imports jax (the interpreter here may have jax loaded already, so
-    sys.modules proves nothing)."""
+    imports jax, the JAX package or ``bench.py`` (which imports the JAX
+    package); the interpreter here may have jax loaded already, so
+    sys.modules proves nothing."""
     pkg = pathlib.Path(t_dma.__file__).resolve().parents[1]
     files = sorted(pkg.rglob("*.py"))
     assert len(files) >= 15
@@ -171,4 +175,5 @@ def test_port_imports_no_jax():
                 names = [node.module or ""]
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "blur_algorithms_tpu"), (path, name)
+                assert root not in ("jax", "jaxlib", "blur_algorithms_tpu", "bench"), (
+                    path, name)
