@@ -4,8 +4,9 @@ The JAX package ``blur_algorithms_tpu`` is the reference this port is held
 against. The port goes one slice at a time (ROADMAP.md); it now serves
 ``blur_u8`` / ``gaussian_blur`` on uint8 ``(..., H, W, C)`` frames, ``blur``
 on float planar ``(..., H, W)`` data (differentiable), ``convolve_separable``
-and ``box_blur``, through hand-written Hopper kernels on a CUDA tensor and
-their plain PyTorch versions on a CPU tensor.
+and ``box_blur``, through the fused, band and FFT engines, and
+``dft_spectrum``: hand-written Hopper kernels on a CUDA tensor and their
+plain PyTorch versions on a CPU tensor.
 """
 
 from blur_algorithms_tpu_torch.api import (
@@ -14,6 +15,7 @@ from blur_algorithms_tpu_torch.api import (
     blur_u8,
     box_blur,
     convolve_separable,
+    dft_spectrum,
     gaussian_blur,
 )
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
@@ -27,6 +29,7 @@ __all__ = [
     "blur_u8",
     "box_blur",
     "convolve_separable",
+    "dft_spectrum",
     "gaussian_blur",
     "make_custom_plan",
     "make_plan",

@@ -1,43 +1,58 @@
-"""Public API of the port: blurs and separable filters on PyTorch tensors.
+"""Public API of the port: blurs, separable filters and the spectrum export
+on PyTorch tensors.
 
-The counterpart of the JAX package's ``api.py`` for the fused and band
+The counterpart of the JAX package's ``api.py`` for the fused, band and FFT
 engines:
 
 - ``blur_u8`` / ``gaussian_blur`` on uint8 ``(..., H, W, C)`` frames: AUTO
-  resolves to the fused engine, the precision ladder picks the exact int8
-  rung (K1, ``cuda_kernels/fused_dma.py``) where it applies and the bf16x3
-  rung (K2, ``cuda_kernels/fused_blur.py``) elsewhere; ``precision=`` pins
-  a rung;
-- ``blur`` / ``gaussian_blur`` on float planar ``(..., H, W)``: K2 with the
-  blur's adjoint as its backward pass (``torch.autograd``), or the band
-  engine;
-- ``convolve_separable`` (custom odd taps per axis) and ``box_blur`` on
-  both layouts, through the same engines.
+  resolves to the fused engine up to the device's fused/FFT crossover
+  (``utils/hw.DeviceSpec.auto_fused_max_radius_u8``) and to FFT_MXU past
+  it. In the fused engine the precision ladder picks the exact int8 rung
+  (K1, ``cuda_kernels/fused_dma.py``) where it applies and the bf16x3 rung
+  (K2, ``cuda_kernels/fused_blur.py``) elsewhere; ``precision=`` pins a
+  rung. FFT_MXU runs the four-step FFT convolution (K3f/K3,
+  ``cuda_kernels/fft4step.py``) on planar float32 and rounds back to uint8;
+- ``blur`` / ``gaussian_blur`` on float planar ``(..., H, W)``: the same
+  routing (``auto_fused_max_radius_f32``); K2 and FFT_MXU are
+  differentiable with the blur's adjoint as their backward pass;
+- the reference engines ``"fft2"``, ``"fft_tiles"`` and ``"pffft"``
+  (``ops/fft_conv.py``, over ``torch.fft``), and ``"band"``, by name;
+- ``convolve_separable`` (custom odd taps per axis, asymmetric ones too)
+  and ``box_blur`` on both layouts, ``dft_spectrum`` (the reference's
+  ``DFT_image`` mode).
 
-The device is the input's: a CUDA tensor runs the CUDA kernels, a CPU
-tensor their plain PyTorch versions, and nothing is moved between devices.
-Every call outside that domain raises ``NotImplementedError`` naming the
-ROADMAP.md item that will port it; no other path is substituted silently.
+AUTO covers every support radius up to FFT_MXU's byte budget
+(``DeviceSpec.fft_mxu_byte_budget``) and transform length (16384); past
+either, FFT_MXU would strip-stream (not ported) and raises. The device is
+the input's: a CUDA tensor runs the CUDA kernels, a CPU tensor their plain
+PyTorch versions, and nothing is moved between devices. Every call outside
+that domain raises ``NotImplementedError`` naming the ROADMAP.md item that
+will port it; no other path is substituted silently.
 """
 
 from __future__ import annotations
 
 import enum
 import functools
+import math
 
 import torch
 
 import numpy as np
 
+from blur_algorithms_tpu_torch.cuda_kernels.fft4step import MAX_N, blur_fft_mxu_cuda
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
     MAX_RADIUS,
     blur_fused,
     blur_fused_u8,
     int8_applicable,
 )
+from blur_algorithms_tpu_torch.ops import fft_conv
 from blur_algorithms_tpu_torch.ops.band_matmul import blur_band_matmul
+from blur_algorithms_tpu_torch.ops.fft_mxu import estimate_bytes, transform_length
 from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
+from blur_algorithms_tpu_torch.ops.spectrum import dft_spectrum_planar
 from blur_algorithms_tpu_torch.utils.hw import DeviceSpec, device_spec
 
 __all__ = [
@@ -52,7 +67,9 @@ __all__ = [
 
 
 class Engine(str, enum.Enum):
-    """The JAX package's engine names; AUTO, FUSED and BAND are ported."""
+    """The JAX package's engine names. Ported: AUTO, FUSED, BAND, FFT2,
+    FFT_TILES, PFFFT and FFT_MXU; the others raise ``NotImplementedError``
+    naming their ROADMAP.md item."""
 
     FFT2 = "fft2"
     FFT_TILES = "fft_tiles"
@@ -69,22 +86,87 @@ class Engine(str, enum.Enum):
     AUTO = "auto"
 
 
-def _resolve_engine(engine: Engine | str, plan: BlurPlan) -> Engine:
-    """AUTO -> FUSED inside the fused kernel's radius domain.
+def _fft_mxu_refusal(plan: BlurPlan, lead: int, spec: DeviceSpec) -> str | None:
+    """Why FFT_MXU cannot serve this plan on this device, or None."""
+    need = estimate_bytes(plan, max(1, lead))
+    if need > spec.fft_mxu_byte_budget:
+        return (
+            f"FFT_MXU needs ~{need} bytes of whole-frame intermediates, past "
+            f"the device's budget of {spec.fft_mxu_byte_budget}: strip "
+            "streaming (ROADMAP.md Queue 1 item 7, ops/streamed)"
+        )
+    n = max(transform_length(plan.row), transform_length(plan.col))
+    if n > MAX_N:
+        return (
+            f"FFT_MXU transform length {n} > {MAX_N}: K3 staged through "
+            "device memory or strip streaming (ROADMAP.md Queue 1 item 7, "
+            "ops/streamed)"
+        )
+    return None
 
-    The JAX package moves AUTO to its MXU FFT past a fused/FFT crossover it
-    measured on a TPU; the port's FFT engines are not ported, and the H100
-    crossover is not measured yet."""
+
+def _resolve_engine(engine: Engine | str, plan: BlurPlan, in_bytes: int = 1,
+                    device: torch.device | str = "cpu", lead: int = 3) -> Engine:
+    """AUTO -> FUSED up to the device's fused/FFT crossover, FFT_MXU past it.
+
+    ``in_bytes`` is 1 for uint8 frames and 4 for floats (their crossovers
+    differ), ``lead`` the number of planes. Where FFT_MXU cannot serve the
+    frame (past its byte budget or transform length) the fused engine keeps
+    its whole domain (support radius 600), as the JAX package keeps the
+    banded path where its FFT would have to strip-stream."""
     engine = Engine(engine)
     if engine is not Engine.AUTO:
         return engine
+    spec = device_spec(device)
     r = max(plan.col.support_radius, plan.row.support_radius)
-    if r > MAX_RADIUS:
+    crossover = (spec.auto_fused_max_radius_u8 if in_bytes == 1
+                 else spec.auto_fused_max_radius_f32)
+    if r <= crossover:
+        return Engine.FUSED
+    if r <= MAX_RADIUS and _fft_mxu_refusal(plan, lead, spec) is not None:
+        return Engine.FUSED
+    return Engine.FFT_MXU
+
+
+# the ROADMAP.md Queue 1 item that ports each engine not ported yet
+_ENGINE_ITEMS = {
+    Engine.FFT_STREAM: 7, Engine.BOX: 8, Engine.BOX_SCAN: 8, Engine.CONV: 9,
+    Engine.CASCADE: 9, Engine.DERICHE: 9,
+}
+
+
+def _route(engine: Engine | str, plan: BlurPlan, in_bytes: int,
+           device: torch.device, lead: int) -> Engine:
+    """Resolve ``engine`` and raise where it is not ported or cannot serve
+    the call, before any data is converted."""
+    eng = _resolve_engine(engine, plan, in_bytes, device, lead)
+    if eng in _ENGINE_ITEMS:
         raise NotImplementedError(
-            f"AUTO at support radius {r} > {MAX_RADIUS} routes the wide-radius "
-            "split or FFT engines (ROADMAP.md Queue 1 items 6 and 7)"
+            f"engine {eng.value!r} is not ported yet "
+            f"(ROADMAP.md Queue 1 item {_ENGINE_ITEMS[eng]})"
         )
-    return Engine.FUSED
+    if eng is Engine.FFT_MXU:
+        refusal = _fft_mxu_refusal(plan, lead, device_spec(device))
+        if refusal is not None:
+            raise NotImplementedError(refusal)
+    return eng
+
+
+def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
+    """Float planar ``(..., H, W)`` through a ported engine -> float32."""
+    if engine is Engine.FUSED:
+        return blur_fused(x, plan)
+    if engine is Engine.FFT_MXU:
+        return blur_fft_mxu_cuda(x, plan)
+    if engine is Engine.FFT2:
+        return fft_conv.blur_fft2(x, plan)
+    if engine is Engine.FFT_TILES:
+        return fft_conv.blur_fft_tiles(x, plan)
+    if engine is Engine.PFFFT:
+        return fft_conv.blur_fft_tiles(x, plan, pffft_quirk=True)
+    if engine is Engine.BAND:
+        return blur_band_matmul(x, plan)
+    raise ValueError(f"engine {engine} is not a planar blur engine")
 
 
 def _u8_dma_precision(plan: BlurPlan, spec: DeviceSpec) -> str:
@@ -113,35 +195,6 @@ def _fused_u8_interleaved(img: torch.Tensor, plan: BlurPlan,
     return from_planar(blur_fused_u8(to_planar(img, torch.uint8), plan, prec))
 
 
-# the ROADMAP.md Queue 1 item that ports each engine not ported yet
-_ENGINE_ITEMS = {
-    Engine.FFT2: 7, Engine.FFT_TILES: 7, Engine.PFFFT: 7, Engine.FFT_MXU: 7,
-    Engine.FFT_STREAM: 7, Engine.BOX: 8, Engine.BOX_SCAN: 8, Engine.CONV: 9,
-    Engine.CASCADE: 9, Engine.DERICHE: 9,
-}
-
-
-def _check_ported(engine: Engine) -> None:
-    if engine not in (Engine.FUSED, Engine.BAND):
-        raise NotImplementedError(
-            f"engine {engine.value!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item {_ENGINE_ITEMS[engine]})"
-        )
-
-
-def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
-    """Float planar ``(..., H, W)`` through a ported engine -> float32."""
-    _check_ported(engine)
-    if engine is Engine.FUSED:
-        return blur_fused(x, plan)
-    return blur_band_matmul(x, plan)
-
-
-def _band_u8_interleaved(img: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
-    """uint8 (..., H, W, C) through the band engine, rounded back to uint8."""
-    return from_planar(blur_band_matmul(to_planar(img), plan))
-
-
 def _norm_nsmooth(nsmooth) -> float | tuple[float, float]:
     """Hashable nsmooth: float, or (sigma_y, sigma_x) for anisotropic
     gaussian requests (collapsed to a float when the two agree)."""
@@ -156,11 +209,19 @@ def _norm_nsmooth(nsmooth) -> float | tuple[float, float]:
 
 
 @functools.lru_cache(maxsize=256)
-def _plan_for(
-    h: int, w: int, nsmooth, engine: Engine, kernel: str, size_mode: str
-) -> tuple[BlurPlan, Engine]:
-    plan = make_plan((h, w), nsmooth, kernel=kernel, size_mode=size_mode)
-    return plan, _resolve_engine(engine, plan)
+def _plan_for(h: int, w: int, nsmooth, kernel: str, size_mode: str) -> BlurPlan:
+    return make_plan((h, w), nsmooth, kernel=kernel, size_mode=size_mode)
+
+
+def _u8_lead(img: torch.Tensor) -> int:
+    """Planes of an interleaved ``(..., H, W, C)`` frame batch."""
+    return math.prod(img.shape[:-3]) * img.shape[-1]
+
+
+def _through_planar_u8(img: torch.Tensor, plan: BlurPlan, eng: Engine) -> torch.Tensor:
+    """uint8 (..., H, W, C) -> planar float32 -> ``eng`` -> uint8 with the
+    reference's +0.5 rounding (the JAX package's generic uint8 path)."""
+    return from_planar(_blur_planar(to_planar(img), plan, eng))
 
 
 _PRECISIONS = ("int8", "hybrid", "bf16x3")
@@ -178,11 +239,13 @@ def blur_u8(
     device.
 
     ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. ``engine`` AUTO
-    or ``"fused"`` runs the fused kernels for support radii up to 600
-    (``"band"`` the band engine). ``precision`` pins a rung of the fused
-    engine: ``"int8"`` (K1, falling back to ``"bf16x3"`` where the exact
-    int8 path does not apply) or ``"bf16x3"`` (K2); ``"hybrid"`` is not
-    ported yet.
+    runs the fused kernels up to the device's fused/FFT crossover and
+    FFT_MXU past it; ``"fused"`` serves support radii up to 600;
+    ``"fft_mxu"``, ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and ``"band"``
+    run those engines on planar float32 and round back. ``precision`` pins
+    a rung of the fused engine: ``"int8"`` (K1, falling back to
+    ``"bf16x3"`` where the exact int8 path does not apply) or ``"bf16x3"``
+    (K2); ``"hybrid"`` is not ported yet.
     """
     if not isinstance(img, torch.Tensor):
         raise TypeError(f"blur_u8 expects a torch.Tensor, got {type(img)}")
@@ -207,14 +270,12 @@ def blur_u8(
                 "certification (ROADMAP.md Next steps 2)"
             )
         engine = Engine.FUSED
-    plan, eng = _plan_for(
-        img.shape[-3], img.shape[-2], _norm_nsmooth(nsmooth), engine,
-        kernel, size_mode,
-    )
-    _check_ported(eng)
+    plan = _plan_for(img.shape[-3], img.shape[-2], _norm_nsmooth(nsmooth),
+                     kernel, size_mode)
+    eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
         return _fused_u8_interleaved(img, plan, precision)
-    return _band_u8_interleaved(img, plan)
+    return _through_planar_u8(img, plan, eng)
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float, **kwargs) -> torch.Tensor:
@@ -234,18 +295,20 @@ def blur(
     """Blur float planar data ``(..., H, W)``; returns float32 on the same
     device.
 
-    ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. AUTO and
-    ``"fused"`` run K2 (differentiable: the backward pass is the blur's
-    adjoint), ``"band"`` the band engine, for support radii up to 600.
+    ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. AUTO runs K2 up
+    to the device's fused/FFT crossover and FFT_MXU (K3f/K3) past it, both
+    differentiable (the backward pass is the blur's adjoint); ``"fused"``
+    serves support radii up to 600; ``"fft2"``, ``"fft_tiles"``,
+    ``"pffft"`` and ``"band"`` run those engines (differentiable through
+    ``torch.fft`` and ``torch.matmul``).
     """
     if not isinstance(planar, torch.Tensor):
         raise TypeError(f"blur expects a torch.Tensor, got {type(planar)}")
     if planar.ndim < 2:
         raise ValueError("blur expects planar (..., H, W)")
-    plan, eng = _plan_for(
-        planar.shape[-2], planar.shape[-1], _norm_nsmooth(nsmooth),
-        Engine(engine), kernel, size_mode,
-    )
+    plan = _plan_for(planar.shape[-2], planar.shape[-1], _norm_nsmooth(nsmooth),
+                     kernel, size_mode)
+    eng = _route(engine, plan, 4, planar.device, math.prod(planar.shape[:-2]))
     return _blur_planar(planar.to(torch.float32), plan, eng)
 
 
@@ -285,14 +348,11 @@ def _box_plan(h: int, w: int, radius: int, passes: int, size_mode: str) -> BlurP
 
 
 @functools.lru_cache(maxsize=128)
-def _custom_setup(h: int, w: int, tr_bytes: bytes, tc_bytes: bytes,
-                  engine: Engine, size_mode: str) -> tuple[BlurPlan, Engine]:
+def _custom_plan(h: int, w: int, tr_bytes: bytes, tc_bytes: bytes,
+                 size_mode: str) -> BlurPlan:
     tr = np.frombuffer(tr_bytes, dtype=np.float32)
     tc = np.frombuffer(tc_bytes, dtype=np.float32)
-    plan = make_custom_plan((h, w), tr, tc, size_mode)
-    if engine in (Engine.BOX, Engine.BOX_SCAN, Engine.CASCADE):
-        raise ValueError(f"engine {engine.value} does not take custom taps")
-    return plan, _resolve_engine(engine, plan)
+    return make_custom_plan((h, w), tr, tc, size_mode)
 
 
 def convolve_separable(
@@ -306,10 +366,12 @@ def convolve_separable(
 
     Any odd-length 1-D taps per axis (sharpen, difference-of-Gaussians,
     derivative filters; ``ops.plan.make_custom_plan`` gives the exact
-    semantics), through the fused or band engine. uint8 interleaved
+    semantics), through the fused, band or FFT engines; asymmetric taps
+    run through every FFT engine on the full complex spectrum, but
+    ``"pffft"`` (the reference's real-spectrum multiply). uint8 interleaved
     ``(..., H, W, C)`` rounds back to uint8 (exact int8 K1 for non-negative
-    unit-sum taps, K2 otherwise); float planar ``(..., H, W)`` returns
-    float32 and is differentiable.
+    unit-sum taps, K2 otherwise, in the fused engine); float planar
+    ``(..., H, W)`` returns float32 and is differentiable.
     """
     if not isinstance(img, torch.Tensor):
         raise TypeError(f"convolve_separable expects a torch.Tensor, got {type(img)}")
@@ -322,19 +384,44 @@ def convolve_separable(
             f"uint8 input must be interleaved (..., H, W, C) and float input "
             f"planar (..., H, W), got {tuple(img.shape)}"
         )
+    engine = Engine(engine)
+    if engine in (Engine.BOX, Engine.BOX_SCAN, Engine.CASCADE):
+        raise ValueError(f"engine {engine.value} does not take custom taps")
     h, w = (img.shape[-3], img.shape[-2]) if is_u8 else (img.shape[-2], img.shape[-1])
-    plan, eng = _custom_setup(h, w, tr.tobytes(), tc.tobytes(), Engine(engine),
-                              size_mode)
-    _check_ported(eng)
+    plan = _custom_plan(h, w, tr.tobytes(), tc.tobytes(), size_mode)
     if not is_u8:
+        eng = _route(engine, plan, 4, img.device, math.prod(img.shape[:-2]))
         return _blur_planar(img.to(torch.float32), plan, eng)
+    eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
         return _fused_u8_interleaved(img, plan)
-    return _band_u8_interleaved(img, plan)
+    return _through_planar_u8(img, plan, eng)
 
 
-def dft_spectrum(img, nsmooth: float = 1.0, size_mode: str = "auto"):
-    """Log-magnitude spectrum export: not ported yet."""
-    raise NotImplementedError(
-        "dft_spectrum is not ported yet (ROADMAP.md Queue 1 item 7)"
-    )
+@functools.lru_cache(maxsize=128)
+def _spectrum_plan(h: int, w: int, nsmooth: float, size_mode: str) -> BlurPlan:
+    return make_plan((h, w), nsmooth, size_mode=size_mode)
+
+
+def dft_spectrum(img: torch.Tensor, nsmooth: float = 1.0,
+                 size_mode: str = "auto") -> torch.Tensor:
+    """``DFT_image`` mode: log-magnitude spectrum of each channel.
+
+    Accepts uint8 ``(..., H, W, C)`` or float planar ``(..., H, W)``; pads
+    exactly like the fft2 blur at the same ``nsmooth`` (the reference reuses
+    the blur geometry, ``Source.cpp:240-252``). Returns float32
+    ``(..., C, fft_h, fft_w)`` or ``(..., fft_h, fft_w)``.
+    """
+    if not isinstance(img, torch.Tensor):
+        raise TypeError(f"dft_spectrum expects a torch.Tensor, got {type(img)}")
+    if img.dtype == torch.uint8:
+        if img.ndim < 3:
+            raise ValueError("uint8 input must be interleaved (..., H, W, C)")
+        planar = to_planar(img)
+    else:
+        if img.ndim < 2:
+            raise ValueError("float input must be planar (..., H, W)")
+        planar = img.to(torch.float32)
+    plan = _spectrum_plan(planar.shape[-2], planar.shape[-1], float(nsmooth),
+                          size_mode)
+    return dft_spectrum_planar(planar, plan)

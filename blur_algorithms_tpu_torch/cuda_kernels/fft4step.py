@@ -1,0 +1,232 @@
+"""Four-step FFT convolution of rows (K3, K3f) and the FFT_MXU blur.
+
+The port of the JAX package's ``pallas_kernels/fft4step.py``:
+
+- ``fft_conv_rows`` circularly convolves rows already framed to the
+  transform length ``n`` (K3, the TPU's ``_conv_rows_pallas`` ->
+  ``_kernel``);
+- ``fft_conv_rows_framed`` takes unpadded rows and frames them inside the
+  kernel: reflect-101 pad, zeros to ``n``, crop (K3f, the TPU's
+  ``_conv_rows_pallas_framed`` -> ``_kernel_framed``);
+- ``conv_axis_framed`` runs one axis of a blur through K3f, or through K3
+  where ``framed_applicable(n)`` is false, as the JAX function does;
+- ``blur_fft_mxu_cuda`` is the differentiable separable blur (a
+  ``torch.autograd.Function``: forward K3f/K3 on both axes, backward
+  ``ops.adjoint.blur_adjoint``), the counterpart of the JAX ``custom_vjp``
+  ``_blur_fft_mxu_pallas_diff``.
+
+Both kernels are the one CUDA source ``csrc/fft4step.cu`` (two C entries).
+A CUDA tensor launches it; a CPU tensor runs the plain version, the
+full-float32 einsum four-step ``ops.fft_mxu._conv_rows_einsum`` under the
+same framing. The kernel takes ``n`` up to ``MAX_N``: past it a complex row
+no longer fits one block's shared memory, and the wrappers raise.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
+from blur_algorithms_tpu_torch.ops.fft_mxu import (
+    _conv_rows_einsum,
+    conv_axis,
+    transform_length,
+)
+from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
+from blur_algorithms_tpu_torch.ops.plan import BlurPlan
+
+__all__ = [
+    "MAX_N",
+    "blur_fft_mxu_cuda",
+    "conv_axis_framed",
+    "fft_conv_rows",
+    "fft_conv_rows_framed",
+    "framed_applicable",
+]
+
+# Longest transform K3/K3f take: a complex row of 16384 f32 pairs is 128 KB
+# of one block's shared memory (of 227 KB on an H100).
+MAX_N = 16384
+
+# ROADMAP.md item naming the lengths past MAX_N
+_PAST_MAX_N = (
+    "transform lengths past 16384 need K3 staged through device memory or "
+    "strip streaming (ROADMAP.md Queue 1 item 7, ops/streamed)"
+)
+
+
+def framed_applicable(n: int) -> bool:
+    """The JAX in-kernel-framing form takes ``n = 128 * m`` with ``m >= 32``
+    (every wide-radius length past 4096); shorter transforms keep K3."""
+    return n % 128 == 0 and n // 128 >= 32
+
+
+def _radices(n: int) -> list[int]:
+    """The kernel's decimation-in-frequency radices, in stage order: the
+    odd part Q of ``n`` (when > 1), then 4s, then a 2 when log2(n / Q) is
+    odd."""
+    q = n
+    while q % 2 == 0:
+        q //= 2
+    lg = (n // q).bit_length() - 1
+    return ([q] if q > 1 else []) + [4] * (lg // 2) + [2] * (lg % 2)
+
+
+def _kernel_bin_order(n: int) -> np.ndarray:
+    """Natural frequency held at each position of the kernel's forward
+    spectrum (digit-reversed: the first stage's digit is the position's
+    most significant and the frequency's least significant)."""
+    rem = np.arange(n, dtype=np.int64)
+    k = np.zeros(n, dtype=np.int64)
+    span, mult = n, 1
+    for r in _radices(n):
+        span //= r
+        k += (rem // span) * mult
+        rem = rem % span
+        mult *= r
+    return k
+
+
+@functools.lru_cache(maxsize=32)
+def _twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """``W_n^x = exp(-2 pi i x / n)``, x < n: float64 rounded to float32,
+    interleaved (n, 2)."""
+    ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(tw).to(device)
+
+
+@functools.lru_cache(maxsize=128)
+def _kernel_spectrum(axis_plan, n: int, device: torch.device) -> tuple[torch.Tensor, bool]:
+    """The correlation spectrum conj(fft(wrap_centered(taps, n))) / n in the
+    kernel's bin order: n floats (symmetric taps) or (n, 2) interleaved
+    complex, and whether it is complex."""
+    full = np.conj(np.fft.fft(wrap_centered(axis_plan.taps, n).astype(np.float64))) / n
+    full = full[_kernel_bin_order(n)]
+    if axis_plan.symmetric:
+        return torch.from_numpy(full.real.astype(np.float32)).to(device), False
+    h = np.stack([full.real, full.imag], axis=-1).astype(np.float32)
+    return torch.from_numpy(h).to(device), True
+
+
+def _check_rows(rows: torch.Tensor, length: int, what: str) -> None:
+    if rows.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 rows, got {rows.dtype}")
+    if rows.ndim != 2 or rows.shape[1] != length:
+        raise ValueError(f"{what} takes (R, {length}) rows, got {tuple(rows.shape)}")
+
+
+def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.Tensor:
+    """Launch a C entry of ``csrc/fft4step.cu`` on CUDA rows; raise on a
+    length past ``MAX_N``, a device that is neither CUDA nor CPU, a
+    non-contiguous tensor or a failed launch."""
+    if n > MAX_N:
+        raise NotImplementedError(f"n = {n}: {_PAST_MAX_N}")
+    if rows.device.type != "cuda":
+        raise ValueError(f"K3 runs on CUDA or CPU tensors, not {rows.device}")
+    if not rows.is_contiguous():
+        raise ValueError("K3 needs contiguous rows")
+    out = torch.empty_like(rows)
+    if rows.shape[0] == 0:
+        return out
+    from blur_algorithms_tpu_torch.utils.build import load_library
+
+    tw = _twiddles(n, rows.device)
+    h, complex_h = _kernel_spectrum(axis_plan, n, rows.device)
+    lib = load_library()
+    with torch.cuda.device(rows.device):
+        rc = getattr(lib, entry)(
+            rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
+            int(complex_h), rows.shape[0], n, *extra,
+            torch.cuda.current_stream(rows.device).cuda_stream,
+        )
+    if rc:
+        msg = lib.blur_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
+    return out
+
+
+def fft_conv_rows(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
+    """(R, n) float32 rows framed to the transform length -> the rows
+    circularly correlated by the axis taps (K3).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    ``fft_conv_rows.launches`` counts kernel launches.
+    """
+    _check_rows(rows, n, "K3")
+    if rows.device.type == "cpu":
+        return _conv_rows_einsum(rows, n, axis_plan)
+    out = _launch("fft_conv_rows", rows, n, axis_plan)
+    fft_conv_rows.launches += 1
+    return out
+
+
+fft_conv_rows.launches = 0
+
+
+def fft_conv_rows_framed_ref(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
+    """Plain version of K3f: (R, dim) rows -> (R, dim), the reflect-101 and
+    zero framing of ``ops.fft_mxu.conv_axis`` around the einsum four-step."""
+    return conv_axis(rows, axis_plan, -1, _conv_rows_einsum)
+
+
+def fft_conv_rows_framed(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
+    """(R, dim) unpadded float32 rows -> (R, dim), framed, convolved and
+    cropped in the kernel (K3f); ``n`` is ``transform_length(axis_plan)``.
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    ``fft_conv_rows_framed.launches`` counts kernel launches.
+    """
+    dim, pad = axis_plan.dim, axis_plan.pad
+    _check_rows(rows, dim, "K3f")
+    if n != transform_length(axis_plan):
+        raise ValueError(f"n = {n} is not the axis transform length")
+    if rows.device.type == "cpu":
+        return fft_conv_rows_framed_ref(rows, n, axis_plan)
+    out = _launch("fft_conv_rows_framed", rows, n, axis_plan, dim, pad)
+    fft_conv_rows_framed.launches += 1
+    return out
+
+
+fft_conv_rows_framed.launches = 0
+
+
+def conv_axis_framed(x: torch.Tensor, axis_plan, axis: int) -> torch.Tensor:
+    """One axis of the blur through K3f (K3 with the framing outside the
+    kernel where ``framed_applicable(n)`` is false). The axis is moved last
+    and made contiguous first (a transpose copy for the column axis)."""
+    if axis_plan.support_radius == 0:
+        return x
+    n = transform_length(axis_plan)
+    if not framed_applicable(n):
+        return conv_axis(x, axis_plan, axis, fft_conv_rows)
+    dim = axis_plan.dim
+    x = x.movedim(axis, -1)
+    lead = x.shape[:-1]
+    out = fft_conv_rows_framed(x.reshape(-1, dim).contiguous(), n, axis_plan)
+    return out.reshape(*lead, dim).movedim(-1, axis).contiguous()
+
+
+class _BlurFftMxu(torch.autograd.Function):
+    """Forward K3f/K3 on both axes, backward the blur's adjoint (the blur is
+    linear, so the VJP needs no saved tensors)."""
+
+    @staticmethod
+    def forward(ctx, planar: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
+        ctx.plan = plan
+        out = conv_axis_framed(planar, plan.row, -1)
+        return conv_axis_framed(out, plan.col, -2)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return blur_adjoint(ct, ctx.plan), None
+
+
+def blur_fft_mxu_cuda(planar: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
+    """Separable four-step FFT blur of planar ``(..., H, W)`` -> float32,
+    differentiable (backward: ``blur_adjoint``). Radius-free: its cost does
+    not grow with the support radius."""
+    return _BlurFftMxu.apply(planar.to(torch.float32), plan)

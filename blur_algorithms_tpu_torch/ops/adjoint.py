@@ -11,23 +11,42 @@ adjoint per axis is ``ReflectPad101^T . ValidCorr(taps)^T``:
   the interior pixel it mirrored (positions ``1..r`` from the left pad,
   ``n-2..n-r-1`` from the right pad).
 
-The JAX package moves the ``ValidCorr^T`` of radii past 1024 to an FFT; the
-port serves radii up to 600, so that branch cannot be reached and raises.
+Past support radius 1024 a symmetric axis runs its ``ValidCorr^T`` as a
+circular FFT convolution instead (``_valid_conv_wide``, as the JAX package
+does): K3 on a CUDA tensor, its plain einsum version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from blur_algorithms_tpu_torch.ops.band_matmul import band_conv_valid
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 
 __all__ = ["blur_adjoint"]
 
-# above this support radius the JAX adjoint runs its valid correlation
-# through the MXU FFT (``_valid_conv_wide`` there)
+# above this support radius a symmetric axis runs its valid correlation
+# through the four-step FFT (the JAX package's ``_valid_conv_wide``)
 _ADJOINT_FFT_MIN_RADIUS = 1024
+
+
+def _valid_conv_wide(padded: torch.Tensor, axis_plan, n_out: int) -> torch.Tensor:
+    """Valid correlation along the last axis through the circular FFT
+    convolution (K3): with enough trailing zeros (each row padded to the
+    next power of two of its length) the circular correlation by the
+    centered taps equals the valid one at offset r. Runs in float32 and
+    returns the input's dtype."""
+    from blur_algorithms_tpu_torch.cuda_kernels.fft4step import fft_conv_rows
+
+    r = axis_plan.support_radius
+    length = padded.shape[-1]
+    n = max(256, 1 << (length - 1).bit_length())
+    lead = padded.shape[:-1]
+    rows = F.pad(padded.to(torch.float32), (0, n - length)).reshape(-1, n)
+    out = fft_conv_rows(rows.contiguous(), n, axis_plan)
+    return out[:, r : r + n_out].reshape(*lead, n_out).to(padded.dtype)
 
 
 def _adjoint_axis(ct: torch.Tensor, axis_plan, axis: int) -> torch.Tensor:
@@ -35,16 +54,14 @@ def _adjoint_axis(ct: torch.Tensor, axis_plan, axis: int) -> torch.Tensor:
     n = axis_plan.dim
     if r == 0:
         return ct
-    if r > _ADJOINT_FFT_MIN_RADIUS:
-        raise NotImplementedError(
-            f"the adjoint at support radius {r} > {_ADJOINT_FFT_MIN_RADIUS} "
-            "runs through the FFT engines (ROADMAP.md Queue 1 item 7)"
-        )
     ct = ct.movedim(axis, -1)
-    flipped = np.ascontiguousarray(np.asarray(axis_plan.taps)[::-1])
-    z = band_conv_valid(
-        torch.nn.functional.pad(ct, (2 * r, 2 * r)), flipped, n + 2 * r
-    )
+    padded = F.pad(ct, (2 * r, 2 * r))
+    if r > _ADJOINT_FFT_MIN_RADIUS and axis_plan.symmetric:
+        # the spectrum path holds for symmetric taps (flipped == taps)
+        z = _valid_conv_wide(padded, axis_plan, n + 2 * r)
+    else:
+        flipped = np.ascontiguousarray(np.asarray(axis_plan.taps)[::-1])
+        z = band_conv_valid(padded, flipped, n + 2 * r)
     out = z[..., r : r + n].clone()
     eff = min(r, n - 1)  # the forward pad was clamped to dim - 1
     if eff > 0:

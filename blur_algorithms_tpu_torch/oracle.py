@@ -1,7 +1,8 @@
 """Pure-NumPy CPU oracle replicating the reference's pocketfft_2D engine.
 
 A copy of the JAX package's ``oracle.py`` (``reflect_101_np``,
-``blur_planar_fft2``, ``blur_u8``, ``blur_direct``), so that the port is
+``blur_planar_fft2``, ``blur_u8``, ``blur_planar_pffft``, ``blur_u8_pffft``,
+``blur_direct``, ``dft_spectrum_np``), so that the port is
 checked against the same oracle without importing jax. ``np.fft`` *is*
 pocketfft, so this reproduces the reference flag-2 path
 (``Source.cpp:143-277``) with the same FFT library and float32 math:
@@ -17,7 +18,15 @@ import numpy as np
 
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_plan
 
-__all__ = ["reflect_101_np", "blur_planar_fft2", "blur_u8", "blur_direct"]
+__all__ = [
+    "reflect_101_np",
+    "blur_planar_fft2",
+    "blur_u8",
+    "blur_planar_pffft",
+    "blur_u8_pffft",
+    "blur_direct",
+    "dft_spectrum_np",
+]
 
 
 def reflect_101_np(x: np.ndarray, pads, axes=None) -> np.ndarray:
@@ -102,6 +111,46 @@ def blur_u8(
     return np.clip(np.floor(merged + 0.5), 0, 255).astype(np.uint8)
 
 
+def blur_planar_pffft(planar: np.ndarray, plan: BlurPlan) -> np.ndarray:
+    """NumPy emulation of the reference flag-3 (pffft) tile engine.
+
+    Per axis (rows then columns, ``Source.cpp:510-562``): reflect-101 pad by
+    ``pad`` each side, trailing zeros to the transform length, r2c, multiply
+    by Re(kernel spectrum) with pffft's ordered-layout Nyquist shortcut (the
+    data's Nyquist bin scaled by the kernel's DC value,
+    ``Source.cpp:414-427``), c2r with 1/N, crop the interior. Float32.
+    """
+
+    def tile_pass(x: np.ndarray, axis_plan, axis: int) -> np.ndarray:
+        pad, n, flen = axis_plan.pad, axis_plan.dim, axis_plan.fft_len
+        x = np.moveaxis(x, axis, -1)
+        tile = reflect_101_np(x, [(pad, pad)])
+        spec = np.fft.rfft(tile, n=flen, axis=-1)
+        ker = axis_plan.spectrum.astype(np.float32).copy()
+        if flen % 2 == 0:
+            ker[flen // 2] = ker[0]  # the Nyquist-gets-DC quirk
+        out = np.fft.irfft(spec * ker, n=flen, axis=-1)
+        return np.moveaxis(out[..., pad : pad + n], -1, axis)
+
+    x = planar.astype(np.float32)
+    x = tile_pass(x, plan.row, -1)
+    x = tile_pass(x, plan.col, -2)
+    return x.astype(np.float32)
+
+
+def blur_u8_pffft(img_hwc: np.ndarray, nsmooth: float) -> np.ndarray:
+    """End-to-end uint8 HWC blur through the flag-3 emulation, planned with
+    ``smooth235`` sizing (pffft's own transform-length rule)."""
+    if img_hwc.dtype != np.uint8:
+        raise ValueError("oracle expects uint8 HWC input")
+    h, w = img_hwc.shape[:2]
+    plan = make_plan((h, w), nsmooth, size_mode="smooth235")
+    chw = np.moveaxis(img_hwc, -1, 0).astype(np.float32)
+    blurred = blur_planar_pffft(chw, plan)
+    merged = np.moveaxis(blurred, 0, -1)
+    return np.clip(np.floor(merged + 0.5), 0, 255).astype(np.uint8)
+
+
 def blur_direct(planar: np.ndarray, plan: BlurPlan) -> np.ndarray:
     """Independent oracle: naive separable spatial convolution, float64.
 
@@ -123,3 +172,20 @@ def blur_direct(planar: np.ndarray, plan: BlurPlan) -> np.ndarray:
     x = conv_axis(x, plan.row.taps, -1)
     x = conv_axis(x, plan.col.taps, -2)
     return x
+
+
+def dft_spectrum_np(planar: np.ndarray, plan: BlurPlan) -> np.ndarray:
+    """``DFT_image`` mode: 20*log10(|Re(spectrum)| + 1e-5), fftshifted, with
+    the reference's index math (``Source.cpp:240-252``)."""
+    (bt, bb), (bl, br) = plan.col.border, plan.row.border
+    padded = reflect_101_np(planar.astype(np.float32), [(bt, bb), (bl, br)])
+    s0, s1 = plan.fft_shape
+    spec = np.fft.rfft2(padded, axes=(-2, -1))
+    rows = np.arange(s0)
+    cols = np.arange(s1)
+    row_ = (rows + (s0 if s0 % 2 == 0 else s0 + 1) // 2) % s0
+    col_ = (cols + (s1 if s1 % 2 == 0 else s1 + 1) // 2) % s1
+    half = s1 // 2 + 1
+    cval = np.where(col_ < half, col_, (s1 // 2) - col_ % (s1 // 2))
+    re = np.real(spec[..., row_[:, None], cval[None, :]]).astype(np.float32)
+    return (20.0 * np.log10(np.abs(re) + np.float32(1e-5))).astype(np.float32)

@@ -77,6 +77,24 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.blur_fused_f32.restype = i
+    lib.fft_conv_rows.argtypes = [
+        vp, vp, vp, vp,  # x, out, twiddles, spectrum
+        i, i, i,  # complex_h, rows, n
+        vp,  # stream
+    ]
+    lib.fft_conv_rows.restype = i
+    lib.fft_conv_rows_framed.argtypes = [
+        vp, vp, vp, vp,  # x, out, twiddles, spectrum
+        i, i, i, i, i,  # complex_h, rows, n, dim, pad
+        vp,  # stream
+    ]
+    lib.fft_conv_rows_framed.restype = i
+    lib.spectral_multiply_2d.argtypes = [
+        vp, vp, vp, vp,  # spec, out, col, row
+        f, i, i, i,  # scale, planes, h, wf
+        vp,  # stream
+    ]
+    lib.spectral_multiply_2d.restype = i
     lib.blur_cuda_error_string.argtypes = [i]
     lib.blur_cuda_error_string.restype = ctypes.c_char_p
     return lib

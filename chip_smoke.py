@@ -31,7 +31,26 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
 7. times from CUDA events (median of 20): K2 alone, its plain version,
    ``blur`` forward, forward + backward, the uint8 ``convolve_separable``,
    and a yardstick the port never calls (reflect pad + two depthwise
-   ``F.conv2d``, TF32 off).
+   ``F.conv2d``, TF32 off);
+8. K3 (four-step FFT convolution of framed rows) at n 256, 2048 and 16384,
+   K3f (the same with the framing in the kernel) at n 4096, 6144 and 7168,
+   symmetric and asymmetric taps, odd row counts, against their plain
+   versions (full-float32 einsums) on the card within 2e-2 at 0..255
+   scale; K5 (the spectral multiply) on a 4K rfft2 spectrum, bit-equal;
+9. main path of slice 3, counts set to 0 first: ``blur_u8`` AUTO at sigma
+   250 (r 831) on the batch resolves to FFT_MXU and launches K3f twice,
+   frame 0 within 1 count of the oracle; ``blur`` forward + backward on the
+   float batch at sigma 400 (r 1330) launches K3f twice and K3 in the
+   backward pass, ``x.grad`` equals ``blur_adjoint(g)`` and plane 0 is
+   within 2e-2 of the pocketfft oracle; frame 0 through ``"fft2"``,
+   ``"fft_tiles"``, ``"pffft"`` and ``blur_fft2(kernel_multiply=True)``
+   (K5), and ``dft_spectrum``, each against its oracle;
+10. times (median of 20, of 5 for calls over 100 ms): K3f per axis, K3 per
+   axis of the adjoint, K5, their plain versions and the cuFFT yardstick
+   ``rfft`` -> multiply -> ``irfft`` on the same framed rows, the whole
+   calls, and the fused/FFT crossover sweep: ``blur_u8`` fused (K1) against
+   FFT_MXU and ``blur`` fused (K2) against FFT_MXU, in turns at support
+   radii 32..598 (the values ``utils/hw.py`` takes).
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -59,6 +78,10 @@ F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 HD, RAGGED = (1080, 1920), (1001, 1777)  # phase 5 frame shapes
 SHARPEN5 = [-0.125, -0.25, 1.75, -0.25, -0.125]  # signed, sums to 1
+SIGMA_U8_WIDE, SIGMA_F32_WIDE = 250.0, 400.0  # phase 9: r 831 and r 1330
+FFT_TOL = 2e-2  # FFT engines against plain versions and oracles, 0..255 scale
+# phase 10 sweep: support radius 32, 49, 65, 82, 119, 165, 332, 498, 598
+SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 100.0, 150.0, 180.0)
 
 
 def _bound_ms(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -271,6 +294,390 @@ def _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing) -> dict:
     }
 
 
+def _time(fn, *args, name: str, mp: float | None = None):
+    """Median of 20 CUDA-event timings, or of 5 for calls over 100 ms."""
+    from blur_algorithms_tpu_torch.utils import timing
+
+    first = timing.time_cuda(fn, *args, iters=1, warmup=1, name=name)
+    iters = 5 if first.median_ms > 100 else ITERS
+    return timing.time_cuda(fn, *args, iters=iters, warmup=1, name=name,
+                            megapixels=mp)
+
+
+def _fft_work(rows: int, n: int, row_bytes: int, complex_h: bool) -> tuple[float, float]:
+    """Bytes and f32 operations of one K3/K3f launch: rows of ``row_bytes``
+    read and written once, the spectrum and twiddles read once; two
+    length-n FFTs (5 n log2 n each) and the spectral multiply per pair of
+    rows."""
+    pairs = (rows + 1) // 2
+    nbytes = 2 * rows * row_bytes + n * (16 if complex_h else 12)
+    ops = pairs * (10 * n * np.log2(n) + (6 if complex_h else 2) * n)
+    return nbytes, ops
+
+
+def _wide_taps(width: int, asymmetric: bool) -> np.ndarray:
+    from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel
+
+    t = gaussian_kernel(width / 6.0, width).astype(np.float64)
+    if asymmetric:
+        t *= np.linspace(0.6, 1.4, width)
+    return (t / t.sum()).astype(np.float32)
+
+
+def _phase8(frames) -> dict:
+    """K3, K3f and K5 against their plain versions; returns the worst
+    errors."""
+    from blur_algorithms_tpu_torch import make_custom_plan, make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step, spectral_multiply
+    from blur_algorithms_tpu_torch.ops import fft_conv
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum, transform_length
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+
+    errs = {"K3": 0.0, "K3f": 0.0, "K5": 0.0}
+    for n, width in ((256, 101), (2048, 801), (16384, 2661)):
+        for asym in (False, True):
+            plan = make_custom_plan((8, n), _wide_taps(width, asym), [1.0])
+            rows = torch.from_numpy(
+                (np.random.default_rng(n).random((33, n)) * 255).astype(np.float32)).cuda()
+            got = fft4step.fft_conv_rows(rows, n, plan.row)
+            want = _conv_rows_einsum(rows, n, plan.row)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["K3"] = max(errs["K3"], err)
+            print(f"phase 8 K3 vs plain: 33 rows n={n} taps={width} "
+                  f"{'asymmetric' if asym else 'symmetric'} max_abs_err={err:.3e} "
+                  f"limit={FFT_TOL}", flush=True)
+            if not err <= FFT_TOL:
+                raise RuntimeError(f"K3 disagrees with its plain version at n={n}")
+    for dim, width in ((2160, 1663), (3840, 1663), (3840, 2661)):
+        for asym in (False, True):
+            plan = make_custom_plan((8, dim), _wide_taps(width, asym), [1.0])
+            n = transform_length(plan.row)
+            rows = torch.from_numpy(
+                (np.random.default_rng(dim).random((7, dim)) * 255).astype(np.float32)).cuda()
+            got = fft4step.fft_conv_rows_framed(rows, n, plan.row)
+            want = fft4step.fft_conv_rows_framed_ref(rows, n, plan.row)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["K3f"] = max(errs["K3f"], err)
+            print(f"phase 8 K3f vs plain: 7 rows dim={dim} n={n} taps={width} "
+                  f"{'asymmetric' if asym else 'symmetric'} max_abs_err={err:.3e} "
+                  f"limit={FFT_TOL}", flush=True)
+            if not err <= FFT_TOL:
+                raise RuntimeError(f"K3f disagrees with its plain version at n={n}")
+
+    plan = make_plan((H, W), SIGMA)
+    (bt, bb), (bl, br) = plan.col.border, plan.row.border
+    planes = torch.from_numpy(frames[0].astype(np.float32)).cuda()
+    spec = torch.fft.rfft2(reflect_101(planes, [(bt, bb), (bl, br)]))
+    col = fft_conv._mirror_full(plan.col.spectrum, plan.fft_shape[0])
+    got = spectral_multiply.spectral_multiply_2d(spec, col, plan.row.spectrum)
+    want = spectral_multiply.spectral_multiply_2d_ref(spec, col, plan.row.spectrum)
+    torch.cuda.synchronize()
+    equal = torch.equal(got, want)
+    errs["K5"] = float((got - want).abs().max())
+    print(f"phase 8 K5 vs plain: rfft2 spectrum {tuple(spec.shape)} of frame 0 "
+          f"(sigma {SIGMA}) equal={equal}", flush=True)
+    if not equal:
+        raise RuntimeError("K5 disagrees with its plain version")
+    return errs
+
+
+def _phase9(frames, counters) -> dict:
+    """The slice's main path at full width; returns the launches of K3,
+    K3f and K5 in it."""
+    from blur_algorithms_tpu_torch import blur, blur_u8, dft_spectrum, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import Engine, _resolve_engine
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops import fft_conv
+    from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
+
+    k3, k3f = fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed
+    img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
+    x_u8 = torch.from_numpy(img).cuda()
+    x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+
+    plan = make_plan((H, W), SIGMA_U8_WIDE)
+    eng = _resolve_engine("auto", plan, 1, x_u8.device, BATCH * 3)
+    out = blur_u8(x_u8, SIGMA_U8_WIDE)
+    torch.cuda.synchronize()
+    launched = {c.__name__: c.launches for c in counters}
+    want0 = oracle.blur_u8(img[0], SIGMA_U8_WIDE)
+    d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
+    print(f"phase 9 main path: blur_u8 AUTO {tuple(x_u8.shape)} sigma={SIGMA_U8_WIDE} "
+          f"r={plan.row.support_radius} -> {eng.value}; launches {launched}; "
+          f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
+          flush=True)
+    if eng is not Engine.FFT_MXU or k3f.launches != 2 or sum(launched.values()) != 2:
+        raise RuntimeError(f"blur_u8 at sigma {SIGMA_U8_WIDE} did not run K3f twice alone")
+    if out.shape != x_u8.shape or out.dtype != torch.uint8 or d.max() > 1:
+        raise RuntimeError(f"blur_u8 at sigma {SIGMA_U8_WIDE}: {out.shape} {out.dtype}, "
+                           f"{int(d.max())} counts from the oracle")
+    del out
+
+    plan = make_plan((H, W), SIGMA_F32_WIDE)
+    g = torch.from_numpy(np.random.default_rng(7).random(x.shape, dtype=np.float32)).cuda()
+    xg = x.clone().requires_grad_()
+    before = (k3.launches, k3f.launches)
+    y = blur(xg, SIGMA_F32_WIDE)
+    torch.cuda.synchronize()
+    fwd = (k3.launches - before[0], k3f.launches - before[1])
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    bwd = (k3.launches - before[0] - fwd[0], k3f.launches - before[1] - fwd[1])
+    check = k3.launches
+    want = blur_adjoint(g, plan)  # a check: its launches are not the path's
+    torch.cuda.synchronize()
+    k3.launches = check
+    gerr = float((xg.grad - want).abs().max())
+    gscale = float(want.abs().max())
+    ref0 = oracle.blur_planar_fft2(frames[0, 0].astype(np.float64), plan)
+    d0 = float(np.abs(y[0, 0].detach().cpu().numpy().astype(np.float64) - ref0).max())
+    print(f"phase 9 main path: blur forward + backward {tuple(x.shape)} f32 "
+          f"sigma={SIGMA_F32_WIDE} r=({plan.col.support_radius}, "
+          f"{plan.row.support_radius}): forward K3/K3f launches {fwd}, backward "
+          f"{bwd}; plane 0 vs pocketfft oracle max={d0:.3e} limit={FFT_TOL}; "
+          f"x.grad vs blur_adjoint(g) max={gerr:.3e} (max |grad| {gscale:.3e})",
+          flush=True)
+    if fwd != (0, 2) or bwd[0] < 1 or bwd[1] != 0:
+        raise RuntimeError(f"blur at sigma {SIGMA_F32_WIDE}: K3/K3f launches {fwd}, {bwd}")
+    if not d0 <= FFT_TOL:
+        raise RuntimeError(f"plane 0 is {d0} from the oracle")
+    if not gerr <= 1e-6 * gscale:
+        raise RuntimeError(f"x.grad differs from blur_adjoint(g) by {gerr}")
+    del xg, y, g, want
+
+    frame = x_u8[:1]
+    for engine, size_mode, ref in (
+        ("fft2", "auto", oracle.blur_u8(img[0], SIGMA)),
+        ("fft_tiles", "auto", oracle.blur_u8(img[0], SIGMA)),
+        ("pffft", "smooth235", oracle.blur_u8_pffft(img[0], SIGMA)),
+    ):
+        got = blur_u8(frame, SIGMA, engine=engine, size_mode=size_mode)
+        d = np.abs(got[0].cpu().numpy().astype(int) - ref.astype(int))
+        print(f"phase 9 blur_u8 engine={engine} frame 0 sigma={SIGMA} vs its oracle: "
+              f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+        if d.max() > 1:
+            raise RuntimeError(f"engine {engine} is {int(d.max())} counts from its oracle")
+    plan = make_plan((H, W), SIGMA)
+    got = fft_conv.blur_fft2(x[0], plan, kernel_multiply=True)
+    d = float(np.abs(got.cpu().numpy() - oracle.blur_planar_fft2(frames[0], plan)).max())
+    print(f"phase 9 blur_fft2(kernel_multiply=True) frame 0 sigma={SIGMA} vs "
+          f"pocketfft oracle max={d:.3e} limit={FFT_TOL}", flush=True)
+    if not d <= FFT_TOL:
+        raise RuntimeError(f"blur_fft2 with K5 is {d} from the oracle")
+    spec = dft_spectrum(frame, SIGMA)[0].cpu().numpy()
+    want = oracle.dft_spectrum_np(frames[0].astype(np.float32), plan)
+    a, b = 10.0 ** (spec.astype(np.float64) / 20), 10.0 ** (want.astype(np.float64) / 20)
+    rel = float(np.abs(a - b).max() / b.max())
+    print(f"phase 9 dft_spectrum frame 0 {spec.shape}: magnitudes vs oracle "
+          f"max/peak={rel:.3e} limit=4e-6", flush=True)
+    if spec.shape != want.shape or not rel <= 4e-6:
+        raise RuntimeError(f"dft_spectrum is {rel} (of the peak) from the oracle")
+    launched = {c.__name__: c.launches for c in counters}
+    print(f"phase 9 launches on the main path: {launched}", flush=True)
+    for c in (k3, k3f, counters[-1]):
+        if c.launches < 1:
+            raise RuntimeError(f"{c.__name__} was not launched on the main path")
+    return launched
+
+
+def _fft_yardstick(rows: torch.Tensor, axis_plan, n: int, framed: bool):
+    """cuFFT through torch.fft on the same framed rows: rfft, multiply by
+    the half correlation spectrum, irfft (the library time; never a
+    route of the port). Returns the framed rows and the call."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+
+    if framed:
+        pad = axis_plan.pad
+        rows = F.pad(reflect_101(rows, [(pad, pad)]), (0, n - rows.shape[-1] - 2 * pad))
+    half = np.conj(np.fft.rfft(wrap_centered(axis_plan.taps, n).astype(np.float64)))
+    half = torch.from_numpy(half.astype(np.complex64)).cuda()
+    return rows.contiguous(), lambda t: torch.fft.irfft(torch.fft.rfft(t) * half, n=n)
+
+
+def _kernel_times(entry, rows, n, axis_plan, framed: bool, label: str) -> dict:
+    """One K3/K3f launch: its time, its plain version's time and error,
+    the cuFFT yardstick and the bound."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+    got = entry(rows, n, axis_plan)
+    want = plain(rows, n, axis_plan)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    del got, want
+    t_k = _time(entry, rows, n, axis_plan, name=f"{label} kernel")
+    t_p = _time(plain, rows, n, axis_plan, name=f"{label} plain version")
+    framed_rows, lib = _fft_yardstick(rows, axis_plan, n, framed)
+    t_l = _time(lib, framed_rows, name=f"{label} cuFFT rfft -> multiply -> irfft")
+    del framed_rows
+    for res in (t_k, t_p, t_l):
+        print(f"phase 10 time: {res}", flush=True)
+    nbytes, ops = _fft_work(rows.shape[0], n, 4 * rows.shape[1], not axis_plan.symmetric)
+    bound, by = _bound_ms(nbytes, ops, F32_FLOP_PER_S)
+    print(f"phase 10 {label}: {rows.shape[0]} rows x {rows.shape[1]}, n={n}, "
+          f"vs plain max_abs_err={err:.3e}; bound {bound:.4f} ms ({by}: "
+          f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)", flush=True)
+    return {"ms": t_k.median_ms, "plain_ms": t_p.median_ms, "library_ms": t_l.median_ms,
+            "bound_ms": bound, "bound_by": by, "err": err, "bytes": nbytes, "ops": ops}
+
+
+def _sum_axes(a: dict, b: dict) -> dict:
+    """Both axes of one call as one entry: times and bounds add up."""
+    nbytes, ops = a["bytes"] + b["bytes"], a["ops"] + b["ops"]
+    bound, by = _bound_ms(nbytes, ops, F32_FLOP_PER_S)
+    return {"ms": a["ms"] + b["ms"], "plain_ms": a["plain_ms"] + b["plain_ms"],
+            "library_ms": a["library_ms"] + b["library_ms"], "bound_ms": bound,
+            "bound_by": by, "err": max(a["err"], b["err"])}
+
+
+def _crossover_sweep(frames) -> dict:
+    """``blur_u8`` fused (K1) vs FFT_MXU and ``blur`` fused (K2) vs
+    FFT_MXU, in turns (fused, fft, fft, fused) at each radius; returns the
+    largest radius at which the fused engine is at least as fast, per input
+    type (600 where it wins everywhere)."""
+    from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
+
+    x_u8 = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).cuda()
+    x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    rows, best = [], {"u8": None, "f32": None}
+    all_win = {"u8": True, "f32": True}
+    for sigma in SWEEP_SIGMAS:
+        r = make_plan((H, W), sigma).row.support_radius
+        line = {"r": r, "sigma": sigma}
+        for kind, fn, arg in (("u8", blur_u8, x_u8), ("f32", blur, x)):
+            t = {"fused": [], "fft_mxu": []}
+            for engine in ("fused", "fft_mxu", "fft_mxu", "fused"):
+                res = _time(fn, arg, sigma, engine, name=f"{kind} {engine} r={r}")
+                t[engine].append(res.median_ms)
+            fused, fft = (float(np.mean(t["fused"])), float(np.mean(t["fft_mxu"])))
+            line[f"{kind}_fused_ms"], line[f"{kind}_fft_mxu_ms"] = fused, fft
+            if fused <= fft:
+                best[kind] = r
+            else:
+                all_win[kind] = False
+        rows.append(line)
+        print(f"phase 10 crossover r={r} (sigma {sigma}): uint8 K1 "
+              f"{line['u8_fused_ms']:.4f} vs FFT_MXU {line['u8_fft_mxu_ms']:.4f} ms; "
+              f"f32 K2 {line['f32_fused_ms']:.4f} vs FFT_MXU "
+              f"{line['f32_fft_mxu_ms']:.4f} ms", flush=True)
+    out = {k: (600 if all_win[k] else best[k]) for k in best}
+    print(f"phase 10 crossover: fused at least as fast up to r={out} "
+          f"(utils/hw.py auto_fused_max_radius_u8/_f32)", flush=True)
+    return {"sweep": rows, "crossover": out}
+
+
+def _slice3(frames) -> list[dict]:
+    """Phases 8-10; returns the K3, K3f and K5 entries of the kernels line."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import (
+        fft4step,
+        fused_blur,
+        fused_dma,
+        spectral_multiply,
+    )
+    from blur_algorithms_tpu_torch.ops import fft_conv
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+
+    errs = _phase8(frames)
+    counters = [fused_dma.blur_fused_u8_dma, fused_blur.blur_fused_f32,
+                fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed,
+                spectral_multiply.spectral_multiply_2d]
+    launched = _phase9(frames, counters)
+
+    # ---- phase 10: times ----
+    mp = BATCH * H * W / 1e6
+    x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    plan = make_plan((H, W), SIGMA_U8_WIDE)
+    rows = x.reshape(-1, W)
+    cols = x.transpose(-1, -2).contiguous().reshape(-1, H)
+    k3f_rows = _kernel_times(fft4step.fft_conv_rows_framed, rows,
+                             transform_length(plan.row), plan.row, True,
+                             f"K3f rows sigma={SIGMA_U8_WIDE}")
+    k3f_cols = _kernel_times(fft4step.fft_conv_rows_framed, cols,
+                             transform_length(plan.col), plan.col, True,
+                             f"K3f cols sigma={SIGMA_U8_WIDE}")
+    del cols
+    plan = make_plan((H, W), SIGMA_F32_WIDE)
+    k3_entries = []
+    for axis_plan, t, label in ((plan.row, x, "rows"),
+                                (plan.col, x.transpose(-1, -2), "cols")):
+        r = axis_plan.support_radius
+        length = axis_plan.dim + 4 * r
+        n = max(256, 1 << (length - 1).bit_length())
+        padded = F.pad(t.reshape(-1, axis_plan.dim), (2 * r, n - axis_plan.dim - 2 * r))
+        k3_entries.append(_kernel_times(fft4step.fft_conv_rows, padded.contiguous(), n,
+                                        axis_plan, False,
+                                        f"K3 adjoint {label} sigma={SIGMA_F32_WIDE}"))
+        del padded
+    plan = make_plan((H, W), SIGMA)
+    (bt, bb), (bl, br) = plan.col.border, plan.row.border
+    spec = torch.fft.rfft2(reflect_101(x, [(bt, bb), (bl, br)])).contiguous()
+    col = fft_conv._mirror_full(plan.col.spectrum, plan.fft_shape[0])
+    fac = torch.from_numpy(col[:, None] * plan.row.spectrum[None, :]).cuda()
+    t_k5 = _time(spectral_multiply.spectral_multiply_2d, spec, col, plan.row.spectrum,
+                 name="K5 spectral_multiply")
+    t_k5p = _time(spectral_multiply.spectral_multiply_2d_ref, spec, col,
+                  plan.row.spectrum, name="K5 plain version")
+    t_k5l = _time(torch.mul, spec, fac, name="K5 yardstick: torch.mul by the outer product")
+    k5_bound, k5_by = _bound_ms(16 * spec.numel() + 4 * sum(fac.shape),
+                                4 * spec.numel(), F32_FLOP_PER_S)
+    print(f"phase 10 K5: spectrum {tuple(spec.shape)} complex64; bound "
+          f"{k5_bound:.4f} ms ({k5_by})", flush=True)
+    del spec, fac
+
+    x_u8 = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).cuda()
+    gt = torch.ones_like(x)
+
+    def fwd_bwd(t):
+        t = t.detach().requires_grad_()
+        blur(t, SIGMA_F32_WIDE).backward(gt)
+        return t.grad
+
+    calls = [
+        _time(blur_u8, x_u8, SIGMA_U8_WIDE, name=f"blur_u8 sigma={SIGMA_U8_WIDE}", mp=mp),
+        _time(blur, x, SIGMA_F32_WIDE, name=f"blur forward sigma={SIGMA_F32_WIDE}", mp=mp),
+        _time(fwd_bwd, x, name=f"blur forward + backward sigma={SIGMA_F32_WIDE}", mp=mp),
+    ]
+    for res in (t_k5, t_k5p, t_k5l, *calls):
+        print(f"phase 10 time: {res}", flush=True)
+    del x, x_u8, gt
+    torch.cuda.empty_cache()
+    sweep = _crossover_sweep(frames)
+    print("phase 10 sweep " + json.dumps(sweep), flush=True)
+
+    k3f, k3 = _sum_axes(k3f_rows, k3f_cols), _sum_axes(*k3_entries)
+    entry = lambda name, src, line, launches, d, err: {  # noqa: E731
+        "name": name, "route": "cuda", "source": src,
+        "replaces": line, "launches": launches, "max_abs_err": err,
+        "ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+        "bound_by": d["bound_by"], "library_ms": d["library_ms"],
+    }
+    src = "blur_algorithms_tpu_torch/csrc/fft4step.cu"
+    return [
+        entry("fft4step", src, "blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
+              launched["fft_conv_rows"], k3, max(errs["K3"], k3["err"])),
+        entry("fft4step_framed", src, "blur_algorithms_tpu/pallas_kernels/fft4step.py:157",
+              launched["fft_conv_rows_framed"], k3f, max(errs["K3f"], k3f["err"])),
+        entry("spectral_multiply", "blur_algorithms_tpu_torch/csrc/spectral_multiply.cu",
+              "blur_algorithms_tpu/pallas_kernels/spectral_multiply.py:30",
+              launched["spectral_multiply_2d"],
+              {"ms": t_k5.median_ms, "plain_ms": t_k5p.median_ms, "bound_ms": k5_bound,
+               "bound_by": k5_by, "library_ms": t_k5l.median_ms}, errs["K5"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -359,6 +766,7 @@ def main() -> int:
         print(f"phase 4 time: {res}", flush=True)
 
     k2 = _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing)
+    fft_kernels = _slice3(frames)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -385,7 +793,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-    }, k2]}), flush=True)
+    }, k2, *fft_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

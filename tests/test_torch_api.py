@@ -6,7 +6,8 @@ moves, and within 1 count of JAX ``blur_u8`` (which off a TPU runs the
 blocked f32 band path) and of the NumPy oracle. Every call outside the
 port's domain raises ``NotImplementedError``. Slice 2 (the float path,
 custom taps, box blur, precision pins) is tested in
-``test_torch_float_path.py``.
+``test_torch_float_path.py``, slice 3 (the FFT engines) in
+``test_torch_fft_mxu.py`` and ``test_torch_fft_conv.py``.
 """
 
 import numpy as np
@@ -87,11 +88,14 @@ def test_blur_u8_launches_nothing_on_the_cpu():
 
 
 @pytest.mark.parametrize("call", [
-    lambda x: port.blur_u8(x, 200.0),  # AUTO past radius 600
+    # AUTO past radius 600 and past FFT_MXU's byte budget (expanded: no memory)
+    lambda x: port.blur_u8(x.expand(400, -1, -1, -1), 200.0),
     lambda x: port.blur_u8(x, 200.0, engine="fused"),
-    lambda x: api.dft_spectrum(x, 2.0),
+    # an FFT_MXU transform past 16384
+    lambda x: api.blur(torch.zeros(()).expand(1, 8, 20000), 200.0),
     lambda x: port.blur_u8(x, 3.0, precision="hybrid"),
-    lambda x: api.blur(x[..., 0].float(), 200.0),  # float past radius 600
+    # float past radius 600 and past FFT_MXU's byte budget
+    lambda x: api.blur(x[..., 0].float().expand(2000, -1, -1), 200.0),
     lambda x: api.box_blur(x, 25.0),  # box support radius 1250 > 600
 ])
 def test_outside_the_domain_raises(call):
@@ -100,10 +104,7 @@ def test_outside_the_domain_raises(call):
         call(x)
 
 
-@pytest.mark.parametrize("engine", [
-    e for e in api.Engine
-    if e not in (api.Engine.AUTO, api.Engine.FUSED, api.Engine.BAND)
-])
+@pytest.mark.parametrize("engine", list(api._ENGINE_ITEMS))
 def test_unported_engines_raise(engine):
     x = torch.zeros((20, 30, 3), dtype=torch.uint8)
     with pytest.raises(NotImplementedError, match=engine.value):

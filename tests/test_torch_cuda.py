@@ -147,3 +147,87 @@ def test_k2_rejects_a_non_contiguous_tensor(cuda_device):
     x = _f32_planes((3, 96, 64), seed=16).to(cuda_device).transpose(-1, -2)
     with pytest.raises(ValueError, match="contiguous"):
         fused_blur.blur_fused_f32(x, plan)
+
+
+# ---------------------------------------------------------------------------
+# K3, K3f, K5: the FFT engines' kernels against their plain versions. The
+# plain K3/K3f run the four-step einsums in full float32 on the card; the
+# kernel runs a mixed-radix f32 FFT, so the two differ by float rounding:
+# limit 2e-2 at 0..255 scale (the JAX package's bound for its FFT engines).
+
+def _k3_plan(width, asymmetric, dim=300):
+    from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel
+
+    t = gaussian_kernel(width / 6.0, width).astype(np.float64)
+    if asymmetric:
+        t *= np.linspace(0.6, 1.4, width)
+    return make_custom_plan((8, dim), (t / t.sum()).astype(np.float32), [1.0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [256, 2048, 5120, 16384])
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_k3_against_plain_version_on_the_card(cuda_device, n, asymmetric):
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    plan = _k3_plan(201, asymmetric)
+    rows = _f32_planes((33, n), seed=17).to(cuda_device)  # odd row count
+    before = fft4step.fft_conv_rows.launches
+    got = fft4step.fft_conv_rows(rows, n, plan.row)
+    want = fft4step.fft_conv_rows(rows.cpu(), n, plan.row)
+    torch.cuda.synchronize()
+    assert fft4step.fft_conv_rows.launches == before + 1
+    assert float((got.cpu() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim, width", [(1100, 1101), (3840, 1663), (2160, 1663)])
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_k3f_against_plain_version_on_the_card(cuda_device, dim, width, asymmetric):
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+
+    plan = _k3_plan(width, asymmetric, dim)
+    n = transform_length(plan.row)
+    assert fft4step.framed_applicable(n)
+    rows = _f32_planes((7, dim), seed=18).to(cuda_device)
+    before = fft4step.fft_conv_rows_framed.launches
+    got = fft4step.fft_conv_rows_framed(rows, n, plan.row)
+    want = fft4step.fft_conv_rows_framed(rows.cpu(), n, plan.row)
+    torch.cuda.synchronize()
+    assert fft4step.fft_conv_rows_framed.launches == before + 1
+    assert float((got.cpu() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_k5_equals_plain_version_on_the_card(cuda_device):
+    from blur_algorithms_tpu_torch.cuda_kernels import spectral_multiply as k5
+
+    rng = np.random.default_rng(19)
+    spec = torch.from_numpy((rng.standard_normal((3, 40, 33))
+                             + 1j * rng.standard_normal((3, 40, 33))).astype(np.complex64))
+    col = rng.standard_normal(40).astype(np.float32)
+    row = rng.standard_normal(33).astype(np.float32)
+    before = k5.spectral_multiply_2d.launches
+    got = k5.spectral_multiply_2d(spec.to(cuda_device), col, row, 0.5)
+    torch.cuda.synchronize()
+    assert k5.spectral_multiply_2d.launches == before + 1
+    assert torch.equal(got.cpu(), k5.spectral_multiply_2d(spec, col, row, 0.5))
+
+
+@pytest.mark.cuda
+def test_fft_engines_on_the_card_match_the_cpu(cuda_device):
+    from blur_algorithms_tpu_torch import convolve_separable
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    x = _f32_planes((2, 3, 90, 1300), seed=20)
+    k3f = fft4step.fft_conv_rows_framed.launches
+    got = blur(x.to(cuda_device), 200.0)  # r = 650 > 600: AUTO runs FFT_MXU
+    torch.cuda.synchronize()
+    assert fft4step.fft_conv_rows_framed.launches > k3f
+    assert float((got.cpu() - blur(x, 200.0, engine="fft_mxu")).abs().max()) <= 2e-2
+    taps_r, taps_c = [0.1, 0.6, 0.2, 0.3, -0.2], [0.3, 0.9, -0.2]
+    for engine in ("fft_mxu", "fft2", "fft_tiles"):
+        got = convolve_separable(x.to(cuda_device), taps_r, taps_c, engine=engine)
+        want = convolve_separable(x, taps_r, taps_c, engine=engine)
+        assert float((got.cpu() - want).abs().max()) <= 2e-2, engine

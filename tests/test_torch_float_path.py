@@ -198,7 +198,8 @@ def test_u8_precision_is_bf16x3_where_int8_does_not_apply(plan):
     (lambda x: port.blur_u8(x, 3.0, precision="hybrid"), NotImplementedError, "Next steps 2"),
     (lambda x: port.convolve_separable(x, SHARPEN5, engine="box"), ValueError, "custom taps"),
     (lambda x: port.convolve_separable(x, SHARPEN5, engine="cascade"), ValueError, "custom taps"),
-    (lambda x: port.convolve_separable(x, SHARPEN5, engine="fft2"), NotImplementedError, "fft2"),
+    (lambda x: port.convolve_separable(x, SHARPEN5, engine="fft_stream"), NotImplementedError,
+     "fft_stream"),
     (lambda x: port.convolve_separable(x[0, :, :, 0].float(), SHARPEN5, engine="conv"),
      NotImplementedError, "conv"),
     (lambda x: port.blur(x[..., 0].float(), 3.0, engine="box"), NotImplementedError, "item 8"),

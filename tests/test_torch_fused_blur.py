@@ -254,10 +254,14 @@ def test_adjoint_identity_in_float64(spec):
 
 
 def test_adjoint_past_radius_1024_raises():
+    """Past support radius 1024 a symmetric axis runs through K3, which
+    takes transforms up to 16384: a longer row raises on a device tensor (a
+    meta tensor here: no memory, no card) rather than falling back. The
+    wide branch's values are held against JAX in test_torch_fft_mxu.py."""
     taps = np.full(2051, 1.0 / 2051, np.float32)  # row radius 1025
-    plan = t_plan.make_custom_plan((4, 2100), taps, [1.0])
+    plan = t_plan.make_custom_plan((4, 12400), taps, [1.0])  # 12400 + 4r -> 32768
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        t_adjoint.blur_adjoint(torch.zeros((4, 2100)), plan)
+        t_adjoint.blur_adjoint(torch.zeros((4, 12400), device="meta"), plan)
 
 
 def test_gradcheck_float64_plain_path():
