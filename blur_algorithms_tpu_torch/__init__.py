@@ -4,7 +4,8 @@ The JAX package ``blur_algorithms_tpu`` is the reference this port is held
 against. The port goes one slice at a time (ROADMAP.md); it now serves
 ``blur_u8`` / ``gaussian_blur`` on uint8 ``(..., H, W, C)`` frames, ``blur``
 on float planar ``(..., H, W)`` data (differentiable), ``convolve_separable``
-and ``box_blur``, through the fused, band and FFT engines, and
+and ``box_blur``, through the fused engine (with its two-pass split to
+support radius 4096), the band, FFT, box-scan and cascade engines, and
 ``dft_spectrum``: hand-written Hopper kernels on a CUDA tensor and their
 plain PyTorch versions on a CPU tensor.
 """

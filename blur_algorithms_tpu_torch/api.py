@@ -17,14 +17,23 @@ engines:
   differentiable with the blur's adjoint as their backward pass;
 - the reference engines ``"fft2"``, ``"fft_tiles"`` and ``"pffft"``
   (``ops/fft_conv.py``, over ``torch.fft``), and ``"band"``, by name;
+- ``"fused"`` past support radius 600 runs the two-pass split (int8
+  through an int16 intermediate for uint8 frames, f32 otherwise; up to
+  r 4096); ``"box"`` / ``"box_scan"`` run the FastBoxBlur box (radius
+  nsmooth^2, 2 passes) on the fused engine or the prefix-scan kernel K4
+  (``cuda_kernels/box_blur.py``); ``"cascade"`` composes fused blurs
+  (``ops/cascade.py``);
 - ``convolve_separable`` (custom odd taps per axis, asymmetric ones too)
   and ``box_blur`` on both layouts, ``dft_spectrum`` (the reference's
   ``DFT_image`` mode).
 
 AUTO covers every support radius up to FFT_MXU's byte budget
-(``DeviceSpec.fft_mxu_byte_budget``) and transform length (16384); past
-either, FFT_MXU would strip-stream (not ported) and raises. The device is
-the input's: a CUDA tensor runs the CUDA kernels, a CPU tensor their plain
+(``DeviceSpec.fft_mxu_byte_budget``) and transform length (16384), and
+past either runs the fused engine's split where it fits its own budget
+(``DeviceSpec.split_hbm_budget``, r <= 4096). Beyond that a frame needs
+strip streaming (``ops/streamed``, not ported) and raises, as do the
+``"fft_stream"``, ``"conv"`` and ``"deriche"`` engines. The device is the
+input's: a CUDA tensor runs the CUDA kernels, a CPU tensor their plain
 PyTorch versions, and nothing is moved between devices. Every call outside
 that domain raises ``NotImplementedError`` naming the ROADMAP.md item that
 will port it; no other path is substituted silently.
@@ -40,14 +49,22 @@ import torch
 
 import numpy as np
 
+from blur_algorithms_tpu_torch.cuda_kernels.box_blur import (
+    box_blur_scan,
+    box_blur_scan_u8,
+)
 from blur_algorithms_tpu_torch.cuda_kernels.fft4step import MAX_N, blur_fft_mxu_cuda
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
     MAX_RADIUS,
+    SPLIT_MAX_RADIUS,
     blur_fused,
     blur_fused_u8,
     int8_applicable,
+    split_feasible,
+    split_hbm_bytes,
 )
 from blur_algorithms_tpu_torch.ops import fft_conv
+from blur_algorithms_tpu_torch.ops.cascade import blur_cascade, blur_cascade_u8
 from blur_algorithms_tpu_torch.ops.band_matmul import blur_band_matmul
 from blur_algorithms_tpu_torch.ops.fft_mxu import estimate_bytes, transform_length
 from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
@@ -68,8 +85,8 @@ __all__ = [
 
 class Engine(str, enum.Enum):
     """The JAX package's engine names. Ported: AUTO, FUSED, BAND, FFT2,
-    FFT_TILES, PFFFT and FFT_MXU; the others raise ``NotImplementedError``
-    naming their ROADMAP.md item."""
+    FFT_TILES, PFFFT, FFT_MXU, BOX, BOX_SCAN and CASCADE; the others raise
+    ``NotImplementedError`` naming their ROADMAP.md item."""
 
     FFT2 = "fft2"
     FFT_TILES = "fft_tiles"
@@ -105,6 +122,50 @@ def _fft_mxu_refusal(plan: BlurPlan, lead: int, spec: DeviceSpec) -> str | None:
     return None
 
 
+def _fused_refusal(plan: BlurPlan, in_bytes: int, spec: DeviceSpec,
+                   lead: int) -> str | None:
+    """Why the fused engine cannot serve this plan on this device, or None.
+
+    Up to ``MAX_RADIUS`` the single kernels serve; past it the two-pass
+    split, where it reaches the radius and its peak memory (the JAX
+    per-frame estimate, scaled from an RGB frame to ``lead`` planes) fits
+    the device's budget (the JAX ``_fused_tile_ok``)."""
+    r = max(plan.col.support_radius, plan.row.support_radius)
+    if r <= MAX_RADIUS:
+        return None
+    if not split_feasible(plan, in_bytes):
+        return (
+            f"the fused engine's two-pass split reaches support radius "
+            f"{SPLIT_MAX_RADIUS}, not {r}: strip streaming (ROADMAP.md Queue 1 "
+            "item 7, ops/streamed)"
+        )
+    prec = "int8" if in_bytes == 1 and int8_applicable(plan, torch.uint8) else None
+    need = split_hbm_bytes(plan, in_bytes, prec) * max(1, lead) // 3
+    if need > spec.split_hbm_budget:
+        return (
+            f"the two-pass split needs ~{need} bytes, past the device's budget "
+            f"of {spec.split_hbm_budget}: strip streaming (ROADMAP.md Queue 1 "
+            "item 7, ops/streamed)"
+        )
+    return None
+
+
+def _resolve_with_spec(engine: Engine | str, plan: BlurPlan, in_bytes: int,
+                       spec: DeviceSpec, lead: int) -> Engine:
+    engine = Engine(engine)
+    if engine is not Engine.AUTO:
+        return engine
+    r = max(plan.col.support_radius, plan.row.support_radius)
+    crossover = (spec.auto_fused_max_radius_u8 if in_bytes == 1
+                 else spec.auto_fused_max_radius_f32)
+    if r <= crossover:
+        return Engine.FUSED
+    if (_fft_mxu_refusal(plan, lead, spec) is not None
+            and _fused_refusal(plan, in_bytes, spec, lead) is None):
+        return Engine.FUSED
+    return Engine.FFT_MXU
+
+
 def _resolve_engine(engine: Engine | str, plan: BlurPlan, in_bytes: int = 1,
                     device: torch.device | str = "cpu", lead: int = 3) -> Engine:
     """AUTO -> FUSED up to the device's fused/FFT crossover, FFT_MXU past it.
@@ -112,50 +173,75 @@ def _resolve_engine(engine: Engine | str, plan: BlurPlan, in_bytes: int = 1,
     ``in_bytes`` is 1 for uint8 frames and 4 for floats (their crossovers
     differ), ``lead`` the number of planes. Where FFT_MXU cannot serve the
     frame (past its byte budget or transform length) the fused engine keeps
-    its whole domain (support radius 600), as the JAX package keeps the
-    banded path where its FFT would have to strip-stream."""
-    engine = Engine(engine)
-    if engine is not Engine.AUTO:
-        return engine
-    spec = device_spec(device)
+    the frame while it can (its single kernels to r 600, the two-pass split
+    past it), as the JAX package keeps the banded path where its FFT would
+    have to strip-stream."""
+    return _resolve_with_spec(engine, plan, in_bytes, device_spec(device), lead)
+
+
+def _box_engine(plan: BlurPlan, in_bytes: int, spec: DeviceSpec, lead: int) -> Engine:
+    """The engine of a box plan (the JAX ``_compiled_box`` / ``_plan_for``
+    rule): AUTO's choice, but the prefix scan (BOX_SCAN, K4) wherever AUTO
+    would pick an FFT engine or the fused engine past the device's
+    ``box_scan_crossover_radius``."""
+    eng = _resolve_with_spec(Engine.AUTO, plan, in_bytes, spec, lead)
     r = max(plan.col.support_radius, plan.row.support_radius)
-    crossover = (spec.auto_fused_max_radius_u8 if in_bytes == 1
-                 else spec.auto_fused_max_radius_f32)
-    if r <= crossover:
-        return Engine.FUSED
-    if r <= MAX_RADIUS and _fft_mxu_refusal(plan, lead, spec) is not None:
-        return Engine.FUSED
-    return Engine.FFT_MXU
+    if eng in (Engine.FFT_TILES, Engine.FFT_MXU, Engine.FFT_STREAM) or (
+        eng is Engine.FUSED and r > spec.box_scan_crossover_radius
+    ):
+        return Engine.BOX_SCAN
+    return eng
 
 
 # the ROADMAP.md Queue 1 item that ports each engine not ported yet
-_ENGINE_ITEMS = {
-    Engine.FFT_STREAM: 7, Engine.BOX: 8, Engine.BOX_SCAN: 8, Engine.CONV: 9,
-    Engine.CASCADE: 9, Engine.DERICHE: 9,
-}
+_ENGINE_ITEMS = {Engine.FFT_STREAM: 7, Engine.CONV: 9, Engine.DERICHE: 9}
 
 
 def _route(engine: Engine | str, plan: BlurPlan, in_bytes: int,
            device: torch.device, lead: int) -> Engine:
     """Resolve ``engine`` and raise where it is not ported or cannot serve
     the call, before any data is converted."""
-    eng = _resolve_engine(engine, plan, in_bytes, device, lead)
+    spec = device_spec(device)
+    eng = _resolve_with_spec(engine, plan, in_bytes, spec, lead)
     if eng in _ENGINE_ITEMS:
         raise NotImplementedError(
             f"engine {eng.value!r} is not ported yet "
             f"(ROADMAP.md Queue 1 item {_ENGINE_ITEMS[eng]})"
         )
+    refusal = None
     if eng is Engine.FFT_MXU:
-        refusal = _fft_mxu_refusal(plan, lead, device_spec(device))
-        if refusal is not None:
-            raise NotImplementedError(refusal)
+        refusal = _fft_mxu_refusal(plan, lead, spec)
+    elif eng is Engine.FUSED:
+        refusal = _fused_refusal(plan, in_bytes, spec, lead)
+    if refusal is not None:
+        raise NotImplementedError(refusal)
     return eng
+
+
+def _scalar(nsmooth, engine: Engine) -> float:
+    """The single scalar nsmooth the box and cascade engines take."""
+    if isinstance(nsmooth, tuple):
+        what = "cascade engine takes a single scalar sigma"
+        if engine is not Engine.CASCADE:
+            what = "box engines take a single scalar nsmooth"
+        raise ValueError(what)
+    return float(nsmooth)
+
+
+def _box_radius(nsmooth, engine: Engine) -> int:
+    """FastBoxBlur call-site semantics: radius = nsmooth^2 (Source.cpp:587)."""
+    s = _scalar(nsmooth, engine)
+    return int(s * s)
 
 
 def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
     """Float planar ``(..., H, W)`` through a ported engine -> float32."""
     if engine is Engine.FUSED:
         return blur_fused(x, plan)
+    if engine is Engine.BOX_SCAN:
+        if plan.kernel != "box_fast":
+            raise ValueError("box_scan engine requires a box_fast plan")
+        return box_blur_scan(x, int(plan.sigma), plan.box_passes)
     if engine is Engine.FFT_MXU:
         return blur_fft_mxu_cuda(x, plan)
     if engine is Engine.FFT2:
@@ -240,12 +326,16 @@ def blur_u8(
 
     ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. ``engine`` AUTO
     runs the fused kernels up to the device's fused/FFT crossover and
-    FFT_MXU past it; ``"fused"`` serves support radii up to 600;
-    ``"fft_mxu"``, ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and ``"band"``
-    run those engines on planar float32 and round back. ``precision`` pins
-    a rung of the fused engine: ``"int8"`` (K1, falling back to
-    ``"bf16x3"`` where the exact int8 path does not apply) or ``"bf16x3"``
-    (K2); ``"hybrid"`` is not ported yet.
+    FFT_MXU past it; ``"fused"`` serves support radii up to 600 in one
+    kernel and to 4096 through the two-pass split; ``"fft_mxu"``,
+    ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and ``"band"`` run those
+    engines on planar float32 and round back; ``"box"`` and ``"box_scan"``
+    run the FastBoxBlur box (radius ``nsmooth**2``, 2 passes, as
+    ``box_blur``); ``"cascade"`` composes fused blurs with float
+    intermediates and one rounding. ``precision`` pins a rung of the fused
+    engine: ``"int8"`` (K1, falling back to ``"bf16x3"`` where the exact
+    int8 path does not apply) or ``"bf16x3"`` (K2); ``"hybrid"`` is not
+    ported yet.
     """
     if not isinstance(img, torch.Tensor):
         raise TypeError(f"blur_u8 expects a torch.Tensor, got {type(img)}")
@@ -270,12 +360,33 @@ def blur_u8(
                 "certification (ROADMAP.md Next steps 2)"
             )
         engine = Engine.FUSED
-    plan = _plan_for(img.shape[-3], img.shape[-2], _norm_nsmooth(nsmooth),
-                     kernel, size_mode)
+    nsmooth = _norm_nsmooth(nsmooth)
+    h, w = img.shape[-3], img.shape[-2]
+    if engine is Engine.CASCADE:
+        sigma = _scalar(nsmooth, engine)
+        return from_planar(blur_cascade_u8(to_planar(img, torch.uint8), sigma, size_mode))
+    if engine in (Engine.BOX, Engine.BOX_SCAN):
+        plan = _box_plan(h, w, _box_radius(nsmooth, engine), 2, size_mode)
+        return _box_u8(img, plan, engine)
+    plan = _plan_for(h, w, nsmooth, kernel, size_mode)
     eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
         return _fused_u8_interleaved(img, plan, precision)
     return _through_planar_u8(img, plan, eng)
+
+
+def _box_u8(img: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
+    """uint8 ``(..., H, W, C)`` through a box plan: BOX resolves by the box
+    rule; the fused engine rounds in its kernel, the scan (K4) rounds in
+    its columns pass."""
+    if engine is Engine.BOX:
+        engine = _box_engine(plan, 1, device_spec(img.device), _u8_lead(img))
+    if engine is Engine.BOX_SCAN:
+        out = box_blur_scan_u8(to_planar(img, torch.uint8), int(plan.sigma),
+                               plan.box_passes)
+        return from_planar(out)
+    _route(engine, plan, 1, img.device, _u8_lead(img))
+    return _fused_u8_interleaved(img, plan)
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float, **kwargs) -> torch.Tensor:
@@ -298,17 +409,29 @@ def blur(
     ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. AUTO runs K2 up
     to the device's fused/FFT crossover and FFT_MXU (K3f/K3) past it, both
     differentiable (the backward pass is the blur's adjoint); ``"fused"``
-    serves support radii up to 600; ``"fft2"``, ``"fft_tiles"``,
-    ``"pffft"`` and ``"band"`` run those engines (differentiable through
-    ``torch.fft`` and ``torch.matmul``).
+    serves support radii up to 600 in one kernel and to 4096 through the
+    f32 two-pass split; ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and
+    ``"band"`` run those engines (differentiable through ``torch.fft`` and
+    ``torch.matmul``); ``"box"`` / ``"box_scan"`` the FastBoxBlur box
+    (radius ``nsmooth**2``, 2 passes) and ``"cascade"`` composed fused
+    blurs, both differentiable.
     """
     if not isinstance(planar, torch.Tensor):
         raise TypeError(f"blur expects a torch.Tensor, got {type(planar)}")
     if planar.ndim < 2:
         raise ValueError("blur expects planar (..., H, W)")
-    plan = _plan_for(planar.shape[-2], planar.shape[-1], _norm_nsmooth(nsmooth),
-                     kernel, size_mode)
-    eng = _route(engine, plan, 4, planar.device, math.prod(planar.shape[:-2]))
+    engine, nsmooth = Engine(engine), _norm_nsmooth(nsmooth)
+    h, w = planar.shape[-2], planar.shape[-1]
+    lead = math.prod(planar.shape[:-2])
+    if engine is Engine.CASCADE:
+        return blur_cascade(planar.to(torch.float32), _scalar(nsmooth, engine), size_mode)
+    if engine in (Engine.BOX, Engine.BOX_SCAN):
+        plan = _box_plan(h, w, _box_radius(nsmooth, engine), 2, size_mode)
+        if engine is Engine.BOX:
+            engine = _box_engine(plan, 4, device_spec(planar.device), lead)
+    else:
+        plan = _plan_for(h, w, nsmooth, kernel, size_mode)
+    eng = _route(engine, plan, 4, planar.device, lead)
     return _blur_planar(planar.to(torch.float32), plan, eng)
 
 
@@ -316,11 +439,15 @@ def box_blur(img: torch.Tensor, nsmooth: float, passes: int = 2,
              size_mode: str = "auto") -> torch.Tensor:
     """FastBoxBlur-parity box blur: radius = nsmooth^2, default 2 passes.
 
-    ``passes`` sequential reflect-101 box passes are folded into one
-    effective-taps pass (``ops/kernels.py``), run by the fused kernels:
-    uint8 interleaved ``(..., H, W, C)`` -> uint8 (K1, exact int8), float
-    planar ``(..., H, W)`` -> float32 (K2). Past support radius 600 the JAX
-    package runs its prefix-scan kernel (K4), not ported yet.
+    Routed as the JAX ``_compiled_box``: AUTO's choice on the box plan
+    (with the uint8 crossover for both layouts, as there), but the prefix
+    scan K4 (``cuda_kernels/box_blur.py``) wherever AUTO would pick an FFT
+    engine or the fused engine past the device's
+    ``box_scan_crossover_radius``. On the fused engine the ``passes``
+    sequential reflect-101 box passes are folded into one effective-taps
+    pass (``ops/kernels.py``): uint8 interleaved ``(..., H, W, C)`` ->
+    uint8 (K1, exact int8), float planar ``(..., H, W)`` -> float32 (K2);
+    K4 runs the passes as they are. Float input is differentiable.
     """
     if not isinstance(img, torch.Tensor):
         raise TypeError(f"box_blur expects a torch.Tensor, got {type(img)}")
@@ -330,15 +457,12 @@ def box_blur(img: torch.Tensor, nsmooth: float, passes: int = 2,
         raise ValueError("box_blur expects uint8 (..., H, W, C) or float (..., H, W)")
     h, w = (img.shape[-3], img.shape[-2]) if is_u8 else (img.shape[-2], img.shape[-1])
     plan = _box_plan(h, w, radius, int(passes), size_mode)
-    r = max(plan.col.support_radius, plan.row.support_radius)
-    if r > MAX_RADIUS:
-        raise NotImplementedError(
-            f"box_blur at support radius {r} > {MAX_RADIUS} runs the box_scan "
-            "kernel K4 (ROADMAP.md Queue 1 item 8)"
-        )
+    lead = _u8_lead(img) if is_u8 else math.prod(img.shape[:-2])
+    eng = _box_engine(plan, 1, device_spec(img.device), lead)
     if is_u8:
-        return _fused_u8_interleaved(img, plan)
-    return blur_fused(img.to(torch.float32), plan)
+        return _box_u8(img, plan, eng)
+    _route(eng, plan, 1, img.device, lead)
+    return _blur_planar(img.to(torch.float32), plan, eng)
 
 
 @functools.lru_cache(maxsize=256)

@@ -289,7 +289,175 @@ int launch(const void* x, void* out, const void* taps_row,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the single-axis wide form (the split's passes) ----
+//
+// Replaces the same _kernel with skip_rows / skip_cols (fused_blur.py:136-
+// 215, one axis of radius 0: the two-pass split's single-axis kernels). The
+// two-axis kernel above holds a tile's whole f32 intermediate and the staged
+// halo in shared memory, which stops at r 600; a single-axis pass needs
+// neither. The taps run in chunks of kAxisChunk, each chunk staging only the
+// window slice it reads, and every thread keeps its accumulators in
+// registers across the chunks, so the taps still arrive in ascending order,
+// one fmaf each, at any radius (the plain version reproduces the rounding).
+// Rows: one block per 8 rows x 256 columns, staged column-major (stride 9,
+// as the rows pass above with G = 8), R = 8 outputs a thread. Columns: one
+// block per 128 rows x 32 columns, staged row-major (stride 33), RC = 16
+// outputs a thread. Shared memory is ~19 or ~36 KB plus the taps (32 KB at
+// r 4096). Bound: f32 arithmetic, 2 (2r + 1) FLOP per output; each staged
+// value is read from L2 about (2r + 1) (1 / 256 + 1 / chunk) times.
+
+constexpr int kAxisChunk = 256;
+constexpr int kAxisRowsG = 8, kAxisRowsTw = 256, kAxisRowsS = 9;
+constexpr int kAxisColsTh = 128, kAxisColsTw = 32, kAxisColsS = kAxisColsTw + 1;
+constexpr int kAxisColsChunk = 128;
+
+template <typename Tin, bool kOutU8>
+__device__ __forceinline__ void store_out(void* out, size_t o, float v) {
+  if (kOutU8) {
+    const float u = fminf(fmaxf(__fadd_rn(v, 0.5f), 0.0f), 255.5f);
+    static_cast<uint8_t*>(out)[o] = static_cast<uint8_t>(__float2int_rz(u));
+  } else {
+    static_cast<float*>(out)[o] = v;
+  }
+}
+
+template <typename Tin, bool kOutU8>
+__global__ void __launch_bounds__(kThreads)
+fused_axis_rows_kernel(const Tin* __restrict__ x, void* __restrict__ out,
+                       const float* __restrict__ taps, int h, int w, int r,
+                       int tiles_w) {
+  extern __shared__ __align__(16) float smem[];
+  const int ntaps = 2 * r + 1;
+  float* s_t = smem;
+  float* s_x = s_t + round8(ntaps);
+  const int tid = threadIdx.x;
+  const int i0 = (blockIdx.x / tiles_w) * kAxisRowsG;
+  const int j0 = (blockIdx.x % tiles_w) * kAxisRowsTw;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
+  const Tin* xp = x + plane;
+  for (int k = tid; k < ntaps; k += kThreads) s_t[k] = taps[k];
+
+  const int rr = tid % kAxisRowsG;
+  const int c0 = (tid / kAxisRowsG) * kR;
+  float acc[kR];
+#pragma unroll
+  for (int s = 0; s < kR; ++s) acc[s] = 0.0f;
+  const int cols = kAxisRowsTw + kAxisChunk + kR;
+  for (int k0 = 0; k0 < ntaps; k0 += kAxisChunk) {
+    __syncthreads();  // the previous chunk is done with s_x
+    for (int c = tid; c < cols; c += kThreads) {
+      const int gj = reflect101(j0 - r + k0 + c, w);
+      for (int q = 0; q < kAxisRowsG; ++q) {
+        const int gi = min(i0 + q, h - 1);
+        s_x[c * kAxisRowsS + q] =
+            static_cast<float>(xp[static_cast<size_t>(gi) * w + gj]);
+      }
+    }
+    __syncthreads();
+    correlate<kR>(s_x + c0 * kAxisRowsS + rr, kAxisRowsS, s_t + k0,
+                  min(kAxisChunk, ntaps - k0), acc);
+  }
+  const int gi = i0 + rr;
+  if (gi >= h) return;
+#pragma unroll
+  for (int s = 0; s < kR; ++s) {
+    const int gj = j0 + c0 + s;
+    if (gj < w) store_out<Tin, kOutU8>(out, plane + static_cast<size_t>(gi) * w + gj, acc[s]);
+  }
+}
+
+template <typename Tin, bool kOutU8>
+__global__ void __launch_bounds__(kThreads)
+fused_axis_cols_kernel(const Tin* __restrict__ x, void* __restrict__ out,
+                       const float* __restrict__ taps, int h, int w, int r,
+                       int tiles_w) {
+  extern __shared__ __align__(16) float smem[];
+  const int ntaps = 2 * r + 1;
+  float* s_t = smem;
+  float* s_y = s_t + round8(ntaps);
+  const int tid = threadIdx.x;
+  const int i0 = (blockIdx.x / tiles_w) * kAxisColsTh;
+  const int j0 = (blockIdx.x % tiles_w) * kAxisColsTw;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
+  const Tin* xp = x + plane;
+  for (int k = tid; k < ntaps; k += kThreads) s_t[k] = taps[k];
+
+  const int j = tid % kAxisColsTw;
+  const int ii = (tid / kAxisColsTw) * kRC;
+  const int gjl = min(j0 + j, w - 1);
+  float acc[kRC];
+#pragma unroll
+  for (int s = 0; s < kRC; ++s) acc[s] = 0.0f;
+  const int rows = kAxisColsTh + kAxisColsChunk + kRC;
+  for (int k0 = 0; k0 < ntaps; k0 += kAxisColsChunk) {
+    __syncthreads();  // the previous chunk is done with s_y
+    for (int q = tid / kAxisColsTw; q < rows; q += kThreads / kAxisColsTw) {
+      const int gi = reflect101(i0 - r + k0 + q, h);
+      s_y[q * kAxisColsS + j] =
+          static_cast<float>(xp[static_cast<size_t>(gi) * w + gjl]);
+    }
+    __syncthreads();
+    correlate<kRC>(s_y + ii * kAxisColsS + j, kAxisColsS, s_t + k0,
+                   min(kAxisColsChunk, ntaps - k0), acc);
+  }
+  const int gj = j0 + j;
+  if (gj >= w) return;
+#pragma unroll
+  for (int s = 0; s < kRC; ++s) {
+    const int gi = i0 + ii + s;
+    if (gi >= h) break;
+    store_out<Tin, kOutU8>(out, plane + static_cast<size_t>(gi) * w + gj, acc[s]);
+  }
+}
+
+template <typename Tin, bool kOutU8>
+int launch_axis(const void* x, void* out, const void* taps, int planes, int h,
+                int w, int axis, int r, cudaStream_t stream) {
+  int device = 0, smem_limit = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&smem_limit,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool rows = axis == 1;
+  const int stage = rows ? (kAxisRowsTw + kAxisChunk + kR) * kAxisRowsS
+                         : (kAxisColsTh + kAxisColsChunk + kRC) * kAxisColsS;
+  const int smem = 4 * (round8(2 * r + 1) + stage);
+  if (smem > smem_limit || planes > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = rows ? fused_axis_rows_kernel<Tin, kOutU8>
+                     : fused_axis_cols_kernel<Tin, kOutU8>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int th = rows ? kAxisRowsG : kAxisColsTh;
+  const int tw = rows ? kAxisRowsTw : kAxisColsTw;
+  const int tiles_w = (w + tw - 1) / tw;
+  dim3 grid(tiles_w * ((h + th - 1) / th), planes);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const Tin*>(x), out, static_cast<const float*>(taps), h, w, r,
+      tiles_w);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// The single-axis wide form: x planes x h x w of float (in_u8 = 0) or uint8;
+// out float (out_u8 = 0) or uint8; taps (2r + 1) float32 on the device;
+// axis 1 correlates along w, axis 0 along h (the other axis is a copy).
+// Returns the cudaError_t of the launch (0 = launched).
+extern "C" int blur_fused_axis_f32(const void* x, void* out, const void* taps,
+                                   int in_u8, int out_u8, int planes, int h,
+                                   int w, int axis, int r, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (in_u8) {
+    return out_u8 ? launch_axis<uint8_t, true>(x, out, taps, planes, h, w, axis, r, st)
+                  : launch_axis<uint8_t, false>(x, out, taps, planes, h, w, axis, r, st);
+  }
+  return out_u8 ? launch_axis<float, true>(x, out, taps, planes, h, w, axis, r, st)
+                : launch_axis<float, false>(x, out, taps, planes, h, w, axis, r, st);
+}
 
 // x: planes x h x w of float (in_u8 = 0) or uint8 (in_u8 = 1); out: the
 // same shape of float (out_u8 = 0) or uint8 (out_u8 = 1); taps_row (2rw + 1)

@@ -20,13 +20,23 @@ The port of the JAX package's ``pallas_kernels/fused_blur.py``:
 - The quantiser, the adaptive scale picker and the int8 applicability rule
   are copied so that K1's operands are integer-identical to the JAX
   kernel's.
-
-The two-pass wide-radius split (``_split_wins``, ``_kernel_int8``'s e32
-forms) is not ported: past ``MAX_RADIUS`` every entry raises.
+- The two-pass wide-radius split (``_blur_fused_split``, copied from
+  ``fused_blur.py:723-946``): the plan's rows axis, then its columns axis,
+  each as its own pass through memory. On uint8 frames with non-negative
+  unit-sum taps both passes run int8 through an int16 intermediate ``E``
+  (``cuda_kernels/fused_split.py``); otherwise pass 1 is the int8 rows
+  form with an f32 result, or the f32 single-axis form, and pass 2 the f32
+  single-axis form (``blur_fused_axis_f32``, K2's wide form in
+  ``csrc/fused_blur.cu``). ``blur_fused`` and ``blur_fused_u8`` take the
+  split past ``MAX_RADIUS`` and, where the device measured it faster, from
+  ``DeviceSpec.fused_split_min_radius``; it reaches ``SPLIT_MAX_RADIUS``.
+  Past that, strip streaming (``ops/streamed``) is not ported and every
+  entry raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -35,20 +45,32 @@ import torch
 from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
+from blur_algorithms_tpu_torch.utils.hw import device_spec
 
 __all__ = [
     "MAX_RADIUS",
+    "SPLIT_MAX_RADIUS",
     "blur_fused",
+    "blur_fused_axis_f32",
     "blur_fused_f32",
     "blur_fused_f32_ref",
     "blur_fused_u8",
+    "e32_split_applicable",
     "int8_applicable",
     "pick_int8_scale",
+    "split_feasible",
+    "split_hbm_bytes",
 ]
 
 # Largest support radius K2 serves per axis: the JAX single-kernel DMA
 # form's domain (as for K1), so every routed call has a JAX counterpart.
 MAX_RADIUS = 600
+# Largest support radius per axis of the two-pass split and of K2's
+# single-axis wide form: the JAX split's reach (measured feasible to 4096)
+# and above the cascade engine's step limit of 4000.
+SPLIT_MAX_RADIUS = 4096
+
+_STREAMED = "strip streaming (ROADMAP.md Queue 1 item 7, ops/streamed)"
 
 # Fixed-point scale for the int8 path: taps quantized to q = round(t * S).
 # S = 127 * 128 keeps q = 128*q_hi + q_lo with both planes <= 127 (int8) for
@@ -139,11 +161,15 @@ def _check_planes(planar: torch.Tensor, plan: BlurPlan) -> None:
             f"planes of shape {tuple(planar.shape)} do not match the "
             f"plan's {plan.shape}"
         )
-    r = max(plan.col.support_radius, plan.row.support_radius)
-    if r > MAX_RADIUS:
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    if max(rh, rw) > SPLIT_MAX_RADIUS:
         raise NotImplementedError(
-            f"support radius {r} > {MAX_RADIUS} needs the two-pass wide-radius "
-            "split (ROADMAP.md Queue 1 item 6)"
+            f"support radius {max(rh, rw)} > {SPLIT_MAX_RADIUS}: {_STREAMED}"
+        )
+    if min(rh, rw) > 0 and max(rh, rw) > MAX_RADIUS:
+        raise NotImplementedError(
+            f"support radius {max(rh, rw)} > {MAX_RADIUS} on two axes is past "
+            "K2's domain: blur_fused runs the two-pass split"
         )
 
 
@@ -209,25 +235,21 @@ def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan,
     ``out_u8``), the fused separable blur (K2).
 
     A CUDA tensor launches the kernel of ``csrc/fused_blur.cu``; a CPU tensor
-    runs the plain version. Any other device, a non-contiguous or float64
-    CUDA tensor, or a radius past ``MAX_RADIUS`` raises.
-    ``blur_fused_f32.launches`` counts kernel launches.
+    runs the plain version. A plan with one radius-0 axis past
+    ``MAX_RADIUS`` runs the single-axis wide form (``blur_fused_axis_f32``).
+    Any other device, a non-contiguous or float64 CUDA tensor, or two axes
+    past ``MAX_RADIUS`` raises. ``blur_fused_f32.launches`` counts kernel
+    launches.
     """
     _check_planes(planar, plan)
-    if planar.device.type == "cpu":
+    if max(plan.col.support_radius, plan.row.support_radius) > MAX_RADIUS:
+        return blur_fused_axis_f32(planar, plan, out_u8)
+    x = _k2_input(planar, plan, "K2")
+    if x is None:
         return blur_fused_f32_ref(planar, plan, out_u8)
-    if planar.device.type != "cuda":
-        raise ValueError(f"K2 runs on CUDA or CPU tensors, not {planar.device}")
-    if planar.dtype == torch.float64:
-        raise TypeError("K2 takes float32 or uint8 planes on a CUDA device")
-    if not planar.is_contiguous():
-        raise ValueError("K2 needs contiguous planes")
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     h, w = plan.shape
-    x = planar.reshape(-1, h, w)
-    if x.shape[0] > 65535:
-        raise ValueError(f"K2 takes at most 65535 planes, got {x.shape[0]}")
     out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
     if x.shape[0] == 0:
@@ -251,6 +273,175 @@ def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan,
 blur_fused_f32.launches = 0
 
 
+def _k2_input(planar: torch.Tensor, plan: BlurPlan, name: str) -> torch.Tensor | None:
+    """The ``(planes, H, W)`` view a K2 launch takes, or None for a CPU
+    tensor (the plain version runs); raises where no launch is possible."""
+    if planar.device.type == "cpu":
+        return None
+    if planar.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {planar.device}")
+    if planar.dtype == torch.float64:
+        raise TypeError(f"{name} takes float32 or uint8 planes on a CUDA device")
+    if not planar.is_contiguous():
+        raise ValueError(f"{name} needs contiguous planes")
+    x = planar.reshape(-1, *plan.shape)
+    if x.shape[0] > 65535:
+        raise ValueError(f"{name} takes at most 65535 planes, got {x.shape[0]}")
+    return x
+
+
+def blur_fused_axis_f32(planar: torch.Tensor, plan: BlurPlan,
+                        out_u8: bool = False) -> torch.Tensor:
+    """K2's single-axis wide form: ``(..., H, W)`` float32 or uint8 ->
+    float32 (or uint8 with ``out_u8``) for a plan with one radius-0 axis,
+    the other up to ``SPLIT_MAX_RADIUS`` (the two-pass split's passes).
+
+    A CUDA tensor launches ``blur_fused_axis_f32`` of ``csrc/fused_blur.cu``
+    (a radius-0 plan is a copy, with no launch); a CPU tensor runs the plain
+    version ``blur_fused_f32_ref``. ``blur_fused_axis_f32.launches`` counts
+    kernel launches.
+    """
+    _check_planes(planar, plan)
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    if min(rh, rw) != 0:
+        raise ValueError("the single-axis form takes a plan with a radius-0 axis")
+    x = _k2_input(planar, plan, "K2's single-axis form")
+    if x is None or max(rh, rw) == 0:
+        return blur_fused_f32_ref(planar, plan, out_u8)
+    from blur_algorithms_tpu_torch.utils.build import load_library
+
+    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=x.device)
+    if x.shape[0] == 0:
+        return out.reshape(planar.shape)
+    taps = _device_taps(plan, x.device)[0 if rw else 1]
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        rc = lib.blur_fused_axis_f32(
+            x.data_ptr(), out.data_ptr(), taps.data_ptr(),
+            int(x.dtype == torch.uint8), int(out_u8), x.shape[0], *plan.shape,
+            int(rw > 0), max(rh, rw),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc:
+        msg = lib.blur_cuda_error_string(rc).decode()
+        raise RuntimeError(f"K2's single-axis form failed: CUDA error {rc} ({msg})")
+    blur_fused_axis_f32.launches += 1
+    return out.reshape(planar.shape)
+
+
+blur_fused_axis_f32.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the two-pass wide-radius split
+
+
+def _axis_identity(ax) -> object:
+    """Radius-0 copy of an AxisPlan (taps [1]) for one pass of split mode."""
+    return dataclasses.replace(
+        ax, width=1, pad=0, taps=np.array([1.0], np.float32),
+        spectrum_c=None,  # identity taps are symmetric
+    )
+
+
+@functools.lru_cache(maxsize=256)  # plans hash by identity
+def _split_plans(plan: BlurPlan) -> tuple[BlurPlan, BlurPlan]:
+    rows_only = dataclasses.replace(plan, col=_axis_identity(plan.col))
+    cols_only = dataclasses.replace(plan, row=_axis_identity(plan.row))
+    return rows_only, cols_only
+
+
+def split_feasible(plan: BlurPlan, in_bytes: int = 1) -> bool:
+    """True if both single-axis passes of the split serve the plan (the
+    JAX test is a VMEM tile search; here each pass stages a bounded slice,
+    so only the radius bounds it)."""
+    return max(plan.col.support_radius, plan.row.support_radius) <= SPLIT_MAX_RADIUS
+
+
+def e32_split_applicable(plan: BlurPlan, precision, in_bytes: int) -> bool:
+    """True when the split runs int8 end to end via the int16-E
+    intermediate (pass 1 rows-only int8, pass 2 cols-only int8)."""
+    if precision != "int8" or in_bytes != 1:
+        return False
+    rows_plan, _ = _split_plans(plan)
+    return (
+        int8_applicable(rows_plan, torch.uint8)
+        and plan.col.support_radius > 0
+        and float(np.min(plan.col.taps)) >= 0.0
+        # the cols recombine (+128) and quantizer renormalization assume
+        # unit-sum taps, same as int8_applicable's check for the full form
+        and abs(float(np.sum(plan.col.taps)) - 1.0) < 1e-5
+    )
+
+
+def split_hbm_bytes(plan: BlurPlan, in_bytes: int = 1, precision=None) -> int:
+    """Peak-memory estimate of the split on a channel-planar RGB frame, as
+    the JAX function of the same name: input + the intermediate (int16 E on
+    the int8-e32 path, f32 otherwise) + a reflect-padded copy of it + the
+    output."""
+    h, w = plan.shape
+    rh = plan.col.support_radius
+    px = 3 * h * w
+    ib = 2 if e32_split_applicable(plan, precision, in_bytes) else 4
+    return int(px * (in_bytes + ib + ib * (h + 2 * rh + 2048) / h + in_bytes))
+
+
+def _split_wins(plan: BlurPlan, in_bytes: int, precision,
+                device: torch.device | str) -> bool:
+    """Two single-axis passes through memory against one fused kernel.
+
+    Past ``MAX_RADIUS`` the single kernels do not serve, so the split runs.
+    Below it the split runs only from the device's measured
+    ``fused_split_min_radius`` (the chip_smoke.py phase 13 sweep in turns,
+    in place of the JAX package's TPU cost model) and within its memory
+    budget."""
+    r = max(plan.col.support_radius, plan.row.support_radius)
+    if r > MAX_RADIUS:
+        return True
+    spec = device_spec(device)
+    floor = spec.fused_split_min_radius
+    return (floor is not None and r >= floor
+            and split_hbm_bytes(plan, in_bytes, precision) <= spec.split_hbm_budget)
+
+
+def _blur_fused_split(planar: torch.Tensor, plan: BlurPlan, precision,
+                      out_u8: bool) -> torch.Tensor:
+    """The plan's rows axis, then its columns axis, as two passes through
+    memory; the JAX ``_blur_fused_split`` pass for pass."""
+    if not split_feasible(plan):
+        r = max(plan.col.support_radius, plan.row.support_radius)
+        raise NotImplementedError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_STREAMED}")
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split
+
+    rows_plan, cols_plan = _split_plans(plan)
+    is_u8 = planar.dtype == torch.uint8
+    if e32_split_applicable(plan, precision, 1 if is_u8 else 4):
+        e = fused_split.fused_split_rows_int8(planar, rows_plan, out_e32=True)
+        return fused_split.fused_split_cols_int8(e, cols_plan, out_u8=out_u8)
+    # pass 1 reads the raw uint8 frame: the int8 rows form applies even
+    # where the full int8 path does not (pass 2 reads f32)
+    if precision == "int8" and is_u8 and int8_applicable(rows_plan, torch.uint8):
+        y = fused_split.fused_split_rows_int8(planar, rows_plan, out_e32=False)
+    else:
+        y = blur_fused_axis_f32(planar, rows_plan)
+    return blur_fused_axis_f32(y, cols_plan, out_u8=out_u8)
+
+
+class _BlurFusedSplit(torch.autograd.Function):
+    """Forward the f32 split, backward the blur's adjoint (the JAX
+    ``_blur_fused_split_diff``)."""
+
+    @staticmethod
+    def forward(ctx, planar: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
+        ctx.plan = plan
+        return _blur_fused_split(planar, plan, "bf16x3", out_u8=False)
+
+    @staticmethod
+    def backward(ctx, ct: torch.Tensor):
+        return blur_adjoint(ct, ctx.plan), None
+
+
 class _BlurFused(torch.autograd.Function):
     """Forward K2, backward the blur's adjoint (it is linear, so the VJP
     needs no saved tensors): the counterpart of the JAX ``custom_vjp``."""
@@ -270,12 +461,18 @@ def blur_fused(planar: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
 
     Float input is differentiable (backward: ``blur_adjoint``); float16 and
     bfloat16 are widened to float32 first. uint8 input runs K2 directly.
+    Where ``_split_wins`` (past ``MAX_RADIUS``, or from the device's
+    measured split radius) the f32 two-pass split runs instead of K2.
     """
-    if planar.dtype == torch.uint8:
+    is_u8 = planar.dtype == torch.uint8
+    split = _split_wins(plan, 1 if is_u8 else 4, "bf16x3", planar.device)
+    if is_u8:
+        if split:
+            return _blur_fused_split(planar, plan, "bf16x3", out_u8=False)
         return blur_fused_f32(planar, plan)
     if planar.dtype not in (torch.float32, torch.float64):
         planar = planar.to(torch.float32)
-    return _BlurFused.apply(planar, plan)
+    return (_BlurFusedSplit if split else _BlurFused).apply(planar, plan)
 
 
 def blur_fused_u8(planar_u8: torch.Tensor, plan: BlurPlan,
@@ -285,9 +482,15 @@ def blur_fused_u8(planar_u8: torch.Tensor, plan: BlurPlan,
     ``"int8"`` runs the exact fixed-point kernel K1 where it applies
     (non-negative unit-sum taps, both support radii >= 1) and falls back to
     ``"bf16x3"`` elsewhere, as the JAX package does; ``"bf16x3"`` runs K2.
+    Where ``_split_wins`` the two-pass split runs, int8 end to end where
+    ``e32_split_applicable``.
     """
     if precision not in ("int8", "bf16x3"):
         raise ValueError(f"precision must be 'int8' or 'bf16x3', got {precision!r}")
+    if _split_wins(plan, 1, precision, planar_u8.device):
+        if planar_u8.dtype != torch.uint8:
+            raise TypeError(f"expected uint8 planes, got {planar_u8.dtype}")
+        return _blur_fused_split(planar_u8, plan, precision, out_u8=True)
     if (precision == "int8" and int8_applicable(plan, torch.uint8)
             and plan.col.support_radius > 0):
         from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (

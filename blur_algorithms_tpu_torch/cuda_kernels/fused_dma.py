@@ -20,7 +20,9 @@ of the blocked kernel ``fused_blur._kernel`` and runs as K2
 other forms of the JAX kernel (strip, assemble, rows-resident, pipelined)
 and the multi-chip haloed entry point are queued in ROADMAP.md.
 ``MAX_RADIUS`` (600, the JAX int8 DMA form's domain) bounds K1 and K2
-alike.
+alike; past it ``blur_fused_u8`` runs the two-pass split, whose int8 forms
+(``cuda_kernels/fused_split.py``) share ``int8_rows_ref`` /
+``int8_cols_ref`` with K1's plain version here.
 """
 
 from __future__ import annotations
@@ -59,10 +61,14 @@ class Int8Operands:
     cols_scale: int
 
     def epilogue_constants(self) -> tuple[np.float32, np.float32, np.float32]:
-        """``(c1, c2, c3)`` of ``y = p1*c1 + p23*c2 + p4*c3 + 128``: the JAX
-        kernel's Python-float products, each rounded once to float32."""
-        inv = 1.0 / (127.0 * self.cols_scale)
-        return np.float32(16384.0 * inv), np.float32(128.0 * inv), np.float32(inv)
+        return epilogue_constants(self.cols_scale)
+
+
+def epilogue_constants(cols_scale: int) -> tuple[np.float32, np.float32, np.float32]:
+    """``(c1, c2, c3)`` of ``y = p1*c1 + p23*c2 + p4*c3 + 128``: the JAX
+    kernel's Python-float products, each rounded once to float32."""
+    inv = 1.0 / (127.0 * cols_scale)
+    return np.float32(16384.0 * inv), np.float32(128.0 * inv), np.float32(inv)
 
 
 def _axis_taps(taps: np.ndarray, scale: int) -> np.ndarray:
@@ -100,8 +106,9 @@ def check_domain(plan: BlurPlan) -> None:
         )
     if max(rh, rw) > MAX_RADIUS:
         raise NotImplementedError(
-            f"support radius {max(rh, rw)} > {MAX_RADIUS} needs the wide-radius "
-            "split form (ROADMAP.md Queue 1 item 6, K2)"
+            f"support radius {max(rh, rw)} > {MAX_RADIUS} is past K1's domain: "
+            "blur_fused_u8 routes it to the two-pass split "
+            "(cuda_kernels/fused_blur.py, fused_split.py)"
         )
 
 
@@ -128,25 +135,44 @@ def blur_fused_u8_dma_ref(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tens
     h, w = plan.shape
     rh, rw = plan.col.support_radius, plan.row.support_radius
     x = planar_u8.reshape(-1, h, w)
-    n, dev = x.shape[0], x.device
-    xc = reflect_101(x, [(rh, rh), (rw, rw)]).to(torch.int32) - 128
-
-    r = torch.zeros((n, h + 2 * rh, w), dtype=torch.int32, device=dev)
-    for t, q in enumerate(ops.q_row.tolist()):
-        if q:
-            r.add_(xc[:, :, t : t + w], alpha=q)
-    del xc
+    r = int8_rows_ref(reflect_101(x, [(rh, rh), (rw, rw)]), ops.q_row, w)
     s = ops.rows_shift
     e = (r + (1 << (s - 1))) >> s
     del r
+    y = int8_cols_ref(e, ops.q_col, ops.epilogue_constants(), h)
+    return store_u8_ref(y).reshape(planar_u8.shape)
+
+
+def int8_rows_ref(xp: torch.Tensor, q_row: np.ndarray, w: int) -> torch.Tensor:
+    """The exact int8 rows pass on column-padded uint8 ``xp`` (``(n, m, w +
+    2rw)``): ``R = sum_t q[t] * (x - 128)`` in int32, tap by tap."""
+    xc = xp.to(torch.int32) - 128
+    r = torch.zeros((*xc.shape[:-1], w), dtype=torch.int32, device=xc.device)
+    for t, q in enumerate(q_row.tolist()):
+        if q:
+            r.add_(xc[..., t : t + w], alpha=q)
+    return r
+
+
+def store_u8_ref(y: torch.Tensor) -> torch.Tensor:
+    """K1's uint8 store: ``clip(y + 0.5, 0, 255.5)``, truncated."""
+    y = torch.clamp(torch.add(y, 0.5), 0.0, 255.5)
+    return y.to(torch.int32).to(torch.uint8)
+
+
+def int8_cols_ref(e: torch.Tensor, q_col: np.ndarray, constants, h: int) -> torch.Tensor:
+    """The int8 cols pass on the row-padded intermediate ``e`` (int32
+    ``(n, h + 2rh, w)``): base-128 digits, the three digit products tap by
+    tap, and the f32 epilogue ``p1*c1 + p23*c2 + p4*c3 + 128`` as separate
+    torch ops (so nothing can fuse a multiply into an add) -> float32."""
+    n, _, w = e.shape
+    dev = e.device
     e1 = (e + 64) >> 7
     e0 = e - e1 * 128
-    del e
-
     p1, p23, p4 = (
         torch.zeros((n, h, w), dtype=torch.int32, device=dev) for _ in range(3)
     )
-    for t, q in enumerate(ops.q_col.tolist()):
+    for t, q in enumerate(q_col.tolist()):
         b_hi, b_lo = q >> 7, q & 127
         s1, s0 = e1[:, t : t + h], e0[:, t : t + h]
         if b_hi:
@@ -157,15 +183,12 @@ def blur_fused_u8_dma_ref(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tens
             p4.add_(s0, alpha=b_lo)
 
     c1, c2, c3 = (
-        torch.tensor(c, dtype=torch.float32, device=dev)
-        for c in ops.epilogue_constants()
+        torch.tensor(c, dtype=torch.float32, device=dev) for c in constants
     )
     y = torch.mul(p1.to(torch.float32), c1)
     y = torch.add(y, torch.mul(p23.to(torch.float32), c2))
     y = torch.add(y, torch.mul(p4.to(torch.float32), c3))
-    y = torch.add(y, 128.0)
-    y = torch.clamp(torch.add(y, 0.5), 0.0, 255.5)
-    return y.to(torch.int32).to(torch.uint8).reshape(planar_u8.shape)
+    return torch.add(y, 128.0)
 
 
 def _pack_int8_words(taps: np.ndarray) -> np.ndarray:

@@ -1,0 +1,203 @@
+"""The int8 forms of the two-pass wide-radius split (K2's ``_kernel_int8``).
+
+The port of the JAX ``pallas_kernels/fused_blur._kernel_int8`` in its
+split forms, through the CUDA kernels of ``csrc/fused_split.cu`` on a CUDA
+tensor and their plain PyTorch versions on a CPU tensor, bit for bit:
+
+- ``fused_split_rows_int8``: the rows-only pass over uint8 planes
+  (a plan whose column axis has radius 0). ``out_e32=True`` emits the
+  14-bit intermediate ``E = 127 (rows_conv(x) - 128)`` as int16 (the JAX
+  ``e32="out"``, rows scale stepped by powers of two so that ``E`` is a
+  shift of the exact int32 sum); ``out_e32=False`` emits float32
+  ``fma(R, f32(1 / Sr), 128)`` (any adaptive scale), the split's pass 1 where pass 2
+  cannot run int8.
+- ``fused_split_cols_int8``: the cols-only pass over int16 ``E`` (a plan
+  whose row axis has radius 0): base-128 digits, exact digit products and
+  K1's f32 epilogue, uint8 or float32 out (the JAX ``e32="in"``).
+
+Both share the integer taps, quantiser and epilogue constants of K1
+(``cuda_kernels/fused_dma.py``).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
+    _INT8_SCALE,
+    _STREAMED,
+    SPLIT_MAX_RADIUS,
+    pick_int8_scale,
+)
+from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
+    _axis_taps,
+    _pack_int8_words,
+    epilogue_constants,
+    int8_cols_ref,
+    int8_rows_ref,
+    store_u8_ref,
+)
+from blur_algorithms_tpu_torch.ops.pad import reflect_101
+from blur_algorithms_tpu_torch.ops.plan import BlurPlan
+
+__all__ = [
+    "fused_split_cols_int8",
+    "fused_split_cols_int8_ref",
+    "fused_split_rows_int8",
+    "fused_split_rows_int8_ref",
+]
+
+@functools.lru_cache(maxsize=64)
+def rows_operands(plan: BlurPlan, out_e32: bool) -> tuple[np.ndarray, int, int]:
+    """``(q_row, rows_scale, rows_shift)`` of the rows-only pass, as the JAX
+    ``_blur_fused_planar`` picks them for a plan with ``rh == 0``."""
+    rows_scale = pick_int8_scale(plan.row.taps, pow2=out_e32)
+    shift = 7 + (rows_scale // _INT8_SCALE).bit_length() - 1
+    return _axis_taps(plan.row.taps, rows_scale), rows_scale, shift
+
+
+@functools.lru_cache(maxsize=64)
+def cols_operands(plan: BlurPlan) -> tuple[np.ndarray, tuple]:
+    """``(q_col, (c1, c2, c3))`` of the cols-only pass."""
+    cols_scale = pick_int8_scale(plan.col.taps)
+    return _axis_taps(plan.col.taps, cols_scale), epilogue_constants(cols_scale)
+
+
+def _check(planar: torch.Tensor, plan: BlurPlan, dtype: torch.dtype, axis: str) -> None:
+    if planar.dtype != dtype:
+        raise TypeError(f"the {axis} split pass takes {dtype} planes, got {planar.dtype}")
+    if planar.ndim < 2 or tuple(planar.shape[-2:]) != plan.shape:
+        raise ValueError(
+            f"planes of shape {tuple(planar.shape)} do not match the plan's {plan.shape}"
+        )
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    r, other = (rw, rh) if axis == "rows" else (rh, rw)
+    if other != 0 or r == 0:
+        raise ValueError(f"the {axis}-only split pass takes a plan with only a {axis} radius")
+    if r > SPLIT_MAX_RADIUS:
+        raise NotImplementedError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_STREAMED}")
+    taps = plan.row.taps if axis == "rows" else plan.col.taps
+    if float(np.min(taps)) < 0.0 or abs(float(np.sum(taps)) - 1.0) >= 1e-5:
+        raise ValueError("the int8 split takes non-negative unit-sum taps")
+
+
+def fused_split_rows_int8_ref(planar_u8: torch.Tensor, plan: BlurPlan,
+                              out_e32: bool = True) -> torch.Tensor:
+    """Plain version of the rows-only pass: uint8 ``(..., H, W)`` -> int16
+    ``E`` (``out_e32``) or float32 ``fma(R, f32(1 / Sr), 128)``."""
+    _check(planar_u8, plan, torch.uint8, "rows")
+    h, w = plan.shape
+    rw = plan.row.support_radius
+    q, scale, shift = rows_operands(plan, out_e32)
+    x = planar_u8.reshape(-1, h, w)
+    r = int8_rows_ref(reflect_101(x, [(rw, rw)]), q, w)
+    if out_e32:
+        out = ((r + (1 << (shift - 1))) >> shift).to(torch.int16)
+    else:
+        # one fused multiply-add, as XLA and the kernel round it: the f32
+        # product is exact in float64 and the sum rounds (but for a rare
+        # double rounding) as the fma's one rounding
+        c = float(np.float32(1.0 / scale))
+        out = (r.to(torch.float32).to(torch.float64) * c + 128.0).to(torch.float32)
+    return out.reshape(planar_u8.shape)
+
+
+def fused_split_cols_int8_ref(e16: torch.Tensor, plan: BlurPlan,
+                              out_u8: bool = True) -> torch.Tensor:
+    """Plain version of the cols-only pass: int16 ``E`` ``(..., H, W)`` ->
+    uint8 (``out_u8``) or float32."""
+    _check(e16, plan, torch.int16, "cols")
+    h, w = plan.shape
+    rh = plan.col.support_radius
+    q, constants = cols_operands(plan)
+    e = reflect_101(e16.reshape(-1, h, w), [(rh, rh)], axes=[-2]).to(torch.int32)
+    y = int8_cols_ref(e, q, constants, h)
+    return (store_u8_ref(y) if out_u8 else y).reshape(e16.shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_taps(q: bytes, device: torch.device) -> torch.Tensor:
+    # hi digits | lo digits, four int8 taps a word
+    taps = np.frombuffer(q, dtype=np.int32)
+    words = np.concatenate([_pack_int8_words(d.astype(np.int8))
+                            for d in (taps >> 7, taps & 127)])
+    return torch.from_numpy(words).to(device)
+
+
+def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor, q: np.ndarray, *args) -> None:
+    from blur_algorithms_tpu_torch.utils.build import load_library
+
+    if x.shape[0] > 65535:
+        raise ValueError(f"the split takes at most 65535 planes, got {x.shape[0]}")
+    taps = _device_taps(np.ascontiguousarray(q, np.int32).tobytes(), x.device)
+    lib = load_library()
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, name)(
+            x.data_ptr(), out.data_ptr(), taps.data_ptr(), x.shape[0],
+            x.shape[1], x.shape[2], *args,
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
+    if rc:
+        msg = lib.blur_cuda_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+    fn.launches += 1
+
+
+def _on_cuda(planar: torch.Tensor, name: str) -> bool:
+    if planar.device.type == "cpu":
+        return False
+    if planar.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {planar.device}")
+    if not planar.is_contiguous():
+        raise ValueError(f"{name} needs contiguous planes")
+    return True
+
+
+def fused_split_rows_int8(planar_u8: torch.Tensor, plan: BlurPlan,
+                          out_e32: bool = True) -> torch.Tensor:
+    """The split's int8 pass 1 on uint8 ``(..., H, W)``: int16 ``E``
+    (``out_e32``) or float32. A CUDA tensor launches the kernel of
+    ``csrc/fused_split.cu``, a CPU tensor runs the plain version;
+    ``fused_split_rows_int8.launches`` counts launches."""
+    _check(planar_u8, plan, torch.uint8, "rows")
+    if not _on_cuda(planar_u8, "fused_split_rows_int8"):
+        return fused_split_rows_int8_ref(planar_u8, plan, out_e32)
+    h, w = plan.shape
+    x = planar_u8.reshape(-1, h, w)
+    out = torch.empty(x.shape, dtype=torch.int16 if out_e32 else torch.float32,
+                      device=x.device)
+    if x.shape[0]:
+        q, scale, shift = rows_operands(plan, out_e32)
+        _launch("fused_split_rows_int8", fused_split_rows_int8, x, out, q,
+                plan.row.support_radius, int(out_e32), shift,
+                float(np.float32(1.0 / scale)))
+    return out.reshape(planar_u8.shape)
+
+
+fused_split_rows_int8.launches = 0
+
+
+def fused_split_cols_int8(e16: torch.Tensor, plan: BlurPlan,
+                          out_u8: bool = True) -> torch.Tensor:
+    """The split's int8 pass 2 on int16 ``E`` ``(..., H, W)``: uint8
+    (``out_u8``) or float32. A CUDA tensor launches the kernel of
+    ``csrc/fused_split.cu``, a CPU tensor runs the plain version;
+    ``fused_split_cols_int8.launches`` counts launches."""
+    _check(e16, plan, torch.int16, "cols")
+    if not _on_cuda(e16, "fused_split_cols_int8"):
+        return fused_split_cols_int8_ref(e16, plan, out_u8)
+    h, w = plan.shape
+    x = e16.reshape(-1, h, w)
+    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=x.device)
+    if x.shape[0]:
+        q, constants = cols_operands(plan)
+        _launch("fused_split_cols_int8", fused_split_cols_int8, x, out, q,
+                plan.col.support_radius, int(out_u8), *map(float, constants))
+    return out.reshape(e16.shape)
+
+
+fused_split_cols_int8.launches = 0

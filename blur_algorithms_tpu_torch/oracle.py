@@ -9,7 +9,8 @@ pocketfft, so this reproduces the reference flag-2 path
 reflect-101 pad -> planar float -> 2-D r2c per channel -> separable multiply
 by the kernel's row x col spectra -> c2r -> +0.5 uint8 merge -> crop.
 ``blur_direct`` is an independent second oracle (naive spatial convolution,
-no FFT) for small inputs.
+no FFT) for small inputs; ``box_blur_u8`` is the FastBoxBlur oracle, O(1)
+per pixel by float64 cumulative sums.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ __all__ = [
     "blur_planar_pffft",
     "blur_u8_pffft",
     "blur_direct",
+    "box_blur_u8",
     "dft_spectrum_np",
 ]
 
@@ -189,3 +191,26 @@ def dft_spectrum_np(planar: np.ndarray, plan: BlurPlan) -> np.ndarray:
     cval = np.where(col_ < half, col_, (s1 // 2) - col_ % (s1 // 2))
     re = np.real(spec[..., row_[:, None], cval[None, :]]).astype(np.float32)
     return (20.0 * np.log10(np.abs(re) + np.float32(1e-5))).astype(np.float32)
+
+
+def box_blur_u8(img_hwc: np.ndarray, radius: int, passes: int = 2) -> np.ndarray:
+    """FastBoxBlur oracle for uint8 ``(H, W, C)``: ``passes`` reflect-101 box
+    passes of width ``2 * radius + 1`` per axis (rows, then columns, each
+    pass), float64 cumulative-sum differences, one +0.5 rounding at the end.
+    ``radius`` must be at most ``min(H, W) - 1``."""
+    w = 2 * radius + 1
+
+    def box1(a: np.ndarray, axis: int) -> np.ndarray:
+        pad = [(0, 0)] * a.ndim
+        pad[axis] = (radius, radius)
+        cs = np.cumsum(np.pad(a, pad, mode="reflect"), axis=axis, dtype=np.float64)
+        cs = np.concatenate([np.zeros_like(np.take(cs, [0], axis=axis)), cs], axis=axis)
+        n = cs.shape[axis] - w
+        return (np.take(cs, range(w, w + n), axis=axis)
+                - np.take(cs, range(0, n), axis=axis)) / w
+
+    out = np.moveaxis(img_hwc, -1, 0).astype(np.float64)
+    for _ in range(passes):
+        out = box1(out, -1)
+        out = box1(out, -2)
+    return np.clip(np.floor(np.moveaxis(out, 0, -1) + 0.5), 0, 255).astype(np.uint8)

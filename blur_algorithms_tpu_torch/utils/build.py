@@ -77,6 +77,35 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.blur_fused_f32.restype = i
+    lib.blur_fused_axis_f32.argtypes = [
+        vp, vp, vp,  # x, out, taps
+        i, i,  # in_u8, out_u8
+        i, i, i, i, i,  # planes, h, w, axis, r
+        vp,  # stream
+    ]
+    lib.blur_fused_axis_f32.restype = i
+    lib.fused_split_rows_int8.argtypes = [
+        vp, vp, vp,  # x, out, taps
+        i, i, i, i,  # planes, h, w, rw
+        i, i, f,  # out_e32, rows_shift, inv_scale
+        vp,  # stream
+    ]
+    lib.fused_split_rows_int8.restype = i
+    lib.fused_split_cols_int8.argtypes = [
+        vp, vp, vp,  # e, out, taps
+        i, i, i, i,  # planes, h, w, rh
+        i, f, f, f,  # out_u8, epilogue constants c1, c2, c3
+        vp,  # stream
+    ]
+    lib.fused_split_cols_int8.restype = i
+    lib.box_scan_axis.argtypes = [
+        vp, vp, vp, vp,  # x, out, scratch0, scratch1
+        i, i,  # in_u8, out_u8
+        i, i, i, i, i, i,  # planes, h, w, axis, r, passes
+        i, i,  # tile, scratch_len
+        vp,  # stream
+    ]
+    lib.box_scan_axis.restype = i
     lib.fft_conv_rows.argtypes = [
         vp, vp, vp, vp,  # x, out, twiddles, spectrum
         i, i, i,  # complex_h, rows, n

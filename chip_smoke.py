@@ -48,9 +48,35 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
 10. times (median of 20, of 5 for calls over 100 ms): K3f per axis, K3 per
    axis of the adjoint, K5, their plain versions and the cuFFT yardstick
    ``rfft`` -> multiply -> ``irfft`` on the same framed rows, the whole
-   calls, and the fused/FFT crossover sweep: ``blur_u8`` fused (K1) against
-   FFT_MXU and ``blur`` fused (K2) against FFT_MXU, in turns at support
-   radii 32..598 (the values ``utils/hw.py`` takes).
+   calls, and the fused/FFT crossover sweep: ``blur_u8`` fused against
+   FFT_MXU and ``blur`` fused against FFT_MXU, in turns at support radii
+   32..598 (the values ``utils/hw.py`` takes; the fused engine as routed,
+   K1/K2, or the split from ``fused_split_min_radius``);
+11. K4 (the box scan) on HD planes at support 2..1250, passes 1-3, both
+   axes, uint8 and f32 in and out; the int8 split forms (rows to int16 E,
+   rows to f32, cols from E) at r 2..1996, bit-equal; K2's single-axis form
+   at r up to 3994 on both axes, f32 and uint8 in; each against its plain
+   version on the card;
+12. the slice's paths at full width, counts set to 0 first: ``box_blur`` at
+   nsmooth 20 (support 800) on the uint8 batch runs K4 twice and no K1,
+   frame 0 within 1 count of the float64 box oracle; on the float batch
+   its forward against the plain version and its backward at HD against
+   ``blur_adjoint``; ``blur_u8(engine="fused")`` at sigma 250 runs the two
+   int8 split forms, frame 0 within 1 count of the oracle; ``blur_u8`` AUTO
+   on a 2160x15360 panorama at sigma 250 (FFT_MXU cannot serve it) runs
+   the split, three full-height patches of 512 columns within 1 count of
+   the oracle on their crops; ``blur(engine="fused")`` at sigma 400 runs
+   the f32 split forward (plane 0 within 2e-2 of FFT_MXU) and the adjoint
+   backward; ``blur_u8(engine="cascade")`` at sigma 400 within 1 count;
+13. times (median of 20, of 5 for calls over 100 ms): K4 per axis, the
+   split forms per pass, the whole calls of phase 12, the plain versions
+   (the split's and the single-axis form's at HD), the yardsticks (reflect
+   pad + ``avg_pool2d`` per pass for K4, depthwise ``conv2d`` per axis with
+   TF32 off for the f32 form), and two sweeps in turns that set
+   ``utils/hw.py``'s ``box_scan_crossover_radius`` (box on the fused engine
+   against K4 at support 2..598) and ``fused_split_min_radius`` (the split
+   against the single kernels at r 332..598; and against FFT_MXU at r
+   665..1330, for the record).
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -62,6 +88,7 @@ It exits non-zero, printing no result, where no CUDA device is available.
 
 from __future__ import annotations
 
+import functools
 import json
 import subprocess
 import sys
@@ -82,6 +109,20 @@ SIGMA_U8_WIDE, SIGMA_F32_WIDE = 250.0, 400.0  # phase 9: r 831 and r 1330
 FFT_TOL = 2e-2  # FFT engines against plain versions and oracles, 0..255 scale
 # phase 10 sweep: support radius 32, 49, 65, 82, 119, 165, 332, 498, 598
 SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 100.0, 150.0, 180.0)
+BOX_NSMOOTH = 20.0  # phase 12: box_blur radius 400, support radius 800
+PANO_H, PANO_W = 2160, 15360  # phase 12: a panorama FFT_MXU cannot serve
+SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
+# phase 13 sweeps: box radius per pass (2 passes: support 2..598), and the
+# split against the single kernels (r 332, 498, 598) and against FFT_MXU
+# (r 665, 831, 1330)
+BOX_SWEEP_R = (1, 4, 16, 41, 82, 169, 225, 299)
+SPLIT_SWEEP_SIGMAS = (100.0, 150.0, 180.0)
+SPLIT_FFT_SIGMAS = (200.0, 250.0, 400.0)
+# phase 11 cases: K4 (radius per pass, passes) on HD planes; the int8 split
+# forms and K2's single-axis form as (frame shape, sigma)
+BOX_CASES = ((1, 2), (8, 1), (41, 2), (110, 3), (625, 2))
+SPLIT_CASES = ((HD, 1.0), (HD, 3.0), (HD, 50.0), (HD, 250.0), ((256, 4200), 600.0))
+AXIS_CASES = ((HD, 10.0), (HD, 400.0), ((96, 8400), 1200.0), ((8400, 96), 1200.0))
 
 
 def _bound_ms(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -540,8 +581,10 @@ def _sum_axes(a: dict, b: dict) -> dict:
 
 
 def _crossover_sweep(frames) -> dict:
-    """``blur_u8`` fused (K1) vs FFT_MXU and ``blur`` fused (K2) vs
-    FFT_MXU, in turns (fused, fft, fft, fused) at each radius; returns the
+    """``blur_u8`` fused vs FFT_MXU and ``blur`` fused vs FFT_MXU (the
+    fused engine as routed: K1 or K2, the two-pass split from the device's
+    measured split radius), in turns (fused, fft, fft, fused) at each
+    radius; returns the
     largest radius at which the fused engine is at least as fast, per input
     type (600 where it wins everywhere)."""
     from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
@@ -565,9 +608,9 @@ def _crossover_sweep(frames) -> dict:
             else:
                 all_win[kind] = False
         rows.append(line)
-        print(f"phase 10 crossover r={r} (sigma {sigma}): uint8 K1 "
+        print(f"phase 10 crossover r={r} (sigma {sigma}): uint8 fused "
               f"{line['u8_fused_ms']:.4f} vs FFT_MXU {line['u8_fft_mxu_ms']:.4f} ms; "
-              f"f32 K2 {line['f32_fused_ms']:.4f} vs FFT_MXU "
+              f"f32 fused {line['f32_fused_ms']:.4f} vs FFT_MXU "
               f"{line['f32_fft_mxu_ms']:.4f} ms", flush=True)
     out = {k: (600 if all_win[k] else best[k]) for k in best}
     print(f"phase 10 crossover: fused at least as fast up to r={out} "
@@ -678,6 +721,521 @@ def _slice3(frames) -> list[dict]:
     ]
 
 
+def _check(name: str, err: float, limit: float, line: str) -> float:
+    print(f"phase 11 {name} vs plain: {line} max_abs_err={err:.3e} limit={limit:.3e}",
+          flush=True)
+    if not err <= limit:
+        raise RuntimeError(f"{name} disagrees with its plain version: {line}")
+    return err
+
+
+def _phase11() -> dict:
+    """K4, the int8 split forms and K2's single-axis form against their
+    plain versions; returns the worst error of each."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import box_blur as k4
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    errs = {"box_scan": 0.0, "rows": 0.0, "cols": 0.0, "axis": 0.0}
+    u8, f32 = _case_frames(*HD, seed=300), _f32_planes(*HD, seed=301)
+    f32_limit = 1e-3 * float(f32.abs().max()) / 255
+    # K4: support (passes * r) 2, 8, 82, 330 and 1250 (clamped on the columns)
+    for r, passes in BOX_CASES:
+        for axis in (-1, -2):
+            worst = {}
+            for x, out_u8 in ((u8, False), (u8, True), (f32, False), (f32, True)):
+                got = k4.box_blur_scan_axis(x, r, passes, axis, out_u8)
+                want = k4.box_blur_scan_axis_ref(x, r, passes, axis, out_u8)
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                key = "uint8 out" if out_u8 else "f32 out"
+                worst[key] = max(worst.get(key, 0.0), err)
+                if not out_u8:
+                    errs["box_scan"] = max(errs["box_scan"], err)
+            _check("K4", worst["f32 out"], f32_limit,
+                   f"{HD} r={r} passes={passes} axis={axis} (uint8 and f32 in, f32 out)")
+            _check("K4", worst["uint8 out"], 1.0,
+                   f"{HD} r={r} passes={passes} axis={axis} (uint8 and f32 in, uint8 out)")
+    # the int8 split forms, bit-equal: row radius 2..1996
+    for shape, sigma in SPLIT_CASES:
+        plan = make_plan(shape, sigma)
+        rows, cols = fused_blur._split_plans(plan)
+        x = _case_frames(*shape, seed=302)
+        e = fs.fused_split_rows_int8(x, rows, out_e32=True)
+        y = fs.fused_split_rows_int8(x, rows, out_e32=False)
+        got = fs.fused_split_cols_int8(e, cols, out_u8=True)
+        checks = (
+            ("fused_split_rows_int8 (int16 E)", e, fs.fused_split_rows_int8_ref(x, rows, True)),
+            ("fused_split_rows_int8 (f32)", y, fs.fused_split_rows_int8_ref(x, rows, False)),
+            ("fused_split_cols_int8 (uint8)", got, fs.fused_split_cols_int8_ref(e, cols, True)),
+        )
+        torch.cuda.synchronize()
+        for name, a, b in checks:
+            err = float((a.double() - b.double()).abs().max())
+            errs["rows" if "rows" in name else "cols"] = max(
+                errs["rows" if "rows" in name else "cols"], err)
+            print(f"phase 11 {name} vs plain: {shape} sigma={sigma} "
+                  f"r=({plan.col.support_radius}, {plan.row.support_radius}) "
+                  f"equal={torch.equal(a, b)}", flush=True)
+            if not torch.equal(a, b):
+                raise RuntimeError(f"{name} is not bit-equal to its plain version")
+    # K2's single-axis form: r up to 3994, both axes, f32 and uint8 in
+    for shape, sigma in AXIS_CASES:
+        plan = make_plan(shape, sigma)
+        for axis_plan in fused_blur._split_plans(plan):
+            r = max(axis_plan.col.support_radius, axis_plan.row.support_radius)
+            for x in (_f32_planes(*shape, seed=303), _case_frames(*shape, seed=304)):
+                got = fused_blur.blur_fused_axis_f32(x, axis_plan)
+                want = fused_blur.blur_fused_f32_ref(x, axis_plan)
+                torch.cuda.synchronize()
+                err = float((got - want).abs().max())
+                errs["axis"] = max(errs["axis"], err)
+                _check("fused_blur_axis_f32", err, 1e-3 * float(x.float().abs().max()) / 255,
+                       f"{shape} {'rows' if axis_plan.row.support_radius else 'cols'} "
+                       f"r={r} {x.dtype} in")
+    return errs
+
+
+def _counters() -> list:
+    from blur_algorithms_tpu_torch.cuda_kernels import (
+        box_blur,
+        fft4step,
+        fused_blur,
+        fused_dma,
+        fused_split,
+        spectral_multiply,
+    )
+
+    return [fused_dma.blur_fused_u8_dma, fused_blur.blur_fused_f32,
+            fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed,
+            spectral_multiply.spectral_multiply_2d, box_blur.box_blur_scan_axis,
+            fused_split.fused_split_rows_int8, fused_split.fused_split_cols_int8,
+            fused_blur.blur_fused_axis_f32]
+
+
+def _launched(counters, before: dict | None = None) -> dict:
+    now = {c.__name__: c.launches for c in counters}
+    return now if before is None else {k: now[k] - before[k] for k in now}
+
+
+def _patch_check(out_hwc: torch.Tensor, img: np.ndarray, sigma: float, r: int,
+                 c0: int, width: int) -> tuple[int, float]:
+    """Columns [c0, c0 + width) of a full-height frame against the oracle on
+    the crop [c0 - r, c0 + width + r) (the fused engines are local: the
+    crop's own reflection does not reach the checked columns, except at the
+    frame's edges, where it is the frame's)."""
+    from blur_algorithms_tpu_torch import oracle
+
+    lo, hi = max(0, c0 - r), min(img.shape[1], c0 + width + r)
+    want = oracle.blur_u8(img[:, lo:hi], sigma)[:, c0 - lo : c0 - lo + width]
+    got = out_hwc[:, c0 : c0 + width].cpu().numpy()
+    d = np.abs(got.astype(int) - want.astype(int))
+    return int(d.max()), float((d == 0).mean())
+
+
+@functools.lru_cache(maxsize=1)
+def _panorama() -> np.ndarray:
+    """One (PANO_H, PANO_W, 3) uint8 frame from the benchmark's generator."""
+    from blur_algorithms_tpu_torch.utils.frames import make_frames
+
+    return np.ascontiguousarray(np.moveaxis(make_frames(1, PANO_H, PANO_W)[0], 0, -1))
+
+
+def _phase12(frames, counters) -> dict:
+    """The slice's paths at full width; returns the launches of each kernel
+    on them."""
+    from blur_algorithms_tpu_torch import blur, blur_u8, box_blur, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import Engine, _box_plan, _resolve_engine
+    from blur_algorithms_tpu_torch.cuda_kernels import box_blur as k4
+    from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
+
+    img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
+    x_u8 = torch.from_numpy(img).cuda()
+    x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    pano = _panorama()
+    x_pano = torch.from_numpy(pano).cuda()
+    torch.cuda.synchronize()
+    for c in counters:
+        c.launches = 0
+    k1 = counters[0]
+
+    radius = int(BOX_NSMOOTH * BOX_NSMOOTH)
+    before = _launched(counters)
+    out = box_blur(x_u8, BOX_NSMOOTH)
+    torch.cuda.synchronize()
+    ran = _launched(counters, before)
+    d = np.abs(out[0].cpu().numpy().astype(int) - oracle.box_blur_u8(img[0], radius).astype(int))
+    print(f"phase 12 main path: box_blur {tuple(x_u8.shape)} uint8 nsmooth={BOX_NSMOOTH} "
+          f"(support {2 * radius}): launches {ran}; frame 0 vs float64 box oracle "
+          f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+    if ran["box_blur_scan_axis"] != 2 or ran[k1.__name__] or d.max() > 1:
+        raise RuntimeError("box_blur on the uint8 batch did not run K4 twice within 1 count")
+    del out
+
+    out = box_blur(x, BOX_NSMOOTH)
+    want = k4.box_blur_scan_axis_ref(k4.box_blur_scan_axis_ref(x, radius, 2, -1), radius, 2, -2)
+    torch.cuda.synchronize()
+    err = float((out - want).abs().max())
+    limit = 1e-3 * float(x.abs().max()) / 255
+    xg = x[0, :, :HD[0], :HD[1]].contiguous().requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(8).random(xg.shape, dtype=np.float32)).cuda()
+    (box_blur(xg, BOX_NSMOOTH) * g).sum().backward()
+    gwant = blur_adjoint(g, _box_plan(HD[0], HD[1], radius, 2, "auto"))
+    torch.cuda.synchronize()
+    gerr = float((xg.grad - gwant).abs().max())
+    print(f"phase 12 main path: box_blur {tuple(x.shape)} f32 forward vs plain "
+          f"max_abs_err={err:.3e} limit={limit:.3e}; backward at HD vs blur_adjoint(g) "
+          f"max={gerr:.3e}", flush=True)
+    if not err <= limit or not gerr <= 1e-6 * float(gwant.abs().max()):
+        raise RuntimeError("box_blur on floats disagrees with its plain version or adjoint")
+    del out, want, xg, g, gwant
+
+    before = _launched(counters)
+    out = blur_u8(x_u8, SIGMA_U8_WIDE, engine="fused")
+    torch.cuda.synchronize()
+    ran = _launched(counters, before)
+    d = np.abs(out[0].cpu().numpy().astype(int)
+               - oracle.blur_u8(img[0], SIGMA_U8_WIDE).astype(int))
+    print(f"phase 12 main path: blur_u8 engine=fused {tuple(x_u8.shape)} "
+          f"sigma={SIGMA_U8_WIDE} (r {make_plan((H, W), SIGMA_U8_WIDE).row.support_radius}): "
+          f"launches {ran}; frame 0 vs oracle "
+          f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+    if (ran["fused_split_rows_int8"] != 1 or ran["fused_split_cols_int8"] != 1
+            or d.max() > 1):
+        raise RuntimeError("blur_u8 fused past r 600 did not run the int8 split within 1 count")
+    del out
+
+    plan = make_plan((PANO_H, PANO_W), SIGMA_U8_WIDE)
+    eng = _resolve_engine("auto", plan, 1, x_pano.device, 3)
+    before = _launched(counters)
+    out = blur_u8(x_pano, SIGMA_U8_WIDE)
+    torch.cuda.synchronize()
+    ran = _launched(counters, before)
+    r = plan.row.support_radius
+    patches = [_patch_check(out, pano, SIGMA_U8_WIDE, r, c0, 512)
+               for c0 in (0, PANO_W // 2 - 256, PANO_W - 512)]
+    print(f"phase 12 main path: blur_u8 AUTO panorama {tuple(x_pano.shape)} "
+          f"sigma={SIGMA_U8_WIDE} r={r} -> {eng.value}; launches {ran}; full-height "
+          f"patches of 512 columns (left edge, middle, right edge) vs oracle "
+          f"(max, exact) {patches}", flush=True)
+    if (eng is not Engine.FUSED or ran["fused_split_rows_int8"] != 1
+            or ran["fused_split_cols_int8"] != 1 or max(p[0] for p in patches) > 1):
+        raise RuntimeError("the panorama did not run the int8 split within 1 count")
+    del out, x_pano
+
+    xg = x.clone().requires_grad_()
+    g = torch.from_numpy(np.random.default_rng(9).random(x.shape, dtype=np.float32)).cuda()
+    before = _launched(counters)
+    y = blur(xg, SIGMA_F32_WIDE, engine="fused")
+    torch.cuda.synchronize()
+    ran = _launched(counters, before)
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    check = dict(_launched(counters))
+    plan = make_plan((H, W), SIGMA_F32_WIDE)
+    gwant = blur_adjoint(g, plan)
+    ref0 = blur(x[0, :1], SIGMA_F32_WIDE, engine="fft_mxu")
+    torch.cuda.synchronize()
+    for c in counters:  # the checks' launches are not the path's
+        c.launches = check[c.__name__]
+    gerr = float((xg.grad - gwant).abs().max())
+    d0 = float((y[0, 0].detach() - ref0[0]).abs().max())
+    print(f"phase 12 main path: blur engine=fused {tuple(x.shape)} f32 "
+          f"sigma={SIGMA_F32_WIDE} (r {plan.row.support_radius}) forward launches {ran}; plane 0 vs "
+          f"FFT_MXU max={d0:.3e} limit={FFT_TOL}; x.grad vs blur_adjoint(g) "
+          f"max={gerr:.3e}", flush=True)
+    if ran["blur_fused_axis_f32"] != 2 or not d0 <= FFT_TOL:
+        raise RuntimeError("blur fused past r 600 did not run the f32 split within 2e-2")
+    if not gerr <= 1e-6 * float(gwant.abs().max()):
+        raise RuntimeError(f"x.grad differs from blur_adjoint(g) by {gerr}")
+    del xg, y, g, gwant
+
+    before = _launched(counters)
+    out = blur_u8(x_u8, SIGMA_CASCADE, engine="cascade")
+    torch.cuda.synchronize()
+    ran = _launched(counters, before)
+    d = np.abs(out[0].cpu().numpy().astype(int)
+               - oracle.blur_u8(img[0], SIGMA_CASCADE).astype(int))
+    print(f"phase 12 main path: blur_u8 engine=cascade {tuple(x_u8.shape)} "
+          f"sigma={SIGMA_CASCADE} (one step): launches {ran}; frame 0 vs "
+          f"oracle max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+    if ran["blur_fused_axis_f32"] != 2 or d.max() > 1:
+        raise RuntimeError("the cascade did not run the f32 split within 1 count")
+    launched = _launched(counters)
+    print(f"phase 12 launches on the slice's paths: {launched}", flush=True)
+    for name in ("box_blur_scan_axis", "fused_split_rows_int8", "fused_split_cols_int8",
+                 "blur_fused_axis_f32"):
+        if launched[name] < 1:
+            raise RuntimeError(f"{name} was not launched on the main path")
+    return launched
+
+
+def _in_turns(label: str, fns: dict, *args) -> dict:
+    """Each of two calls timed in turns (a, b, b, a); the mean of the two
+    medians of each."""
+    (na, fa), (nb, fb) = fns.items()
+    t = {na: [], nb: []}
+    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
+        t[name].append(_time(fn, *args, name=f"{label} {name}").median_ms)
+    return {k: float(np.mean(v)) for k, v in t.items()}
+
+
+def _sweeps(frames) -> dict:
+    """Phase 13's two in-turn sweeps; returns the tables and the radii they
+    set in ``utils/hw.py``."""
+    from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
+    from blur_algorithms_tpu_torch.api import Engine, _box_plan, _box_u8, _blur_planar
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
+
+    x_u8 = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).cuda()
+    x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    box, fused_ok = [], {"u8": True, "f32": True}
+    best = {"u8": None, "f32": None}
+    for r in BOX_SWEEP_R:
+        plan = _box_plan(H, W, r, 2, "auto")
+        line = {"support": 2 * r}
+        # the single fused kernels (K1, K2) against the box as routed to K4
+        line.update({f"u8_{k}": v for k, v in _in_turns(
+            f"box u8 support={2 * r}",
+            {"fused": lambda t: from_planar(fused_dma.blur_fused_u8_dma(to_planar(t, torch.uint8), plan)),
+             "scan": lambda t: _box_u8(t, plan, Engine.BOX_SCAN)}, x_u8).items()})
+        line.update({f"f32_{k}": v for k, v in _in_turns(
+            f"box f32 support={2 * r}",
+            {"fused": lambda t: fused_blur.blur_fused_f32(t, plan),
+             "scan": lambda t: _blur_planar(t, plan, Engine.BOX_SCAN)}, x).items()})
+        for kind in ("u8", "f32"):
+            if line[f"{kind}_fused"] <= line[f"{kind}_scan"] and fused_ok[kind]:
+                best[kind] = 2 * r
+            else:
+                fused_ok[kind] = False
+        box.append(line)
+        print(f"phase 13 box sweep support={2 * r}: uint8 K1 {line['u8_fused']:.4f} vs "
+              f"K4 {line['u8_scan']:.4f} ms; f32 K2 {line['f32_fused']:.4f} vs K4 "
+              f"{line['f32_scan']:.4f} ms", flush=True)
+    box_cross = min((b or 0) for b in best.values())
+
+    planar_u8 = x_u8.movedim(-1, -3).contiguous()
+    split = []
+    wins_from = {"u8": None, "f32": None}
+    for sigma in SPLIT_SWEEP_SIGMAS:
+        plan = make_plan((H, W), sigma)
+        r = plan.row.support_radius
+        line = {"r": r}
+        line.update({f"u8_{k}": v for k, v in _in_turns(
+            f"split u8 r={r}",
+            {"single": lambda t: fused_dma.blur_fused_u8_dma(t, plan),
+             "split": lambda t: fused_blur._blur_fused_split(t, plan, "int8", True)},
+            planar_u8).items()})
+        line.update({f"f32_{k}": v for k, v in _in_turns(
+            f"split f32 r={r}",
+            {"single": lambda t: fused_blur.blur_fused_f32(t, plan),
+             "split": lambda t: fused_blur._blur_fused_split(t, plan, "bf16x3", False)},
+            x).items()})
+        for kind in ("u8", "f32"):
+            if line[f"{kind}_split"] < line[f"{kind}_single"]:
+                wins_from[kind] = wins_from[kind] or r
+            else:
+                wins_from[kind] = None
+        split.append(line)
+        print(f"phase 13 split sweep r={r}: uint8 K1 {line['u8_single']:.4f} vs int8 "
+              f"split {line['u8_split']:.4f} ms; f32 K2 {line['f32_single']:.4f} vs "
+              f"f32 split {line['f32_split']:.4f} ms", flush=True)
+    split_min = (None if None in wins_from.values() else max(wins_from.values()))
+    for sigma in SPLIT_FFT_SIGMAS:
+        r = make_plan((H, W), sigma).row.support_radius
+        line = {"r": r}
+        line.update({f"u8_{k}": v for k, v in _in_turns(
+            f"split vs fft u8 r={r}",
+            {"split": lambda t: blur_u8(t, sigma, "fused"),
+             "fft_mxu": lambda t: blur_u8(t, sigma, "fft_mxu")}, x_u8).items()})
+        line.update({f"f32_{k}": v for k, v in _in_turns(
+            f"split vs fft f32 r={r}",
+            {"split": lambda t: blur(t, sigma, "fused"),
+             "fft_mxu": lambda t: blur(t, sigma, "fft_mxu")}, x).items()})
+        split.append(line)
+        print(f"phase 13 split vs FFT_MXU r={r}: uint8 split {line['u8_split']:.4f} vs "
+              f"FFT_MXU {line['u8_fft_mxu']:.4f} ms; f32 split {line['f32_split']:.4f} vs "
+              f"FFT_MXU {line['f32_fft_mxu']:.4f} ms", flush=True)
+    out = {"box": box, "box_fused_best": best, "box_scan_crossover_radius": box_cross,
+           "split": split, "fused_split_min_radius": split_min}
+    print(f"phase 13 sweeps set: box_scan_crossover_radius={box_cross} (largest "
+          f"support at which the fused engine is at least as fast: {best}); "
+          f"fused_split_min_radius={split_min} (utils/hw.py)", flush=True)
+    return out
+
+
+def _slice4(frames) -> list[dict]:
+    """Phases 11-13; returns the entries of K4, the two int8 split forms and
+    K2's single-axis form for the kernels line."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch import blur, blur_u8, box_blur, make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import box_blur as k4
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    errs = _phase11()
+    counters = _counters()
+    launched = _phase12(frames, counters)
+
+    # ---- phase 13: times ----
+    mp = BATCH * H * W / 1e6
+    outputs = BATCH * 3 * H * W
+    img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
+    x_u8 = torch.from_numpy(img).cuda()
+    planar_u8 = x_u8.movedim(-1, -3).contiguous()
+    x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    hd_u8 = planar_u8[0, :, :HD[0], :HD[1]].contiguous()
+    hd_f32 = x[0, :, :HD[0], :HD[1]].contiguous()
+    radius = int(BOX_NSMOOTH * BOX_NSMOOTH)
+    rows_f32 = k4.box_blur_scan_axis(planar_u8, radius, 2, -1)
+    t_k4 = {
+        "rows u8->f32": _time(k4.box_blur_scan_axis, planar_u8, radius, 2, -1,
+                              name="K4 rows uint8 -> f32"),
+        "cols f32->u8": _time(k4.box_blur_scan_axis, rows_f32, radius, 2, -2, True,
+                              name="K4 cols f32 -> uint8"),
+        "rows f32": _time(k4.box_blur_scan_axis, x, radius, 2, -1, name="K4 rows f32"),
+        "cols f32": _time(k4.box_blur_scan_axis, x, radius, 2, -2, name="K4 cols f32"),
+    }
+    p_k4 = {
+        "rows u8->f32": _time(k4.box_blur_scan_axis_ref, planar_u8, radius, 2, -1,
+                              name="K4 plain rows uint8 -> f32"),
+        "cols f32->u8": _time(k4.box_blur_scan_axis_ref, rows_f32, radius, 2, -2, True,
+                              name="K4 plain cols f32 -> uint8"),
+    }
+    w = 2 * radius + 1
+
+    def pool(t, axis):  # the yardstick: reflect pad + avg_pool2d, per pass
+        for _ in range(2):
+            if axis == -1:
+                t = F.avg_pool2d(F.pad(t, (radius, radius, 0, 0), mode="reflect"), (1, w), 1)
+            else:
+                t = F.avg_pool2d(F.pad(t, (0, 0, radius, radius), mode="reflect"), (w, 1), 1)
+        return t
+
+    lib_k4 = {"rows": _time(pool, x, -1, name="K4 yardstick rows: reflect F.pad + avg_pool2d x2"),
+              "cols": _time(pool, x, -2, name="K4 yardstick cols: reflect F.pad + avg_pool2d x2")}
+    for res in (*t_k4.values(), *p_k4.values(), *lib_k4.values()):
+        print(f"phase 13 time: {res}", flush=True)
+    del rows_f32
+    k4_ms = t_k4["rows u8->f32"].median_ms + t_k4["cols f32->u8"].median_ms
+    k4_bound, k4_by = _bound_ms(10 * outputs, 8 * outputs, F32_FLOP_PER_S)
+    print(f"phase 13 K4 uint8 box_blur (support {2 * radius}): {k4_ms:.4f} ms for both "
+          f"axes; bound {k4_bound:.4f} ms ({k4_by}); f32 bound "
+          f"{_bound_ms(16 * outputs, 8 * outputs, F32_FLOP_PER_S)[0]:.4f} ms", flush=True)
+
+    plan = make_plan((H, W), SIGMA_U8_WIDE)
+    rows, cols = fused_blur._split_plans(plan)
+    e = fs.fused_split_rows_int8(planar_u8, rows)
+    t_rows = _time(fs.fused_split_rows_int8, planar_u8, rows, name=f"int8 split rows (E out) r={plan.row.support_radius}")
+    t_cols = _time(fs.fused_split_cols_int8, e, cols, name=f"int8 split cols (E in) r={plan.col.support_radius}")
+    hd_plan = make_plan(HD, SIGMA_U8_WIDE)
+    hd_rows, hd_cols = fused_blur._split_plans(hd_plan)
+    hd_e = fs.fused_split_rows_int8(hd_u8, hd_rows)
+    p_rows = _time(fs.fused_split_rows_int8_ref, hd_u8, hd_rows,
+                   name=f"int8 split rows plain version at {HD}")
+    p_cols = _time(fs.fused_split_cols_int8_ref, hd_e, hd_cols,
+                   name=f"int8 split cols plain version at {HD}")
+    k_rows_hd = _time(fs.fused_split_rows_int8, hd_u8, hd_rows, name=f"int8 split rows at {HD}")
+    k_cols_hd = _time(fs.fused_split_cols_int8, hd_e, hd_cols, name=f"int8 split cols at {HD}")
+    del e
+    taps = 2 * plan.row.support_radius + 1
+    b_rows = _bound_ms(3 * outputs, 2 * outputs * 2 * taps, INT8_OP_PER_S)
+    b_cols = _bound_ms(3 * outputs, 2 * outputs * 4 * taps, INT8_OP_PER_S)
+
+    plan = make_plan((H, W), SIGMA_F32_WIDE)
+    rows4, cols4 = fused_blur._split_plans(plan)
+    y = fused_blur.blur_fused_axis_f32(x, rows4)
+    t_ax_rows = _time(fused_blur.blur_fused_axis_f32, x, rows4, name=f"f32 single-axis rows r={plan.row.support_radius}")
+    t_ax_cols = _time(fused_blur.blur_fused_axis_f32, y, cols4, name=f"f32 single-axis cols r={plan.col.support_radius}")
+    hd4 = make_plan(HD, SIGMA_F32_WIDE)
+    hd_rows4, hd_cols4 = fused_blur._split_plans(hd4)
+    p_ax = _time(lambda t: (fused_blur.blur_fused_f32_ref(t, hd_rows4),
+                            fused_blur.blur_fused_f32_ref(t, hd_cols4)),
+                 hd_f32, name=f"f32 single-axis plain version, both axes, at {HD}")
+    k_ax_hd = _time(lambda t: (fused_blur.blur_fused_axis_f32(t, hd_rows4),
+                               fused_blur.blur_fused_axis_f32(t, hd_cols4)),
+                    hd_f32, name=f"f32 single-axis kernel, both axes, at {HD}")
+    c = x.shape[1]
+    wr = torch.from_numpy(plan.row.taps).cuda().view(1, 1, 1, -1).repeat(c, 1, 1, 1)
+    wc = torch.from_numpy(plan.col.taps).cuda().view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+    rr = plan.row.support_radius
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        l_rows = _time(lambda t: F.conv2d(F.pad(t, (rr, rr, 0, 0), mode="reflect"), wr, groups=c),
+                       x, name="f32 yardstick rows: reflect F.pad + depthwise conv2d (TF32 off)")
+        l_cols = _time(lambda t: F.conv2d(F.pad(t, (0, 0, rr, rr), mode="reflect"), wc, groups=c),
+                       y, name="f32 yardstick cols: reflect F.pad + depthwise conv2d (TF32 off)")
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    del y
+    ax_bound = _bound_ms(2 * 8 * outputs, 2 * 2 * outputs * (2 * rr + 1), F32_FLOP_PER_S)
+    for res in (t_rows, t_cols, k_rows_hd, k_cols_hd, p_rows, p_cols, t_ax_rows, t_ax_cols,
+                k_ax_hd, p_ax, l_rows, l_cols):
+        print(f"phase 13 time: {res}", flush=True)
+
+    x_pano = torch.from_numpy(_panorama()).cuda()
+    gt = torch.ones_like(x)
+
+    def fwd_bwd(t):
+        t = t.detach().requires_grad_()
+        blur(t, SIGMA_F32_WIDE, "fused").backward(gt)
+        return t.grad
+
+    calls = [
+        _time(box_blur, x_u8, BOX_NSMOOTH, name=f"box_blur uint8 nsmooth={BOX_NSMOOTH}", mp=mp),
+        _time(box_blur, x, BOX_NSMOOTH, name=f"box_blur f32 nsmooth={BOX_NSMOOTH}", mp=mp),
+        _time(blur_u8, x_u8, SIGMA_U8_WIDE, "fused",
+              name=f"blur_u8 fused sigma={SIGMA_U8_WIDE}", mp=mp),
+        _time(blur_u8, x_pano, SIGMA_U8_WIDE, name=f"blur_u8 AUTO panorama sigma={SIGMA_U8_WIDE}",
+              mp=PANO_H * PANO_W / 1e6),
+        _time(blur, x, SIGMA_F32_WIDE, "fused", name=f"blur fused forward sigma={SIGMA_F32_WIDE}",
+              mp=mp),
+        _time(fwd_bwd, x, name=f"blur fused forward + backward sigma={SIGMA_F32_WIDE}", mp=mp),
+        _time(blur_u8, x_u8, SIGMA_CASCADE, "cascade",
+              name=f"blur_u8 cascade sigma={SIGMA_CASCADE}", mp=mp),
+    ]
+    for res in calls:
+        print(f"phase 13 time: {res}", flush=True)
+    del x, x_u8, planar_u8, x_pano, gt
+    torch.cuda.empty_cache()
+    sweeps = _sweeps(frames)
+    print("phase 13 sweep " + json.dumps(sweeps), flush=True)
+
+    def entry(name, src, line, launches, ms, plain_ms, bound, err, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": src, "replaces": line,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+                **extra}
+
+    hd = f"{HD[0]}x{HD[1]}x3"
+    return [
+        entry("box_scan", "blur_algorithms_tpu_torch/csrc/box_scan.cu",
+              "blur_algorithms_tpu/pallas_kernels/box_blur_pallas.py:88",
+              launched["box_blur_scan_axis"], k4_ms,
+              p_k4["rows u8->f32"].median_ms + p_k4["cols f32->u8"].median_ms,
+              (k4_bound, k4_by), errs["box_scan"],
+              lib_k4["rows"].median_ms + lib_k4["cols"].median_ms),
+        entry("fused_split_rows_int8", "blur_algorithms_tpu_torch/csrc/fused_split.cu",
+              "blur_algorithms_tpu/pallas_kernels/fused_blur.py:218",
+              launched["fused_split_rows_int8"], t_rows.median_ms, p_rows.median_ms,
+              b_rows, errs["rows"], None, plain_at=hd, ms_at_plain_shape=k_rows_hd.median_ms),
+        entry("fused_split_cols_int8", "blur_algorithms_tpu_torch/csrc/fused_split.cu",
+              "blur_algorithms_tpu/pallas_kernels/fused_blur.py:218",
+              launched["fused_split_cols_int8"], t_cols.median_ms, p_cols.median_ms,
+              b_cols, errs["cols"], None, plain_at=hd, ms_at_plain_shape=k_cols_hd.median_ms),
+        entry("fused_blur_axis_f32", "blur_algorithms_tpu_torch/csrc/fused_blur.cu",
+              "blur_algorithms_tpu/pallas_kernels/fused_blur.py:136",
+              launched["blur_fused_axis_f32"], t_ax_rows.median_ms + t_ax_cols.median_ms,
+              p_ax.median_ms, ax_bound, errs["axis"],
+              l_rows.median_ms + l_cols.median_ms, plain_at=hd,
+              ms_at_plain_shape=k_ax_hd.median_ms),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -767,6 +1325,7 @@ def main() -> int:
 
     k2 = _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing)
     fft_kernels = _slice3(frames)
+    slice4_kernels = _slice4(frames)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -793,7 +1352,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-    }, k2, *fft_kernels]}), flush=True)
+    }, k2, *fft_kernels, *slice4_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

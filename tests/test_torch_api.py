@@ -87,26 +87,68 @@ def test_blur_u8_launches_nothing_on_the_cpu():
     assert t_dma.blur_fused_u8_dma.launches == before
 
 
+def _served_split_u8(x):
+    # r 650 on the rows of a thin frame: the int8 two-pass split
+    img = x[:, :24].contiguous()
+    got = port.blur_u8(img, 200.0, engine="fused")
+    want = oracle.blur_u8(img[0].numpy(), 200.0)
+    assert np.abs(got[0].numpy().astype(int) - want.astype(int)).max() <= 1
+
+
+def _served_split_f32(x):
+    # an FFT_MXU transform past 16384 on a frame the split serves
+    out = api.blur(torch.zeros(()).expand(1, 8, 20000), 200.0)
+    assert out.shape == (1, 8, 20000) and not bool(out.abs().max())
+
+
+def _served_box_scan(x):
+    # box support radius 1250 > 600: the scan, K4's plain version here
+    out = api.box_blur(x, 25.0)
+    assert out.shape == x.shape and out.dtype == torch.uint8
+    assert not bool(out.any())
+
+
+_SERVED = (_served_split_u8, _served_split_f32, _served_box_scan)
+
+
 @pytest.mark.parametrize("call", [
-    # AUTO past radius 600 and past FFT_MXU's byte budget (expanded: no memory)
+    # AUTO past radius 600 and past FFT_MXU's byte budget and the split's
+    # (expanded: no memory)
     lambda x: port.blur_u8(x.expand(400, -1, -1, -1), 200.0),
-    lambda x: port.blur_u8(x, 200.0, engine="fused"),
-    # an FFT_MXU transform past 16384
-    lambda x: api.blur(torch.zeros(()).expand(1, 8, 20000), 200.0),
+    pytest.param(_served_split_u8, id="<lambda>1"),
+    pytest.param(_served_split_f32, id="<lambda>2"),
     lambda x: port.blur_u8(x, 3.0, precision="hybrid"),
-    # float past radius 600 and past FFT_MXU's byte budget
+    # float past radius 600 and past both budgets
     lambda x: api.blur(x[..., 0].float().expand(2000, -1, -1), 200.0),
-    lambda x: api.box_blur(x, 25.0),  # box support radius 1250 > 600
+    pytest.param(_served_box_scan, id="<lambda>5"),
 ])
 def test_outside_the_domain_raises(call):
+    """Calls outside the port's domain raise; the cases that this slice
+    serves (the split past r 600, K4 past r 600) hold their results."""
     x = torch.zeros((1, 1300, 1300, 3), dtype=torch.uint8)  # sigma 200: r = 650
+    if call in _SERVED:
+        call(x)
+        return
     with pytest.raises(NotImplementedError):
         call(x)
 
 
-@pytest.mark.parametrize("engine", list(api._ENGINE_ITEMS))
+_PORTED_BY_SLICE_4 = {api.Engine.BOX, api.Engine.BOX_SCAN, api.Engine.CASCADE}
+
+
+@pytest.mark.parametrize("engine", [
+    api.Engine.FFT_STREAM, api.Engine.BOX, api.Engine.BOX_SCAN, api.Engine.CONV,
+    api.Engine.CASCADE, api.Engine.DERICHE,
+])
 def test_unported_engines_raise(engine):
+    """The engines not ported raise naming themselves; box, box_scan and
+    cascade are ported and return a blurred frame."""
     x = torch.zeros((20, 30, 3), dtype=torch.uint8)
+    if engine in _PORTED_BY_SLICE_4:
+        out = port.blur_u8(x + 7, 2.0, engine=engine)
+        assert out.shape == x.shape and bool((out == 7).all())
+        return
+    assert engine in api._ENGINE_ITEMS
     with pytest.raises(NotImplementedError, match=engine.value):
         port.blur_u8(x, 2.0, engine=engine)
 

@@ -231,3 +231,86 @@ def test_fft_engines_on_the_card_match_the_cpu(cuda_device):
         got = convolve_separable(x.to(cuda_device), taps_r, taps_c, engine=engine)
         want = convolve_separable(x, taps_r, taps_c, engine=engine)
         assert float((got.cpu() - want).abs().max()) <= 2e-2, engine
+
+
+# ---------------------------------------------------------------------------
+# K4 (box scan), the int8 split forms and K2's single-axis wide form against
+# their plain versions. K4 and its plain version both sum in float64 and
+# round each pass to f32: f32 within 1e-3 * max|x| / 255, uint8 within 1.
+# The int8 forms are bit-equal; the f32 single-axis form reproduces K2's
+# fmaf order (within 1e-3 * max|x| / 255).
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, r, passes", [
+    ((3, 257, 1920), 5, 2), ((3, 1080, 301), 40, 3), ((2, 64, 9000), 1700, 2),
+    ((2, 33, 20000), 4000, 3), ((3, 120, 130), 200, 1),
+], ids=["small", "3-pass", "tiled-rows", "lines-rows", "clamped"])
+@pytest.mark.parametrize("axis", [-1, -2])
+def test_k4_against_plain_version_on_the_card(cuda_device, shape, r, passes, axis):
+    from blur_algorithms_tpu_torch.cuda_kernels import box_blur as k4
+
+    for x in (_planes(shape, seed=21), _f32_planes(shape, seed=22)):
+        x = x.to(cuda_device)
+        for out_u8 in (False, True):
+            before = k4.box_blur_scan_axis.launches
+            got = k4.box_blur_scan_axis(x, r, passes, axis, out_u8=out_u8)
+            want = k4.box_blur_scan_axis_ref(x, r, passes, axis, out_u8=out_u8)
+            torch.cuda.synchronize()
+            assert k4.box_blur_scan_axis.launches == before + 1
+            d = float((got.double() - want.double()).abs().max())
+            assert d <= (1 if out_u8 else 1e-3 * float(x.float().abs().max()) / 255)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [
+    ((300, 517), 3.0), ((1080, 1920), 250.0), ((64, 5000), 1000.0), ((301, 2500), (150.0, 700.0)),
+])
+def test_int8_split_forms_equal_plain_versions_on_the_card(cuda_device, shape, sigma):
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    plan = make_plan(shape, sigma)
+    rows, cols = fused_blur._split_plans(plan)
+    x = _planes((3, *shape), seed=23).to(cuda_device)
+    e = fs.fused_split_rows_int8(x, rows, out_e32=True)
+    assert torch.equal(e, fs.fused_split_rows_int8_ref(x, rows, out_e32=True))
+    y = fs.fused_split_rows_int8(x, rows, out_e32=False)
+    assert torch.equal(y, fs.fused_split_rows_int8_ref(x, rows, out_e32=False))
+    for out_u8 in (True, False):
+        got = fs.fused_split_cols_int8(e, cols, out_u8=out_u8)
+        assert torch.equal(got, fs.fused_split_cols_int8_ref(e, cols, out_u8=out_u8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [
+    ((300, 517), 3.0), ((1080, 1920), 400.0), ((64, 9000), 1200.0),
+])
+@pytest.mark.parametrize("in_u8", [False, True])
+def test_k2_single_axis_form_on_the_card(cuda_device, shape, sigma, in_u8):
+    plan = make_plan(shape, sigma)
+    x = (_planes if in_u8 else _f32_planes)((3, *shape), seed=24).to(cuda_device)
+    for axis_plan in fused_blur._split_plans(plan):
+        for out_u8 in (False, True):
+            before = fused_blur.blur_fused_axis_f32.launches
+            got = fused_blur.blur_fused_axis_f32(x, axis_plan, out_u8=out_u8)
+            want = fused_blur.blur_fused_f32_ref(x, axis_plan, out_u8=out_u8)
+            torch.cuda.synchronize()
+            assert fused_blur.blur_fused_axis_f32.launches == before + 1
+            d = float((got.double() - want.double()).abs().max())
+            assert d <= (1 if out_u8 else 1e-3 * float(x.float().abs().max()) / 255)
+
+
+@pytest.mark.cuda
+def test_slice_4_paths_on_the_card_match_the_cpu(cuda_device):
+    from blur_algorithms_tpu_torch import box_blur
+
+    img = _planes((1, 48, 1400, 3), seed=25)
+    for call in (lambda t: blur_u8(t, 200.0, engine="fused"),
+                 lambda t: box_blur(t, 25.0),
+                 lambda t: blur_u8(t, 30.0, engine="cascade")):
+        got = call(img.to(cuda_device))
+        torch.cuda.synchronize()
+        assert int((got.cpu().int() - call(img).int()).abs().max()) <= 1
+    x = _f32_planes((2, 48, 1400), seed=26)
+    got = blur(x.to(cuda_device), 200.0, engine="fused")
+    assert float((got.cpu() - blur(x, 200.0, engine="fused")).abs().max()) <= 1e-3

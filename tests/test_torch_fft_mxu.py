@@ -304,12 +304,19 @@ def test_resolve_engine_on_the_cpu_keeps_the_fused_domain():
     (lambda: port.blur(torch.zeros(()).expand(64, 3, 2000, 2000), 250.0), "budget"),
     (lambda: port.blur(torch.zeros(()).expand(64, 3, 2000, 2000), 5.0,
                        engine="fft_mxu"), "budget"),
-    # a transform past 16384
-    (lambda: port.blur(torch.zeros(()).expand(1, 8, 20000), 200.0), "16384"),
-    (lambda: port.blur(torch.zeros(()).expand(1, 8, 20000), 3.0, engine="fft_mxu"),
-     "16384"),
+    # a transform past 16384: AUTO hands the frame to the fused engine's
+    # two-pass split (served since it was ported, so this case holds the
+    # result); a pinned FFT_MXU raises
+    pytest.param(lambda: port.blur(torch.zeros(()).expand(1, 8, 20000), 200.0), None,
+                 id="<lambda>-16384_0"),
+    pytest.param(lambda: port.blur(torch.zeros(()).expand(1, 8, 20000), 3.0,
+                                   engine="fft_mxu"), "16384", id="<lambda>-16384_1"),
 ])
 def test_fft_mxu_refuses_what_it_cannot_serve(call, match):
+    if match is None:
+        out = call()
+        assert out.shape == (1, 8, 20000) and not bool(out.abs().max())
+        return
     with pytest.raises(NotImplementedError, match=match):
         call()
 

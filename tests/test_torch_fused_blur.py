@@ -166,10 +166,15 @@ def test_wrapper_rejects_bad_inputs():
         t_fused.blur_fused_f32(torch.zeros((3, 24, 41)), plan)
     with pytest.raises(ValueError):  # neither CUDA nor CPU: no silent move
         t_fused.blur_fused_f32(torch.zeros((3, 24, 40), device="meta"), plan)
-    wide = t_plan.make_plan((1400, 1400), 200.0)  # r = 665
-    for fn in (t_fused.blur_fused_f32, t_fused.blur_fused_f32_ref, t_fused.blur_fused):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    wide = t_plan.make_plan((1400, 1400), 200.0)  # r = 665 on both axes
+    for fn in (t_fused.blur_fused_f32, t_fused.blur_fused_f32_ref):
+        with pytest.raises(NotImplementedError, match="two-pass split"):
             fn(torch.zeros((1, 1400, 1400)), wide)
+    # blur_fused serves it through the split (a thin frame keeps it cheap)
+    thin = t_plan.make_plan((12, 1400), 200.0)
+    x = torch.from_numpy(_input(thin.shape, "f32", seed=3))
+    np.testing.assert_allclose(t_fused.blur_fused(x, thin).numpy(),
+                               oracle.blur_direct(x.numpy(), thin), rtol=0, atol=1e-3)
 
 
 @pytest.mark.parametrize("spec, kernel", [

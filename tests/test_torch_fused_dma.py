@@ -147,8 +147,8 @@ def test_kernel_sources_are_built_from_csrc():
     from blur_algorithms_tpu_torch.utils import build
 
     sources = sorted(p.name for p in (build._CSRC).glob("*.cu"))
-    assert sources == ["fft4step.cu", "fused_blur.cu", "fused_dma.cu",
-                       "spectral_multiply.cu"]
+    assert sources == ["box_scan.cu", "fft4step.cu", "fused_blur.cu", "fused_dma.cu",
+                       "fused_split.cu", "spectral_multiply.cu"]
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.build_dir().name == "build"
@@ -157,6 +157,8 @@ def test_kernel_sources_are_built_from_csrc():
     assert "fused_dma.py:_kernel_direct" in text
     text = (build._CSRC / "fused_blur.cu").read_text()
     assert "fused_blur.py:_kernel" in text and "fused_dma.py:_tile_bf16x3" in text
+    assert "box_blur_pallas.py:_kernel" in (build._CSRC / "box_scan.cu").read_text()
+    assert "fused_blur.py:_kernel_int8" in (build._CSRC / "fused_split.cu").read_text()
     text = (build._CSRC / "fft4step.cu").read_text()
     assert "fft4step.py:_kernel" in text and ":_kernel_framed" in text
     text = (build._CSRC / "spectral_multiply.cu").read_text()
