@@ -7,10 +7,12 @@ engines:
 - ``blur_u8`` / ``gaussian_blur`` on uint8 ``(..., H, W, C)`` frames: AUTO
   resolves to the fused engine up to the device's fused/FFT crossover
   (``utils/hw.DeviceSpec.auto_fused_max_radius_u8``) and to FFT_MXU past
-  it. In the fused engine the precision ladder picks the exact int8 rung
-  (K1, ``cuda_kernels/fused_dma.py``) where it applies and the bf16x3 rung
-  (K2, ``cuda_kernels/fused_blur.py``) elsewhere; ``precision=`` pins a
-  rung. FFT_MXU runs the four-step FFT convolution (K3f/K3,
+  it. In the fused engine the precision ladder picks the hybrid rung (K1's
+  hybrid body, ``cuda_kernels/fused_dma.py``), then the bf16 rung (K1's
+  bf16 body), each only inside the floor the device certified for the
+  plan's tap family (``utils/hw.DeviceSpec``), else the exact int8 rung
+  (K1) where it applies and the bf16x3 rung (K2,
+  ``cuda_kernels/fused_blur.py``) elsewhere; ``precision=`` pins a rung. FFT_MXU runs the four-step FFT convolution (K3f/K3,
   ``cuda_kernels/fft4step.py``) on planar float32 and rounds back to uint8;
 - ``blur`` / ``gaussian_blur`` on float planar ``(..., H, W)``: the same
   routing (``auto_fused_max_radius_f32``); K2 and FFT_MXU are
@@ -54,6 +56,10 @@ from blur_algorithms_tpu_torch.cuda_kernels.box_blur import (
     box_blur_scan_u8,
 )
 from blur_algorithms_tpu_torch.cuda_kernels.fft4step import MAX_N, blur_fft_mxu_cuda
+from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
+    blur_fused_u8_hybrid,
+    dma_form_applicable,
+)
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
     MAX_RADIUS,
     SPLIT_MAX_RADIUS,
@@ -256,29 +262,35 @@ def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tenso
 
 
 def _u8_dma_precision(plan: BlurPlan, spec: DeviceSpec) -> str:
-    """Precision rung for uint8 frames on this device and plan: the fastest
-    rung certified on the device, else exact ``"int8"`` where the
+    """Precision rung for uint8 frames on this device and plan (the JAX
+    rule): ``"hybrid"`` where the device's hybrid floor for the plan's tap
+    family is set, the taps are gaussian or box, the min-axis radius is at
+    or past the floor and K1's hybrid body serves the plan; then ``"bf16"``
+    under the same rule with the device's bf16 floor (one floor for both
+    families, as in the JAX package); else exact ``"int8"`` where the
     fixed-point path applies, else ``"bf16x3"`` (signed or custom taps, a
     radius-0 row axis)."""
     r = min(plan.col.support_radius, plan.row.support_radius)
     if plan.kernel in ("gaussian", "box_fast"):
-        for rung, floor in (("hybrid", spec.hybrid_cert_min_radius),
-                            ("bf16", spec.bf16_cert_min_radius)):
-            if floor is not None and r >= floor:
+        for rung, floor in (("hybrid", spec.hybrid_min_radius_for(plan.kernel)),
+                            ("bf16", spec.bf16_min_radius)):
+            if (floor is not None and r >= floor
+                    and dma_form_applicable(torch.uint8, plan, rung)):
                 return rung
     return "int8" if int8_applicable(plan, torch.uint8) else "bf16x3"
 
 
 def _fused_u8_interleaved(img: torch.Tensor, plan: BlurPlan,
                           precision: str | None = None) -> torch.Tensor:
-    """uint8 (..., H, W, C) -> uint8 via the fused engine (K1 or K2)."""
+    """uint8 (..., H, W, C) -> uint8 via the fused engine: the rung AUTO
+    routes (``_u8_dma_precision``) through ``blur_fused_u8``, or a pinned
+    rung. The ``"hybrid"`` pin runs K1's hybrid body whatever the split
+    radius, as the JAX hybrid pin runs only that form."""
+    planar = to_planar(img, torch.uint8)
+    if precision == "hybrid":
+        return from_planar(blur_fused_u8_hybrid(planar, plan))
     prec = precision or _u8_dma_precision(plan, device_spec(img.device))
-    if prec not in ("int8", "bf16x3"):
-        raise NotImplementedError(
-            f"the {prec} rung of the fused kernel is not ported yet "
-            "(ROADMAP.md Queue 2, K1 hybrid/bf16 bodies)"
-        )
-    return from_planar(blur_fused_u8(to_planar(img, torch.uint8), plan, prec))
+    return from_planar(blur_fused_u8(planar, plan, prec))
 
 
 def _norm_nsmooth(nsmooth) -> float | tuple[float, float]:
@@ -334,8 +346,10 @@ def blur_u8(
     ``box_blur``); ``"cascade"`` composes fused blurs with float
     intermediates and one rounding. ``precision`` pins a rung of the fused
     engine: ``"int8"`` (K1, falling back to ``"bf16x3"`` where the exact
-    int8 path does not apply) or ``"bf16x3"`` (K2); ``"hybrid"`` is not
-    ported yet.
+    int8 path does not apply), ``"hybrid"`` (K1's hybrid body, support radii
+    1..600 and non-negative unit-sum taps; elsewhere it raises
+    ``ValueError``, as the JAX pin does) or ``"bf16x3"`` (K2). AUTO routes
+    the hybrid and bf16 rungs only inside the device's certified floors.
     """
     if not isinstance(img, torch.Tensor):
         raise TypeError(f"blur_u8 expects a torch.Tensor, got {type(img)}")
@@ -354,11 +368,6 @@ def blur_u8(
                 "precision= applies to the fused engine (AUTO/FUSED), "
                 f"not {engine.value!r}"
             )
-        if precision == "hybrid":
-            raise NotImplementedError(
-                "precision='hybrid' waits for K1's hybrid body and its H100 "
-                "certification (ROADMAP.md Next steps 2)"
-            )
         engine = Engine.FUSED
     nsmooth = _norm_nsmooth(nsmooth)
     h, w = img.shape[-3], img.shape[-2]
@@ -369,6 +378,15 @@ def blur_u8(
         plan = _box_plan(h, w, _box_radius(nsmooth, engine), 2, size_mode)
         return _box_u8(img, plan, engine)
     plan = _plan_for(h, w, nsmooth, kernel, size_mode)
+    if precision == "hybrid" and not dma_form_applicable(torch.uint8, plan, "hybrid"):
+        # the rung exists only as K1's body: raise rather than substitute
+        # another rung
+        raise ValueError(
+            "precision='hybrid' cannot be honored: K1's hybrid body serves "
+            "support radii 1..600 with non-negative unit-sum taps, not radii "
+            f"{(plan.col.support_radius, plan.row.support_radius)} of this "
+            f"{plan.kernel!r} plan; use precision='int8' or let AUTO route"
+        )
     eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
         return _fused_u8_interleaved(img, plan, precision)
@@ -494,7 +512,8 @@ def convolve_separable(
     run through every FFT engine on the full complex spectrum, but
     ``"pffft"`` (the reference's real-spectrum multiply). uint8 interleaved
     ``(..., H, W, C)`` rounds back to uint8 (exact int8 K1 for non-negative
-    unit-sum taps, K2 otherwise, in the fused engine); float planar
+    unit-sum taps, K2 otherwise, in the fused engine: custom taps are no
+    certified tap family, so the hybrid and bf16 rungs never run); float planar
     ``(..., H, W)`` returns float32 and is differentiable.
     """
     if not isinstance(img, torch.Tensor):

@@ -25,6 +25,14 @@
 // (cuda_kernels/fused_split.py). Reflect-101 is index math in the loaders
 // (the JAX wrapper pads E by reflect before pass 2).
 //
+// The hybrid pass 2 (fused_split_cols_hybrid) replaces the same kernel's
+// hybrid_cols branch (fused_blur.py:282-298, epilogue :339-340): E rounded
+// once, y = bf16(f32(E)), acc = sum_t bf16(c_t) * y[t] in f32 in ascending
+// tap order (one __fmaf_rn a tap; a bf16 product is exact in f32), out =
+// fma(acc, f32(1 / 127), 128). It is bit-equal to its plain version; the
+// JAX kernel sums one partial product per neighbour block and then adds the
+// blocks, so it agrees with that to a couple of f32 ulps.
+//
 // Layout. Rows: one block of 256 threads per 4 rows x 256 columns; the four
 // reflect-101 row segments of 256 + 2rw bytes sit in shared memory recentred
 // to int8, each thread computes 4 adjacent outputs of one row. Cols: one
@@ -33,7 +41,11 @@
 // in shared memory (column-major, an odd number of words per column so that
 // a warp's 32 columns hit 32 banks); each thread keeps 4 groups of 4 rows of
 // one column, 48 int32 sums in registers, across the chunks. Shared memory
-// stays ~34 KB (cols) and <= 51 KB (rows) up to r 4096.
+// stays ~34 KB (cols) and <= 51 KB (rows) up to r 4096. The hybrid cols
+// pass has the int8 cols pass's blocks, chunks and staging, with one bf16
+// plane in place of the two digit planes and f32 taps (~50 KB at r 4096);
+// each thread keeps 16 f32 sums and runs an 8-value register window read
+// as two 8-byte words.
 //
 // What bounds it on an H100: integer issue, as K1. Per output the rows pass
 // costs (2rw + 1) / 2 dp4a and the cols pass (2rh + 1) dp4a, against 1 byte
@@ -45,6 +57,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -228,6 +241,99 @@ split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
   }
 }
 
+// eight consecutive bf16 values, two 8-byte words, as f32
+__device__ __forceinline__ void unpack8(uint2 a, uint2 b, float v[8]) {
+  v[0] = __uint_as_float(a.x << 16);
+  v[1] = __uint_as_float(a.x & 0xffff0000u);
+  v[2] = __uint_as_float(a.y << 16);
+  v[3] = __uint_as_float(a.y & 0xffff0000u);
+  v[4] = __uint_as_float(b.x << 16);
+  v[5] = __uint_as_float(b.x & 0xffff0000u);
+  v[6] = __uint_as_float(b.y << 16);
+  v[7] = __uint_as_float(b.y & 0xffff0000u);
+}
+
+template <bool kOutU8>
+__global__ void __launch_bounds__(kThreads)
+split_cols_hybrid_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
+                         const float* __restrict__ taps, int h, int w, int rh,
+                         float scale) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int t4h = round4(2 * rh + 1);
+  const int cs = cols_stride();
+  float* s_taps = reinterpret_cast<float*>(smem);  // bf16-rounded column taps
+  unsigned short* s_y = reinterpret_cast<unsigned short*>(s_taps + t4h);
+  const int tid = threadIdx.x;
+  const int tiles_w = (w + kColsTw - 1) / kColsTw;
+  const int i0 = (blockIdx.x / tiles_w) * kColsTh;
+  const int j0 = (blockIdx.x % tiles_w) * kColsTw;
+  const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
+  const int16_t* ep = e + plane;
+
+  for (int k = tid; k < t4h; k += kThreads) s_taps[k] = taps[k];
+  const int j = tid % kColsTw;  // this thread's column
+  const int a = tid / kColsTw;  // its first row group
+  float acc[kGroups][4];
+#pragma unroll
+  for (int m = 0; m < kGroups; ++m) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) acc[m][s] = 0.0f;
+  }
+  const int gjl = min(j0 + j, w - 1);  // staging column of this lane
+  const int rows = kColsTh + kChunk + 4;
+  for (int k0 = 0; k0 < t4h; k0 += kChunk) {
+    __syncthreads();  // the previous chunk is done with the y plane
+    for (int rr = a; rr < rows; rr += kThreads / kColsTw) {
+      const int gi = reflect101(i0 - rh + k0 + rr, h);
+      const float v = static_cast<float>(ep[static_cast<size_t>(gi) * w + gjl]);
+      s_y[j * cs + rr] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
+    }
+    __syncthreads();
+    const int nq = min(kChunk, t4h - k0) >> 2;
+    const float4* ct = reinterpret_cast<const float4*>(s_taps + k0);
+#pragma unroll
+    for (int m = 0; m < kGroups; ++m) {
+      const int ii = (a + m * (kThreads / kColsTw)) << 2;
+      const uint2* d = reinterpret_cast<const uint2*>(s_y + j * cs + ii);
+      uint2 cur = d[0];
+      for (int q = 0; q < nq; ++q) {
+        const uint2 nxt = d[q + 1];
+        float v[8];
+        unpack8(cur, nxt, v);
+        const float4 t = ct[q];
+        const float tq[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int s = 0; s < 4; ++s) {
+            acc[m][s] = __fmaf_rn(tq[u], v[u + s], acc[m][s]);
+          }
+        }
+        cur = nxt;
+      }
+    }
+  }
+  const int gj = j0 + j;
+  if (gj >= w) return;
+#pragma unroll
+  for (int m = 0; m < kGroups; ++m) {
+    const int ii = (a + m * (kThreads / kColsTw)) << 2;
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int gi = i0 + ii + s;
+      if (gi >= h) break;
+      const float y = __fmaf_rn(acc[m][s], scale, 128.0f);
+      const size_t o = plane + static_cast<size_t>(gi) * w + gj;
+      if (kOutU8) {
+        const float v = fminf(fmaxf(__fadd_rn(y, 0.5f), 0.0f), 255.5f);
+        static_cast<uint8_t*>(out)[o] = static_cast<uint8_t>(__float2int_rz(v));
+      } else {
+        static_cast<float*>(out)[o] = y;
+      }
+    }
+  }
+}
+
 int smem_limit(int* limit) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
@@ -284,5 +390,29 @@ extern "C" int fused_split_cols_int8(const void* e, void* out, const void* taps,
   kernel<<<grid, kThreads, smem, st>>>(static_cast<const int16_t*>(e), out,
                                        static_cast<const int*>(taps), h, w, rh,
                                        c1, c2, c3);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The hybrid pass 2. e: planes x h x w int16 E; out: uint8 (out_u8 = 1) or
+// float. taps: float [t4h], the bf16-rounded column taps zero-padded to a
+// multiple of 4; scale: f32(1 / 127). Returns the cudaError_t of the launch.
+extern "C" int fused_split_cols_hybrid(const void* e, void* out, const void* taps,
+                                       int planes, int h, int w, int rh,
+                                       int out_u8, float scale, void* stream) {
+  int limit = 0;
+  int err = smem_limit(&limit);
+  if (err) return err;
+  const int t4h = round4(2 * rh + 1);
+  const int smem = 4 * t4h + 2 * kColsTw * cols_stride();
+  if (smem > limit || planes > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = ((w + kColsTw - 1) / kColsTw) * ((h + kColsTh - 1) / kColsTh);
+  dim3 grid(tiles, planes);
+  auto kernel = out_u8 ? split_cols_hybrid_kernel<true> : split_cols_hybrid_kernel<false>;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int16_t*>(e), out, static_cast<const float*>(taps), h, w,
+      rh, scale);
   return static_cast<int>(cudaGetLastError());
 }

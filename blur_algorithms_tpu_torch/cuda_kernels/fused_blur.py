@@ -405,6 +405,23 @@ def _split_wins(plan: BlurPlan, in_bytes: int, precision,
             and split_hbm_bytes(plan, in_bytes, precision) <= spec.split_hbm_budget)
 
 
+def _hybrid_cols_ok(plan: BlurPlan, device: torch.device | str) -> bool:
+    """The device-certified gate of the split's hybrid pass 2 (the JAX
+    function of the same name): gaussian or box taps, the min-axis radius at
+    or past the device's hybrid floor for the tap family and the max-axis
+    radius within its split ceiling for that family."""
+    spec = device_spec(device)
+    floor = spec.hybrid_min_radius_for(plan.kernel)
+    ceiling = spec.hybrid_split_cert_max_radius_for(plan.kernel)
+    return (
+        floor is not None
+        and ceiling is not None
+        and plan.kernel in ("gaussian", "box_fast")
+        and min(plan.col.support_radius, plan.row.support_radius) >= floor
+        and max(plan.col.support_radius, plan.row.support_radius) <= ceiling
+    )
+
+
 def _blur_fused_split(planar: torch.Tensor, plan: BlurPlan, precision,
                       out_u8: bool) -> torch.Tensor:
     """The plan's rows axis, then its columns axis, as two passes through
@@ -418,7 +435,10 @@ def _blur_fused_split(planar: torch.Tensor, plan: BlurPlan, precision,
     is_u8 = planar.dtype == torch.uint8
     if e32_split_applicable(plan, precision, 1 if is_u8 else 4):
         e = fused_split.fused_split_rows_int8(planar, rows_plan, out_e32=True)
-        return fused_split.fused_split_cols_int8(e, cols_plan, out_u8=out_u8)
+        pass2 = (fused_split.fused_split_cols_hybrid
+                 if _hybrid_cols_ok(plan, planar.device)
+                 else fused_split.fused_split_cols_int8)
+        return pass2(e, cols_plan, out_u8=out_u8)
     # pass 1 reads the raw uint8 frame: the int8 rows form applies even
     # where the full int8 path does not (pass 2 reads f32)
     if precision == "int8" and is_u8 and int8_applicable(rows_plan, torch.uint8):
@@ -481,23 +501,32 @@ def blur_fused_u8(planar_u8: torch.Tensor, plan: BlurPlan,
 
     ``"int8"`` runs the exact fixed-point kernel K1 where it applies
     (non-negative unit-sum taps, both support radii >= 1) and falls back to
-    ``"bf16x3"`` elsewhere, as the JAX package does; ``"bf16x3"`` runs K2.
-    Where ``_split_wins`` the two-pass split runs, int8 end to end where
-    ``e32_split_applicable``.
+    ``"bf16x3"`` elsewhere, as the JAX package does; ``"hybrid"`` and
+    ``"bf16"`` run K1's body of that name where it applies
+    (``fused_dma.dma_form_applicable``) and ``"int8"`` elsewhere, as the JAX
+    blocked form does; ``"bf16x3"`` runs K2. Where ``_split_wins`` the
+    two-pass split runs, int8 end to end where ``e32_split_applicable``
+    (``"hybrid"`` and ``"bf16"`` run it as ``"int8"``), its pass 2 hybrid
+    where ``_hybrid_cols_ok``.
     """
-    if precision not in ("int8", "bf16x3"):
-        raise ValueError(f"precision must be 'int8' or 'bf16x3', got {precision!r}")
-    if _split_wins(plan, 1, precision, planar_u8.device):
+    if precision not in ("int8", "hybrid", "bf16", "bf16x3"):
+        raise ValueError("precision must be 'int8', 'hybrid', 'bf16' or "
+                         f"'bf16x3', got {precision!r}")
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+
+    blocked = "bf16x3" if precision == "bf16x3" else "int8"
+    if _split_wins(plan, 1, blocked, planar_u8.device):
         if planar_u8.dtype != torch.uint8:
             raise TypeError(f"expected uint8 planes, got {planar_u8.dtype}")
-        return _blur_fused_split(planar_u8, plan, precision, out_u8=True)
-    if (precision == "int8" and int8_applicable(plan, torch.uint8)
+        return _blur_fused_split(planar_u8, plan, blocked, out_u8=True)
+    if (precision in ("hybrid", "bf16")
+            and fused_dma.dma_form_applicable(planar_u8.dtype, plan, precision)):
+        body = (fused_dma.blur_fused_u8_hybrid if precision == "hybrid"
+                else fused_dma.blur_fused_u8_bf16)
+        return body(planar_u8, plan)
+    if (precision != "bf16x3" and int8_applicable(plan, torch.uint8)
             and plan.col.support_radius > 0):
-        from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
-            blur_fused_u8_dma,
-        )
-
-        return blur_fused_u8_dma(planar_u8, plan)
+        return fused_dma.blur_fused_u8_dma(planar_u8, plan)
     if planar_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8 planes, got {planar_u8.dtype}")
     return blur_fused_f32(planar_u8, plan, out_u8=True)

@@ -14,8 +14,13 @@ tensor and their plain PyTorch versions on a CPU tensor, bit for bit:
 - ``fused_split_cols_int8``: the cols-only pass over int16 ``E`` (a plan
   whose row axis has radius 0): base-128 digits, exact digit products and
   K1's f32 epilogue, uint8 or float32 out (the JAX ``e32="in"``).
+- ``fused_split_cols_hybrid``: the hybrid pass 2 over the same ``E`` (the
+  JAX ``hybrid_cols``): ``y = bf16(f32(E))``, the bf16 column taps summed
+  in f32 in ascending order, ``fma(acc, f32(1 / 127), 128)``. Bit-equal to
+  its plain version; the JAX kernel adds one partial sum per neighbour
+  block, so it agrees with that within two f32 ulps.
 
-Both share the integer taps, quantiser and epilogue constants of K1
+They share the integer taps, quantiser and epilogue constants of K1
 (``cuda_kernels/fused_dma.py``).
 """
 
@@ -34,8 +39,13 @@ from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
 )
 from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
     _axis_taps,
+    _bf16_taps,
     _pack_int8_words,
+    _padded_f32,
+    bf16_correlate_ref,
+    bf16_round_ref,
     epilogue_constants,
+    fma_f32_ref,
     int8_cols_ref,
     int8_rows_ref,
     store_u8_ref,
@@ -44,6 +54,8 @@ from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 
 __all__ = [
+    "fused_split_cols_hybrid",
+    "fused_split_cols_hybrid_ref",
     "fused_split_cols_int8",
     "fused_split_cols_int8_ref",
     "fused_split_rows_int8",
@@ -118,6 +130,29 @@ def fused_split_cols_int8_ref(e16: torch.Tensor, plan: BlurPlan,
     return (store_u8_ref(y) if out_u8 else y).reshape(e16.shape)
 
 
+# the hybrid epilogue's f32(1 / 127): E = 127 (rows_conv(x) - 128)
+_HYBRID_SCALE = np.float32(1.0 / 127.0)
+
+
+def fused_split_cols_hybrid_ref(e16: torch.Tensor, plan: BlurPlan,
+                                out_u8: bool = True) -> torch.Tensor:
+    """Plain version of the hybrid pass 2: int16 ``E`` ``(..., H, W)`` ->
+    uint8 (``out_u8``) or float32."""
+    _check(e16, plan, torch.int16, "cols")
+    h, w = plan.shape
+    rh = plan.col.support_radius
+    e = reflect_101(e16.reshape(-1, h, w), [(rh, rh)], axes=[-2])
+    y = bf16_round_ref(e.to(torch.float32))
+    out = fma_f32_ref(bf16_correlate_ref(y, _bf16_taps(plan.col.taps), h, -2),
+                      _HYBRID_SCALE, 128.0)
+    return (store_u8_ref(out) if out_u8 else out).reshape(e16.shape)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_f32_taps(plan: BlurPlan, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_padded_f32(_bf16_taps(plan.col.taps))).to(device)
+
+
 @functools.lru_cache(maxsize=64)
 def _device_taps(q: bytes, device: torch.device) -> torch.Tensor:
     # hi digits | lo digits, four int8 taps a word
@@ -127,12 +162,12 @@ def _device_taps(q: bytes, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(words).to(device)
 
 
-def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor, q: np.ndarray, *args) -> None:
+def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor,
+            taps: torch.Tensor, *args) -> None:
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     if x.shape[0] > 65535:
         raise ValueError(f"the split takes at most 65535 planes, got {x.shape[0]}")
-    taps = _device_taps(np.ascontiguousarray(q, np.int32).tobytes(), x.device)
     lib = load_library()
     with torch.cuda.device(x.device):
         rc = getattr(lib, name)(
@@ -144,6 +179,10 @@ def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor, q: np.ndarray, *a
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     fn.launches += 1
+
+
+def _int8_taps(q: np.ndarray, device: torch.device) -> torch.Tensor:
+    return _device_taps(np.ascontiguousarray(q, np.int32).tobytes(), device)
 
 
 def _on_cuda(planar: torch.Tensor, name: str) -> bool:
@@ -171,7 +210,8 @@ def fused_split_rows_int8(planar_u8: torch.Tensor, plan: BlurPlan,
                       device=x.device)
     if x.shape[0]:
         q, scale, shift = rows_operands(plan, out_e32)
-        _launch("fused_split_rows_int8", fused_split_rows_int8, x, out, q,
+        _launch("fused_split_rows_int8", fused_split_rows_int8, x, out,
+                _int8_taps(q, x.device),
                 plan.row.support_radius, int(out_e32), shift,
                 float(np.float32(1.0 / scale)))
     return out.reshape(planar_u8.shape)
@@ -195,9 +235,33 @@ def fused_split_cols_int8(e16: torch.Tensor, plan: BlurPlan,
                       device=x.device)
     if x.shape[0]:
         q, constants = cols_operands(plan)
-        _launch("fused_split_cols_int8", fused_split_cols_int8, x, out, q,
+        _launch("fused_split_cols_int8", fused_split_cols_int8, x, out,
+                _int8_taps(q, x.device),
                 plan.col.support_radius, int(out_u8), *map(float, constants))
     return out.reshape(e16.shape)
 
 
 fused_split_cols_int8.launches = 0
+
+
+def fused_split_cols_hybrid(e16: torch.Tensor, plan: BlurPlan,
+                            out_u8: bool = True) -> torch.Tensor:
+    """The split's hybrid pass 2 on int16 ``E`` ``(..., H, W)``: uint8
+    (``out_u8``) or float32. A CUDA tensor launches the kernel of
+    ``csrc/fused_split.cu``, a CPU tensor runs the plain version;
+    ``fused_split_cols_hybrid.launches`` counts launches."""
+    _check(e16, plan, torch.int16, "cols")
+    if not _on_cuda(e16, "fused_split_cols_hybrid"):
+        return fused_split_cols_hybrid_ref(e16, plan, out_u8)
+    h, w = plan.shape
+    x = e16.reshape(-1, h, w)
+    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+                      device=x.device)
+    if x.shape[0]:
+        _launch("fused_split_cols_hybrid", fused_split_cols_hybrid, x, out,
+                _device_f32_taps(plan, x.device), plan.col.support_radius,
+                int(out_u8), float(_HYBRID_SCALE))
+    return out.reshape(e16.shape)
+
+
+fused_split_cols_hybrid.launches = 0

@@ -70,6 +70,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.blur_fused_u8_int8.restype = i
+    lib.blur_fused_u8_bf16cols.argtypes = [
+        vp, vp, vp, vp,  # x, out, row_taps, col_taps
+        i, i, i, i, i,  # planes, h, w, rh, rw
+        i, i, f,  # bf16_rows, out_u8, scale
+        vp,  # stream
+    ]
+    lib.blur_fused_u8_bf16cols.restype = i
     lib.blur_fused_f32.argtypes = [
         vp, vp, vp, vp,  # x, out, taps_row, taps_col
         i, i,  # in_u8, out_u8
@@ -98,6 +105,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.fused_split_cols_int8.restype = i
+    lib.fused_split_cols_hybrid.argtypes = [
+        vp, vp, vp,  # e, out, taps
+        i, i, i, i,  # planes, h, w, rh
+        i, f,  # out_u8, scale
+        vp,  # stream
+    ]
+    lib.fused_split_cols_hybrid.restype = i
     lib.box_scan_axis.argtypes = [
         vp, vp, vp, vp,  # x, out, scratch0, scratch1
         i, i,  # in_u8, out_u8

@@ -3,9 +3,11 @@
 The JAX package keys routing budgets and certified precision rungs by TPU
 kind (its ``utils/hw.py``). None of those numbers carries over: each was
 measured on a TPU. The port reads the CUDA device's own properties, and
-every certification rung stays ``None`` until an H100 run of the JAX
-package's certification protocol (``benchmarks/default_prec_cert.py``)
-measures one, so AUTO routes only the always-exact int8 rung.
+takes its precision floors and ceilings from ``_MEASURED_PRECISION``, the
+port's run of the JAX certification protocol on the card
+(``python -m blur_algorithms_tpu_torch.certify``). A device that was not
+measured keeps every floor at ``None``, so AUTO routes only the
+always-exact int8 rung there.
 
 The routing radii are per device name, from the interleaved sweeps of
 ``chip_smoke.py`` (phase 10: fused against FFT_MXU; phase 13: box scan
@@ -31,34 +33,63 @@ CPU_FFT_MXU_BYTE_BUDGET = 4 << 30
 # Peak bytes of the two-pass split on the CPU, fixed for the same reason.
 CPU_SPLIT_HBM_BUDGET = 4 << 30
 
-# Largest swept support radius at which the fused engine (K1 for uint8, K2
-# for float) is still at least as fast as FFT_MXU, by device name: the
-# chip_smoke.py phase 10 sweep at batch 4 RGB 2160x3840 (PERF.md,
-# "Crossover"). NVIDIA H100 80GB HBM3 at 700 W: uint8 K1 7.28 vs FFT_MXU
-# 8.43 ms at r 165, 17.97 vs 8.42 at r 332; float K2 4.03 vs 6.14 ms at
-# r 82, 7.93 vs 6.14 at r 119.
+# Largest swept support radius at which the fused engine as routed (K1 on
+# its AUTO rung, or K2; the two-pass split from ``fused_split_min_radius``)
+# is still at least as fast as FFT_MXU, by device name: the chip_smoke.py
+# phase 10 sweep at batch 4 RGB 2160x3840 (PERF.md, "Routing sweeps"). NVIDIA
+# H100 80GB HBM3 at 700 W: uint8 split (hybrid pass 2) 7.88 vs FFT_MXU
+# 8.42 ms at r 332, 9.20 vs 8.42 at r 398; float split 6.00 vs 6.34 ms at
+# r 265, 7.26 vs 6.34 at r 332.
 _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
-    "NVIDIA H100 80GB HBM3": (165, 82),
+    "NVIDIA H100 80GB HBM3": (332, 265),
 }
 
 # Largest swept box support radius at which a box on the fused engine is
 # at least as fast as the box scan (K4), for uint8 (K1) and float (K2)
 # alike, by device name: the chip_smoke.py phase 13 sweep at batch 4 RGB
-# 2160x3840 (PERF.md, "Box sweep"). NVIDIA H100 80GB HBM3 at 700 W: uint8
-# K1 1.90 vs K4 2.32 ms at support 32, 3.67 vs 2.39 at 82; float K2 1.27
-# vs 1.94 at 32, 4.03 vs 2.06 at 82.
+# 2160x3840 (PERF.md, "Routing sweeps"), K1 on its AUTO rung. NVIDIA H100
+# 80GB HBM3 at 700 W: uint8 K1 (hybrid) 1.71 vs K4 2.32 ms at support 32,
+# 3.39 vs 2.39 at 82; float K2 1.27 vs 1.94 at 32, 4.03 vs 2.06 at 82.
 _MEASURED_BOX_SCAN: dict[str, int] = {
     "NVIDIA H100 80GB HBM3": 32,
 }
 
 # Smallest swept support radius from which the two-pass split is faster
 # than the single fused kernel at every swept radius, for uint8 and float
-# alike, by device name: the chip_smoke.py phase 13 sweep (PERF.md, "Split
-# sweep"). NVIDIA H100 80GB HBM3 at 700 W, r 332: int8 split 8.97 vs K1
-# 17.55 ms, f32 split 7.26 vs K2 35.45 ms. Absent: the split runs past 600
-# only.
+# alike, by device name: the chip_smoke.py phase 13 sweep, K1 on its AUTO
+# rung (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W, r 49:
+# uint8 split (int8 rows, hybrid pass 2) 1.41 vs K1 hybrid 1.79 ms, f32
+# split 1.48 vs K2 2.45 ms (at r 32 K2 1.2731 vs 1.2753). Absent: the split
+# runs past 600 only.
 _MEASURED_SPLIT_MIN: dict[str, int] = {
-    "NVIDIA H100 80GB HBM3": 332,
+    "NVIDIA H100 80GB HBM3": 49,
+}
+
+# The certified precision ladder, by device name: the DeviceSpec fields of
+# the same names, from ``python -m blur_algorithms_tpu_torch.certify``
+# (PERF.md, "Certification of the precision ladder"). Absent: every floor
+# None, AUTO runs int8.
+# NVIDIA H100 80GB HBM3 at 700 W: hybrid max 1 count at every gaussian
+# radius 3..498 and box support 2..600; bf16 max 2 at r 5 and 9 and box
+# support 2, max 1 from r 12 and support 4; the split's hybrid pass 2 max 1
+# at column radius 1..4094 (gaussian) and support 2..1022 (box). In
+# turns on 4 RGB 4K frames: hybrid faster than int8 at every radius
+# 6..597 (0.59 vs 0.72 ms at r 6, 1.28 vs 1.48 at r 32, 40.11 vs 41.64 at
+# r 597), bf16 slower at every one (1.66 ms at r 32), the hybrid pass 2
+# faster than the int8 one (11.52 vs 15.06 ms at r 831). The split's pass
+# 2 sweep starts under the hybrid floors (column radius 1, box support 2):
+# the split runs from r 49 here, and at any column radius on an
+# anisotropic plan.
+_MEASURED_PRECISION: dict[str, dict[str, int | None]] = {
+    "NVIDIA H100 80GB HBM3": {
+        "hybrid_cert_min_radius": 3,
+        "hybrid_cert_min_radius_box": 2,
+        "hybrid_route_min_radius": 0,
+        "bf16_cert_min_radius": 12,
+        "bf16_route_min_radius": None,
+        "hybrid_split_cert_max_radius": 4094,
+        "hybrid_split_cert_max_radius_box": 1022,
+    },
 }
 
 
@@ -78,12 +109,23 @@ class DeviceSpec:
     # float inputs.
     auto_fused_max_radius_u8: int = 600
     auto_fused_max_radius_f32: int = 600
-    # Certified precision rungs (the JAX DeviceSpec fields of the same
-    # meaning): smallest support radius at which the hybrid / bf16 rung is
-    # certified against the <=1-count oracle gate on this device. None =
-    # uncertified -> AUTO never routes it.
+    # The certified precision ladder (the JAX DeviceSpec fields of the same
+    # names). ``*_cert_min_radius``: smallest support radius from which the
+    # rung holds the <=1-count oracle gate on this device, per tap family
+    # (``_box``: box/tent taps, measured on their own); None = uncertified,
+    # AUTO never routes it. ``*_route_min_radius``: smallest radius from
+    # which the rung also beats int8 on time; 0 = at every radius, None =
+    # at none (AUTO keeps int8). ``hybrid_split_cert_max_radius(_box)``:
+    # largest radius at which the split's hybrid pass 2 is certified (and
+    # not slower than its int8 pass 2); None = the split keeps its exact
+    # int8 pass 2.
     hybrid_cert_min_radius: int | None = None
+    hybrid_cert_min_radius_box: int | None = None
+    hybrid_route_min_radius: int | None = 0
     bf16_cert_min_radius: int | None = None
+    bf16_route_min_radius: int | None = 0
+    hybrid_split_cert_max_radius: int | None = None
+    hybrid_split_cert_max_radius_box: int | None = None
     # Box blur runs the fused engine up to this support radius and the box
     # scan (K4) past it, or wherever AUTO would pick an FFT engine (the JAX
     # field of the same name).
@@ -95,6 +137,39 @@ class DeviceSpec:
     # Support radius from which ``blur_fused`` prefers the two-pass split
     # to the single kernel; None = only past the single kernels' domain.
     fused_split_min_radius: int | None = None
+
+    @staticmethod
+    def _floor(cert: int | None, route: int | None) -> int | None:
+        if cert is None or route is None:
+            return None
+        return max(cert, route)
+
+    @property
+    def bf16_min_radius(self) -> int | None:
+        """Routing boundary of the bf16 rung: accuracy and time floors."""
+        return self._floor(self.bf16_cert_min_radius, self.bf16_route_min_radius)
+
+    @property
+    def hybrid_min_radius(self) -> int | None:
+        return self._floor(self.hybrid_cert_min_radius, self.hybrid_route_min_radius)
+
+    def hybrid_min_radius_for(self, kernel: str) -> int | None:
+        """Per-tap-family hybrid floor: box/tent taps use their own measured
+        certification floor, not the gaussian sweep's."""
+        base = self.hybrid_min_radius
+        if base is None:
+            return None
+        if kernel == "box_fast":
+            if self.hybrid_cert_min_radius_box is None:
+                return None
+            return max(base, self.hybrid_cert_min_radius_box)
+        return base
+
+    def hybrid_split_cert_max_radius_for(self, kernel: str) -> int | None:
+        """Per-tap-family ceiling of the split's hybrid pass 2."""
+        if kernel == "box_fast":
+            return self.hybrid_split_cert_max_radius_box
+        return self.hybrid_split_cert_max_radius
 
 
 def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
@@ -112,6 +187,7 @@ def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
         box_scan_crossover_radius=_MEASURED_BOX_SCAN.get(name, 600),
         split_hbm_budget=total_memory * 11 // 16,
         fused_split_min_radius=_MEASURED_SPLIT_MIN.get(name),
+        **_MEASURED_PRECISION.get(name, {}),
     )
 
 

@@ -11,9 +11,12 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    ``torch.equal``;
 3. main path of slice 1: ``blur_u8`` AUTO on a (4, 2160, 3840, 3) uint8
    CUDA tensor at sigma 10 (``bench.py``'s configuration, and its frames
-   through the port's copy ``utils/frames.make_frames``); K1's launch count
-   must rise, the result must equal the plain version bit for bit and
-   frame 0 must be within 1 count of the NumPy oracle;
+   through the port's copy ``utils/frames.make_frames``), on the rung AUTO
+   routes (``utils/hw.py``'s certified ladder: K1's hybrid body on the
+   H100); that body's launch count must rise, the result must equal its
+   plain version bit for bit and frame 0 must be within 1 count of the
+   NumPy oracle; where the rung is not int8, the same for K1 int8 through
+   the ``precision="int8"`` pin;
 4. times from CUDA events (median of 20 after warm-up): K1 alone, the plain
    version, and the whole ``blur_u8`` with its layout copies;
 5. K2 (the fused f32 blur) against its plain version on the card: f32
@@ -75,8 +78,23 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    TF32 off for the f32 form), and two sweeps in turns that set
    ``utils/hw.py``'s ``box_scan_crossover_radius`` (box on the fused engine
    against K4 at support 2..598) and ``fused_split_min_radius`` (the split
-   against the single kernels at r 332..598; and against FFT_MXU at r
-   665..1330, for the record).
+   against the single kernels at r 32..598; and against FFT_MXU at r
+   665..1330, for the record), K1 on the rung AUTO routes;
+14. K1's hybrid and bf16 bodies against their plain versions as phase 2,
+   and the split's hybrid pass 2 at column radius 332, 831 and 1996,
+   uint8 and f32 out, each ``torch.equal``; at batch 4 RGB 4K sigma 10,
+   ``blur_u8(precision="hybrid")`` and ``blur_u8`` AUTO on the card's spec
+   with bf16 routed in place of hybrid (counts set to 0 first: that body
+   alone, equal to its plain version, frame 0 within 1 count);
+   ``blur_u8`` AUTO at sigma 15 and 50 (r 49 and 165, where the split runs
+   under the fused/FFT crossover) and ``engine="fused"`` at sigma 250,
+   each through the split with the pass 2 the device routes, frame 0
+   within 1 count; a trimmed certification gate (the 9 patterns of
+   ``certify.py`` at 1088x1920, at the headline and at each routed floor,
+   for every routed rung, and the split's routed pass 2 at column radius
+   49 and 165, each within 1 count); times in turns against K1 int8 and
+   against the int8 pass 2 at r 831, the plain versions, bf16 depthwise
+   ``conv2d`` yardsticks and the bounds.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -88,6 +106,8 @@ It exits non-zero, printing no result, where no CUDA device is available.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import functools
 import json
 import subprocess
@@ -103,26 +123,34 @@ ITERS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
 HD, RAGGED = (1080, 1920), (1001, 1777)  # phase 5 frame shapes
 SHARPEN5 = [-0.125, -0.25, 1.75, -0.25, -0.125]  # signed, sums to 1
 SIGMA_U8_WIDE, SIGMA_F32_WIDE = 250.0, 400.0  # phase 9: r 831 and r 1330
 FFT_TOL = 2e-2  # FFT engines against plain versions and oracles, 0..255 scale
-# phase 10 sweep: support radius 32, 49, 65, 82, 119, 165, 332, 498, 598
-SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 100.0, 150.0, 180.0)
+# phase 10 sweep: support radius 32, 49, 65, 82, 119, 165, 212, 265, 332,
+# 398, 448, 498, 598
+SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 120.0,
+                135.0, 150.0, 180.0)
 BOX_NSMOOTH = 20.0  # phase 12: box_blur radius 400, support radius 800
 PANO_H, PANO_W = 2160, 15360  # phase 12: a panorama FFT_MXU cannot serve
 SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
 # phase 13 sweeps: box radius per pass (2 passes: support 2..598), and the
-# split against the single kernels (r 332, 498, 598) and against FFT_MXU
-# (r 665, 831, 1330)
+# split against the single kernels (r 32, 49, 65, 82, 119, 165, 212, 265,
+# 332, 498, 598) and against FFT_MXU (r 665, 831, 1330)
 BOX_SWEEP_R = (1, 4, 16, 41, 82, 169, 225, 299)
-SPLIT_SWEEP_SIGMAS = (100.0, 150.0, 180.0)
+SPLIT_SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 150.0, 180.0)
 SPLIT_FFT_SIGMAS = (200.0, 250.0, 400.0)
 # phase 11 cases: K4 (radius per pass, passes) on HD planes; the int8 split
 # forms and K2's single-axis form as (frame shape, sigma)
 BOX_CASES = ((1, 2), (8, 1), (41, 2), (110, 3), (625, 2))
 SPLIT_CASES = ((HD, 1.0), (HD, 3.0), (HD, 50.0), (HD, 250.0), ((256, 4200), 600.0))
 AXIS_CASES = ((HD, 10.0), (HD, 400.0), ((96, 8400), 1200.0), ((8400, 96), 1200.0))
+# phase 14: K1's hybrid and bf16 bodies as phase 2 (r 2..598); the split's
+# hybrid pass 2 at column radius 332, 831 and 1996
+HYBRID_SPLIT_CASES = ((HD, 100.0), (HD, 250.0), ((4200, 256), (600.0, 3.0)))
+# phase 14: AUTO through the split under the fused/FFT crossover (r 49, 165)
+AUTO_SPLIT_SIGMAS = (15.0, 50.0)
 
 
 def _bound_ms(nbytes: float, ops: float, op_rate: float) -> tuple[float, str]:
@@ -797,6 +825,15 @@ def _phase11() -> dict:
     return errs
 
 
+def _k1_bodies() -> dict:
+    """K1's body and plain version for each rung it runs."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+
+    return {"int8": (fused_dma.blur_fused_u8_dma, fused_dma.blur_fused_u8_dma_ref),
+            "hybrid": (fused_dma.blur_fused_u8_hybrid, fused_dma.blur_fused_u8_hybrid_ref),
+            "bf16": (fused_dma.blur_fused_u8_bf16, fused_dma.blur_fused_u8_bf16_ref)}
+
+
 def _counters() -> list:
     from blur_algorithms_tpu_torch.cuda_kernels import (
         box_blur,
@@ -811,7 +848,30 @@ def _counters() -> list:
             fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed,
             spectral_multiply.spectral_multiply_2d, box_blur.box_blur_scan_axis,
             fused_split.fused_split_rows_int8, fused_split.fused_split_cols_int8,
-            fused_blur.blur_fused_axis_f32]
+            fused_blur.blur_fused_axis_f32, fused_dma.blur_fused_u8_hybrid,
+            fused_dma.blur_fused_u8_bf16, fused_split.fused_split_cols_hybrid]
+
+
+@contextlib.contextmanager
+def _device_spec_as(spec):
+    """Route the entry points by ``spec`` in place of the card's own."""
+    from blur_algorithms_tpu_torch import api
+
+    saved = api.device_spec
+    api.device_spec = lambda device: spec
+    try:
+        yield
+    finally:
+        api.device_spec = saved
+
+
+def _pass2(plan, device) -> str:
+    """The split's pass 2 wrapper that ``_blur_fused_split`` runs for this
+    plan on this device: hybrid inside the certified region, else int8."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+
+    ok = fused_blur._hybrid_cols_ok(plan, device)
+    return "fused_split_cols_hybrid" if ok else "fused_split_cols_int8"
 
 
 def _launched(counters, before: dict | None = None) -> dict:
@@ -845,7 +905,14 @@ def _panorama() -> np.ndarray:
 def _phase12(frames, counters) -> dict:
     """The slice's paths at full width; returns the launches of each kernel
     on them."""
-    from blur_algorithms_tpu_torch import blur, blur_u8, box_blur, make_plan, oracle
+    from blur_algorithms_tpu_torch import (
+        blur,
+        blur_u8,
+        box_blur,
+        convolve_separable,
+        make_plan,
+        oracle,
+    )
     from blur_algorithms_tpu_torch.api import Engine, _box_plan, _resolve_engine
     from blur_algorithms_tpu_torch.cuda_kernels import box_blur as k4
     from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
@@ -891,20 +958,30 @@ def _phase12(frames, counters) -> dict:
         raise RuntimeError("box_blur on floats disagrees with its plain version or adjoint")
     del out, want, xg, g, gwant
 
-    before = _launched(counters)
-    out = blur_u8(x_u8, SIGMA_U8_WIDE, engine="fused")
-    torch.cuda.synchronize()
-    ran = _launched(counters, before)
-    d = np.abs(out[0].cpu().numpy().astype(int)
-               - oracle.blur_u8(img[0], SIGMA_U8_WIDE).astype(int))
-    print(f"phase 12 main path: blur_u8 engine=fused {tuple(x_u8.shape)} "
-          f"sigma={SIGMA_U8_WIDE} (r {make_plan((H, W), SIGMA_U8_WIDE).row.support_radius}): "
-          f"launches {ran}; frame 0 vs oracle "
-          f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
-    if (ran["fused_split_rows_int8"] != 1 or ran["fused_split_cols_int8"] != 1
-            or d.max() > 1):
-        raise RuntimeError("blur_u8 fused past r 600 did not run the int8 split within 1 count")
-    del out
+    wide = make_plan((H, W), SIGMA_U8_WIDE)
+    want_wide = oracle.blur_u8(img[0], SIGMA_U8_WIDE)
+    # the split's pass 2 as routed; custom taps (no certified tap family)
+    # keep the int8 pass 2
+    calls = [("blur_u8 engine=fused", _pass2(wide, x_u8.device),
+              lambda: blur_u8(x_u8, SIGMA_U8_WIDE, engine="fused"))]
+    if calls[0][1] != "fused_split_cols_int8":
+        calls.append(("convolve_separable engine=fused, the same taps",
+                      "fused_split_cols_int8",
+                      lambda: convolve_separable(x_u8, wide.row.taps, wide.col.taps,
+                                                 engine="fused")))
+    for label, pass2, call in calls:
+        before = _launched(counters)
+        out = call()
+        torch.cuda.synchronize()
+        ran = _launched(counters, before)
+        d = np.abs(out[0].cpu().numpy().astype(int) - want_wide.astype(int))
+        print(f"phase 12 main path: {label} {tuple(x_u8.shape)} sigma={SIGMA_U8_WIDE} "
+              f"(r {wide.row.support_radius}): launches {ran}; frame 0 vs oracle "
+              f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+        if ran["fused_split_rows_int8"] != 1 or ran[pass2] != 1 or d.max() > 1:
+            raise RuntimeError(f"{label} past r 600 did not run the int8 split's pass 1 "
+                               f"and {pass2} within 1 count")
+        del out
 
     plan = make_plan((PANO_H, PANO_W), SIGMA_U8_WIDE)
     eng = _resolve_engine("auto", plan, 1, x_pano.device, 3)
@@ -920,7 +997,7 @@ def _phase12(frames, counters) -> dict:
           f"patches of 512 columns (left edge, middle, right edge) vs oracle "
           f"(max, exact) {patches}", flush=True)
     if (eng is not Engine.FUSED or ran["fused_split_rows_int8"] != 1
-            or ran["fused_split_cols_int8"] != 1 or max(p[0] for p in patches) > 1):
+            or ran[_pass2(plan, x_pano.device)] != 1 or max(p[0] for p in patches) > 1):
         raise RuntimeError("the panorama did not run the int8 split within 1 count")
     del out, x_pano
 
@@ -985,12 +1062,24 @@ def _sweeps(frames) -> dict:
     """Phase 13's two in-turn sweeps; returns the tables and the radii they
     set in ``utils/hw.py``."""
     from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
-    from blur_algorithms_tpu_torch.api import Engine, _box_plan, _box_u8, _blur_planar
-    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.api import (
+        Engine,
+        _box_plan,
+        _box_u8,
+        _blur_planar,
+        _u8_dma_precision,
+    )
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
     from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
 
     x_u8 = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).cuda()
     x = torch.from_numpy(frames.astype(np.float32)).cuda()
+    spec, bodies = device_spec(x.device), _k1_bodies()
+
+    def k1(plan):  # K1's body on the rung AUTO routes for the plan
+        return bodies[_u8_dma_precision(plan, spec)][0]
+
     box, fused_ok = [], {"u8": True, "f32": True}
     best = {"u8": None, "f32": None}
     for r in BOX_SWEEP_R:
@@ -999,7 +1088,7 @@ def _sweeps(frames) -> dict:
         # the single fused kernels (K1, K2) against the box as routed to K4
         line.update({f"u8_{k}": v for k, v in _in_turns(
             f"box u8 support={2 * r}",
-            {"fused": lambda t: from_planar(fused_dma.blur_fused_u8_dma(to_planar(t, torch.uint8), plan)),
+            {"fused": lambda t: from_planar(k1(plan)(to_planar(t, torch.uint8), plan)),
              "scan": lambda t: _box_u8(t, plan, Engine.BOX_SCAN)}, x_u8).items()})
         line.update({f"f32_{k}": v for k, v in _in_turns(
             f"box f32 support={2 * r}",
@@ -1025,7 +1114,7 @@ def _sweeps(frames) -> dict:
         line = {"r": r}
         line.update({f"u8_{k}": v for k, v in _in_turns(
             f"split u8 r={r}",
-            {"single": lambda t: fused_dma.blur_fused_u8_dma(t, plan),
+            {"single": lambda t: k1(plan)(t, plan),
              "split": lambda t: fused_blur._blur_fused_split(t, plan, "int8", True)},
             planar_u8).items()})
         line.update({f"f32_{k}": v for k, v in _in_turns(
@@ -1066,9 +1155,9 @@ def _sweeps(frames) -> dict:
     return out
 
 
-def _slice4(frames) -> list[dict]:
+def _slice4(frames) -> tuple[list[dict], dict]:
     """Phases 11-13; returns the entries of K4, the two int8 split forms and
-    K2's single-axis form for the kernels line."""
+    K2's single-axis form for the kernels line, and phase 12's launches."""
     import torch.nn.functional as F
 
     from blur_algorithms_tpu_torch import blur, blur_u8, box_blur, make_plan
@@ -1233,7 +1322,280 @@ def _slice4(frames) -> list[dict]:
               p_ax.median_ms, ax_bound, errs["axis"],
               l_rows.median_ms + l_cols.median_ms, plain_at=hd,
               ms_at_plain_shape=k_ax_hd.median_ms),
+    ], launched
+
+
+def _bound_mixed(nbytes: float, int8_ops: float, bf16_ops: float) -> tuple[float, str]:
+    """Least time for work split between int8 and bf16 operations: bytes
+    over the memory rate against the two operation times added."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = int8_ops / INT8_OP_PER_S + bf16_ops / BF16_FLOP_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _phase14_kernels(cases) -> dict:
+    """K1's hybrid and bf16 bodies and the split's hybrid pass 2 against
+    their plain versions, uint8 and f32 out; returns the worst errors."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    errs = {"hybrid": 0.0, "bf16": 0.0, "split": 0.0}
+    bodies = _k1_bodies()
+    for k, ((h, w), sigma) in enumerate(cases):
+        plan = make_plan((h, w), sigma)
+        x = _case_frames(h, w, seed=400 + k)
+        for rung in ("hybrid", "bf16"):
+            body, ref_fn = bodies[rung]
+            want = ref_fn(x, plan, out_u8=False)
+            for out_u8 in (False, True):
+                got = body(x, plan, out_u8)
+                ref = fused_dma.store_u8_ref(want) if out_u8 else want
+                torch.cuda.synchronize()
+                err = float((got.double() - ref.double()).abs().max())
+                errs[rung] = max(errs[rung], err)
+                equal = torch.equal(got, ref)
+                print(f"phase 14 K1 {rung} vs plain: {h}x{w} RGB sigma={sigma} "
+                      f"r=({plan.col.support_radius}, {plan.row.support_radius}) "
+                      f"{'uint8' if out_u8 else 'f32'} out equal={equal}", flush=True)
+                if not equal:
+                    raise RuntimeError(f"K1 {rung} disagrees with its plain version at "
+                                       f"{(h, w, sigma)}")
+    for shape, sigma in HYBRID_SPLIT_CASES:
+        plan = make_plan(shape, sigma)
+        rows, cols = fused_blur._split_plans(plan)
+        e = fs.fused_split_rows_int8(_case_frames(*shape, seed=410), rows)
+        want = fs.fused_split_cols_hybrid_ref(e, cols, out_u8=False)
+        for out_u8 in (False, True):
+            got = fs.fused_split_cols_hybrid(e, cols, out_u8)
+            ref = fused_dma.store_u8_ref(want) if out_u8 else want
+            torch.cuda.synchronize()
+            errs["split"] = max(errs["split"], float((got.double() - ref.double()).abs().max()))
+            equal = torch.equal(got, ref)
+            print(f"phase 14 fused_split_cols_hybrid vs plain: {shape} sigma={sigma} "
+                  f"column r={plan.col.support_radius} {'uint8' if out_u8 else 'f32'} "
+                  f"out equal={equal}", flush=True)
+            if not equal:
+                raise RuntimeError(f"the hybrid pass 2 disagrees with its plain version at "
+                                   f"{(shape, sigma)}")
+    return errs
+
+
+def _gate_points(spec) -> list[tuple[str, str, list]]:
+    """(rung, tap family, grid) of the trimmed certification gate: the
+    headline (sigma 10; box radius 16, support 32) and each routed floor,
+    for every rung the device routes (the hybrid pin at the headline where
+    none is routed)."""
+    from blur_algorithms_tpu_torch import certify
+
+    points = []
+    for rung in ("hybrid", "bf16"):
+        for kernel in ("gaussian", "box_fast"):
+            floor = (spec.hybrid_min_radius_for(kernel) if rung == "hybrid"
+                     else spec.bf16_min_radius)
+            if floor is None:
+                continue
+            if kernel == "box_fast":
+                grid = sorted({16, max(1, -(-floor // 2))})
+            else:
+                at = [s for s in certify.SIGMAS
+                      if certify._plan(certify.DMA_HW, kernel, s).row.support_radius >= floor]
+                grid = sorted({SIGMA, *at[:1]})
+            points.append((rung, kernel, grid))
+    return points or [("hybrid", "gaussian", [SIGMA])]
+
+
+def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
+    """Phase 14; returns the entries of K1's hybrid and bf16 bodies and the
+    split's hybrid pass 2 for the kernels line. ``earlier`` holds their
+    launches on the earlier slices' paths (phase 3's AUTO, phase 12's
+    split), added to those of their own paths."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch import blur_u8, certify, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    cases = [((1080, 1920), s) for s in (1.0, 3.0, 10.0, 50.0, 150.0, 180.0)]
+    cases += [((1080, 1920), (5.0, 11.0)), (RAGGED, SIGMA)]
+    errs = _phase14_kernels(cases)
+
+    # ---- the slice's paths at full width, counts set to 0 first ----
+    img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
+    x = torch.from_numpy(img).cuda()
+    planar = x.movedim(-1, -3).contiguous()
+    plan = make_plan((H, W), SIGMA)
+    spec = device_spec(x.device)
+    want0 = oracle.blur_u8(img[0], SIGMA)
+    counters = _counters()
+    launched = {}
+    # the hybrid pin; then AUTO on the card's spec with its hybrid floor
+    # withdrawn and bf16 routed from its certified floor, as on a device
+    # whose AUTO takes the bf16 rung (the card routes hybrid, and bf16 has
+    # no route floor on it: it never wins on time)
+    bf16_spec = dataclasses.replace(spec, hybrid_cert_min_radius=None, bf16_route_min_radius=0)
+    for rung in ("hybrid", "bf16"):
+        body, ref_fn = _k1_bodies()[rung]
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        if rung == "hybrid":
+            what = "blur_u8(precision='hybrid')"
+            out = blur_u8(x, SIGMA, precision="hybrid")
+        else:
+            what = f"blur_u8 AUTO (bf16 routed from r {bf16_spec.bf16_min_radius})"
+            with _device_spec_as(bf16_spec):
+                out = blur_u8(x, SIGMA)
+        torch.cuda.synchronize()
+        ran = _launched(counters)
+        launched[rung] = ran[body.__name__]
+        ref = ref_fn(planar, plan).movedim(-3, -1)
+        torch.cuda.synchronize()
+        d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
+        print(f"phase 14 main path: {what} {tuple(x.shape)} "
+              f"sigma={SIGMA}: launches {ran}; equal to plain version="
+              f"{torch.equal(out, ref)}; frame 0 vs oracle max={int(d.max())} "
+              f"exact={float((d == 0).mean())}", flush=True)
+        if launched[rung] != 1 or sum(ran.values()) != 1 or not torch.equal(out, ref):
+            raise RuntimeError(f"{what} did not run {body.__name__} alone, equal to its "
+                               "plain version")
+        if d.max() > 1:
+            raise RuntimeError(f"{what}: frame 0 is {int(d.max())} counts from the oracle")
+        del out, ref
+    # the split through AUTO where it runs under the fused/FFT crossover
+    # (from fused_split_min_radius), and pinned "fused" past r 600: its
+    # pass 2 is the hybrid one inside the certified region, else int8
+    launched["split"] = 0
+    for sigma, pin in (*((s, None) for s in AUTO_SPLIT_SIGMAS), (SIGMA_U8_WIDE, "fused")):
+        p = make_plan((H, W), sigma)
+        if not fused_blur._split_wins(p, 1, "int8", x.device):
+            print(f"phase 14: the split does not run at sigma {sigma} on this device",
+                  flush=True)
+            continue
+        pass2 = _pass2(p, x.device)
+        for c in counters:
+            c.launches = 0
+        out = blur_u8(x, sigma) if pin is None else blur_u8(x, sigma, engine=pin)
+        torch.cuda.synchronize()
+        ran = _launched(counters)
+        launched["split"] += ran["fused_split_cols_hybrid"]
+        d = np.abs(out[0].cpu().numpy().astype(int) - oracle.blur_u8(img[0], sigma).astype(int))
+        what = "AUTO" if pin is None else f"engine={pin}"
+        print(f"phase 14 main path: blur_u8 {what} sigma={sigma} (r {p.row.support_radius}): "
+              f"pass 2 {pass2}; launches {ran}; frame 0 vs oracle max={int(d.max())} "
+              f"exact={float((d == 0).mean())}", flush=True)
+        if (ran["fused_split_rows_int8"] != 1 or ran[pass2] != 1 or sum(ran.values()) != 2
+                or d.max() > 1):
+            raise RuntimeError(f"blur_u8 {what} sigma={sigma} did not run the split with "
+                               f"{pass2} within 1 count")
+        del out
+    print(f"phase 14 AUTO rung at sigma {SIGMA}: {_u8_dma_precision(plan, spec)}; "
+          f"floors: hybrid gaussian {spec.hybrid_min_radius_for('gaussian')}, box "
+          f"{spec.hybrid_min_radius_for('box_fast')}; bf16 {spec.bf16_min_radius}; "
+          f"split from r {spec.fused_split_min_radius}, its hybrid pass 2 ceilings "
+          f"{spec.hybrid_split_cert_max_radius}, {spec.hybrid_split_cert_max_radius_box}",
+          flush=True)
+
+    # ---- the trimmed certification gate ----
+    for rung, kernel, grid in _gate_points(spec):
+        rows = certify.dma_sweep([rung], kernel, grid=grid, log=lambda line: None)[rung]
+        for row in rows:
+            print(f"phase 14 gate {rung} {kernel} x={row['x']} r={row['radius']}: max "
+                  f"{row['max']} per pattern {row['per_pattern']}", flush=True)
+            if row["max"] > 1:
+                raise RuntimeError(f"the {rung} rung breaks the 1-count gate at {row}")
+    # the split's pass 2 where AUTO runs it: the routed pass 2 of each
+    grid = [s * certify.R_PER_SIGMA for s in AUTO_SPLIT_SIGMAS]
+    for row in certify.split_sweep("gaussian", grid=grid, hw=certify.DMA_HW,
+                                   log=lambda line: None):
+        form = "hybrid" if spec.hybrid_split_cert_max_radius is not None else "int8"
+        print(f"phase 14 gate split pass 2 gaussian x={row['x']} column r={row['radius']}: "
+              f"max {row['max']} per pattern {row['per_pattern']}", flush=True)
+        if row["max"][form] > 1:
+            raise RuntimeError(f"the split's {form} pass 2 breaks the 1-count gate at {row}")
+
+    # ---- times, in turns ----
+    mp = BATCH * H * W / 1e6
+    fns = {p: (lambda t, f=b: f(t, plan)) for p, (b, _) in _k1_bodies().items()}
+    t = {p: [] for p in fns}
+    for p in (*fns, *reversed(fns)):
+        t[p].append(_time(fns[p], planar, name=f"K1 {p} sigma={SIGMA}", mp=mp).median_ms)
+    t = {p: float(np.mean(v)) for p, v in t.items()}
+    plain = {p: _time(_k1_bodies()[p][1], planar, plan, name=f"K1 {p} plain version").median_ms
+             for p in ("hybrid", "bf16")}
+    wide = make_plan((H, W), SIGMA_U8_WIDE)
+    rows, cols = fused_blur._split_plans(wide)
+    e = fs.fused_split_rows_int8(planar, rows)
+    ts = _in_turns(f"split pass 2 r={wide.col.support_radius}",
+                   {"int8": lambda u: fs.fused_split_cols_int8(u, cols),
+                    "hybrid": lambda u: fs.fused_split_cols_hybrid(u, cols)}, e)
+    hd_plan = make_plan(HD, SIGMA_U8_WIDE)
+    hd_rows, hd_cols = fused_blur._split_plans(hd_plan)
+    hd_e = fs.fused_split_rows_int8(planar[0, :, :HD[0], :HD[1]].contiguous(), hd_rows)
+    split_plain = _time(fs.fused_split_cols_hybrid_ref, hd_e, hd_cols,
+                        name=f"split hybrid pass 2 plain version at {HD}").median_ms
+    split_hd = _time(fs.fused_split_cols_hybrid, hd_e, hd_cols,
+                     name=f"split hybrid pass 2 at {HD}").median_ms
+    # yardsticks the port never calls: depthwise conv2d in bf16
+    c = 3
+    xb = planar.reshape(-1, c, H, W).to(torch.bfloat16)
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    w_row = torch.from_numpy(plan.row.taps).cuda().to(torch.bfloat16).view(1, 1, 1, -1).repeat(c, 1, 1, 1)
+    w_col = torch.from_numpy(plan.col.taps).cuda().to(torch.bfloat16).view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+
+    def lib_bf16(u):
+        u = F.conv2d(F.pad(u, (rw, rw, rh, rh), mode="reflect"), w_row, groups=c)
+        return F.conv2d(u, w_col, groups=c)
+
+    lib_k1 = _time(lib_bf16, xb, name="K1 bf16 yardstick: reflect F.pad + 2 depthwise "
+                   "conv2d in bf16").median_ms
+    eb = e.reshape(-1, c, H, W).to(torch.bfloat16)
+    rc = wide.col.support_radius
+    wc = torch.from_numpy(wide.col.taps).cuda().to(torch.bfloat16).view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+    lib_split = _time(lambda u: F.conv2d(F.pad(u, (0, 0, rc, rc), mode="reflect"), wc, groups=c),
+                      eb, name="split pass 2 yardstick: reflect F.pad + depthwise conv2d "
+                      "along columns in bf16").median_ms
+    del xb, eb, e, hd_e
+    print(f"phase 14 times in turns at sigma {SIGMA} (ms): K1 {t}; plain {plain}; split "
+          f"pass 2 at r {rc}: {ts}; hybrid pass 2 at {HD} {split_hd:.4f}, its plain "
+          f"version {split_plain:.4f}; yardsticks K1 bf16 {lib_k1:.4f}, split pass 2 "
+          f"{lib_split:.4f}; K1 int8 in phase 4 {k1_int8_ms:.4f}", flush=True)
+
+    outputs = BATCH * 3 * H * W
+    tr, tc = 2 * rw + 1, 2 * rh + 1
+    # 1 byte in, 1 out; hybrid: two int8 digit products per rows tap, one
+    # bf16 product per cols tap; bf16: one per tap on each axis (2 ops each)
+    b_hybrid = _bound_mixed(2 * outputs, 2 * outputs * 2 * tr, 2 * outputs * tc)
+    b_bf16 = _bound_mixed(2 * outputs, 0, 2 * outputs * (tr + tc))
+    # int16 E in, 1 byte out; one bf16 product per cols tap
+    b_split = _bound_mixed(3 * outputs, 0, 2 * outputs * (2 * rc + 1))
+    print(f"phase 14 bounds (ms): K1 hybrid {b_hybrid}, K1 bf16 {b_bf16}, split hybrid "
+          f"pass 2 at r {rc} {b_split}", flush=True)
+
+    def entry(name, src, line, launches, ms, plain_ms, bound, err, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": src, "replaces": line,
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+                **extra}
+
+    src = "blur_algorithms_tpu_torch/csrc/fused_dma.cu"
+    return [
+        entry("fused_dma_hybrid", src, "blur_algorithms_tpu/pallas_kernels/fused_dma.py:1306",
+              launched["hybrid"] + earlier.get("blur_fused_u8_hybrid", 0), t["hybrid"],
+              plain["hybrid"], b_hybrid, errs["hybrid"], None, int8_ms_in_turns=t["int8"]),
+        entry("fused_dma_bf16", src, "blur_algorithms_tpu/pallas_kernels/fused_dma.py:1415",
+              launched["bf16"] + earlier.get("blur_fused_u8_bf16", 0), t["bf16"], plain["bf16"],
+              b_bf16, errs["bf16"], lib_k1, int8_ms_in_turns=t["int8"]),
+        entry("fused_split_cols_hybrid", "blur_algorithms_tpu_torch/csrc/fused_split.cu",
+              "blur_algorithms_tpu/pallas_kernels/fused_blur.py:282",
+              launched["split"] + earlier.get("fused_split_cols_hybrid", 0),
+              ts["hybrid"], split_plain, b_split, errs["split"], lib_split,
+              plain_at=f"{HD[0]}x{HD[1]}x3", ms_at_plain_shape=split_hd,
+              int8_pass2_ms_in_turns=ts["int8"]),
     ]
+
 
 
 def main() -> int:
@@ -1241,9 +1603,11 @@ def main() -> int:
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
 
     from blur_algorithms_tpu_torch import blur_u8, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
     from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
     from blur_algorithms_tpu_torch.utils import build, timing
     from blur_algorithms_tpu_torch.utils.frames import make_frames
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
 
     # ---- phase 1: the card, then the kernel build ----
     smi = subprocess.run(
@@ -1284,33 +1648,45 @@ def main() -> int:
     img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
     x = torch.from_numpy(img).cuda()
     plan = make_plan((H, W), SIGMA)
-    torch.cuda.synchronize()
-    fused_dma.blur_fused_u8_dma.launches = 0
-    fused_blur.blur_fused_f32.launches = 0
-    out = blur_u8(x, SIGMA)
-    torch.cuda.synchronize()
-    launches = fused_dma.blur_fused_u8_dma.launches
-    if launches < 1:
-        raise RuntimeError("blur_u8 did not launch K1")
-    if fused_blur.blur_fused_f32.launches:
-        raise RuntimeError("blur_u8 at sigma 10 launched K2")
-    if out.shape != x.shape or out.dtype != torch.uint8 or out.device != x.device:
-        raise RuntimeError(f"blur_u8 returned {out.shape} {out.dtype} {out.device}")
     planar = x.movedim(-1, -3).contiguous()
-    ref = fused_dma.blur_fused_u8_dma_ref(planar, plan).movedim(-3, -1)
-    torch.cuda.synchronize()
-    err = int((out.int() - ref.int()).abs().max())
-    max_err = max(max_err, err)
-    if not torch.equal(out, ref):
-        raise RuntimeError(f"blur_u8 differs from the plain version by {err}")
     want0 = oracle.blur_u8(img[0], SIGMA)
-    d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
-    print(f"phase 3 main path: blur_u8 AUTO {tuple(x.shape)} sigma={SIGMA}: "
-          f"K1 launches={launches}, equal to plain version=True, "
-          f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
-          flush=True)
-    if d.max() > 1:
-        raise RuntimeError(f"frame 0 is {int(d.max())} counts from the oracle")
+    rung = _u8_dma_precision(plan, device_spec(x.device))
+    bodies = _k1_bodies()
+    # AUTO on the rung it routes; where that is not int8, the int8 pin is
+    # K1 int8's path
+    launched = {}
+    for prec in dict.fromkeys((rung, "int8")):
+        body, ref_fn = bodies[prec]
+        torch.cuda.synchronize()
+        for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32):
+            c.launches = 0
+        out = blur_u8(x, SIGMA) if prec == rung else blur_u8(x, SIGMA, precision="int8")
+        torch.cuda.synchronize()
+        launched[prec] = body.launches
+        others = {b.__name__: b.launches for b, _ in bodies.values() if b is not body}
+        if body.launches < 1 or any(others.values()) or fused_blur.blur_fused_f32.launches:
+            raise RuntimeError(f"blur_u8 ({prec}) launched {body.__name__} {body.launches} "
+                               f"times, the others {others}, K2 "
+                               f"{fused_blur.blur_fused_f32.launches}")
+        if out.shape != x.shape or out.dtype != torch.uint8 or out.device != x.device:
+            raise RuntimeError(f"blur_u8 returned {out.shape} {out.dtype} {out.device}")
+        ref = ref_fn(planar, plan).movedim(-3, -1)
+        torch.cuda.synchronize()
+        err = int((out.int() - ref.int()).abs().max())
+        if prec == "int8":
+            max_err = max(max_err, err)
+        if not torch.equal(out, ref):
+            raise RuntimeError(f"blur_u8 ({prec}) differs from the plain version by {err}")
+        d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
+        what = "AUTO" if prec == rung else "precision='int8'"
+        print(f"phase 3 main path: blur_u8 {what} {tuple(x.shape)} sigma={SIGMA}: rung {prec}, "
+              f"{body.__name__} launches={body.launches}, equal to plain version=True, "
+              f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
+              flush=True)
+        if d.max() > 1:
+            raise RuntimeError(f"frame 0 is {int(d.max())} counts from the oracle")
+        del out, ref
+    launches = launched["int8"]
 
     # ---- phase 4: times ----
     mp = BATCH * H * W / 1e6
@@ -1325,7 +1701,9 @@ def main() -> int:
 
     k2 = _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing)
     fft_kernels = _slice3(frames)
-    slice4_kernels = _slice4(frames)
+    slice4_kernels, split_launched = _slice4(frames)
+    auto_launched = {bodies[p][0].__name__: n for p, n in launched.items() if p != "int8"}
+    slice5_kernels = _slice5(frames, k1.median_ms, {**split_launched, **auto_launched})
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -1352,7 +1730,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-    }, k2, *fft_kernels, *slice4_kernels]}), flush=True)
+    }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -108,7 +108,14 @@ def _served_box_scan(x):
     assert not bool(out.any())
 
 
-_SERVED = (_served_split_u8, _served_split_f32, _served_box_scan)
+def _served_hybrid_pin(x):
+    # K1's hybrid body: its plain version here, a constant frame stays constant
+    out = port.blur_u8(x + 9, 3.0, precision="hybrid")
+    assert out.shape == x.shape and out.dtype == torch.uint8
+    assert bool((out == 9).all())
+
+
+_SERVED = (_served_split_u8, _served_split_f32, _served_box_scan, _served_hybrid_pin)
 
 
 @pytest.mark.parametrize("call", [
@@ -117,14 +124,15 @@ _SERVED = (_served_split_u8, _served_split_f32, _served_box_scan)
     lambda x: port.blur_u8(x.expand(400, -1, -1, -1), 200.0),
     pytest.param(_served_split_u8, id="<lambda>1"),
     pytest.param(_served_split_f32, id="<lambda>2"),
-    lambda x: port.blur_u8(x, 3.0, precision="hybrid"),
+    pytest.param(_served_hybrid_pin, id="<lambda>3"),
     # float past radius 600 and past both budgets
     lambda x: api.blur(x[..., 0].float().expand(2000, -1, -1), 200.0),
     pytest.param(_served_box_scan, id="<lambda>5"),
 ])
 def test_outside_the_domain_raises(call):
-    """Calls outside the port's domain raise; the cases that this slice
-    serves (the split past r 600, K4 past r 600) hold their results."""
+    """Calls outside the port's domain raise; the cases that later slices
+    serve (the split past r 600, K4 past r 600, the hybrid pin) hold their
+    results."""
     x = torch.zeros((1, 1300, 1300, 3), dtype=torch.uint8)  # sigma 200: r = 650
     if call in _SERVED:
         call(x)

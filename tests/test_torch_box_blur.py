@@ -143,7 +143,7 @@ H100 = hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448, 80 << 30)
 
 
 @pytest.mark.parametrize("nsmooth, spec, want", [
-    (13.0, H100, "box_scan"),  # support 338 > the uint8 crossover 165: FFT -> scan
+    (13.0, H100, "box_scan"),  # support 338: past the box crossover (or FFT) -> scan
     (18.0, H100, "box_scan"),  # support 648: past the single kernels
     (4.0, H100, "fused"),  # support 32: K1, up to the measured box crossover
     (5.0, H100, "box_scan"),  # support 50: past it

@@ -55,9 +55,10 @@ def test_k1_equals_plain_version_on_the_card(cuda_device, shape, sigma):
 
 @pytest.mark.cuda
 def test_blur_u8_on_the_card_runs_k1_and_matches_the_cpu(cuda_device):
+    # the int8 pin: AUTO on the card takes the rung the device certified
     img = _planes((2, 120, 200, 3), seed=7)
     before = fused_dma.blur_fused_u8_dma.launches
-    got = blur_u8(img.to(cuda_device), 4.0)
+    got = blur_u8(img.to(cuda_device), 4.0, precision="int8")
     torch.cuda.synchronize()
     assert fused_dma.blur_fused_u8_dma.launches == before + 1
     assert got.device.type == "cuda" and got.dtype == torch.uint8
@@ -314,3 +315,75 @@ def test_slice_4_paths_on_the_card_match_the_cpu(cuda_device):
     x = _f32_planes((2, 48, 1400), seed=26)
     got = blur(x.to(cuda_device), 200.0, engine="fused")
     assert float((got.cpu() - blur(x, 200.0, engine="fused")).abs().max()) <= 1e-3
+
+
+# ---------------------------------------------------------------------------
+# K1's hybrid and bf16 bodies and the split's hybrid pass 2: sums in the
+# plain versions' ascending order, so bit-equal for f32 and uint8 out.
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [
+    ((1080, 1920), 10.0), ((1001, 1777), (5.0, 11.0)), ((541, 963), 150.0),
+    ((37, 1300), 1.0), ((1210, 1205), 180.0), ((64, 300), (2.0, 60.0)),
+])
+@pytest.mark.parametrize("rung", ["hybrid", "bf16"])
+def test_k1_rungs_equal_plain_versions_on_the_card(cuda_device, shape, sigma, rung):
+    fn = fused_dma.blur_fused_u8_hybrid if rung == "hybrid" else fused_dma.blur_fused_u8_bf16
+    ref = (fused_dma.blur_fused_u8_hybrid_ref if rung == "hybrid"
+           else fused_dma.blur_fused_u8_bf16_ref)
+    plan = make_plan(shape, sigma)
+    x = _planes((3, *shape), seed=27).to(cuda_device)
+    for out_u8 in (True, False):
+        before = fn.launches
+        got = fn(x, plan, out_u8)
+        want = ref(x, plan, out_u8)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [
+    ((300, 517), 3.0), ((1080, 1920), 250.0), ((5000, 64), 1000.0),
+    ((9000, 40), (1230.0, 2.0)),
+])
+def test_split_hybrid_pass2_equals_plain_version_on_the_card(cuda_device, shape, sigma):
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    plan = make_plan(shape, sigma)
+    rows, cols = fused_blur._split_plans(plan)
+    x = _planes((3, *shape), seed=28).to(cuda_device)
+    e = fs.fused_split_rows_int8(x, rows, out_e32=True)
+    for out_u8 in (True, False):
+        before = fs.fused_split_cols_hybrid.launches
+        got = fs.fused_split_cols_hybrid(e, cols, out_u8=out_u8)
+        want = fs.fused_split_cols_hybrid_ref(e, cols, out_u8=out_u8)
+        torch.cuda.synchronize()
+        assert fs.fused_split_cols_hybrid.launches == before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_auto_on_the_card_runs_the_certified_rung(cuda_device):
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    img = _planes((2, 120, 200, 3), seed=30)
+    plan = make_plan((120, 200), 4.0)
+    rung = _u8_dma_precision(plan, device_spec(cuda_device))
+    got = blur_u8(img.to(cuda_device), 4.0)
+    planar = img.movedim(-1, -3).contiguous()
+    ref = {"int8": fused_dma.blur_fused_u8_dma_ref, "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
+           "bf16": fused_dma.blur_fused_u8_bf16_ref}[rung]
+    assert torch.equal(got.cpu(), from_planar(ref(planar, plan)))
+
+
+@pytest.mark.cuda
+def test_hybrid_pin_on_the_card_matches_the_cpu(cuda_device):
+    img = _planes((2, 120, 200, 3), seed=29)
+    before = fused_dma.blur_fused_u8_hybrid.launches
+    got = blur_u8(img.to(cuda_device), 4.0, precision="hybrid")
+    torch.cuda.synchronize()
+    assert fused_dma.blur_fused_u8_hybrid.launches == before + 1
+    assert torch.equal(got.cpu(), blur_u8(img, 4.0, precision="hybrid"))

@@ -195,8 +195,12 @@ def test_blur_fused_u8_routes_int8_to_k1_or_falls_back_to_k2(spec, kernel):
     assert torch.equal(got, want)
     assert torch.equal(t_fused.blur_fused_u8(x, plan, "bf16x3"),
                        t_fused.blur_fused_f32_ref(x, plan, out_u8=True))
+    # the hybrid rung: K1's hybrid body where it applies, else the same
+    # fallback as int8; a rung name that does not exist raises
+    hybrid = t_dma.blur_fused_u8_hybrid_ref(x, plan) if kernel == "k1" else want
+    assert torch.equal(t_fused.blur_fused_u8(x, plan, "hybrid"), hybrid)
     with pytest.raises(ValueError):
-        t_fused.blur_fused_u8(x, plan, "hybrid")
+        t_fused.blur_fused_u8(x, plan, "fp8")
 
 
 # ---------------------------------------------------------------------------
