@@ -57,7 +57,7 @@ from blur_algorithms_tpu_torch.cuda_kernels.box_blur import (
 )
 from blur_algorithms_tpu_torch.cuda_kernels.fft4step import MAX_N, blur_fft_mxu_cuda
 from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
-    blur_fused_u8_hybrid,
+    blur_fused_u8_dma,
     dma_form_applicable,
 )
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
@@ -284,11 +284,16 @@ def _fused_u8_interleaved(img: torch.Tensor, plan: BlurPlan,
                           precision: str | None = None) -> torch.Tensor:
     """uint8 (..., H, W, C) -> uint8 via the fused engine: the rung AUTO
     routes (``_u8_dma_precision``) through ``blur_fused_u8``, or a pinned
-    rung. The ``"hybrid"`` pin runs K1's hybrid body whatever the split
-    radius, as the JAX hybrid pin runs only that form."""
+    rung. The ``"hybrid"`` pin runs K1's hybrid body (in the form the
+    device's rule picks, ``blur_fused_u8_dma``) whatever the split radius,
+    and the ``"int8"`` pin K1's exact int8 body wherever
+    ``dma_form_applicable`` holds (past it, ``blur_fused_u8``'s blocked
+    rule), as the JAX pins run only K1 where it applies: exactness is the
+    point of the pin, so the split's hybrid pass 2 never serves it."""
     planar = to_planar(img, torch.uint8)
-    if precision == "hybrid":
-        return from_planar(blur_fused_u8_hybrid(planar, plan))
+    if precision == "hybrid" or (precision == "int8"
+                                 and dma_form_applicable(torch.uint8, plan, "int8")):
+        return from_planar(blur_fused_u8_dma(planar, plan, precision=precision))
     prec = precision or _u8_dma_precision(plan, device_spec(img.device))
     return from_planar(blur_fused_u8(planar, plan, prec))
 
@@ -464,7 +469,9 @@ def box_blur(img: torch.Tensor, nsmooth: float, passes: int = 2,
     ``box_scan_crossover_radius``. On the fused engine the ``passes``
     sequential reflect-101 box passes are folded into one effective-taps
     pass (``ops/kernels.py``): uint8 interleaved ``(..., H, W, C)`` ->
-    uint8 (K1, exact int8), float planar ``(..., H, W)`` -> float32 (K2);
+    uint8 on AUTO's rung (``blur_u8``'s: K1's hybrid or int8 body, the
+    two-pass split from the device's split radius), float planar
+    ``(..., H, W)`` -> float32 (K2);
     K4 runs the passes as they are. Float input is differentiable.
     """
     if not isinstance(img, torch.Tensor):

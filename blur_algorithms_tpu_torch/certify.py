@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import functools
 import json
 import sys
 
@@ -276,8 +277,8 @@ def route_probe(precisions, log=print) -> dict:
     from blur_algorithms_tpu_torch.utils.frames import make_frames
 
     x = torch.from_numpy(make_frames(ROUTE_BATCH, *ROUTE_HW)).cuda()
-    bodies = {"int8": fused_dma.blur_fused_u8_dma, "hybrid": fused_dma.blur_fused_u8_hybrid,
-              "bf16": fused_dma.blur_fused_u8_bf16}
+    bodies = {"int8": functools.partial(fused_dma.blur_fused_u8_dma, direct=True),
+              "hybrid": fused_dma.blur_fused_u8_hybrid, "bf16": fused_dma.blur_fused_u8_bf16}
     k1 = {}
     for rt in ROUTE_R:
         plan = make_plan(ROUTE_HW, rt / R_PER_SIGMA)

@@ -504,8 +504,10 @@ def blur_fused_u8(planar_u8: torch.Tensor, plan: BlurPlan,
     ``"bf16x3"`` elsewhere, as the JAX package does; ``"hybrid"`` and
     ``"bf16"`` run K1's body of that name where it applies
     (``fused_dma.dma_form_applicable``) and ``"int8"`` elsewhere, as the JAX
-    blocked form does; ``"bf16x3"`` runs K2. Where ``_split_wins`` the
-    two-pass split runs, int8 end to end where ``e32_split_applicable``
+    blocked form does; ``"bf16x3"`` runs K2. K1 runs in the staging form
+    the device's rule picks (``fused_dma.blur_fused_u8_dma``). Where
+    ``_split_wins`` the two-pass split runs, int8 end to end where
+    ``e32_split_applicable``
     (``"hybrid"`` and ``"bf16"`` run it as ``"int8"``), its pass 2 hybrid
     where ``_hybrid_cols_ok``.
     """
@@ -521,9 +523,7 @@ def blur_fused_u8(planar_u8: torch.Tensor, plan: BlurPlan,
         return _blur_fused_split(planar_u8, plan, blocked, out_u8=True)
     if (precision in ("hybrid", "bf16")
             and fused_dma.dma_form_applicable(planar_u8.dtype, plan, precision)):
-        body = (fused_dma.blur_fused_u8_hybrid if precision == "hybrid"
-                else fused_dma.blur_fused_u8_bf16)
-        return body(planar_u8, plan)
+        return fused_dma.blur_fused_u8_dma(planar_u8, plan, precision=precision)
     if (precision != "bf16x3" and int8_applicable(plan, torch.uint8)
             and plan.col.support_radius > 0):
         return fused_dma.blur_fused_u8_dma(planar_u8, plan)

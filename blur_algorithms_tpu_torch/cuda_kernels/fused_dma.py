@@ -1,29 +1,47 @@
 """Fused separable blur of uint8 planes (K1): the int8, hybrid and bf16
-rungs of the precision ladder.
+rungs of the precision ladder, in K1's five staging forms.
 
 The port of the JAX package's ``pallas_kernels/fused_dma.py``:
-``blur_fused_u8_dma`` there runs the Pallas kernel ``_kernel_direct`` with
-one of its tile bodies; here each rung launches a CUDA kernel of
-``csrc/fused_dma.cu`` on a CUDA tensor and runs its plain PyTorch version on
-a CPU tensor:
+``_blur_fused_dma_impl`` there runs one of its Pallas kernels with one of
+its tile bodies; here ``blur_fused_u8_dma`` does the same with the kernels
+of ``csrc/fused_dma.cu`` on a CUDA tensor, and runs the body's plain
+PyTorch version on a CPU tensor. The bodies:
 
-- int8 (``_rows_int8`` / ``_cols_int8``): ``blur_fused_u8_dma``, plain
-  version ``blur_fused_u8_dma_ref``. Both compute the JAX kernel's integers
+- int8 (``_rows_int8`` / ``_cols_int8``), plain version
+  ``blur_fused_u8_dma_ref``. Both compute the JAX kernel's integers
   exactly and round its f32 epilogue the same way, so all three agree bit
   for bit.
 - hybrid (``_tile_hybrid``): the exact int8 rows sum ``R``, ``y =
   bf16(f32(R))``, one f32 sum of ``bf16(c_t) * y`` per output in ascending
-  tap order, and one fused ``fma(acc, 1 / (127 * 2^s), 128)``:
-  ``blur_fused_u8_hybrid``, plain version ``blur_fused_u8_hybrid_ref``.
+  tap order, and one fused ``fma(acc, 1 / (127 * 2^s), 128)``; plain
+  version ``blur_fused_u8_hybrid_ref``.
 - bf16 (``_tile_bf16``): ``y = bf16(sum bf16(r_t) * x)``, then ``sum
-  bf16(c_t) * y``, both f32 sums in ascending tap order, no epilogue:
-  ``blur_fused_u8_bf16``, plain version ``blur_fused_u8_bf16_ref``.
+  bf16(c_t) * y``, both f32 sums in ascending tap order, no epilogue;
+  plain version ``blur_fused_u8_bf16_ref``.
 
-A bf16 product is exact in f32, so a sum taken in the same order is the same
-number: the kernels equal their plain versions bit for bit, and the plain
-versions equal the JAX bodies in interpret mode wherever XLA's CPU dot sums
-in ascending order (short contractions; past those, one rounding of the
-sum may differ).
+The forms (``k1_geometry`` sizes each; one wrapper and launch count each):
+
+- direct (``_kernel_direct``): one block per output tile gathers its
+  reflect-101 window; ``blur_fused_u8_dma`` (int8),
+  ``blur_fused_u8_hybrid``, ``blur_fused_u8_bf16``;
+- strip (``_kernel_strip``): one block per row strip walks its windows,
+  each input byte read once; ``blur_fused_u8_strip``;
+- assembled (``_kernel``): windows are plain rectangles of A5's padded
+  frame (``assemble.py``); ``blur_fused_u8_assembled``, and
+  ``blur_fused_u8_pipelined`` (``_kernel_pipe``, int8: window j's rows
+  pass beside window j-1's cols pass); plain version
+  ``blur_fused_u8_padded_ref``;
+- resident (``_kernel_resident``): one block per column window walks down
+  the frame with the rows output in a ring, each rows value computed once;
+  ``blur_fused_u8_resident`` (int8, hybrid).
+
+Every form computes K1's function from the same terms in the same order,
+so the forms are bit-identical to the direct form and to the plain
+versions (as in the JAX package, where each is bit-identical to
+``_kernel_direct``). A bf16 product is exact in f32, so a sum taken in
+the same order is the same number: the plain versions equal the JAX
+bodies in interpret mode wherever XLA's CPU dot sums in ascending order
+(short contractions; past those, one rounding of the sum may differ).
 
 The JAX kernel contracts every window with band matrices. Every column of a
 band matrix holds the same tap vector, shifted, so the band dots are 1-D
@@ -32,8 +50,7 @@ correlations with one tap vector per axis: ``int8_operands``,
 
 The bf16x3 tile body has the numerics of the blocked kernel
 ``fused_blur._kernel`` and runs as K2 (``cuda_kernels/fused_blur.py``). The
-other forms of the JAX kernel (strip, assemble, rows-resident, pipelined)
-and the multi-chip haloed entry point are queued in ROADMAP.md.
+multi-chip haloed entry point (with A4) is queued in ROADMAP.md.
 ``MAX_RADIUS`` (600, the JAX int8 DMA form's domain) bounds K1 and K2
 alike; past it ``blur_fused_u8`` runs the two-pass split, whose int8 forms
 (``cuda_kernels/fused_split.py``) share ``int8_rows_ref`` /
@@ -57,6 +74,7 @@ from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
 from blur_algorithms_tpu_torch.ops.band_matmul import band_block_matrix
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
+from blur_algorithms_tpu_torch.utils.hw import device_spec
 
 __all__ = [
     "Bf16Operands",
@@ -64,15 +82,26 @@ __all__ = [
     "Int8Operands",
     "MAX_RADIUS",
     "bf16_operands",
+    "FORMS",
+    "K1Geometry",
+    "RUNGS",
+    "bf16_operands",
+    "blur_fused_u8_assembled",
     "blur_fused_u8_bf16",
     "blur_fused_u8_bf16_ref",
     "blur_fused_u8_dma",
     "blur_fused_u8_dma_ref",
     "blur_fused_u8_hybrid",
     "blur_fused_u8_hybrid_ref",
+    "blur_fused_u8_padded_ref",
+    "blur_fused_u8_pipelined",
+    "blur_fused_u8_resident",
+    "blur_fused_u8_strip",
     "dma_form_applicable",
     "hybrid_operands",
     "int8_operands",
+    "k1_geometry",
+    "layout_bytes",
 ]
 
 @dataclasses.dataclass(frozen=True)
@@ -214,28 +243,64 @@ def blur_fused_u8_dma_ref(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tens
     """
     _check_planar(planar_u8, plan)
     check_domain(plan)
-    ops = int8_operands(plan)
-    h, w = plan.shape
-    rh, rw = plan.col.support_radius, plan.row.support_radius
-    x = planar_u8.reshape(-1, h, w)
-    r = int8_rows_ref(reflect_101(x, [(rh, rh), (rw, rw)]), ops.q_row, w)
-    s = ops.rows_shift
-    e = (r + (1 << (s - 1))) >> s
-    del r
-    y = int8_cols_ref(e, ops.q_col, ops.epilogue_constants(), h)
-    return store_u8_ref(y).reshape(planar_u8.shape)
+    return _body_ref(_reflect_planes(planar_u8, plan), plan, "int8", True).reshape(
+        planar_u8.shape)
 
 
 def _check_rung(planar_u8: torch.Tensor, plan: BlurPlan, precision: str) -> None:
     _check_planar(planar_u8, plan)
-    if not dma_form_applicable(torch.uint8, plan, precision):
-        rh, rw = plan.col.support_radius, plan.row.support_radius
-        raise ValueError(
-            f"K1's {precision} body does not serve this plan (support radii "
-            f"({rh}, {rw}); it needs both in 1..{MAX_RADIUS}"
-            + ("" if precision == "bf16" else " and non-negative unit-sum taps")
-            + ")"
-        )
+    _check_body(plan, precision, True)
+
+
+def _reflect_planes(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
+    """``(n, H + 2rh, W + 2rw)``: the planes reflect-101 padded by the radii."""
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    x = planar_u8.reshape(-1, *plan.shape)
+    return reflect_101(x, [(rh, rh), (rw, rw)])
+
+
+def _body_ref(xp: torch.Tensor, plan: BlurPlan, precision: str,
+              out_u8: bool) -> torch.Tensor:
+    """One of K1's bodies on padded planes ``xp`` (``(n, H + 2rh, W +
+    2rw)`` uint8) -> ``(n, H, W)`` uint8, or the float32 value before the
+    store (hybrid and bf16, ``out_u8=False``)."""
+    h, w = plan.shape
+    if precision == "int8":
+        ops = int8_operands(plan)
+        r = int8_rows_ref(xp, ops.q_row, w)
+        s = ops.rows_shift
+        e = (r + (1 << (s - 1))) >> s
+        del r
+        return store_u8_ref(int8_cols_ref(e, ops.q_col, ops.epilogue_constants(), h))
+    if precision == "hybrid":
+        ops = hybrid_operands(plan)
+        y = bf16_round_ref(int8_rows_ref(xp, ops.q_row, w).to(torch.float32))
+        out = fma_f32_ref(bf16_correlate_ref(y, ops.c_col, h, -2), ops.scale, 128.0)
+    else:
+        ops = bf16_operands(plan)
+        y = bf16_round_ref(bf16_correlate_ref(xp.to(torch.float32), ops.c_row, w, -1))
+        out = bf16_correlate_ref(y, ops.c_col, h, -2)
+    return store_u8_ref(out) if out_u8 else out
+
+
+def blur_fused_u8_padded_ref(xp: torch.Tensor, plan: BlurPlan, orh: int, orw: int,
+                             precision: str = "int8", out_u8: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K1's assembled form (K1a): the same body on
+    windows of an assembled frame. ``xp``: uint8 ``(..., hp, wp)`` holding
+    the planes at ``(orh, orw)`` with their reflect-101 borders around them
+    (``assemble.assemble_padded``) -> ``(..., H, W)``. Runs on whatever
+    device the input lies on."""
+    if xp.dtype != torch.uint8:
+        raise TypeError(f"expected a uint8 frame, got {xp.dtype}")
+    _check_body(plan, precision, out_u8)
+    h, w = plan.shape
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    if (xp.ndim < 2 or orh < rh or orw < rw or orh + h + rh > xp.shape[-2]
+            or orw + w + rw > xp.shape[-1]):
+        raise ValueError(f"a frame of shape {tuple(xp.shape)} does not hold the plan's "
+                         f"{plan.shape} planes and their borders at {(orh, orw)}")
+    x = xp.reshape(-1, *xp.shape[-2:])[:, orh - rh : orh + h + rh, orw - rw : orw + w + rw]
+    return _body_ref(x, plan, precision, out_u8).reshape(*xp.shape[:-2], h, w)
 
 
 def bf16_round_ref(y: torch.Tensor) -> torch.Tensor:
@@ -284,15 +349,8 @@ def blur_fused_u8_hybrid_ref(planar_u8: torch.Tensor, plan: BlurPlan,
     the bf16 column taps summed in ascending order, ``fma(acc, 1 / (127 *
     2^s), 128)``. Runs on whatever device the input lies on."""
     _check_rung(planar_u8, plan, "hybrid")
-    ops = hybrid_operands(plan)
-    h, w = plan.shape
-    rh, rw = plan.col.support_radius, plan.row.support_radius
-    x = planar_u8.reshape(-1, h, w)
-    r = int8_rows_ref(reflect_101(x, [(rh, rh), (rw, rw)]), ops.q_row, w)
-    y = bf16_round_ref(r.to(torch.float32))
-    del r
-    out = fma_f32_ref(bf16_correlate_ref(y, ops.c_col, h, -2), ops.scale, 128.0)
-    return (store_u8_ref(out) if out_u8 else out).reshape(planar_u8.shape)
+    out = _body_ref(_reflect_planes(planar_u8, plan), plan, "hybrid", out_u8)
+    return out.reshape(planar_u8.shape)
 
 
 def blur_fused_u8_bf16_ref(planar_u8: torch.Tensor, plan: BlurPlan,
@@ -304,13 +362,8 @@ def blur_fused_u8_bf16_ref(planar_u8: torch.Tensor, plan: BlurPlan,
     over the columns, both in ascending tap order. Runs on whatever device
     the input lies on."""
     _check_rung(planar_u8, plan, "bf16")
-    ops = bf16_operands(plan)
-    h, w = plan.shape
-    rh, rw = plan.col.support_radius, plan.row.support_radius
-    x = reflect_101(planar_u8.reshape(-1, h, w), [(rh, rh), (rw, rw)])
-    y = bf16_round_ref(bf16_correlate_ref(x.to(torch.float32), ops.c_row, w, -1))
-    out = bf16_correlate_ref(y, ops.c_col, h, -2)
-    return (store_u8_ref(out) if out_u8 else out).reshape(planar_u8.shape)
+    out = _body_ref(_reflect_planes(planar_u8, plan), plan, "bf16", out_u8)
+    return out.reshape(planar_u8.shape)
 
 
 def int8_rows_ref(xp: torch.Tensor, q_row: np.ndarray, w: int) -> torch.Tensor:
@@ -379,51 +432,6 @@ def _device_taps(plan: BlurPlan, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(words).to(device)
 
 
-def blur_fused_u8_dma(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
-    """uint8 planar ``(..., H, W)`` -> uint8, fused int8 blur (K1).
-
-    A CUDA tensor launches the kernel of ``csrc/fused_dma.cu``; a CPU tensor
-    runs the plain version. Any other device, a non-contiguous tensor or a
-    plan outside the kernel's domain raises. ``blur_fused_u8_dma.launches``
-    counts kernel launches.
-    """
-    _check_planar(planar_u8, plan)
-    check_domain(plan)
-    if planar_u8.device.type == "cpu":
-        return blur_fused_u8_dma_ref(planar_u8, plan)
-    if planar_u8.device.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {planar_u8.device}")
-    if not planar_u8.is_contiguous():
-        raise ValueError("K1 needs contiguous planes")
-    from blur_algorithms_tpu_torch.utils.build import load_library
-
-    h, w = plan.shape
-    x = planar_u8.reshape(-1, h, w)
-    if x.shape[0] > 65535:
-        raise ValueError(f"K1 takes at most 65535 planes, got {x.shape[0]}")
-    out = torch.empty_like(x)
-    if x.shape[0] == 0:
-        return out.reshape(planar_u8.shape)
-    ops = int8_operands(plan)
-    taps = _device_taps(plan, x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.blur_fused_u8_int8(
-            x.data_ptr(), out.data_ptr(), taps.data_ptr(),
-            x.shape[0], h, w, plan.col.support_radius, plan.row.support_radius,
-            ops.rows_shift, *map(float, ops.epilogue_constants()),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc:
-        msg = lib.blur_cuda_error_string(rc).decode()
-        raise RuntimeError(f"K1 launch failed: CUDA error {rc} ({msg})")
-    blur_fused_u8_dma.launches += 1
-    return out.reshape(planar_u8.shape)
-
-
-blur_fused_u8_dma.launches = 0
-
-
 def _padded_f32(taps: np.ndarray) -> np.ndarray:
     out = np.zeros(-(-taps.size // 4) * 4, dtype=np.float32)
     out[: taps.size] = taps
@@ -448,74 +456,441 @@ def _rung_taps(plan: BlurPlan, precision: str,
             torch.from_numpy(_padded_f32(cols)).to(device))
 
 
-def _launch_rung(fn, planar_u8: torch.Tensor, plan: BlurPlan, precision: str,
-                 out_u8: bool) -> torch.Tensor:
+def _check_body(plan: BlurPlan, precision: str, out_u8: bool) -> None:
+    if precision not in RUNGS:
+        raise ValueError(f"K1's bodies are {RUNGS}, not {precision!r}")
+    if precision == "int8":
+        check_domain(plan)
+        if not out_u8:
+            raise ValueError("K1's int8 body stores uint8 (out_u8=True)")
+    elif not dma_form_applicable(torch.uint8, plan, precision):
+        rh, rw = plan.col.support_radius, plan.row.support_radius
+        raise ValueError(
+            f"K1's {precision} body does not serve this plan (support radii "
+            f"({rh}, {rw}); it needs both in 1..{MAX_RADIUS}"
+            + ("" if precision == "bf16" else " and non-negative unit-sum taps")
+            + ")"
+        )
+
+
+# ---------------------------------------------------------------------------
+# the forms' geometry: one policy per form serves both its applicability
+# check and its launch
+
+RUNGS = ("int8", "hybrid", "bf16")
+FORMS = ("direct", "strip", "assembled", "pipelined", "resident")
+_THREADS = 256  # csrc/fused_dma.cu kThreads
+# The H100's dynamic shared memory per block and its SM count: what the
+# forms are sized by where the tensor's device reports neither (the CPU).
+HOPPER_SMEM_OPTIN = 232448
+HOPPER_SMS = 132
+PIPELINE_SEG = 4  # windows per block of the pipelined variant
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _r16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+def _odd_words(rows: int) -> int:
+    return rows if (rows >> 2) & 1 else rows + 4
+
+
+def layout_bytes(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
+                 slots: int = 0) -> int:
+    """Shared memory of one block of ``form`` with K1's ``precision`` body:
+    ``make_layout`` of ``csrc/fused_dma.cu``, which checks the launch
+    against it (taps, the rows-output plane or planes, the staged input,
+    and the assembled forms' ``slots`` cp.async buffers of a row group,
+    which int8 and hybrid read as their stage)."""
+    t4w, t4h = _r4(2 * rw + 1), _r4(2 * rh + 1)
+    g = _THREADS // (tw // 4)
+    sw = tw + t4w
+    es = 2 if precision == "bf16" else 1
+    taps = (2 * t4w + 2 * t4h if precision == "int8"
+            else 4 * t4h + (4 if precision == "bf16" else 2) * t4w)
+    cs = _odd_words(th + 2 * t4h + 4 if form == "resident" else th + t4h)
+    planes = 2 if form == "pipelined" else 1
+    raw = form in ("assembled", "pipelined")
+    stage = (th + t4h if form == "strip" else (0 if raw and es == 1 else g)) * sw * es
+    end = taps + planes * 2 * tw * cs + stage
+    return _r16(end) + slots * g * _r16(sw) if raw else end
+
+
+@dataclasses.dataclass(frozen=True)
+class K1Geometry:
+    """A form's launch: its tile, windows per block (the pipelined variant),
+    shared memory, and the assembled forms' cp.async buffers (``slots - 1``
+    row groups in flight) and padded frame ``(hp, wp)``, which holds the
+    planes at ``(rh, rw)``."""
+
+    form: str
+    th: int
+    tw: int
+    seg: int
+    smem: int
+    slots: int = 0
+    hp: int = 0
+    wp: int = 0
+
+
+def k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int = 1,
+                tile: tuple[int, int] | None = None,
+                device: torch.device | str = "cpu") -> K1Geometry | None:
+    """The launch of K1's ``precision`` body in ``form`` on ``planes``
+    planes of the plan's shape, or None where the form does not serve it.
+
+    Tiles as K1's direct policy (the fastest of nine measured shapes at 4K:
+    64 columns to rw 100, else 32; 256, 512 or 1024 rows by rh, halved until
+    the block fits the device's shared memory, then balanced over the
+    frame); the strip form halves its rows further while the frame has
+    fewer than two strips per SM, since it runs one block per strip; the
+    resident form steps 64 rows (halved to fit): its rows work does not
+    depend on the step. The assembled forms keep two row groups in flight
+    where three buffers fit, else one. ``tile=(th, tw)`` pins either (0 = the policy). The
+    resident form serves int8 and hybrid (its ring holds digit planes or
+    bf16 ``y``), the pipelined variant int8 on frames of two windows or
+    more. Sized by ``device``'s shared memory (the H100's on the CPU)."""
+    if form not in FORMS:
+        raise ValueError(f"K1's forms are {FORMS}, not {form!r}")
+    if ((form == "resident" and precision == "bf16")
+            or (form == "pipelined" and precision != "int8")):
+        return None
+    spec = device_spec(device)
+    limit = spec.smem_optin_bytes or HOPPER_SMEM_OPTIN
+    sms = spec.sm_count or HOPPER_SMS
+    h, w = plan.shape
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    th_pin, tw_pin = tile or (0, 0)
+    tw = tw_pin or (64 if rw <= 100 else 32)
+    if tw not in (32, 64, 128) or th_pin % 4 or th_pin < 0:
+        raise ValueError(f"tile {tile}: rows a multiple of 4, columns 32, 64 or 128")
+
+    raw = form in ("assembled", "pipelined")
+
+    def fits(t: int, slots: int = 2 if raw else 0) -> bool:
+        return layout_bytes(form, precision, t, tw, rh, rw, slots) <= limit
+
+    if th_pin:
+        th = th_pin
+    elif form == "resident":
+        th = 64
+        while th > 4 and not fits(th):
+            th //= 2
+    else:
+        target = 256 if rh <= 100 else (512 if rh <= 400 else 1024)
+        while target > 32 and not fits(target):
+            target >>= 1
+        if form == "strip":
+            while target > 32 and planes * -(-h // target) < 2 * sms:
+                target >>= 1
+        tiles = -(-h // target)
+        th = _r4(-(-h // tiles))
+    if not fits(th):
+        return None
+    nbw = -(-w // tw)
+    seg = 1
+    if form == "pipelined":
+        if nbw < 2:
+            return None
+        seg = min(PIPELINE_SEG, nbw)
+    slots = hp = wp = 0
+    if raw:
+        slots = 3 if fits(th, 3) else 2
+        t4w, t4h = _r4(2 * rw + 1), _r4(2 * rh + 1)
+        hp = -(-h // th) * th + t4h
+        wp = _r16((nbw - 1) * tw + _r16(tw + t4w))
+    return K1Geometry(form, th, tw, seg, layout_bytes(form, precision, th, tw, rh, rw, slots),
+                      slots, hp, wp)
+
+
+def _form_geometry(form: str, precision: str, plan: BlurPlan, planes: int,
+                   tile, device) -> K1Geometry:
+    geo = k1_geometry(form, precision, plan, planes, tile, device)
+    if geo is None:
+        kw = {"direct": "tile", "assembled": "direct=False"}.get(form, f"{form}=True")
+        raise ValueError(
+            f"{kw}: K1's {form} form does not serve the {precision} body on "
+            f"{plan.shape} planes at support radii ({plan.col.support_radius}, "
+            f"{plan.row.support_radius})" + (f", tile {tile}" if tile else "")
+            + " (the block does not fit the device's shared memory, or the form "
+            "does not take this body)"
+        )
+    return geo
+
+
+def _resolve_form(plan: BlurPlan, precision: str, planes: int, tile, device, *,
+                  direct, strip, pipelined, resident) -> K1Geometry:
+    """The form a call runs: the one its keywords pin, else the form the
+    device's measured rule names (``utils/hw.DeviceSpec.k1_form``) where
+    its keyword is unset and it fits, else K1 direct."""
+    pinned = [f for f, on in (("resident", resident), ("strip", strip),
+                              ("pipelined", pipelined)) if on]
+    if direct is False and not pipelined:
+        pinned.append("assembled")
+    if direct is True:
+        pinned.append("direct")
+    if len(pinned) > 1:
+        raise ValueError(f"the forms {pinned} exclude one another")
+    if pinned:
+        return _form_geometry(pinned[0], precision, plan, planes, tile, device)
+    r = max(plan.col.support_radius, plan.row.support_radius)
+    form = device_spec(device).k1_form(precision, planes, r)
+    declined = {"direct": True, "assembled": direct is not None,
+                "resident": resident is not None}
+    if not declined[form]:
+        geo = k1_geometry(form, precision, plan, planes, tile, device)
+        if geo is not None:
+            return geo
+    return _form_geometry("direct", precision, plan, planes, tile, device)
+
+
+# ---------------------------------------------------------------------------
+# the wrappers: a CUDA tensor launches the form's kernel, a CPU tensor runs
+# the plain version, any other device raises
+
+
+def _check_cuda(name: str, t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {t.device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} needs contiguous planes")
+
+
+def _plain(planar_u8: torch.Tensor, plan: BlurPlan, precision: str,
+           out_u8: bool) -> torch.Tensor:
+    if precision == "int8":
+        return blur_fused_u8_dma_ref(planar_u8, plan)
+    ref = blur_fused_u8_hybrid_ref if precision == "hybrid" else blur_fused_u8_bf16_ref
+    return ref(planar_u8, plan, out_u8)
+
+
+def _launch(fn, geo: K1Geometry, x: torch.Tensor, plan: BlurPlan, precision: str,
+            out_u8: bool) -> torch.Tensor:
+    """One launch of ``blur_fused_u8_k1`` on contiguous CUDA planes ``x``
+    (``(n, H, W)``, or the padded frames ``(n, hp, wp)`` of the assembled
+    forms) -> ``(n, H, W)``; adds one to ``fn.launches``."""
     from blur_algorithms_tpu_torch.utils.build import load_library
 
-    name = f"K1 {precision}"
-    if planar_u8.device.type != "cuda":
-        raise ValueError(f"{name} runs on CUDA or CPU tensors, not {planar_u8.device}")
-    if not planar_u8.is_contiguous():
-        raise ValueError(f"{name} needs contiguous planes")
-    h, w = plan.shape
-    x = planar_u8.reshape(-1, h, w)
+    name = f"K1 {geo.form} {precision}"
     if x.shape[0] > 65535:
         raise ValueError(f"{name} takes at most 65535 planes, got {x.shape[0]}")
-    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+    h, w = plan.shape
+    out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
     if x.shape[0] == 0:
-        return out.reshape(planar_u8.shape)
-    rows, cols = _rung_taps(plan, precision, x.device)
-    hybrid = precision == "hybrid"
-    scale = float(hybrid_operands(plan).scale) if hybrid else 1.0
+        return out
+    if precision == "int8":
+        ops = int8_operands(plan)
+        taps_i, taps_f = _device_taps(plan, x.device), None
+        shift, consts, scale = ops.rows_shift, ops.epilogue_constants(), 1.0
+    else:
+        taps_i, taps_f = _rung_taps(plan, precision, x.device)
+        shift, consts = 0, (0.0, 0.0, 0.0)
+        scale = float(hybrid_operands(plan).scale) if precision == "hybrid" else 1.0
     lib = load_library()
     with torch.cuda.device(x.device):
-        rc = lib.blur_fused_u8_bf16cols(
-            x.data_ptr(), out.data_ptr(), rows.data_ptr(), cols.data_ptr(),
+        rc = lib.blur_fused_u8_k1(
+            FORMS.index(geo.form), RUNGS.index(precision), int(out_u8),
+            x.data_ptr(), out.data_ptr(), taps_i.data_ptr(),
+            None if taps_f is None else taps_f.data_ptr(),
             x.shape[0], h, w, plan.col.support_radius, plan.row.support_radius,
-            int(not hybrid), int(out_u8), scale,
-            torch.cuda.current_stream(x.device).cuda_stream,
+            geo.th, geo.tw, geo.seg, geo.slots, x.shape[1], x.shape[2], geo.smem, shift,
+            *map(float, consts), scale, torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
     fn.launches += 1
+    return out
+
+
+def _run_form(fn, form: str, planar_u8: torch.Tensor, plan: BlurPlan, precision: str,
+              out_u8: bool, tile) -> torch.Tensor:
+    """K1's ``precision`` body in ``form`` (direct, strip or resident) on
+    uint8 ``(..., H, W)``: the kernel on a CUDA tensor, counted on ``fn``;
+    the body's plain version on a CPU tensor."""
+    _check_planar(planar_u8, plan)
+    _check_body(plan, precision, out_u8)
+    planes = int(np.prod(planar_u8.shape[:-2], dtype=np.int64))
+    geo = _form_geometry(form, precision, plan, planes, tile, planar_u8.device)
+    if planar_u8.device.type == "cpu":
+        return _plain(planar_u8, plan, precision, out_u8)
+    _check_cuda(f"K1 {form}", planar_u8)
+    out = _launch(fn, geo, planar_u8.reshape(-1, *plan.shape), plan, precision, out_u8)
     return out.reshape(planar_u8.shape)
 
 
-def blur_fused_u8_hybrid(planar_u8: torch.Tensor, plan: BlurPlan,
-                         out_u8: bool = True) -> torch.Tensor:
-    """uint8 planar ``(..., H, W)`` -> uint8 (or float32 with ``out_u8=False``),
-    K1's hybrid body: exact int8 rows, one bf16 column dot.
+def _run_assembled(fn, form: str, frame: torch.Tensor, plan: BlurPlan, precision: str,
+                   out_u8: bool, tile) -> torch.Tensor:
+    if frame.dtype != torch.uint8:
+        raise TypeError(f"expected a uint8 frame, got {frame.dtype}")
+    _check_body(plan, precision, out_u8)
+    planes = int(np.prod(frame.shape[:-2], dtype=np.int64))
+    geo = _form_geometry(form, precision, plan, planes, tile, frame.device)
+    if frame.ndim < 2 or tuple(frame.shape[-2:]) != (geo.hp, geo.wp):
+        raise ValueError(f"K1 {form} reads a ({geo.hp}, {geo.wp}) frame, got "
+                         f"{tuple(frame.shape)}")
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    if frame.device.type == "cpu":
+        return blur_fused_u8_padded_ref(frame, plan, rh, rw, precision, out_u8)
+    _check_cuda(f"K1 {form}", frame)
+    if frame.data_ptr() % 16:
+        raise ValueError(f"K1 {form} reads its frame with 16-byte copies: it must be "
+                         "16-byte aligned")
+    out = _launch(fn, geo, frame.reshape(-1, geo.hp, geo.wp), plan, precision, out_u8)
+    return out.reshape(*frame.shape[:-2], *plan.shape)
 
-    A CUDA tensor launches ``blur_fused_u8_bf16cols`` of ``csrc/fused_dma.cu``;
-    a CPU tensor runs the plain version. A plan outside the body's domain
-    (``dma_form_applicable``), any other device or a non-contiguous tensor
-    raises. ``blur_fused_u8_hybrid.launches`` counts kernel launches.
+
+def blur_fused_u8_dma(planar_u8: torch.Tensor, plan: BlurPlan,
+                      tile: tuple[int, int] | None = None, precision: str = "int8", *,
+                      out_u8: bool = True, direct: bool | None = None,
+                      strip: bool | None = None, pipelined: bool = False,
+                      resident: bool | None = None) -> torch.Tensor:
+    """uint8 planar ``(..., H, W)`` -> uint8 (float32 with ``out_u8=False``,
+    hybrid and bf16), K1 with its ``precision`` body in one of its forms:
+    the JAX ``_blur_fused_dma_impl``.
+
+    ``resident=True``: the rows-resident form (``blur_fused_u8_resident``);
+    ``strip=True``: the strip form (``blur_fused_u8_strip``);
+    ``direct=False``: A5 (``assemble.assemble_padded``), then the assembled
+    form (``blur_fused_u8_assembled``), or its pipelined variant with
+    ``pipelined=True`` (int8); ``direct=True``: the direct form. A pinned form
+    that does not serve the call raises ``ValueError``; none runs in its
+    place. Unpinned (``None``), the device's measured rule picks the
+    assembled or the resident form per rung, plane count and radius
+    (``utils/hw.DeviceSpec.k1_form``) where it fits, else the direct form;
+    no rule routes the strip form, which lost at every measured point. The JAX
+    package also routes its assembled form where its direct form cannot
+    splice a window (``_direct_applicable``: one column window, tiny frames,
+    prepadded rows): that is a TPU DMA alignment limit, and the card's direct
+    loader, which gathers with reflect-101 index math, has none.
+
+    ``blur_fused_u8_dma.launches`` counts launches of the direct form's int8
+    body; ``blur_fused_u8_hybrid`` / ``_bf16`` count the direct form's other
+    bodies, and each other form counts on its own wrapper. A CPU tensor runs
+    the plain version (through A5's plain version and
+    ``blur_fused_u8_padded_ref`` for the assembled forms); any other device,
+    a non-contiguous CUDA tensor, or a plan outside the body's domain raises.
     """
-    _check_rung(planar_u8, plan, "hybrid")
-    if planar_u8.device.type == "cpu":
-        return blur_fused_u8_hybrid_ref(planar_u8, plan, out_u8)
-    return _launch_rung(blur_fused_u8_hybrid, planar_u8, plan, "hybrid", out_u8)
+    if precision not in RUNGS:
+        raise ValueError(f"K1's bodies are {RUNGS}, not {precision!r}")
+    _check_planar(planar_u8, plan)
+    _check_body(plan, precision, out_u8)
+    if planar_u8.device.type == "cuda":
+        _check_cuda("K1", planar_u8)
+    elif planar_u8.device.type != "cpu":
+        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {planar_u8.device}")
+    x = planar_u8.reshape(-1, *plan.shape)
+    geo = _resolve_form(plan, precision, x.shape[0], tile, x.device, direct=direct,
+                        strip=strip, pipelined=pipelined, resident=resident)
+    if geo.form == "direct":
+        fn = {"int8": blur_fused_u8_dma, "hybrid": blur_fused_u8_hybrid,
+              "bf16": blur_fused_u8_bf16}[precision]
+        out = _run_form(fn, "direct", x, plan, precision, out_u8, tile)
+    elif geo.form == "strip":
+        out = blur_fused_u8_strip(x, plan, precision, out_u8, tile)
+    elif geo.form == "resident":
+        out = blur_fused_u8_resident(x, plan, precision, out_u8, tile)
+    else:
+        from blur_algorithms_tpu_torch.cuda_kernels.assemble import assemble_padded
+
+        rh, rw = plan.col.support_radius, plan.row.support_radius
+        frame = assemble_padded(x, rh, rw, rh, rw, geo.hp, geo.wp)
+        if geo.form == "pipelined":
+            out = blur_fused_u8_pipelined(frame, plan, out_u8, tile)
+        else:
+            out = blur_fused_u8_assembled(frame, plan, precision, out_u8, tile)
+    return out.reshape(planar_u8.shape)
+
+
+blur_fused_u8_dma.launches = 0
+
+
+def blur_fused_u8_hybrid(planar_u8: torch.Tensor, plan: BlurPlan, out_u8: bool = True,
+                         tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """uint8 planar ``(..., H, W)`` -> uint8 (or float32 with ``out_u8=False``),
+    K1's hybrid body in the direct form: exact int8 rows, one bf16 column
+    dot. A plan outside the body's domain (``dma_form_applicable``), any
+    device but CUDA or the CPU, or a non-contiguous tensor raises.
+    ``blur_fused_u8_hybrid.launches`` counts kernel launches."""
+    return _run_form(blur_fused_u8_hybrid, "direct", planar_u8, plan, "hybrid", out_u8, tile)
 
 
 blur_fused_u8_hybrid.launches = 0
 
 
-def blur_fused_u8_bf16(planar_u8: torch.Tensor, plan: BlurPlan,
-                       out_u8: bool = True) -> torch.Tensor:
+def blur_fused_u8_bf16(planar_u8: torch.Tensor, plan: BlurPlan, out_u8: bool = True,
+                       tile: tuple[int, int] | None = None) -> torch.Tensor:
     """uint8 planar ``(..., H, W)`` -> uint8 (or float32 with ``out_u8=False``),
-    K1's bf16 body: one bf16 dot per axis.
-
-    A CUDA tensor launches ``blur_fused_u8_bf16cols`` of ``csrc/fused_dma.cu``;
-    a CPU tensor runs the plain version; otherwise as
+    K1's bf16 body in the direct form: one bf16 dot per axis; otherwise as
     ``blur_fused_u8_hybrid``. ``blur_fused_u8_bf16.launches`` counts kernel
-    launches.
-    """
-    _check_rung(planar_u8, plan, "bf16")
-    if planar_u8.device.type == "cpu":
-        return blur_fused_u8_bf16_ref(planar_u8, plan, out_u8)
-    return _launch_rung(blur_fused_u8_bf16, planar_u8, plan, "bf16", out_u8)
+    launches."""
+    return _run_form(blur_fused_u8_bf16, "direct", planar_u8, plan, "bf16", out_u8, tile)
 
 
 blur_fused_u8_bf16.launches = 0
+
+
+def blur_fused_u8_strip(planar_u8: torch.Tensor, plan: BlurPlan, precision: str = "int8",
+                        out_u8: bool = True,
+                        tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1s, the strip form (the JAX ``_kernel_strip``): one block per row
+    strip walks its column windows and carries the halo columns, so each
+    input byte of a strip is read once. Bodies int8, hybrid and bf16; raises
+    ``ValueError`` where ``k1_geometry("strip", ...)`` does not fit. A CPU
+    tensor runs the body's plain version. ``blur_fused_u8_strip.launches``
+    counts kernel launches."""
+    return _run_form(blur_fused_u8_strip, "strip", planar_u8, plan, precision, out_u8, tile)
+
+
+blur_fused_u8_strip.launches = 0
+
+
+def blur_fused_u8_resident(planar_u8: torch.Tensor, plan: BlurPlan,
+                           precision: str = "int8", out_u8: bool = True,
+                           tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1r, the rows-resident form (the JAX ``_kernel_resident``): one block
+    per column window walks down the frame with the rows output of the last
+    ``th + 2rh`` rows in a ring, so each rows value is computed once. Bodies
+    int8 and hybrid; ``ValueError`` for bf16 or where the ring does not fit.
+    A CPU tensor runs the body's plain version.
+    ``blur_fused_u8_resident.launches`` counts kernel launches."""
+    return _run_form(blur_fused_u8_resident, "resident", planar_u8, plan, precision, out_u8,
+                     tile)
+
+
+blur_fused_u8_resident.launches = 0
+
+
+def blur_fused_u8_assembled(frame: torch.Tensor, plan: BlurPlan, precision: str = "int8",
+                            out_u8: bool = True,
+                            tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1a, the assembled form (the JAX ``_kernel``): uint8 ``(..., hp, wp)``
+    frames that ``assemble.assemble_padded`` made at
+    ``k1_geometry("assembled", ...)``'s ``(hp, wp)`` with the planes at
+    ``(rh, rw)`` -> ``(..., H, W)``. Every window is a plain 16-byte aligned
+    rectangle of the frame. A CPU frame runs ``blur_fused_u8_padded_ref``.
+    ``blur_fused_u8_assembled.launches`` counts kernel launches."""
+    return _run_assembled(blur_fused_u8_assembled, "assembled", frame, plan, precision,
+                          out_u8, tile)
+
+
+blur_fused_u8_assembled.launches = 0
+
+
+def blur_fused_u8_pipelined(frame: torch.Tensor, plan: BlurPlan, out_u8: bool = True,
+                            tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1a's pipelined variant (the JAX ``_kernel_pipe``, int8): as
+    ``blur_fused_u8_assembled`` at ``k1_geometry("pipelined", ...)``, with
+    each block walking ``PIPELINE_SEG`` windows and running window j's rows
+    pass beside window j-1's cols pass. ``blur_fused_u8_pipelined.launches``
+    counts kernel launches."""
+    return _run_assembled(blur_fused_u8_pipelined, "pipelined", frame, plan, "int8",
+                          out_u8, tile)
+
+
+blur_fused_u8_pipelined.launches = 0

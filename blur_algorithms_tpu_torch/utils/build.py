@@ -63,20 +63,23 @@ def _nvcc() -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.blur_fused_u8_int8.argtypes = [
-        vp, vp, vp,  # x, out, taps
-        i, i, i, i, i, i,  # planes, h, w, rh, rw, rows_shift
-        f, f, f,  # epilogue constants c1, c2, c3
-        vp,  # stream
-    ]
-    lib.blur_fused_u8_int8.restype = i
-    lib.blur_fused_u8_bf16cols.argtypes = [
-        vp, vp, vp, vp,  # x, out, row_taps, col_taps
+    lib.blur_fused_u8_k1.argtypes = [
+        i, i, i,  # form, body, out_u8
+        vp, vp, vp, vp,  # x, out, taps_i, taps_f
         i, i, i, i, i,  # planes, h, w, rh, rw
-        i, i, f,  # bf16_rows, out_u8, scale
+        i, i, i, i, i, i,  # th, tw, seg, slots, xh, xw
+        i, i,  # smem, rows_shift
+        f, f, f, f,  # epilogue constants c1, c2, c3; the hybrid scale
         vp,  # stream
     ]
-    lib.blur_fused_u8_bf16cols.restype = i
+    lib.blur_fused_u8_k1.restype = i
+    lib.assemble_padded_u8.argtypes = [
+        vp, vp,  # x, out
+        i, i, i, i, i,  # planes, h, w, rh, rw
+        i, i, i, i,  # orh, orw, hp, wp
+        vp,  # stream
+    ]
+    lib.assemble_padded_u8.restype = i
     lib.blur_fused_f32.argtypes = [
         vp, vp, vp, vp,  # x, out, taps_row, taps_col
         i, i,  # in_u8, out_u8

@@ -12,7 +12,8 @@ always-exact int8 rung there.
 The routing radii are per device name, from the interleaved sweeps of
 ``chip_smoke.py`` (phase 10: fused against FFT_MXU; phase 13: box scan
 against the fused engine, and the two-pass split against the single
-kernel) recorded in PERF.md. A device that was not measured keeps the
+kernel; phase 15: K1's staging forms against its direct form) recorded in
+PERF.md. A device that was not measured keeps the
 fused engine up to its single-kernel domain (support radius 600), runs
 FFT_MXU past it, runs the box scan only past 600 and the split only where
 the single kernels cannot serve (past 600).
@@ -92,6 +93,31 @@ _MEASURED_PRECISION: dict[str, dict[str, int | None]] = {
     },
 }
 
+# Where K1's other staging forms beat its direct form, by device name: the
+# DeviceSpec field ``k1_forms`` (see ``DeviceSpec.k1_form``), from the
+# chip_smoke.py phase 15 sweep in turns on 3, 6 and 12 planes of 2160x3840,
+# support radius 6..598, hybrid and int8 (PERF.md, "K1's forms"). Per rung
+# and plane count, each step names the form that measured fastest at that
+# swept radius, where it differs from the step below; absent: K1 direct
+# everywhere. The strip form K1s lost at every swept point and is never
+# routed (``strip=True`` reaches it). The two-pass split stays faster than
+# every form from r 49 (7.46 ms at r 332), so AUTO's split radius is
+# unchanged and the forms serve the pins and K1's own callers past it.
+_MEASURED_K1_FORM: dict[str, dict] = {
+    "NVIDIA H100 80GB HBM3": {
+        "k1_forms": (
+            ("hybrid", 3, ((99, "assembled"), (165, "resident"), (248, "assembled"),
+                           (332, "direct"), (448, "assembled"))),
+            ("hybrid", 6, ((99, "resident"), (332, "direct"), (448, "assembled"))),
+            ("hybrid", 12, ((65, "resident"), (332, "direct"), (448, "assembled"))),
+            ("int8", 3, ((99, "assembled"),)),
+            ("int8", 6, ((99, "assembled"), (332, "resident"), (448, "assembled"))),
+            ("int8", 12, ((99, "resident"), (248, "assembled"), (332, "resident"),
+                          (448, "assembled"))),
+        ),
+    },
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class DeviceSpec:
@@ -137,6 +163,10 @@ class DeviceSpec:
     # Support radius from which ``blur_fused`` prefers the two-pass split
     # to the single kernel; None = only past the single kernels' domain.
     fused_split_min_radius: int | None = None
+    # K1's staging forms (``cuda_kernels/fused_dma.py``) where they beat its
+    # direct form: rows ``(rung, planes, ((from_radius, form), ...))``, read
+    # by ``k1_form``; empty = K1 direct everywhere.
+    k1_forms: tuple = ()
 
     @staticmethod
     def _floor(cert: int | None, route: int | None) -> int | None:
@@ -171,6 +201,21 @@ class DeviceSpec:
             return self.hybrid_split_cert_max_radius_box
         return self.hybrid_split_cert_max_radius
 
+    def k1_form(self, rung: str, planes: int, radius: int) -> str:
+        """The form K1 runs on ``rung`` for ``planes`` planes at support
+        ``radius``: the step of the largest measured plane count not above
+        ``planes`` and, in it, of the largest swept radius not above
+        ``radius``; "direct" below the smallest of either, or without a row."""
+        form, best = "direct", 0
+        for row_rung, row_planes, steps in self.k1_forms:
+            if row_rung != rung or not best <= row_planes <= planes:
+                continue
+            best, form = row_planes, "direct"
+            for from_radius, step in steps:
+                if from_radius <= radius:
+                    form = step
+        return form
+
 
 def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
              total_memory: int) -> DeviceSpec:
@@ -188,6 +233,7 @@ def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
         split_hbm_budget=total_memory * 11 // 16,
         fused_split_min_radius=_MEASURED_SPLIT_MIN.get(name),
         **_MEASURED_PRECISION.get(name, {}),
+        **_MEASURED_K1_FORM.get(name, {}),
     )
 
 

@@ -77,9 +77,9 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    pad + ``avg_pool2d`` per pass for K4, depthwise ``conv2d`` per axis with
    TF32 off for the f32 form), and two sweeps in turns that set
    ``utils/hw.py``'s ``box_scan_crossover_radius`` (box on the fused engine
-   against K4 at support 2..598) and ``fused_split_min_radius`` (the split
-   against the single kernels at r 32..598; and against FFT_MXU at r
-   665..1330, for the record), K1 on the rung AUTO routes;
+   against K4 at support 2..338) and ``fused_split_min_radius`` (the split
+   against the single kernels at r 32..332; and against FFT_MXU at r
+   665..1330, for the record), K1 on the rung and in the form AUTO routes;
 14. K1's hybrid and bf16 bodies against their plain versions as phase 2,
    and the split's hybrid pass 2 at column radius 332, 831 and 1996,
    uint8 and f32 out, each ``torch.equal``; at batch 4 RGB 4K sigma 10,
@@ -94,7 +94,23 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    for every routed rung, and the split's routed pass 2 at column radius
    49 and 165, each within 1 count); times in turns against K1 int8 and
    against the int8 pass 2 at r 831, the plain versions, bf16 depthwise
-   ``conv2d`` yardsticks and the bounds.
+   ``conv2d`` yardsticks and the bounds;
+15. K1's staging forms (strip K1s, assembled K1a with A5 and its pipelined
+   variant, rows-resident K1r) against K1 direct and the body's plain
+   version, ``torch.equal``, on phase 2's cases for every rung each serves
+   where its block fits, uint8 and f32 out, and A5 against its plain
+   version at the JAX geometries; at batch 4 RGB 4K sigma 10, counts set to
+   0 first: ``blur_u8`` AUTO (the form the card routes), then AUTO with the
+   card's form rule replaced to route K1a and K1r, and
+   ``blur_fused_u8_dma`` with ``strip=True`` and ``pipelined=True`` (each
+   form launched once, equal to the plain version, frame 0 within 1
+   count); the repaired ``precision="int8"`` pin at sigma 15 and 100 (r
+   49, 332): the form the card's rule names for K1's int8 body, alone, no
+   split form; times in turns of K1a (with A5) and K1r against K1 direct
+   on 3, 6 and 12 planes at r 6..598, hybrid and int8, and of K1s on 12
+   planes to r 99 (the sweep ``utils/hw._MEASURED_K1_FORM`` takes), K1a
+   with and without A5, A5 alone, the pipelined variant against K1a, the
+   plain versions, the ``F.pad`` yardstick and the bytes bounds.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -128,18 +144,16 @@ HD, RAGGED = (1080, 1920), (1001, 1777)  # phase 5 frame shapes
 SHARPEN5 = [-0.125, -0.25, 1.75, -0.25, -0.125]  # signed, sums to 1
 SIGMA_U8_WIDE, SIGMA_F32_WIDE = 250.0, 400.0  # phase 9: r 831 and r 1330
 FFT_TOL = 2e-2  # FFT engines against plain versions and oracles, 0..255 scale
-# phase 10 sweep: support radius 32, 49, 65, 82, 119, 165, 212, 265, 332,
-# 398, 448, 498, 598
-SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 120.0,
-                135.0, 150.0, 180.0)
+# phase 10 sweep: support radius 32, 82, 119, 165, 212, 265, 332, 398, 598
+SWEEP_SIGMAS = (10.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 120.0, 180.0)
 BOX_NSMOOTH = 20.0  # phase 12: box_blur radius 400, support radius 800
 PANO_H, PANO_W = 2160, 15360  # phase 12: a panorama FFT_MXU cannot serve
 SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
-# phase 13 sweeps: box radius per pass (2 passes: support 2..598), and the
+# phase 13 sweeps: box radius per pass (2 passes: support 2..338), and the
 # split against the single kernels (r 32, 49, 65, 82, 119, 165, 212, 265,
-# 332, 498, 598) and against FFT_MXU (r 665, 831, 1330)
-BOX_SWEEP_R = (1, 4, 16, 41, 82, 169, 225, 299)
-SPLIT_SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 150.0, 180.0)
+# 332) and against FFT_MXU (r 665, 831, 1330)
+BOX_SWEEP_R = (1, 4, 16, 41, 82, 169)
+SPLIT_SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0)
 SPLIT_FFT_SIGMAS = (200.0, 250.0, 400.0)
 # phase 11 cases: K4 (radius per pass, passes) on HD planes; the int8 split
 # forms and K2's single-axis form as (frame shape, sigma)
@@ -1049,12 +1063,11 @@ def _phase12(frames, counters) -> dict:
 
 
 def _in_turns(label: str, fns: dict, *args) -> dict:
-    """Each of two calls timed in turns (a, b, b, a); the mean of the two
+    """Each call timed in turns (a, b, ..., ..., b, a); the mean of the two
     medians of each."""
-    (na, fa), (nb, fb) = fns.items()
-    t = {na: [], nb: []}
-    for name, fn in ((na, fa), (nb, fb), (nb, fb), (na, fa)):
-        t[name].append(_time(fn, *args, name=f"{label} {name}").median_ms)
+    t = {name: [] for name in fns}
+    for name in (*fns, *reversed(fns)):
+        t[name].append(_time(fns[name], *args, name=f"{label} {name}").median_ms)
     return {k: float(np.mean(v)) for k, v in t.items()}
 
 
@@ -1069,16 +1082,17 @@ def _sweeps(frames) -> dict:
         _blur_planar,
         _u8_dma_precision,
     )
-    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
     from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
     from blur_algorithms_tpu_torch.utils.hw import device_spec
 
     x_u8 = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).cuda()
     x = torch.from_numpy(frames.astype(np.float32)).cuda()
-    spec, bodies = device_spec(x.device), _k1_bodies()
+    spec = device_spec(x.device)
 
-    def k1(plan):  # K1's body on the rung AUTO routes for the plan
-        return bodies[_u8_dma_precision(plan, spec)][0]
+    def k1(plan):  # K1 on the rung and in the form AUTO routes for the plan
+        rung = _u8_dma_precision(plan, spec)
+        return lambda t, p: fused_dma.blur_fused_u8_dma(t, p, precision=rung)
 
     box, fused_ok = [], {"u8": True, "f32": True}
     best = {"u8": None, "f32": None}
@@ -1598,6 +1612,350 @@ def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
 
 
 
+# phase 15: K1's staging forms against K1 direct, in turns, at support
+# radius 6, 16, 32, 65, 99, 165, 248, 332, 448 and 598 on 3, 6 and 12
+# planes of the 4K batch; the strip form, which no rule routes, on 12
+# planes to r 99
+FORM_SWEEP_SIGMAS = (2.1, 5.1, 10.0, 20.0, 30.0, 50.0, 75.0, 100.0, 135.0, 180.0)
+FORM_SWEEP_PLANES = (3, 6, 12)
+STRIP_SWEEP = (12, 99)  # planes, largest support radius
+PIN_SIGMAS = (15.0, 100.0)  # phase 15: the int8 pin at r 49 and 332
+_FORM_KW = {"strip": {"strip": True}, "assembled": {"direct": False},
+            "pipelined": {"pipelined": True}, "resident": {"resident": True}}
+
+
+def _routed(form: str, rung: str) -> list[str]:
+    """The wrappers whose counts show that ``form`` ran on ``rung``."""
+    if form == "direct":
+        return [{"int8": "blur_fused_u8_dma", "hybrid": "blur_fused_u8_hybrid",
+                 "bf16": "blur_fused_u8_bf16"}[rung]]
+    return [f"blur_fused_u8_{form}",
+            *(["assemble_padded"] if form in ("assembled", "pipelined") else [])]
+
+# the JAX _align_geometry frames of test_band_fused.py's A5 cases:
+# (h, w, rh, rw, orh, orw, hp, wp)
+A5_JAX_CASES = ((96, 256, 4, 4, 8, 128, 112, 512), (100, 200, 7, 3, 8, 128, 160, 512),
+                (9, 129, 8, 128, 8, 128, 32, 512), (70, 250, 1, 140, 8, 256, 88, 768),
+                (256, 384, 130, 5, 136, 128, 528, 768))
+
+
+def _form_wrappers() -> dict:
+    """Each form's wrapper (its launch count), and A5's."""
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_dma
+
+    return {"strip": fused_dma.blur_fused_u8_strip,
+            "assembled": fused_dma.blur_fused_u8_assembled,
+            "pipelined": fused_dma.blur_fused_u8_pipelined,
+            "resident": fused_dma.blur_fused_u8_resident,
+            "a5": assemble.assemble_padded}
+
+
+def _phase15_equal(cases) -> dict:
+    """Each form against K1 direct and the body's plain version, for every
+    rung it serves where its block fits, uint8 and f32 out; A5 against its
+    plain version at the JAX geometries and the port's; returns the worst
+    differences per form."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_dma
+
+    errs = {f: 0.0 for f in (*_FORM_KW, "a5")}
+    refs = {"int8": lambda x, plan, out_u8: fused_dma.blur_fused_u8_dma_ref(x, plan),
+            "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
+            "bf16": fused_dma.blur_fused_u8_bf16_ref}
+    for k, ((h, w), sigma) in enumerate(cases):
+        plan = make_plan((h, w), sigma)
+        x = _case_frames(h, w, seed=500 + k)
+        for rung in fused_dma.RUNGS:
+            for out_u8 in (True,) if rung == "int8" else (True, False):
+                want = refs[rung](x, plan, out_u8)
+                direct = fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
+                                                     direct=True)
+                served = []
+                for form, kw in _FORM_KW.items():
+                    if fused_dma.k1_geometry(form, rung, plan, 3, device=x.device) is None:
+                        continue
+                    got = fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
+                                                      **kw)
+                    torch.cuda.synchronize()
+                    err = float((got.double() - want.double()).abs().max())
+                    errs[form] = max(errs[form], err)
+                    if not (torch.equal(got, want) and torch.equal(got, direct)):
+                        raise RuntimeError(f"K1 {form} {rung} differs from K1 direct or its "
+                                           f"plain version at {(h, w, sigma)} by {err}")
+                    served.append(form)
+                print(f"phase 15 forms vs K1 direct and plain: {h}x{w} RGB sigma={sigma} "
+                      f"r=({plan.col.support_radius}, {plan.row.support_radius}) {rung} "
+                      f"{'uint8' if out_u8 else 'f32'} out: equal for {served}", flush=True)
+    port_case = (*RAGGED, 33, 33, 33, 33, 1104, 1856)  # the plane at (rh, rw)
+    for h, w, rh, rw, orh, orw, hp, wp in (*A5_JAX_CASES, port_case):
+        x = _case_frames(h, w, seed=510)
+        got = assemble.assemble_padded(x, rh, rw, orh, orw, hp, wp)
+        want = assemble.assemble_padded_ref(x, rh, rw, orh, orw, hp, wp)
+        torch.cuda.synchronize()
+        errs["a5"] = max(errs["a5"], float((got.int() - want.int()).abs().max()))
+        print(f"phase 15 A5 vs plain: {h}x{w} borders {(rh, rw)} at {(orh, orw)} in "
+              f"{(hp, wp)}: equal={torch.equal(got, want)}", flush=True)
+        if not torch.equal(got, want):
+            raise RuntimeError(f"A5 differs from its plain version at {(h, w, rh, rw)}")
+    return errs
+
+
+@contextlib.contextmanager
+def _k1_rule_as(device, **fields):
+    """Route K1's forms by ``device``'s spec with ``fields`` replaced."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+
+    saved = fused_dma.device_spec
+    spec = dataclasses.replace(saved(device), **fields)
+    fused_dma.device_spec = lambda device: spec
+    try:
+        yield spec
+    finally:
+        fused_dma.device_spec = saved
+
+
+def _form_sweep(planar) -> list[dict]:
+    """K1 direct against each form that fits (K1a with A5), in turns, per
+    plane count, radius and rung; the rule ``utils/hw._MEASURED_K1_FORM``
+    takes: the radii and plane counts where a form is faster."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+
+    rows = []
+    for planes in FORM_SWEEP_PLANES:
+        x = planar.reshape(-1, H, W)[:planes]
+        for sigma in FORM_SWEEP_SIGMAS:
+            plan = make_plan((H, W), sigma)
+            r = plan.row.support_radius
+            for rung in ("hybrid", "int8"):
+                fns = {"direct": lambda t, p=plan, g=rung: fused_dma.blur_fused_u8_dma(
+                    t, p, precision=g, direct=True)}
+                strip = planes == STRIP_SWEEP[0] and r <= STRIP_SWEEP[1]
+                for form in ("strip", "assembled", "resident")[0 if strip else 1:]:
+                    if fused_dma.k1_geometry(form, rung, plan, planes, device=x.device):
+                        fns[form] = lambda t, p=plan, g=rung, kw=_FORM_KW[form]: (
+                            fused_dma.blur_fused_u8_dma(t, p, precision=g, **kw))
+                t = _in_turns(f"form sweep {planes} planes r={r} {rung}", fns, x)
+                rows.append({"planes": planes, "r": r, "rung": rung, **t})
+                print(f"phase 15 form sweep {planes} planes r={r} {rung} (ms): "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in t.items()), flush=True)
+    return rows
+
+
+def _k1_forms_from_sweep(rows: list[dict]) -> tuple:
+    """The ``DeviceSpec.k1_forms`` table the sweep sets: per rung and plane
+    count, the form fastest at each swept radius among K1 direct, K1a (with
+    A5) and K1r, as steps where it changes (the strip form is not routed)."""
+    table = []
+    for rung in ("hybrid", "int8"):
+        for planes in FORM_SWEEP_PLANES:
+            steps, last = [], "direct"
+            for row in rows:
+                if (row["rung"], row["planes"]) != (rung, planes):
+                    continue
+                times = {f: row[f] for f in ("direct", "assembled", "resident") if f in row}
+                best = min(times, key=times.get)
+                if best != last:
+                    steps.append((row["r"], best))
+                    last = best
+            if steps:
+                table.append((rung, planes, tuple(steps)))
+    return tuple(table)
+
+
+def _slice6(frames) -> list[dict]:
+    """Phase 15; returns the entries of K1s, K1a, its pipelined variant, A5
+    and K1r for the kernels line."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch import blur_u8, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_dma
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    cases = [((1080, 1920), s) for s in (1.0, 3.0, 10.0, 50.0, 150.0, 180.0)]
+    cases += [((1080, 1920), (5.0, 11.0)), (RAGGED, SIGMA)]
+    errs = _phase15_equal(cases)
+
+    # ---- the slice's paths at full width, counts set to 0 first ----
+    img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
+    x = torch.from_numpy(img).cuda()
+    planar = x.movedim(-1, -3).contiguous()
+    plan = make_plan((H, W), SIGMA)
+    spec = device_spec(x.device)
+    rung = _u8_dma_precision(plan, spec)
+    want0 = oracle.blur_u8(img[0], SIGMA)
+    wrappers = _form_wrappers()
+    counters = [*_counters(), *wrappers.values()]
+    refs = {"int8": fused_dma.blur_fused_u8_dma_ref,
+            "hybrid": fused_dma.blur_fused_u8_hybrid_ref}
+    ref = refs[rung](planar, plan).movedim(-3, -1)
+    launched = {}
+
+    def drive(what, call, want, form_names):
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        ran = _launched(counters)
+        d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
+        equal = torch.equal(out, want)
+        print(f"phase 15 main path: {what} {tuple(x.shape)} sigma={SIGMA} rung {rung}: "
+              f"launches {ran}; equal to plain version={equal}; frame 0 vs oracle "
+              f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+        for name in form_names:
+            launched[name] = launched.get(name, 0) + ran[name]
+            if ran[name] != 1:
+                raise RuntimeError(f"{what} launched {name} {ran[name]} times, not once")
+        if not equal or d.max() > 1:
+            raise RuntimeError(f"{what}: not equal to its plain version, or frame 0 is "
+                               f"{int(d.max())} counts from the oracle")
+
+    # AUTO as the card routes it; then each form the card's rule does not
+    # route at this call, through AUTO with the rule routing it, or, for
+    # the assembled forms, which no rule routes, through the keyword
+    geo = fused_dma._resolve_form(plan, rung, BATCH * 3, None, x.device, direct=None,
+                                  strip=None, pipelined=False, resident=None)
+    print(f"phase 15 AUTO at sigma {SIGMA}: rung {rung}, form {geo.form} {geo}; the card's "
+          f"rule: {spec.k1_forms}", flush=True)
+    drive("blur_u8 AUTO", lambda: blur_u8(x, SIGMA), ref, _routed(geo.form, rung))
+    for form in ("assembled", "resident"):
+        if geo.form != form:
+            with _k1_rule_as(x.device, k1_forms=((rung, 1, ((0, form),)),)):
+                drive(f"blur_u8 AUTO ({form} routed)", lambda: blur_u8(x, SIGMA), ref,
+                      _routed(form, rung))
+    drive("blur_fused_u8_dma(strip=True)", lambda: fused_dma.blur_fused_u8_dma(
+        planar, plan, precision=rung, strip=True).movedim(-3, -1), ref,
+        _routed("strip", rung))
+    ref8 = fused_dma.blur_fused_u8_dma_ref(planar, plan).movedim(-3, -1)
+    drive("blur_fused_u8_dma(pipelined=True)", lambda: fused_dma.blur_fused_u8_dma(
+        planar, plan, pipelined=True).movedim(-3, -1), ref8,
+        ["blur_fused_u8_pipelined", "assemble_padded"])
+    del ref, ref8
+    # the repaired int8 pin past the split radius: K1's int8 body alone
+    k1_int8 = ("blur_fused_u8_dma", *(f.__name__ for f in wrappers.values()))
+    for sigma in PIN_SIGMAS:
+        p = make_plan((H, W), sigma)
+        pin_form = fused_dma._resolve_form(p, "int8", BATCH * 3, None, x.device, direct=None,
+                                           strip=None, pipelined=False, resident=None).form
+        for c in counters:
+            c.launches = 0
+        out = blur_u8(x, sigma, precision="int8")
+        torch.cuda.synchronize()
+        ran = _launched(counters)
+        want = fused_dma.blur_fused_u8_dma_ref(planar, p).movedim(-3, -1)
+        equal = torch.equal(out, want)
+        del want
+        d = np.abs(out[0].cpu().numpy().astype(int)
+                   - oracle.blur_u8(img[0], sigma).astype(int))
+        print(f"phase 15 main path: blur_u8(precision='int8') sigma={sigma} "
+              f"(r {p.row.support_radius}): form {pin_form}, launches {ran}; equal to K1 "
+              f"int8's plain version={equal}; frame 0 vs oracle max={int(d.max())}",
+              flush=True)
+        others = {k: v for k, v in ran.items() if k not in k1_int8 and v}
+        if (any(ran[k] != 1 for k in _routed(pin_form, "int8")) or others or not equal
+                or d.max() > 1 or ran["blur_fused_u8_hybrid"] or ran["blur_fused_u8_bf16"]):
+            raise RuntimeError(f"the int8 pin at sigma {sigma} did not run K1's int8 body "
+                               f"alone: {ran}")
+        del out
+
+    # ---- times, in turns ----
+    sweep = _form_sweep(planar)
+    mp = BATCH * H * W / 1e6
+    geos = {f: fused_dma.k1_geometry(f, "int8" if f == "pipelined" else rung, plan,
+                                     BATCH * 3, device=x.device)
+            for f in ("assembled", "pipelined")}
+    frame = assemble.assemble_padded(planar, plan.col.support_radius, plan.row.support_radius,
+                                     plan.col.support_radius, plan.row.support_radius,
+                                     geos["assembled"].hp, geos["assembled"].wp)
+    pframe = assemble.assemble_padded(planar, plan.col.support_radius,
+                                      plan.row.support_radius, plan.col.support_radius,
+                                      plan.row.support_radius, geos["pipelined"].hp,
+                                      geos["pipelined"].wp)
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    a5 = lambda t: assemble.assemble_padded(t, rh, rw, rh, rw, geos["assembled"].hp,
+                                           geos["assembled"].wp)
+    t = _in_turns(f"K1 forms sigma={SIGMA} {rung}", {
+        "direct": lambda t_: fused_dma.blur_fused_u8_dma(t_, plan, precision=rung, direct=True),
+        "strip": lambda t_: fused_dma.blur_fused_u8_strip(t_, plan, rung),
+        "assembled": lambda t_: fused_dma.blur_fused_u8_assembled(frame, plan, rung),
+        "assembled_a5": lambda t_: fused_dma.blur_fused_u8_dma(t_, plan, precision=rung,
+                                                                direct=False),
+        "a5": a5,
+        "resident": lambda t_: fused_dma.blur_fused_u8_resident(t_, plan, rung)}, planar)
+    tp = _in_turns(f"K1a int8 sigma={SIGMA}", {
+        "assembled": lambda t_: fused_dma.blur_fused_u8_assembled(pframe, plan, "int8"),
+        "pipelined": lambda t_: fused_dma.blur_fused_u8_pipelined(pframe, plan)}, planar)
+    lib_a5 = None
+    try:  # the yardstick, where F.pad's reflect mode takes uint8
+        lib_a5 = _time(lambda t_: F.pad(t_, (rw, rw, rh, rh), mode="reflect"), planar,
+                       name="A5 yardstick: F.pad reflect, uint8").median_ms
+    except RuntimeError as err:
+        print(f"phase 15 F.pad(mode='reflect') does not take uint8 here ({err}); timed on "
+              "float32", flush=True)
+        lib_a5 = _time(lambda t_: F.pad(t_, (rw, rw, rh, rh), mode="reflect"), planar.float(),
+                       name="A5 yardstick: F.pad reflect, float32").median_ms
+    plain = {
+        "k1": _time(refs[rung], planar, plan, name=f"K1 {rung} plain version").median_ms,
+        "padded": _time(lambda t_: fused_dma.blur_fused_u8_padded_ref(
+            assemble.assemble_padded_ref(t_, rh, rw, rh, rw, geos["assembled"].hp,
+                                         geos["assembled"].wp), plan, rh, rw, rung),
+            planar, name="K1a plain: A5's plain version + blur_fused_u8_padded_ref").median_ms,
+        "padded_int8": _time(lambda t_: fused_dma.blur_fused_u8_padded_ref(
+            assemble.assemble_padded_ref(t_, rh, rw, rh, rw, geos["pipelined"].hp,
+                                         geos["pipelined"].wp), plan, rh, rw, "int8"),
+            planar, name="K1a int8 plain").median_ms,
+        "a5": _time(lambda t_: assemble.assemble_padded_ref(
+            t_, rh, rw, rh, rw, geos["assembled"].hp, geos["assembled"].wp), planar,
+            name="A5 plain version").median_ms,
+    }
+    del frame, pframe
+    print(f"phase 15 times in turns at sigma {SIGMA}, {BATCH * 3} planes (ms): {rung} {t}; "
+          f"int8 {tp}; plain {plain}; A5 yardstick {lib_a5:.4f}; geometries {geos}",
+          flush=True)
+    print("phase 15 sweep " + json.dumps(sweep), flush=True)
+    table = _k1_forms_from_sweep(sweep)
+    print(f"phase 15 sweep sets k1_forms={table} (utils/hw._MEASURED_K1_FORM holds "
+          f"{spec.k1_forms}; equal={table == spec.k1_forms})", flush=True)
+
+    outputs = BATCH * 3 * H * W
+    tr, tc = 2 * rw + 1, 2 * rh + 1
+    frame_bytes = BATCH * 3 * geos["assembled"].hp * geos["assembled"].wp
+    ops = ((2 * outputs * 2 * tr, 2 * outputs * tc) if rung == "hybrid"
+           else (2 * outputs * (2 * tr + 4 * tc), 0))
+    b_k1 = _bound_mixed(2 * outputs, *ops)
+    b_k1a = _bound_mixed(outputs + frame_bytes, *ops)  # the frame in, the output out
+    pipe_bytes = BATCH * 3 * geos["pipelined"].hp * geos["pipelined"].wp
+    b_pipe = _bound_mixed(outputs + pipe_bytes, 2 * outputs * (2 * tr + 4 * tc), 0)
+    b_a5 = _bound_mixed(outputs + frame_bytes, 0, 0)
+    print(f"phase 15 bounds (ms): K1s and K1r {b_k1}, K1a {b_k1a} (with A5: "
+          f"{_bound_mixed(2 * outputs + 2 * frame_bytes, *ops)}), K1a pipelined {b_pipe}, "
+          f"A5 {b_a5}", flush=True)
+
+    def entry(name, line, ms, plain_ms, bound, err, library_ms, **extra):
+        return {"name": f"fused_dma_{name}", "route": "cuda",
+                "source": "blur_algorithms_tpu_torch/csrc/fused_dma.cu",
+                "replaces": f"blur_algorithms_tpu/pallas_kernels/fused_dma.py:{line}",
+                "launches": launched[wrappers[name].__name__], "max_abs_err": err,
+                "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+                **extra}
+
+    return [
+        entry("strip", 285, t["strip"], plain["k1"], b_k1, errs["strip"], None,
+              rung=rung, direct_ms_in_turns=t["direct"]),
+        entry("assembled", 223, t["assembled"], plain["padded"], b_k1a, errs["assembled"],
+              None, rung=rung, direct_ms_in_turns=t["direct"],
+              with_a5_ms=t["assembled_a5"]),
+        entry("pipelined", 899, tp["pipelined"], plain["padded_int8"], b_pipe,
+              errs["pipelined"], None, rung="int8", assembled_int8_ms_in_turns=tp["assembled"]),
+        entry("a5", 1640, t["a5"], plain["a5"], b_a5, errs["a5"], lib_a5),
+        entry("resident", 604, t["resident"], plain["k1"], b_k1, errs["resident"], None,
+              rung=rung, direct_ms_in_turns=t["direct"]),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -1631,7 +1989,7 @@ def main() -> int:
     for k, ((h, w), sigma) in enumerate(cases):
         plan = make_plan((h, w), sigma)
         x = _case_frames(h, w, seed=k)
-        got = fused_dma.blur_fused_u8_dma(x, plan)
+        got = fused_dma.blur_fused_u8_dma(x, plan, direct=True)
         want = fused_dma.blur_fused_u8_dma_ref(x, plan)
         torch.cuda.synchronize()
         err = int((got.int() - want.int()).abs().max())
@@ -1690,8 +2048,9 @@ def main() -> int:
 
     # ---- phase 4: times ----
     mp = BATCH * H * W / 1e6
-    k1 = timing.time_cuda(fused_dma.blur_fused_u8_dma, planar, plan,
-                          iters=ITERS, name="K1 fused_dma int8", megapixels=mp)
+    k1 = timing.time_cuda(lambda t, p: fused_dma.blur_fused_u8_dma(t, p, direct=True),
+                          planar, plan, iters=ITERS, name="K1 fused_dma int8",
+                          megapixels=mp)
     plain = timing.time_cuda(fused_dma.blur_fused_u8_dma_ref, planar, plan,
                              iters=ITERS, name="plain version", megapixels=mp)
     whole = timing.time_cuda(blur_u8, x, SIGMA, iters=ITERS,
@@ -1704,6 +2063,7 @@ def main() -> int:
     slice4_kernels, split_launched = _slice4(frames)
     auto_launched = {bodies[p][0].__name__: n for p, n in launched.items() if p != "int8"}
     slice5_kernels = _slice5(frames, k1.median_ms, {**split_launched, **auto_launched})
+    slice6_kernels = _slice6(frames)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -1730,7 +2090,7 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-    }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels]}), flush=True)
+    }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

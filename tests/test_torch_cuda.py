@@ -45,7 +45,7 @@ def test_k1_equals_plain_version_on_the_card(cuda_device, shape, sigma):
     plan = make_plan(shape, sigma)
     x = _planes((3, *shape), seed=6).to(cuda_device)
     before = fused_dma.blur_fused_u8_dma.launches
-    got = fused_dma.blur_fused_u8_dma(x, plan)
+    got = fused_dma.blur_fused_u8_dma(x, plan, direct=True)
     want = fused_dma.blur_fused_u8_dma_ref(x, plan)
     torch.cuda.synchronize()
     assert fused_dma.blur_fused_u8_dma.launches == before + 1
@@ -387,3 +387,92 @@ def test_hybrid_pin_on_the_card_matches_the_cpu(cuda_device):
     torch.cuda.synchronize()
     assert fused_dma.blur_fused_u8_hybrid.launches == before + 1
     assert torch.equal(got.cpu(), blur_u8(img, 4.0, precision="hybrid"))
+
+
+# ---------------------------------------------------------------------------
+# K1's staging forms (strip, assembled with A5, pipelined, resident): each
+# computes K1's function, so each equals the body's plain version and K1
+# direct bit for bit; a form that does not fit raises.
+
+_FORM_KW = {"strip": {"strip": True}, "assembled": {"direct": False},
+            "pipelined": {"pipelined": True}, "resident": {"resident": True}}
+
+
+def _form_counter(form):
+    return {"strip": fused_dma.blur_fused_u8_strip,
+            "assembled": fused_dma.blur_fused_u8_assembled,
+            "pipelined": fused_dma.blur_fused_u8_pipelined,
+            "resident": fused_dma.blur_fused_u8_resident}[form]
+
+
+def _rung_ref(rung):
+    return {"int8": lambda x, plan, out_u8: fused_dma.blur_fused_u8_dma_ref(x, plan),
+            "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
+            "bf16": fused_dma.blur_fused_u8_bf16_ref}[rung]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [
+    ((1080, 1920), 10.0), ((1001, 1777), (5.0, 11.0)), ((541, 963), 150.0),
+    ((37, 1300), 1.0), ((300, 4000), 3.0), ((700, 700), 180.0),
+])
+@pytest.mark.parametrize("form", ["strip", "assembled", "pipelined", "resident"])
+@pytest.mark.parametrize("rung", ["int8", "hybrid", "bf16"])
+def test_k1_forms_equal_plain_versions_on_the_card(cuda_device, shape, sigma, form, rung):
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+
+    plan = make_plan(shape, sigma)
+    x = _planes((3, *shape), seed=31).to(cuda_device)
+    geo = fused_dma.k1_geometry(form, rung, plan, 3, device=cuda_device)
+    counter = _form_counter(form)
+    for out_u8 in (True,) if rung == "int8" else (True, False):
+        if geo is None:
+            with pytest.raises(ValueError, match="="):
+                fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
+                                            **_FORM_KW[form])
+            continue
+        before, a5 = counter.launches, assemble.assemble_padded.launches
+        got = fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
+                                          **_FORM_KW[form])
+        direct = fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
+                                             direct=True)
+        want = _rung_ref(rung)(x, plan, out_u8)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        assert assemble.assemble_padded.launches == a5 + (form in ("assembled", "pipelined"))
+        assert torch.equal(got, want) and torch.equal(got, direct)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h, w, rh, rw, orh, orw, hp, wp", [
+    # the JAX _align_geometry frames of test_band_fused.py's A5 cases
+    (96, 256, 4, 4, 8, 128, 112, 512), (100, 200, 7, 3, 8, 128, 160, 512),
+    (9, 129, 8, 128, 8, 128, 32, 512), (70, 250, 1, 140, 8, 256, 88, 768),
+    (256, 384, 130, 5, 136, 128, 528, 768),
+    (1001, 1777, 33, 33, 33, 33, 1104, 1856),  # the port's K1a geometry: (rh, rw)
+])
+def test_a5_equals_plain_version_on_the_card(cuda_device, h, w, rh, rw, orh, orw, hp, wp):
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+
+    x = _planes((3, h, w), seed=32)
+    before = assemble.assemble_padded.launches
+    got = assemble.assemble_padded(x.to(cuda_device), rh, rw, orh, orw, hp, wp)
+    torch.cuda.synchronize()
+    assert assemble.assemble_padded.launches == before + 1
+    assert torch.equal(got.cpu(), assemble.assemble_padded_ref(x, rh, rw, orh, orw, hp, wp))
+
+
+@pytest.mark.cuda
+def test_int8_pin_on_the_card_runs_k1_int8_past_the_split_radius(cuda_device):
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    img = _planes((1, 160, 200, 3), seed=33)
+    counters = (fused_dma.blur_fused_u8_dma, fused_dma.blur_fused_u8_strip,
+                fused_dma.blur_fused_u8_resident, fused_dma.blur_fused_u8_assembled,
+                fs.fused_split_rows_int8, fs.fused_split_cols_hybrid, fs.fused_split_cols_int8)
+    before = [c.launches for c in counters]
+    got = blur_u8(img.to(cuda_device), 15.0, precision="int8")  # r 49
+    torch.cuda.synchronize()
+    ran = [c.launches - b for c, b in zip(counters, before)]
+    assert sum(ran[:4]) == 1 and not any(ran[4:])
+    assert torch.equal(got.cpu(), blur_u8(img, 15.0, precision="int8"))
