@@ -7,7 +7,9 @@ on float planar ``(..., H, W)`` data (differentiable), ``convolve_separable``
 and ``box_blur``, through the fused engine (with its two-pass split to
 support radius 4096), the band, FFT, box-scan and cascade engines, and
 ``dft_spectrum``: hand-written Hopper kernels on a CUDA tensor and their
-plain PyTorch versions on a CPU tensor.
+plain PyTorch versions on a CPU tensor. ``blur_algorithms_tpu_torch.parallel``
+(imported on its own, as in the JAX package) shards frames and rows over a
+mesh of devices.
 """
 
 from blur_algorithms_tpu_torch.api import (

@@ -36,9 +36,13 @@ past either runs the fused engine's split where it fits its own budget
 strip streaming (``ops/streamed``, not ported) and raises, as do the
 ``"fft_stream"``, ``"conv"`` and ``"deriche"`` engines. The device is the
 input's: a CUDA tensor runs the CUDA kernels, a CPU tensor their plain
-PyTorch versions, and nothing is moved between devices. Every call outside
-that domain raises ``NotImplementedError`` naming the ROADMAP.md item that
-will port it; no other path is substituted silently.
+PyTorch versions. Where more than one card is visible, AUTO shards a batch
+(or a frame past ``DeviceSpec.auto_sp_min_px``) over them through
+``parallel/`` (``_auto_sharded_fn``, the JAX rule; the output lands on the
+input's card); a CPU tensor and a single card never shard, and a float call
+that needs gradients stays on one device. Every call outside that domain
+raises ``NotImplementedError`` naming the ROADMAP.md item that will port
+it; no other path is substituted silently.
 """
 
 from __future__ import annotations
@@ -298,6 +302,69 @@ def _fused_u8_interleaved(img: torch.Tensor, plan: BlurPlan,
     return from_planar(blur_fused_u8(planar, plan, prec))
 
 
+def _auto_sp_min_px(device: torch.device | str) -> int:
+    """AUTO shards a frame's rows over devices only from this pixel count
+    (``DeviceSpec.auto_sp_min_px``): below it one device finishes fast and
+    the halo exchange would not pay."""
+    return device_spec(device).auto_sp_min_px
+
+
+def _auto_sharded_fn(shape: tuple[int, ...], plan: BlurPlan, is_u8: bool,
+                     device: torch.device | str):
+    """Multi-device AUTO routing (the JAX function of the same name): a
+    sharded callable, or None to stay on one device.
+
+    The devices are ``parallel.mesh.visible_devices(device)``: every visible
+    card for a CUDA tensor, the CPU alone for a CPU tensor, so AUTO on the
+    CPU and on one card never shards. Batches (4-D) shard dp over frames,
+    the batch padded and cropped inside ``blur_sharded``, with spare
+    devices sharding rows (sp) when the frames clear
+    ``_auto_sp_min_px``, else staying dp-only on a subset of the devices; a
+    single frame (3-D) from that floor shards its rows over all devices."""
+    from blur_algorithms_tpu_torch.parallel import (
+        blur_sharded,
+        blur_sharded_u8,
+        make_mesh,
+        mesh as mesh_mod,
+    )
+
+    devices = mesh_mod.visible_devices(device)
+    ndev = len(devices)
+    if ndev <= 1:
+        return None
+    px = plan.shape[0] * plan.shape[1]
+    if len(shape) == 4 and shape[0] >= 2:
+        dp = max(d for d in range(1, ndev + 1) if ndev % d == 0 and d <= shape[0])
+        sp = ndev // dp
+        if sp > 1 and px < _auto_sp_min_px(device):
+            # dp-only on a subset: the spare devices idle, which beats a
+            # halo exchange on frames too small to amortise it
+            mesh = make_mesh(dp=dp, sp=1, devices=devices[:dp])
+        else:
+            mesh = make_mesh(dp=dp, sp=sp, devices=devices)
+    elif len(shape) == 3 and px >= _auto_sp_min_px(device):
+        mesh = make_mesh(dp=1, sp=ndev, devices=devices)
+    else:
+        return None
+
+    if is_u8:
+        if len(shape) == 3:
+            def fn_sharded(img):
+                return blur_sharded_u8(img[None], plan, mesh)[0]
+        else:
+            def fn_sharded(img):
+                return blur_sharded_u8(img, plan, mesh)
+    elif len(shape) == 3:
+        def fn_sharded(x):
+            return blur_sharded(x.to(torch.float32)[None], plan, mesh)[0]
+    else:
+        def fn_sharded(x):
+            return blur_sharded(x.to(torch.float32), plan, mesh)
+
+    fn_sharded._sharded = True  # observable routing marker
+    return fn_sharded
+
+
 def _norm_nsmooth(nsmooth) -> float | tuple[float, float]:
     """Hashable nsmooth: float, or (sigma_y, sigma_x) for anisotropic
     gaussian requests (collapsed to a float when the two agree)."""
@@ -392,6 +459,13 @@ def blur_u8(
             f"{(plan.col.support_radius, plan.row.support_radius)} of this "
             f"{plan.kernel!r} plan; use precision='int8' or let AUTO route"
         )
+    if engine is Engine.AUTO and _resolve_engine(
+            engine, plan, 1, img.device, _u8_lead(img)) in (Engine.FUSED, Engine.FFT_MXU):
+        # multi-device AUTO: the sharded router runs the fused kernels per
+        # shard where they serve and the distributed FFT past them
+        fn_sharded = _auto_sharded_fn(tuple(img.shape), plan, True, img.device)
+        if fn_sharded is not None:
+            return fn_sharded(img)
     eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
         return _fused_u8_interleaved(img, plan, precision)
@@ -454,6 +528,14 @@ def blur(
             engine = _box_engine(plan, 4, device_spec(planar.device), lead)
     else:
         plan = _plan_for(h, w, nsmooth, kernel, size_mode)
+        if (engine is Engine.AUTO and not (planar.requires_grad and torch.is_grad_enabled())
+                and _resolve_engine(engine, plan, 4, planar.device, lead)
+                in (Engine.FUSED, Engine.FFT_MXU)):
+            # multi-device AUTO, as blur_u8; a call that needs gradients
+            # stays on one device, where the engines have their adjoint
+            fn_sharded = _auto_sharded_fn(tuple(planar.shape), plan, False, planar.device)
+            if fn_sharded is not None:
+                return fn_sharded(planar)
     eng = _route(engine, plan, 4, planar.device, lead)
     return _blur_planar(planar.to(torch.float32), plan, eng)
 

@@ -1,7 +1,9 @@
 // Fused separable f32 blur (K2): f32 or uint8 planes in, f32 or uint8 out.
 //
 // Replaces: blur_algorithms_tpu/pallas_kernels/fused_blur.py:_kernel (its
-// bf16x3 branch, the blocked float / custom-taps kernel) and
+// bf16x3 branch, the blocked float / custom-taps kernel, also in its
+// pre_padded_col mode, 439-447 and 465: the sharded path's rows carry the
+// caller's halo rows and are never reflected) and
 // blur_algorithms_tpu/pallas_kernels/fused_dma.py:_tile_bf16x3 (K1's bf16x3
 // tile body, "same numerics as fused_blur._kernel's bf16x3 path"). Both
 // compute out = corr_cols(corr_rows(reflect101(x))) with any odd tap
@@ -161,7 +163,7 @@ fused_blur_f32_kernel(const Tin* __restrict__ x, void* __restrict__ out,
                       const float* __restrict__ taps_row,
                       const float* __restrict__ taps_col, int h, int w,
                       int rh, int rw, int th, int tw, int g, int s_stride,
-                      int tiles_w) {
+                      int tiles_w, int pre) {
   extern __shared__ __align__(16) float smem[];
   const int nwr = 2 * rw + 1, nwc = 2 * rh + 1;
   const int hp = th + 2 * rh;   // halo rows of the tile
@@ -175,7 +177,12 @@ fused_blur_f32_kernel(const Tin* __restrict__ x, void* __restrict__ out,
   const int tid = threadIdx.x;
   const int i0 = (blockIdx.x / tiles_w) * th;
   const int j0 = (blockIdx.x % tiles_w) * tw;
-  const Tin* xp = x + static_cast<size_t>(blockIdx.y) * h * w;
+  // pre_padded_col: the plane has xh = h + 2rh rows, the caller's halo rows
+  // on both sides, so halo row i (plane row i - rh of the output's frame)
+  // is input row i + rh as it is, never reflected (past the last row only
+  // for outputs that are not stored)
+  const int xh = pre ? h + 2 * rh : h;
+  const Tin* xp = x + static_cast<size_t>(blockIdx.y) * xh * w;
 
   for (int k = tid; k < nwr; k += kThreads) s_wr[k] = taps_row[k];
   for (int k = tid; k < nwc; k += kThreads) s_wc[k] = taps_col[k];
@@ -187,18 +194,19 @@ fused_blur_f32_kernel(const Tin* __restrict__ x, void* __restrict__ out,
   // cw > kThreads) and every rlanes-th row of the group, so neighbouring
   // threads read neighbouring columns and the index math is per column and
   // per row, not per element; a tile whose halo lies inside the frame
-  // skips the reflection
+  // skips the reflection (per axis)
   const int rlanes = cw < kThreads ? kThreads / cw : 1;
   const int lane_r = tid / cw, lane_c = tid % cw;
   const int cstep = cw < kThreads ? cw : kThreads;
-  const bool interior = i0 - rh >= 0 && i0 + hp - rh <= h && j0 - rw >= 0 &&
-                        j0 + cw - rw <= w;
+  const int roff = pre ? rh : 0;
+  const bool interior_r = pre ? i0 + hp <= xh : i0 - rh >= 0 && i0 + hp - rh <= h;
+  const bool interior_c = j0 - rw >= 0 && j0 + cw - rw <= w;
   for (int r0 = 0; r0 < hp; r0 += g) {
     const int nr = min(g, hp - r0);
     __syncthreads();  // the previous group is done with s_x
     if (lane_r < rlanes) {
       for (int c = lane_c; c < cw; c += cstep) {
-        const int gj = interior ? j0 - rw + c : reflect101(j0 - rw + c, w);
+        const int gj = interior_c ? j0 - rw + c : reflect101(j0 - rw + c, w);
         const Tin* col = xp + gj;
         float* dst = s_x + c * s_stride;
         for (int rr0 = lane_r; rr0 < nr; rr0 += rlanes * kBatch) {
@@ -208,7 +216,9 @@ fused_blur_f32_kernel(const Tin* __restrict__ x, void* __restrict__ out,
             const int rr = rr0 + b * rlanes;
             if (rr < nr) {
               const int i = i0 - rh + r0 + rr;
-              v[b] = col[static_cast<size_t>(interior ? i : reflect101(i, h)) * w];
+              const int src = interior_r ? i + roff
+                                         : (pre ? min(i + rh, xh - 1) : reflect101(i, h));
+              v[b] = col[static_cast<size_t>(src) * w];
             }
           }
 #pragma unroll
@@ -266,7 +276,7 @@ fused_blur_f32_kernel(const Tin* __restrict__ x, void* __restrict__ out,
 template <typename Tin, bool kOutU8>
 int launch(const void* x, void* out, const void* taps_row,
            const void* taps_col, int planes, int h, int w, int rh, int rw,
-           cudaStream_t stream) {
+           int pre, cudaStream_t stream) {
   int device = 0, smem_limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -285,7 +295,7 @@ int launch(const void* x, void* out, const void* taps_row,
   kernel<<<grid, kThreads, geo.smem, stream>>>(
       static_cast<const Tin*>(x), out, static_cast<const float*>(taps_row),
       static_cast<const float*>(taps_col), h, w, rh, rw, geo.th, geo.tw,
-      geo.g, geo.s, tiles_w);
+      geo.g, geo.s, tiles_w, pre);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -370,7 +380,7 @@ template <typename Tin, bool kOutU8>
 __global__ void __launch_bounds__(kThreads)
 fused_axis_cols_kernel(const Tin* __restrict__ x, void* __restrict__ out,
                        const float* __restrict__ taps, int h, int w, int r,
-                       int tiles_w) {
+                       int tiles_w, int pre) {
   extern __shared__ __align__(16) float smem[];
   const int ntaps = 2 * r + 1;
   float* s_t = smem;
@@ -379,7 +389,10 @@ fused_axis_cols_kernel(const Tin* __restrict__ x, void* __restrict__ out,
   const int i0 = (blockIdx.x / tiles_w) * kAxisColsTh;
   const int j0 = (blockIdx.x % tiles_w) * kAxisColsTw;
   const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
-  const Tin* xp = x + plane;
+  // pre_padded_col: xh = h + 2r input rows, output row o reading input rows
+  // o .. o + 2r as they are
+  const int xh = pre ? h + 2 * r : h;
+  const Tin* xp = x + static_cast<size_t>(blockIdx.y) * xh * w;
   for (int k = tid; k < ntaps; k += kThreads) s_t[k] = taps[k];
 
   const int j = tid % kAxisColsTw;
@@ -392,7 +405,7 @@ fused_axis_cols_kernel(const Tin* __restrict__ x, void* __restrict__ out,
   for (int k0 = 0; k0 < ntaps; k0 += kAxisColsChunk) {
     __syncthreads();  // the previous chunk is done with s_y
     for (int q = tid / kAxisColsTw; q < rows; q += kThreads / kAxisColsTw) {
-      const int gi = reflect101(i0 - r + k0 + q, h);
+      const int gi = pre ? min(i0 + k0 + q, xh - 1) : reflect101(i0 - r + k0 + q, h);
       s_y[q * kAxisColsS + j] =
           static_cast<float>(xp[static_cast<size_t>(gi) * w + gjl]);
     }
@@ -412,7 +425,7 @@ fused_axis_cols_kernel(const Tin* __restrict__ x, void* __restrict__ out,
 
 template <typename Tin, bool kOutU8>
 int launch_axis(const void* x, void* out, const void* taps, int planes, int h,
-                int w, int axis, int r, cudaStream_t stream) {
+                int w, int axis, int r, int pre, cudaStream_t stream) {
   int device = 0, smem_limit = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -426,18 +439,25 @@ int launch_axis(const void* x, void* out, const void* taps, int planes, int h,
   if (smem > smem_limit || planes > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = rows ? fused_axis_rows_kernel<Tin, kOutU8>
-                     : fused_axis_cols_kernel<Tin, kOutU8>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int th = rows ? kAxisRowsG : kAxisColsTh;
-  const int tw = rows ? kAxisRowsTw : kAxisColsTw;
-  const int tiles_w = (w + tw - 1) / tw;
-  dim3 grid(tiles_w * ((h + th - 1) / th), planes);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Tin*>(x), out, static_cast<const float*>(taps), h, w, r,
-      tiles_w);
+  const Tin* xs = static_cast<const Tin*>(x);
+  const float* ts = static_cast<const float*>(taps);
+  if (rows) {  // no column halo: pre_padded_col leaves a rows pass as it is
+    const int tiles_w = (w + kAxisRowsTw - 1) / kAxisRowsTw;
+    err = cudaFuncSetAttribute(fused_axis_rows_kernel<Tin, kOutU8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(tiles_w * ((h + kAxisRowsG - 1) / kAxisRowsG), planes);
+    fused_axis_rows_kernel<Tin, kOutU8><<<grid, kThreads, smem, stream>>>(
+        xs, out, ts, h, w, r, tiles_w);
+  } else {
+    const int tiles_w = (w + kAxisColsTw - 1) / kAxisColsTw;
+    err = cudaFuncSetAttribute(fused_axis_cols_kernel<Tin, kOutU8>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(tiles_w * ((h + kAxisColsTh - 1) / kAxisColsTh), planes);
+    fused_axis_cols_kernel<Tin, kOutU8><<<grid, kThreads, smem, stream>>>(
+        xs, out, ts, h, w, r, tiles_w, pre);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -446,36 +466,40 @@ int launch_axis(const void* x, void* out, const void* taps, int planes, int h,
 // The single-axis wide form: x planes x h x w of float (in_u8 = 0) or uint8;
 // out float (out_u8 = 0) or uint8; taps (2r + 1) float32 on the device;
 // axis 1 correlates along w, axis 0 along h (the other axis is a copy).
+// pre = 1 (axis 0): x has h + 2r rows per plane, the caller's halo rows, and
+// output row o reads rows o .. o + 2r with no reflection.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int blur_fused_axis_f32(const void* x, void* out, const void* taps,
-                                   int in_u8, int out_u8, int planes, int h,
-                                   int w, int axis, int r, void* stream) {
+                                   int in_u8, int out_u8, int pre, int planes,
+                                   int h, int w, int axis, int r, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_u8) {
-    return out_u8 ? launch_axis<uint8_t, true>(x, out, taps, planes, h, w, axis, r, st)
-                  : launch_axis<uint8_t, false>(x, out, taps, planes, h, w, axis, r, st);
+    return out_u8 ? launch_axis<uint8_t, true>(x, out, taps, planes, h, w, axis, r, pre, st)
+                  : launch_axis<uint8_t, false>(x, out, taps, planes, h, w, axis, r, pre, st);
   }
-  return out_u8 ? launch_axis<float, true>(x, out, taps, planes, h, w, axis, r, st)
-                : launch_axis<float, false>(x, out, taps, planes, h, w, axis, r, st);
+  return out_u8 ? launch_axis<float, true>(x, out, taps, planes, h, w, axis, r, pre, st)
+                : launch_axis<float, false>(x, out, taps, planes, h, w, axis, r, pre, st);
 }
 
-// x: planes x h x w of float (in_u8 = 0) or uint8 (in_u8 = 1); out: the
-// same shape of float (out_u8 = 0) or uint8 (out_u8 = 1); taps_row (2rw + 1)
-// and taps_col (2rh + 1) are float32 on the device. Returns the cudaError_t
-// of the launch (0 = launched).
+// x: planes x h x w of float (in_u8 = 0) or uint8 (in_u8 = 1), or planes x
+// (h + 2rh) x w with the caller's halo rows (pre = 1, pre_padded_col: rows
+// are read as they are, columns still reflect); out: planes x h x w of float
+// (out_u8 = 0) or uint8 (out_u8 = 1); taps_row (2rw + 1) and taps_col
+// (2rh + 1) are float32 on the device. Returns the cudaError_t of the
+// launch (0 = launched).
 extern "C" int blur_fused_f32(const void* x, void* out, const void* taps_row,
                               const void* taps_col, int in_u8, int out_u8,
-                              int planes, int h, int w, int rh, int rw,
-                              void* stream) {
+                              int pre, int planes, int h, int w, int rh,
+                              int rw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (in_u8) {
     return out_u8 ? launch<uint8_t, true>(x, out, taps_row, taps_col, planes,
-                                          h, w, rh, rw, st)
+                                          h, w, rh, rw, pre, st)
                   : launch<uint8_t, false>(x, out, taps_row, taps_col, planes,
-                                           h, w, rh, rw, st);
+                                           h, w, rh, rw, pre, st);
   }
   return out_u8 ? launch<float, true>(x, out, taps_row, taps_col, planes, h,
-                                      w, rh, rw, st)
+                                      w, rh, rw, pre, st)
                 : launch<float, false>(x, out, taps_row, taps_col, planes, h,
-                                       w, rh, rw, st);
+                                       w, rh, rw, pre, st);
 }

@@ -7,12 +7,15 @@
 // form K1s), _kernel (223) and _kernel_pipe (899; the assembled form K1a
 // and its pipelined variant) and _kernel_resident (604; the rows-resident
 // form K1r), with their tile bodies _tile_int8 (1242), _tile_hybrid (1306)
-// and _tile_bf16 (1415); and the assembly kernel A5 that feeds K1a
-// (_assemble_padded, at the end of this file).
+// and _tile_bf16 (1415); and the assembly kernels A5 and A4 that feed K1a
+// (_assemble_padded and _assemble_padded_prepad, at the end of this file).
+// K1a on A4's frame is the JAX rows_prepadded mode (blur_fused_haloed_dma,
+// 2589): the caller's halo rows sit where A5 puts reflected rows, so the
+// kernel is the same.
 //
 // The bodies (device functions rows_pass and cols_pass below):
 //
-// - int8, uint8 -> uint8, exact int8 fixed point (_rows_int8, _cols_int8):
+// - int8, uint8 -> uint8 or f32, exact int8 fixed point (_rows_int8, _cols_int8):
 //   the JAX band matmuls are 1-D correlations with one integer tap vector
 //   per axis, so the rows pass computes R = sum_t q_row[t] * xc[j - rw + t]
 //   on the recentred input (x ^ 0x80 == x - 128) exactly in int32 as
@@ -21,10 +24,16 @@
 //   memory, column-major; the cols pass sums p1 = sum b_hi*e1, p23 = sum
 //   b_hi*e0 + b_lo*e1, p4 = sum b_lo*e0 over the 2rh + 1 column taps with
 //   __dp4a on four consecutive rows of a digit column; the epilogue
-//   y = f32(p1)*c1 + f32(p23)*c2 + f32(p4)*c3 + 128 rounds every product
-//   and sum on its own (__fmul_rn/__fadd_rn, and the build passes
-//   --fmad=false), then clip(y + 0.5, 0, 255.5) and a truncating store.
-//   Bit-identical to the JAX kernel.
+//   y = f32(p1)*c1 + f32(p23)*c2 + f32(p4)*c3 + 128 (int8_epilogue), then
+//   clip(y + 0.5, 0, 255.5) and a truncating store, or y itself as f32
+//   (the JAX _compute_store with out_u8=False, which the sharded path asks
+//   for). For the uint8 store every product and sum is rounded on its own
+//   (__fmul_rn/__fadd_rn, and the build passes --fmad=false), the form
+//   the card's earlier certification ran. The f32 store rounds as XLA
+//   compiles the JAX expression when the kernel is interpreted on an FMA
+//   host, two multiply-adds contracted: fma(p4, c3, fma(p23, c2,
+//   p1 * c1)) + 128. Both stores are bit-identical to the JAX kernel run
+//   in interpret mode.
 // - hybrid: the int8 rows sum R without the requantisation (the JAX body
 //   folds the shift into its output scale), y = bf16(f32(R)) kept in the
 //   bytes E's digit planes take, then acc = sum_t bf16(c_t) * y[t] in f32
@@ -388,6 +397,25 @@ __device__ __forceinline__ void rows_pass(const unsigned char* stage, int sw, in
   }
 }
 
+// The int8 body's f32 epilogue p1*c1 + p23*c2 + p4*c3 + 128 (the JAX
+// _cols_int8 expression). kOutU8: each product and sum rounded on its own,
+// the form the uint8 store has always had. Else (the f32 store) two of the
+// multiply-adds contracted, as XLA compiles the expression on an FMA host,
+// so the f32 value is bit-equal to the JAX kernel in interpret mode.
+template <bool kOutU8>
+__device__ __forceinline__ float int8_epilogue(int p1, int p23, int p4, float c1, float c2,
+                                               float c3) {
+  float y;
+  if (kOutU8) {
+    y = __fadd_rn(__fmul_rn(__int2float_rn(p1), c1), __fmul_rn(__int2float_rn(p23), c2));
+    y = __fadd_rn(y, __fmul_rn(__int2float_rn(p4), c3));
+  } else {
+    y = __fmaf_rn(__int2float_rn(p23), c2, __fmul_rn(__int2float_rn(p1), c1));
+    y = __fmaf_rn(__int2float_rn(p4), c3, y);
+  }
+  return __fadd_rn(y, 128.0f);
+}
+
 // Cols pass and store of items [k_begin, k_end) of a th x tw tile whose
 // output row 0 reads from plane row b0 (modulo ring, b0 < ring): 4 output
 // rows of one column per item, the tile's rows at (i0, j0) of the output.
@@ -430,10 +458,7 @@ __device__ __forceinline__ void cols_pass(const unsigned char* plane, int cs, in
       }
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        float y = __fadd_rn(__fmul_rn(__int2float_rn(p1[u]), p.c1),
-                            __fmul_rn(__int2float_rn(p23[u]), p.c2));
-        y = __fadd_rn(y, __fmul_rn(__int2float_rn(p4[u]), p.c3));
-        out[u] = __fadd_rn(y, 128.0f);
+        out[u] = int8_epilogue<kOutU8>(p1[u], p23[u], p4[u], p.c1, p.c2, p.c3);
       }
     } else {
       const float4* ct = reinterpret_cast<const float4*>(s.ct);
@@ -698,6 +723,12 @@ int launch(int form, const K1Params& p, int planes, int smem, cudaStream_t strea
 // chunks that meet the edge strips or the slack gather their bytes one by
 // one through reflect-101.
 //
+// A4 (assemble_padded_prepad_u8 below) replaces the same file's
+// _assemble_padded_prepad (1738) -> _assemble_kernel4 (1708), four copies
+// per plane for a shard whose row halos the caller supplied: the same
+// function with no row border, so it is this kernel launched with rh = 0
+// and orh = 0 (rows [0, hs) read as they are, the rest zero).
+//
 // What bounds it on an H100: bytes. It reads each input byte about once
 // (the edge strips again, a few percent at r 32 on 4K) and writes hp x wp
 // bytes per plane: at the copy's 3.35 TB/s a 4K batch of 12 planes is
@@ -758,7 +789,8 @@ int smem_limit(int* limit) {
 
 // K1 in one of its forms (0 direct, 1 strip, 2 assembled, 3 pipelined,
 // 4 resident) with one of its bodies (0 int8, 1 hybrid, 2 bf16), uint8
-// planes -> uint8 (out_u8 = 1) or float (hybrid and bf16 only).
+// planes -> uint8 (out_u8 = 1) or float, the epilogue's value before the
+// uint8 store (int8: p1*c1 + p23*c2 + p4*c3 + 128).
 // taps_i: int8, int32 words [q_hi (nqw) | q_lo (nqw) | b_hi (nqh) |
 // b_lo (nqh)], each word four int8 taps, tap 4k + u in byte u; hybrid, the
 // rows words [q_hi | q_lo]; bf16, float [t4w] row taps. taps_f: hybrid and
@@ -776,8 +808,7 @@ extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, v
                                 float c3, float scale, void* stream) {
   const bool tw_ok = tw == 32 || tw == 64 || tw == 128;
   if (form < kDirect || form > kResident || body < kInt8 || body > kBf16 || !tw_ok ||
-      th < 4 || th % 4 || seg < 1 || planes < 1 || planes > 65535 || rh < 1 || rw < 1 ||
-      (body == kInt8 && !out_u8)) {
+      th < 4 || th % 4 || seg < 1 || planes < 1 || planes > 65535 || rh < 1 || rw < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool asm_form = form == kAssembled || form == kPipelined;
@@ -820,7 +851,10 @@ extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, v
   p.c3 = c3;
   p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (body == kInt8) return launch<kInt8, true>(form, p, planes, smem, st);
+  if (body == kInt8) {
+    return out_u8 ? launch<kInt8, true>(form, p, planes, smem, st)
+                  : launch<kInt8, false>(form, p, planes, smem, st);
+  }
   if (body == kHybrid) {
     return out_u8 ? launch<kHybrid, true>(form, p, planes, smem, st)
                   : launch<kHybrid, false>(form, p, planes, smem, st);
@@ -848,6 +882,17 @@ extern "C" int assemble_padded_u8(const void* x, void* out, int planes, int h, i
       static_cast<const uint8_t*>(x), static_cast<uint8_t*>(out), h, w, rb, rcb, orh, orw, hp,
       wp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A4: uint8 rows-prepadded shards (planes, hs, w), whose hs rows already
+// carry the caller's row halos, -> (planes, hp, wp) with the shard at (0,
+// orw), reflect-101 columns and zero slack: A5's kernel with no row border
+// (rh = 0, orh = 0), where its row reflection is the identity (0 <= r < hs).
+// wp a multiple of 16, orw >= min(rw, w - 1). Returns the cudaError_t of the
+// launch (0 = launched).
+extern "C" int assemble_padded_prepad_u8(const void* x, void* out, int planes, int hs, int w,
+                                         int rw, int orw, int hp, int wp, void* stream) {
+  return assemble_padded_u8(x, out, planes, hs, w, 0, rw, 0, orw, hp, wp, stream);
 }
 
 extern "C" const char* blur_cuda_error_string(int code) {

@@ -18,12 +18,18 @@
 //   cols:  E = 128 * e1 + e0 with e1 = (E + 64) >> 7; p1 = sum b_hi * e1,
 //          p23 = sum b_hi * e0 + b_lo * e1, p4 = sum b_lo * e0 with __dp4a
 //          on four consecutive rows of a digit column; then K1's epilogue
-//          p1 * c1 + p23 * c2 + p4 * c3 + 128, each product and sum rounded
-//          on its own (__fmul_rn / __fadd_rn, and --fmad=false), and the
-//          uint8 store clip(y + 0.5, 0, 255.5) truncated.
+//          p1 * c1 + p23 * c2 + p4 * c3 + 128 (int8_epilogue: for the
+//          uint8 store each product and sum rounded on its own, and the
+//          store clip(y + 0.5, 0, 255.5) truncated; for the f32 store
+//          fma(p4, c3, fma(p23, c2, p1 * c1)) + 128, as XLA compiles the
+//          JAX expression in interpret mode on an FMA host; --fmad=false
+//          keeps nvcc from contracting anything else).
 // The result is bit-equal to the JAX kernel's and to the plain versions
 // (cuda_kernels/fused_split.py). Reflect-101 is index math in the loaders
-// (the JAX wrapper pads E by reflect before pass 2).
+// (the JAX wrapper pads E by reflect before pass 2). Both cols passes also
+// take E with the caller's halo rows (pre = 1: the JAX e32="in" with
+// pre_padded_col=True, fused_blur.py:1080-1084, the sharded path's haloed
+// split): h + 2rh rows a plane, read as they are, never reflected.
 //
 // The hybrid pass 2 (fused_split_cols_hybrid) replaces the same kernel's
 // hybrid_cols branch (fused_blur.py:282-298, epilogue :339-340): E rounded
@@ -83,6 +89,32 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   i = abs(i);
   i = i > n - 1 ? 2 * (n - 1) - i : i;
   return min(max(i, 0), n - 1);
+}
+
+// The input row that halo row i (output row i + rh's window start, -rh <=
+// i) reads in a cols pass: reflect-101 into the h rows, or, with the
+// caller's halo rows (pre_padded_col: xh = h + 2rh rows), row i + rh as it
+// is (clamped past the last row, which only the zero padding taps reach).
+__device__ __forceinline__ int src_row(int i, int h, int rh, int xh, int pre) {
+  return pre ? min(i + rh, xh - 1) : reflect101(i, h);
+}
+
+// K1's int8 epilogue p1*c1 + p23*c2 + p4*c3 + 128 (the JAX _cols_int8
+// expression), as in csrc/fused_dma.cu: kOutU8 rounds each product and sum
+// on its own; the f32 store contracts two multiply-adds, as XLA compiles
+// the expression on an FMA host.
+template <bool kOutU8>
+__device__ __forceinline__ float int8_epilogue(int p1, int p23, int p4, float c1, float c2,
+                                               float c3) {
+  float y;
+  if (kOutU8) {
+    y = __fadd_rn(__fmul_rn(__int2float_rn(p1), c1), __fmul_rn(__int2float_rn(p23), c2));
+    y = __fadd_rn(y, __fmul_rn(__int2float_rn(p4), c3));
+  } else {
+    y = __fmaf_rn(__int2float_rn(p23), c2, __fmul_rn(__int2float_rn(p1), c1));
+    y = __fmaf_rn(__int2float_rn(p4), c3, y);
+  }
+  return __fadd_rn(y, 128.0f);
 }
 
 // floor(v / 2^s): an arithmetic right shift, spelled out for negative v
@@ -157,7 +189,7 @@ template <bool kOutU8>
 __global__ void __launch_bounds__(kThreads)
 split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
                        const int* __restrict__ taps, int h, int w, int rh,
-                       float c1, float c2, float c3) {
+                       int pre, float c1, float c2, float c3) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t4h = round4(2 * rh + 1), nqh = t4h >> 2;
   const int cs = cols_stride();
@@ -169,7 +201,8 @@ split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
   const int i0 = (blockIdx.x / tiles_w) * kColsTh;
   const int j0 = (blockIdx.x % tiles_w) * kColsTw;
   const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
-  const int16_t* ep = e + plane;
+  const int xh = pre ? h + 2 * rh : h;  // rows of an input plane
+  const int16_t* ep = e + static_cast<size_t>(blockIdx.y) * xh * w;
 
   for (int k = tid; k < 2 * nqh; k += kThreads) s_taps[k] = taps[k];
   const int j = tid % kColsTw;       // this thread's column
@@ -185,7 +218,7 @@ split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
   for (int k0 = 0; k0 < t4h; k0 += kChunk) {
     __syncthreads();  // the previous chunk is done with the digit planes
     for (int rr = a; rr < rows; rr += kThreads / kColsTw) {
-      const int gi = reflect101(i0 - rh + k0 + rr, h);
+      const int gi = src_row(i0 - rh + k0 + rr, h, rh, xh, pre);
       const int v = ep[static_cast<size_t>(gi) * w + gjl];
       const int e1 = asr(v + 64, 7);
       s_d1[j * cs + rr] = static_cast<signed char>(e1);
@@ -226,10 +259,7 @@ split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
     for (int s = 0; s < 4; ++s) {
       const int gi = i0 + ii + s;
       if (gi >= h) break;
-      float y = __fadd_rn(__fmul_rn(__int2float_rn(p1[m][s]), c1),
-                          __fmul_rn(__int2float_rn(p23[m][s]), c2));
-      y = __fadd_rn(y, __fmul_rn(__int2float_rn(p4[m][s]), c3));
-      y = __fadd_rn(y, 128.0f);
+      const float y = int8_epilogue<kOutU8>(p1[m][s], p23[m][s], p4[m][s], c1, c2, c3);
       const size_t o = plane + static_cast<size_t>(gi) * w + gj;
       if (kOutU8) {
         const float v = fminf(fmaxf(__fadd_rn(y, 0.5f), 0.0f), 255.5f);
@@ -257,7 +287,7 @@ template <bool kOutU8>
 __global__ void __launch_bounds__(kThreads)
 split_cols_hybrid_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
                          const float* __restrict__ taps, int h, int w, int rh,
-                         float scale) {
+                         int pre, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int t4h = round4(2 * rh + 1);
   const int cs = cols_stride();
@@ -268,7 +298,8 @@ split_cols_hybrid_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
   const int i0 = (blockIdx.x / tiles_w) * kColsTh;
   const int j0 = (blockIdx.x % tiles_w) * kColsTw;
   const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
-  const int16_t* ep = e + plane;
+  const int xh = pre ? h + 2 * rh : h;  // rows of an input plane
+  const int16_t* ep = e + static_cast<size_t>(blockIdx.y) * xh * w;
 
   for (int k = tid; k < t4h; k += kThreads) s_taps[k] = taps[k];
   const int j = tid % kColsTw;  // this thread's column
@@ -284,7 +315,7 @@ split_cols_hybrid_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
   for (int k0 = 0; k0 < t4h; k0 += kChunk) {
     __syncthreads();  // the previous chunk is done with the y plane
     for (int rr = a; rr < rows; rr += kThreads / kColsTw) {
-      const int gi = reflect101(i0 - rh + k0 + rr, h);
+      const int gi = src_row(i0 - rh + k0 + rr, h, rh, xh, pre);
       const float v = static_cast<float>(ep[static_cast<size_t>(gi) * w + gjl]);
       s_y[j * cs + rr] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
     }
@@ -368,12 +399,14 @@ extern "C" int fused_split_rows_int8(const void* x, void* out, const void* taps,
   return static_cast<int>(cudaGetLastError());
 }
 
-// e: planes x h x w int16 E; out: uint8 (out_u8 = 1) or float. taps: int32
-// words [b_hi | b_lo] as above. Returns the cudaError_t of the launch.
+// e: planes x h x w int16 E, or planes x (h + 2rh) x w with the caller's
+// halo rows (pre = 1, pre_padded_col: rows read as they are); out: planes x
+// h x w uint8 (out_u8 = 1) or float. taps: int32 words [b_hi | b_lo] as
+// above. Returns the cudaError_t of the launch.
 extern "C" int fused_split_cols_int8(const void* e, void* out, const void* taps,
                                      int planes, int h, int w, int rh,
-                                     int out_u8, float c1, float c2, float c3,
-                                     void* stream) {
+                                     int out_u8, int pre, float c1, float c2,
+                                     float c3, void* stream) {
   int limit = 0;
   int err = smem_limit(&limit);
   if (err) return err;
@@ -389,16 +422,17 @@ extern "C" int fused_split_cols_int8(const void* e, void* out, const void* taps,
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   kernel<<<grid, kThreads, smem, st>>>(static_cast<const int16_t*>(e), out,
                                        static_cast<const int*>(taps), h, w, rh,
-                                       c1, c2, c3);
+                                       pre, c1, c2, c3);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The hybrid pass 2. e: planes x h x w int16 E; out: uint8 (out_u8 = 1) or
-// float. taps: float [t4h], the bf16-rounded column taps zero-padded to a
+// The hybrid pass 2. e: planes x h x w int16 E, or planes x (h + 2rh) x w
+// (pre = 1, as above); out: planes x h x w uint8 (out_u8 = 1) or float. taps: float [t4h], the bf16-rounded column taps zero-padded to a
 // multiple of 4; scale: f32(1 / 127). Returns the cudaError_t of the launch.
 extern "C" int fused_split_cols_hybrid(const void* e, void* out, const void* taps,
                                        int planes, int h, int w, int rh,
-                                       int out_u8, float scale, void* stream) {
+                                       int out_u8, int pre, float scale,
+                                       void* stream) {
   int limit = 0;
   int err = smem_limit(&limit);
   if (err) return err;
@@ -413,6 +447,6 @@ extern "C" int fused_split_cols_hybrid(const void* e, void* out, const void* tap
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int16_t*>(e), out, static_cast<const float*>(taps), h, w,
-      rh, scale);
+      rh, pre, scale);
   return static_cast<int>(cudaGetLastError());
 }

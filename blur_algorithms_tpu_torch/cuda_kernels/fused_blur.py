@@ -32,12 +32,19 @@ The port of the JAX package's ``pallas_kernels/fused_blur.py``:
   ``DeviceSpec.fused_split_min_radius``; it reaches ``SPLIT_MAX_RADIUS``.
   Past that, strip streaming (``ops/streamed``) is not ported and every
   entry raises.
+- The haloed entry points (``blur_fused_haloed``, ``_blur_fused_haloed_split``,
+  ``haloed_fused_feasible``; ``fused_blur.py:1047-1190``): the sharded
+  path's per-shard step on ``(..., H + 2 rh, W)`` rows whose extra rows
+  came from the neighbouring shards. K2 and its single-axis form, and the
+  split's cols passes, take ``pre_padded_col=True`` for it (the JAX mode of
+  that name): those rows are read as they are, only the columns reflect.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -54,8 +61,10 @@ __all__ = [
     "blur_fused_axis_f32",
     "blur_fused_f32",
     "blur_fused_f32_ref",
+    "blur_fused_haloed",
     "blur_fused_u8",
     "e32_split_applicable",
+    "haloed_fused_feasible",
     "int8_applicable",
     "pick_int8_scale",
     "split_feasible",
@@ -153,15 +162,19 @@ def int8_applicable(plan: BlurPlan, dtype: torch.dtype) -> bool:
 # K2: the fused separable f32 blur
 
 
-def _check_planes(planar: torch.Tensor, plan: BlurPlan) -> None:
+def _check_planes(planar: torch.Tensor, plan: BlurPlan,
+                  pre_padded_col: bool = False) -> None:
     if planar.dtype not in (torch.float32, torch.uint8, torch.float64):
         raise TypeError(f"K2 takes float32 or uint8 planes, got {planar.dtype}")
-    if planar.ndim < 2 or tuple(planar.shape[-2:]) != plan.shape:
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    h, w = plan.shape
+    if planar.ndim < 2 or tuple(planar.shape[-2:]) != ((h + 2 * rh, w) if pre_padded_col
+                                                        else (h, w)):
         raise ValueError(
             f"planes of shape {tuple(planar.shape)} do not match the "
             f"plan's {plan.shape}"
+            + (f" with {rh} halo rows each side (pre_padded_col)" if pre_padded_col else "")
         )
-    rh, rw = plan.col.support_radius, plan.row.support_radius
     if max(rh, rw) > SPLIT_MAX_RADIUS:
         raise NotImplementedError(
             f"support radius {max(rh, rw)} > {SPLIT_MAX_RADIUS}: {_STREAMED}"
@@ -181,8 +194,11 @@ def _store_u8(acc: torch.Tensor) -> torch.Tensor:
 
 
 def _correlate_ref(x: torch.Tensor, taps: np.ndarray, axis: int,
-                   dtype: torch.dtype) -> torch.Tensor:
-    """Reflect-101 correlation along ``axis``, tap by tap in ascending order.
+                   dtype: torch.dtype, padded: bool = False) -> torch.Tensor:
+    """Reflect-101 correlation along ``axis``, tap by tap in ascending order;
+    with ``padded`` the axis already carries its ``r`` border values each
+    side (the caller's halo rows) and the correlation is taken as it is
+    (``2r`` fewer outputs, nothing reflected).
 
     In float32 every tap is one fused multiply-add: the product of two
     float32 values is exact in float64, so the float64 sum rounded to
@@ -191,34 +207,38 @@ def _correlate_ref(x: torch.Tensor, taps: np.ndarray, axis: int,
     r = (int(taps.shape[0]) - 1) // 2
     if r == 0:
         return x.to(dtype)
-    n = x.shape[axis]
-    xp = reflect_101(x, [(r, r)], axes=[axis]).to(torch.float64)
-    acc = torch.zeros(x.shape, dtype=dtype, device=x.device)
+    axis %= x.ndim
+    n = x.shape[axis] - (2 * r if padded else 0)
+    xp = (x if padded else reflect_101(x, [(r, r)], axes=[axis])).to(torch.float64)
+    acc = torch.zeros((*x.shape[:axis], n, *x.shape[axis + 1:]), dtype=dtype,
+                      device=x.device)
     for t, tap in enumerate(taps.tolist()):
         acc = torch.add(acc.to(torch.float64), xp.narrow(axis, t, n), alpha=tap)
         acc = acc.to(dtype)
     return acc
 
 
-def blur_fused_f32_ref(planar: torch.Tensor, plan: BlurPlan,
-                       out_u8: bool = False) -> torch.Tensor:
+def blur_fused_f32_ref(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
+                       pre_padded_col: bool = False) -> torch.Tensor:
     """Plain PyTorch version of K2: ``(..., H, W)`` float32 or uint8 ->
     float32, or uint8 with ``out_u8``.
 
     Rows pass, then cols pass, each a reflect-101 gather and a tap-by-tap
     accumulation rounded to float32 after every tap (float64 input stays
-    float64 throughout, for gradient checks). Runs on whatever device the
-    input lies on.
+    float64 throughout, for gradient checks). ``pre_padded_col`` (the JAX
+    ``_blur_fused_planar`` mode of that name): the input is ``(..., H +
+    2 rh, W)``, its extra rows the caller's halo rows; the rows pass runs
+    over all of them and the cols pass reads them as they are. Runs on
+    whatever device the input lies on.
     """
-    _check_planes(planar, plan)
-    h, w = plan.shape
+    _check_planes(planar, plan, pre_padded_col)
     dtype = torch.float64 if planar.dtype == torch.float64 else torch.float32
-    x = planar.reshape(-1, h, w)
+    x = planar.reshape(-1, *planar.shape[-2:])
     y = _correlate_ref(x, plan.row.taps, -1, dtype)
-    y = _correlate_ref(y, plan.col.taps, -2, dtype)
+    y = _correlate_ref(y, plan.col.taps, -2, dtype, padded=pre_padded_col)
     if out_u8:
         y = _store_u8(y.to(torch.float32))
-    return y.reshape(planar.shape)
+    return y.reshape(*planar.shape[:-2], *plan.shape)
 
 
 @functools.lru_cache(maxsize=64)
@@ -229,52 +249,54 @@ def _device_taps(plan: BlurPlan, device: torch.device) -> tuple[torch.Tensor, to
     )
 
 
-def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan,
-                   out_u8: bool = False) -> torch.Tensor:
+def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
+                   pre_padded_col: bool = False) -> torch.Tensor:
     """``(..., H, W)`` float32 or uint8 -> float32 (or uint8 with
     ``out_u8``), the fused separable blur (K2).
 
-    A CUDA tensor launches the kernel of ``csrc/fused_blur.cu``; a CPU tensor
-    runs the plain version. A plan with one radius-0 axis past
-    ``MAX_RADIUS`` runs the single-axis wide form (``blur_fused_axis_f32``).
-    Any other device, a non-contiguous or float64 CUDA tensor, or two axes
-    past ``MAX_RADIUS`` raises. ``blur_fused_f32.launches`` counts kernel
-    launches.
+    ``pre_padded_col``: the input is ``(..., H + 2 rh, W)``, whose extra
+    rows are the caller's halo rows (another shard's rows,
+    ``parallel/sharded.py``); the kernel reads them as they are and reflects
+    only the columns (the JAX ``pre_padded_col``). A CUDA tensor launches the
+    kernel of ``csrc/fused_blur.cu``; a CPU tensor runs the plain version. A
+    plan with one radius-0 axis past ``MAX_RADIUS`` runs the single-axis wide
+    form (``blur_fused_axis_f32``). Any other device, a non-contiguous or
+    float64 CUDA tensor, or two axes past ``MAX_RADIUS`` raises.
+    ``blur_fused_f32.launches`` counts kernel launches.
     """
-    _check_planes(planar, plan)
+    _check_planes(planar, plan, pre_padded_col)
     if max(plan.col.support_radius, plan.row.support_radius) > MAX_RADIUS:
-        return blur_fused_axis_f32(planar, plan, out_u8)
-    x = _k2_input(planar, plan, "K2")
+        return blur_fused_axis_f32(planar, plan, out_u8, pre_padded_col)
+    x = _k2_input(planar, "K2")
     if x is None:
-        return blur_fused_f32_ref(planar, plan, out_u8)
+        return blur_fused_f32_ref(planar, plan, out_u8, pre_padded_col)
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     h, w = plan.shape
-    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+    out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
-    if x.shape[0] == 0:
-        return out.reshape(planar.shape)
-    taps_row, taps_col = _device_taps(plan, x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.blur_fused_f32(
-            x.data_ptr(), out.data_ptr(), taps_row.data_ptr(),
-            taps_col.data_ptr(), int(x.dtype == torch.uint8), int(out_u8),
-            x.shape[0], h, w, plan.col.support_radius, plan.row.support_radius,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc:
-        msg = lib.blur_cuda_error_string(rc).decode()
-        raise RuntimeError(f"K2 launch failed: CUDA error {rc} ({msg})")
-    blur_fused_f32.launches += 1
-    return out.reshape(planar.shape)
+    if x.shape[0]:
+        taps_row, taps_col = _device_taps(plan, x.device)
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            rc = lib.blur_fused_f32(
+                x.data_ptr(), out.data_ptr(), taps_row.data_ptr(),
+                taps_col.data_ptr(), int(x.dtype == torch.uint8), int(out_u8),
+                int(pre_padded_col), x.shape[0], h, w, plan.col.support_radius,
+                plan.row.support_radius, torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if rc:
+            msg = lib.blur_cuda_error_string(rc).decode()
+            raise RuntimeError(f"K2 launch failed: CUDA error {rc} ({msg})")
+        blur_fused_f32.launches += 1
+    return out.reshape(*planar.shape[:-2], h, w)
 
 
 blur_fused_f32.launches = 0
 
 
-def _k2_input(planar: torch.Tensor, plan: BlurPlan, name: str) -> torch.Tensor | None:
-    """The ``(planes, H, W)`` view a K2 launch takes, or None for a CPU
+def _k2_input(planar: torch.Tensor, name: str) -> torch.Tensor | None:
+    """The ``(planes, rows, W)`` view a K2 launch takes, or None for a CPU
     tensor (the plain version runs); raises where no launch is possible."""
     if planar.device.type == "cpu":
         return None
@@ -284,50 +306,53 @@ def _k2_input(planar: torch.Tensor, plan: BlurPlan, name: str) -> torch.Tensor |
         raise TypeError(f"{name} takes float32 or uint8 planes on a CUDA device")
     if not planar.is_contiguous():
         raise ValueError(f"{name} needs contiguous planes")
-    x = planar.reshape(-1, *plan.shape)
+    x = planar.reshape(-1, *planar.shape[-2:])
     if x.shape[0] > 65535:
         raise ValueError(f"{name} takes at most 65535 planes, got {x.shape[0]}")
     return x
 
 
-def blur_fused_axis_f32(planar: torch.Tensor, plan: BlurPlan,
-                        out_u8: bool = False) -> torch.Tensor:
+def blur_fused_axis_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
+                        pre_padded_col: bool = False) -> torch.Tensor:
     """K2's single-axis wide form: ``(..., H, W)`` float32 or uint8 ->
     float32 (or uint8 with ``out_u8``) for a plan with one radius-0 axis,
     the other up to ``SPLIT_MAX_RADIUS`` (the two-pass split's passes).
+    ``pre_padded_col``: a columns pass over ``(..., H + 2 rh, W)`` whose
+    extra rows are the caller's halo rows, read as they are (the haloed
+    split's pass 2).
 
     A CUDA tensor launches ``blur_fused_axis_f32`` of ``csrc/fused_blur.cu``
     (a radius-0 plan is a copy, with no launch); a CPU tensor runs the plain
     version ``blur_fused_f32_ref``. ``blur_fused_axis_f32.launches`` counts
     kernel launches.
     """
-    _check_planes(planar, plan)
+    _check_planes(planar, plan, pre_padded_col)
     rh, rw = plan.col.support_radius, plan.row.support_radius
     if min(rh, rw) != 0:
         raise ValueError("the single-axis form takes a plan with a radius-0 axis")
-    x = _k2_input(planar, plan, "K2's single-axis form")
+    x = _k2_input(planar, "K2's single-axis form")
     if x is None or max(rh, rw) == 0:
-        return blur_fused_f32_ref(planar, plan, out_u8)
+        return blur_fused_f32_ref(planar, plan, out_u8, pre_padded_col)
     from blur_algorithms_tpu_torch.utils.build import load_library
 
-    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+    h, w = plan.shape
+    out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
-    if x.shape[0] == 0:
-        return out.reshape(planar.shape)
-    taps = _device_taps(plan, x.device)[0 if rw else 1]
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.blur_fused_axis_f32(
-            x.data_ptr(), out.data_ptr(), taps.data_ptr(),
-            int(x.dtype == torch.uint8), int(out_u8), x.shape[0], *plan.shape,
-            int(rw > 0), max(rh, rw),
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
-    if rc:
-        msg = lib.blur_cuda_error_string(rc).decode()
-        raise RuntimeError(f"K2's single-axis form failed: CUDA error {rc} ({msg})")
-    blur_fused_axis_f32.launches += 1
-    return out.reshape(planar.shape)
+    if x.shape[0]:
+        taps = _device_taps(plan, x.device)[0 if rw else 1]
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            rc = lib.blur_fused_axis_f32(
+                x.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                int(x.dtype == torch.uint8), int(out_u8), int(pre_padded_col), x.shape[0],
+                h, w, int(rw > 0), max(rh, rw),
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
+        if rc:
+            msg = lib.blur_cuda_error_string(rc).decode()
+            raise RuntimeError(f"K2's single-axis form failed: CUDA error {rc} ({msg})")
+        blur_fused_axis_f32.launches += 1
+    return out.reshape(*planar.shape[:-2], h, w)
 
 
 blur_fused_axis_f32.launches = 0
@@ -530,3 +555,102 @@ def blur_fused_u8(planar_u8: torch.Tensor, plan: BlurPlan,
     if planar_u8.dtype != torch.uint8:
         raise TypeError(f"expected uint8 planes, got {planar_u8.dtype}")
     return blur_fused_f32(planar_u8, plan, out_u8=True)
+
+
+# ---------------------------------------------------------------------------
+# the haloed entry points: the sharded path's per-shard step
+# (``parallel/sharded.py``), on rows that carry the caller's halo rows
+
+
+@functools.lru_cache(maxsize=256)  # plans hash by identity
+def _haloed_rows_plan(plan: BlurPlan) -> BlurPlan:
+    """Rows-only split plan sized to the haloed height ``H + 2 rh`` (the JAX
+    function of the same name): the haloed split's pass 1 row-convolves
+    every halo row too, since pass 2 reads them as its column context."""
+    rows_plan, _ = _split_plans(plan)
+    hp = plan.shape[0] + 2 * plan.col.support_radius
+    return dataclasses.replace(rows_plan, shape=(hp, plan.shape[1]),
+                               col=dataclasses.replace(rows_plan.col, dim=hp))
+
+
+def _blur_fused_haloed_split(planar: torch.Tensor, plan: BlurPlan, precision,
+                             out_u8: bool) -> torch.Tensor:
+    """The two-pass split over rows that carry the caller's halo rows (the
+    JAX ``_blur_fused_haloed_split``): pass 1 row-convolves all ``H + 2 rh``
+    rows, pass 2 reads them as its column context (``pre_padded_col``), with
+    ``_blur_fused_split``'s precision rule."""
+    if not split_feasible(plan):
+        r = max(plan.col.support_radius, plan.row.support_radius)
+        raise NotImplementedError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_STREAMED}")
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split
+
+    rows_plan_h = _haloed_rows_plan(plan)
+    _, cols_plan = _split_plans(plan)
+    is_u8 = planar.dtype == torch.uint8
+    if e32_split_applicable(plan, precision, 1 if is_u8 else 4):
+        e = fused_split.fused_split_rows_int8(planar, rows_plan_h, out_e32=True)
+        pass2 = (fused_split.fused_split_cols_hybrid
+                 if _hybrid_cols_ok(plan, planar.device)
+                 else fused_split.fused_split_cols_int8)
+        return pass2(e, cols_plan, out_u8=out_u8, pre_padded_col=True)
+    if precision == "int8" and is_u8 and int8_applicable(rows_plan_h, torch.uint8):
+        y = fused_split.fused_split_rows_int8(planar, rows_plan_h, out_e32=False)
+    else:
+        y = blur_fused_axis_f32(planar, rows_plan_h)
+    return blur_fused_axis_f32(y, cols_plan, out_u8=out_u8, pre_padded_col=True)
+
+
+def haloed_fused_feasible(plan: BlurPlan, in_bytes: int = 1, precision=None,
+                          device: torch.device | str = "cpu") -> bool:
+    """Can ``blur_fused_haloed`` serve this per-shard plan (the JAX function
+    of the same name)? The single kernels serve support radii up to
+    ``MAX_RADIUS``; past it the haloed split, up to ``SPLIT_MAX_RADIUS`` and
+    within the device's ``split_hbm_budget``. The sharded router
+    (``parallel/sharded.py``) takes the distributed FFT where this is
+    False."""
+    if precision == "int8" and (in_bytes != 1 or not int8_applicable(plan, torch.uint8)):
+        precision = "bf16x3"
+    if max(plan.col.support_radius, plan.row.support_radius) <= MAX_RADIUS:
+        return True
+    return (split_feasible(plan, in_bytes)
+            and split_hbm_bytes(plan, in_bytes, precision)
+            <= device_spec(device).split_hbm_budget)
+
+
+def blur_fused_haloed(planar: torch.Tensor, plan: BlurPlan, precision="bf16x3",
+                      out_u8: bool = False) -> torch.Tensor:
+    """Fused blur of ``(..., H + 2 rh, W)`` whose extra rows are the
+    caller's halo rows (another shard's, ``parallel/sharded.py``) ->
+    ``(..., H, W)``; the columns still reflect. uint8 (``out_u8``) or
+    float32.
+
+    The JAX function of the same name, which takes ``"int8"`` and
+    ``"bf16x3"``; here ``precision`` is any of ``blur_fused_u8``'s rungs
+    and routes as it does, so a shard runs what one device would run on
+    its frame: ``"int8"`` needs ``int8_applicable`` (else ``"bf16x3"``);
+    the haloed split where ``_split_wins`` (int8 end to end where
+    ``e32_split_applicable``, ``"hybrid"`` and ``"bf16"`` running it as
+    ``"int8"``); else K1's body of that rung on A4's frame
+    (``fused_dma.blur_fused_haloed_dma``) where ``dma_form_applicable``
+    holds and K1a's block fits, then K1's int8 body under the same test
+    (the port's single int8 kernel, as in ``blur_fused_u8``); else K2 with
+    ``pre_padded_col``."""
+    if precision not in ("int8", "hybrid", "bf16", "bf16x3"):
+        raise ValueError("precision must be 'int8', 'hybrid', 'bf16' or "
+                         f"'bf16x3', got {precision!r}")
+    if precision != "bf16x3" and not int8_applicable(plan, planar.dtype):
+        precision = "bf16x3"
+    is_u8 = planar.dtype == torch.uint8
+    blocked = "bf16x3" if precision == "bf16x3" else "int8"
+    if _split_wins(plan, 1 if is_u8 else 4, blocked, planar.device):
+        return _blur_fused_haloed_split(planar, plan, blocked, out_u8)
+    if precision != "bf16x3":
+        from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+
+        planes = math.prod(planar.shape[:-2])
+        for rung in dict.fromkeys((precision, "int8")):
+            if (fused_dma.dma_form_applicable(planar.dtype, plan, rung)
+                    and fused_dma.k1_geometry("assembled", rung, plan, planes,
+                                              device=planar.device) is not None):
+                return fused_dma.blur_fused_haloed_dma(planar, plan, rung, out_u8=out_u8)
+    return blur_fused_f32(planar, plan, out_u8=out_u8, pre_padded_col=True)

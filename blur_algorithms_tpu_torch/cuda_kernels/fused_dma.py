@@ -9,8 +9,14 @@ PyTorch version on a CPU tensor. The bodies:
 
 - int8 (``_rows_int8`` / ``_cols_int8``), plain version
   ``blur_fused_u8_dma_ref``. Both compute the JAX kernel's integers
-  exactly and round its f32 epilogue the same way, so all three agree bit
-  for bit.
+  exactly and round its f32 epilogue the same way, so the two agree bit
+  for bit, and with the JAX kernel in interpret mode, in the uint8 store
+  and in the f32 one (``out_u8=False``, the epilogue's value before
+  ``floor(y + 0.5)``, which the sharded path's float output asks for).
+  The uint8 store rounds each product and sum of the epilogue on its own,
+  as it has since K1's first port; the f32 store contracts two
+  multiply-adds, as XLA compiles the JAX expression on an FMA host
+  (``int8_cols_ref``).
 - hybrid (``_tile_hybrid``): the exact int8 rows sum ``R``, ``y =
   bf16(f32(R))``, one f32 sum of ``bf16(c_t) * y`` per output in ascending
   tap order, and one fused ``fma(acc, 1 / (127 * 2^s), 128)``; plain
@@ -49,8 +55,11 @@ correlations with one tap vector per axis: ``int8_operands``,
 ``hybrid_operands`` and ``bf16_operands`` yield those vectors.
 
 The bf16x3 tile body has the numerics of the blocked kernel
-``fused_blur._kernel`` and runs as K2 (``cuda_kernels/fused_blur.py``). The
-multi-chip haloed entry point (with A4) is queued in ROADMAP.md.
+``fused_blur._kernel`` and runs as K2 (``cuda_kernels/fused_blur.py``).
+``blur_fused_haloed_dma`` is the sharded path's per-shard step (the JAX
+``rows_prepadded`` mode): A4 (``assemble.assemble_padded_prepad``) puts the
+caller's halo rows where A5 puts reflected ones, and K1a runs on that frame
+unchanged.
 ``MAX_RADIUS`` (600, the JAX int8 DMA form's domain) bounds K1 and K2
 alike; past it ``blur_fused_u8`` runs the two-pass split, whose int8 forms
 (``cuda_kernels/fused_split.py``) share ``int8_rows_ref`` /
@@ -91,6 +100,7 @@ __all__ = [
     "blur_fused_u8_bf16_ref",
     "blur_fused_u8_dma",
     "blur_fused_u8_dma_ref",
+    "blur_fused_haloed_dma",
     "blur_fused_u8_hybrid",
     "blur_fused_u8_hybrid_ref",
     "blur_fused_u8_padded_ref",
@@ -234,16 +244,18 @@ def _check_planar(planar_u8: torch.Tensor, plan: BlurPlan) -> None:
         )
 
 
-def blur_fused_u8_dma_ref(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
-    """Plain PyTorch version of K1: uint8 ``(..., H, W)`` -> uint8.
+def blur_fused_u8_dma_ref(planar_u8: torch.Tensor, plan: BlurPlan,
+                          out_u8: bool = True) -> torch.Tensor:
+    """Plain PyTorch version of K1: uint8 ``(..., H, W)`` -> uint8, or the
+    float32 epilogue value before the store (``out_u8=False``).
 
     Reflect-101 gather, then the exact integer sums tap by tap, then the
-    same digit split and f32 epilogue as separate torch ops (so nothing can
-    fuse a multiply into an add). Runs on whatever device the input lies on.
+    same digit split and f32 epilogue, each rounding spelled out
+    (``int8_cols_ref``). Runs on whatever device the input lies on.
     """
     _check_planar(planar_u8, plan)
     check_domain(plan)
-    return _body_ref(_reflect_planes(planar_u8, plan), plan, "int8", True).reshape(
+    return _body_ref(_reflect_planes(planar_u8, plan), plan, "int8", out_u8).reshape(
         planar_u8.shape)
 
 
@@ -263,7 +275,7 @@ def _body_ref(xp: torch.Tensor, plan: BlurPlan, precision: str,
               out_u8: bool) -> torch.Tensor:
     """One of K1's bodies on padded planes ``xp`` (``(n, H + 2rh, W +
     2rw)`` uint8) -> ``(n, H, W)`` uint8, or the float32 value before the
-    store (hybrid and bf16, ``out_u8=False``)."""
+    store (``out_u8=False``)."""
     h, w = plan.shape
     if precision == "int8":
         ops = int8_operands(plan)
@@ -271,8 +283,8 @@ def _body_ref(xp: torch.Tensor, plan: BlurPlan, precision: str,
         s = ops.rows_shift
         e = (r + (1 << (s - 1))) >> s
         del r
-        return store_u8_ref(int8_cols_ref(e, ops.q_col, ops.epilogue_constants(), h))
-    if precision == "hybrid":
+        out = int8_cols_ref(e, ops.q_col, ops.epilogue_constants(), h, out_u8)
+    elif precision == "hybrid":
         ops = hybrid_operands(plan)
         y = bf16_round_ref(int8_rows_ref(xp, ops.q_row, w).to(torch.float32))
         out = fma_f32_ref(bf16_correlate_ref(y, ops.c_col, h, -2), ops.scale, 128.0)
@@ -322,14 +334,16 @@ def bf16_correlate_ref(y: torch.Tensor, taps: np.ndarray, n: int,
     return acc
 
 
-def fma_f32_ref(a: torch.Tensor, b: float, c: float) -> torch.Tensor:
-    """float32 ``fma(a, b, c)`` rounded once, as the kernels' ``__fmaf_rn``.
+def fma_f32_ref(a: torch.Tensor, b: float, c: float | torch.Tensor) -> torch.Tensor:
+    """float32 ``fma(a, b, c)`` rounded once, as the kernels' ``__fmaf_rn``
+    (``c`` a float32 number or tensor).
 
     ``a * b`` is exact in float64 (two 24-bit significands); the float64 sum
     with ``c`` is made round-to-odd from its exact error (TwoSum), and a
     round-to-odd float64 rounds to float32 as the exact value would."""
     p = a.to(torch.float64) * float(np.float32(b))
-    c = float(np.float32(c))
+    c = (c.to(torch.float32).to(torch.float64) if isinstance(c, torch.Tensor)
+         else float(np.float32(c)))
     s = p + c
     bb = s - p
     err = (p - (s - bb)) + (c - bb)
@@ -383,11 +397,16 @@ def store_u8_ref(y: torch.Tensor) -> torch.Tensor:
     return y.to(torch.int32).to(torch.uint8)
 
 
-def int8_cols_ref(e: torch.Tensor, q_col: np.ndarray, constants, h: int) -> torch.Tensor:
+def int8_cols_ref(e: torch.Tensor, q_col: np.ndarray, constants, h: int,
+                  out_u8: bool = True) -> torch.Tensor:
     """The int8 cols pass on the row-padded intermediate ``e`` (int32
     ``(n, h + 2rh, w)``): base-128 digits, the three digit products tap by
-    tap, and the f32 epilogue ``p1*c1 + p23*c2 + p4*c3 + 128`` as separate
-    torch ops (so nothing can fuse a multiply into an add) -> float32."""
+    tap, and the f32 epilogue ``p1*c1 + p23*c2 + p4*c3 + 128`` -> float32.
+    For the uint8 store (``out_u8``) every product and sum is rounded on its
+    own, the kernels' form since K1's first port; for the f32 store two of
+    the multiply-adds are contracted, ``fma(p4, c3, fma(p23, c2, p1*c1)) +
+    128``, as XLA compiles the JAX expression in interpret mode on an FMA
+    host, so that store is bit-equal to the JAX kernel there."""
     n, _, w = e.shape
     dev = e.device
     e1 = (e + 64) >> 7
@@ -405,12 +424,14 @@ def int8_cols_ref(e: torch.Tensor, q_col: np.ndarray, constants, h: int) -> torc
             p23.add_(s1, alpha=b_lo)
             p4.add_(s0, alpha=b_lo)
 
-    c1, c2, c3 = (
-        torch.tensor(c, dtype=torch.float32, device=dev) for c in constants
-    )
+    c1, c2, c3 = constants
     y = torch.mul(p1.to(torch.float32), c1)
-    y = torch.add(y, torch.mul(p23.to(torch.float32), c2))
-    y = torch.add(y, torch.mul(p4.to(torch.float32), c3))
+    if out_u8:
+        y = torch.add(y, torch.mul(p23.to(torch.float32), c2))
+        y = torch.add(y, torch.mul(p4.to(torch.float32), c3))
+    else:
+        y = fma_f32_ref(p23.to(torch.float32), c2, y)
+        y = fma_f32_ref(p4.to(torch.float32), c3, y)
     return torch.add(y, 128.0)
 
 
@@ -461,8 +482,6 @@ def _check_body(plan: BlurPlan, precision: str, out_u8: bool) -> None:
         raise ValueError(f"K1's bodies are {RUNGS}, not {precision!r}")
     if precision == "int8":
         check_domain(plan)
-        if not out_u8:
-            raise ValueError("K1's int8 body stores uint8 (out_u8=True)")
     elif not dma_form_applicable(torch.uint8, plan, precision):
         rh, rw = plan.col.support_radius, plan.row.support_radius
         raise ValueError(
@@ -663,7 +682,7 @@ def _check_cuda(name: str, t: torch.Tensor) -> None:
 def _plain(planar_u8: torch.Tensor, plan: BlurPlan, precision: str,
            out_u8: bool) -> torch.Tensor:
     if precision == "int8":
-        return blur_fused_u8_dma_ref(planar_u8, plan)
+        return blur_fused_u8_dma_ref(planar_u8, plan, out_u8)
     ref = blur_fused_u8_hybrid_ref if precision == "hybrid" else blur_fused_u8_bf16_ref
     return ref(planar_u8, plan, out_u8)
 
@@ -750,9 +769,9 @@ def blur_fused_u8_dma(planar_u8: torch.Tensor, plan: BlurPlan,
                       out_u8: bool = True, direct: bool | None = None,
                       strip: bool | None = None, pipelined: bool = False,
                       resident: bool | None = None) -> torch.Tensor:
-    """uint8 planar ``(..., H, W)`` -> uint8 (float32 with ``out_u8=False``,
-    hybrid and bf16), K1 with its ``precision`` body in one of its forms:
-    the JAX ``_blur_fused_dma_impl``.
+    """uint8 planar ``(..., H, W)`` -> uint8 (float32 with ``out_u8=False``),
+    K1 with its ``precision`` body in one of its forms: the JAX
+    ``_blur_fused_dma_impl``.
 
     ``resident=True``: the rows-resident form (``blur_fused_u8_resident``);
     ``strip=True``: the strip form (``blur_fused_u8_strip``);
@@ -894,3 +913,45 @@ def blur_fused_u8_pipelined(frame: torch.Tensor, plan: BlurPlan, out_u8: bool = 
 
 
 blur_fused_u8_pipelined.launches = 0
+
+
+def blur_fused_haloed_dma(planar: torch.Tensor, plan: BlurPlan, precision: str = "int8",
+                          out_u8: bool = False,
+                          tile: tuple[int, int] | None = None) -> torch.Tensor:
+    """K1a on rows that carry the caller's halo rows (the JAX function of the
+    same name, ``_blur_fused_dma_impl``'s ``rows_prepadded`` mode): uint8
+    ``(..., H + 2rh, W)``, the extra rows another shard's
+    (``parallel/sharded.py``) -> ``(..., H, W)``, float32 (the JAX default)
+    or uint8 (``out_u8``), with K1's ``precision`` body.
+
+    A4 (``assemble.assemble_padded_prepad``) builds the frame that
+    ``k1_geometry("assembled", ...)`` sizes, with the caller's rows from its
+    top row, where A5 would put reflected rows, and reflect-101 columns; K1a
+    (``blur_fused_u8_assembled``) runs on it unchanged. As in the JAX
+    package, no other form and no form rule is consulted for such rows.
+    ``tile`` pins K1a's ``(th, tw)`` tile; it is kept to match the JAX
+    signature, and the sharded path leaves it to ``k1_geometry``. A CPU
+    tensor runs A4's plain version and ``blur_fused_u8_padded_ref``; any
+    other device, a non-contiguous CUDA tensor, or a plan outside the body's
+    domain raises."""
+    if precision not in RUNGS:
+        raise ValueError(f"K1's bodies are {RUNGS}, not {precision!r}")
+    if planar.dtype != torch.uint8:
+        raise TypeError(f"expected uint8 planes, got {planar.dtype}")
+    _check_body(plan, precision, out_u8)
+    h, w = plan.shape
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    if planar.ndim < 2 or tuple(planar.shape[-2:]) != (h + 2 * rh, w):
+        raise ValueError(f"planes of shape {tuple(planar.shape)} do not carry {rh} halo "
+                         f"rows each side of the plan's {plan.shape}")
+    if planar.device.type == "cuda":
+        _check_cuda("K1a", planar)
+    elif planar.device.type != "cpu":
+        raise ValueError(f"K1 runs on CUDA or CPU tensors, not {planar.device}")
+    from blur_algorithms_tpu_torch.cuda_kernels.assemble import assemble_padded_prepad
+
+    x = planar.reshape(-1, h + 2 * rh, w)
+    geo = _form_geometry("assembled", precision, plan, x.shape[0], tile, x.device)
+    frame = assemble_padded_prepad(x, rw, rw, geo.hp, geo.wp)
+    out = blur_fused_u8_assembled(frame, plan, precision, out_u8, tile)
+    return out.reshape(*planar.shape[:-2], h, w)

@@ -20,6 +20,11 @@ tensor and their plain PyTorch versions on a CPU tensor, bit for bit:
   its plain version; the JAX kernel adds one partial sum per neighbour
   block, so it agrees with that within two f32 ulps.
 
+Both cols passes take ``pre_padded_col=True`` (the JAX ``e32="in"`` with
+``pre_padded_col``, the sharded path's haloed split,
+``fused_blur._blur_fused_haloed_split``): ``E`` then has ``H + 2 rh`` rows,
+the caller's halo rows, read as they are and never reflected.
+
 They share the integer taps, quantiser and epilogue constants of K1
 (``cuda_kernels/fused_dma.py``).
 """
@@ -78,14 +83,18 @@ def cols_operands(plan: BlurPlan) -> tuple[np.ndarray, tuple]:
     return _axis_taps(plan.col.taps, cols_scale), epilogue_constants(cols_scale)
 
 
-def _check(planar: torch.Tensor, plan: BlurPlan, dtype: torch.dtype, axis: str) -> None:
+def _check(planar: torch.Tensor, plan: BlurPlan, dtype: torch.dtype, axis: str,
+           pre_padded_col: bool = False) -> None:
     if planar.dtype != dtype:
         raise TypeError(f"the {axis} split pass takes {dtype} planes, got {planar.dtype}")
-    if planar.ndim < 2 or tuple(planar.shape[-2:]) != plan.shape:
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    h, w = plan.shape
+    want = (h + 2 * rh, w) if pre_padded_col else (h, w)
+    if planar.ndim < 2 or tuple(planar.shape[-2:]) != want:
         raise ValueError(
             f"planes of shape {tuple(planar.shape)} do not match the plan's {plan.shape}"
+            + (f" with {rh} halo rows each side" if pre_padded_col else "")
         )
-    rh, rw = plan.col.support_radius, plan.row.support_radius
     r, other = (rw, rh) if axis == "rows" else (rh, rw)
     if other != 0 or r == 0:
         raise ValueError(f"the {axis}-only split pass takes a plan with only a {axis} radius")
@@ -117,17 +126,31 @@ def fused_split_rows_int8_ref(planar_u8: torch.Tensor, plan: BlurPlan,
     return out.reshape(planar_u8.shape)
 
 
-def fused_split_cols_int8_ref(e16: torch.Tensor, plan: BlurPlan,
-                              out_u8: bool = True) -> torch.Tensor:
-    """Plain version of the cols-only pass: int16 ``E`` ``(..., H, W)`` ->
-    uint8 (``out_u8``) or float32."""
-    _check(e16, plan, torch.int16, "cols")
+def _cols_input(e16: torch.Tensor, plan: BlurPlan, pre_padded_col: bool) -> torch.Tensor:
+    """``(n, H + 2 rh, W)``: ``E`` reflect-101 padded by the column radius,
+    or as it is where the caller supplied the halo rows."""
     h, w = plan.shape
     rh = plan.col.support_radius
+    if pre_padded_col:
+        return e16.reshape(-1, h + 2 * rh, w)
+    return reflect_101(e16.reshape(-1, h, w), [(rh, rh)], axes=[-2])
+
+
+def _out_shape(e16: torch.Tensor, plan: BlurPlan) -> tuple[int, ...]:
+    return (*e16.shape[:-2], *plan.shape)
+
+
+def fused_split_cols_int8_ref(e16: torch.Tensor, plan: BlurPlan,
+                              out_u8: bool = True,
+                              pre_padded_col: bool = False) -> torch.Tensor:
+    """Plain version of the cols-only pass: int16 ``E`` ``(..., H, W)``, or
+    ``(..., H + 2 rh, W)`` with ``pre_padded_col``, -> ``(..., H, W)`` uint8
+    (``out_u8``) or float32."""
+    _check(e16, plan, torch.int16, "cols", pre_padded_col)
     q, constants = cols_operands(plan)
-    e = reflect_101(e16.reshape(-1, h, w), [(rh, rh)], axes=[-2]).to(torch.int32)
-    y = int8_cols_ref(e, q, constants, h)
-    return (store_u8_ref(y) if out_u8 else y).reshape(e16.shape)
+    e = _cols_input(e16, plan, pre_padded_col).to(torch.int32)
+    y = int8_cols_ref(e, q, constants, plan.shape[0], out_u8)
+    return (store_u8_ref(y) if out_u8 else y).reshape(_out_shape(e16, plan))
 
 
 # the hybrid epilogue's f32(1 / 127): E = 127 (rows_conv(x) - 128)
@@ -135,17 +158,16 @@ _HYBRID_SCALE = np.float32(1.0 / 127.0)
 
 
 def fused_split_cols_hybrid_ref(e16: torch.Tensor, plan: BlurPlan,
-                                out_u8: bool = True) -> torch.Tensor:
-    """Plain version of the hybrid pass 2: int16 ``E`` ``(..., H, W)`` ->
-    uint8 (``out_u8``) or float32."""
-    _check(e16, plan, torch.int16, "cols")
-    h, w = plan.shape
-    rh = plan.col.support_radius
-    e = reflect_101(e16.reshape(-1, h, w), [(rh, rh)], axes=[-2])
-    y = bf16_round_ref(e.to(torch.float32))
-    out = fma_f32_ref(bf16_correlate_ref(y, _bf16_taps(plan.col.taps), h, -2),
+                                out_u8: bool = True,
+                                pre_padded_col: bool = False) -> torch.Tensor:
+    """Plain version of the hybrid pass 2: int16 ``E`` ``(..., H, W)``, or
+    ``(..., H + 2 rh, W)`` with ``pre_padded_col``, -> ``(..., H, W)`` uint8
+    (``out_u8``) or float32."""
+    _check(e16, plan, torch.int16, "cols", pre_padded_col)
+    y = bf16_round_ref(_cols_input(e16, plan, pre_padded_col).to(torch.float32))
+    out = fma_f32_ref(bf16_correlate_ref(y, _bf16_taps(plan.col.taps), plan.shape[0], -2),
                       _HYBRID_SCALE, 128.0)
-    return (store_u8_ref(out) if out_u8 else out).reshape(e16.shape)
+    return (store_u8_ref(out) if out_u8 else out).reshape(_out_shape(e16, plan))
 
 
 @functools.lru_cache(maxsize=64)
@@ -164,6 +186,8 @@ def _device_taps(q: bytes, device: torch.device) -> torch.Tensor:
 
 def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor,
             taps: torch.Tensor, *args) -> None:
+    """One launch of ``name`` over ``x`` (``(n, ., W)``) into ``out`` (``(n,
+    H, W)``), which gives the kernel its ``H``; adds one to ``fn.launches``."""
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     if x.shape[0] > 65535:
@@ -172,7 +196,7 @@ def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor,
     with torch.cuda.device(x.device):
         rc = getattr(lib, name)(
             x.data_ptr(), out.data_ptr(), taps.data_ptr(), x.shape[0],
-            x.shape[1], x.shape[2], *args,
+            out.shape[1], out.shape[2], *args,
             torch.cuda.current_stream(x.device).cuda_stream,
         )
     if rc:
@@ -220,48 +244,53 @@ def fused_split_rows_int8(planar_u8: torch.Tensor, plan: BlurPlan,
 fused_split_rows_int8.launches = 0
 
 
-def fused_split_cols_int8(e16: torch.Tensor, plan: BlurPlan,
-                          out_u8: bool = True) -> torch.Tensor:
-    """The split's int8 pass 2 on int16 ``E`` ``(..., H, W)``: uint8
-    (``out_u8``) or float32. A CUDA tensor launches the kernel of
-    ``csrc/fused_split.cu``, a CPU tensor runs the plain version;
+def _cols_launch_shapes(e16: torch.Tensor, plan: BlurPlan,
+                        out_u8: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``(n, ., W)`` input view and the ``(n, H, W)`` output of a cols pass."""
+    x = e16.reshape(-1, *e16.shape[-2:])
+    out = torch.empty((x.shape[0], *plan.shape),
+                      dtype=torch.uint8 if out_u8 else torch.float32, device=x.device)
+    return x, out
+
+
+def fused_split_cols_int8(e16: torch.Tensor, plan: BlurPlan, out_u8: bool = True,
+                          pre_padded_col: bool = False) -> torch.Tensor:
+    """The split's int8 pass 2 on int16 ``E`` ``(..., H, W)`` (``(..., H +
+    2 rh, W)`` with the caller's halo rows, ``pre_padded_col``): uint8
+    (``out_u8``) or float32 ``(..., H, W)``. A CUDA tensor launches the
+    kernel of ``csrc/fused_split.cu``, a CPU tensor runs the plain version;
     ``fused_split_cols_int8.launches`` counts launches."""
-    _check(e16, plan, torch.int16, "cols")
+    _check(e16, plan, torch.int16, "cols", pre_padded_col)
     if not _on_cuda(e16, "fused_split_cols_int8"):
-        return fused_split_cols_int8_ref(e16, plan, out_u8)
-    h, w = plan.shape
-    x = e16.reshape(-1, h, w)
-    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=x.device)
+        return fused_split_cols_int8_ref(e16, plan, out_u8, pre_padded_col)
+    x, out = _cols_launch_shapes(e16, plan, out_u8)
     if x.shape[0]:
         q, constants = cols_operands(plan)
         _launch("fused_split_cols_int8", fused_split_cols_int8, x, out,
-                _int8_taps(q, x.device),
-                plan.col.support_radius, int(out_u8), *map(float, constants))
-    return out.reshape(e16.shape)
+                _int8_taps(q, x.device), plan.col.support_radius, int(out_u8),
+                int(pre_padded_col), *map(float, constants))
+    return out.reshape(_out_shape(e16, plan))
 
 
 fused_split_cols_int8.launches = 0
 
 
-def fused_split_cols_hybrid(e16: torch.Tensor, plan: BlurPlan,
-                            out_u8: bool = True) -> torch.Tensor:
-    """The split's hybrid pass 2 on int16 ``E`` ``(..., H, W)``: uint8
-    (``out_u8``) or float32. A CUDA tensor launches the kernel of
+def fused_split_cols_hybrid(e16: torch.Tensor, plan: BlurPlan, out_u8: bool = True,
+                            pre_padded_col: bool = False) -> torch.Tensor:
+    """The split's hybrid pass 2 on int16 ``E`` ``(..., H, W)`` (``(..., H +
+    2 rh, W)`` with ``pre_padded_col``): uint8 (``out_u8``) or float32
+    ``(..., H, W)``. A CUDA tensor launches the kernel of
     ``csrc/fused_split.cu``, a CPU tensor runs the plain version;
     ``fused_split_cols_hybrid.launches`` counts launches."""
-    _check(e16, plan, torch.int16, "cols")
+    _check(e16, plan, torch.int16, "cols", pre_padded_col)
     if not _on_cuda(e16, "fused_split_cols_hybrid"):
-        return fused_split_cols_hybrid_ref(e16, plan, out_u8)
-    h, w = plan.shape
-    x = e16.reshape(-1, h, w)
-    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=x.device)
+        return fused_split_cols_hybrid_ref(e16, plan, out_u8, pre_padded_col)
+    x, out = _cols_launch_shapes(e16, plan, out_u8)
     if x.shape[0]:
         _launch("fused_split_cols_hybrid", fused_split_cols_hybrid, x, out,
                 _device_f32_taps(plan, x.device), plan.col.support_radius,
-                int(out_u8), float(_HYBRID_SCALE))
-    return out.reshape(e16.shape)
+                int(out_u8), int(pre_padded_col), float(_HYBRID_SCALE))
+    return out.reshape(_out_shape(e16, plan))
 
 
 fused_split_cols_hybrid.launches = 0

@@ -9,9 +9,10 @@ library with a plain C interface:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared   (the link)
 
 ``--fmad=false`` keeps nvcc from contracting ``a * b + c`` into one fused
-multiply-add, which would round differently from the JAX kernel's f32
-epilogue (the kernels also spell their epilogues with ``__fmul_rn`` /
-``__fadd_rn``). The library goes to ``build/`` at the repository root under
+multiply-add where the source does not ask for one: the kernels spell each
+epilogue's roundings out (``__fmaf_rn`` where XLA contracts the JAX
+kernel's expression, ``__fmul_rn`` / ``__fadd_rn`` elsewhere), so they
+round as the JAX kernels do. The library goes to ``build/`` at the repository root under
 a name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing here runs at
 import time.
@@ -80,16 +81,23 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.assemble_padded_u8.restype = i
+    lib.assemble_padded_prepad_u8.argtypes = [
+        vp, vp,  # x, out
+        i, i, i, i,  # planes, hs, w, rw
+        i, i, i,  # orw, hp, wp
+        vp,  # stream
+    ]
+    lib.assemble_padded_prepad_u8.restype = i
     lib.blur_fused_f32.argtypes = [
         vp, vp, vp, vp,  # x, out, taps_row, taps_col
-        i, i,  # in_u8, out_u8
+        i, i, i,  # in_u8, out_u8, pre_padded_col
         i, i, i, i, i,  # planes, h, w, rh, rw
         vp,  # stream
     ]
     lib.blur_fused_f32.restype = i
     lib.blur_fused_axis_f32.argtypes = [
         vp, vp, vp,  # x, out, taps
-        i, i,  # in_u8, out_u8
+        i, i, i,  # in_u8, out_u8, pre_padded_col
         i, i, i, i, i,  # planes, h, w, axis, r
         vp,  # stream
     ]
@@ -104,14 +112,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fused_split_cols_int8.argtypes = [
         vp, vp, vp,  # e, out, taps
         i, i, i, i,  # planes, h, w, rh
-        i, f, f, f,  # out_u8, epilogue constants c1, c2, c3
+        i, i, f, f, f,  # out_u8, pre_padded_col, epilogue constants c1, c2, c3
         vp,  # stream
     ]
     lib.fused_split_cols_int8.restype = i
     lib.fused_split_cols_hybrid.argtypes = [
         vp, vp, vp,  # e, out, taps
         i, i, i, i,  # planes, h, w, rh
-        i, f,  # out_u8, scale
+        i, i, f,  # out_u8, pre_padded_col, scale
         vp,  # stream
     ]
     lib.fused_split_cols_hybrid.restype = i

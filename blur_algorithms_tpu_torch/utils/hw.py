@@ -93,6 +93,28 @@ _MEASURED_PRECISION: dict[str, dict[str, int | None]] = {
     },
 }
 
+# Device memory bandwidth in GB/s, by device name (NVIDIA's data sheet):
+# what ``auto_sp_min_px`` scales by.
+_HBM_GBPS: dict[str, float] = {
+    "NVIDIA H100 80GB HBM3": 3350.0,
+}
+
+# The pixel floor of AUTO's row sharding on a device of ``hbm_gbps`` GB/s:
+# the JAX ``DeviceSpec.auto_sp_min_px`` formula (2^24 pixels at 819 GB/s,
+# scaled by the bandwidth, at least 2^22). Not measured: where row sharding
+# pays depends on the copies between distinct cards, and the port has been
+# measured on one card only.
+_SP_MIN_PX_BASE = 1 << 24
+
+
+def _auto_sp_min_px(hbm_gbps: float | None) -> int:
+    """AUTO's row-sharding pixel floor for a device of ``hbm_gbps`` GB/s
+    (None: the formula's base)."""
+    if hbm_gbps is None:
+        return _SP_MIN_PX_BASE
+    return max(1 << 22, round(_SP_MIN_PX_BASE * hbm_gbps / 819.0))
+
+
 # Where K1's other staging forms beat its direct form, by device name: the
 # DeviceSpec field ``k1_forms`` (see ``DeviceSpec.k1_form``), from the
 # chip_smoke.py phase 15 sweep in turns on 3, 6 and 12 planes of 2160x3840,
@@ -163,6 +185,12 @@ class DeviceSpec:
     # Support radius from which ``blur_fused`` prefers the two-pass split
     # to the single kernel; None = only past the single kernels' domain.
     fused_split_min_radius: int | None = None
+    # AUTO shards a single frame's rows over the devices (``parallel/``) only
+    # from this many pixels, and a batch's rows over its spare devices
+    # likewise (the JAX field of the same name).
+    # Unmeasured: the H100's value (68,624,754 px) is the JAX formula at
+    # 3.35 TB/s.
+    auto_sp_min_px: int = _SP_MIN_PX_BASE
     # K1's staging forms (``cuda_kernels/fused_dma.py``) where they beat its
     # direct form: rows ``(rung, planes, ((from_radius, form), ...))``, read
     # by ``k1_form``; empty = K1 direct everywhere.
@@ -232,6 +260,7 @@ def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
         box_scan_crossover_radius=_MEASURED_BOX_SCAN.get(name, 600),
         split_hbm_budget=total_memory * 11 // 16,
         fused_split_min_radius=_MEASURED_SPLIT_MIN.get(name),
+        auto_sp_min_px=_auto_sp_min_px(_HBM_GBPS.get(name)),
         **_MEASURED_PRECISION.get(name, {}),
         **_MEASURED_K1_FORM.get(name, {}),
     )

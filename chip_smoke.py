@@ -110,7 +110,27 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    on 3, 6 and 12 planes at r 6..598, hybrid and int8, and of K1s on 12
    planes to r 99 (the sweep ``utils/hw._MEASURED_K1_FORM`` takes), K1a
    with and without A5, A5 alone, the pipelined variant against K1a, the
-   plain versions, the ``F.pad`` yardstick and the bytes bounds.
+   plain versions, the ``F.pad`` yardstick and the bytes bounds;
+16. the sharded path (``parallel/``) on meshes of the one card repeated:
+   A4 at column radius 1, 32, 332 and 598, K1a on A4's frame (int8, hybrid
+   and bf16, uint8 and f32 out), K2 with ``pre_padded_col`` (2-D at r
+   2..598; single-axis at column radius 960 and 3994) and the split's int8
+   and hybrid pass 2 on pre-padded ``E`` against their plain versions
+   (bit-equal; K2 within phase 5's tolerances); then at full width, counts
+   set to 0 before each call: ``blur_sharded_u8`` at sigma 10 on dp 2 x sp
+   2 and dp 1 x sp 4 (A4 and K1a once a shard, nothing else), on sp 16 at
+   sigma 50 (the multi-hop gather) and on a 1001-row crop on sp 4 (the
+   pad-row fill), each ``torch.equal`` to single-card ``blur_u8`` on the
+   same rung; ``blur_sharded`` uint8 -> f32 (K1a's int8 f32 store, equal to
+   K1 int8's plain version), and on the float batch at sigma 10 (K2
+   pre-padded) and 50 (the haloed f32 split) against single-card ``blur``;
+   ``blur_sharded_u8`` at sigma 155 rerouted to ``blur_fft_sharded`` (no
+   kernel), ``blur_fft_sharded_u8`` at sigma 250, both within 1 count of the
+   oracle; the haloed int8 split (hybrid, then int8 pass 2) at sigma 250
+   with the card's crossover raised to 1000; times of each kernel on a dp 2
+   x sp 2 shard, the plain versions, the ``F.pad`` and ``conv2d``
+   yardsticks, the sharded calls against the single-card ones in turns,
+   and ``blur_sharded_u8``'s time in parts.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -1652,21 +1672,22 @@ def _form_wrappers() -> dict:
 
 def _phase15_equal(cases) -> dict:
     """Each form against K1 direct and the body's plain version, for every
-    rung it serves where its block fits, uint8 and f32 out; A5 against its
+    rung it serves where its block fits, uint8 and f32 out (int8's f32 store
+    too); A5 against its
     plain version at the JAX geometries and the port's; returns the worst
     differences per form."""
     from blur_algorithms_tpu_torch import make_plan
     from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_dma
 
     errs = {f: 0.0 for f in (*_FORM_KW, "a5")}
-    refs = {"int8": lambda x, plan, out_u8: fused_dma.blur_fused_u8_dma_ref(x, plan),
+    refs = {"int8": fused_dma.blur_fused_u8_dma_ref,
             "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
             "bf16": fused_dma.blur_fused_u8_bf16_ref}
     for k, ((h, w), sigma) in enumerate(cases):
         plan = make_plan((h, w), sigma)
         x = _case_frames(h, w, seed=500 + k)
         for rung in fused_dma.RUNGS:
-            for out_u8 in (True,) if rung == "int8" else (True, False):
+            for out_u8 in (True, False):
                 want = refs[rung](x, plan, out_u8)
                 direct = fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
                                                      direct=True)
@@ -1956,6 +1977,569 @@ def _slice6(frames) -> list[dict]:
     ]
 
 
+# phase 16: the sharded path on meshes of the one card repeated. Kernel
+# checks on shards of HD frames (h_loc 540): A4 at column radius 1..598,
+# K1a and K2 pre-padded at r 4..598 (sigma 1, 10, 50, 180), the single-axis
+# and split pass 2 forms at column radius 1330 and 3994
+A4_RADII = (1, 32, 332, 598)
+HALO_SIGMAS = (1.0, 10.0, 50.0, 180.0)
+HALO_AXIS_CASES = ((HD, 400.0, 540), ((8400, 96), 1200.0, 525))  # (frame, sigma, h_loc)
+SHARD_MESHES = ((2, 2), (1, 4))  # blur_sharded_u8 at sigma 10
+GATHER_SP, SIGMA_GATHER = 16, 50.0  # h_loc 135 < r 165 < 332: the multi-hop gather
+RAGGED_ROWS = 1001  # on sp 4: the pad-row fill
+SIGMA_SHARD_SPLIT = 50.0  # blur_sharded f32, r 165 >= 49: the haloed split
+SIGMA_SHARD_FFT = 155.0  # blur_sharded_u8, r 514 > 332: the distributed FFT
+SIGMA_SHARD_E32 = 250.0  # blur_sharded_u8 with the crossover raised: the haloed int8 split
+
+
+def _r16(n: int) -> int:
+    return (n + 15) & ~15
+
+
+@contextlib.contextmanager
+def _route_spec_as(device, **fields):
+    """Route the entry points, the fused engine and the sharded path by
+    ``device``'s spec with ``fields`` replaced (K1's form rule and its
+    shared-memory sizing keep the card's own)."""
+    from blur_algorithms_tpu_torch import api
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.parallel import sharded
+
+    mods = (api, fused_blur, sharded)
+    saved = [m.device_spec for m in mods]
+    spec = dataclasses.replace(saved[0](device), **fields)
+    for m in mods:
+        m.device_spec = lambda device: spec
+    try:
+        yield spec
+    finally:
+        for m, f in zip(mods, saved):
+            m.device_spec = f
+
+
+def _haloed_dma_plain(x, plan, rung, out_u8, geo):
+    """K1a on caller rows' plain version on the card: A4's plain version,
+    then ``blur_fused_u8_padded_ref``."""
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_dma
+
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    frame = assemble.assemble_padded_prepad_ref(x, rw, rw, geo.hp, geo.wp)
+    return fused_dma.blur_fused_u8_padded_ref(frame, plan, rh, rw, rung, out_u8)
+
+
+def _phase16_equal() -> dict:
+    """Each per-shard kernel against its plain version on the card, on
+    shards of random rows with halos; returns the worst differences."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+
+    errs = {"a4": 0, "k1a": 0.0, "k2": 0.0, "k2_u8": 0, "axis": 0.0, "axis_u8": 0,
+            "cols_int8": 0.0, "cols_hybrid": 0.0}
+    h, w = HD[0] // 2, HD[1]
+    for k, rw in enumerate(A4_RADII):
+        x = _case_frames(h + 2 * rw, w, seed=600 + k)
+        hp, wp = _r16(h + 2 * rw) + 16, _r16(w + 2 * rw)
+        got = assemble.assemble_padded_prepad(x, rw, rw, hp, wp)
+        want = assemble.assemble_padded_prepad_ref(x, rw, rw, hp, wp)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        errs["a4"] = max(errs["a4"], int((got.int() - want.int()).abs().max()))
+        print(f"phase 16 A4 vs plain: 3x{h + 2 * rw}x{w} rw={rw} in ({hp}, {wp}): "
+              f"equal={equal}", flush=True)
+        if not equal:
+            raise RuntimeError(f"A4 differs from its plain version at rw {rw}")
+    for k, sigma in enumerate(HALO_SIGMAS):
+        plan = _local_plan(make_plan(HD, sigma), h, w)
+        rh, rw = plan.col.support_radius, plan.row.support_radius
+        x = _case_frames(h + 2 * rh, w, seed=610 + k)
+        for rung in fused_dma.RUNGS:
+            geo = fused_dma.k1_geometry("assembled", rung, plan, 3, device=x.device)
+            if geo is None:  # K1a's block does not fit (bf16 at r 598)
+                continue
+            for out_u8 in (True, False):
+                got = fused_dma.blur_fused_haloed_dma(x, plan, rung, out_u8=out_u8)
+                want = _haloed_dma_plain(x, plan, rung, out_u8, geo)
+                torch.cuda.synchronize()
+                err = float((got.double() - want.double()).abs().max())
+                errs["k1a"] = max(errs["k1a"], err)
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"K1a on caller rows ({rung}, out_u8={out_u8}) "
+                                       f"differs from its plain version at sigma {sigma}")
+        xf = _f32_planes(h + 2 * rh, w, seed=620 + k)
+        got = fused_blur.blur_fused_f32(xf, plan, pre_padded_col=True)
+        want = fused_blur.blur_fused_f32_ref(xf, plan, pre_padded_col=True)
+        got8 = fused_blur.blur_fused_f32(x, plan, out_u8=True, pre_padded_col=True)
+        want8 = fused_blur.blur_fused_f32_ref(x, plan, out_u8=True, pre_padded_col=True)
+        torch.cuda.synchronize()
+        e32, e8 = float((got - want).abs().max()), int((got8.int() - want8.int()).abs().max())
+        errs["k2"], errs["k2_u8"] = max(errs["k2"], e32), max(errs["k2_u8"], e8)
+        served = [g for g in fused_dma.RUNGS
+                  if fused_dma.k1_geometry("assembled", g, plan, 3, device=x.device)]
+        print(f"phase 16 K1a ({served}; uint8 and f32 out) and K2 pre-padded vs "
+              f"plain: 3x{h + 2 * rh}x{w} sigma={sigma} r=({rh}, {rw}): K1a equal; K2 f32 "
+              f"{e32:.3e}, uint8 {e8}", flush=True)
+        if e32 > 1e-3 * float(xf.abs().max()) / 255 or e8 > 1:
+            raise RuntimeError(f"K2 pre-padded differs from its plain version at sigma {sigma}")
+    for k, (shape, sigma, h_loc) in enumerate(HALO_AXIS_CASES):
+        plan = _local_plan(make_plan(shape, sigma), h_loc, shape[1])
+        rh = plan.col.support_radius
+        rows_h, (_, cols) = fused_blur._haloed_rows_plan(plan), fused_blur._split_plans(plan)
+        x = _case_frames(h_loc + 2 * rh, shape[1], seed=630 + k)
+        xf = _f32_planes(h_loc + 2 * rh, shape[1], seed=640 + k)
+        got = fused_blur.blur_fused_axis_f32(xf, cols, pre_padded_col=True)
+        want = fused_blur.blur_fused_f32_ref(xf, cols, pre_padded_col=True)
+        got8 = fused_blur.blur_fused_axis_f32(x, cols, out_u8=True, pre_padded_col=True)
+        want8 = fused_blur.blur_fused_f32_ref(x, cols, out_u8=True, pre_padded_col=True)
+        torch.cuda.synchronize()
+        ea, ea8 = float((got - want).abs().max()), int((got8.int() - want8.int()).abs().max())
+        errs["axis"], errs["axis_u8"] = max(errs["axis"], ea), max(errs["axis_u8"], ea8)
+        if ea > 1e-3 * float(xf.abs().max()) / 255 or ea8 > 1:
+            raise RuntimeError(f"K2's single-axis form pre-padded differs at {shape, sigma}")
+        e = fs.fused_split_rows_int8(x, rows_h, out_e32=True)
+        for name, pass2, ref in (("cols_int8", fs.fused_split_cols_int8,
+                                  fs.fused_split_cols_int8_ref),
+                                 ("cols_hybrid", fs.fused_split_cols_hybrid,
+                                  fs.fused_split_cols_hybrid_ref)):
+            for out_u8 in (True, False):
+                got = pass2(e, cols, out_u8=out_u8, pre_padded_col=True)
+                want = ref(e, cols, out_u8=out_u8, pre_padded_col=True)
+                torch.cuda.synchronize()
+                errs[name] = max(errs[name], float((got.double() - want.double()).abs().max()))
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"{name} pre-padded differs from its plain version "
+                                       f"at {shape, sigma}")
+        print(f"phase 16 pre-padded single-axis cols and split pass 2 vs plain: "
+              f"3x{h_loc + 2 * rh}x{shape[1]} column r={rh}: single-axis f32 {ea:.3e}, "
+              f"uint8 {ea8}; int8 and hybrid pass 2 equal", flush=True)
+        del e, x, xf
+    return errs
+
+
+def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
+    """The sharded path at full width on meshes of the one card repeated,
+    counts set to 0 before each call; returns the launches per wrapper."""
+    from blur_algorithms_tpu_torch import blur, blur_u8, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+    from blur_algorithms_tpu_torch.parallel import (
+        blur_fft_sharded_u8,
+        blur_sharded,
+        blur_sharded_u8,
+        make_mesh,
+    )
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    x = torch.from_numpy(img).cuda()
+    dev = x.device
+    planar = x.movedim(-1, -3).contiguous()
+    launched: dict[str, int] = {}
+
+    def mesh(dp, sp):
+        return make_mesh(dp=dp, sp=sp, devices=[dev] * (dp * sp))
+
+    def rung_of(plan, h_loc):
+        return _u8_dma_precision(_local_plan(plan, h_loc, plan.shape[1]), device_spec(dev))
+
+    def drive(what, call, expect: dict):
+        """Run ``call`` with every count at 0; ``expect``: wrapper -> launches
+        (None: at least one); any other wrapper launched fails."""
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in _launched(counters).items() if v}
+        for name, n in ran.items():
+            launched[name] = launched.get(name, 0) + n
+        bad = {k: v for k, v in ran.items() if k not in expect}
+        short = {k: ran.get(k, 0) for k, n in expect.items()
+                 if ran.get(k, 0) != n and not (n is None and ran.get(k, 0) > 0)}
+        print(f"phase 16 main path: {what}: launches {ran}", flush=True)
+        if bad or short:
+            raise RuntimeError(f"{what}: launched {ran}, expected {expect}")
+        return out
+
+    def check_u8(what, out, want, sigma=None, ref0=None):
+        equal = torch.equal(out, want)
+        line = f"phase 16 main path: {what}: torch.equal to the single-card call={equal}"
+        d = None
+        if ref0 is not None:
+            d = np.abs(out[0].cpu().numpy().astype(int) - ref0.astype(int))
+            line += f"; frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}"
+        print(line, flush=True)
+        if not equal or (d is not None and d.max() > 1):
+            raise RuntimeError(f"{what}: not equal to the single-card call, or frame 0 is "
+                               "past 1 count of the oracle")
+
+    def k1a(shards):  # A4 and K1a once a shard, nothing else
+        return {"assemble_padded_prepad": shards, "blur_fused_u8_assembled": shards}
+
+    plan = make_plan((H, W), SIGMA)
+    for dp, sp in SHARD_MESHES:
+        rung = rung_of(plan, H // sp)
+        out = drive(f"blur_sharded_u8 dp {dp} x sp {sp} sigma={SIGMA} (rung {rung})",
+                    lambda: blur_sharded_u8(x, plan, mesh(dp, sp)), k1a(dp * sp))
+        check_u8(f"blur_sharded_u8 dp {dp} x sp {sp}", out,
+                 blur_u8(x, SIGMA, precision=rung), ref0=want0)
+        del out
+    # past the shard height: sp 16 (h_loc 135) at r 165, the multi-hop
+    # gather; past the card's split radius (49) each shard runs the haloed
+    # int8 split with the pass 2 one card runs, as blur_u8's AUTO does
+    p50 = make_plan((H, W), SIGMA_GATHER)
+    pass2 = _pass2(_local_plan(p50, H // GATHER_SP, W), dev)
+    out = drive(f"blur_sharded_u8 dp 1 x sp {GATHER_SP} sigma={SIGMA_GATHER} "
+                f"(r {p50.col.support_radius}) -> haloed split, {pass2}",
+                lambda: blur_sharded_u8(x, p50, mesh(1, GATHER_SP)),
+                {"fused_split_rows_int8": GATHER_SP, pass2: GATHER_SP})
+    check_u8(f"blur_sharded_u8 sp {GATHER_SP} (multi-hop gather)", out,
+             blur_u8(x, SIGMA_GATHER))
+    del out
+    # an indivisible height: 1001 rows on sp 4 (h_loc 251, 3 pad rows)
+    xr = x[:, :RAGGED_ROWS].contiguous()
+    pr = make_plan((RAGGED_ROWS, W), SIGMA)
+    rung = rung_of(pr, -(-RAGGED_ROWS // 4))
+    out = drive(f"blur_sharded_u8 {tuple(xr.shape)} dp 1 x sp 4 sigma={SIGMA}",
+                lambda: blur_sharded_u8(xr, pr, mesh(1, 4)), k1a(4))
+    check_u8("blur_sharded_u8 ragged 1001 rows on sp 4", out,
+             blur_u8(xr, SIGMA, precision=rung))
+    del out, xr
+    # the int8 body's f32 store: the uint8 batch to float (blur_sharded's
+    # default), on a spec whose ladder certifies no rung (so int8)
+    with _route_spec_as(dev, hybrid_cert_min_radius=None, bf16_cert_min_radius=None):
+        out = drive(f"blur_sharded uint8 -> f32 dp 2 x sp 2 sigma={SIGMA} (rung int8)",
+                    lambda: blur_sharded(planar, plan, mesh(2, 2)), k1a(4))
+    want = fused_dma.blur_fused_u8_dma_ref(planar, plan, out_u8=False)
+    equal = torch.equal(out, want)
+    print(f"phase 16 main path: K1a int8 f32 store through blur_sharded: torch.equal to K1 "
+          f"int8's plain version={equal}", flush=True)
+    if not equal:
+        raise RuntimeError("blur_sharded uint8 -> f32 differs from K1 int8's f32 store")
+    del out, want
+
+    # float planes: K2 pre-padded at sigma 10, the haloed f32 split at sigma 50
+    xf = planar.float()
+    for sigma, expect in ((SIGMA, {"blur_fused_f32": 4}),
+                          (SIGMA_SHARD_SPLIT, {"blur_fused_axis_f32": 8})):
+        p = make_plan((H, W), sigma)
+        out = drive(f"blur_sharded f32 {tuple(xf.shape)} dp 2 x sp 2 sigma={sigma}",
+                    lambda: blur_sharded(xf, p, mesh(2, 2)), expect)
+        err = float((out - blur(xf, sigma)).abs().max())
+        print(f"phase 16 main path: blur_sharded f32 sigma={sigma} vs single-card blur: "
+              f"max_abs_err={err:.3e}", flush=True)
+        if err > 1e-3 * float(xf.abs().max()) / 255:
+            raise RuntimeError(f"blur_sharded f32 at sigma {sigma} is {err} from blur")
+        del out
+    del xf
+
+    # the reroutes to the distributed FFT: no kernel runs
+    sharded_fft.calls = 0
+    out = drive(f"blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_FFT} "
+                f"(r {make_plan((H, W), SIGMA_SHARD_FFT).col.support_radius})",
+                lambda: blur_sharded_u8(x, make_plan((H, W), SIGMA_SHARD_FFT), mesh(2, 2)), {})
+    d = np.abs(out[0].cpu().numpy().astype(int)
+               - oracle.blur_u8(img[0], SIGMA_SHARD_FFT).astype(int))
+    print(f"phase 16 main path: rerouted to blur_fft_sharded {sharded_fft.calls} time(s); "
+          f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+    if sharded_fft.calls != 1 or d.max() > 1:
+        raise RuntimeError(f"blur_sharded_u8 at sigma {SIGMA_SHARD_FFT} did not reroute, or "
+                           "frame 0 is past 1 count of the oracle")
+    out = drive(f"blur_fft_sharded_u8 dp 2 x sp 2 sigma={SIGMA_U8_WIDE}",
+                lambda: blur_fft_sharded_u8(x, make_plan((H, W), SIGMA_U8_WIDE), mesh(2, 2)),
+                {})
+    d = np.abs(out[0].cpu().numpy().astype(int)
+               - oracle.blur_u8(img[0], SIGMA_U8_WIDE).astype(int))
+    print(f"phase 16 main path: blur_fft_sharded_u8 frame 0 vs oracle max={int(d.max())} "
+          f"exact={float((d == 0).mean())}", flush=True)
+    if d.max() > 1:
+        raise RuntimeError("blur_fft_sharded_u8: frame 0 is past 1 count of the oracle")
+    del out
+
+    # the haloed int8 split (int8 rows over the halo rows, pass 2 on
+    # pre-padded E) where the crossover lets the fused engine keep r 831:
+    # the hybrid pass 2 the card certified, then the int8 one
+    pe = make_plan((H, W), SIGMA_SHARD_E32)
+    for fields, pass2 in (({}, "fused_split_cols_hybrid"),
+                          ({"hybrid_split_cert_max_radius": None}, "fused_split_cols_int8")):
+        with _route_spec_as(dev, auto_fused_max_radius_u8=1000, **fields):
+            out = drive(f"blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_E32} "
+                        f"(r {pe.col.support_radius}, crossover 1000) -> {pass2}",
+                        lambda: blur_sharded_u8(x, pe, mesh(2, 2)),
+                        {"fused_split_rows_int8": 4, pass2: 4})
+            want = blur_u8(x, SIGMA_SHARD_E32, engine="fused")
+        check_u8(f"blur_sharded_u8 haloed int8 split, {pass2}", out, want)
+        del out, want
+    return launched
+
+
+def _slice7(frames, want0) -> list[dict]:
+    """Phase 16; returns the entries of A4, K1a on caller rows, K2's
+    pre-padded forms and the split's pre-padded pass 2 for the kernels
+    line."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble, fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+    from blur_algorithms_tpu_torch.parallel import (
+        blur_sharded,
+        blur_sharded_u8,
+        make_mesh,
+        sharded,
+    )
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    errs = _phase16_equal()
+    img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
+    counters = [*_counters(), *_form_wrappers().values(), assemble.assemble_padded_prepad]
+    real_fft = sharded.blur_fft_sharded
+
+    def sharded_fft(*a, **k):
+        sharded_fft.calls += 1
+        return real_fft(*a, **k)
+
+    sharded.blur_fft_sharded = sharded_fft
+    try:
+        launched = _phase16_paths(img, want0, counters, sharded_fft)
+    finally:
+        sharded.blur_fft_sharded = real_fft
+    print(f"phase 16 launches on the sharded path: {launched}", flush=True)
+
+    # ---- times: one dp 2 x sp 2 shard of the batch at sigma 10 ----
+    x = torch.from_numpy(img).cuda()
+    planar = x.movedim(-1, -3).contiguous()
+    plan = make_plan((H, W), SIGMA)
+    local = _local_plan(plan, H // 2, W)
+    rh, rw = local.col.support_radius, local.row.support_radius
+    rung = _u8_dma_precision(local, device_spec(x.device))
+    top = planar[: BATCH // 2, :, : H // 2]  # the top shard of dp 2 x sp 2
+
+    def haloed(r):  # the top shard with its r halo rows each side
+        return reflect_101(top, [(r, r)], axes=[-2]).contiguous()
+
+    hx = haloed(rh)  # (2, 3, 1144, 3840)
+    planes, hs = hx.shape[0] * hx.shape[1], hx.shape[2]
+    geo = fused_dma.k1_geometry("assembled", rung, local, planes, device=x.device)
+    frame = assemble.assemble_padded_prepad(hx, rw, rw, geo.hp, geo.wp)
+    t = {
+        "a4": _time(assemble.assemble_padded_prepad, hx, rw, rw, geo.hp, geo.wp,
+                    name="A4 on a dp 2 x sp 2 shard").median_ms,
+        "k1a": _time(fused_dma.blur_fused_u8_assembled, frame, local, rung,
+                     name=f"K1a {rung} on A4's frame").median_ms,
+        "a4_plain": _time(assemble.assemble_padded_prepad_ref, hx, rw, rw, geo.hp, geo.wp,
+                          name="A4 plain version").median_ms,
+        "k1a_plain": _time(fused_dma.blur_fused_u8_padded_ref, frame, local, rh, rw, rung,
+                           name=f"K1a {rung} plain version on A4's frame").median_ms,
+    }
+    pad_w, pad_h = geo.wp - W - 2 * rw, geo.hp - hs
+    try:  # the yardstick: F.pad's reflect on the columns, then a zero pad
+        t["a4_lib"] = _time(lambda u: F.pad(F.pad(u, (rw, rw, 0, 0), mode="reflect"),
+                                            (0, pad_w, 0, pad_h)), hx,
+                            name="A4 yardstick: F.pad reflect columns + zero pad, uint8"
+                            ).median_ms
+    except RuntimeError as err:
+        print(f"phase 16 F.pad(mode='reflect') does not take uint8 here ({err}); timed on "
+              "float32", flush=True)
+        t["a4_lib"] = _time(lambda u: F.pad(F.pad(u, (rw, rw, 0, 0), mode="reflect"),
+                                            (0, pad_w, 0, pad_h)), hx.float(),
+                            name="A4 yardstick: F.pad reflect columns + zero pad, float32"
+                            ).median_ms
+    def hold(key, what, got, want, limit=None):
+        """Kernel against its plain version on the main path's shard:
+        ``torch.equal``, or within ``limit``; worst difference into errs."""
+        torch.cuda.synchronize()
+        err = float((got.double() - want.double()).abs().max())
+        ok = torch.equal(got, want) if limit is None else err <= limit
+        errs[key] = max(errs[key], err if isinstance(errs[key], float) else int(err))
+        print(f"phase 16 {what} vs plain on the main path's dp 2 x sp 2 shard, out "
+              f"{tuple(got.shape)}: "
+              f"max_abs_err={err:.3e} "
+              + ("equal" if limit is None else f"limit={limit:.3e}"), flush=True)
+        if not ok:
+            raise RuntimeError(f"{what} differs from its plain version on the main path's "
+                               "shard")
+
+    hold("a4", "A4", frame, assemble.assemble_padded_prepad_ref(hx, rw, rw, geo.hp, geo.wp))
+    for out_u8 in (True, False):
+        hold("k1a", f"K1a {rung} (out_u8={out_u8}) on A4's frame",
+             fused_dma.blur_fused_u8_assembled(frame, local, rung, out_u8),
+             fused_dma.blur_fused_u8_padded_ref(frame, local, rh, rw, rung, out_u8))
+    del frame
+    meshes = {(dp, sp): make_mesh(dp=dp, sp=sp, devices=[x.device] * (dp * sp))
+              for dp, sp in (*SHARD_MESHES, (1, GATHER_SP))}
+    mesh22 = meshes[2, 2]
+    t_path = _in_turns(f"blur_u8 vs blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA}", {
+        "single": lambda u: blur_u8(u, SIGMA),
+        "sharded": lambda u: blur_sharded_u8(u, plan, mesh22)}, x)
+    t_path["sharded_dp1_sp4"] = _time(lambda u: blur_sharded_u8(u, plan, meshes[1, 4]), x,
+                                      name=f"blur_sharded_u8 dp 1 x sp 4 sigma={SIGMA}").median_ms
+    p50 = make_plan((H, W), SIGMA_GATHER)
+    t_gather = _in_turns(f"blur_u8 vs blur_sharded_u8 sp {GATHER_SP} sigma={SIGMA_GATHER}", {
+        "single": lambda u: blur_u8(u, SIGMA_GATHER),
+        "sharded": lambda u: blur_sharded_u8(u, p50, meshes[1, GATHER_SP])}, x)
+    t_float = _in_turns(f"blur vs blur_sharded f32 dp 2 x sp 2 sigma={SIGMA}", {
+        "single": lambda u: blur(u, SIGMA),
+        "sharded": lambda u: blur_sharded(u, plan, mesh22)}, planar.float())
+    # where blur_sharded_u8's time goes on dp 2 x sp 2: the layout copies,
+    # the cut into blocks, the halo exchange, the shards' steps, the gather
+    blocks = sharded._blocks(planar, mesh22)
+    halo = [sharded._haloed_row(row, mesh22.devices[i], rh, H // 2, 0, H)
+            for i, row in enumerate(blocks)]
+
+    def steps(rows):
+        return [[fused_blur.blur_fused_haloed(u, local, rung, out_u8=True) for u in row]
+                for row in rows]
+
+    outs = steps(halo)
+    t_parts = {
+        "layout": _time(lambda u: u.movedim(-1, -3).contiguous().movedim(-3, -1).contiguous(),
+                        x, name="the two layout copies").median_ms,
+        "cut": _time(sharded._blocks, planar, mesh22, name="cut into 2 x 2 blocks").median_ms,
+        "halo": _time(lambda bl: [sharded._haloed_row(row, mesh22.devices[i], rh, H // 2, 0, H)
+                                  for i, row in enumerate(bl)], blocks,
+                      name="halo exchange").median_ms,
+        "steps": _time(steps, halo, name="the four shards' A4 + K1a").median_ms,
+        "gather": _time(sharded._gather, outs, x.device, name="gather").median_ms,
+    }
+    del blocks, halo, outs
+
+    # K2 pre-padded on the float shard; its yardstick: reflect the columns,
+    # two depthwise conv2d (TF32 off), rows valid
+    hf = hx.float()
+    c = 3
+    w_row = torch.from_numpy(local.row.taps).cuda().view(1, 1, 1, -1).repeat(c, 1, 1, 1)
+    w_col = torch.from_numpy(local.col.taps).cuda().view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+
+    def lib_k2(u):
+        u = F.conv2d(F.pad(u, (rw, rw, 0, 0), mode="reflect"), w_row, groups=c)
+        return F.conv2d(u, w_col, groups=c)
+
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        t["k2"] = _time(fused_blur.blur_fused_f32, hf, local, False, True,
+                        name="K2 pre-padded on the float shard").median_ms
+        t["k2_plain"] = _time(fused_blur.blur_fused_f32_ref, hf, local, False, True,
+                              name="K2 pre-padded plain version").median_ms
+        t["k2_lib"] = _time(lib_k2, hf, name="K2 pre-padded yardstick: column reflect + 2 "
+                            "depthwise conv2d").median_ms
+        k2_limit = 1e-3 * float(hf.abs().max()) / 255  # phase 5's
+        hold("k2", "K2 pre-padded f32", fused_blur.blur_fused_f32(hf, local, False, True),
+             fused_blur.blur_fused_f32_ref(hf, local, False, True), k2_limit)
+        # the single-axis cols pass of the sigma 50 haloed split
+        p50 = _local_plan(make_plan((H, W), SIGMA_SHARD_SPLIT), H // 2, W)
+        r50 = p50.col.support_radius
+        _, cols50 = fused_blur._split_plans(p50)
+        hy = haloed(r50).float()
+        wc50 = torch.from_numpy(p50.col.taps).cuda().view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+        t["axis"] = _time(fused_blur.blur_fused_axis_f32, hy, cols50, False, True,
+                          name=f"K2 single-axis cols pre-padded r={r50}").median_ms
+        t["axis_plain"] = _time(fused_blur.blur_fused_f32_ref, hy, cols50, False, True,
+                                name="single-axis cols pre-padded plain version").median_ms
+        t["axis_lib"] = _time(lambda u: F.conv2d(u, wc50, groups=c), hy,
+                              name="single-axis yardstick: depthwise conv2d along columns"
+                              ).median_ms
+        hold("axis", f"K2 single-axis cols pre-padded r={r50}",
+             fused_blur.blur_fused_axis_f32(hy, cols50, False, True),
+             fused_blur.blur_fused_f32_ref(hy, cols50, False, True),
+             1e-3 * float(hy.abs().max()) / 255)
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    del hf, hy
+
+    # the split's pass 2 on pre-padded E, sigma 250 (r 831)
+    pe = _local_plan(make_plan((H, W), SIGMA_SHARD_E32), H // 2, W)
+    re_ = pe.col.support_radius
+    _, cols_e = fused_blur._split_plans(pe)
+    he = haloed(re_)
+    e = fs.fused_split_rows_int8(he, fused_blur._haloed_rows_plan(pe))
+    tp2 = _in_turns(f"split pass 2 pre-padded r={re_}", {
+        "int8": lambda u: fs.fused_split_cols_int8(u, cols_e, pre_padded_col=True),
+        "hybrid": lambda u: fs.fused_split_cols_hybrid(u, cols_e, pre_padded_col=True)}, e)
+    t["cols_int8_plain"] = _time(fs.fused_split_cols_int8_ref, e, cols_e, True, True,
+                                 name="int8 pass 2 pre-padded plain version").median_ms
+    t["cols_hybrid_plain"] = _time(fs.fused_split_cols_hybrid_ref, e, cols_e, True, True,
+                                   name="hybrid pass 2 pre-padded plain version").median_ms
+    for name, pass2, ref in (("cols_int8", fs.fused_split_cols_int8, fs.fused_split_cols_int8_ref),
+                             ("cols_hybrid", fs.fused_split_cols_hybrid,
+                              fs.fused_split_cols_hybrid_ref)):
+        for out_u8 in (True, False):
+            hold(name, f"split {name[5:]} pass 2 pre-padded r={re_} (out_u8={out_u8})",
+                 pass2(e, cols_e, out_u8, True), ref(e, cols_e, out_u8, True))
+    eb = e.to(torch.bfloat16)
+    wce = torch.from_numpy(pe.col.taps).cuda().to(torch.bfloat16).view(1, 1, -1, 1)
+    t["cols_lib"] = _time(lambda u: F.conv2d(u, wce.repeat(c, 1, 1, 1), groups=c), eb,
+                          name="pass 2 yardstick: depthwise conv2d along columns in bf16"
+                          ).median_ms
+    del e, eb, he, hx
+    print(f"phase 16 times (ms): {t}; blur_u8 vs blur_sharded_u8 in turns {t_path}; at "
+          f"sigma {SIGMA_GATHER} on sp {GATHER_SP} {t_gather}; blur vs blur_sharded f32 "
+          f"{t_float}; blur_sharded_u8 dp 2 x sp 2 in parts {t_parts}; split pass 2 "
+          f"pre-padded in turns {tp2}", flush=True)
+
+    outputs = planes * (H // 2) * W
+    tr, tc = 2 * rw + 1, 2 * rh + 1
+    frame_bytes = planes * geo.hp * geo.wp
+    b_a4 = _bound_ms(planes * hs * W + frame_bytes, 0, F32_FLOP_PER_S)
+    ops = ((2 * outputs * 2 * tr, 2 * outputs * tc) if rung == "hybrid"
+           else (2 * outputs * (2 * tr + 4 * tc), 0))
+    b_k1a = _bound_mixed(outputs + frame_bytes, *ops)
+    # K2: the rows pass over every halo row, the cols pass per output; f32
+    # in and out
+    b_k2 = _bound_ms(4 * (planes * hs * W + outputs),
+                     2 * (planes * hs * W * tr + outputs * tc), F32_FLOP_PER_S)
+    b_axis = _bound_ms(4 * (planes * (H // 2 + 2 * r50) * W + outputs),
+                       2 * outputs * (2 * r50 + 1), F32_FLOP_PER_S)
+    te = 2 * re_ + 1
+    e_bytes = 2 * planes * (H // 2 + 2 * re_) * W
+    b_int8 = _bound_ms(e_bytes + outputs, 2 * outputs * 4 * te, INT8_OP_PER_S)
+    b_hyb = _bound_mixed(e_bytes + outputs, 0, 2 * outputs * te)
+    print(f"phase 16 bounds (ms): A4 {b_a4}, K1a {b_k1a}, K2 pre-padded {b_k2}, single-axis "
+          f"cols pre-padded {b_axis}, pass 2 int8 {b_int8}, hybrid {b_hyb}", flush=True)
+
+    def entry(name, src, line, launches, ms, plain_ms, bound, err, library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": f"blur_algorithms_tpu_torch/csrc/{src}",
+                "replaces": f"blur_algorithms_tpu/pallas_kernels/{line}",
+                "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": library_ms,
+                **extra}
+
+    shard = f"{BATCH // 2}x3x{H // 2}x{W} shard"
+    return [
+        entry("assemble_prepad", "fused_dma.cu", "fused_dma.py:1708",
+              launched.get("assemble_padded_prepad", 0), t["a4"], t["a4_plain"], b_a4,
+              errs["a4"], t["a4_lib"], at=shard, kernel="assemble_padded_kernel (A5's)"),
+        entry("fused_dma_assembled_prepadded", "fused_dma.cu", "fused_dma.py:223",
+              launched.get("blur_fused_u8_assembled", 0), t["k1a"], t["k1a_plain"], b_k1a,
+              errs["k1a"], None, at=shard, rung=rung,
+              sharded_u8_ms_in_turns=t_path["sharded"], blur_u8_ms_in_turns=t_path["single"],
+              sharded_u8_dp1_sp4_ms=t_path["sharded_dp1_sp4"],
+              sharded_u8_sp16_sigma50_ms_in_turns=t_gather["sharded"],
+              blur_u8_sigma50_ms_in_turns=t_gather["single"], sharded_u8_parts_ms=t_parts),
+        entry("fused_blur_f32_prepadded", "fused_blur.cu", "fused_blur.py:136",
+              launched.get("blur_fused_f32", 0), t["k2"], t["k2_plain"], b_k2,
+              max(errs["k2"], errs["k2_u8"]), t["k2_lib"], at=shard,
+              max_abs_err_u8=errs["k2_u8"], sharded_f32_ms_in_turns=t_float["sharded"],
+              blur_f32_ms_in_turns=t_float["single"]),
+        entry("fused_blur_axis_f32_prepadded", "fused_blur.cu", "fused_blur.py:136",
+              launched.get("blur_fused_axis_f32", 0), t["axis"], t["axis_plain"], b_axis,
+              errs["axis"], t["axis_lib"], at=f"{shard}, column r {r50}",
+              launches_are="rows over the halo rows and pre-padded cols, one each a shard"),
+        entry("fused_split_cols_int8_prepadded", "fused_split.cu", "fused_blur.py:218",
+              launched.get("fused_split_cols_int8", 0), tp2["int8"], t["cols_int8_plain"],
+              b_int8, errs["cols_int8"], None, at=f"{shard}, column r {re_}"),
+        entry("fused_split_cols_hybrid_prepadded", "fused_split.cu", "fused_blur.py:282",
+              launched.get("fused_split_cols_hybrid", 0), tp2["hybrid"],
+              t["cols_hybrid_plain"], b_hyb, errs["cols_hybrid"], t["cols_lib"],
+              at=f"{shard}, column r {re_}"),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2064,6 +2648,7 @@ def main() -> int:
     auto_launched = {bodies[p][0].__name__: n for p, n in launched.items() if p != "int8"}
     slice5_kernels = _slice5(frames, k1.median_ms, {**split_launched, **auto_launched})
     slice6_kernels = _slice6(frames)
+    slice7_kernels = _slice7(frames, want0)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -2090,7 +2675,8 @@ def main() -> int:
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "library_ms": None,
-    }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels]}), flush=True)
+    }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels,
+        *slice7_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

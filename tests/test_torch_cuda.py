@@ -406,7 +406,7 @@ def _form_counter(form):
 
 
 def _rung_ref(rung):
-    return {"int8": lambda x, plan, out_u8: fused_dma.blur_fused_u8_dma_ref(x, plan),
+    return {"int8": fused_dma.blur_fused_u8_dma_ref,
             "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
             "bf16": fused_dma.blur_fused_u8_bf16_ref}[rung]
 
@@ -425,7 +425,7 @@ def test_k1_forms_equal_plain_versions_on_the_card(cuda_device, shape, sigma, fo
     x = _planes((3, *shape), seed=31).to(cuda_device)
     geo = fused_dma.k1_geometry(form, rung, plan, 3, device=cuda_device)
     counter = _form_counter(form)
-    for out_u8 in (True,) if rung == "int8" else (True, False):
+    for out_u8 in (True, False):
         if geo is None:
             with pytest.raises(ValueError, match="="):
                 fused_dma.blur_fused_u8_dma(x, plan, precision=rung, out_u8=out_u8,
@@ -476,3 +476,115 @@ def test_int8_pin_on_the_card_runs_k1_int8_past_the_split_radius(cuda_device):
     ran = [c.launches - b for c, b in zip(counters, before)]
     assert sum(ran[:4]) == 1 and not any(ran[4:])
     assert torch.equal(got.cpu(), blur_u8(img, 15.0, precision="int8"))
+
+
+# ---------------------------------------------------------------------------
+# the sharded path's per-shard kernels (slice 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hs, w, rw, hp, wp", [
+    (1144, 3840, 32, 1216, 3936), (70, 250, 1, 96, 272), (1001, 1777, 598, 1800, 2992),
+    (80, 256, 3, 80, 272),  # hp <= 8 * (hs // 8): the frame grows by 8 rows
+])
+def test_a4_equals_plain_version_on_the_card(cuda_device, hs, w, rw, hp, wp):
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+
+    x = _planes((3, hs, w), seed=41)
+    before = assemble.assemble_padded_prepad.launches
+    got = assemble.assemble_padded_prepad(x.to(cuda_device), rw, rw, hp, wp)
+    torch.cuda.synchronize()
+    assert assemble.assemble_padded_prepad.launches == before + 1
+    assert torch.equal(got.cpu(), assemble.assemble_padded_prepad_ref(x, rw, rw, hp, wp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [((540, 1920), 10.0), ((135, 3840), 50.0),
+                                          ((251, 777), (5.0, 11.0))])
+@pytest.mark.parametrize("rung", ["int8", "hybrid", "bf16"])
+def test_haloed_dma_equals_plain_version_on_the_card(cuda_device, shape, sigma, rung):
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+
+    plan = make_plan(shape, sigma)
+    rh = plan.col.support_radius
+    x = _planes((3, shape[0] + 2 * rh, shape[1]), seed=42)
+    xd = x.to(cuda_device)
+    for out_u8 in (True, False):
+        a4, k1a = assemble.assemble_padded_prepad.launches, fused_dma.blur_fused_u8_assembled.launches
+        got = fused_dma.blur_fused_haloed_dma(xd, plan, rung, out_u8=out_u8)
+        torch.cuda.synchronize()
+        assert assemble.assemble_padded_prepad.launches == a4 + 1
+        assert fused_dma.blur_fused_u8_assembled.launches == k1a + 1
+        want = fused_dma.blur_fused_haloed_dma(x, plan, rung, out_u8=out_u8)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [((540, 1920), 10.0), ((300, 517), (3.0, 150.0)),
+                                          ((135, 1000), 180.0)])
+@pytest.mark.parametrize("in_u8", [False, True])
+def test_pre_padded_k2_on_the_card(cuda_device, shape, sigma, in_u8):
+    plan = make_plan(shape, sigma)
+    rh = plan.col.support_radius
+    x = (_planes if in_u8 else _f32_planes)((3, shape[0] + 2 * rh, shape[1]), seed=43)
+    xd = x.to(cuda_device)
+    for out_u8 in (False, True):
+        before = fused_blur.blur_fused_f32.launches
+        got = fused_blur.blur_fused_f32(xd, plan, out_u8=out_u8, pre_padded_col=True)
+        want = fused_blur.blur_fused_f32_ref(xd, plan, out_u8=out_u8, pre_padded_col=True)
+        torch.cuda.synchronize()
+        assert fused_blur.blur_fused_f32.launches == before + 1
+        assert got.shape == (3, *shape)
+        d = float((got.double() - want.double()).abs().max())
+        assert d <= (1 if out_u8 else 1e-3 * float(x.float().abs().max()) / 255)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [((135, 3840), 50.0), ((540, 1000), 1200.0)])
+def test_pre_padded_split_forms_on_the_card(cuda_device, shape, sigma):
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    plan = make_plan((shape[0], shape[1]), sigma)
+    rh = plan.col.support_radius
+    rows_h = fused_blur._haloed_rows_plan(plan)
+    _, cols = fused_blur._split_plans(plan)
+    x = _planes((3, shape[0] + 2 * rh, shape[1]), seed=44).to(cuda_device)
+    e = fs.fused_split_rows_int8(x, rows_h, out_e32=True)
+    y = fused_blur.blur_fused_axis_f32(x.float(), rows_h)
+    for out_u8 in (True, False):
+        for pass2, ref in ((fs.fused_split_cols_int8, fs.fused_split_cols_int8_ref),
+                           (fs.fused_split_cols_hybrid, fs.fused_split_cols_hybrid_ref)):
+            got = pass2(e, cols, out_u8=out_u8, pre_padded_col=True)
+            assert torch.equal(got, ref(e, cols, out_u8=out_u8, pre_padded_col=True))
+        got = fused_blur.blur_fused_axis_f32(y, cols, out_u8=out_u8, pre_padded_col=True)
+        want = fused_blur.blur_fused_f32_ref(y, cols, out_u8=out_u8, pre_padded_col=True)
+        torch.cuda.synchronize()
+        d = float((got.double() - want.double()).abs().max())
+        assert d <= (1 if out_u8 else 1e-3 * float(y.abs().max()) / 255)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp, sp, sigma", [(2, 2, 3.0), (1, 4, 10.0), (1, 8, 20.0)])
+def test_sharded_on_a_repeated_device_mesh(cuda_device, dp, sp, sigma):
+    """A mesh of one card repeated: the halo exchange, the gathers and every
+    shard's step on the card, equal to the single-device fused engine on
+    the rung the sharded path routes (the split past the card's split
+    radius, at sigma 20, K1 below it)."""
+    from blur_algorithms_tpu_torch.parallel import blur_sharded, blur_sharded_u8, make_mesh
+
+    mesh = make_mesh(dp=dp, sp=sp, devices=[cuda_device] * (dp * sp))
+    img = _planes((4, 240, 320, 3), seed=45).to(cuda_device)
+    plan = make_plan((240, 320), sigma)
+    got = blur_sharded_u8(img, plan, mesh)
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    rung = _u8_dma_precision(_local_plan(plan, 240 // sp, 320), device_spec(cuda_device))
+    want = fused_blur.blur_fused_u8(img.movedim(-1, -3).contiguous(), plan, rung)
+    want = want.movedim(-3, -1)
+    torch.cuda.synchronize()
+    assert got.device == img.device and torch.equal(got, want)
+    x = _f32_planes((4, 3, 240, 320), seed=46).to(cuda_device)
+    got = blur_sharded(x, plan, mesh)
+    assert float((got - blur(x, sigma)).abs().max()) <= 1e-3 * float(x.abs().max()) / 255

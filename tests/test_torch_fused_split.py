@@ -87,13 +87,11 @@ def test_int8_split_forms_bit_equal_to_jax(monkeypatch, name, spec, dark):
     got = t_split.fused_split_cols_int8(e, t_cols, out_u8=True)
     np.testing.assert_array_equal(
         got.numpy(), _jax_pass(want_e, j_cols, "int8", True, e32="in"))
-    # the float32 store (no path of the port takes it): XLA contracts the
-    # epilogue into fused multiply-adds off the TPU, the port rounds each
-    # product and sum as K1 does, so the two differ by an ulp or two
+    # the float32 store: the port rounds the epilogue as XLA compiles the
+    # JAX expression (two multiply-adds contracted), so it is bit-equal too
     got = t_split.fused_split_cols_int8(e, t_cols, out_u8=False)
-    np.testing.assert_allclose(
-        got.numpy(), _jax_pass(want_e, j_cols, "int8", False, e32="in"),
-        rtol=0, atol=2 * 2.0 ** -16)
+    np.testing.assert_array_equal(
+        got.numpy(), _jax_pass(want_e, j_cols, "int8", False, e32="in"))
 
     whole = t_fused._blur_fused_split(torch.from_numpy(x), tp, "int8", out_u8=True)
     want = np.asarray(j_fused._blur_fused_split(jnp.asarray(x), jp, "int8", out_u8=True))
