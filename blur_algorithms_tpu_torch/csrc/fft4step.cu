@@ -1,4 +1,4 @@
-// Four-step FFT convolution of rows (K3 and K3f): f32 rows in, f32 rows out.
+// FFT convolution of rows (K3 and K3f): f32 rows in, f32 rows out.
 //
 // Replaces: blur_algorithms_tpu/pallas_kernels/fft4step.py:_kernel (K3, rows
 // already framed to the transform length n) and :_kernel_framed (K3f,
@@ -6,49 +6,89 @@
 // pair of real rows (a, b), the circular correlation
 //     y = IFFT(H . FFT(z)),  z = a + i b,  Re y -> row a, Im y -> row b,
 // where H is the host-built correlation spectrum conj(fft(wrap_centered(
-// taps, n))): real for symmetric taps, complex otherwise. The kernel is real
-// in space, so the two packed rows separate by linearity either way. K3f
-// frames row t of the transform as reflect-101 of the row over [0, pad),
-// the row over [pad, pad + dim), reflect-101 again up to 2 pad + dim, then
-// zeros to n, and stores the interior [pad, pad + dim). K3 is the same
-// entry with dim = n and pad = 0, which makes the framing the identity.
+// taps, n))) / n: real for symmetric taps, complex otherwise. The kernel is
+// real in space, so the two packed rows separate by linearity either way.
+// K3f frames row t of the transform as reflect-101 of the row over
+// [0, pad), the row over [pad, pad + dim), reflect-101 again up to
+// 2 pad + dim, then zeros to n, and stores the interior [pad, pad + dim).
+// K3 is the same entry with dim = n and pad = 0 (the framing is then the
+// identity). The TPU kernel factors n = n1 * n2 and runs each DFT stage as a
+// dense matmul on the MXU; on an H100 the CUDA cores do the FFT in f32.
 //
-// The TPU kernel factors n = n1 * n2 and runs each DFT stage as a dense
-// matmul on the MXU (bf16x3 splits). Here one block of threads holds one
-// complex row in shared memory (re and im planes, 8 n bytes: 128 KB at
-// n = 16384, past the 48 KB default, so the launch raises the dynamic
-// limit) and runs a mixed-radix FFT on the CUDA cores in f32:
-//   n = Q * P, Q the odd part (1, 3, 5, ..., 15: transform_length plans
-//   128 * (multiple of 8) past 4096) and P a power of two;
-//   forward: decimation in frequency, in place: one radix-Q stage (a dense
-//   Q-point DFT against a table of Q roots of unity), then radix-4 stages,
-//   then one radix-2 stage when log2 P is odd. Each stage reads R values
-//   a stride apart, takes their R-point DFT, multiplies by the twiddles
-//   W_L^(q j) and writes them back to the same places, so one barrier per
-//   stage suffices and no second buffer is needed. The spectrum is left in
-//   digit-reversed order; the host stores H in that same order
-//   (cuda_kernels/fft4step.py:_kernel_bin_order), so nothing is reordered;
-//   multiply: H, with 1/n folded in on the host, fused into the first
-//   inverse stage's loads;
-//   inverse: decimation in time, the forward stages in reverse order, each
-//   with conjugate twiddles before a conjugate R-point DFT. It reads the
-//   digit-reversed spectrum and leaves the row in natural order.
-// Twiddles are one table W_n^x = exp(-2 pi i x / n), x < n, computed on the
-// host in float64 and rounded to f32 (as ops/fft_mxu._stage_consts builds
-// the TPU's DFT matrices); a stage of span L reads W_L^(q j) = W_n^(q j n/L).
+// What bounds it on an H100: device memory. The traffic is one read and one
+// write of the rows; the f32 work, ~10 n log2 n flops per pair of rows,
+// takes under half that time at the card's f32 rate (chip_smoke.py prints
+// both bounds, PERF.md the measured times).
 //
-// What bounds it on an H100: device memory. At the main shapes (rows of 4K
-// frames, n 4096 to 16384) the traffic is one read and one write of the
-// rows, and the FFT's f32 work, ~5 n log2 n flops per direction per
-// complex row, takes less time at the card's f32 rate (chip_smoke.py
-// prints both bounds, PERF.md the measured times). The design spends
-// more: every stage reads and writes each value in shared memory once (8
-// to 14 stages a row), the late radix-4 stages have 2- to 4-way bank
-// conflicts, every twiddle is a load through L1, and a row takes up to 15
-// barriers; at n 16384 one 128 KB block fills an SM. The column axis is
-// made contiguous by a transpose before the kernel (as the JAX package
-// moves the axis last). Tensor cores (the dense stages as wgmma), TMA
-// staging and reading columns in place are left for later work.
+// The design: one block per pair of rows, n / 32 threads, the FFT as a few
+// high-radix passes held in registers, shared memory only between passes.
+// The kernel is a template on n (17 lengths) and on whether it frames the
+// rows (K3f) or reads them as they are (K3), so every stride, count and
+// twiddle step is a constant and shared addresses fold into immediates.
+//   n = Q * P: Q the odd part (1, 3, 5, ..., 15: the lengths are powers of
+//   two 256..16384 and 1024 k for k = 5..16), P = R0 * 32^a, R0 in
+//   {1, 2, 4, 8, 16}, a in {1, 2}. Forward passes, decimation in frequency:
+//   radix Q (when Q > 1), radix R0 (when R0 > 1), then a radix-32 passes.
+//   A pass of radix R over spans L = R s takes the R values x[base + m s]
+//   (base = block L + j, j < s) into registers, runs their R-point DFT
+//   there (a power of two as radix-2 butterflies with literal constants,
+//   an odd radix against a table of Q roots), multiplies output q by
+//   W_L^(q j) and writes it to base + q s: output in natural order at the
+//   place it was read, so a pass needs no second buffer and one barrier.
+//   The spectrum is left in digit-reversed order; the host stores H in that
+//   order (cuda_kernels/fft4step.py:_kernel_bin_order), so nothing is
+//   reordered. Inverse passes run in reverse order: conjugate twiddles,
+//   then the conjugate DFT; they read the digit-reversed spectrum and leave
+//   the row in natural order.
+// What the design does about each cost of a shared-memory FFT:
+//   1. Passes through shared memory: the last forward pass (radix 32 over
+//      spans of 32, no twiddles) multiplies by H and runs the first inverse
+//      pass in the same registers. The first forward pass reads the rows
+//      straight from device memory (framing them on the way for K3f, which
+//      never loads the zero tail) and the last inverse pass stores straight
+//      to it. That leaves 4 exchanges through shared memory per pair of
+//      rows (6 at n 6144 and 12288, which take a radix-2 or -4 pass beside
+//      radix 3), each one 8-byte write and one 8-byte read of each value
+//      (the row is kept as interleaved float2).
+//   2. Bank conflicts: the row is stored padded, element i at i + (i >> 5).
+//      Every pass but the middle one has stride s >= 32 (radix Q: s = P;
+//      R0: s = P / R0 >= 32; a non-last radix-32 pass: s = 32), so a warp's
+//      lanes take 32 consecutive, aligned positions; the middle pass reads
+//      thread t's run 32 t + m at 33 t + m, a distinct bank pair for each
+//      lane of a half-warp. No access conflicts.
+//   3. Twiddles: W_n^e = Thi[e >> 7] * Tlo[e & 127], two tables of at most
+//      128 entries (W_n^(128 h) and W_n^l) built on the host in float64,
+//      rounded to f32 and kept in shared memory. Each twiddle of the radix-Q
+//      and radix-R0 passes costs two shared loads and one f32 complex
+//      product; that product adds at most 4 * 2^-24 to the distance from
+//      the float64 root (two table roundings of 2^-25 in modulus each, two
+//      rounding steps of the product), which
+//      tests/test_torch_fft4step_passes.py holds. The radix-32 pass over
+//      spans of 1024 reads W_1024^(q j) from a 1024-entry table that each
+//      block fills from the same products when it starts (the same f32
+//      values, one shared load each). The radix-2 butterflies inside a
+//      pass use literal W_32 constants.
+//   4. Overlap of memory and compute: the first pass issues all of a
+//      thread's loads (2 R per butterfly, 64 at R = 32) before it computes,
+//      and blocks on different SMs are out of phase, so the card keeps HBM
+//      busy while other SMs compute. At n <= 8192 two or more blocks share
+//      an SM (n / 32 threads of <= 128 registers, no spills; shared memory
+//      8.25 n + 2176 bytes, and 8 KB more for the 1024-entry table), at
+//      n 16384 one does. A persistent grid that prefetched the next pair's
+//      rows into L2 while computing this one measured 12-25% slower on the
+//      H100 (probes/k3_variants.py) and is not kept. Global accesses are 4-byte and
+//      coalesced (a warp covers 128 contiguous bytes): they go straight into
+//      the registers of the first pass, which a 16-byte form would have to
+//      stage through shared memory.
+//   5. The spectrum multiply happens in registers between the last forward
+//      and the first inverse pass (item 1), H read as 16-byte loads.
+// Tensor cores: not used. f32 accuracy would need 3xTF32 (~165 TFLOP/s of
+// useful rate) or bf16x3 splits, and a dense pass as a matrix product costs
+// 8 R flops a point against ~5 log2 R for the butterflies: radix-16 passes
+// on mma would take ~2 ms for the n-16384 rows of a 4K batch, twice their
+// bytes bound, where the butterflies' f32 work takes ~0.45 ms. The TPU's
+// dense DFT matrices suit a machine whose vector unit is weak; the H100's
+// CUDA cores are not.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
@@ -58,8 +98,31 @@
 
 namespace {
 
-constexpr int kMaxThreads = 512;
+constexpr int kE = 32;            // radix of the main passes; n / kE threads
 constexpr int kMaxN = 16384;
+constexpr int kMaxThreads = kMaxN / kE;
+constexpr int kLo = 128;          // entries of the low twiddle table
+constexpr int kTable = 2 * kLo + 16;  // Tlo, Thi (n / 128 used), W_Q
+
+__host__ __device__ constexpr int ilog2(int v) {
+  int l = 0;
+  while (v > 1) {
+    v >>= 1;
+    ++l;
+  }
+  return l;
+}
+
+__host__ __device__ constexpr int brev(int p, int r) {
+  int q = 0;
+  for (int b = 1; b < r; b <<= 1) {
+    q = (q << 1) | (p & 1);
+    p >>= 1;
+  }
+  return q;
+}
+
+__device__ __forceinline__ int sidx(int i) { return i + (i >> 5); }
 
 __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(fmaf(a.x, b.x, -a.y * b.y), fmaf(a.x, b.y, a.y * b.x));
@@ -78,23 +141,55 @@ __device__ __forceinline__ float2 csub(float2 a, float2 b) {
   return make_float2(a.x - b.x, a.y - b.y);
 }
 
-// In-place R-point DFT of a[0..R): forward (W_R = exp(-2 pi i / R)) or
-// inverse (conjugate roots, no 1/R). wq holds W_Q^k for the odd radix.
+// d * W_32^k (conjugate root for the inverse), k < 16 known at compile time
+// once the butterflies are unrolled
+template <bool kInv>
+__device__ __forceinline__ float2 rot32(float2 d, int k) {
+  if (k == 0) return d;
+  if (k == 8) return kInv ? make_float2(-d.y, d.x) : make_float2(d.y, -d.x);
+  // cos(2 pi k / 32), k = 0..8, rounded to f32
+  const float c[9] = {1.0f, 0.980785251f, 0.923879504f, 0.831469595f,
+                      0.707106769f, 0.555570245f, 0.382683426f,
+                      0.195090324f, 0.0f};
+  const float2 w = k < 8 ? make_float2(c[k], -c[8 - k])
+                         : make_float2(-c[16 - k], -c[k - 8]);
+  return kInv ? cmulc(d, w) : cmul(d, w);
+}
+
+// Radix-2 decimation-in-frequency stages of spans L, L / 2, ..., 2 over the
+// R values a thread holds; leaves the R-point DFT in bit-reversed order.
+template <int R, int L, bool kInv>
+struct Dif {
+  static __device__ __forceinline__ void run(float2 (&a)[R]) {
+    constexpr int h = L / 2;
+#pragma unroll
+    for (int i = 0; i < R / 2; ++i) {
+      const int p = (i / h) * L + i % h;
+      const float2 u = a[p], v = a[p + h];
+      a[p] = cadd(u, v);
+      a[p + h] = rot32<kInv>(csub(u, v), (i % h) * (32 / L));
+    }
+    Dif<R, h, kInv>::run(a);
+  }
+};
+
+template <int R, bool kInv>
+struct Dif<R, 1, kInv> {
+  static __device__ __forceinline__ void run(float2 (&)[R]) {}
+};
+
+// In-place R-point DFT of a[0..R) in natural order: forward (W_R =
+// exp(-2 pi i / R)) or inverse (conjugate roots, no 1 / R). wq holds W_Q^k
+// for an odd radix.
 template <int R, bool kInv>
 __device__ __forceinline__ void dft(float2 (&a)[R], const float2* wq) {
-  if constexpr (R == 2) {
-    const float2 t = a[1];
-    a[1] = csub(a[0], t);
-    a[0] = cadd(a[0], t);
-  } else if constexpr (R == 4) {
-    const float2 t0 = cadd(a[0], a[2]), t1 = csub(a[0], a[2]);
-    const float2 t2 = cadd(a[1], a[3]), t3 = csub(a[1], a[3]);
-    a[0] = cadd(t0, t2);
-    a[2] = csub(t0, t2);
-    // -i t3 = (t3.y, -t3.x); the inverse takes +i t3
-    const float2 m = kInv ? make_float2(-t3.y, t3.x) : make_float2(t3.y, -t3.x);
-    a[1] = cadd(t1, m);
-    a[3] = csub(t1, m);
+  if constexpr ((R & (R - 1)) == 0) {
+    Dif<R, R, kInv>::run(a);
+    float2 t[R];
+#pragma unroll
+    for (int p = 0; p < R; ++p) t[brev(p, R)] = a[p];
+#pragma unroll
+    for (int p = 0; p < R; ++p) a[p] = t[p];
   } else {
     float2 y[R];
 #pragma unroll
@@ -114,74 +209,27 @@ __device__ __forceinline__ void dft(float2 (&a)[R], const float2* wq) {
   }
 }
 
-// One decimation-in-frequency stage of radix R over blocks of span
-// L = R << lshift: x[base + q s] <- W_L^(q j) * sum_m x[base + m s] W_R^(m q)
-// with s = L / R, j = the offset in the block, base = block * L + j.
-template <int R>
-__device__ __forceinline__ void dif_stage(float* re, float* im, int n,
-                                          int lshift, int tw_step,
-                                          const float2* __restrict__ tw,
-                                          const float2* wq) {
-  const int stride = 1 << lshift;
-  for (int idx = threadIdx.x; idx < n / R; idx += blockDim.x) {
-    const int j = idx & (stride - 1);
-    const int base = (((idx >> lshift) * R) << lshift) + j;
-    float2 a[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m)
-      a[m] = make_float2(re[base + m * stride], im[base + m * stride]);
-    dft<R, false>(a, wq);
-#pragma unroll
-    for (int q = 1; q < R; ++q) a[q] = cmul(a[q], __ldg(tw + q * j * tw_step));
-#pragma unroll
-    for (int q = 0; q < R; ++q) {
-      re[base + q * stride] = a[q].x;
-      im[base + q * stride] = a[q].y;
-    }
-  }
-  __syncthreads();
-}
+struct Smem {
+  float2* buf;  // padded complex row: element i at sidx(i)
+  const float2* tlo;  // W_n^l, l < 128
+  const float2* thi;  // W_n^(128 h), h < n / 128
+  const float2* wq;   // W_Q^k, k < Q
+  const float2* t1k;  // W_1024^x, x < 1024
+};
 
-// The inverse of dif_stage (times R): conjugate twiddles, then the
-// conjugate R-point DFT. The first inverse stage also multiplies by the
-// spectrum h (n reals, or n interleaved complex values).
-template <int R>
-__device__ __forceinline__ void dit_stage(float* re, float* im, int n,
-                                          int lshift, int tw_step,
-                                          const float2* __restrict__ tw,
-                                          const float2* wq,
-                                          const float* __restrict__ h,
-                                          bool complex_h) {
-  const int stride = 1 << lshift;
-  for (int idx = threadIdx.x; idx < n / R; idx += blockDim.x) {
-    const int j = idx & (stride - 1);
-    const int base = (((idx >> lshift) * R) << lshift) + j;
-    float2 a[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m)
-      a[m] = make_float2(re[base + m * stride], im[base + m * stride]);
-    if (h != nullptr) {
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        const int p = base + m * stride;
-        if (complex_h) {
-          a[m] = cmul(a[m], __ldg(reinterpret_cast<const float2*>(h) + p));
-        } else {
-          const float s = __ldg(h + p);
-          a[m] = make_float2(a[m].x * s, a[m].y * s);
-        }
-      }
-    }
-#pragma unroll
-    for (int q = 1; q < R; ++q) a[q] = cmulc(a[q], __ldg(tw + q * j * tw_step));
-    dft<R, true>(a, wq);
-#pragma unroll
-    for (int m = 0; m < R; ++m) {
-      re[base + m * stride] = a[m].x;
-      im[base + m * stride] = a[m].y;
-    }
-  }
-  __syncthreads();
+struct Rows {
+  const float* xa;
+  const float* xb;
+  float* oa;
+  float* ob;
+  bool has_b;
+  int dim;
+  int pad;
+};
+
+// W_n^e, 0 <= e < n
+__device__ __forceinline__ float2 twiddle(const Smem& sm, int e) {
+  return cmul(sm.thi[e >> 7], sm.tlo[e & (kLo - 1)]);
 }
 
 // reflect-101 framing of transform position t: the source column of the
@@ -194,100 +242,237 @@ __device__ __forceinline__ int frame_source(int t, int dim, int pad) {
   return -1;
 }
 
+// Position pos of the transform from the rows: reflect-101 framed (K3f) or
+// as it is (K3, dim = n).
+template <bool kFramed>
+__device__ __forceinline__ float2 load_row(const Rows& io, int pos) {
+  if constexpr (kFramed) {
+    pos = frame_source(pos, io.dim, io.pad);
+    if (pos < 0) return make_float2(0.0f, 0.0f);
+  }
+  return make_float2(__ldg(io.xa + pos), io.has_b ? __ldg(io.xb + pos) : 0.0f);
+}
+
+// Position pos of the result to the rows (K3f: the interior only).
+template <bool kFramed>
+__device__ __forceinline__ void store_row(const Rows& io, int pos, float2 v) {
+  if constexpr (kFramed) {
+    pos -= io.pad;
+    if (pos < 0 || pos >= io.dim) return;
+  }
+  io.oa[pos] = v.x;
+  if (io.has_b) io.ob[pos] = v.y;
+}
+
+__host__ __device__ constexpr int odd_part(int n) {
+  while (n > 1 && (n & 1) == 0) n >>= 1;
+  return n;
+}
+
+// The passes of length N: N = Q * R0 * 32^A, P = N / Q = 2^kP, T threads.
+template <int N>
+struct Plan {
+  static constexpr int Q = odd_part(N);
+  static constexpr int kP = ilog2(N / Q);
+  static constexpr int A = kP >= 10 ? 2 : 1;
+  static constexpr int R0Log2 = kP - 5 * A;
+  static constexpr int R0 = 1 << R0Log2;
+  static constexpr int T = N / kE;
+  static constexpr bool kQ = Q > 1, kR = R0 > 1, kA = A == 2;
+  static constexpr int kSmem = 8 * (N + N / 32) + 8 * kTable + (kA ? 8 * 1024 : 0);
+};
+
+// Butterfly b of a radix-R pass (fft_pass, below) over spans R << S_LOG2.
+// Every such pass has a stride S of at least 32, so position base + m S
+// sits at sidx(base) + m (S + S / 32).
+template <int R, bool kInv, bool kIn, bool kOut, int S_LOG2, int TW_MUL, bool kFramed>
+__device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b) {
+  static_assert(S_LOG2 >= 5, "a pass through shared memory has stride >= 32");
+  constexpr int S = 1 << S_LOG2;
+  constexpr int SS = S + (S >> 5);  // padded stride
+  const int j = b & (S - 1);
+  const int base = (((b >> S_LOG2) * R) << S_LOG2) + j;
+  const int sbase = sidx(base);
+  float2 a[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    if constexpr (kIn)
+      a[m] = load_row<kFramed>(io, base + m * S);
+    else
+      a[m] = sm.buf[sbase + m * SS];
+  }
+  // radix 32 runs over spans of 1024: W_1024^(q j), q j < 1024
+  if constexpr (kInv) {
+#pragma unroll
+    for (int q = 1; q < R; ++q)
+      a[q] = cmulc(a[q], R == kE ? sm.t1k[q * j] : twiddle(sm, q * j * TW_MUL));
+  }
+  dft<R, kInv>(a, sm.wq);
+  if constexpr (!kInv) {
+#pragma unroll
+    for (int q = 1; q < R; ++q)
+      a[q] = cmul(a[q], R == kE ? sm.t1k[q * j] : twiddle(sm, q * j * TW_MUL));
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if constexpr (kOut)
+      store_row<kFramed>(io, base + q * S, a[q]);
+    else
+      sm.buf[sbase + q * SS] = a[q];
+  }
+}
+
+// One pass of radix R over spans L = R << S_LOG2: butterflies b < COUNT
+// (COUNT = N / R), b = threadIdx.x + k T. Forward: DFT, then W_L^(q j) =
+// W_N^(q j TW_MUL), TW_MUL = N / L. Inverse: conjugate twiddles, then the
+// conjugate DFT. Values come from and go to shared memory or the rows
+// (kIn / kOut) at the same positions. A thread's butterflies of radix 8 and up run one after another (not
+// unrolled: their registers would not fit twice).
+template <int R, bool kInv, bool kIn, bool kOut, int S_LOG2, int TW_MUL, int COUNT, int T,
+          bool kFramed>
+__device__ __forceinline__ void fft_pass(const Smem& sm, const Rows& io) {
+  constexpr int K = (COUNT + T - 1) / T;
+  if constexpr (R >= 8) {
+#pragma unroll 1
+    for (int k = 0; k < K; ++k) {
+      const int b = threadIdx.x + k * T;
+      if (COUNT % T != 0 && b >= COUNT) break;
+      butterfly<R, kInv, kIn, kOut, S_LOG2, TW_MUL, kFramed>(sm, io, b);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int b = threadIdx.x + k * T;
+      if (COUNT % T != 0 && b >= COUNT) break;
+      butterfly<R, kInv, kIn, kOut, S_LOG2, TW_MUL, kFramed>(sm, io, b);
+    }
+  }
+}
+
+// The last forward pass (radix 32 over spans of 32: no twiddles), the
+// multiply by H and the first inverse pass, in one thread's registers:
+// thread t owns positions 32 t .. 32 t + 31, at 33 t + m.
+__device__ __forceinline__ void middle_pass(const Smem& sm, const float* __restrict__ h,
+                                            int complex_h) {
+  float2* row = sm.buf + (kE + 1) * threadIdx.x;
+  float2 a[kE];
+#pragma unroll
+  for (int m = 0; m < kE; ++m) a[m] = row[m];
+  dft<kE, false>(a, nullptr);
+  if (complex_h) {
+    const float4* h4 = reinterpret_cast<const float4*>(h) + threadIdx.x * (kE / 2);
+#pragma unroll
+    for (int k = 0; k < kE / 2; ++k) {
+      const float4 v = __ldg(h4 + k);
+      a[2 * k] = cmul(a[2 * k], make_float2(v.x, v.y));
+      a[2 * k + 1] = cmul(a[2 * k + 1], make_float2(v.z, v.w));
+    }
+  } else {
+    const float4* h4 = reinterpret_cast<const float4*>(h) + threadIdx.x * (kE / 4);
+#pragma unroll
+    for (int k = 0; k < kE / 4; ++k) {
+      const float4 v = __ldg(h4 + k);
+      const float s[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        a[4 * k + u] = make_float2(a[4 * k + u].x * s[u], a[4 * k + u].y * s[u]);
+    }
+  }
+  dft<kE, true>(a, nullptr);
+#pragma unroll
+  for (int m = 0; m < kE; ++m) row[m] = a[m];
+}
+
 // One block per complex row c: real rows c and c + half (a zero row rides
-// along where c + half == rows). Rows in and out have length dim.
-template <int Q>
-__global__ void __launch_bounds__(kMaxThreads)
+// along where c + half == rows). Rows in and out have length dim. At most
+// 128 registers a thread: one 512-thread block an SM at n 16384, two
+// 256-thread blocks at n 8192.
+template <int N, bool kFramed>
+__global__ void __launch_bounds__(N / kE, N >= 1024 ? kMaxThreads / (N / kE) : 16)
 fft_conv_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float2* __restrict__ tw,
                      const float* __restrict__ h, int complex_h, int rows,
-                     int half, int n, int p_log2, int dim, int pad) {
-  extern __shared__ __align__(16) float smem[];
-  float* re = smem;
-  float* im = smem + n;
-  float2* wq = reinterpret_cast<float2*>(smem + 2 * n);  // W_Q^k, k < Q
-
+                     int half, int dim, int pad) {
+  using P = Plan<N>;
+  constexpr int T = P::T, Q = P::Q, R0 = P::R0, kP = P::kP;
+  constexpr bool kQ = P::kQ, kR = P::kR, kA = P::kA;
+  extern __shared__ __align__(16) float2 smem2[];
+  float2* tab = smem2 + N + N / 32;
+  for (int k = threadIdx.x; k < kTable; k += T) tab[k] = tw[k];
+  const Smem sm{smem2, tab, tab + kLo, tab + 2 * kLo, tab + kTable};
+  if constexpr (kA) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < 1024; k += T) tab[kTable + k] = twiddle(sm, k * (N / 1024));
+  }
   const int ra = blockIdx.x;
   const int rb = blockIdx.x + half;
   const bool has_b = rb < rows;
-  const float* xa = x + static_cast<size_t>(ra) * dim;
-  const float* xb = x + static_cast<size_t>(rb) * dim;
-  if (Q > 1) {
-    for (int k = threadIdx.x; k < Q; k += blockDim.x) wq[k] = tw[k << p_log2];
-  }
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const int s = frame_source(t, dim, pad);
-    re[t] = s >= 0 ? xa[s] : 0.0f;
-    im[t] = s >= 0 && has_b ? xb[s] : 0.0f;
-  }
+  const Rows io{x + static_cast<size_t>(ra) * dim, x + static_cast<size_t>(rb) * dim,
+                out + static_cast<size_t>(ra) * dim, out + static_cast<size_t>(rb) * dim,
+                has_b, dim, pad};
   __syncthreads();
 
-  // forward: radix Q, radix 4 over spans P, P/4, ..., then radix 2
-  if constexpr (Q > 1) dif_stage<Q>(re, im, n, p_log2, 1, tw, wq);
-  for (int lg = p_log2; lg >= 2; lg -= 2)
-    dif_stage<4>(re, im, n, lg - 2, n >> lg, tw, wq);
-  if (p_log2 & 1) dif_stage<2>(re, im, n, 0, n >> 1, tw, wq);
-
-  // inverse, in reverse order; the first stage multiplies by H
-  const float* hm = h;
-  if (p_log2 & 1) {
-    dit_stage<2>(re, im, n, 0, n >> 1, tw, wq, hm, complex_h);
-    hm = nullptr;
+  // forward: the first pass reads the rows
+  if constexpr (kQ) {
+    fft_pass<Q, false, true, false, kP, 1, N / Q, T, kFramed>(sm, io);
+    __syncthreads();
   }
-  for (int lg = 2 + (p_log2 & 1); lg <= p_log2; lg += 2) {
-    dit_stage<4>(re, im, n, lg - 2, n >> lg, tw, wq, hm, complex_h);
-    hm = nullptr;
+  if constexpr (kR) {
+    fft_pass<R0, false, !kQ, false, kP - P::R0Log2, Q, N / R0, T, kFramed>(sm, io);
+    __syncthreads();
   }
-  if constexpr (Q > 1) dit_stage<Q>(re, im, n, p_log2, 1, tw, wq, nullptr, 0);
-
-  float* oa = out + static_cast<size_t>(ra) * dim;
-  float* ob = out + static_cast<size_t>(rb) * dim;
-  for (int j = threadIdx.x; j < dim; j += blockDim.x) {
-    oa[j] = re[pad + j];
-    if (has_b) ob[j] = im[pad + j];
+  if constexpr (kA) {
+    fft_pass<kE, false, !kQ && !kR, false, 5, N / 1024, N / kE, T, kFramed>(sm, io);
+    __syncthreads();
   }
+  middle_pass(sm, h, complex_h);
+  __syncthreads();
+  // inverse, in reverse order: the last pass stores the rows
+  if constexpr (kA) {
+    fft_pass<kE, true, false, !kQ && !kR, 5, N / 1024, N / kE, T, kFramed>(sm, io);
+    if constexpr (kQ || kR) __syncthreads();
+  }
+  if constexpr (kR) {
+    fft_pass<R0, true, false, !kQ, kP - P::R0Log2, Q, N / R0, T, kFramed>(sm, io);
+    if constexpr (kQ) __syncthreads();
+  }
+  if constexpr (kQ) fft_pass<Q, true, false, true, kP, 1, N / Q, T, kFramed>(sm, io);
 }
 
-template <int Q>
-int launch_q(const float* x, float* out, const float2* tw, const float* h,
-             int complex_h, int rows, int n, int p_log2, int dim, int pad,
-             cudaStream_t stream) {
-  const int smem = 8 * n + 16 * 8;
-  auto kernel = fft_conv_rows_kernel<Q>;
+template <int N, bool kFramed>
+int launch_n(const float* x, float* out, const float2* tw, const float* h, int complex_h,
+             int rows, int dim, int pad, cudaStream_t stream) {
+  auto kernel = fft_conv_rows_kernel<N, kFramed>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<N>::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int half = (rows + 1) / 2;
-  int threads = n / 4 < kMaxThreads ? n / 4 : kMaxThreads;
-  kernel<<<half, threads, smem, stream>>>(x, out, tw, h, complex_h, rows,
-                                          half, n, p_log2, dim, pad);
+  kernel<<<half, Plan<N>::T, Plan<N>::kSmem, stream>>>(x, out, tw, h, complex_h, rows,
+                                                        half, dim, pad);
   return static_cast<int>(cudaGetLastError());
 }
 
+// the lengths the kernel takes: powers of two 256..16384, and 1024 k for
+// k = 5..16
 int launch(const void* x, void* out, const void* tw, const void* h,
-           int complex_h, int rows, int n, int dim, int pad,
+           int complex_h, int rows, int n, int dim, int pad, bool framed,
            cudaStream_t stream) {
-  int q = n, p_log2 = 0;
-  while (q > 1 && (q & 1) == 0) {
-    q >>= 1;
-    ++p_log2;
-  }
-  if (n > kMaxN || n < 256 || p_log2 < 8 || rows < 1 || dim < 1 ||
-      pad < 0 || pad > dim - 1 || dim + 2 * pad > n)
+  if (rows < 1 || dim < 1 || pad < 0 || pad > dim - 1 || dim + 2 * pad > n)
     return static_cast<int>(cudaErrorInvalidValue);
   const float* xs = static_cast<const float*>(x);
   float* os = static_cast<float*>(out);
   const float2* t = static_cast<const float2*>(tw);
   const float* hs = static_cast<const float*>(h);
-  switch (q) {
-    case 1: return launch_q<1>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 3: return launch_q<3>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 5: return launch_q<5>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 7: return launch_q<7>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 9: return launch_q<9>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 11: return launch_q<11>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 13: return launch_q<13>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
-    case 15: return launch_q<15>(xs, os, t, hs, complex_h, rows, n, p_log2, dim, pad, stream);
+  switch (n) {
+#define K3_CASE(NN) \
+  case NN:                                                              \
+    return framed ? launch_n<NN, true>(xs, os, t, hs, complex_h, rows, dim, pad, stream) \
+                  : launch_n<NN, false>(xs, os, t, hs, complex_h, rows, dim, pad, stream);
+    K3_CASE(256) K3_CASE(512) K3_CASE(1024) K3_CASE(2048) K3_CASE(4096)
+    K3_CASE(8192) K3_CASE(16384)
+    K3_CASE(5120) K3_CASE(6144) K3_CASE(7168) K3_CASE(9216) K3_CASE(10240)
+    K3_CASE(11264) K3_CASE(12288) K3_CASE(13312) K3_CASE(14336) K3_CASE(15360)
+#undef K3_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -295,13 +480,15 @@ int launch(const void* x, void* out, const void* tw, const void* h,
 }  // namespace
 
 // K3: rows x n floats already framed to the transform length -> rows x n.
-// tw: n interleaved complex twiddles W_n^x; h: the spectrum in the kernel's
-// bin order, scaled by 1/n (n floats, or 2n interleaved when complex_h).
-// Returns the cudaError_t of the launch (0 = launched).
+// tw: the twiddle tables, 272 interleaved complex values: Tlo (W_n^l,
+// l < 128), Thi (W_n^(128 h), h < n / 128, zero past it), W_Q^k (k < Q,
+// zero past it); h: the spectrum in the kernel's bin order, scaled by 1/n
+// (n floats, or 2n interleaved when complex_h). Returns the cudaError_t of
+// the launch (0 = launched).
 extern "C" int fft_conv_rows(const void* x, void* out, const void* tw,
                              const void* h, int complex_h, int rows, int n,
                              void* stream) {
-  return launch(x, out, tw, h, complex_h, rows, n, n, 0,
+  return launch(x, out, tw, h, complex_h, rows, n, n, 0, false,
                 static_cast<cudaStream_t>(stream));
 }
 
@@ -310,6 +497,6 @@ extern "C" int fft_conv_rows(const void* x, void* out, const void* tw,
 extern "C" int fft_conv_rows_framed(const void* x, void* out, const void* tw,
                                     const void* h, int complex_h, int rows,
                                     int n, int dim, int pad, void* stream) {
-  return launch(x, out, tw, h, complex_h, rows, n, dim, pad,
+  return launch(x, out, tw, h, complex_h, rows, n, dim, pad, true,
                 static_cast<cudaStream_t>(stream));
 }

@@ -45,6 +45,7 @@ __all__ = [
     "fft_conv_rows",
     "fft_conv_rows_framed",
     "framed_applicable",
+    "kernel_length",
 ]
 
 # Longest transform K3/K3f take: a complex row of 16384 f32 pairs is 128 KB
@@ -64,20 +65,33 @@ def framed_applicable(n: int) -> bool:
     return n % 128 == 0 and n // 128 >= 32
 
 
+def kernel_length(n: int) -> bool:
+    """The transform lengths K3/K3f take: powers of two 256..``MAX_N`` and
+    ``1024 k`` for k = 5..16 (what ``transform_length`` and the adjoint
+    plan)."""
+    return (256 <= n <= MAX_N and n & (n - 1) == 0) or (
+        4096 < n <= MAX_N and n % 1024 == 0)
+
+
 def _radices(n: int) -> list[int]:
-    """The kernel's decimation-in-frequency radices, in stage order: the
-    odd part Q of ``n`` (when > 1), then 4s, then a 2 when log2(n / Q) is
-    odd."""
-    q = n
+    """The kernel's forward passes, in order: radix Q, the odd part of
+    ``n`` (when > 1), radix R0 (when > 1), then ``a`` radix-32 passes, with
+    ``n = Q * R0 * 32**a`` and ``a = 2`` from ``n / Q = 1024`` on
+    (``csrc/fft4step.cu``: ``launch``)."""
+    if not kernel_length(n):
+        raise ValueError(f"n = {n} is not a K3 transform length")
+    q, p = n, 0
     while q % 2 == 0:
         q //= 2
-    lg = (n // q).bit_length() - 1
-    return ([q] if q > 1 else []) + [4] * (lg // 2) + [2] * (lg % 2)
+        p += 1
+    a = 2 if p >= 10 else 1
+    r0 = 1 << (p - 5 * a)
+    return [r for r in (q, r0) if r > 1] + [32] * a
 
 
 def _kernel_bin_order(n: int) -> np.ndarray:
     """Natural frequency held at each position of the kernel's forward
-    spectrum (digit-reversed: the first stage's digit is the position's
+    spectrum (digit-reversed: the first pass's digit is the position's
     most significant and the frequency's least significant)."""
     rem = np.arange(n, dtype=np.int64)
     k = np.zeros(n, dtype=np.int64)
@@ -90,13 +104,35 @@ def _kernel_bin_order(n: int) -> np.ndarray:
     return k
 
 
+# entries of the low twiddle table; the high one has n / _LO <= 128
+_LO = 128
+
+
+def _twiddle_tables(n: int) -> np.ndarray:
+    """The kernel's twiddle tables, (272, 2) float32 (re, im): ``Tlo[l] =
+    W_n^l`` (l < 128), ``Thi[h] = W_n^(128 h)`` (h < n / 128, zero past
+    it), ``W_Q^k`` (k < Q, zero past it), each ``exp(-2 pi i x / n)`` in
+    float64 rounded to float32. The kernel takes ``W_n^e = Thi[e >> 7] *
+    Tlo[e & 127]``."""
+    q = n
+    while q % 2 == 0:
+        q //= 2
+    ang = np.zeros(2 * _LO + 16)
+    ang[:_LO] = np.arange(_LO) / n
+    ang[_LO:_LO + n // _LO] = _LO * np.arange(n // _LO) / n
+    ang[2 * _LO:2 * _LO + q] = np.arange(q) / q
+    used = np.zeros(ang.shape, bool)
+    used[:_LO + n // _LO] = True
+    used[2 * _LO:2 * _LO + q] = True
+    ang = -2.0 * np.pi * ang
+    tab = np.stack([np.cos(ang), np.sin(ang)], axis=-1) * used[:, None]
+    return tab.astype(np.float32)
+
+
 @functools.lru_cache(maxsize=32)
 def _twiddles(n: int, device: torch.device) -> torch.Tensor:
-    """``W_n^x = exp(-2 pi i x / n)``, x < n: float64 rounded to float32,
-    interleaved (n, 2)."""
-    ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
-    tw = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-    return torch.from_numpy(tw).to(device)
+    """``_twiddle_tables(n)`` on the device."""
+    return torch.from_numpy(_twiddle_tables(n)).to(device)
 
 
 @functools.lru_cache(maxsize=128)
@@ -125,6 +161,8 @@ def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.
     non-contiguous tensor or a failed launch."""
     if n > MAX_N:
         raise NotImplementedError(f"n = {n}: {_PAST_MAX_N}")
+    if not kernel_length(n):
+        raise ValueError(f"n = {n} is not a K3 transform length")
     if rows.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {rows.device}")
     if not rows.is_contiguous():

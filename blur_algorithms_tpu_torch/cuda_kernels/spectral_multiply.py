@@ -4,21 +4,46 @@ spectrum (K5).
 The port of the JAX package's ``pallas_kernels/spectral_multiply.py``:
 ``spec[..., i, j] * (col[i] * row[j] * scale)``. A CUDA tensor launches the
 kernel of ``csrc/spectral_multiply.cu``, which reads the complex64 tensor in
-place as interleaved float pairs; a CPU tensor runs the plain version, the
-elementwise expression the JAX package uses off the TPU
-(``spectral_multiply.py:54-57``). The two agree bit for bit.
+place as interleaved float pairs, two values per 16-byte access; a CPU
+tensor runs the plain version, the elementwise expression the JAX package
+uses off the TPU (``spectral_multiply.py:54-57``). The two agree bit for
+bit. ``launch_geometry`` is the kernel's grid.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
 
 __all__ = [
+    "launch_geometry",
     "spectral_multiply_2d",
     "spectral_multiply_2d_ref",
     "spectral_multiply_rows",
 ]
+
+
+THREADS = 256  # threads per block of the kernel
+_MAX_GRID_Y = 65535
+
+
+def launch_geometry(planes: int, h: int, wf: int) -> tuple[int, int]:
+    """The kernel's grid (x, y): ``x`` blocks of ``THREADS`` threads, one
+    pair of values a thread (pair ``block * THREADS + thread``), cover the
+    most pairs a plane can have (``h * wf // 2``); ``y`` takes the planes,
+    at most 65535 (the kernel walks past it in steps of ``y``)."""
+    return max(1, -(-(h * wf // 2) // THREADS)), min(planes, _MAX_GRID_Y)
+
+
+@functools.lru_cache(maxsize=64)
+def _device_factors(col: bytes, row: bytes, device: torch.device):
+    """The float32 column and row spectra on the device, copied once per
+    spectrum pair and device (a plan's spectra are reused call after
+    call)."""
+    return (torch.frombuffer(bytearray(col), dtype=torch.float32).to(device),
+            torch.frombuffer(bytearray(row), dtype=torch.float32).to(device))
 
 
 def _factors(col_re, row_re, scale: float) -> tuple[np.ndarray, np.ndarray, np.float32]:
@@ -66,18 +91,21 @@ def spectral_multiply_2d(spec: torch.Tensor, col_re, row_re,
 
     h, wf = spec.shape[-2], spec.shape[-1]
     planes = spec.numel() // (h * wf) if spec.numel() else 0
-    if planes * h * wf >= 1 << 62:
-        raise ValueError("spectrum too large for K5")
-    out = torch.empty_like(spec)
+    if h * wf >= 1 << 31:
+        raise ValueError("K5 takes planes of fewer than 2**31 values")
     if planes == 0:
-        return out
-    col_t = torch.from_numpy(col).to(spec.device)
-    row_t = torch.from_numpy(row).to(spec.device)
+        return torch.empty_like(spec)
+    # out at the same offset from a 16-byte boundary as spec (the kernel's
+    # 16-byte accesses pair the same values in both)
+    odd = spec.data_ptr() % 16 // 8
+    out = torch.empty(spec.numel() + odd, dtype=spec.dtype,
+                      device=spec.device)[odd:].view(spec.shape)
+    col_t, row_t = _device_factors(col.tobytes(), row.tobytes(), spec.device)
     lib = load_library()
     with torch.cuda.device(spec.device):
         rc = lib.spectral_multiply_2d(
             spec.data_ptr(), out.data_ptr(), col_t.data_ptr(), row_t.data_ptr(),
-            float(s), planes, h, wf,
+            float(s), planes, h, wf, *launch_geometry(planes, h, wf),
             torch.cuda.current_stream(spec.device).cuda_stream,
         )
     if rc:

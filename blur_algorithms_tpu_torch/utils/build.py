@@ -132,13 +132,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     ]
     lib.box_scan_axis.restype = i
     lib.fft_conv_rows.argtypes = [
-        vp, vp, vp, vp,  # x, out, twiddles, spectrum
+        vp, vp, vp, vp,  # x, out, twiddle tables, spectrum
         i, i, i,  # complex_h, rows, n
         vp,  # stream
     ]
     lib.fft_conv_rows.restype = i
     lib.fft_conv_rows_framed.argtypes = [
-        vp, vp, vp, vp,  # x, out, twiddles, spectrum
+        vp, vp, vp, vp,  # x, out, twiddle tables, spectrum
         i, i, i, i, i,  # complex_h, rows, n, dim, pad
         vp,  # stream
     ]
@@ -146,6 +146,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.spectral_multiply_2d.argtypes = [
         vp, vp, vp, vp,  # spec, out, col, row
         f, i, i, i,  # scale, planes, h, wf
+        i, i,  # grid_x, grid_y
         vp,  # stream
     ]
     lib.spectral_multiply_2d.restype = i

@@ -38,11 +38,11 @@ CPU_SPLIT_HBM_BUDGET = 4 << 30
 # its AUTO rung, or K2; the two-pass split from ``fused_split_min_radius``)
 # is still at least as fast as FFT_MXU, by device name: the chip_smoke.py
 # phase 10 sweep at batch 4 RGB 2160x3840 (PERF.md, "Routing sweeps"). NVIDIA
-# H100 80GB HBM3 at 700 W: uint8 split (hybrid pass 2) 7.88 vs FFT_MXU
-# 8.42 ms at r 332, 9.20 vs 8.42 at r 398; float split 6.00 vs 6.34 ms at
-# r 265, 7.26 vs 6.34 at r 332.
+# H100 80GB HBM3 at 700 W, with the radix-32 K3f: uint8 split (hybrid pass
+# 2) 4.32 vs FFT_MXU 5.21 ms at r 165, 5.39 vs 5.22 at r 212; float split
+# 2.81 vs 3.04 ms at r 119, 3.95 vs 3.14 at r 165.
 _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
-    "NVIDIA H100 80GB HBM3": (332, 265),
+    "NVIDIA H100 80GB HBM3": (165, 119),
 }
 
 # Largest swept box support radius at which a box on the fused engine is

@@ -35,11 +35,12 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    ``blur`` forward, forward + backward, the uint8 ``convolve_separable``,
    and a yardstick the port never calls (reflect pad + two depthwise
    ``F.conv2d``, TF32 off);
-8. K3 (four-step FFT convolution of framed rows) at n 256, 2048 and 16384,
-   K3f (the same with the framing in the kernel) at n 4096, 6144 and 7168,
-   symmetric and asymmetric taps, odd row counts, against their plain
-   versions (full-float32 einsums) on the card within 2e-2 at 0..255
-   scale; K5 (the spectral multiply) on a 4K rfft2 spectrum, bit-equal;
+8. K3 (FFT convolution of framed rows) at n 256, 2048, 6144, 7168, 8192
+   and 16384, K3f (the same with the framing in the kernel) at n 4096,
+   5120, 6144 and 7168 (the main path's lengths), symmetric and asymmetric
+   taps, odd row counts, against their plain versions (full-float32
+   einsums) on the card within 2e-2 at 0..255 scale, with the worst error;
+   K5 (the spectral multiply) on a 4K rfft2 spectrum, bit-equal;
 9. main path of slice 3, counts set to 0 first: ``blur_u8`` AUTO at sigma
    250 (r 831) on the batch resolves to FFT_MXU and launches K3f twice,
    frame 0 within 1 count of the oracle; ``blur`` forward + backward on the
@@ -50,7 +51,10 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    (K5), and ``dft_spectrum``, each against its oracle;
 10. times (median of 20, of 5 for calls over 100 ms): K3f per axis, K3 per
    axis of the adjoint, K5, their plain versions and the cuFFT yardstick
-   ``rfft`` -> multiply -> ``irfft`` on the same framed rows, the whole
+   ``rfft`` -> multiply -> ``irfft`` on the same framed rows (K5's:
+   ``torch.mul`` by the outer product), each kernel against its yardstick
+   and its bound (per axis and summed), the registers, shared memory and
+   spills ptxas reports for K3/K3f and K5, the whole
    calls, and the fused/FFT crossover sweep: ``blur_u8`` fused against
    FFT_MXU and ``blur`` fused against FFT_MXU, in turns at support radii
    32..598 (the values ``utils/hw.py`` takes; the fused engine as routed,
@@ -123,7 +127,8 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    pad-row fill), each ``torch.equal`` to single-card ``blur_u8`` on the
    same rung; ``blur_sharded`` uint8 -> f32 (K1a's int8 f32 store, equal to
    K1 int8's plain version), and on the float batch at sigma 10 (K2
-   pre-padded) and 50 (the haloed f32 split) against single-card ``blur``;
+   pre-padded) and 50 (the haloed f32 split, the card's float crossover
+   raised to r 165 for the call) against single-card ``blur``;
    ``blur_sharded_u8`` at sigma 155 rerouted to ``blur_fft_sharded`` (no
    kernel), ``blur_fft_sharded_u8`` at sigma 250, both within 1 count of the
    oracle; the haloed int8 split (hybrid, then int8 pass 2) at sigma 250
@@ -146,6 +151,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -437,7 +443,10 @@ def _phase8(frames) -> dict:
     from blur_algorithms_tpu_torch.ops.pad import reflect_101
 
     errs = {"K3": 0.0, "K3f": 0.0, "K5": 0.0}
-    for n, width in ((256, 101), (2048, 801), (16384, 2661)):
+    # the main path's lengths: K3f's 4096..7168 (Q 1, 3, 5, 7), the
+    # adjoint's 8192 and 16384
+    for n, width in ((256, 101), (2048, 801), (6144, 2001), (7168, 2661), (8192, 2661),
+                     (16384, 2661)):
         for asym in (False, True):
             plan = make_custom_plan((8, n), _wide_taps(width, asym), [1.0])
             rows = torch.from_numpy(
@@ -452,7 +461,7 @@ def _phase8(frames) -> dict:
                   f"limit={FFT_TOL}", flush=True)
             if not err <= FFT_TOL:
                 raise RuntimeError(f"K3 disagrees with its plain version at n={n}")
-    for dim, width in ((2160, 1663), (3840, 1663), (3840, 2661)):
+    for dim, width in ((2160, 1663), (3840, 1663), (2160, 2661), (3840, 2661)):
         for asym in (False, True):
             plan = make_custom_plan((8, dim), _wide_taps(width, asym), [1.0])
             n = transform_length(plan.row)
@@ -483,6 +492,8 @@ def _phase8(frames) -> dict:
           f"(sigma {SIGMA}) equal={equal}", flush=True)
     if not equal:
         raise RuntimeError("K5 disagrees with its plain version")
+    print(f"phase 8 worst: K3 max_abs_err={errs['K3']:.3e}, K3f max_abs_err="
+          f"{errs['K3f']:.3e} (limit {FFT_TOL}); K5 equal", flush=True)
     return errs
 
 
@@ -642,6 +653,28 @@ def _sum_axes(a: dict, b: dict) -> dict:
             "bound_by": by, "err": max(a["err"], b["err"])}
 
 
+def _ptxas_lines(kernels) -> list[tuple[str, str]]:
+    """(kernel and template arguments, registers / shared memory / spills)
+    from the build's ``-Xptxas -v`` output, for entry functions whose name
+    holds one of ``kernels``."""
+    from blur_algorithms_tpu_torch.utils import build
+
+    out, name = [], None
+    for ln in build.last_build.get("log", "").splitlines():
+        if "Compiling entry function" in ln:
+            hit = [k for k in kernels if k in ln]
+            name = None
+            if hit:
+                tail = ln.split(hit[0], 1)[1].split("EvP")[0]  # the template arguments
+                args = [("false", "true")[int(v)] if k == "b" else v
+                        for k, v in re.findall(r"L([ib])(\d+)E", tail)]
+                name = hit[0] + (f"<{', '.join(args)}>" if args else "")
+                out.append([name, ""])
+        elif name and ("registers" in ln or "spill" in ln):
+            out[-1][1] = (out[-1][1] + " " + ln.replace("ptxas info    :", "").strip()).strip()
+    return [tuple(x) for x in out]
+
+
 def _crossover_sweep(frames) -> dict:
     """``blur_u8`` fused vs FFT_MXU and ``blur`` fused vs FFT_MXU (the
     fused engine as routed: K1 or K2, the two-pass split from the device's
@@ -763,6 +796,20 @@ def _slice3(frames) -> list[dict]:
     print("phase 10 sweep " + json.dumps(sweep), flush=True)
 
     k3f, k3 = _sum_axes(k3f_rows, k3f_cols), _sum_axes(*k3_entries)
+    k5 = {"ms": t_k5.median_ms, "plain_ms": t_k5p.median_ms, "bound_ms": k5_bound,
+          "bound_by": k5_by, "library_ms": t_k5l.median_ms}
+    for label, d in ((f"K3 adjoint rows sigma={SIGMA_F32_WIDE}", k3_entries[0]),
+                     (f"K3 adjoint cols sigma={SIGMA_F32_WIDE}", k3_entries[1]),
+                     (f"K3 adjoint both axes sigma={SIGMA_F32_WIDE}", k3),
+                     (f"K3f rows sigma={SIGMA_U8_WIDE}", k3f_rows),
+                     (f"K3f cols sigma={SIGMA_U8_WIDE}", k3f_cols),
+                     (f"K3f both axes sigma={SIGMA_U8_WIDE}", k3f),
+                     ("K5 (library: torch.mul)", k5)):
+        print(f"phase 10 {label}: kernel {d['ms']:.4f} ms, library {d['library_ms']:.4f} ms, "
+              f"kernel / library {d['ms'] / d['library_ms']:.3f}, bound {d['bound_ms']:.4f} ms "
+              f"({d['bound_by']}), share of bound {d['bound_ms'] / d['ms']:.1%}", flush=True)
+    for name, line in _ptxas_lines(("fft_conv_rows_kernel", "spectral_multiply_kernel")):
+        print(f"phase 10 ptxas {name}: {line}", flush=True)
     entry = lambda name, src, line, launches, d, err: {  # noqa: E731
         "name": name, "route": "cuda", "source": src,
         "replaces": line, "launches": launches, "max_abs_err": err,
@@ -777,9 +824,7 @@ def _slice3(frames) -> list[dict]:
               launched["fft_conv_rows_framed"], k3f, max(errs["K3f"], k3f["err"])),
         entry("spectral_multiply", "blur_algorithms_tpu_torch/csrc/spectral_multiply.cu",
               "blur_algorithms_tpu/pallas_kernels/spectral_multiply.py:30",
-              launched["spectral_multiply_2d"],
-              {"ms": t_k5.median_ms, "plain_ms": t_k5p.median_ms, "bound_ms": k5_bound,
-               "bound_by": k5_by, "library_ms": t_k5l.median_ms}, errs["K5"]),
+              launched["spectral_multiply_2d"], k5, errs["K5"]),
     ]
 
 
@@ -1985,10 +2030,12 @@ A4_RADII = (1, 32, 332, 598)
 HALO_SIGMAS = (1.0, 10.0, 50.0, 180.0)
 HALO_AXIS_CASES = ((HD, 400.0, 540), ((8400, 96), 1200.0, 525))  # (frame, sigma, h_loc)
 SHARD_MESHES = ((2, 2), (1, 4))  # blur_sharded_u8 at sigma 10
-GATHER_SP, SIGMA_GATHER = 16, 50.0  # h_loc 135 < r 165 < 332: the multi-hop gather
+GATHER_SP, SIGMA_GATHER = 16, 50.0  # h_loc 135 < r 165 <= 165: the multi-hop gather
 RAGGED_ROWS = 1001  # on sp 4: the pad-row fill
-SIGMA_SHARD_SPLIT = 50.0  # blur_sharded f32, r 165 >= 49: the haloed split
-SIGMA_SHARD_FFT = 155.0  # blur_sharded_u8, r 514 > 332: the distributed FFT
+# blur_sharded f32, r 165 >= 49: the haloed split, with the card's float
+# crossover (119 on the H100) raised to 165 for the call
+SIGMA_SHARD_SPLIT = 50.0
+SIGMA_SHARD_FFT = 155.0  # blur_sharded_u8, r 514 > 165: the distributed FFT
 SIGMA_SHARD_E32 = 250.0  # blur_sharded_u8 with the crossover raised: the haloed int8 split
 
 
@@ -2224,9 +2271,12 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
     for sigma, expect in ((SIGMA, {"blur_fused_f32": 4}),
                           (SIGMA_SHARD_SPLIT, {"blur_fused_axis_f32": 8})):
         p = make_plan((H, W), sigma)
-        out = drive(f"blur_sharded f32 {tuple(xf.shape)} dp 2 x sp 2 sigma={sigma}",
-                    lambda: blur_sharded(xf, p, mesh(2, 2)), expect)
-        err = float((out - blur(xf, sigma)).abs().max())
+        r = max(p.col.support_radius, p.row.support_radius)
+        crossover = max(r, device_spec(dev).auto_fused_max_radius_f32)
+        with _route_spec_as(dev, auto_fused_max_radius_f32=crossover):
+            out = drive(f"blur_sharded f32 {tuple(xf.shape)} dp 2 x sp 2 sigma={sigma}",
+                        lambda: blur_sharded(xf, p, mesh(2, 2)), expect)
+            err = float((out - blur(xf, sigma)).abs().max())
         print(f"phase 16 main path: blur_sharded f32 sigma={sigma} vs single-card blur: "
               f"max_abs_err={err:.3e}", flush=True)
         if err > 1e-3 * float(xf.abs().max()) / 255:

@@ -153,7 +153,7 @@ def test_k2_rejects_a_non_contiguous_tensor(cuda_device):
 # ---------------------------------------------------------------------------
 # K3, K3f, K5: the FFT engines' kernels against their plain versions. The
 # plain K3/K3f run the four-step einsums in full float32 on the card; the
-# kernel runs a mixed-radix f32 FFT, so the two differ by float rounding:
+# kernel runs radix-Q / R0 / 32 f32 passes, so the two differ by rounding:
 # limit 2e-2 at 0..255 scale (the JAX package's bound for its FFT engines).
 
 def _k3_plan(width, asymmetric, dim=300):
@@ -166,7 +166,8 @@ def _k3_plan(width, asymmetric, dim=300):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [256, 2048, 5120, 16384])
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096, 5120, 6144, 7168, 8192,
+                               12288, 15360, 16384])
 @pytest.mark.parametrize("asymmetric", [False, True])
 def test_k3_against_plain_version_on_the_card(cuda_device, n, asymmetric):
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
@@ -182,7 +183,8 @@ def test_k3_against_plain_version_on_the_card(cuda_device, n, asymmetric):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim, width", [(1100, 1101), (3840, 1663), (2160, 1663)])
+@pytest.mark.parametrize("dim, width", [(1100, 1101), (3840, 1663), (2160, 1663),
+                                        (3840, 2661), (2160, 2661)])
 @pytest.mark.parametrize("asymmetric", [False, True])
 def test_k3f_against_plain_version_on_the_card(cuda_device, dim, width, asymmetric):
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
@@ -201,19 +203,28 @@ def test_k3f_against_plain_version_on_the_card(cuda_device, dim, width, asymmetr
 
 
 @pytest.mark.cuda
-def test_k5_equals_plain_version_on_the_card(cuda_device):
+@pytest.mark.parametrize("shape", [(3, 40, 33), (3, 41, 33), (1, 6, 8), (5, 7, 1)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k5_equals_plain_version_on_the_card(cuda_device, shape, offset):
+    """Even and odd h * wf over several planes (pairs that straddle a row
+    end, a scalar head and tail), on an aligned base and on one 8 bytes
+    past a 16-byte boundary."""
     from blur_algorithms_tpu_torch.cuda_kernels import spectral_multiply as k5
 
     rng = np.random.default_rng(19)
-    spec = torch.from_numpy((rng.standard_normal((3, 40, 33))
-                             + 1j * rng.standard_normal((3, 40, 33))).astype(np.complex64))
-    col = rng.standard_normal(40).astype(np.float32)
-    row = rng.standard_normal(33).astype(np.float32)
+    n = int(np.prod(shape))
+    flat = (rng.standard_normal(n + 1) + 1j * rng.standard_normal(n + 1)).astype(np.complex64)
+    spec = torch.from_numpy(flat)
+    col = rng.standard_normal(shape[1]).astype(np.float32)
+    row = rng.standard_normal(shape[2]).astype(np.float32)
+    dev = spec.to(cuda_device)[offset:offset + n].view(shape)
+    assert dev.data_ptr() % 16 == 8 * offset
     before = k5.spectral_multiply_2d.launches
-    got = k5.spectral_multiply_2d(spec.to(cuda_device), col, row, 0.5)
+    got = k5.spectral_multiply_2d(dev, col, row, 0.5)
     torch.cuda.synchronize()
     assert k5.spectral_multiply_2d.launches == before + 1
-    assert torch.equal(got.cpu(), k5.spectral_multiply_2d(spec, col, row, 0.5))
+    want = k5.spectral_multiply_2d(spec[offset:offset + n].view(shape), col, row, 0.5)
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

@@ -121,9 +121,13 @@ def test_framed_applicable_equals_jax(n):
 
 @pytest.mark.parametrize("n", [256, 512, 2048, 6144, 7168, 11264, 15360, 16384])
 def test_kernel_bin_order_is_the_digit_reversed_dif_output(n):
-    """A NumPy model of the kernel's forward stages (``csrc/fft4step.cu``:
-    decimation in frequency, radix Q then 4s then 2) leaves frequency
+    """A NumPy model of the kernel's forward passes (``csrc/fft4step.cu``:
+    decimation in frequency, radix Q, then radix R0, then radix-32 passes,
+    each leaving digit q of its R-point DFT at base + q s) leaves frequency
     ``_kernel_bin_order(n)[p]`` at position p."""
+    radices = t_k3._radices(n)
+    assert radices[-1] == 32 and np.prod(radices) == n
+    assert all(r in (3, 5, 7, 9, 11, 13, 15) for r in radices[:-2] if r % 2)
     x = np.array([1, 1j]) @ np.random.default_rng(n).standard_normal((2, n))
     span = n
     for r in t_k3._radices(n):
