@@ -1,64 +1,95 @@
 // The int8 forms of the two-pass wide-radius split: a rows-only pass over
-// uint8 planes and a cols-only pass over its int16 intermediate E.
+// uint8 planes and two cols-only passes over its int16 intermediate E.
 //
 // Replaces: blur_algorithms_tpu/pallas_kernels/fused_blur.py:_kernel_int8
 // in its split forms: skip_cols with out_e32 (pass 1, int16 E out), skip_cols
 // without it (pass 1, f32 R / Sr + 128 out, where pass 2 cannot run int8),
-// and in_e32 (pass 2, E in, uint8 or f32 out). The JAX kernel contracts
-// each window with int8 band matrices on the MXU; every column of a
-// quantised band matrix holds the same integer taps, shifted, so the band
-// dots are 1-D correlations with the taps q = 128 * q_hi + q_lo, as in K1
-// (csrc/fused_dma.cu), and these kernels compute the same exact integers:
-//
-//   rows:  R = sum_t q[t] * (x[j - rw + t] - 128), exact in int32 as
-//          128 * (q_hi dots) + (q_lo dots) with __dp4a;
-//          E = (R + 2^(s-1)) >> s (an arithmetic shift, written out), int16,
-//          or fma(f32(R), f32(1 / Sr), 128) in f32 (one rounding, as XLA
-//          contracts the JAX kernel's R * (1 / Sr) + 128);
-//   cols:  E = 128 * e1 + e0 with e1 = (E + 64) >> 7; p1 = sum b_hi * e1,
-//          p23 = sum b_hi * e0 + b_lo * e1, p4 = sum b_lo * e0 with __dp4a
-//          on four consecutive rows of a digit column; then K1's epilogue
-//          p1 * c1 + p23 * c2 + p4 * c3 + 128 (int8_epilogue: for the
-//          uint8 store each product and sum rounded on its own, and the
-//          store clip(y + 0.5, 0, 255.5) truncated; for the f32 store
-//          fma(p4, c3, fma(p23, c2, p1 * c1)) + 128, as XLA compiles the
-//          JAX expression in interpret mode on an FMA host; --fmad=false
-//          keeps nvcc from contracting anything else).
-// The result is bit-equal to the JAX kernel's and to the plain versions
-// (cuda_kernels/fused_split.py). Reflect-101 is index math in the loaders
-// (the JAX wrapper pads E by reflect before pass 2). Both cols passes also
-// take E with the caller's halo rows (pre = 1: the JAX e32="in" with
+// in_e32 (pass 2, E in, uint8 or f32 out) and hybrid_cols (the hybrid pass
+// 2, fused_blur.py:282-298, epilogue :339-340). Both cols passes also take
+// E with the caller's halo rows (pre = 1: the JAX e32="in" with
 // pre_padded_col=True, fused_blur.py:1080-1084, the sharded path's haloed
 // split): h + 2rh rows a plane, read as they are, never reflected.
+// Reflect-101 is index math in the loaders (the JAX wrapper pads E by
+// reflect before pass 2).
 //
-// The hybrid pass 2 (fused_split_cols_hybrid) replaces the same kernel's
-// hybrid_cols branch (fused_blur.py:282-298, epilogue :339-340): E rounded
-// once, y = bf16(f32(E)), acc = sum_t bf16(c_t) * y[t] in f32 in ascending
-// tap order (one __fmaf_rn a tap; a bf16 product is exact in f32), out =
-// fma(acc, f32(1 / 127), 128). It is bit-equal to its plain version; the
-// JAX kernel sums one partial product per neighbour block and then adds the
-// blocks, so it agrees with that to a couple of f32 ulps.
+// The rows pass (split_rows_int8_kernel) computes what the JAX kernel's
+// int8 band products do (fused_blur.py:301-318, the band blocks of
+// band_block_matrix): R = sum_t q[t] * (x[j - rw + t] - 128) with q = 128 *
+// q_hi + q_lo, exact in int32; E = asr(R + 2^(s-1), s) as int16, or
+// fma(f32(R), f32(1 / Sr), 128) as f32 (one rounding, as XLA contracts the
+// JAX kernel's R * (1 / Sr) + 128). It runs as a band product on the int8
+// tensor cores, mma.sync.m16n8k32.row.col.s32.s8.u8.s32: A (16 x 32, s8) is
+// the band of one digit, A[m][k] = q[32s + k - m] for 16 output columns and
+// k-step s; B (32 x 8, u8) is 8 image rows x 32 window columns of the raw
+// bytes, fed by ldmatrix (one B fragment feeds the q_hi and the q_lo
+// product). The band depends only on 32s + k - m, so every 16-column block
+// of outputs starts its k-steps at its own first window column and reads the
+// same A fragments: four byte-shifted copies of each digit's taps in shared
+// memory make each A register one aligned 32-bit load. x is multiplied raw
+// (u8) and the recentring is one subtraction, R = 128 (hi - 128 Q_hi) + lo -
+// 128 Q_lo, with Q the taps' sum; every product and sum is an exact integer,
+// so any order gives the same bits. The taps get (-rw) mod 16 leading zeros,
+// so that every window starts 16-byte aligned: interior segments are
+// cp.async copies of 16 bytes, segments past the frame's edge the two
+// aligned words they mirror, byte-reversed with __byte_perm; reflect-101
+// byte loads are left for rows that are not 16-byte aligned and windows
+// past one reflection. Block: 8 warps, 64 image rows x 128 output columns, a warp one
+// 16-column block x all 64 rows (16 mma per k-step: 8 n-blocks x 2 digits);
+// the window streams through a 1024-column ring in chunks of 256 (8
+// k-steps), two chunks ahead of the products; the outputs go out through
+// shared memory in coalesced rows.
 //
-// Layout. Rows: one block of 256 threads per 4 rows x 256 columns; the four
-// reflect-101 row segments of 256 + 2rw bytes sit in shared memory recentred
-// to int8, each thread computes 4 adjacent outputs of one row. Cols: one
-// block per 128 rows x 32 columns; the column taps run in chunks of 128, and
-// each chunk stages the 128 + 128 + 4 rows it needs as base-128 digit planes
-// in shared memory (column-major, an odd number of words per column so that
-// a warp's 32 columns hit 32 banks); each thread keeps 4 groups of 4 rows of
-// one column, 48 int32 sums in registers, across the chunks. Shared memory
-// stays ~34 KB (cols) and <= 51 KB (rows) up to r 4096. The hybrid cols
-// pass has the int8 cols pass's blocks, chunks and staging, with one bf16
-// plane in place of the two digit planes and f32 taps (~50 KB at r 4096);
-// each thread keeps 16 f32 sums and runs an 8-value register window read
-// as two 8-byte words.
+// The int8 cols pass (split_cols_int8_kernel): E = 128 * e1 + e0 with e1 =
+// (E + 64) >> 7; p1 = sum b_hi * e1, p23 = sum b_hi * e0 + b_lo * e1, p4 =
+// sum b_lo * e0 with __dp4a on four consecutive rows of a digit column; then
+// K1's epilogue p1 * c1 + p23 * c2 + p4 * c3 + 128 (int8_epilogue: for the
+// uint8 store each product and sum rounded on its own, and the store clip(y
+// + 0.5, 0, 255.5) truncated; for the f32 store fma(p4, c3, fma(p23, c2, p1 *
+// c1)) + 128, as XLA compiles the JAX expression in interpret mode on an FMA
+// host; --fmad=false keeps nvcc from contracting anything else). Bit-equal
+// to the JAX kernel and to its plain version. One block per 128 rows x 32
+// columns; the column taps run in chunks of 128, each staging the 128 + 128
+// + 4 rows it needs as base-128 digit planes (column-major, an odd number of
+// words per column); each thread keeps 4 groups of 4 rows of one column, 48
+// int32 sums in registers, across the chunks (~34 KB of shared memory).
 //
-// What bounds it on an H100: integer issue, as K1. Per output the rows pass
-// costs (2rw + 1) / 2 dp4a and the cols pass (2rh + 1) dp4a, against 1 byte
-// in, 2 + 2 bytes of E and 1 byte out in device memory. The split trades K1's
-// recomputed halo rows (a (th + 2rh) / th factor on the rows pass) for the
-// round trip of E; the cols chunks re-read E from L2 about
-// 2 (2rh + 1) / 128 times per output. Tensor-core int8 mma is later work.
+// The hybrid pass 2 (split_cols_hybrid_kernel): y = bf16(f32(E)), acc =
+// sum_t bf16(c_t) * y[t] in f32, out = fma(acc, f32(1 / 127), 128). It runs
+// as a band product along the columns on the bf16 tensor cores,
+// mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32: A (16 x 16) is the band of
+// the column taps, B (16 x 8) 16 input rows x 8 columns of y, fed by
+// ldmatrix.trans. The tensor core sums a k-step's 16 products in its own
+// order and rounding, so an output's f32 result depends on how its taps are
+// grouped into k-steps; the grouping depends only on the output row's own
+// taps, never on where its tile or its shard starts: one m16 fragment holds
+// the 16 output rows i, i + 16, ..., i + 240, and its k-step s reads the 16
+// input rows from i - rh + 16s, so output row i + 16m takes, at step s, the
+// taps [16 (s - m), 16 (s - m) + 16) of its own tap index: the aligned groups
+// of 16 taps, added to its sum in ascending order, group g at the same
+// position of the step in every tile. So a shard's pre-padded pass 2 is
+// bit-equal to the single-card call on the same rows, and a change of tile
+// shape or origin changes no result. The A fragment of step s is
+// block-Toeplitz (row m holds tap group s - m) and is the same for every
+// fragment: it comes from the zero-padded bf16 tap groups in shared memory
+// (12 words a group, so that a load's 8 groups hit 32 banks). Block: 8 warps, 256
+// output rows (16 fragments) x 64 columns; a warp takes fragments f and f +
+// 8, whose B fragments share 8 input rows (12 ldmatrix matrices per 16 mma
+// a step). E (int16) is fetched a chunk of 128 rows at a time with cp.async
+// into a staging buffer, two chunks ahead, converted to bf16 once per
+// element into a 384-row ring, and read from there. Within 2e-2 at 0..255
+// scale of its plain version (which sums tap by tap in ascending order) on
+// the f32 store and 1 count on the uint8 store: ~2 f32 ulps of |acc| <=
+// 16384 a step, over <= ~530 steps at r 4094, over 127.
+//
+// What bounds them on an H100 (12 planes 2160 x 3840, r 831): the rows
+// pass's 2 digits x 2 x 1663 int8 operations an output (0.335 ms at 1,979
+// TOP/s) against 1 byte in and 2 bytes of E out (0.089 ms); its band wastes
+// (32 * steps) / (2rw + 1), ~1.02 at r 831. The hybrid pass 2's 2 x 1663
+// bf16 operations an output (0.335 ms at 989 TFLOP/s) against E in and 1
+// byte out (0.089 ms); its fragments waste (16 * (groups + 15)) / (2rh + 1),
+// ~1.14 at r 831 and ~3.6 at r 49, and re-read E from L2 (256 + 2rh) / 256
+// times. Both stream their windows from L2 through shared memory; the
+// products are issued as mma.sync, whose rate on Hopper is below wgmma's.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
@@ -70,12 +101,25 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kRowsTw = 256;  // rows pass: output columns per block
-constexpr int kRowsG = 4;     // rows pass: rows per block
-constexpr int kColsTh = 128;  // cols pass: output rows per block
-constexpr int kColsTw = 32;   // cols pass: output columns per block
-constexpr int kChunk = 128;   // cols pass: taps per staged chunk
+constexpr int kColsTh = 128;  // int8 cols pass: output rows per block
+constexpr int kColsTw = 32;   // int8 cols pass: output columns per block
+constexpr int kChunk = 128;   // int8 cols pass: taps per staged chunk
 constexpr int kGroups = kColsTh / 4 / (kThreads / kColsTw);  // row groups per thread
+
+// the rows pass: 8 warps of one 16-column block x all kRowsTr rows
+constexpr int kRowsTn = 128;                // output columns per block
+constexpr int kRowsTr = 64;                 // image rows per block: 8 n-blocks of 8
+constexpr int kRowsLoad = 256;              // window columns per staged chunk (8 k-steps)
+constexpr int kRowsRing = 4 * kRowsLoad;    // ring columns: four chunks
+constexpr int kRowsPitch = kRowsRing + 16;  // bytes per staged row: ldmatrix rows on 8 bank groups
+
+// the hybrid pass 2: 16 fragments (rows f + 16m) x 8 n-blocks; a warp takes f and f + 8
+constexpr int kHybTh = 256;             // output rows per block
+constexpr int kHybTw = 64;              // output columns per block
+constexpr int kHybLoad = 128;           // window rows per staged chunk (8 k-steps)
+constexpr int kHybRing = 3 * kHybLoad;  // ring rows: three chunks
+constexpr int kHybPitch = kHybTw + 8;   // bf16 per ring row (144 bytes): ldmatrix rows on 8 bank groups
+constexpr int kHybGroupWords = 12;      // words per tap group of 16 bf16: 8 consecutive groups on 32 banks
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -83,6 +127,40 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int cols_stride() {
   const int hp = kColsTh + kChunk + 4;
   return ((hp >> 2) & 1) ? hp : hp + 4;
+}
+
+// The rows pass's k-steps: the taps get delta = (-rw) mod 16 leading zeros
+// (the window then starts 16-byte aligned) and run in steps of 32 window
+// columns: row m of a 16-column block reads taps 32s + k - m, so steps
+// cover delta + 2rw + 1 taps for every m. Each digit keeps four copies of
+// its taps, copy c word i = taps [4i + c - 16, 4i + c - 13] (after the
+// delta zeros), of `words` words each, a count = 8 (mod 32) so that the
+// four copies fall on different banks.
+struct RowsGeometry {
+  int delta, steps, words;
+};
+
+__host__ __device__ inline RowsGeometry rows_geometry(int rw) {
+  RowsGeometry g;
+  g.delta = (16 - rw % 16) % 16;
+  g.steps = (g.delta + 2 * rw + 1 + 15 + 31) / 32;
+  const int need = 8 * g.steps + 4;
+  g.words = need + ((8 - need) % 32 + 32) % 32;
+  return g;
+}
+
+__host__ __device__ inline int rows_smem(int rw) {
+  return kRowsTr * kRowsPitch + 2 * 4 * 4 * rows_geometry(rw).words;
+}
+
+// The hybrid pass 2's tap groups of 16 and k-steps: fragment row m takes
+// group s - m at step s, for groups 0 .. hyb_groups - 1.
+__host__ __device__ inline int hyb_groups(int rh) { return (2 * rh + 1 + 15) / 16; }
+
+__host__ __device__ inline int hyb_smem(int rh) {
+  // the bf16 ring, the int16 staging chunk, the tap groups -15 .. groups + 14
+  return kHybRing * kHybPitch * 2 + kHybLoad * kHybTw * 2 +
+         (hyb_groups(rh) + 30) * kHybGroupWords * 4;
 }
 
 __device__ __forceinline__ int reflect101(int i, int n) {
@@ -126,61 +204,237 @@ __device__ __forceinline__ int shifted(int lo, int hi, int k) {
   return __byte_perm(lo, hi, 0x3210 + 0x1111 * k);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint8_t store_u8(float y) {
+  const float v = fminf(fmaxf(__fadd_rn(y, 0.5f), 0.0f), 255.5f);
+  return static_cast<uint8_t>(__float2int_rz(v));
+}
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(unsigned dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 u8, col), s32
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// two int16 (the low and high halves of v) -> two bf16, the first low
+__device__ __forceinline__ unsigned bf16x2_of_i16x2(unsigned v) {
+  const float lo = static_cast<float>(static_cast<int16_t>(v & 0xffffu));
+  const float hi = static_cast<float>(static_cast<int16_t>(v >> 16));
+  return bf16_bits(lo) | (bf16_bits(hi) << 16);
+}
+
+__global__ void __launch_bounds__(kThreads, 2)
 split_rows_int8_kernel(const uint8_t* __restrict__ x, void* __restrict__ out,
                        const int* __restrict__ taps, int h, int w, int rw,
                        int out_e32, int rows_shift, float inv_scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t4w = round4(2 * rw + 1), nqw = t4w >> 2;
-  const int sw = kRowsTw + t4w;
-  int* s_taps = reinterpret_cast<int*>(smem);  // q_hi | q_lo words
-  signed char* s_x = reinterpret_cast<signed char*>(s_taps + 2 * nqw);
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kRowsTw, i0 = blockIdx.y * kRowsG;
+  const RowsGeometry geo = rows_geometry(rw);
+  unsigned char* s_x = smem;  // the window ring: kRowsTr rows x kRowsRing columns
+  unsigned* s_q = reinterpret_cast<unsigned*>(smem + kRowsTr * kRowsPitch);  // [digit][copy][word]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j0 = blockIdx.x * kRowsTn, i0 = blockIdx.y * kRowsTr;
   const size_t plane = static_cast<size_t>(blockIdx.z) * h * w;
   const uint8_t* xp = x + plane;
+  const int gc0 = j0 - rw - geo.delta;  // image column of window column 0
+  const int nload = (kRowsTn - 16 + 32 * geo.steps + kRowsLoad - 1) / kRowsLoad;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | static_cast<uintptr_t>(w)) & 15) == 0;
 
-  for (int k = tid; k < 2 * nqw; k += kThreads) s_taps[k] = taps[k];
-  for (int c = tid; c < sw; c += kThreads) {
-    const int gj = reflect101(j0 - rw + c, w);
-    for (int rr = 0; rr < kRowsG; ++rr) {
-      const int gi = min(i0 + rr, h - 1);
-      s_x[rr * sw + c] =
-          static_cast<signed char>(xp[static_cast<size_t>(gi) * w + gj] ^ 0x80);
+  // window columns [256c, 256c + 256) of the block's rows into the ring,
+  // one commit group
+  auto load = [&](int c) {
+    if (c < nload) {
+      for (int k = tid; k < kRowsTr * (kRowsLoad / 16); k += kThreads) {
+        const int rr = k >> 4;
+        const int wc = c * kRowsLoad + ((k & 15) << 4);
+        const uint8_t* src = xp + static_cast<size_t>(min(i0 + rr, h - 1)) * w;
+        unsigned char* dst = s_x + rr * kRowsPitch + (wc & (kRowsRing - 1));
+        const int gc = gc0 + wc;
+        if (vec && gc >= 0 && gc + 16 <= w) {
+          cp_async16(smem_u32(dst), src + gc);
+        } else if (vec && gc < 0 && gc >= 16 - w) {
+          // left of the frame: x[-gc - k], k = 0..15, reversed out of the
+          // aligned words at -gc - 16 and -gc
+          const uint4 a = *reinterpret_cast<const uint4*>(src - gc - 16);
+          const uint4 b = *reinterpret_cast<const uint4*>(src - gc);
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(__byte_perm(a.w, b.x, 0x1234), __byte_perm(a.z, a.w, 0x1234),
+                         __byte_perm(a.y, a.z, 0x1234), __byte_perm(a.x, a.y, 0x1234));
+        } else if (vec && gc >= w && gc <= 2 * w - 32) {
+          // right of it: x[2(w - 1) - gc - k], out of the aligned words at
+          // 2w - 32 - gc and 2w - 16 - gc
+          const uint4 a = *reinterpret_cast<const uint4*>(src + 2 * w - 32 - gc);
+          const uint4 b = *reinterpret_cast<const uint4*>(src + 2 * w - 16 - gc);
+          *reinterpret_cast<uint4*>(dst) =
+              make_uint4(__byte_perm(b.z, b.w, 0x3456), __byte_perm(b.y, b.z, 0x3456),
+                         __byte_perm(b.x, b.y, 0x3456), __byte_perm(a.w, b.x, 0x3456));
+        } else {
+          unsigned v[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            unsigned word = 0;
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              word |= static_cast<unsigned>(src[reflect101(gc + 4 * q + b, w)]) << (8 * b);
+            }
+            v[q] = word;
+          }
+          *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  load(0);
+  load(1);
+
+  // the four shifted copies of each digit's taps (after delta zeros): word
+  // i of copy c starts at tap 4i + c - 16 - delta = 4 (i + wb) + rb + c, so
+  // the three tap words from i + wb cover the four copies' word i
+  const int nqw = round4(2 * rw + 1) >> 2;
+  const int wb = (-16 - geo.delta) >> 2, rb = (-16 - geo.delta) & 3;
+  for (int i = tid; i < geo.words; i += kThreads) {
+    unsigned tw[2][3];
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const int wi = i + wb + k;
+        tw[d][k] = (wi >= 0 && wi < nqw) ? static_cast<unsigned>(taps[d * nqw + wi]) : 0u;
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int t = rb + c;  // 0..6: words t >> 2 and (t >> 2) + 1 of the three
+        const bool up = t >= 4;
+        s_q[(4 * d + c) * geo.words + i] =
+            __funnelshift_r(up ? tw[d][1] : tw[d][0], up ? tw[d][2] : tw[d][1], 8 * (t & 3));
+      }
+    }
+  }
+  // Q = sum q = 128 sum q_hi + sum q_lo (every lane of every warp)
+  int qsum = 0;
+  for (int k = lane; k < 2 * nqw; k += 32) {
+    qsum += __dp4a(taps[k], 0x01010101, 0) * (k < nqw ? 128 : 1);
+  }
+#pragma unroll
+  for (int o = 16; o; o >>= 1) qsum += __shfl_xor_sync(0xffffffffu, qsum, o);
+
+  // A: row m = g of the block, taps 32s + 4 tig - g (+ 0, -8, +16, +8 for
+  // the four registers), all in the copy (4 tig - g) mod 4
+  const int g = lane >> 2, tig = lane & 3;
+  const int b0 = 4 * tig - g + 16;
+  const unsigned* qh = s_q + (b0 & 3) * geo.words + (b0 >> 2);
+  const unsigned* ql = qh + 4 * geo.words;
+  // B: ldmatrix x4 of rows 16p + (0..15) at columns 16 warp + 32s + (0, 16)
+  const int lrow = ((lane >> 4) << 3) + (lane & 7);
+  const int lcol = 16 * warp + (((lane >> 3) & 1) << 4);
+  const unsigned xa = smem_u32(s_x) + lrow * kRowsPitch;
+  int acc_h[8][4], acc_l[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) acc_h[n][v] = acc_l[n][v] = 0;
+  }
+  const int nch = (geo.steps + 7) / 8;
+  for (int ch = 0; ch < nch; ++ch) {
+    load(ch + 2);         // into the ring slot chunk ch - 1 held
+    cp_async_wait<1>();   // chunks ch and ch + 1 landed (this thread's copies)
+    __syncthreads();      // ... and every thread's
+    const int s_end = min(8 * ch + 8, geo.steps);
+    for (int s = 8 * ch; s < s_end; ++s) {
+      const unsigned ah[4] = {qh[8 * s], qh[8 * s - 2], qh[8 * s + 4], qh[8 * s + 2]};
+      const unsigned al[4] = {ql[8 * s], ql[8 * s - 2], ql[8 * s + 4], ql[8 * s + 2]};
+      const unsigned xs = xa + ((lcol + 32 * s) & (kRowsRing - 1));
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        unsigned b[4];
+        ldsm_x4(xs + p * 16 * kRowsPitch, b);
+        mma_s8u8(acc_h[2 * p], ah, b[0], b[1]);
+        mma_s8u8(acc_l[2 * p], al, b[0], b[1]);
+        mma_s8u8(acc_h[2 * p + 1], ah, b[2], b[3]);
+        mma_s8u8(acc_l[2 * p + 1], al, b[2], b[3]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // every warp is done with the ring: stage the outputs there
+
+  // R = 128 (hi - 128 Q_hi) + (lo - 128 Q_lo), exact modulo 2^32
+  const unsigned off = 128u * static_cast<unsigned>(qsum);
+  constexpr int kPitchE = kRowsTn + 8, kPitchF = kRowsTn + 4;
+  int16_t* s_e = reinterpret_cast<int16_t*>(smem);
+  float* s_f = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int rr = 8 * n + 2 * tig + (v & 1);
+      const int cc = 16 * warp + g + 8 * (v >> 1);
+      const int r = static_cast<int>(128u * static_cast<unsigned>(acc_h[n][v]) +
+                                     static_cast<unsigned>(acc_l[n][v]) - off);
+      if (out_e32) {
+        s_e[rr * kPitchE + cc] = static_cast<int16_t>(asr(r + (1 << (rows_shift - 1)), rows_shift));
+      } else {
+        s_f[rr * kPitchF + cc] = __fmaf_rn(__int2float_rn(r), inv_scale, 128.0f);
+      }
     }
   }
   __syncthreads();
-
-  const int rr = tid / (kRowsTw / 4);
-  const int c0 = (tid % (kRowsTw / 4)) << 2;
-  const int* xw = reinterpret_cast<const int*>(s_x + rr * sw + c0);
-  int hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
-  int cur = xw[0];
-  for (int q = 0; q < nqw; ++q) {
-    const int nxt = xw[q + 1];
-    const int qh = s_taps[q], ql = s_taps[nqw + q];
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int v = shifted(cur, nxt, s);
-      hi[s] = __dp4a(v, qh, hi[s]);
-      lo[s] = __dp4a(v, ql, lo[s]);
-    }
-    cur = nxt;
-  }
-  const int gi = i0 + rr;
-  if (gi >= h) return;
-#pragma unroll
-  for (int s = 0; s < 4; ++s) {
-    const int gj = j0 + c0 + s;
-    if (gj >= w) break;
-    const int r = hi[s] * 128 + lo[s];
+  for (int k = tid; k < kRowsTr * kRowsTn; k += kThreads) {
+    const int rr = k / kRowsTn, cc = k % kRowsTn;
+    const int gi = i0 + rr, gj = j0 + cc;
+    if (gi >= h || gj >= w) continue;
     const size_t o = plane + static_cast<size_t>(gi) * w + gj;
     if (out_e32) {
-      static_cast<int16_t*>(out)[o] =
-          static_cast<int16_t>(asr(r + (1 << (rows_shift - 1)), rows_shift));
+      static_cast<int16_t*>(out)[o] = s_e[rr * kPitchE + cc];
     } else {
-      static_cast<float*>(out)[o] =
-          __fmaf_rn(__int2float_rn(r), inv_scale, 128.0f);
+      static_cast<float*>(out)[o] = s_f[rr * kPitchF + cc];
     }
   }
 }
@@ -271,95 +525,160 @@ split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
   }
 }
 
-// eight consecutive bf16 values, two 8-byte words, as f32
-__device__ __forceinline__ void unpack8(uint2 a, uint2 b, float v[8]) {
-  v[0] = __uint_as_float(a.x << 16);
-  v[1] = __uint_as_float(a.x & 0xffff0000u);
-  v[2] = __uint_as_float(a.y << 16);
-  v[3] = __uint_as_float(a.y & 0xffff0000u);
-  v[4] = __uint_as_float(b.x << 16);
-  v[5] = __uint_as_float(b.x & 0xffff0000u);
-  v[6] = __uint_as_float(b.y << 16);
-  v[7] = __uint_as_float(b.y & 0xffff0000u);
-}
-
 template <bool kOutU8>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 split_cols_hybrid_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
                          const float* __restrict__ taps, int h, int w, int rh,
                          int pre, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t4h = round4(2 * rh + 1);
-  const int cs = cols_stride();
-  float* s_taps = reinterpret_cast<float*>(smem);  // bf16-rounded column taps
-  unsigned short* s_y = reinterpret_cast<unsigned short*>(s_taps + t4h);
-  const int tid = threadIdx.x;
-  const int tiles_w = (w + kColsTw - 1) / kColsTw;
-  const int i0 = (blockIdx.x / tiles_w) * kColsTh;
-  const int j0 = (blockIdx.x % tiles_w) * kColsTw;
+  const int groups = hyb_groups(rh), steps = groups + 15;
+  unsigned char* s_y = smem;  // the bf16 ring: kHybRing rows x kHybPitch
+  int16_t* s_raw = reinterpret_cast<int16_t*>(smem + kHybRing * kHybPitch * 2);
+  unsigned* s_c = reinterpret_cast<unsigned*>(smem + kHybRing * kHybPitch * 2 +
+                                              kHybLoad * kHybTw * 2);  // [group + 15][12 words]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles_w = (w + kHybTw - 1) / kHybTw;
+  const int i0 = (blockIdx.x / tiles_w) * kHybTh;
+  const int j0 = (blockIdx.x % tiles_w) * kHybTw;
   const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
   const int xh = pre ? h + 2 * rh : h;  // rows of an input plane
   const int16_t* ep = e + static_cast<size_t>(blockIdx.y) * xh * w;
+  const int nload = (16 * steps + 15 + kHybLoad - 1) / kHybLoad;
+  const bool vec = ((reinterpret_cast<uintptr_t>(e) & 15) | (w & 7)) == 0;
 
-  for (int k = tid; k < t4h; k += kThreads) s_taps[k] = taps[k];
-  const int j = tid % kColsTw;  // this thread's column
-  const int a = tid / kColsTw;  // its first row group
-  float acc[kGroups][4];
+  // window rows [128c, 128c + 128) (window row 0: the input row of output
+  // row i0's first tap) as int16 into the staging chunk; convert() then
+  // writes them as bf16 into the ring. Each thread converts the elements it
+  // fetched, so only its own copies need to have landed.
+  auto fetch = [&](int c) {
+    for (int k = tid; k < kHybLoad * (kHybTw / 8); k += kThreads) {
+      const int rr = k >> 3, gj = j0 + ((k & 7) << 3);
+      const int16_t* src = ep + static_cast<size_t>(src_row(i0 - rh + c * kHybLoad + rr, h, rh,
+                                                            xh, pre)) * w;
+      int16_t* dst = s_raw + rr * kHybTw + ((k & 7) << 3);
+      if (vec && gj + 8 <= w) {
+        cp_async16(smem_u32(dst), src + gj);
+      } else {
 #pragma unroll
-  for (int m = 0; m < kGroups; ++m) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[m][s] = 0.0f;
-  }
-  const int gjl = min(j0 + j, w - 1);  // staging column of this lane
-  const int rows = kColsTh + kChunk + 4;
-  for (int k0 = 0; k0 < t4h; k0 += kChunk) {
-    __syncthreads();  // the previous chunk is done with the y plane
-    for (int rr = a; rr < rows; rr += kThreads / kColsTw) {
-      const int gi = src_row(i0 - rh + k0 + rr, h, rh, xh, pre);
-      const float v = static_cast<float>(ep[static_cast<size_t>(gi) * w + gjl]);
-      s_y[j * cs + rr] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
-    }
-    __syncthreads();
-    const int nq = min(kChunk, t4h - k0) >> 2;
-    const float4* ct = reinterpret_cast<const float4*>(s_taps + k0);
-#pragma unroll
-    for (int m = 0; m < kGroups; ++m) {
-      const int ii = (a + m * (kThreads / kColsTw)) << 2;
-      const uint2* d = reinterpret_cast<const uint2*>(s_y + j * cs + ii);
-      uint2 cur = d[0];
-      for (int q = 0; q < nq; ++q) {
-        const uint2 nxt = d[q + 1];
-        float v[8];
-        unpack8(cur, nxt, v);
-        const float4 t = ct[q];
-        const float tq[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-#pragma unroll
-          for (int s = 0; s < 4; ++s) {
-            acc[m][s] = __fmaf_rn(tq[u], v[u + s], acc[m][s]);
-          }
-        }
-        cur = nxt;
+        for (int q = 0; q < 8; ++q) dst[q] = src[min(gj + q, w - 1)];
       }
     }
+    cp_async_commit();
+  };
+  auto convert = [&](int c) {
+    cp_async_wait<0>();
+    for (int k = tid; k < kHybLoad * (kHybTw / 8); k += kThreads) {
+      const int rr = k >> 3;
+      const uint4 v = *reinterpret_cast<const uint4*>(s_raw + rr * kHybTw + ((k & 7) << 3));
+      const uint4 y = make_uint4(bf16x2_of_i16x2(v.x), bf16x2_of_i16x2(v.y),
+                                 bf16x2_of_i16x2(v.z), bf16x2_of_i16x2(v.w));
+      *reinterpret_cast<uint4*>(s_y + ((c * kHybLoad + rr) % kHybRing) * (2 * kHybPitch) +
+                                ((k & 7) << 4)) = y;
+    }
+  };
+  fetch(0);
+  // the tap groups -15 .. groups + 14 (zero outside 0 .. groups - 1) as bf16
+  // pairs, word p of stored group gs at 12 gs + p
+  for (int k = tid; k < (groups + 30) * 8; k += kThreads) {
+    const int gs = k >> 3, p = k & 7;
+    const int t = 16 * (gs - 15) + 2 * p;
+    const float c0 = (t >= 0 && t <= 2 * rh) ? taps[t] : 0.0f;
+    const float c1 = (t + 1 >= 0 && t + 1 <= 2 * rh) ? taps[t + 1] : 0.0f;
+    s_c[kHybGroupWords * gs + p] = bf16_bits(c0) | (bf16_bits(c1) << 16);
   }
-  const int gj = j0 + j;
-  if (gj >= w) return;
+  convert(0);
+  if (nload > 1) {
+    fetch(1);
+    convert(1);
+  }
+  __syncthreads();
+
+  const int g = lane >> 2, tig = lane & 3;
+  const int f = warp;  // fragments f and f + 8
+  // A: row m = g takes group s - g (stored at s - g + 15), row g + 8 group
+  // s - g - 8, words tig and tig + 4 of each
+  const unsigned* ca = s_c + kHybGroupWords * (15 - g) + tig;
+  const unsigned ya = smem_u32(s_y);
+  // B of fragment f at step s: rows f + 16s + (0..7) (x0) and + (8..15)
+  // (x1); of fragment f + 8: x1 and rows f + 16s + (16..23) (x2, the next
+  // step's x0). ldmatrix.trans x4 per pair of n-blocks: x1, x2, x1, x2.
+  unsigned x0[8];
 #pragma unroll
-  for (int m = 0; m < kGroups; ++m) {
-    const int ii = (a + m * (kThreads / kColsTw)) << 2;
+  for (int q = 0; q < 2; ++q) {
+    unsigned r[4];
+    ldsm_x4_t(ya + (f + (lane & 7)) * (2 * kHybPitch) + 16 * (4 * q + (lane >> 3)), r);
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int gi = i0 + ii + s;
-      if (gi >= h) break;
-      const float y = __fmaf_rn(acc[m][s], scale, 128.0f);
-      const size_t o = plane + static_cast<size_t>(gi) * w + gj;
-      if (kOutU8) {
-        const float v = fminf(fmaxf(__fadd_rn(y, 0.5f), 0.0f), 255.5f);
-        static_cast<uint8_t*>(out)[o] = static_cast<uint8_t>(__float2int_rz(v));
-      } else {
-        static_cast<float*>(out)[o] = y;
+    for (int v = 0; v < 4; ++v) x0[4 * q + v] = r[v];
+  }
+  const int lrow = f + 8 + (((lane >> 3) & 1) << 3) + (lane & 7);
+  const int lcol = (lane >> 4) << 4;
+  float acc[2][8][4];
+#pragma unroll
+  for (int fi = 0; fi < 2; ++fi) {
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[fi][n][v] = 0.0f;
+    }
+  }
+  const int nch = (steps + 7) / 8;
+  for (int ch = 0; ch < nch; ++ch) {
+    const bool more = ch + 2 < nload;
+    if (more) fetch(ch + 2);
+    const int s_end = min(8 * ch + 8, steps);
+    for (int s = 8 * ch; s < s_end; ++s) {
+      const unsigned* cs = ca + kHybGroupWords * s;
+      const unsigned a[4] = {cs[0], cs[-8 * kHybGroupWords], cs[4], cs[4 - 8 * kHybGroupWords]};
+      const unsigned yr = ya + ((lrow + 16 * s) % kHybRing) * (2 * kHybPitch) + lcol;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        unsigned r[4];
+        ldsm_x4_t(yr + 32 * q, r);
+        mma_bf16(acc[0][2 * q], a, x0[2 * q], r[0]);
+        mma_bf16(acc[1][2 * q], a, r[0], r[1]);
+        mma_bf16(acc[0][2 * q + 1], a, x0[2 * q + 1], r[2]);
+        mma_bf16(acc[1][2 * q + 1], a, r[2], r[3]);
+        x0[2 * q] = r[1];
+        x0[2 * q + 1] = r[3];
+      }
+    }
+    if (more) convert(ch + 2);  // into the ring slot chunk ch - 1 held
+    __syncthreads();
+  }
+
+  // fragment row m: output row i0 + f' + 16m; columns 8n + 2 tig, + 1
+#pragma unroll
+  for (int fi = 0; fi < 2; ++fi) {
+#pragma unroll
+    for (int hv = 0; hv < 2; ++hv) {
+      const int gi = i0 + f + 8 * fi + 16 * (g + 8 * hv);
+      if (gi >= h) continue;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int gj = j0 + 8 * n + 2 * tig;
+        if (gj >= w) continue;
+        const float y0 = __fmaf_rn(acc[fi][n][2 * hv], scale, 128.0f);
+        const float y1 = __fmaf_rn(acc[fi][n][2 * hv + 1], scale, 128.0f);
+        const size_t o = plane + static_cast<size_t>(gi) * w + gj;
+        const bool pair = gj + 1 < w;
+        if (kOutU8) {
+          uint8_t* op = static_cast<uint8_t*>(out) + o;
+          if (pair && !(w & 1)) {
+            *reinterpret_cast<uint16_t*>(op) =
+                static_cast<uint16_t>(store_u8(y0) | (store_u8(y1) << 8));
+          } else {
+            op[0] = store_u8(y0);
+            if (pair) op[1] = store_u8(y1);
+          }
+        } else {
+          float* op = static_cast<float*>(out) + o;
+          if (pair && !(w & 1)) {
+            *reinterpret_cast<float2*>(op) = make_float2(y0, y1);
+          } else {
+            op[0] = y0;
+            if (pair) op[1] = y1;
+          }
+        }
       }
     }
   }
@@ -386,13 +705,12 @@ extern "C" int fused_split_rows_int8(const void* x, void* out, const void* taps,
   int limit = 0;
   int err = smem_limit(&limit);
   if (err) return err;
-  const int t4w = round4(2 * rw + 1);
-  const int smem = 2 * t4w + kRowsG * (kRowsTw + t4w);
+  const int smem = rows_smem(rw);
   if (smem > limit || planes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t cerr = cudaFuncSetAttribute(
       split_rows_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  dim3 grid((w + kRowsTw - 1) / kRowsTw, (h + kRowsG - 1) / kRowsG, planes);
+  dim3 grid((w + kRowsTn - 1) / kRowsTn, (h + kRowsTr - 1) / kRowsTr, planes);
   split_rows_int8_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(x), out, static_cast<const int*>(taps), h, w,
       rw, out_e32, rows_shift, inv_scale);
@@ -427,8 +745,9 @@ extern "C" int fused_split_cols_int8(const void* e, void* out, const void* taps,
 }
 
 // The hybrid pass 2. e: planes x h x w int16 E, or planes x (h + 2rh) x w
-// (pre = 1, as above); out: planes x h x w uint8 (out_u8 = 1) or float. taps: float [t4h], the bf16-rounded column taps zero-padded to a
-// multiple of 4; scale: f32(1 / 127). Returns the cudaError_t of the launch.
+// (pre = 1, as above); out: planes x h x w uint8 (out_u8 = 1) or float.
+// taps: float [t4h], the bf16-rounded column taps zero-padded to a multiple
+// of 4; scale: f32(1 / 127). Returns the cudaError_t of the launch.
 extern "C" int fused_split_cols_hybrid(const void* e, void* out, const void* taps,
                                        int planes, int h, int w, int rh,
                                        int out_u8, int pre, float scale,
@@ -436,10 +755,9 @@ extern "C" int fused_split_cols_hybrid(const void* e, void* out, const void* tap
   int limit = 0;
   int err = smem_limit(&limit);
   if (err) return err;
-  const int t4h = round4(2 * rh + 1);
-  const int smem = 4 * t4h + 2 * kColsTw * cols_stride();
+  const int smem = hyb_smem(rh);
   if (smem > limit || planes > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles = ((w + kColsTw - 1) / kColsTw) * ((h + kColsTh - 1) / kColsTh);
+  const int tiles = ((w + kHybTw - 1) / kHybTw) * ((h + kHybTh - 1) / kHybTh);
   dim3 grid(tiles, planes);
   auto kernel = out_u8 ? split_cols_hybrid_kernel<true> : split_cols_hybrid_kernel<false>;
   cudaError_t cerr = cudaFuncSetAttribute(

@@ -2,7 +2,7 @@
 
 The port of the JAX ``pallas_kernels/fused_blur._kernel_int8`` in its
 split forms, through the CUDA kernels of ``csrc/fused_split.cu`` on a CUDA
-tensor and their plain PyTorch versions on a CPU tensor, bit for bit:
+tensor and their plain PyTorch versions on a CPU tensor:
 
 - ``fused_split_rows_int8``: the rows-only pass over uint8 planes
   (a plan whose column axis has radius 0). ``out_e32=True`` emits the
@@ -10,15 +10,20 @@ tensor and their plain PyTorch versions on a CPU tensor, bit for bit:
   ``e32="out"``, rows scale stepped by powers of two so that ``E`` is a
   shift of the exact int32 sum); ``out_e32=False`` emits float32
   ``fma(R, f32(1 / Sr), 128)`` (any adaptive scale), the split's pass 1 where pass 2
-  cannot run int8.
+  cannot run int8. The kernel is a band product on the int8 tensor cores;
+  its sums are exact integers, so it is bit-equal to its plain version.
 - ``fused_split_cols_int8``: the cols-only pass over int16 ``E`` (a plan
   whose row axis has radius 0): base-128 digits, exact digit products and
   K1's f32 epilogue, uint8 or float32 out (the JAX ``e32="in"``).
+  Bit-equal to its plain version.
 - ``fused_split_cols_hybrid``: the hybrid pass 2 over the same ``E`` (the
   JAX ``hybrid_cols``): ``y = bf16(f32(E))``, the bf16 column taps summed
-  in f32 in ascending order, ``fma(acc, f32(1 / 127), 128)``. Bit-equal to
-  its plain version; the JAX kernel adds one partial sum per neighbour
-  block, so it agrees with that within two f32 ulps.
+  in f32, ``fma(acc, f32(1 / 127), 128)``. The kernel is a band product on
+  the bf16 tensor cores that adds each output row's taps in aligned groups
+  of 16 of its own tap index (``hybrid_groups``), whatever its tile or
+  shard; the plain version adds them one by one in ascending order, so the
+  two agree within 2e-2 at 0..255 scale on the f32 store and 1 count on the
+  uint8 store, and a shard's pass 2 is bit-equal to the single-card call.
 
 Both cols passes take ``pre_padded_col=True`` (the JAX ``e32="in"`` with
 ``pre_padded_col``, the sharded path's haloed split,
@@ -65,7 +70,49 @@ __all__ = [
     "fused_split_cols_int8_ref",
     "fused_split_rows_int8",
     "fused_split_rows_int8_ref",
+    "hybrid_groups",
+    "rows_geometry",
 ]
+
+# The kernels' tiling (csrc/fused_split.cu), for the models of the tests:
+# the rows pass runs blocks of ROWS_TILE (image rows, output columns), the
+# hybrid pass 2 blocks of HYBRID_TILE (output rows, columns).
+ROWS_TILE = (64, 128)
+HYBRID_TILE = (256, 64)
+
+
+def rows_geometry(rw: int) -> tuple[int, int]:
+    """``(delta, steps)`` of the rows pass: the taps take ``delta = (-rw)
+    mod 16`` leading zeros (each window then starts 16-byte aligned) and run
+    in ``steps`` k-steps of 32 window columns, enough for every row of a
+    16-column block (``rows_geometry`` in the source)."""
+    delta = (16 - rw % 16) % 16
+    return delta, (delta + 2 * rw + 1 + 15 + 31) // 32
+
+
+def rows_smem_bytes(rw: int) -> int:
+    """Dynamic shared memory of a rows-pass block: the 64-row window ring
+    (1024 + 16 bytes a row) and the four shifted copies of both digits'
+    taps (``rows_smem`` in the source)."""
+    _, steps = rows_geometry(rw)
+    need = 8 * steps + 4
+    return ROWS_TILE[0] * 1040 + 2 * 4 * 4 * (need + (8 - need) % 32)
+
+
+def hybrid_smem_bytes(rh: int) -> int:
+    """Dynamic shared memory of a hybrid pass 2 block: the 384-row bf16 ring
+    (144 bytes a row), the int16 staging chunk and the tap groups
+    (``hyb_smem`` in the source)."""
+    return 384 * 144 + 128 * 64 * 2 + (hybrid_groups(rh)[0] + 30) * 48
+
+
+def hybrid_groups(rh: int) -> tuple[int, int]:
+    """``(groups, steps)`` of the hybrid pass 2: the column taps in groups
+    of 16 and the k-steps of a fragment, whose row ``m`` adds group ``s - m``
+    at step ``s``."""
+    groups = (2 * rh + 1 + 15) // 16
+    return groups, groups + 15
+
 
 @functools.lru_cache(maxsize=64)
 def rows_operands(plan: BlurPlan, out_e32: bool) -> tuple[np.ndarray, int, int]:

@@ -38,11 +38,13 @@ CPU_SPLIT_HBM_BUDGET = 4 << 30
 # its AUTO rung, or K2; the two-pass split from ``fused_split_min_radius``)
 # is still at least as fast as FFT_MXU, by device name: the chip_smoke.py
 # phase 10 sweep at batch 4 RGB 2160x3840 (PERF.md, "Routing sweeps"). NVIDIA
-# H100 80GB HBM3 at 700 W, with the radix-32 K3f: uint8 split (hybrid pass
-# 2) 4.32 vs FFT_MXU 5.21 ms at r 165, 5.39 vs 5.22 at r 212; float split
-# 2.81 vs 3.04 ms at r 119, 3.95 vs 3.14 at r 165.
+# H100 80GB HBM3 at 700 W, the radix-32 K3f against the split on the tensor
+# cores: the uint8 split won at every swept radius, 5.3140 vs FFT_MXU 6.1319
+# ms at r 1830 and 5.5449 vs 6.1203 at r 1920, the largest radius of a plan
+# on 3840 columns (past it unmeasured); float split 2.7900 vs 3.0290 ms at
+# r 119, 3.9247 vs 3.1300 at r 165.
 _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
-    "NVIDIA H100 80GB HBM3": (165, 119),
+    "NVIDIA H100 80GB HBM3": (1920, 119),
 }
 
 # Largest swept box support radius at which a box on the fused engine is
@@ -57,13 +59,16 @@ _MEASURED_BOX_SCAN: dict[str, int] = {
 
 # Smallest swept support radius from which the two-pass split is faster
 # than the single fused kernel at every swept radius, for uint8 and float
-# alike, by device name: the chip_smoke.py phase 13 sweep, K1 on its AUTO
-# rung (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W, r 49:
-# uint8 split (int8 rows, hybrid pass 2) 1.41 vs K1 hybrid 1.79 ms, f32
-# split 1.48 vs K2 2.45 ms (at r 32 K2 1.2731 vs 1.2753). Absent: the split
-# runs past 600 only.
+# alike, by device name: the chip_smoke.py phase 13 sweep (r 32..332), K1 on
+# its AUTO rung (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W,
+# the split's passes on the tensor cores, r 32, the smallest swept:
+# uint8 split (int8 rows, hybrid pass 2) 0.6489 vs K1 hybrid 1.2781 ms, f32
+# split 1.2919 vs K2 1.3003 ms (probes/split_radius.py: three rounds in
+# turns, all alike; at r 24 the f32 split loses, 1.2270 vs K2 1.0693, the
+# uint8 one wins down to r 9, 0.6267 vs 0.6615). Absent: the split runs
+# past 600 only.
 _MEASURED_SPLIT_MIN: dict[str, int] = {
-    "NVIDIA H100 80GB HBM3": 49,
+    "NVIDIA H100 80GB HBM3": 32,
 }
 
 # The certified precision ladder, by device name: the DeviceSpec fields of

@@ -9,24 +9,29 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    sigma 1, 3, 10, 50, 150 and 180 (support radius up to 598), an
    anisotropic sigma (5, 11) and a ragged 1001x1777 frame; each must be
    ``torch.equal``;
-3. main path of slice 1: ``blur_u8`` AUTO on a (4, 2160, 3840, 3) uint8
+3. main path of slice 1: ``blur_u8`` on a (4, 2160, 3840, 3) uint8
    CUDA tensor at sigma 10 (``bench.py``'s configuration, and its frames
-   through the port's copy ``utils/frames.make_frames``), on the rung AUTO
-   routes (``utils/hw.py``'s certified ladder: K1's hybrid body on the
-   H100); that body's launch count must rise, the result must equal its
-   plain version bit for bit and frame 0 must be within 1 count of the
-   NumPy oracle; where the rung is not int8, the same for K1 int8 through
-   the ``precision="int8"`` pin;
+   through the port's copy ``utils/frames.make_frames``), K1 on the rung
+   AUTO routes (``utils/hw.py``'s certified ladder: K1's hybrid body on the
+   H100), through AUTO, or through the rung's pin where the card's split
+   radius covers r 32 (the H100's does): that body's launch count must
+   rise, the result must equal its plain version bit for bit and frame 0
+   must be within 1 count of the NumPy oracle; where the rung is not int8,
+   the same for K1 int8 through the ``precision="int8"`` pin; then AUTO
+   where it splits: the split's two passes once each, frame 0 within 1
+   count;
 4. times from CUDA events (median of 20 after warm-up): K1 alone, the plain
-   version, and the whole ``blur_u8`` with its layout copies;
+   version, and the whole ``blur_u8`` AUTO with its layout copies;
 5. K2 (the fused f32 blur) against its plain version on the card: f32
    planes 1080x1920 at sigma 1, 10, 50 and 180 (r up to 598), sigma
    (5, 11), a radius-0 row axis, asymmetric custom taps on both axes, a
    ragged 1001x1777 frame, and uint8 in / uint8 out with a signed sharpen
    filter; f32 within 1e-3 * max|x| / 255, uint8 within 1 count;
 6. main path of slice 2: ``blur`` AUTO on the same batch as float planes
-   (4, 3, 2160, 3840) at sigma 10 launches K2 and not K1, matches the plain
-   version and (plane 0) the float64 direct oracle within 1e-3; its
+   (4, 3, 2160, 3840) at sigma 10 launches K2 once (or, where the card's
+   split radius covers r 32, as on the H100, K2's single-axis form on each
+   axis) and not K1, matches K2's plain version and (plane 0) the float64
+   direct oracle within 1e-3; its
    backward pass equals ``blur_adjoint`` of the cotangent and satisfies the
    adjoint identity <A x, g> = <x, A^T g> to 1e-5 relative; and
    ``convolve_separable`` with a signed 5-tap sharpen on the uint8 batch
@@ -41,9 +46,12 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    taps, odd row counts, against their plain versions (full-float32
    einsums) on the card within 2e-2 at 0..255 scale, with the worst error;
    K5 (the spectral multiply) on a 4K rfft2 spectrum, bit-equal;
-9. main path of slice 3, counts set to 0 first: ``blur_u8`` AUTO at sigma
-   250 (r 831) on the batch resolves to FFT_MXU and launches K3f twice,
-   frame 0 within 1 count of the oracle; ``blur`` forward + backward on the
+9. main path of slice 3, counts set to 0 first: ``blur_u8`` with
+   ``engine="fft_mxu"`` at sigma 250 (r 831) on the batch launches K3f
+   twice and nothing else, frame 0 within 1 count of the oracle; ``blur_u8``
+   AUTO at sigma 250 launches what the card's crossover routes (the split's
+   rows pass and pass 2 once each, or K3f twice), frame 0 within 1 count;
+   ``blur`` forward + backward on the
    float batch at sigma 400 (r 1330) launches K3f twice and K3 in the
    backward pass, ``x.grad`` equals ``blur_adjoint(g)`` and plane 0 is
    within 2e-2 of the pocketfft oracle; frame 0 through ``"fft2"``,
@@ -57,8 +65,9 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    spills ptxas reports for K3/K3f and K5, the whole
    calls, and the fused/FFT crossover sweep: ``blur_u8`` fused against
    FFT_MXU and ``blur`` fused against FFT_MXU, in turns at support radii
-   32..598 (the values ``utils/hw.py`` takes; the fused engine as routed,
-   K1/K2, or the split from ``fused_split_min_radius``);
+   32..598, and ``blur_u8`` on to r 1920 (the split) until the fused engine
+   has lost twice (the values ``utils/hw.py`` takes; the fused engine as
+   routed, K1/K2, or the split from ``fused_split_min_radius``);
 11. K4 (the box scan) on HD planes at support 2..1250, passes 1-3, both
    axes, uint8 and f32 in and out; the int8 split forms (rows to int16 E,
    rows to f32, cols from E) at r 2..1996, bit-equal; K2's single-axis form
@@ -85,10 +94,11 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    against the single kernels at r 32..332; and against FFT_MXU at r
    665..1330, for the record), K1 on the rung and in the form AUTO routes;
 14. K1's hybrid and bf16 bodies against their plain versions as phase 2,
-   and the split's hybrid pass 2 at column radius 332, 831 and 1996,
-   uint8 and f32 out, each ``torch.equal``; at batch 4 RGB 4K sigma 10,
+   (each ``torch.equal``) and the split's hybrid pass 2 at column radius
+   332, 831 and 1996, uint8 and f32 out (within 2e-2, 1 count, printing
+   the worst difference and the share that differs); at batch 4 RGB 4K sigma 10,
    ``blur_u8(precision="hybrid")`` and ``blur_u8`` AUTO on the card's spec
-   with bf16 routed in place of hybrid (counts set to 0 first: that body
+   with bf16 routed in place of hybrid and no split radius (counts set to 0 first: that body
    alone, equal to its plain version, frame 0 within 1 count);
    ``blur_u8`` AUTO at sigma 15 and 50 (r 49 and 165, where the split runs
    under the fused/FFT crossover) and ``engine="fused"`` at sigma 250,
@@ -98,14 +108,19 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    for every routed rung, and the split's routed pass 2 at column radius
    49 and 165, each within 1 count); times in turns against K1 int8 and
    against the int8 pass 2 at r 831, the plain versions, bf16 depthwise
-   ``conv2d`` yardsticks and the bounds;
+   ``conv2d`` yardsticks and the bounds; the split's two tensor-core
+   passes at r 49, 165 and 831 on the batch and at HD r 831: time, the
+   earlier time, bound and share, the yardstick, registers, shared memory
+   and spills (the hybrid pass 2 against its plain version within 2e-2 at
+   0..255 scale, 1 count on the uint8 store, here and in phase 16);
 15. K1's staging forms (strip K1s, assembled K1a with A5 and its pipelined
    variant, rows-resident K1r) against K1 direct and the body's plain
    version, ``torch.equal``, on phase 2's cases for every rung each serves
    where its block fits, uint8 and f32 out, and A5 against its plain
    version at the JAX geometries; at batch 4 RGB 4K sigma 10, counts set to
-   0 first: ``blur_u8`` AUTO (the form the card routes), then AUTO with the
-   card's form rule replaced to route K1a and K1r, and
+   0 first: ``blur_u8`` with AUTO's rung pinned (the form the card
+   routes; AUTO splits there on the H100), then with the card's form rule
+   replaced to route K1a and K1r, and
    ``blur_fused_u8_dma`` with ``strip=True`` and ``pipelined=True`` (each
    form launched once, equal to the plain version, frame 0 within 1
    count); the repaired ``precision="int8"`` pin at sigma 15 and 100 (r
@@ -120,20 +135,24 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    and bf16, uint8 and f32 out), K2 with ``pre_padded_col`` (2-D at r
    2..598; single-axis at column radius 960 and 3994) and the split's int8
    and hybrid pass 2 on pre-padded ``E`` against their plain versions
-   (bit-equal; K2 within phase 5's tolerances); then at full width, counts
-   set to 0 before each call: ``blur_sharded_u8`` at sigma 10 on dp 2 x sp
-   2 and dp 1 x sp 4 (A4 and K1a once a shard, nothing else), on sp 16 at
-   sigma 50 (the multi-hop gather) and on a 1001-row crop on sp 4 (the
+   (bit-equal; K2 within phase 5's tolerances, the hybrid pass 2 within
+   phase 14's); then at full width, counts
+   set to 0 before each call: ``blur_sharded_u8`` at sigma 9 (r 29, under
+   the card's split radius) on dp 2 x sp 2 and dp 1 x sp 4 (A4 and K1a once
+   a shard, nothing else), at sigma 10 on dp 2 x sp 2 (each shard's haloed
+   split, where the card's split radius covers r 32), on sp 16 at sigma 50
+   (the multi-hop gather) and on a 1001-row crop on sp 4 at sigma 9 (the
    pad-row fill), each ``torch.equal`` to single-card ``blur_u8`` on the
    same rung; ``blur_sharded`` uint8 -> f32 (K1a's int8 f32 store, equal to
-   K1 int8's plain version), and on the float batch at sigma 10 (K2
+   K1 int8's plain version), and on the float batch at sigma 9 (K2
    pre-padded) and 50 (the haloed f32 split, the card's float crossover
    raised to r 165 for the call) against single-card ``blur``;
-   ``blur_sharded_u8`` at sigma 155 rerouted to ``blur_fft_sharded`` (no
-   kernel), ``blur_fft_sharded_u8`` at sigma 250, both within 1 count of the
+   ``blur_sharded_u8`` at sigma 155 with the card's uint8 crossover
+   lowered to 165 rerouted to ``blur_fft_sharded`` (no kernel),
+   ``blur_fft_sharded_u8`` at sigma 250, both within 1 count of the
    oracle; the haloed int8 split (hybrid, then int8 pass 2) at sigma 250
-   with the card's crossover raised to 1000; times of each kernel on a dp 2
-   x sp 2 shard, the plain versions, the ``F.pad`` and ``conv2d``
+   under the card's crossover; times of each kernel on a dp 2
+   x sp 2 shard at sigma 9, the plain versions, the ``F.pad`` and ``conv2d``
    yardsticks, the sharded calls against the single-card ones in turns,
    and ``blur_sharded_u8``'s time in parts.
 
@@ -170,8 +189,15 @@ HD, RAGGED = (1080, 1920), (1001, 1777)  # phase 5 frame shapes
 SHARPEN5 = [-0.125, -0.25, 1.75, -0.25, -0.125]  # signed, sums to 1
 SIGMA_U8_WIDE, SIGMA_F32_WIDE = 250.0, 400.0  # phase 9: r 831 and r 1330
 FFT_TOL = 2e-2  # FFT engines against plain versions and oracles, 0..255 scale
+# the split's hybrid pass 2 (tensor-core groups of 16 taps) against its plain
+# version (taps one by one): ~2 f32 ulps of |acc| <= 16384 per group, over
+# <= ~530 groups at r 4094, over 127; the uint8 store within 1 count
+HYBRID_TOL = 2e-2
 # phase 10 sweep: support radius 32, 82, 119, 165, 212, 265, 332, 398, 598
 SWEEP_SIGMAS = (10.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 120.0, 180.0)
+# and uint8 on past r 598 (the split against FFT_MXU): r 665, 831, 997,
+# 1164, 1330, 1497, 1663, 1830 and 1920 (the plan's limit on 3840 columns)
+SWEEP_SIGMAS_U8_WIDE = (200.0, 250.0, 300.0, 350.0, 400.0, 450.0, 500.0, 550.0, 600.0)
 BOX_NSMOOTH = 20.0  # phase 12: box_blur radius 400, support radius 800
 PANO_H, PANO_W = 2160, 15360  # phase 12: a panorama FFT_MXU cannot serve
 SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
@@ -269,16 +295,20 @@ def _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing) -> dict:
     # ---- phase 6: the slice's path at full width ----
     x = torch.from_numpy(frames.astype(np.float32)).cuda()  # (B, C, H, W)
     plan = make_plan((H, W), SIGMA)
+    # AUTO runs K2, or the f32 split (K2's single-axis form on each axis)
+    # where the card's split radius covers sigma 10's r 32
+    split = fused_blur._split_wins(plan, 4, "bf16x3", x.device)
+    counted = (fused_dma.blur_fused_u8_dma, fused_blur.blur_fused_f32,
+               fused_blur.blur_fused_axis_f32)
     torch.cuda.synchronize()
-    fused_dma.blur_fused_u8_dma.launches = 0
-    fused_blur.blur_fused_f32.launches = 0
+    for c in counted:
+        c.launches = 0
     out = blur(x, SIGMA)
     torch.cuda.synchronize()
+    ran = {c.__name__: c.launches for c in counted if c.launches}
     launches = fused_blur.blur_fused_f32.launches
-    if launches < 1 or fused_dma.blur_fused_u8_dma.launches:
-        raise RuntimeError(
-            f"blur launched K2 {launches} and K1 "
-            f"{fused_dma.blur_fused_u8_dma.launches} times")
+    if ran != ({"blur_fused_axis_f32": 2} if split else {"blur_fused_f32": 1}):
+        raise RuntimeError(f"blur AUTO at sigma {SIGMA} launched {ran}")
     if out.shape != x.shape or out.dtype != torch.float32 or out.device != x.device:
         raise RuntimeError(f"blur returned {out.shape} {out.dtype} {out.device}")
     ref = fused_blur.blur_fused_f32_ref(x, plan)
@@ -292,7 +322,7 @@ def _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing) -> dict:
     want0 = oracle.blur_direct(frames[0, 0].astype(np.float32), plan)
     d0 = float(np.abs(out[0, 0].cpu().numpy().astype(np.float64) - want0).max())
     print(f"phase 6 main path: blur AUTO {tuple(x.shape)} f32 sigma={SIGMA}: "
-          f"K2 launches={launches}, K1 launches=0, vs plain max_abs_err={err:.3e}, "
+          f"launches {ran}, vs K2's plain version max_abs_err={err:.3e}, "
           f"plane 0 vs float64 oracle max={d0:.3e}", flush=True)
     if not d0 <= 1e-3:
         raise RuntimeError(f"plane 0 is {d0} from the oracle")
@@ -326,6 +356,7 @@ def _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing) -> dict:
     conv_launches = fused_blur.blur_fused_f32.launches
     if conv_launches < 1 or fused_dma.blur_fused_u8_dma.launches:
         raise RuntimeError("convolve_separable on uint8 did not run K2 alone")
+    launches += conv_launches  # K2's launches on the slice's paths
     from blur_algorithms_tpu_torch import make_custom_plan
 
     splan = make_custom_plan((H, W), SHARPEN5)
@@ -514,22 +545,43 @@ def _phase9(frames, counters) -> dict:
     for c in counters:
         c.launches = 0
 
+    # FFT_MXU by name: with the split on the tensor cores the card's uint8
+    # crossover lies past r 831, so AUTO runs the split there (checked next)
     plan = make_plan((H, W), SIGMA_U8_WIDE)
-    eng = _resolve_engine("auto", plan, 1, x_u8.device, BATCH * 3)
-    out = blur_u8(x_u8, SIGMA_U8_WIDE)
+    out = blur_u8(x_u8, SIGMA_U8_WIDE, engine="fft_mxu")
     torch.cuda.synchronize()
     launched = {c.__name__: c.launches for c in counters}
     want0 = oracle.blur_u8(img[0], SIGMA_U8_WIDE)
     d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
-    print(f"phase 9 main path: blur_u8 AUTO {tuple(x_u8.shape)} sigma={SIGMA_U8_WIDE} "
-          f"r={plan.row.support_radius} -> {eng.value}; launches {launched}; "
+    print(f"phase 9 main path: blur_u8 engine=fft_mxu {tuple(x_u8.shape)} "
+          f"sigma={SIGMA_U8_WIDE} r={plan.row.support_radius}; launches {launched}; "
           f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
           flush=True)
-    if eng is not Engine.FFT_MXU or k3f.launches != 2 or sum(launched.values()) != 2:
+    if k3f.launches != 2 or sum(launched.values()) != 2:
         raise RuntimeError(f"blur_u8 at sigma {SIGMA_U8_WIDE} did not run K3f twice alone")
     if out.shape != x_u8.shape or out.dtype != torch.uint8 or d.max() > 1:
         raise RuntimeError(f"blur_u8 at sigma {SIGMA_U8_WIDE}: {out.shape} {out.dtype}, "
                            f"{int(d.max())} counts from the oracle")
+    del out
+    # AUTO at the same sigma: the route the card's crossover gives
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split
+
+    eng = _resolve_engine("auto", plan, 1, x_u8.device, BATCH * 3)
+    split = (fused_split.fused_split_rows_int8, fused_split.fused_split_cols_hybrid,
+             fused_split.fused_split_cols_int8)
+    before = [c.launches for c in (*counters, *split)]
+    out = blur_u8(x_u8, SIGMA_U8_WIDE)
+    torch.cuda.synchronize()
+    ran = {c.__name__: c.launches - b for c, b in zip((*counters, *split), before)}
+    d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
+    print(f"phase 9 main path: blur_u8 AUTO sigma={SIGMA_U8_WIDE} -> {eng.value}; launches "
+          f"{ran}; frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
+          flush=True)
+    want = ({"fft_conv_rows_framed": 2} if eng is Engine.FFT_MXU else
+            {"fused_split_rows_int8": 1, _pass2(plan, x_u8.device): 1})
+    if {k: v for k, v in ran.items() if v} != want or d.max() > 1:
+        raise RuntimeError(f"blur_u8 AUTO at sigma {SIGMA_U8_WIDE} ({eng.value}) launched "
+                           f"{ran}, not {want}, or is past 1 count of the oracle")
     del out
 
     plan = make_plan((H, W), SIGMA_F32_WIDE)
@@ -679,35 +731,43 @@ def _crossover_sweep(frames) -> dict:
     """``blur_u8`` fused vs FFT_MXU and ``blur`` fused vs FFT_MXU (the
     fused engine as routed: K1 or K2, the two-pass split from the device's
     measured split radius), in turns (fused, fft, fft, fused) at each
-    radius; returns the
-    largest radius at which the fused engine is at least as fast, per input
-    type (600 where it wins everywhere)."""
+    radius; uint8 on past r 598 (the split) until the fused engine has lost
+    twice. Returns, per input type, the largest swept radius up to which the
+    fused engine is at least as fast at every swept radius (600 for the
+    float sweep where it wins to r 598)."""
     from blur_algorithms_tpu_torch import blur, blur_u8, make_plan
 
     x_u8 = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).cuda()
     x = torch.from_numpy(frames.astype(np.float32)).cuda()
     rows, best = [], {"u8": None, "f32": None}
-    all_win = {"u8": True, "f32": True}
-    for sigma in SWEEP_SIGMAS:
+    winning, losses = {"u8": True, "f32": True}, 0
+    for sigma in (*SWEEP_SIGMAS, *SWEEP_SIGMAS_U8_WIDE):
         r = make_plan((H, W), sigma).row.support_radius
         line = {"r": r, "sigma": sigma}
-        for kind, fn, arg in (("u8", blur_u8, x_u8), ("f32", blur, x)):
+        kinds = (("u8", blur_u8, x_u8), ("f32", blur, x))
+        if sigma not in SWEEP_SIGMAS:
+            if losses >= 2:
+                break
+            kinds = kinds[:1]
+        for kind, fn, arg in kinds:
             t = {"fused": [], "fft_mxu": []}
             for engine in ("fused", "fft_mxu", "fft_mxu", "fused"):
                 res = _time(fn, arg, sigma, engine, name=f"{kind} {engine} r={r}")
                 t[engine].append(res.median_ms)
             fused, fft = (float(np.mean(t["fused"])), float(np.mean(t["fft_mxu"])))
             line[f"{kind}_fused_ms"], line[f"{kind}_fft_mxu_ms"] = fused, fft
-            if fused <= fft:
+            if fused <= fft and winning[kind]:
                 best[kind] = r
             else:
-                all_win[kind] = False
+                winning[kind] = False
+            if kind == "u8" and fused > fft:
+                losses += 1
         rows.append(line)
-        print(f"phase 10 crossover r={r} (sigma {sigma}): uint8 fused "
-              f"{line['u8_fused_ms']:.4f} vs FFT_MXU {line['u8_fft_mxu_ms']:.4f} ms; "
-              f"f32 fused {line['f32_fused_ms']:.4f} vs FFT_MXU "
-              f"{line['f32_fft_mxu_ms']:.4f} ms", flush=True)
-    out = {k: (600 if all_win[k] else best[k]) for k in best}
+        print(f"phase 10 crossover r={r} (sigma {sigma}): " + "; ".join(
+            f"{'uint8' if k == 'u8' else k} fused {line[f'{k}_fused_ms']:.4f} vs FFT_MXU "
+            f"{line[f'{k}_fft_mxu_ms']:.4f} ms" for k in ("u8", "f32") if f"{k}_fused_ms" in line),
+            flush=True)
+    out = {"u8": best["u8"], "f32": 600 if winning["f32"] else best["f32"]}
     print(f"phase 10 crossover: fused at least as fast up to r={out} "
           f"(utils/hw.py auto_fused_max_radius_u8/_f32)", flush=True)
     return {"sweep": rows, "crossover": out}
@@ -784,7 +844,9 @@ def _slice3(frames) -> list[dict]:
         return t.grad
 
     calls = [
-        _time(blur_u8, x_u8, SIGMA_U8_WIDE, name=f"blur_u8 sigma={SIGMA_U8_WIDE}", mp=mp),
+        _time(blur_u8, x_u8, SIGMA_U8_WIDE, "fft_mxu",
+              name=f"blur_u8 fft_mxu sigma={SIGMA_U8_WIDE}", mp=mp),
+        _time(blur_u8, x_u8, SIGMA_U8_WIDE, name=f"blur_u8 AUTO sigma={SIGMA_U8_WIDE}", mp=mp),
         _time(blur, x, SIGMA_F32_WIDE, name=f"blur forward sigma={SIGMA_F32_WIDE}", mp=mp),
         _time(fwd_bwd, x, name=f"blur forward + backward sigma={SIGMA_F32_WIDE}", mp=mp),
     ]
@@ -929,19 +991,6 @@ def _counters() -> list:
             fused_split.fused_split_rows_int8, fused_split.fused_split_cols_int8,
             fused_blur.blur_fused_axis_f32, fused_dma.blur_fused_u8_hybrid,
             fused_dma.blur_fused_u8_bf16, fused_split.fused_split_cols_hybrid]
-
-
-@contextlib.contextmanager
-def _device_spec_as(spec):
-    """Route the entry points by ``spec`` in place of the card's own."""
-    from blur_algorithms_tpu_torch import api
-
-    saved = api.device_spec
-    api.device_spec = lambda device: spec
-    try:
-        yield
-    finally:
-        api.device_spec = saved
 
 
 def _pass2(plan, device) -> str:
@@ -1448,16 +1497,96 @@ def _phase14_kernels(cases) -> dict:
         for out_u8 in (False, True):
             got = fs.fused_split_cols_hybrid(e, cols, out_u8)
             ref = fused_dma.store_u8_ref(want) if out_u8 else want
-            torch.cuda.synchronize()
-            errs["split"] = max(errs["split"], float((got.double() - ref.double()).abs().max()))
-            equal = torch.equal(got, ref)
-            print(f"phase 14 fused_split_cols_hybrid vs plain: {shape} sigma={sigma} "
-                  f"column r={plan.col.support_radius} {'uint8' if out_u8 else 'f32'} "
-                  f"out equal={equal}", flush=True)
-            if not equal:
-                raise RuntimeError(f"the hybrid pass 2 disagrees with its plain version at "
-                                   f"{(shape, sigma)}")
+            errs["split"] = max(errs["split"], _check_hybrid(
+                f"phase 14 fused_split_cols_hybrid vs plain: {shape} sigma={sigma} column "
+                f"r={plan.col.support_radius}", got, ref, out_u8))
     return errs
+
+
+def _check_hybrid(label: str, got: torch.Tensor, ref: torch.Tensor, out_u8: bool) -> float:
+    """The split's hybrid pass 2 against its plain version: the tensor cores
+    add each output's taps in groups of 16, the plain version one by one,
+    so within HYBRID_TOL at 0..255 scale on the f32 store and 1 count on
+    the uint8 store; prints the worst difference and the share of outputs
+    that differ; returns the worst difference."""
+    torch.cuda.synchronize()
+    d = (got.double() - ref.double()).abs()
+    err, share = float(d.max()), float((d > 0).double().mean())
+    limit = 1.0 if out_u8 else HYBRID_TOL
+    print(f"{label} {'uint8' if out_u8 else 'f32'} out max_abs_err={err:.3e} "
+          f"(limit {limit:.0e}), share differing={share:.3e}", flush=True)
+    if got.shape != ref.shape or got.dtype != ref.dtype or not err <= limit:
+        raise RuntimeError(f"the hybrid pass 2 disagrees with its plain version: {label}")
+    return err
+
+
+# The split's passes on the CUDA cores (dp4a rows, f32 FMA pass 2), before
+# their tensor-core kernels, NVIDIA H100 80GB HBM3 at 700 W: PERF.md's kernel
+# table and, for the whole split at r 49 and 165, its routing sweeps (both
+# from this script)
+EARLIER_SPLIT_MS = {
+    "rows 12x2160x3840 r 831": 6.0960, "rows 3x1080x1920 r 831": 0.4196,
+    "hybrid 12x2160x3840 r 831": 11.5239, "hybrid 3x1080x1920 r 831": 0.8297,
+    "split 12x2160x3840 r 49": 1.4126, "split 12x2160x3840 r 165": 3.9316,
+    "hybrid pre-padded shard r 831": 2.9214,
+}
+SPLIT_REPORT_SIGMAS = (15.0, 50.0, 250.0)  # r 49, 165, 831
+
+
+def _split_report(planar: torch.Tensor) -> dict:
+    """Phase 14: the split's rows pass (int16 E out) and hybrid pass 2
+    (uint8 out) on the batch at r 49, 165 and 831 and at HD r 831: each
+    pass's time, the earlier time, its bound and share, the whole split and
+    (pass 2) the bf16 depthwise ``conv2d`` yardstick; the registers, shared
+    memory and spills of both kernels. Returns the times by label."""
+    import torch.nn.functional as F
+
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+
+    hd = planar[0, :, :HD[0], :HD[1]].contiguous()
+    out = {}
+    for x, sigma in (*((planar, s) for s in SPLIT_REPORT_SIGMAS), (hd, SIGMA_U8_WIDE)):
+        h, w = x.shape[-2:]
+        n = x.numel() // (h * w)
+        plan = make_plan((h, w), sigma)
+        rows, cols = fused_blur._split_plans(plan)
+        r = plan.row.support_radius
+        at = f"{n}x{h}x{w} r {r}"
+        xs = x.reshape(n, h, w)
+        e = fs.fused_split_rows_int8(xs, rows)
+        t_rows = _time(fs.fused_split_rows_int8, xs, rows, name=f"split rows {at}").median_ms
+        t_hyb = _time(fs.fused_split_cols_hybrid, e, cols, name=f"split hybrid {at}").median_ms
+        t_all = _time(fused_blur._blur_fused_split, xs, plan, "int8", True,
+                      name=f"split {at}").median_ms
+        wc = torch.from_numpy(cols.col.taps).cuda().to(torch.bfloat16).view(1, 1, -1, 1)
+        wc = wc.repeat(3, 1, 1, 1)
+        eb = e.reshape(-1, 3, h, w).to(torch.bfloat16)
+        t_lib = _time(lambda u: F.conv2d(F.pad(u, (0, 0, r, r), mode="reflect"), wc, groups=3),
+                      eb, name=f"pass 2 yardstick {at}: reflect F.pad + depthwise conv2d "
+                      "in bf16").median_ms
+        del e, eb
+        outputs = n * h * w
+        b_rows = _bound_ms(3 * outputs, 2 * outputs * 2 * (2 * r + 1), INT8_OP_PER_S)
+        b_hyb = _bound_ms(3 * outputs, 2 * outputs * (2 * r + 1), BF16_FLOP_PER_S)
+        for name, ms, (bound, by) in (("rows", t_rows, b_rows), ("hybrid", t_hyb, b_hyb)):
+            was = EARLIER_SPLIT_MS.get(f"{name} {at}")
+            print(f"phase 14 split {name} {at}: {ms:.4f} ms (earlier "
+                  f"{'not measured' if was is None else f'{was:.4f}'}); bound {bound:.4f} ms "
+                  f"({by}), share {bound / ms:.1%}"
+                  + (f"; yardstick {t_lib:.4f} ms" if name == "hybrid" else ""), flush=True)
+        was = EARLIER_SPLIT_MS.get(f"split {at}")
+        print(f"phase 14 split (both passes, uint8 out) {at}: {t_all:.4f} ms (earlier "
+              f"{'not measured' if was is None else f'{was:.4f}'})", flush=True)
+        out[at] = {"rows": t_rows, "hybrid": t_hyb, "split": t_all, "yardstick": t_lib,
+                   "rows_bound": b_rows[0], "hybrid_bound": b_hyb[0]}
+    for name, line in _ptxas_lines(("split_rows_int8_kernel", "split_cols_hybrid_kernel")):
+        print(f"phase 14 ptxas {name}: {line}", flush=True)
+    for r in (49, 165, 831, 4096):
+        print(f"phase 14 dynamic shared memory at r {r}: rows pass {fs.rows_smem_bytes(r)} "
+              f"bytes, hybrid pass 2 {fs.hybrid_smem_bytes(r)} bytes", flush=True)
+    return out
 
 
 def _gate_points(spec) -> list[tuple[str, str, list]]:
@@ -1514,7 +1643,9 @@ def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
     # withdrawn and bf16 routed from its certified floor, as on a device
     # whose AUTO takes the bf16 rung (the card routes hybrid, and bf16 has
     # no route floor on it: it never wins on time)
-    bf16_spec = dataclasses.replace(spec, hybrid_cert_min_radius=None, bf16_route_min_radius=0)
+    bf16_fields = {"hybrid_cert_min_radius": None, "bf16_route_min_radius": 0,
+                   "fused_split_min_radius": None}  # K1 at sigma 10, not the split
+    bf16_spec = dataclasses.replace(spec, **bf16_fields)
     for rung in ("hybrid", "bf16"):
         body, ref_fn = _k1_bodies()[rung]
         torch.cuda.synchronize()
@@ -1524,8 +1655,9 @@ def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
             what = "blur_u8(precision='hybrid')"
             out = blur_u8(x, SIGMA, precision="hybrid")
         else:
-            what = f"blur_u8 AUTO (bf16 routed from r {bf16_spec.bf16_min_radius})"
-            with _device_spec_as(bf16_spec):
+            what = (f"blur_u8 AUTO (bf16 routed from r {bf16_spec.bf16_min_radius}, no split "
+                    "radius)")
+            with _route_spec_as(x.device, **bf16_fields):
                 out = blur_u8(x, SIGMA)
         torch.cuda.synchronize()
         ran = _launched(counters)
@@ -1641,6 +1773,7 @@ def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
           f"pass 2 at r {rc}: {ts}; hybrid pass 2 at {HD} {split_hd:.4f}, its plain "
           f"version {split_plain:.4f}; yardsticks K1 bf16 {lib_k1:.4f}, split pass 2 "
           f"{lib_split:.4f}; K1 int8 in phase 4 {k1_int8_ms:.4f}", flush=True)
+    report = _split_report(planar)
 
     outputs = BATCH * 3 * H * W
     tr, tc = 2 * rw + 1, 2 * rh + 1
@@ -1672,7 +1805,7 @@ def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
               launched["split"] + earlier.get("fused_split_cols_hybrid", 0),
               ts["hybrid"], split_plain, b_split, errs["split"], lib_split,
               plain_at=f"{HD[0]}x{HD[1]}x3", ms_at_plain_shape=split_hd,
-              int8_pass2_ms_in_turns=ts["int8"]),
+              int8_pass2_ms_in_turns=ts["int8"], split_report=report),
     ]
 
 
@@ -1878,19 +2011,22 @@ def _slice6(frames) -> list[dict]:
             raise RuntimeError(f"{what}: not equal to its plain version, or frame 0 is "
                                f"{int(d.max())} counts from the oracle")
 
-    # AUTO as the card routes it; then each form the card's rule does not
-    # route at this call, through AUTO with the rule routing it, or, for
-    # the assembled forms, which no rule routes, through the keyword
+    # K1 on AUTO's rung as the card's form rule routes it (through the
+    # rung's pin: the card's split radius covers sigma 10's r 32, where AUTO
+    # splits); then each form the card's rule does not route at this call,
+    # with the rule routing it, or, for the assembled forms, which no rule
+    # routes, through the keyword
     geo = fused_dma._resolve_form(plan, rung, BATCH * 3, None, x.device, direct=None,
                                   strip=None, pipelined=False, resident=None)
-    print(f"phase 15 AUTO at sigma {SIGMA}: rung {rung}, form {geo.form} {geo}; the card's "
-          f"rule: {spec.k1_forms}", flush=True)
-    drive("blur_u8 AUTO", lambda: blur_u8(x, SIGMA), ref, _routed(geo.form, rung))
+    print(f"phase 15 K1's form rule at sigma {SIGMA}: rung {rung}, form {geo.form} {geo}; "
+          f"the card's rule: {spec.k1_forms}", flush=True)
+    pin = f"blur_u8(precision={rung!r})"
+    drive(pin, lambda: blur_u8(x, SIGMA, precision=rung), ref, _routed(geo.form, rung))
     for form in ("assembled", "resident"):
         if geo.form != form:
             with _k1_rule_as(x.device, k1_forms=((rung, 1, ((0, form),)),)):
-                drive(f"blur_u8 AUTO ({form} routed)", lambda: blur_u8(x, SIGMA), ref,
-                      _routed(form, rung))
+                drive(f"{pin} ({form} routed)", lambda: blur_u8(x, SIGMA, precision=rung),
+                      ref, _routed(form, rung))
     drive("blur_fused_u8_dma(strip=True)", lambda: fused_dma.blur_fused_u8_dma(
         planar, plan, precision=rung, strip=True).movedim(-3, -1), ref,
         _routed("strip", rung))
@@ -2029,14 +2165,21 @@ def _slice6(frames) -> list[dict]:
 A4_RADII = (1, 32, 332, 598)
 HALO_SIGMAS = (1.0, 10.0, 50.0, 180.0)
 HALO_AXIS_CASES = ((HD, 400.0, 540), ((8400, 96), 1200.0, 525))  # (frame, sigma, h_loc)
-SHARD_MESHES = ((2, 2), (1, 4))  # blur_sharded_u8 at sigma 10
+SHARD_MESHES = ((2, 2), (1, 4))  # blur_sharded_u8 at SIGMA_SHARD_K1
+# K1a's and K2's sharded path: sigma 9 (r 29), under the card's split radius
+# (r 32 on the H100, which covers sigma 10); sigma 10 takes the haloed split
+SIGMA_SHARD_K1 = 9.0
 GATHER_SP, SIGMA_GATHER = 16, 50.0  # h_loc 135 < r 165 <= 165: the multi-hop gather
 RAGGED_ROWS = 1001  # on sp 4: the pad-row fill
 # blur_sharded f32, r 165 >= 49: the haloed split, with the card's float
 # crossover (119 on the H100) raised to 165 for the call
 SIGMA_SHARD_SPLIT = 50.0
-SIGMA_SHARD_FFT = 155.0  # blur_sharded_u8, r 514 > 165: the distributed FFT
-SIGMA_SHARD_E32 = 250.0  # blur_sharded_u8 with the crossover raised: the haloed int8 split
+# blur_sharded_u8 at r 514 with the card's uint8 crossover lowered to 165
+# for the call (its value with the CUDA-core split): the distributed FFT.
+# The card's own crossover (r 1920) lies past the column radius of any plan
+# of 2160 rows, which is what the sharded path compares with it.
+SIGMA_SHARD_FFT, SHARD_FFT_CROSSOVER = 155.0, 165
+SIGMA_SHARD_E32 = 250.0  # blur_sharded_u8 under the card's crossover: the haloed int8 split
 
 
 def _r16(n: int) -> int:
@@ -2152,6 +2295,11 @@ def _phase16_equal() -> dict:
             for out_u8 in (True, False):
                 got = pass2(e, cols, out_u8=out_u8, pre_padded_col=True)
                 want = ref(e, cols, out_u8=out_u8, pre_padded_col=True)
+                if name == "cols_hybrid":
+                    errs[name] = max(errs[name], _check_hybrid(
+                        f"phase 16 pre-padded hybrid pass 2 vs plain: 3x{h_loc + 2 * rh}x"
+                        f"{shape[1]} column r={rh}", got, want, out_u8))
+                    continue
                 torch.cuda.synchronize()
                 errs[name] = max(errs[name], float((got.double() - want.double()).abs().max()))
                 if not torch.equal(got, want):
@@ -2159,7 +2307,7 @@ def _phase16_equal() -> dict:
                                        f"at {shape, sigma}")
         print(f"phase 16 pre-padded single-axis cols and split pass 2 vs plain: "
               f"3x{h_loc + 2 * rh}x{shape[1]} column r={rh}: single-axis f32 {ea:.3e}, "
-              f"uint8 {ea8}; int8 and hybrid pass 2 equal", flush=True)
+              f"uint8 {ea8}; int8 pass 2 equal, hybrid pass 2 within {HYBRID_TOL}", flush=True)
         del e, x, xf
     return errs
 
@@ -2169,7 +2317,7 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
     counts set to 0 before each call; returns the launches per wrapper."""
     from blur_algorithms_tpu_torch import blur, blur_u8, make_plan, oracle
     from blur_algorithms_tpu_torch.api import _u8_dma_precision
-    from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
     from blur_algorithms_tpu_torch.parallel import (
         blur_fft_sharded_u8,
         blur_sharded,
@@ -2224,17 +2372,28 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
     def k1a(shards):  # A4 and K1a once a shard, nothing else
         return {"assemble_padded_prepad": shards, "blur_fused_u8_assembled": shards}
 
-    plan = make_plan((H, W), SIGMA)
+    plan = make_plan((H, W), SIGMA_SHARD_K1)
+    want9 = oracle.blur_u8(img[0], SIGMA_SHARD_K1)
     for dp, sp in SHARD_MESHES:
         rung = rung_of(plan, H // sp)
-        out = drive(f"blur_sharded_u8 dp {dp} x sp {sp} sigma={SIGMA} (rung {rung})",
+        out = drive(f"blur_sharded_u8 dp {dp} x sp {sp} sigma={SIGMA_SHARD_K1} (rung {rung})",
                     lambda: blur_sharded_u8(x, plan, mesh(dp, sp)), k1a(dp * sp))
         check_u8(f"blur_sharded_u8 dp {dp} x sp {sp}", out,
-                 blur_u8(x, SIGMA, precision=rung), ref0=want0)
+                 blur_u8(x, SIGMA_SHARD_K1, precision=rung), ref0=want9)
+        del out
+    # sigma 10 (r 32) on the card's split radius: each shard's haloed split
+    p10 = make_plan((H, W), SIGMA)
+    if fused_blur._split_wins(_local_plan(p10, H // 2, W), 1, "int8", dev):
+        pass2 = _pass2(_local_plan(p10, H // 2, W), dev)
+        out = drive(f"blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA} -> haloed split, {pass2}",
+                    lambda: blur_sharded_u8(x, p10, mesh(2, 2)),
+                    {"fused_split_rows_int8": 4, pass2: 4})
+        check_u8("blur_sharded_u8 dp 2 x sp 2 sigma 10 (haloed split)", out, blur_u8(x, SIGMA),
+                 ref0=want0)
         del out
     # past the shard height: sp 16 (h_loc 135) at r 165, the multi-hop
-    # gather; past the card's split radius (49) each shard runs the haloed
-    # int8 split with the pass 2 one card runs, as blur_u8's AUTO does
+    # gather; past the card's split radius each shard runs the haloed int8
+    # split with the pass 2 one card runs, as blur_u8's AUTO does
     p50 = make_plan((H, W), SIGMA_GATHER)
     pass2 = _pass2(_local_plan(p50, H // GATHER_SP, W), dev)
     out = drive(f"blur_sharded_u8 dp 1 x sp {GATHER_SP} sigma={SIGMA_GATHER} "
@@ -2246,17 +2405,17 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
     del out
     # an indivisible height: 1001 rows on sp 4 (h_loc 251, 3 pad rows)
     xr = x[:, :RAGGED_ROWS].contiguous()
-    pr = make_plan((RAGGED_ROWS, W), SIGMA)
+    pr = make_plan((RAGGED_ROWS, W), SIGMA_SHARD_K1)
     rung = rung_of(pr, -(-RAGGED_ROWS // 4))
-    out = drive(f"blur_sharded_u8 {tuple(xr.shape)} dp 1 x sp 4 sigma={SIGMA}",
+    out = drive(f"blur_sharded_u8 {tuple(xr.shape)} dp 1 x sp 4 sigma={SIGMA_SHARD_K1}",
                 lambda: blur_sharded_u8(xr, pr, mesh(1, 4)), k1a(4))
     check_u8("blur_sharded_u8 ragged 1001 rows on sp 4", out,
-             blur_u8(xr, SIGMA, precision=rung))
+             blur_u8(xr, SIGMA_SHARD_K1, precision=rung))
     del out, xr
     # the int8 body's f32 store: the uint8 batch to float (blur_sharded's
     # default), on a spec whose ladder certifies no rung (so int8)
     with _route_spec_as(dev, hybrid_cert_min_radius=None, bf16_cert_min_radius=None):
-        out = drive(f"blur_sharded uint8 -> f32 dp 2 x sp 2 sigma={SIGMA} (rung int8)",
+        out = drive(f"blur_sharded uint8 -> f32 dp 2 x sp 2 sigma={SIGMA_SHARD_K1} (rung int8)",
                     lambda: blur_sharded(planar, plan, mesh(2, 2)), k1a(4))
     want = fused_dma.blur_fused_u8_dma_ref(planar, plan, out_u8=False)
     equal = torch.equal(out, want)
@@ -2266,9 +2425,9 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
         raise RuntimeError("blur_sharded uint8 -> f32 differs from K1 int8's f32 store")
     del out, want
 
-    # float planes: K2 pre-padded at sigma 10, the haloed f32 split at sigma 50
+    # float planes: K2 pre-padded at sigma 9, the haloed f32 split at sigma 50
     xf = planar.float()
-    for sigma, expect in ((SIGMA, {"blur_fused_f32": 4}),
+    for sigma, expect in ((SIGMA_SHARD_K1, {"blur_fused_f32": 4}),
                           (SIGMA_SHARD_SPLIT, {"blur_fused_axis_f32": 8})):
         p = make_plan((H, W), sigma)
         r = max(p.col.support_radius, p.row.support_radius)
@@ -2286,9 +2445,12 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
 
     # the reroutes to the distributed FFT: no kernel runs
     sharded_fft.calls = 0
-    out = drive(f"blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_FFT} "
-                f"(r {make_plan((H, W), SIGMA_SHARD_FFT).col.support_radius})",
-                lambda: blur_sharded_u8(x, make_plan((H, W), SIGMA_SHARD_FFT), mesh(2, 2)), {})
+    with _route_spec_as(dev, auto_fused_max_radius_u8=SHARD_FFT_CROSSOVER):
+        out = drive(f"blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_FFT} "
+                    f"(r {make_plan((H, W), SIGMA_SHARD_FFT).col.support_radius}, crossover "
+                    f"{SHARD_FFT_CROSSOVER})",
+                    lambda: blur_sharded_u8(x, make_plan((H, W), SIGMA_SHARD_FFT), mesh(2, 2)),
+                    {})
     d = np.abs(out[0].cpu().numpy().astype(int)
                - oracle.blur_u8(img[0], SIGMA_SHARD_FFT).astype(int))
     print(f"phase 16 main path: rerouted to blur_fft_sharded {sharded_fft.calls} time(s); "
@@ -2308,14 +2470,15 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
     del out
 
     # the haloed int8 split (int8 rows over the halo rows, pass 2 on
-    # pre-padded E) where the crossover lets the fused engine keep r 831:
+    # pre-padded E) where the crossover keeps r 831 on the fused engine:
     # the hybrid pass 2 the card certified, then the int8 one
     pe = make_plan((H, W), SIGMA_SHARD_E32)
+    crossover = max(pe.col.support_radius, device_spec(dev).auto_fused_max_radius_u8)
     for fields, pass2 in (({}, "fused_split_cols_hybrid"),
                           ({"hybrid_split_cert_max_radius": None}, "fused_split_cols_int8")):
-        with _route_spec_as(dev, auto_fused_max_radius_u8=1000, **fields):
+        with _route_spec_as(dev, auto_fused_max_radius_u8=crossover, **fields):
             out = drive(f"blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_E32} "
-                        f"(r {pe.col.support_radius}, crossover 1000) -> {pass2}",
+                        f"(r {pe.col.support_radius}, crossover {crossover}) -> {pass2}",
                         lambda: blur_sharded_u8(x, pe, mesh(2, 2)),
                         {"fused_split_rows_int8": 4, pass2: 4})
             want = blur_u8(x, SIGMA_SHARD_E32, engine="fused")
@@ -2360,10 +2523,10 @@ def _slice7(frames, want0) -> list[dict]:
         sharded.blur_fft_sharded = real_fft
     print(f"phase 16 launches on the sharded path: {launched}", flush=True)
 
-    # ---- times: one dp 2 x sp 2 shard of the batch at sigma 10 ----
+    # ---- times: one dp 2 x sp 2 shard of the batch at sigma 9 ----
     x = torch.from_numpy(img).cuda()
     planar = x.movedim(-1, -3).contiguous()
-    plan = make_plan((H, W), SIGMA)
+    plan = make_plan((H, W), SIGMA_SHARD_K1)
     local = _local_plan(plan, H // 2, W)
     rh, rw = local.col.support_radius, local.row.support_radius
     rung = _u8_dma_precision(local, device_spec(x.device))
@@ -2423,17 +2586,18 @@ def _slice7(frames, want0) -> list[dict]:
     meshes = {(dp, sp): make_mesh(dp=dp, sp=sp, devices=[x.device] * (dp * sp))
               for dp, sp in (*SHARD_MESHES, (1, GATHER_SP))}
     mesh22 = meshes[2, 2]
-    t_path = _in_turns(f"blur_u8 vs blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA}", {
-        "single": lambda u: blur_u8(u, SIGMA),
+    t_path = _in_turns(f"blur_u8 vs blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_K1}", {
+        "single": lambda u: blur_u8(u, SIGMA_SHARD_K1),
         "sharded": lambda u: blur_sharded_u8(u, plan, mesh22)}, x)
     t_path["sharded_dp1_sp4"] = _time(lambda u: blur_sharded_u8(u, plan, meshes[1, 4]), x,
-                                      name=f"blur_sharded_u8 dp 1 x sp 4 sigma={SIGMA}").median_ms
+                                      name=f"blur_sharded_u8 dp 1 x sp 4 "
+                                      f"sigma={SIGMA_SHARD_K1}").median_ms
     p50 = make_plan((H, W), SIGMA_GATHER)
     t_gather = _in_turns(f"blur_u8 vs blur_sharded_u8 sp {GATHER_SP} sigma={SIGMA_GATHER}", {
         "single": lambda u: blur_u8(u, SIGMA_GATHER),
         "sharded": lambda u: blur_sharded_u8(u, p50, meshes[1, GATHER_SP])}, x)
-    t_float = _in_turns(f"blur vs blur_sharded f32 dp 2 x sp 2 sigma={SIGMA}", {
-        "single": lambda u: blur(u, SIGMA),
+    t_float = _in_turns(f"blur vs blur_sharded f32 dp 2 x sp 2 sigma={SIGMA_SHARD_K1}", {
+        "single": lambda u: blur(u, SIGMA_SHARD_K1),
         "sharded": lambda u: blur_sharded(u, plan, mesh22)}, planar.float())
     # where blur_sharded_u8's time goes on dp 2 x sp 2: the layout copies,
     # the cut into blocks, the halo exchange, the shards' steps, the gather
@@ -2519,8 +2683,14 @@ def _slice7(frames, want0) -> list[dict]:
                              ("cols_hybrid", fs.fused_split_cols_hybrid,
                               fs.fused_split_cols_hybrid_ref)):
         for out_u8 in (True, False):
-            hold(name, f"split {name[5:]} pass 2 pre-padded r={re_} (out_u8={out_u8})",
-                 pass2(e, cols_e, out_u8, True), ref(e, cols_e, out_u8, True))
+            got, want = pass2(e, cols_e, out_u8, True), ref(e, cols_e, out_u8, True)
+            if name == "cols_hybrid":
+                errs[name] = max(errs[name], _check_hybrid(
+                    f"phase 16 split hybrid pass 2 pre-padded r={re_} vs plain on the main "
+                    f"path's dp 2 x sp 2 shard", got, want, out_u8))
+            else:
+                hold(name, f"split {name[5:]} pass 2 pre-padded r={re_} (out_u8={out_u8})",
+                     got, want)
     eb = e.to(torch.bfloat16)
     wce = torch.from_numpy(pe.col.taps).cuda().to(torch.bfloat16).view(1, 1, -1, 1)
     t["cols_lib"] = _time(lambda u: F.conv2d(u, wce.repeat(c, 1, 1, 1), groups=c), eb,
@@ -2644,15 +2814,19 @@ def main() -> int:
     want0 = oracle.blur_u8(img[0], SIGMA)
     rung = _u8_dma_precision(plan, device_spec(x.device))
     bodies = _k1_bodies()
-    # AUTO on the rung it routes; where that is not int8, the int8 pin is
-    # K1 int8's path
+    # K1 on the rung AUTO routes, through AUTO where K1 serves sigma 10, or
+    # through that rung's pin where the card's split radius covers sigma 10's
+    # r 32 (AUTO's split is checked after); where the rung is not int8, the
+    # int8 pin is K1 int8's path
+    split_at_sigma = fused_blur._split_wins(plan, 1, "int8", x.device)
     launched = {}
     for prec in dict.fromkeys((rung, "int8")):
         body, ref_fn = bodies[prec]
         torch.cuda.synchronize()
         for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32):
             c.launches = 0
-        out = blur_u8(x, SIGMA) if prec == rung else blur_u8(x, SIGMA, precision="int8")
+        auto = prec == rung and not split_at_sigma
+        out = blur_u8(x, SIGMA) if auto else blur_u8(x, SIGMA, precision=prec)
         torch.cuda.synchronize()
         launched[prec] = body.launches
         others = {b.__name__: b.launches for b, _ in bodies.values() if b is not body}
@@ -2670,7 +2844,7 @@ def main() -> int:
         if not torch.equal(out, ref):
             raise RuntimeError(f"blur_u8 ({prec}) differs from the plain version by {err}")
         d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
-        what = "AUTO" if prec == rung else "precision='int8'"
+        what = "AUTO" if auto else f"precision='{prec}'"
         print(f"phase 3 main path: blur_u8 {what} {tuple(x.shape)} sigma={SIGMA}: rung {prec}, "
               f"{body.__name__} launches={body.launches}, equal to plain version=True, "
               f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
@@ -2679,6 +2853,29 @@ def main() -> int:
             raise RuntimeError(f"frame 0 is {int(d.max())} counts from the oracle")
         del out, ref
     launches = launched["int8"]
+    if split_at_sigma:  # AUTO at sigma 10: the split, its pass 2 as the card routes it
+        from blur_algorithms_tpu_torch.cuda_kernels import fused_split
+
+        pass2 = _pass2(plan, x.device)
+        split = (fused_split.fused_split_rows_int8, fused_split.fused_split_cols_hybrid,
+                 fused_split.fused_split_cols_int8)
+        torch.cuda.synchronize()
+        for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32, *split):
+            c.launches = 0
+        out = blur_u8(x, SIGMA)
+        torch.cuda.synchronize()
+        ran = {c.__name__: c.launches for c in (*(b for b, _ in bodies.values()),
+                                                fused_blur.blur_fused_f32, *split)}
+        d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
+        print(f"phase 3 main path: blur_u8 AUTO {tuple(x.shape)} sigma={SIGMA} (r "
+              f"{plan.row.support_radius}, from the card's split radius "
+              f"{device_spec(x.device).fused_split_min_radius}): launches {ran}; frame 0 vs "
+              f"oracle max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+        if ({k: v for k, v in ran.items() if v} != {"fused_split_rows_int8": 1, pass2: 1}
+                or out.shape != x.shape or out.dtype != torch.uint8 or d.max() > 1):
+            raise RuntimeError(f"blur_u8 AUTO at sigma {SIGMA} did not run the split's two "
+                               f"passes alone within 1 count: {ran}")
+        del out
 
     # ---- phase 4: times ----
     mp = BATCH * H * W / 1e6
@@ -2688,7 +2885,7 @@ def main() -> int:
     plain = timing.time_cuda(fused_dma.blur_fused_u8_dma_ref, planar, plan,
                              iters=ITERS, name="plain version", megapixels=mp)
     whole = timing.time_cuda(blur_u8, x, SIGMA, iters=ITERS,
-                             name="blur_u8 (with layout copies)", megapixels=mp)
+                             name="blur_u8 AUTO (with layout copies)", megapixels=mp)
     for res in (k1, plain, whole):
         print(f"phase 4 time: {res}", flush=True)
 

@@ -187,7 +187,7 @@ def test_make_frames_is_bench_make_frames_bit_for_bit():
 
 
 def test_int8_pin_runs_k1_int8_where_it_applies(monkeypatch):
-    """On the H100's spec the split runs from r 49 (with the hybrid pass 2
+    """On the H100's spec the split runs from r 32 (with the hybrid pass 2
     there); the ``precision="int8"`` pin still runs K1's exact int8 body
     wherever ``dma_form_applicable`` holds, as the JAX pin does, and equals
     what JAX ``blur_u8(..., precision="int8")`` runs there,
