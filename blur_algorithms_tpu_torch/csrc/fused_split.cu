@@ -40,18 +40,41 @@
 // shared memory in coalesced rows.
 //
 // The int8 cols pass (split_cols_int8_kernel): E = 128 * e1 + e0 with e1 =
-// (E + 64) >> 7; p1 = sum b_hi * e1, p23 = sum b_hi * e0 + b_lo * e1, p4 =
-// sum b_lo * e0 with __dp4a on four consecutive rows of a digit column; then
-// K1's epilogue p1 * c1 + p23 * c2 + p4 * c3 + 128 (int8_epilogue: for the
-// uint8 store each product and sum rounded on its own, and the store clip(y
-// + 0.5, 0, 255.5) truncated; for the f32 store fma(p4, c3, fma(p23, c2, p1 *
-// c1)) + 128, as XLA compiles the JAX expression in interpret mode on an FMA
-// host; --fmad=false keeps nvcc from contracting anything else). Bit-equal
-// to the JAX kernel and to its plain version. One block per 128 rows x 32
-// columns; the column taps run in chunks of 128, each staging the 128 + 128
-// + 4 rows it needs as base-128 digit planes (column-major, an odd number of
-// words per column); each thread keeps 4 groups of 4 rows of one column, 48
-// int32 sums in registers, across the chunks (~34 KB of shared memory).
+// asr(E + 64, 7); p1 = sum b_hi * e1, p23 = sum b_hi * e0 + b_lo * e1, p4 =
+// sum b_lo * e0 over the column taps (the JAX kernel's three digit products
+// against the column band, fused_blur.py:322-334); then K1's epilogue p1 * c1
+// + p23 * c2 + p4 * c3 + 128 (int8_epilogue: for the uint8 store each
+// product and sum rounded on its own, and the store clip(y + 0.5, 0, 255.5)
+// truncated; for the f32 store fma(p4, c3, fma(p23, c2, p1 * c1)) + 128, as
+// XLA compiles the JAX expression in interpret mode on an FMA host;
+// --fmad=false keeps nvcc from contracting anything else). It runs as a band
+// product along the columns on the int8 tensor cores,
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32: A (16 x 32) is the band of one tap
+// digit, A[m][k] = b[32s + k - m] for 16 output rows and k-step s, from the
+// four byte-shifted tap copies (the rows pass's, with no leading zeros); B (32
+// x 8) is one E digit, 32 input rows x 8 columns. Four products a step (p23
+// takes two); every product and sum is an exact integer (p1 < 2^23, p23 <
+// 2^27, p4 < 2^26), so the order is free and the pass is bit-equal to the JAX
+// kernel and to its plain version at any tiling. A .col B register holds 4
+// consecutive k, here 4 input rows of one column, and E is row-major int16
+// (ldmatrix.trans moves 16-bit elements only), so the digits are split and
+// transposed on their way into shared memory: each thread fetches 4 rows x 8
+// columns of E with 16-byte cp.async into its own staging slots, computes
+// both digits of two columns a 32-bit word at once (bit tricks on E + 64,
+// split_digits), gathers each column's 4 rows into one word a digit with
+// __byte_perm, and stores the words into column-major digit planes
+// ([column][row] bytes, 784 bytes a column); non-transposed ldmatrix then
+// gives the B fragments. Only the row index is reflected (src_row, in the
+// loader). Block: 16 warps, 256 output rows x 32 columns, a warp two 16-row
+// blocks x two 8-column blocks (16 mma a k-step: 2 x 2 x 4; the two blocks'
+// windows are 16 rows apart, so ldmatrix x4 per n-block and step brings the
+// two new 16-row matrices of each digit and the third carries over; 8 warps
+// of four 8-column blocks held 192 registers a thread and ran 5% slower).
+// The first 256 threads fetch and convert the window. The
+// window streams through a 768-row ring in chunks of 256 rows (8 k-steps),
+// one chunk in flight into the staging slots and one converted ahead of the
+// products; E is re-read from L2 (256 + 2rh + 16) / 256 times, ~7.6 at r 831.
+// The outputs go out through shared memory in coalesced rows.
 //
 // The hybrid pass 2 (split_cols_hybrid_kernel): y = bf16(f32(E)), acc =
 // sum_t bf16(c_t) * y[t] in f32, out = fma(acc, f32(1 / 127), 128). It runs
@@ -84,7 +107,9 @@
 // What bounds them on an H100 (12 planes 2160 x 3840, r 831): the rows
 // pass's 2 digits x 2 x 1663 int8 operations an output (0.335 ms at 1,979
 // TOP/s) against 1 byte in and 2 bytes of E out (0.089 ms); its band wastes
-// (32 * steps) / (2rw + 1), ~1.02 at r 831. The hybrid pass 2's 2 x 1663
+// (32 * steps) / (2rw + 1), ~1.02 at r 831. The int8 cols pass's 4 digit
+// products x 2 x 1663 an output (0.669 ms) against 2 bytes of E in and 1 out
+// (0.089 ms); its band wastes (32 * steps) / (2rh + 1), ~1.03 at r 831. The hybrid pass 2's 2 x 1663
 // bf16 operations an output (0.335 ms at 989 TFLOP/s) against E in and 1
 // byte out (0.089 ms); its fragments waste (16 * (groups + 15)) / (2rh + 1),
 // ~1.14 at r 831 and ~3.6 at r 49, and re-read E from L2 (256 + 2rh) / 256
@@ -101,10 +126,18 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kColsTh = 128;  // int8 cols pass: output rows per block
-constexpr int kColsTw = 32;   // int8 cols pass: output columns per block
-constexpr int kChunk = 128;   // int8 cols pass: taps per staged chunk
-constexpr int kGroups = kColsTh / 4 / (kThreads / kColsTw);  // row groups per thread
+
+// the int8 cols pass: 16 warps of 32 output rows (two m16 blocks) x half
+// the kColsTw columns (two n8 blocks)
+constexpr int kColsNb = 2;                  // n blocks a warp
+constexpr int kColsThreads = 512;
+constexpr int kColsTh = 256;                // output rows per block
+constexpr int kColsTw = 32;                 // output columns per block
+constexpr int kColsLoad = 256;              // window rows per staged chunk (8 k-steps)
+constexpr int kColsRing = 3 * kColsLoad;    // ring rows: three chunks
+constexpr int kColsPitch = kColsRing + 16;  // bytes per digit column: ldmatrix rows on 8 bank groups
+constexpr int kColsPlane = kColsTw * kColsPitch + 192;  // bytes per digit plane
+constexpr int kColsStage = 80;              // staging bytes per thread: 4 rows x 16, on 8 bank groups
 
 // the rows pass: 8 warps of one 16-column block x all kRowsTr rows
 constexpr int kRowsTn = 128;                // output columns per block
@@ -122,12 +155,6 @@ constexpr int kHybPitch = kHybTw + 8;   // bf16 per ring row (144 bytes): ldmatr
 constexpr int kHybGroupWords = 12;      // words per tap group of 16 bf16: 8 consecutive groups on 32 banks
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
-
-// staged digit rows per column: chunk + tile + 4, an odd number of words
-__host__ __device__ inline int cols_stride() {
-  const int hp = kColsTh + kChunk + 4;
-  return ((hp >> 2) & 1) ? hp : hp + 4;
-}
 
 // The rows pass's k-steps: the taps get delta = (-rw) mod 16 leading zeros
 // (the window then starts 16-byte aligned) and run in steps of 32 window
@@ -152,6 +179,31 @@ __host__ __device__ inline RowsGeometry rows_geometry(int rw) {
 __host__ __device__ inline int rows_smem(int rw) {
   return kRowsTr * kRowsPitch + 2 * 4 * 4 * rows_geometry(rw).words;
 }
+
+// The int8 cols pass's k-steps: row m of a 16-row block reads taps 32s + k
+// - m, so steps cover 2rh + 1 taps for every m. Each digit keeps four copies
+// of its taps, copy c word i = taps [4i + c - 16, 4i + c - 13], of `words`
+// words each, a count = 8 (mod 32) so that the four copies fall on
+// different banks (the rows pass's copies with delta = 0).
+__host__ __device__ inline RowsGeometry cols_geometry(int rh) {
+  RowsGeometry g;
+  g.delta = 0;
+  g.steps = (2 * rh + 1 + 15 + 31) / 32;
+  const int need = 8 * g.steps + 4;
+  g.words = need + ((8 - need) % 32 + 32) % 32;
+  return g;
+}
+
+__host__ __device__ inline int cols_smem(int rh) {
+  // the two digit planes, the staging buffer, the tap copies
+  return 2 * kColsPlane + kThreads * kColsStage + 2 * 4 * 4 * cols_geometry(rh).words;
+}
+
+// byte offset of column j in a digit plane: 784 bytes a column (ldmatrix's
+// eight columns on eight bank groups), each group of 8 columns 64 bytes
+// past the one before (the staging writes of a warp, two neighbouring
+// groups, on 32 banks)
+__device__ __forceinline__ int cols_col(int j) { return j * kColsPitch + ((j >> 3) << 6); }
 
 // The hybrid pass 2's tap groups of 16 and k-steps: fragment row m takes
 // group s - m at step s, for groups 0 .. hyb_groups - 1.
@@ -439,88 +491,246 @@ split_rows_int8_kernel(const uint8_t* __restrict__ x, void* __restrict__ out,
   }
 }
 
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32
+__device__ __forceinline__ void mma_s8s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four rows of two int16 columns (v[i]: row i, the first column low) ->
+// for each column, the word of its four rows' base-128 digits, row i in
+// byte i: d1 = e1 = asr(E + 64, 7), d0 = e0 = E - 128 e1 (as bytes). With t
+// = E + 64 (offset by 2^15 a half so that no carry crosses the halves),
+// e1's byte is bits 7..14 of t and e0's is E's low byte with bit 7 flipped
+// where bit 7 of t is set; __byte_perm gathers byte 0 (or 2) of each row.
+__device__ __forceinline__ void split_digits(const unsigned (&v)[4], unsigned (&d1)[2],
+                                             unsigned (&d0)[2]) {
+  unsigned a1[4], a0[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const unsigned t = (v[i] ^ 0x80008000u) + 0x00400040u;
+    a1[i] = t >> 7;
+    a0[i] = v[i] ^ (t & 0x00800080u);
+  }
+  const unsigned h1 = __byte_perm(a1[0], a1[1], 0x6240), l1 = __byte_perm(a1[2], a1[3], 0x6240);
+  const unsigned h0 = __byte_perm(a0[0], a0[1], 0x6240), l0 = __byte_perm(a0[2], a0[3], 0x6240);
+  d1[0] = __byte_perm(h1, l1, 0x5410);
+  d1[1] = __byte_perm(h1, l1, 0x7632);
+  d0[0] = __byte_perm(h0, l0, 0x5410);
+  d0[1] = __byte_perm(h0, l0, 0x7632);
+}
+
 template <bool kOutU8>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kColsThreads)
 split_cols_int8_kernel(const int16_t* __restrict__ e, void* __restrict__ out,
                        const int* __restrict__ taps, int h, int w, int rh,
                        int pre, float c1, float c2, float c3) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int t4h = round4(2 * rh + 1), nqh = t4h >> 2;
-  const int cs = cols_stride();
-  int* s_taps = reinterpret_cast<int*>(smem);  // b_hi | b_lo words
-  signed char* s_d1 = reinterpret_cast<signed char*>(s_taps + 2 * nqh);
-  signed char* s_d0 = s_d1 + kColsTw * cs;
-  const int tid = threadIdx.x;
+  const RowsGeometry geo = cols_geometry(rh);
+  unsigned char* s_d = smem;  // digit planes e1 | e0: [column][ring row] bytes
+  unsigned char* s_stage = smem + 2 * kColsPlane;  // per thread: 4 rows x 8 int16
+  unsigned* s_q = reinterpret_cast<unsigned*>(s_stage + kThreads * kColsStage);  // [digit][copy][word]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mg = warp & 7, ng = (warp >> 3) * kColsNb;  // rows 32 mg .., n blocks ng ..
+  const bool stager = tid < kThreads;  // the first 256 threads fetch and convert
   const int tiles_w = (w + kColsTw - 1) / kColsTw;
   const int i0 = (blockIdx.x / tiles_w) * kColsTh;
   const int j0 = (blockIdx.x % tiles_w) * kColsTw;
   const size_t plane = static_cast<size_t>(blockIdx.y) * h * w;
   const int xh = pre ? h + 2 * rh : h;  // rows of an input plane
   const int16_t* ep = e + static_cast<size_t>(blockIdx.y) * xh * w;
+  // window rows the warps read: 32 mg + 32 s + (0..47)
+  const int nload = (32 * geo.steps + kColsTh - 16 + kColsLoad - 1) / kColsLoad;
+  const bool vec = ((reinterpret_cast<uintptr_t>(e) & 15) | (w & 7)) == 0;
 
-  for (int k = tid; k < 2 * nqh; k += kThreads) s_taps[k] = taps[k];
-  const int j = tid % kColsTw;       // this thread's column
-  const int a = tid / kColsTw;       // its first row group
-  int p1[kGroups][4], p23[kGroups][4], p4[kGroups][4];
+  // A thread fetches and converts rows 4 qd .. 4 qd + 3 x columns 8 cs ..
+  // 8 cs + 7 of each chunk (lanes l and l ^ 1 on one 32-byte sector).
+  const int cs = (lane & 1) + 2 * (warp & 1);
+  const int qd = (lane >> 1) + 16 * (warp >> 1);
+  const int gjf = j0 + 8 * cs;
+  unsigned char* st = s_stage + tid * kColsStage;
+
+  // window rows [256c, 256c + 256) (window row 0: the input row of output
+  // row i0's first tap) as int16 into this thread's staging slots
+  auto fetch = [&](int c) {
+    if (stager && c < nload) {
 #pragma unroll
-  for (int m = 0; m < kGroups; ++m) {
+      for (int i = 0; i < 4; ++i) {
+        const int16_t* src = ep + static_cast<size_t>(src_row(
+                                      i0 - rh + c * kColsLoad + 4 * qd + i, h, rh, xh, pre)) * w;
+        if (vec && gjf + 8 <= w) {
+          cp_async16(smem_u32(st + 16 * i), src + gjf);
+        } else {
+          int16_t* dst = reinterpret_cast<int16_t*>(st + 16 * i);
 #pragma unroll
-    for (int s = 0; s < 4; ++s) p1[m][s] = p23[m][s] = p4[m][s] = 0;
-  }
-  const int gjl = min(j0 + j, w - 1);  // staging column of this lane
-  const int rows = kColsTh + kChunk + 4;
-  for (int k0 = 0; k0 < t4h; k0 += kChunk) {
-    __syncthreads();  // the previous chunk is done with the digit planes
-    for (int rr = a; rr < rows; rr += kThreads / kColsTw) {
-      const int gi = src_row(i0 - rh + k0 + rr, h, rh, xh, pre);
-      const int v = ep[static_cast<size_t>(gi) * w + gjl];
-      const int e1 = asr(v + 64, 7);
-      s_d1[j * cs + rr] = static_cast<signed char>(e1);
-      s_d0[j * cs + rr] = static_cast<signed char>(v - e1 * 128);
-    }
-    __syncthreads();
-    const int nq = min(kChunk, t4h - k0) >> 2;
-    const int* bhi = s_taps + (k0 >> 2);
-    const int* blo = s_taps + nqh + (k0 >> 2);
-#pragma unroll
-    for (int m = 0; m < kGroups; ++m) {
-      const int ii = (a + m * (kThreads / kColsTw)) << 2;
-      const int* d1 = reinterpret_cast<const int*>(s_d1 + j * cs + ii);
-      const int* d0 = reinterpret_cast<const int*>(s_d0 + j * cs + ii);
-      int cur1 = d1[0], cur0 = d0[0];
-      for (int q = 0; q < nq; ++q) {
-        const int nxt1 = d1[q + 1], nxt0 = d0[q + 1];
-        const int bh = bhi[q], bl = blo[q];
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const int e1 = shifted(cur1, nxt1, s);
-          const int e0 = shifted(cur0, nxt0, s);
-          p1[m][s] = __dp4a(e1, bh, p1[m][s]);
-          p23[m][s] = __dp4a(e1, bl, __dp4a(e0, bh, p23[m][s]));
-          p4[m][s] = __dp4a(e0, bl, p4[m][s]);
+          for (int q = 0; q < 8; ++q) dst[q] = src[min(gjf + q, w - 1)];
         }
-        cur1 = nxt1;
-        cur0 = nxt0;
+      }
+    }
+    cp_async_commit();
+  };
+  // this thread's slots (only its own copies need to have landed) as digit
+  // words into ring slot c mod 3
+  auto convert = [&](int c) {
+    cp_async_wait<0>();
+    if (stager && c < nload) {
+      unsigned v[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint4 u = *reinterpret_cast<const uint4*>(st + 16 * i);
+        v[0][i] = u.x;
+        v[1][i] = u.y;
+        v[2][i] = u.z;
+        v[3][i] = u.w;
+      }
+      const int rr = (c % 3) * kColsLoad + 4 * qd;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        unsigned d1[2], d0[2];
+        split_digits(v[p], d1, d0);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int col = cols_col(8 * cs + 2 * p + u) + rr;
+          *reinterpret_cast<unsigned*>(s_d + col) = d1[u];
+          *reinterpret_cast<unsigned*>(s_d + kColsPlane + col) = d0[u];
+        }
+      }
+    }
+  };
+  fetch(0);
+
+  // the four shifted copies of each digit's taps: word i of copy c starts
+  // at tap 4i + c - 16, so the tap words i - 4 and i - 3 cover it
+  const int nqw = round4(2 * rh + 1) >> 2;
+  for (int i = tid; i < geo.words; i += kColsThreads) {
+#pragma unroll
+    for (int d = 0; d < 2; ++d) {
+      const int wi = i - 4;
+      const unsigned lo = (wi >= 0 && wi < nqw) ? static_cast<unsigned>(taps[d * nqw + wi]) : 0u;
+      const unsigned hi =
+          (wi + 1 >= 0 && wi + 1 < nqw) ? static_cast<unsigned>(taps[d * nqw + wi + 1]) : 0u;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) s_q[(4 * d + c) * geo.words + i] = __funnelshift_r(lo, hi, 8 * c);
+    }
+  }
+  convert(0);
+  fetch(1);
+  convert(1);
+  fetch(2);
+  __syncthreads();
+
+  // A: row m = g of a block, taps 32s + 4 tig - g (+ 0, -8, +16, +8 for the
+  // four registers), all in the copy (4 tig - g) mod 4
+  const int g = lane >> 2, tig = lane & 3;
+  const int b0 = 4 * tig - g + 16;
+  const unsigned* qh = s_q + (b0 & 3) * geo.words + (b0 >> 2);
+  const unsigned* ql = qh + 4 * geo.words;
+  // B of n-block n: 16 window rows x columns 8n .. 8n + 7 of a digit plane
+  // a matrix. Block 0 of the warp (rows 32 warp + 0..15) takes, at step s,
+  // window rows 32 warp + 32s + (0..15) (M0) and + (16..31) (M1); block 1
+  // takes M1 and M2 (+ 32..47), which is the next step's M0. ldmatrix x4 per
+  // n-block and step: e1 M1, e1 M2, e0 M1, e0 M2 (lanes 8 mi + (0..7)).
+  const int mi = lane >> 3;
+  const unsigned sd = smem_u32(s_d);
+  unsigned baddr[kColsNb], m0[kColsNb][2];
+#pragma unroll
+  for (int n = 0; n < kColsNb; ++n) {
+    baddr[n] = sd + (mi >> 1) * kColsPlane + cols_col(8 * (ng + n) + (lane & 7));
+  }
+#pragma unroll
+  for (int q = 0; q < kColsNb / 2; ++q) {  // M0 of step 0: e1, e0 of n-blocks 2q and 2q + 1
+    unsigned r[4];
+    ldsm_x4(sd + (mi & 1) * kColsPlane +
+                cols_col(8 * (ng + 2 * q + (mi >> 1)) + (lane & 7)) + 32 * mg, r);
+    m0[2 * q][0] = r[0];
+    m0[2 * q][1] = r[1];
+    m0[2 * q + 1][0] = r[2];
+    m0[2 * q + 1][1] = r[3];
+  }
+  int acc[2][kColsNb][3][4];  // [m block][n block][p1, p23, p4][fragment]
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+#pragma unroll
+    for (int n = 0; n < kColsNb; ++n) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[b][n][k][v] = 0;
       }
     }
   }
-  const int gj = j0 + j;
-  if (gj >= w) return;
+  const bool active = i0 + 32 * mg < h;  // a ragged last tile leaves warps idle
+  int roff = 32 * mg + 16 + 16 * (mi & 1);  // ring row of this lane's matrix at step 0
+  const int nch = (geo.steps + 7) / 8;
+  for (int ch = 0; ch < nch; ++ch) {
+    const int s_end = min(8 * ch + 8, geo.steps);
+    if (active) {
+      for (int s = 8 * ch; s < s_end; ++s) {
+        const unsigned ah[4] = {qh[8 * s], qh[8 * s - 2], qh[8 * s + 4], qh[8 * s + 2]};
+        const unsigned al[4] = {ql[8 * s], ql[8 * s - 2], ql[8 * s + 4], ql[8 * s + 2]};
+        const int rs = roff >= kColsRing ? roff - kColsRing : roff;
 #pragma unroll
-  for (int m = 0; m < kGroups; ++m) {
-    const int ii = (a + m * (kThreads / kColsTw)) << 2;
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      const int gi = i0 + ii + s;
-      if (gi >= h) break;
-      const float y = int8_epilogue<kOutU8>(p1[m][s], p23[m][s], p4[m][s], c1, c2, c3);
-      const size_t o = plane + static_cast<size_t>(gi) * w + gj;
-      if (kOutU8) {
-        const float v = fminf(fmaxf(__fadd_rn(y, 0.5f), 0.0f), 255.5f);
-        static_cast<uint8_t*>(out)[o] = static_cast<uint8_t>(__float2int_rz(v));
-      } else {
-        static_cast<float*>(out)[o] = y;
+        for (int n = 0; n < kColsNb; ++n) {
+          unsigned b[4];
+          ldsm_x4(baddr[n] + rs, b);
+          mma_s8s8(acc[0][n][0], ah, m0[n][0], b[0]);
+          mma_s8s8(acc[1][n][0], ah, b[0], b[1]);
+          mma_s8s8(acc[0][n][1], ah, m0[n][1], b[2]);
+          mma_s8s8(acc[1][n][1], ah, b[2], b[3]);
+          mma_s8s8(acc[0][n][2], al, m0[n][1], b[2]);
+          mma_s8s8(acc[1][n][2], al, b[2], b[3]);
+          mma_s8s8(acc[0][n][1], al, m0[n][0], b[0]);
+          mma_s8s8(acc[1][n][1], al, b[0], b[1]);
+          m0[n][0] = b[1];
+          m0[n][1] = b[3];
+        }
+        roff = rs + 32;
       }
+    } else {
+      roff += 32 * (s_end - 8 * ch);
+    }
+    convert(ch + 2);  // into the ring slot chunk ch - 1 held
+    __syncthreads();
+    fetch(ch + 3);    // the staging slots are free
+  }
+  cp_async_wait<0>();
+
+  // the epilogue through shared memory (the ring is free), then coalesced
+  // rows of 32 columns
+  constexpr int kPitchU8 = kColsTw + 4, kPitchF = kColsTw + 4;
+  uint8_t* s_u8 = smem;
+  float* s_f = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int b = 0; b < 2; ++b) {
+#pragma unroll
+    for (int n = 0; n < kColsNb; ++n) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const int rr = 32 * mg + 16 * b + g + 8 * (v >> 1);
+        const int cc = 8 * (ng + n) + 2 * tig + (v & 1);
+        const float y = int8_epilogue<kOutU8>(acc[b][n][0][v], acc[b][n][1][v],
+                                              acc[b][n][2][v], c1, c2, c3);
+        if (kOutU8) {
+          s_u8[rr * kPitchU8 + cc] = store_u8(y);
+        } else {
+          s_f[rr * kPitchF + cc] = y;
+        }
+      }
+    }
+  }
+  __syncthreads();
+  const int rows = min(kColsTh, h - i0), cols = min(kColsTw, w - j0);
+  for (int k = tid; k < rows * kColsTw; k += kColsThreads) {
+    const int rr = k / kColsTw, cc = k % kColsTw;
+    if (cc >= cols) continue;
+    const size_t o = plane + static_cast<size_t>(i0 + rr) * w + j0 + cc;
+    if (kOutU8) {
+      static_cast<uint8_t*>(out)[o] = s_u8[rr * kPitchU8 + cc];
+    } else {
+      static_cast<float*>(out)[o] = s_f[rr * kPitchF + cc];
     }
   }
 }
@@ -728,8 +938,7 @@ extern "C" int fused_split_cols_int8(const void* e, void* out, const void* taps,
   int limit = 0;
   int err = smem_limit(&limit);
   if (err) return err;
-  const int t4h = round4(2 * rh + 1);
-  const int smem = 2 * t4h + 2 * kColsTw * cols_stride();
+  const int smem = cols_smem(rh);
   if (smem > limit || planes > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = ((w + kColsTw - 1) / kColsTw) * ((h + kColsTh - 1) / kColsTh);
   dim3 grid(tiles, planes);
@@ -738,7 +947,7 @@ extern "C" int fused_split_cols_int8(const void* e, void* out, const void* taps,
   cudaError_t cerr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return static_cast<int>(cerr);
-  kernel<<<grid, kThreads, smem, st>>>(static_cast<const int16_t*>(e), out,
+  kernel<<<grid, kColsThreads, smem, st>>>(static_cast<const int16_t*>(e), out,
                                        static_cast<const int*>(taps), h, w, rh,
                                        pre, c1, c2, c3);
   return static_cast<int>(cudaGetLastError());

@@ -9,9 +9,10 @@ radius clamp (``pad = min(passes * r, n - 1)``, ``r = pad // passes``, a
 pass-through where that leaves 0), uint8 or float32 in, float32 or uint8
 out (``clip(floor(x + 0.5), 0, 255)``).
 
-Both sum in float64 (the kernel by a block scan or a running sum, the plain
-version by ``torch.cumsum``) and round each pass's mean to float32, so they
-agree to float rounding at any line length; the JAX kernel sums in float32.
+Both sum in float64 (the kernel by a block scan of register runs, or by
+segment totals and running sums, the plain version by ``torch.cumsum``) and
+round each pass's mean to float32, so they agree to float rounding at any
+line length; the JAX kernel sums in float32.
 
 - ``box_blur_scan``: float planes, rows then columns, differentiable (the
   backward pass is the blur's adjoint on the folded box plan, as the JAX
@@ -39,14 +40,24 @@ __all__ = [
     "box_blur_scan_axis_ref",
     "box_blur_scan_u8",
     "clamped_radius",
+    "smem_bytes",
 ]
 
-# Preferred longest span (tile + halo) of the rows kernel, in values: 12
-# bytes of shared memory each (an f32 value and a float64 prefix), so two
-# blocks fit an SM; a longer line is cut into tiles, or runs the lines
-# kernel where even the card's whole shared memory cannot hold the halo.
-_SPAN_PREF = 8192
+# Preferred longest span (tile + halo) of the rows kernel, in values: odd
+# runs of up to 31 values a thread in registers, 8 bytes of shared memory a
+# value (its float64 prefix); a longer line is cut into tiles, or takes runs
+# of 63 up to _SPAN_MAX, or runs the lines kernel where not even that holds
+# the halo and a tile of _MIN_TILE.
+_SPAN_PREF = 256 * 31
+_SPAN_MAX = 256 * 63
 _MIN_TILE = 1024
+# The lines kernel, as csrc/box_scan.cu states it (kLineCols, kLineSegs,
+# kLineMaxSegs): a block runs 64 segments of its strip of 16 lines at once,
+# and two sets of float64 totals of up to _MAX_SEGMENTS segments a line for
+# the strip's lines fill 48 KB of shared memory.
+_LINE_COLS = 16
+_LINE_SEGMENTS = 64
+_MAX_SEGMENTS = 48 * 1024 // (2 * _LINE_COLS * 8)
 
 
 def clamped_radius(n: int, r: int, passes: int) -> int:
@@ -100,13 +111,39 @@ def _rows_tile(n: int, pad: int, smem_limit: int) -> int:
     """Outputs per tile of the rows kernel, or 0 for the lines kernel."""
     if n + 2 * pad <= _SPAN_PREF:
         return n
-    cap = (smem_limit - 1024) // 12 - 1
+    cap = min(_SPAN_MAX, (smem_limit - 1024) // 8 - 1)
     for limit in (_SPAN_PREF, cap):
         t = limit - 2 * pad
         if t >= _MIN_TILE:
             tiles = -(-n // t)
             return -(-n // tiles)
     return 0
+
+
+def _line_segment(n: int, r: int, passes: int) -> int:
+    """Outputs per segment of the lines kernel for lines of ``n`` values at
+    per-pass radius ``r``, as ``line_segment`` of ``csrc/box_scan.cu``
+    chooses them (this mirror serves the CPU model and ``smem_bytes``):
+    about one round of the block's 64 segments in the first pass,
+    ``ceil((2r + 1) / q)`` where the window spans ``q`` of them (a segment's
+    first window sum is then ``q`` segment totals less fewer than ``q``
+    values), and no more than ``_MAX_SEGMENTS`` segments a line."""
+    span = n + 2 * passes * r
+    target = max(32, -(-(span - 2 * r) // _LINE_SEGMENTS))
+    w = 2 * r + 1
+    seg = -(-w // (w // target)) if w >= target else target
+    return max(seg, -(-span // _MAX_SEGMENTS))
+
+
+def smem_bytes(n: int, r: int, passes: int, tile: int) -> int:
+    """Dynamic shared memory of K4's launch along lines of ``n`` values at
+    per-pass radius ``r``: the rows kernel's for a tile of ``tile`` outputs
+    (float64 prefixes of its span and the eight warp totals), or with
+    ``tile`` 0 the lines kernel's (two sets of segment totals)."""
+    if tile:
+        return (tile + 2 * passes * r + 1 + 8) * 8
+    seg = _line_segment(n, r, passes)
+    return 2 * -(-(n + 2 * passes * r) // seg) * _LINE_COLS * 8
 
 
 def box_blur_scan_axis(planar: torch.Tensor, r: int, passes: int = 2,

@@ -14,8 +14,10 @@ tensor and their plain PyTorch versions on a CPU tensor:
   its sums are exact integers, so it is bit-equal to its plain version.
 - ``fused_split_cols_int8``: the cols-only pass over int16 ``E`` (a plan
   whose row axis has radius 0): base-128 digits, exact digit products and
-  K1's f32 epilogue, uint8 or float32 out (the JAX ``e32="in"``).
-  Bit-equal to its plain version.
+  K1's f32 epilogue, uint8 or float32 out (the JAX ``e32="in"``). The
+  kernel is a band product on the int8 tensor cores over the digits of
+  ``E``, transposed into column-major digit planes as it stages them; its
+  sums are exact integers, so it is bit-equal to its plain version.
 - ``fused_split_cols_hybrid``: the hybrid pass 2 over the same ``E`` (the
   JAX ``hybrid_cols``): ``y = bf16(f32(E))``, the bf16 column taps summed
   in f32, ``fma(acc, f32(1 / 127), 128)``. The kernel is a band product on
@@ -64,6 +66,7 @@ from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 
 __all__ = [
+    "cols_geometry",
     "fused_split_cols_hybrid",
     "fused_split_cols_hybrid_ref",
     "fused_split_cols_int8",
@@ -76,8 +79,14 @@ __all__ = [
 
 # The kernels' tiling (csrc/fused_split.cu), for the models of the tests:
 # the rows pass runs blocks of ROWS_TILE (image rows, output columns), the
-# hybrid pass 2 blocks of HYBRID_TILE (output rows, columns).
+# int8 cols pass blocks of COLS_TILE and the hybrid pass 2 blocks of
+# HYBRID_TILE (output rows, columns); the int8 cols pass streams its window
+# in chunks of COLS_CHUNK rows through a ring of COLS_RING rows, column j of
+# a digit plane at byte cols_column(j).
 ROWS_TILE = (64, 128)
+COLS_TILE = (256, 32)
+COLS_CHUNK, COLS_RING = 256, 768
+COLS_PITCH = COLS_RING + 16
 HYBRID_TILE = (256, 64)
 
 
@@ -97,6 +106,31 @@ def rows_smem_bytes(rw: int) -> int:
     _, steps = rows_geometry(rw)
     need = 8 * steps + 4
     return ROWS_TILE[0] * 1040 + 2 * 4 * 4 * (need + (8 - need) % 32)
+
+
+def cols_geometry(rh: int) -> tuple[int, int]:
+    """``(steps, words)`` of the int8 cols pass: ``steps`` k-steps of 32
+    input rows cover the 2rh + 1 taps of every row of a 16-row block, and
+    each of the four shifted copies of a digit's taps has ``words`` words,
+    a count = 8 (mod 32) (``cols_geometry`` in the source)."""
+    steps = (2 * rh + 1 + 15 + 31) // 32
+    need = 8 * steps + 4
+    return steps, need + (8 - need) % 32
+
+
+def cols_column(j: int) -> int:
+    """Byte offset of column ``j`` in a digit plane of the int8 cols pass:
+    784 bytes a column, each group of 8 columns 64 bytes past the one
+    before (``cols_col`` in the source)."""
+    return j * COLS_PITCH + (j >> 3) * 64
+
+
+def cols_smem_bytes(rh: int) -> int:
+    """Dynamic shared memory of an int8 cols block: the two digit planes
+    (32 columns of 784 bytes, + 192), the 256 threads' staging slots (80
+    bytes each) and the tap copies (``cols_smem`` in the source)."""
+    plane = cols_column(COLS_TILE[1] - 1) + COLS_PITCH
+    return 2 * plane + 256 * 80 + 2 * 4 * 4 * cols_geometry(rh)[1]
 
 
 def hybrid_smem_bytes(rh: int) -> int:

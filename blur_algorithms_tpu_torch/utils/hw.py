@@ -51,8 +51,9 @@ _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
 # at least as fast as the box scan (K4), for uint8 (K1) and float (K2)
 # alike, by device name: the chip_smoke.py phase 13 sweep at batch 4 RGB
 # 2160x3840 (PERF.md, "Routing sweeps"), K1 on its AUTO rung. NVIDIA H100
-# 80GB HBM3 at 700 W: uint8 K1 (hybrid) 1.71 vs K4 2.32 ms at support 32,
-# 3.39 vs 2.39 at 82; float K2 1.27 vs 1.94 at 32, 4.03 vs 2.06 at 82.
+# 80GB HBM3 at 700 W, with the segmented K4: uint8 K1 (hybrid) 1.7066 vs K4
+# 1.8691 ms at support 32, 2.9466 vs 1.8144 at 82; float K2 1.3098 vs
+# 1.4946 at 32, 4.2563 vs 1.5697 at 82 (K4 before: 2.32 / 1.94 ms at 32).
 _MEASURED_BOX_SCAN: dict[str, int] = {
     "NVIDIA H100 80GB HBM3": 32,
 }

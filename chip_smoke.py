@@ -70,7 +70,7 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    routed, K1/K2, or the split from ``fused_split_min_radius``);
 11. K4 (the box scan) on HD planes at support 2..1250, passes 1-3, both
    axes, uint8 and f32 in and out; the int8 split forms (rows to int16 E,
-   rows to f32, cols from E) at r 2..1996, bit-equal; K2's single-axis form
+   rows to f32, cols from E to uint8 and f32) at r 2..1996, bit-equal; K2's single-axis form
    at r up to 3994 on both axes, f32 and uint8 in; each against its plain
    version on the card;
 12. the slice's paths at full width, counts set to 0 first: ``box_blur`` at
@@ -84,8 +84,17 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    the oracle on their crops; ``blur(engine="fused")`` at sigma 400 runs
    the f32 split forward (plane 0 within 2e-2 of FFT_MXU) and the adjoint
    backward; ``blur_u8(engine="cascade")`` at sigma 400 within 1 count;
-13. times (median of 20, of 5 for calls over 100 ms): K4 per axis, the
-   split forms per pass, the whole calls of phase 12, the plain versions
+13. times (median of 20, of 5 for calls over 100 ms): K4 per axis (uint8
+   and f32, each with the earlier kernel's time as PERF.md records it,
+   bound and share, the yardstick and ptxas; the uint8 batch's rows and
+   columns first held against the plain version, 1e-3 * max / 255 and 1
+   count), the split forms per pass, the int8 cols pass at column r 49,
+   165 and 831 on the batch, at HD and on the pre-padded dp 2 x sp 2 shard
+   (both stores ``torch.equal`` to the plain version; time, the earlier
+   kernel's time as PERF.md records it, bound and share, ptxas), the split with the int8
+   pass 2 against the hybrid pass 2 in turns at r 49, 165 and 831 and
+   ``blur_u8(engine="fused")`` at sigma (250, 0.9) (the int8 pass 2) beside
+   sigma 250 (the hybrid pass 2), the whole calls of phase 12, the plain versions
    (the split's and the single-axis form's at HD), the yardsticks (reflect
    pad + ``avg_pool2d`` per pass for K4, depthwise ``conv2d`` per axis with
    TF32 off for the f32 form), and two sweeps in turns that set
@@ -890,8 +899,8 @@ def _slice3(frames) -> list[dict]:
     ]
 
 
-def _check(name: str, err: float, limit: float, line: str) -> float:
-    print(f"phase 11 {name} vs plain: {line} max_abs_err={err:.3e} limit={limit:.3e}",
+def _check(name: str, err: float, limit: float, line: str, phase: int = 11) -> float:
+    print(f"phase {phase} {name} vs plain: {line} max_abs_err={err:.3e} limit={limit:.3e}",
           flush=True)
     if not err <= limit:
         raise RuntimeError(f"{name} disagrees with its plain version: {line}")
@@ -934,10 +943,12 @@ def _phase11() -> dict:
         e = fs.fused_split_rows_int8(x, rows, out_e32=True)
         y = fs.fused_split_rows_int8(x, rows, out_e32=False)
         got = fs.fused_split_cols_int8(e, cols, out_u8=True)
+        got32 = fs.fused_split_cols_int8(e, cols, out_u8=False)
         checks = (
             ("fused_split_rows_int8 (int16 E)", e, fs.fused_split_rows_int8_ref(x, rows, True)),
             ("fused_split_rows_int8 (f32)", y, fs.fused_split_rows_int8_ref(x, rows, False)),
             ("fused_split_cols_int8 (uint8)", got, fs.fused_split_cols_int8_ref(e, cols, True)),
+            ("fused_split_cols_int8 (f32)", got32, fs.fused_split_cols_int8_ref(e, cols, False)),
         )
         torch.cuda.synchronize()
         for name, a, b in checks:
@@ -1283,6 +1294,114 @@ def _sweeps(frames) -> dict:
     return out
 
 
+# The int8 cols pass and K4 before their redesigns (the cols pass on dp4a,
+# K4's float64 block scan per 256 values and per-column walk), NVIDIA H100
+# 80GB HBM3 at 700.00 W: not timed by this script, whose checkout holds
+# only the current sources, but recorded in PERF.md (PR 10's table, column
+# "earlier, in turns"), from probes/cols_int8_tc.py and probes/k4_variants.py
+# timing the parent commit's sources in turns with these; printed as such,
+# and kept out of the kernels line
+EARLIER_COLS_MS = {
+    "12x2160x3840 r 831": 15.3797, "3x1080x1920 r 831": 1.1010,
+    "6x1080x3840 r 831 pre-padded": 4.0401,
+    "12x2160x3840 r 49": 1.1780, "12x2160x3840 r 165": 3.4516,
+}
+EARLIER_K4_MS = {"rows u8->f32": 1.2348, "cols f32->u8": 1.4802, "rows f32": 1.2519,
+                 "cols f32": 1.5363}
+COLS_REPORT_SIGMAS = (15.0, 50.0, 250.0)  # r 49, 165, 831
+SIGMA_INT8_PASS2 = (250.0, 0.9)  # column r 831, row r 2: under the hybrid floor
+
+
+def _was(table: dict, key: str) -> str:
+    was = table.get(key)
+    if was is None:
+        return "earlier kernel not measured"
+    return f"earlier kernel {was:.4f} in turns, PERF.md's reading, not this run's"
+
+
+def _cols_int8_report(planar: torch.Tensor, x_u8: torch.Tensor, counters) -> dict:
+    """Phase 13: the int8 cols pass (uint8 out) on the batch at column r
+    49, 165 and 831, at HD r 831 and on the pre-padded dp 2 x sp 2 shard at
+    r 831: both stores held ``torch.equal`` to the plain version; time,
+    earlier time (PERF.md's), bound and share; the split with the int8
+    pass 2 against the hybrid pass 2 in turns at the same radii;
+    ``blur_u8(engine="fused")`` at sigma (250, 0.9) (the int8 pass 2: row r
+    2 under the hybrid floor) beside sigma 250 (the hybrid pass 2); ptxas.
+    Returns the times by label."""
+    from blur_algorithms_tpu_torch import blur_u8, make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+
+    planes = planar.reshape(-1, H, W)
+    hd = planes[:3, :HD[0], :HD[1]].contiguous()
+    out = {}
+    cases = [*((planes, s, False) for s in COLS_REPORT_SIGMAS), (hd, SIGMA_U8_WIDE, False),
+             (planes[:6, :H // 2], SIGMA_U8_WIDE, True)]
+    for x, sigma, pre in cases:
+        n, h, w = x.shape
+        plan = make_plan((h, w), sigma)
+        rh = plan.col.support_radius
+        _, cols = fused_blur._split_plans(plan)
+        if pre:  # the top shard's rows with rh halo rows each side
+            xp = reflect_101(planes[:6], [(rh, rh)], axes=[-2])[:, :h + 2 * rh].contiguous()
+            rows = fused_blur._haloed_rows_plan(plan)
+        else:
+            xp, rows = x, fused_blur._split_plans(plan)[0]
+        at = f"{n}x{h}x{w} r {rh}" + (" pre-padded" if pre else "")
+        e = fs.fused_split_rows_int8(xp, rows)
+        for out_u8 in (True, False):
+            got = fs.fused_split_cols_int8(e, cols, out_u8, pre)
+            equal = torch.equal(got, fs.fused_split_cols_int8_ref(e, cols, out_u8, pre))
+            print(f"phase 13 int8 cols vs plain: {at} {'uint8' if out_u8 else 'f32'} out "
+                  f"equal={equal}", flush=True)
+            if not equal:
+                raise RuntimeError(f"the int8 cols pass disagrees with its plain version at {at}")
+            del got
+        ms = _time(fs.fused_split_cols_int8, e, cols, True, pre, name=f"int8 cols {at}").median_ms
+        outputs = n * h * w
+        bound, by = _bound_ms(3 * outputs, 2 * outputs * 4 * (2 * rh + 1), INT8_OP_PER_S)
+        print(f"phase 13 int8 cols {at}: {ms:.4f} ms ({_was(EARLIER_COLS_MS, at)}); "
+              f"bound {bound:.4f} ms ({by}), share {bound / ms:.1%}; library: none", flush=True)
+        out[at] = {"ms": ms, "bound": bound}
+        del e, xp
+    for sigma in COLS_REPORT_SIGMAS:
+        plan = make_plan((H, W), sigma)
+        rows, cols = fused_blur._split_plans(plan)
+        r = plan.col.support_radius
+        t = _in_turns(f"split r={r}", {
+            "int8 pass 2": lambda u: fs.fused_split_cols_int8(fs.fused_split_rows_int8(u, rows),
+                                                              cols),
+            "hybrid pass 2": lambda u: fs.fused_split_cols_hybrid(
+                fs.fused_split_rows_int8(u, rows), cols)}, planes)
+        print(f"phase 13 split r={r} (both passes, uint8 out): int8 pass 2 "
+              f"{t['int8 pass 2']:.4f} ms vs hybrid pass 2 {t['hybrid pass 2']:.4f} ms",
+              flush=True)
+        out[f"split r {r}"] = t
+    plan = make_plan((H, W), SIGMA_INT8_PASS2)
+    before = _launched(counters)
+    blur_u8(x_u8, SIGMA_INT8_PASS2, engine="fused")
+    torch.cuda.synchronize()
+    ran = _launched(counters, before)
+    if ran["fused_split_cols_int8"] != 1 or ran["fused_split_cols_hybrid"]:
+        raise RuntimeError(f"blur_u8 fused at sigma {SIGMA_INT8_PASS2} did not run the int8 "
+                           f"pass 2: {ran}")
+    t = _in_turns("blur_u8 fused r 831", {
+        "int8 pass 2": lambda u: blur_u8(u, SIGMA_INT8_PASS2, engine="fused"),
+        "hybrid pass 2": lambda u: blur_u8(u, SIGMA_U8_WIDE, engine="fused")}, x_u8)
+    print(f"phase 13 blur_u8 fused at column r {plan.col.support_radius}: sigma "
+          f"{SIGMA_INT8_PASS2} (row r {plan.row.support_radius}, the int8 pass 2) "
+          f"{t['int8 pass 2']:.4f} ms vs sigma {SIGMA_U8_WIDE} (the hybrid pass 2) "
+          f"{t['hybrid pass 2']:.4f} ms", flush=True)
+    out["blur_u8 fused r 831"] = t
+    for name, line in _ptxas_lines(("split_cols_int8_kernel",)):
+        print(f"phase 13 ptxas {name}: {line}", flush=True)
+    for r in (49, 165, 831, 4096):
+        print(f"phase 13 int8 cols dynamic shared memory at r {r}: "
+              f"{fs.cols_smem_bytes(r)} bytes", flush=True)
+    return out
+
+
 def _slice4(frames) -> tuple[list[dict], dict]:
     """Phases 11-13; returns the entries of K4, the two int8 split forms and
     K2's single-axis form for the kernels line, and phase 12's launches."""
@@ -1308,6 +1427,18 @@ def _slice4(frames) -> tuple[list[dict], dict]:
     hd_f32 = x[0, :, :HD[0], :HD[1]].contiguous()
     radius = int(BOX_NSMOOTH * BOX_NSMOOTH)
     rows_f32 = k4.box_blur_scan_axis(planar_u8, radius, 2, -1)
+    # K4 at the main path's shape against its plain version: rows uint8 ->
+    # f32, columns f32 -> uint8 on the rows' output
+    want = k4.box_blur_scan_axis_ref(planar_u8, radius, 2, -1)
+    err = float((rows_f32.double() - want.double()).abs().max())
+    errs["box_scan"] = max(errs["box_scan"], _check(
+        "K4", err, 1e-3 * float(want.abs().max()) / 255,
+        f"{tuple(planar_u8.shape)} r={radius} passes=2 axis=-1 (uint8 in, f32 out)", 13))
+    got = k4.box_blur_scan_axis(rows_f32, radius, 2, -2, True)
+    want = k4.box_blur_scan_axis_ref(rows_f32, radius, 2, -2, True)
+    _check("K4", float((got.int() - want.int()).abs().max()), 1.0,
+           f"{tuple(planar_u8.shape)} r={radius} passes=2 axis=-2 (f32 in, uint8 out)", 13)
+    del got, want
     t_k4 = {
         "rows u8->f32": _time(k4.box_blur_scan_axis, planar_u8, radius, 2, -1,
                               name="K4 rows uint8 -> f32"),
@@ -1337,6 +1468,20 @@ def _slice4(frames) -> tuple[list[dict], dict]:
     for res in (*t_k4.values(), *p_k4.values(), *lib_k4.values()):
         print(f"phase 13 time: {res}", flush=True)
     del rows_f32
+    for key, res in t_k4.items():
+        nbytes = {"rows u8->f32": 5, "cols f32->u8": 5}.get(key, 8) * outputs
+        bound, by = _bound_ms(nbytes, 4 * outputs, F32_FLOP_PER_S)
+        lib = lib_k4["rows" if key.startswith("rows") else "cols"].median_ms
+        print(f"phase 13 K4 {key} (support {2 * radius}): {res.median_ms:.4f} ms "
+              f"({_was(EARLIER_K4_MS, key)}); bound {bound:.4f} ms ({by}), share "
+              f"{bound / res.median_ms:.1%}; yardstick (f32 reflect F.pad + avg_pool2d x2) "
+              f"{lib:.4f} ms", flush=True)
+    for name, line in _ptxas_lines(("box_rows_kernel", "box_lines_kernel")):
+        print(f"phase 13 ptxas {name}: {line}", flush=True)
+    print(f"phase 13 K4 dynamic shared memory at support {2 * radius}: rows kernel "
+          f"{k4.smem_bytes(W, radius, 2, W)} bytes (span {W + 4 * radius}), lines kernel "
+          f"{k4.smem_bytes(H, radius, 2, 0)} bytes (segments of "
+          f"{k4._line_segment(H, radius, 2)})", flush=True)
     k4_ms = t_k4["rows u8->f32"].median_ms + t_k4["cols f32->u8"].median_ms
     k4_bound, k4_by = _bound_ms(10 * outputs, 8 * outputs, F32_FLOP_PER_S)
     print(f"phase 13 K4 uint8 box_blur (support {2 * radius}): {k4_ms:.4f} ms for both "
@@ -1361,6 +1506,7 @@ def _slice4(frames) -> tuple[list[dict], dict]:
     taps = 2 * plan.row.support_radius + 1
     b_rows = _bound_ms(3 * outputs, 2 * outputs * 2 * taps, INT8_OP_PER_S)
     b_cols = _bound_ms(3 * outputs, 2 * outputs * 4 * taps, INT8_OP_PER_S)
+    cols_report = _cols_int8_report(planar_u8, x_u8, counters)
 
     plan = make_plan((H, W), SIGMA_F32_WIDE)
     rows4, cols4 = fused_blur._split_plans(plan)
@@ -1435,7 +1581,8 @@ def _slice4(frames) -> tuple[list[dict], dict]:
               launched["box_blur_scan_axis"], k4_ms,
               p_k4["rows u8->f32"].median_ms + p_k4["cols f32->u8"].median_ms,
               (k4_bound, k4_by), errs["box_scan"],
-              lib_k4["rows"].median_ms + lib_k4["cols"].median_ms),
+              lib_k4["rows"].median_ms + lib_k4["cols"].median_ms,
+              axes_ms={k: v.median_ms for k, v in t_k4.items()}),
         entry("fused_split_rows_int8", "blur_algorithms_tpu_torch/csrc/fused_split.cu",
               "blur_algorithms_tpu/pallas_kernels/fused_blur.py:218",
               launched["fused_split_rows_int8"], t_rows.median_ms, p_rows.median_ms,
@@ -1443,7 +1590,8 @@ def _slice4(frames) -> tuple[list[dict], dict]:
         entry("fused_split_cols_int8", "blur_algorithms_tpu_torch/csrc/fused_split.cu",
               "blur_algorithms_tpu/pallas_kernels/fused_blur.py:218",
               launched["fused_split_cols_int8"], t_cols.median_ms, p_cols.median_ms,
-              b_cols, errs["cols"], None, plain_at=hd, ms_at_plain_shape=k_cols_hd.median_ms),
+              b_cols, errs["cols"], None, plain_at=hd, ms_at_plain_shape=k_cols_hd.median_ms,
+              ms_by_shape={k: v["ms"] for k, v in cols_report.items() if "ms" in v}),
         entry("fused_blur_axis_f32", "blur_algorithms_tpu_torch/csrc/fused_blur.cu",
               "blur_algorithms_tpu/pallas_kernels/fused_blur.py:136",
               launched["blur_fused_axis_f32"], t_ax_rows.median_ms + t_ax_cols.median_ms,

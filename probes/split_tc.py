@@ -29,28 +29,19 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from _earlier import in_turns, library  # noqa: E402
 
 from blur_algorithms_tpu_torch import make_plan  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fused_blur  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs  # noqa: E402
 from blur_algorithms_tpu_torch.ops.pad import reflect_101  # noqa: E402
-from blur_algorithms_tpu_torch.utils import build, timing  # noqa: E402
+from blur_algorithms_tpu_torch.utils import build  # noqa: E402
 from blur_algorithms_tpu_torch.utils.frames import make_frames  # noqa: E402
-
-ITERS = 20
 
 
 def _earlier_library(src: pathlib.Path) -> ctypes.CDLL:
-    out_dir = build.build_dir() / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / "fused_split_earlier.so"
-    cmd = [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(lib), str(src)]
-    done = subprocess.run(cmd, capture_output=True, text=True)
-    if done.returncode:
-        raise RuntimeError(f"nvcc failed: {' '.join(cmd)}\n{done.stdout}{done.stderr}")
-    lib = ctypes.CDLL(str(lib))
+    lib, _ = library(src, "fused_split_earlier")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in ("fused_split_rows_int8", "fused_split_cols_hybrid"):
         getattr(lib, name).argtypes = [vp, vp, vp, i, i, i, i, i, i, f, vp]
@@ -92,13 +83,6 @@ def _hybrid(lib, e, plan, pre):
     return run
 
 
-def _in_turns(label, fns):
-    t = {k: [] for k in fns}
-    for k in (*fns, *reversed(fns)):
-        t[k].append(timing.time_cuda(fns[k], iters=ITERS, name=f"{label} {k}").median_ms)
-    return {k: float(np.mean(v)) for k, v in t.items()}
-
-
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--earlier", type=pathlib.Path, required=True)
@@ -132,7 +116,7 @@ def main() -> int:
             torch.cuda.synchronize()
             if not torch.equal(got["current"], got["earlier"]):
                 raise RuntimeError(f"the rows pass changed its output at {at}")
-            line.update({f"rows_{k}": v for k, v in _in_turns(f"rows {at}", runs).items()})
+            line.update({f"rows_{k}": v for k, v in in_turns(f"rows {at}", runs).items()})
         e = fs.fused_split_rows_int8(xp, rows)
         runs = {k: _hybrid(lib, e, cols, pre) for k, lib in libs.items()}
         got = {k: f().clone() for k, f in runs.items()}
@@ -140,7 +124,7 @@ def main() -> int:
         d = int((got["current"].int() - got["earlier"].int()).abs().max())
         if d > 1:
             raise RuntimeError(f"the hybrid pass 2 moved {d} counts at {at}")
-        line.update({f"hybrid_{k}": v for k, v in _in_turns(f"hybrid {at}", runs).items()})
+        line.update({f"hybrid_{k}": v for k, v in in_turns(f"hybrid {at}", runs).items()})
         line["hybrid_u8_max_diff"] = d
         print("split_tc " + json.dumps(line), flush=True)
         rows_out.append(line)

@@ -125,8 +125,8 @@ def test_k4_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
 
 def test_k4_rows_tiles():
     """The rows kernel's tiles: one tile while a line fits the preferred
-    span, balanced tiles past it, the lines kernel past the card's shared
-    memory (227 KB on an H100)."""
+    span, balanced tiles past it, the lines kernel past its longest span
+    (16128 values, runs of 63 a thread)."""
     smem = 232448
     assert t_scan._rows_tile(3840, 1600, smem) == 3840
     t = t_scan._rows_tile(15360, 1662, smem)

@@ -256,8 +256,10 @@ def test_fft_engines_on_the_card_match_the_cpu(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape, r, passes", [
     ((3, 257, 1920), 5, 2), ((3, 1080, 301), 40, 3), ((2, 64, 9000), 1700, 2),
-    ((2, 33, 20000), 4000, 3), ((3, 120, 130), 200, 1),
-], ids=["small", "3-pass", "tiled-rows", "lines-rows", "clamped"])
+    ((2, 33, 20000), 4000, 3), ((3, 120, 130), 200, 1), ((2, 20000, 33), 4000, 3),
+    ((6, 301, 517), 40, 2), ((2, 9, 15000), 3500, 2),
+], ids=["small", "3-pass", "tiled-rows", "lines-rows", "clamped", "tall-cols", "6-planes",
+        "rows-runs-of-63"])
 @pytest.mark.parametrize("axis", [-1, -2])
 def test_k4_against_plain_version_on_the_card(cuda_device, shape, r, passes, axis):
     from blur_algorithms_tpu_torch.cuda_kernels import box_blur as k4
@@ -278,8 +280,10 @@ def test_k4_against_plain_version_on_the_card(cuda_device, shape, r, passes, axi
 @pytest.mark.parametrize("shape, sigma, planes", [
     ((300, 517), 3.0, 3), ((1080, 1920), 250.0, 3), ((64, 5000), 1000.0, 3),
     ((301, 2500), (150.0, 700.0), 3), ((37, 1300), 0.55, 3), ((50, 8400), (15.0, 1230.05), 2),
-    ((1001, 1777), 15.0, 5),
-], ids=["r9", "r831", "r2500", "r1250-aniso", "r1", "r4094", "ragged-5-planes"])
+    ((1001, 1777), 15.0, 5), ((8200, 40), (1230.65, 1.0), 2), ((37, 1300), (0.55, 300.0), 3),
+    ((1001, 1777), (100.0, 3.0), 5),
+], ids=["r9", "r831", "r2500", "r1250-aniso", "r1", "r4094", "ragged-5-planes", "cols-r4096",
+        "cols-r1-wide-rows", "cols-r332-5-planes"])
 def test_int8_split_forms_equal_plain_versions_on_the_card(cuda_device, shape, sigma, planes):
     from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
 
@@ -612,6 +616,33 @@ def test_pre_padded_split_forms_on_the_card(cuda_device, shape, sigma):
         torch.cuda.synchronize()
         d = float((got.double() - want.double()).abs().max())
         assert d <= (1 if out_u8 else 1e-3 * float(y.abs().max()) / 255)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("origin, h_loc", [(7, 300), (135, 135), (465, 75)])
+def test_int8_cols_pass_on_halo_rows_at_an_odd_shard_origin(cuda_device, origin, h_loc):
+    """The int8 pass 2 on a shard's E with its halo rows (``pre_padded_col``)
+    at a shard origin that no tile boundary of the whole frame meets:
+    ``torch.equal`` to its plain version and to the whole frame's rows."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_split as fs
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+
+    shape = (540, 1000)
+    plan = make_plan(shape, 250.0)
+    rows, cols = fused_blur._split_plans(plan)
+    rh = cols.col.support_radius
+    x = _planes((3, *shape), seed=47).to(cuda_device)
+    e = fs.fused_split_rows_int8(x, rows, out_e32=True)
+    _, lcols = fused_blur._split_plans(_local_plan(plan, h_loc, shape[1]))
+    part = reflect_101(e, [(rh, rh)], axes=[-2])[:, origin : origin + h_loc + 2 * rh]
+    part = part.contiguous()
+    for out_u8 in (True, False):
+        whole = fs.fused_split_cols_int8(e, cols, out_u8=out_u8)
+        got = fs.fused_split_cols_int8(part, lcols, out_u8=out_u8, pre_padded_col=True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, fs.fused_split_cols_int8_ref(part, lcols, out_u8, True))
+        assert torch.equal(got, whole[:, origin : origin + h_loc])
 
 
 @pytest.mark.cuda
