@@ -1,0 +1,190 @@
+"""B2: where K3/K3f's time goes, stage by stage.
+
+The port of the JAX package's ``benchmarks/fft_mxu_ablation.py``, which
+times the TPU's four-step FFT kernel with its dots, twiddle products and
+relayouts turned off. Here the kernel is ``csrc/fft4step.cu``'s own body
+built with a mask of stages to leave out (``csrc/probes/fft_ablation.cu``):
+the butterflies, the twiddle products, the shared-memory exchanges between
+passes, the product by H, or everything but the first pass's reads and the
+last pass's stores. Only ``full`` (mask 0, the production kernel's code) is
+a correct result; the other modes are for timing only, as in the JAX probe.
+
+``MODES`` maps each JAX mode to its mask. ``1dot`` maps to none: it runs one
+bf16 dot in place of the three of the TPU's bf16x3 split, and the H100
+kernel computes its FFT in f32 on the CUDA cores, with no split dots.
+
+A CUDA tensor runs the probe's kernel; a CPU tensor runs ``full``'s plain
+version, K3's (``ops.fft_mxu._conv_rows_einsum``) or K3f's
+(``cuda_kernels.fft4step.fft_conv_rows_framed_ref``), and refuses the
+other modes.
+
+Run: ``python -m blur_algorithms_tpu_torch.benchmarks.fft_mxu_ablation``
+(``--rows``/``--n`` as the JAX probe: 8192 rows of n 16384 by default; the
+4K shapes of ``chip_smoke.py`` with ``--cells``). Prints one JSON line per
+mode.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+import torch
+
+from blur_algorithms_tpu_torch.benchmarks._common import (
+    check_launch,
+    device_arg,
+    device_of,
+    emit,
+)
+
+__all__ = ["MODES", "ONE_DOT", "PORT_MODES", "STAGES", "cells", "conv_rows_ablation",
+           "jax_default", "mask_keeps"]
+
+# the stages a mask leaves out (csrc/fft4step.cu: Ablate)
+NO_BUTTERFLIES, NO_TWIDDLES, NO_EXCHANGES, NO_SPECTRUM, IO_ONLY = 1, 2, 4, 8, 16
+STAGES = {"butterflies": NO_BUTTERFLIES, "twiddles": NO_TWIDDLES,
+          "exchanges": NO_EXCHANGES, "spectrum": NO_SPECTRUM}
+
+# the JAX probe's modes (fft_mxu_ablation.py main) and their masks
+MODES = {
+    "full": 0,
+    "norot": NO_EXCHANGES,
+    "notw": NO_TWIDDLES,
+    "norot_notw": NO_EXCHANGES | NO_TWIDDLES,
+    "1dot": None,
+    "nodot": NO_BUTTERFLIES,
+    "nodot_norot_notw": NO_BUTTERFLIES | NO_EXCHANGES | NO_TWIDDLES,
+}
+ONE_DOT = ("no counterpart: 1dot runs one bf16 dot in place of the three of the TPU's "
+           "bf16x3 split; the H100 kernel's FFT is f32 on the CUDA cores, with no split dots")
+# modes of the port alone: the product by H, and the reads and stores alone
+PORT_MODES = {"noh": NO_SPECTRUM, "io_only": IO_ONLY}
+
+
+def mask_keeps(mask: int) -> dict[str, bool]:
+    """The stages a mask keeps, as the kernel's ``if constexpr`` tests read
+    it (``IO_ONLY`` leaves out every stage but the reads and stores)."""
+    if mask & IO_ONLY:
+        mask |= NO_BUTTERFLIES | NO_TWIDDLES | NO_EXCHANGES | NO_SPECTRUM
+    keeps = {name: not mask & bit for name, bit in STAGES.items()}
+    keeps["middle passes"] = not mask & IO_ONLY
+    return keeps
+
+
+def _mask(mode: str) -> int:
+    mask = {**MODES, **PORT_MODES}.get(mode, -1)
+    if mask is None:
+        raise ValueError(f"mode {mode!r}: {ONE_DOT}")
+    if mask < 0:
+        raise ValueError(f"the modes are {[*MODES, *PORT_MODES]}, not {mode!r}")
+    return mask
+
+
+def conv_rows_ablation(rows: torch.Tensor, n: int, axis_plan, mode: str = "full",
+                       framed: bool = False) -> torch.Tensor:
+    """K3 (rows framed to ``n``) or K3f (``framed``: unpadded rows, framed in
+    the kernel) with ``mode``'s stages left out. A CUDA tensor launches the
+    probe's kernel (n 16384 or 8192 for K3, 6144 or 4096 for K3f); a CPU
+    tensor runs ``full``'s plain version. ``conv_rows_ablation.launches``
+    counts."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    mask = _mask(mode)
+    dim, pad = (axis_plan.dim, axis_plan.pad) if framed else (n, 0)
+    if rows.dtype != torch.float32 or rows.ndim != 2 or rows.shape[1] != dim:
+        raise ValueError(f"takes (R, {dim}) float32 rows, got {tuple(rows.shape)} {rows.dtype}")
+    if rows.device.type == "cpu":
+        if mask:
+            raise ValueError(f"mode {mode!r} is for timing on the card: only 'full' has a "
+                             "plain version")
+        plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+        return plain(rows, n, axis_plan)
+    if rows.device.type != "cuda" or not rows.is_contiguous():
+        raise ValueError(f"takes contiguous CUDA or CPU rows, not {rows.device}")
+    from blur_algorithms_tpu_torch.utils.build import load_probe_library
+
+    out = torch.empty_like(rows)
+    tw = fft4step._twiddles(n, rows.device)
+    h, complex_h = fft4step._kernel_spectrum(axis_plan, n, rows.device)
+    rc = load_probe_library().fft_conv_rows_ablation(
+        mask, int(framed), rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
+        int(complex_h), rows.shape[0], n, dim, pad,
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    check_launch(rc, "fft_conv_rows_ablation")
+    conv_rows_ablation.launches += 1
+    return out
+
+
+conv_rows_ablation.launches = 0
+
+
+def cells(batch: int = 4, h: int = 2160, w: int = 3840) -> list[tuple[str, int, int, object, bool]]:
+    """(label, rows, n, axis plan, framed): K3 on both axes of the sigma 400
+    adjoint and K3f on both axes of sigma 250 on ``batch`` RGB frames, as
+    ``chip_smoke.py`` phase 10 builds them."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+
+    planes = 3 * batch
+    out = []
+    p = make_plan((h, w), 400.0)
+    for ax, rows, label in ((p.row, planes * h, "rows"), (p.col, planes * w, "cols")):
+        r = ax.support_radius
+        n = max(256, 1 << (ax.dim + 4 * r - 1).bit_length())
+        out.append((f"K3 adjoint {label} sigma=400", rows, n, ax, False))
+    p = make_plan((h, w), 250.0)
+    for ax, rows, label in ((p.row, planes * h, "rows"), (p.col, planes * w, "cols")):
+        out.append((f"K3f {label} sigma=250", rows, transform_length(ax), ax, True))
+    return out
+
+
+def jax_default(rows: int = 8192, n: int = 16384) -> tuple[str, int, int, object, bool]:
+    """The JAX probe's default cell: ``rows`` rows of K3 at ``n`` (the taps of
+    the sigma 400 adjoint's rows on 4K frames, whose transform it is)."""
+    from blur_algorithms_tpu_torch import make_plan
+
+    return (f"K3 rows={rows} n={n}", rows, n, make_plan((2160, 3840), 400.0).row, False)
+
+
+def main(argv: list[str] | None = None) -> int:
+    from blur_algorithms_tpu_torch.utils.timing import time_cuda
+
+    p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    device_arg(p)
+    p.add_argument("--rows", type=int, default=8192)
+    p.add_argument("--n", type=int, default=16384)
+    p.add_argument("--cells", action="store_true", help="the 4K cells of chip_smoke.py")
+    args = p.parse_args(argv)
+    device = device_of(args.device)
+    todo = cells() if args.cells else [jax_default(args.rows, args.n)]
+    rng = np.random.default_rng(0)
+    for label, nrows, n, ax, framed in todo:
+        if device.type == "cpu":  # the plain version of full, on a few rows
+            nrows = 4
+        x = torch.from_numpy(rng.standard_normal(
+            (nrows, ax.dim if framed else n), dtype=np.float32)).to(device)
+        full = None
+        for mode in [*MODES, *PORT_MODES]:
+            if MODES.get(mode, 0) is None:
+                emit({"probe": "B2", "cell": label, "mode": mode, "ms": None, "reason": ONE_DOT})
+                continue
+            if device.type == "cpu":
+                if mode == "full":
+                    out = conv_rows_ablation(x, n, ax, mode, framed)
+                    emit({"probe": "B2", "cell": label, "mode": mode, "device": "cpu",
+                          "sum": float(out.double().sum())})
+                continue
+            ms = time_cuda(conv_rows_ablation, x, n, ax, mode, framed, iters=10,
+                           name=mode).median_ms
+            full = ms if mode == "full" else full
+            emit({"probe": "B2", "cell": label, "mode": mode, "ms": ms,
+                  "minus_full_ms": ms - full, "keeps": mask_keeps(_mask(mode)),
+                  "device": torch.cuda.get_device_name(device)})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -90,6 +90,14 @@
 // dense DFT matrices suit a machine whose vector unit is weak; the H100's
 // CUDA cores are not.
 //
+// Ablation (the probe B2, csrc/probes/fft_ablation.cu): the body is a
+// template on a mask of stages to leave out (Ablate, below). The kernels of
+// this file are the body with mask 0, where every `if constexpr` on the mask
+// keeps the stage, so they compile to the code they were without it. The
+// probe includes this file with FFT4STEP_KERNELS_ONLY defined (no launch
+// code, no C entries, no instantiation here) and instantiates the other
+// masks at the lengths it runs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
 
@@ -103,6 +111,20 @@ constexpr int kMaxN = 16384;
 constexpr int kMaxThreads = kMaxN / kE;
 constexpr int kLo = 128;          // entries of the low twiddle table
 constexpr int kTable = 2 * kLo + 16;  // Tlo, Thi (n / 128 used), W_Q
+
+// Stages the ablation leaves out (timing only: any mask but 0 gives a wrong
+// result). Without exchanges a pass takes its values from, and sums them
+// into, one register a thread (`carry`) in place of shared memory, and the
+// barriers between passes go; kIoOnly keeps the first pass's reads and the
+// last pass's stores alone.
+enum Ablate {
+  kNoButterflies = 1,  // the radix-R DFTs of every pass (the TPU's dots)
+  kNoTwiddles = 2,     // the twiddle products between passes
+  kNoExchanges = 4,    // the shared-memory exchanges (the TPU's relayouts)
+  kNoSpectrum = 8,     // the product by H in the middle pass
+  kIoOnly = 16,        // reads and stores: no other pass, no other stage
+};
+constexpr int kAllStages = kNoButterflies | kNoTwiddles | kNoExchanges | kNoSpectrum;
 
 __host__ __device__ constexpr int ilog2(int v) {
   int l = 0;
@@ -285,8 +307,10 @@ struct Plan {
 // Butterfly b of a radix-R pass (fft_pass, below) over spans R << S_LOG2.
 // Every such pass has a stride S of at least 32, so position base + m S
 // sits at sidx(base) + m (S + S / 32).
-template <int R, bool kInv, bool kIn, bool kOut, int S_LOG2, int TW_MUL, bool kFramed>
-__device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b) {
+template <int R, bool kInv, bool kIn, bool kOut, int S_LOG2, int TW_MUL, bool kFramed,
+          int kMask>
+__device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b,
+                                          float2& carry) {
   static_assert(S_LOG2 >= 5, "a pass through shared memory has stride >= 32");
   constexpr int S = 1 << S_LOG2;
   constexpr int SS = S + (S >> 5);  // padded stride
@@ -298,17 +322,20 @@ __device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b)
   for (int m = 0; m < R; ++m) {
     if constexpr (kIn)
       a[m] = load_row<kFramed>(io, base + m * S);
+    else if constexpr ((kMask & kNoExchanges) != 0)
+      a[m] = make_float2(carry.x + m, carry.y);
     else
       a[m] = sm.buf[sbase + m * SS];
   }
+  constexpr bool kTw = (kMask & kNoTwiddles) == 0;
   // radix 32 runs over spans of 1024: W_1024^(q j), q j < 1024
-  if constexpr (kInv) {
+  if constexpr (kInv && kTw) {
 #pragma unroll
     for (int q = 1; q < R; ++q)
       a[q] = cmulc(a[q], R == kE ? sm.t1k[q * j] : twiddle(sm, q * j * TW_MUL));
   }
-  dft<R, kInv>(a, sm.wq);
-  if constexpr (!kInv) {
+  if constexpr ((kMask & kNoButterflies) == 0) dft<R, kInv>(a, sm.wq);
+  if constexpr (!kInv && kTw) {
 #pragma unroll
     for (int q = 1; q < R; ++q)
       a[q] = cmul(a[q], R == kE ? sm.t1k[q * j] : twiddle(sm, q * j * TW_MUL));
@@ -317,6 +344,8 @@ __device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b)
   for (int q = 0; q < R; ++q) {
     if constexpr (kOut)
       store_row<kFramed>(io, base + q * S, a[q]);
+    else if constexpr ((kMask & kNoExchanges) != 0)
+      carry = cadd(carry, a[q]);
     else
       sm.buf[sbase + q * SS] = a[q];
   }
@@ -329,22 +358,22 @@ __device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b)
 // (kIn / kOut) at the same positions. A thread's butterflies of radix 8 and up run one after another (not
 // unrolled: their registers would not fit twice).
 template <int R, bool kInv, bool kIn, bool kOut, int S_LOG2, int TW_MUL, int COUNT, int T,
-          bool kFramed>
-__device__ __forceinline__ void fft_pass(const Smem& sm, const Rows& io) {
+          bool kFramed, int kMask>
+__device__ __forceinline__ void fft_pass(const Smem& sm, const Rows& io, float2& carry) {
   constexpr int K = (COUNT + T - 1) / T;
   if constexpr (R >= 8) {
 #pragma unroll 1
     for (int k = 0; k < K; ++k) {
       const int b = threadIdx.x + k * T;
       if (COUNT % T != 0 && b >= COUNT) break;
-      butterfly<R, kInv, kIn, kOut, S_LOG2, TW_MUL, kFramed>(sm, io, b);
+      butterfly<R, kInv, kIn, kOut, S_LOG2, TW_MUL, kFramed, kMask>(sm, io, b, carry);
     }
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int b = threadIdx.x + k * T;
       if (COUNT % T != 0 && b >= COUNT) break;
-      butterfly<R, kInv, kIn, kOut, S_LOG2, TW_MUL, kFramed>(sm, io, b);
+      butterfly<R, kInv, kIn, kOut, S_LOG2, TW_MUL, kFramed, kMask>(sm, io, b, carry);
     }
   }
 }
@@ -352,14 +381,17 @@ __device__ __forceinline__ void fft_pass(const Smem& sm, const Rows& io) {
 // The last forward pass (radix 32 over spans of 32: no twiddles), the
 // multiply by H and the first inverse pass, in one thread's registers:
 // thread t owns positions 32 t .. 32 t + 31, at 33 t + m.
+template <int kMask>
 __device__ __forceinline__ void middle_pass(const Smem& sm, const float* __restrict__ h,
-                                            int complex_h) {
+                                            int complex_h, float2& carry) {
+  constexpr bool kX = (kMask & kNoExchanges) == 0, kD = (kMask & kNoButterflies) == 0;
   float2* row = sm.buf + (kE + 1) * threadIdx.x;
   float2 a[kE];
 #pragma unroll
-  for (int m = 0; m < kE; ++m) a[m] = row[m];
-  dft<kE, false>(a, nullptr);
-  if (complex_h) {
+  for (int m = 0; m < kE; ++m) a[m] = kX ? row[m] : make_float2(carry.x + m, carry.y);
+  if constexpr (kD) dft<kE, false>(a, nullptr);
+  if constexpr ((kMask & kNoSpectrum) != 0) {
+  } else if (complex_h) {
     const float4* h4 = reinterpret_cast<const float4*>(h) + threadIdx.x * (kE / 2);
 #pragma unroll
     for (int k = 0; k < kE / 2; ++k) {
@@ -378,21 +410,30 @@ __device__ __forceinline__ void middle_pass(const Smem& sm, const float* __restr
         a[4 * k + u] = make_float2(a[4 * k + u].x * s[u], a[4 * k + u].y * s[u]);
     }
   }
-  dft<kE, true>(a, nullptr);
+  if constexpr (kD) dft<kE, true>(a, nullptr);
 #pragma unroll
-  for (int m = 0; m < kE; ++m) row[m] = a[m];
+  for (int m = 0; m < kE; ++m) {
+    if constexpr (kX)
+      row[m] = a[m];
+    else
+      carry = cadd(carry, a[m]);
+  }
 }
 
+// Blocks a thread count's SM holds at most: the kernels' launch bounds.
+// At most 128 registers a thread: one 512-thread block an SM at n 16384,
+// two 256-thread blocks at n 8192.
+template <int N>
+constexpr int kMinBlocks = N >= 1024 ? kMaxThreads / (N / kE) : 16;
+
+// The kernel's body with the stages of kMask left out (0: all of them).
 // One block per complex row c: real rows c and c + half (a zero row rides
-// along where c + half == rows). Rows in and out have length dim. At most
-// 128 registers a thread: one 512-thread block an SM at n 16384, two
-// 256-thread blocks at n 8192.
-template <int N, bool kFramed>
-__global__ void __launch_bounds__(N / kE, N >= 1024 ? kMaxThreads / (N / kE) : 16)
-fft_conv_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
-                     const float2* __restrict__ tw,
-                     const float* __restrict__ h, int complex_h, int rows,
-                     int half, int dim, int pad) {
+// along where c + half == rows). Rows in and out have length dim.
+template <int N, bool kFramed, int kMask>
+__device__ __forceinline__ void conv_rows(const float* __restrict__ x, float* __restrict__ out,
+                                          const float2* __restrict__ tw,
+                                          const float* __restrict__ h, int complex_h, int rows,
+                                          int half, int dim, int pad) {
   using P = Plan<N>;
   constexpr int T = P::T, Q = P::Q, R0 = P::R0, kP = P::kP;
   constexpr bool kQ = P::kQ, kR = P::kR, kA = P::kA;
@@ -413,31 +454,51 @@ fft_conv_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
   __syncthreads();
 
   // forward: the first pass reads the rows
+  constexpr int M = (kMask & kIoOnly) != 0 ? kAllStages : kMask;
+  constexpr bool kSync = (M & kNoExchanges) == 0, kMid = (kMask & kIoOnly) == 0;
+  float2 carry = make_float2(0.0f, 0.0f);
   if constexpr (kQ) {
-    fft_pass<Q, false, true, false, kP, 1, N / Q, T, kFramed>(sm, io);
-    __syncthreads();
+    fft_pass<Q, false, true, false, kP, 1, N / Q, T, kFramed, M>(sm, io, carry);
+    if constexpr (kSync) __syncthreads();
   }
-  if constexpr (kR) {
-    fft_pass<R0, false, !kQ, false, kP - P::R0Log2, Q, N / R0, T, kFramed>(sm, io);
-    __syncthreads();
+  if constexpr (kR && (kMid || !kQ)) {
+    fft_pass<R0, false, !kQ, false, kP - P::R0Log2, Q, N / R0, T, kFramed, M>(sm, io, carry);
+    if constexpr (kSync) __syncthreads();
   }
-  if constexpr (kA) {
-    fft_pass<kE, false, !kQ && !kR, false, 5, N / 1024, N / kE, T, kFramed>(sm, io);
-    __syncthreads();
+  if constexpr (kA && (kMid || (!kQ && !kR))) {
+    fft_pass<kE, false, !kQ && !kR, false, 5, N / 1024, N / kE, T, kFramed, M>(sm, io, carry);
+    if constexpr (kSync) __syncthreads();
   }
-  middle_pass(sm, h, complex_h);
-  __syncthreads();
+  if constexpr (kMid) {
+    middle_pass<M>(sm, h, complex_h, carry);
+    if constexpr (kSync) __syncthreads();
+  }
   // inverse, in reverse order: the last pass stores the rows
-  if constexpr (kA) {
-    fft_pass<kE, true, false, !kQ && !kR, 5, N / 1024, N / kE, T, kFramed>(sm, io);
-    if constexpr (kQ || kR) __syncthreads();
+  if constexpr (kA && (kMid || (!kQ && !kR))) {
+    fft_pass<kE, true, false, !kQ && !kR, 5, N / 1024, N / kE, T, kFramed, M>(sm, io, carry);
+    if constexpr ((kQ || kR) && kSync) __syncthreads();
   }
-  if constexpr (kR) {
-    fft_pass<R0, true, false, !kQ, kP - P::R0Log2, Q, N / R0, T, kFramed>(sm, io);
-    if constexpr (kQ) __syncthreads();
+  if constexpr (kR && (kMid || !kQ)) {
+    fft_pass<R0, true, false, !kQ, kP - P::R0Log2, Q, N / R0, T, kFramed, M>(sm, io, carry);
+    if constexpr (kQ && kSync) __syncthreads();
   }
-  if constexpr (kQ) fft_pass<Q, true, false, true, kP, 1, N / Q, T, kFramed>(sm, io);
+  if constexpr (kQ) fft_pass<Q, true, false, true, kP, 1, N / Q, T, kFramed, M>(sm, io, carry);
 }
+
+template <int N, bool kFramed>
+__global__ void __launch_bounds__(N / kE, kMinBlocks<N>)
+fft_conv_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
+                     const float2* __restrict__ tw,
+                     const float* __restrict__ h, int complex_h, int rows,
+                     int half, int dim, int pad) {
+  conv_rows<N, kFramed, 0>(x, out, tw, h, complex_h, rows, half, dim, pad);
+}
+
+}  // namespace
+
+#ifndef FFT4STEP_KERNELS_ONLY
+
+namespace {
 
 template <int N, bool kFramed>
 int launch_n(const float* x, float* out, const float2* tw, const float* h, int complex_h,
@@ -500,3 +561,5 @@ extern "C" int fft_conv_rows_framed(const void* x, void* out, const void* tw,
   return launch(x, out, tw, h, complex_h, rows, n, dim, pad, true,
                 static_cast<cudaStream_t>(stream));
 }
+
+#endif  // FFT4STEP_KERNELS_ONLY

@@ -93,6 +93,11 @@
 // window), so the card sees fewer, longer blocks; which form wins where is
 // measured (chip_smoke.py phase 15) and routed by utils/hw.py.
 //
+// The loaders' probe (B3, csrc/probes/fetch_rate.cu) includes this file
+// with FUSED_DMA_LOADERS_ONLY defined: the helpers and loaders above the
+// bodies (load_rows, convert, issue_group) and nothing else, so that it
+// times the staging code K1 runs.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
 
@@ -315,6 +320,33 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
+
+// The assembled forms' loader: row group t of a block's run of `total`
+// groups, ngr a window (window win at column (jw0 + win) * tw of the padded
+// frame plane fp, xw bytes a row; its rows from row i0), by 16-byte
+// cp.async into buffer t % slots of `raw` (g rows of swa bytes), then one
+// commit group (empty past the last group).
+__device__ __forceinline__ void issue_group(unsigned char* raw, const uint8_t* fp, int xw,
+                                            int i0, int jw0, int tw, int hp, int g, int swa,
+                                            int ngr, int total, int slots, int t) {
+  if (t < total) {
+    const int win = t / ngr;
+    const int r0 = (t - win * ngr) * g;
+    const int nr = min(g, hp - r0);
+    const int nch = swa >> 4;
+    unsigned char* dst = raw + (t % slots) * g * swa;
+    const uint8_t* src =
+        fp + static_cast<size_t>(i0 + r0) * xw + static_cast<size_t>(jw0 + win) * tw;
+    for (int e = threadIdx.x; e < nr * nch; e += kThreads) {
+      const int rr = e / nch;
+      const int q = e - rr * nch;
+      cp_async16(dst + rr * swa + (q << 4), src + static_cast<size_t>(rr) * xw + (q << 4));
+    }
+  }
+  cp_async_commit();
+}
+
+#ifndef FUSED_DMA_LOADERS_ONLY
 
 // ---- the bodies ----
 
@@ -579,21 +611,7 @@ __global__ void __launch_bounds__(kThreads) k1_assembled(K1Params p) {
   const uint8_t* fp = p.x + static_cast<size_t>(blockIdx.y) * p.xh * p.xw;
 
   auto issue = [&](int t) {
-    if (t < total) {
-      const int win = t / ngr;
-      const int r0 = (t - win * ngr) * g;
-      const int nr = min(g, hp - r0);
-      const int nch = swa >> 4;
-      unsigned char* dst = s.raw + (t % p.slots) * g * swa;
-      const uint8_t* src =
-          fp + static_cast<size_t>(i0 + r0) * p.xw + static_cast<size_t>(jw0 + win) * p.tw;
-      for (int e = threadIdx.x; e < nr * nch; e += kThreads) {
-        const int rr = e / nch;
-        const int q = e - rr * nch;
-        cp_async16(dst + rr * swa + (q << 4), src + static_cast<size_t>(rr) * p.xw + (q << 4));
-      }
-    }
-    cp_async_commit();
+    issue_group(s.raw, fp, p.xw, i0, jw0, p.tw, hp, g, swa, ngr, total, p.slots, t);
   };
 
   for (int t = 0; t < p.slots - 1; ++t) issue(t);
@@ -785,7 +803,11 @@ int smem_limit(int* limit) {
       limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }
 
+#endif  // FUSED_DMA_LOADERS_ONLY
+
 }  // namespace
+
+#ifndef FUSED_DMA_LOADERS_ONLY
 
 // K1 in one of its forms (0 direct, 1 strip, 2 assembled, 3 pipelined,
 // 4 resident) with one of its bodies (0 int8, 1 hybrid, 2 bf16), uint8
@@ -898,3 +920,5 @@ extern "C" int assemble_padded_prepad_u8(const void* x, void* out, int planes, i
 extern "C" const char* blur_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#endif  // FUSED_DMA_LOADERS_ONLY

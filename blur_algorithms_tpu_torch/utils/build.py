@@ -16,6 +16,12 @@ round as the JAX kernels do. The library goes to ``build/`` at the repository ro
 a name keyed by a hash of the sources and flags, so an edited source is
 rebuilt and an unchanged one is loaded as it is. Nothing here runs at
 import time.
+
+The probes (``csrc/probes/*.cu``: B1-B3, the ``benchmarks`` package) build
+the same way into a second library, ``load_probe_library``, keyed by their
+sources and the two they include, ``csrc/fft4step.cu`` (the ablation probe)
+and ``csrc/fused_dma.cu`` (K1's loaders); the kernel library neither holds
+nor waits for them.
 """
 
 from __future__ import annotations
@@ -29,7 +35,8 @@ import subprocess
 import tempfile
 import time
 
-__all__ = ["NVCC_FLAGS", "build_dir", "load_library", "last_build"]
+__all__ = ["NVCC_FLAGS", "build_dir", "last_build", "last_probe_build", "load_library",
+           "load_probe_library"]
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -41,10 +48,13 @@ _LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 
-# the loaded library, and what building it printed (ptxas register and
-# shared-memory counts) and cost; filled by ``load_library``
+# the loaded libraries, and what building each printed (ptxas register and
+# shared-memory counts) and cost; filled by ``load_library`` and
+# ``load_probe_library``
 _lib: ctypes.CDLL | None = None
+_probe_lib: ctypes.CDLL | None = None
 last_build: dict = {}
+last_probe_build: dict = {}
 
 
 def build_dir() -> pathlib.Path:
@@ -155,6 +165,41 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _declare_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.mma_rate_blocks_per_sm.argtypes = [i, i, i, i, ctypes.POINTER(i)]
+    lib.mma_rate_blocks_per_sm.restype = i
+    lib.mma_rate_chain.argtypes = [
+        i, i, i,  # wgmma, bf16, resident
+        vp, vp, vp, vp,  # a, bt, out, scratch
+        i, i, i, i, i,  # m, k, kb, np, kkb
+        i, i, i, i,  # panels, inner, steps, grid
+        vp,  # stream
+    ]
+    lib.mma_rate_chain.restype = i
+    lib.fft_conv_rows_ablation.argtypes = [
+        i, i,  # mask, framed
+        vp, vp, vp, vp,  # x, out, twiddle tables, spectrum
+        i, i, i, i, i,  # complex_h, rows, n, dim, pad
+        vp,  # stream
+    ]
+    lib.fft_conv_rows_ablation.restype = i
+    lib.fetch_windows.argtypes = [
+        i, vp, vp,  # tma, x, out
+        i, i, i, i, i, i, i, i, i,  # planes, hp, pitch, width, stride, nwin, chunk_rows, g, smem
+        vp,  # stream
+    ]
+    lib.fetch_windows.restype = i
+    lib.fetch_k1.argtypes = [
+        i, vp, vp,  # assembled, x, out
+        i, i, i, i, i, i, i, i, i,  # planes, h, w, th, tw, rh, rw, t4h, t4w
+        i, i, i, i,  # xh, xw, slots, smem
+        vp,  # stream
+    ]
+    lib.fetch_k1.restype = i
+    return lib
+
+
 def _run(cmd: list[str], proc: subprocess.Popen) -> str:
     out, err = proc.communicate()
     if proc.returncode != 0:
@@ -191,29 +236,47 @@ def _compile_and_link(sources: list[pathlib.Path], out_dir: pathlib.Path,
     return log
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (if the sources changed) and load the kernel library."""
-    global _lib
-    if _lib is not None:
-        return _lib
-    sources = sorted(_CSRC.glob("*.cu"))
+def _build_and_load(sources: list[pathlib.Path], hashed: list[pathlib.Path],
+                    stem: str, record: dict) -> ctypes.CDLL:
+    """Build ``sources`` into ``build/<stem>_<hash>.so`` unless a library of
+    the same flags and ``hashed`` sources is there, record the build in
+    ``record`` and load it."""
     if not sources:
-        raise RuntimeError(f"no CUDA sources under {_CSRC}")
+        raise RuntimeError(f"no CUDA sources for {stem}")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in hashed:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     out_dir = build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
-    target = out_dir / f"libblur_kernels_{digest.hexdigest()[:16]}.so"
+    target = out_dir / f"{stem}_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
     log = ""
     built = not target.exists()
     if built:
         log = _compile_and_link(sources, out_dir, target)
-    last_build.update(
+    record.update(
         library=str(target), built=built, seconds=time.perf_counter() - t0,
         log=log,
     )
-    _lib = _declare(ctypes.CDLL(str(target)))
+    return ctypes.CDLL(str(target))
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the kernel library."""
+    global _lib
+    if _lib is None:
+        sources = sorted(_CSRC.glob("*.cu"))
+        _lib = _declare(_build_and_load(sources, sources, "libblur_kernels", last_build))
     return _lib
+
+
+def load_probe_library() -> ctypes.CDLL:
+    """Build (if the sources changed) and load the probes' library."""
+    global _probe_lib
+    if _probe_lib is None:
+        sources = sorted((_CSRC / "probes").glob("*.cu"))
+        _probe_lib = _declare_probes(_build_and_load(
+            sources, [*sources, _CSRC / "fft4step.cu", _CSRC / "fused_dma.cu"], "libblur_probes",
+            last_probe_build))
+    return _probe_lib

@@ -163,7 +163,28 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    under the card's crossover; times of each kernel on a dp 2
    x sp 2 shard at sigma 9, the plain versions, the ``F.pad`` and ``conv2d``
    yardsticks, the sharded calls against the single-card ones in turns,
-   and ``blur_sharded_u8``'s time in parts.
+   and ``blur_sharded_u8``'s time in parts;
+17. the probes B1-B3 (the JAX package's ``benchmarks/`` kernels; their
+   library, ``csrc/probes/``, built beside phase 1's, its ptxas lines
+   printed here, each mask-0 ablation kernel held to its K3/K3f twin's
+   registers and spills): B1's chain (``benchmarks.mxu_dot_rate``) by
+   ``mma.sync`` and by ``wgmma`` ``torch.equal`` to its plain version at
+   the nine shapes in int8 (``inner`` 3, ``steps`` 2) and within
+   ``bf16_bound`` in bf16 (``inner`` 1), and so the launches the rates
+   time (filling the card; streamed, and resident against the plain chain
+   on ``resident_rhs``) at two shapes; B2 (``fft_mxu_ablation``): ``full``
+   ``torch.equal`` to K3's and K3f's production kernels at the JAX probe's
+   default and the four 4K cells of phase 10; B3 (``dma_fetch_rate``): the
+   windows by ``cp.async`` and by TMA, the strip, and K1's direct and
+   assembled loaders at sigma 10's tile, each store ``torch.equal`` to its
+   plain version. Then each probe's path: its entry point (``main``, as
+   ``python -m`` runs it) with every count at 0 just before and read just
+   after, which gives the kernels-line launches, B1's TOP/s per shape,
+   path and type (beside ``torch._int_mm`` / bf16 ``matmul`` and the
+   published peaks) and B2's ms per mode; B3's GB/s fetched, frame GB/s
+   and read amplification beside a ``copy_`` of the frame. No route of the
+   blur runs a probe: their counts, set to 0 before phase 3, are still 0
+   before phase 17.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -714,14 +735,15 @@ def _sum_axes(a: dict, b: dict) -> dict:
             "bound_by": by, "err": max(a["err"], b["err"])}
 
 
-def _ptxas_lines(kernels) -> list[tuple[str, str]]:
+def _ptxas_lines(kernels, log: str | None = None) -> list[tuple[str, str]]:
     """(kernel and template arguments, registers / shared memory / spills)
-    from the build's ``-Xptxas -v`` output, for entry functions whose name
-    holds one of ``kernels``."""
+    from a build's ``-Xptxas -v`` output (the kernel library's unless
+    ``log`` is given), for entry functions whose name holds one of
+    ``kernels``."""
     from blur_algorithms_tpu_torch.utils import build
 
     out, name = [], None
-    for ln in build.last_build.get("log", "").splitlines():
+    for ln in (build.last_build.get("log", "") if log is None else log).splitlines():
         if "Compiling entry function" in ln:
             hit = [k for k in kernels if k in ln]
             name = None
@@ -731,7 +753,7 @@ def _ptxas_lines(kernels) -> list[tuple[str, str]]:
                         for k, v in re.findall(r"L([ib])(\d+)E", tail)]
                 name = hit[0] + (f"<{', '.join(args)}>" if args else "")
                 out.append([name, ""])
-        elif name and ("registers" in ln or "spill" in ln):
+        elif name and ("Used" in ln or "spill" in ln):
             out[-1][1] = (out[-1][1] + " " + ln.replace("ptxas info    :", "").strip()).strip()
     return [tuple(x) for x in out]
 
@@ -2908,6 +2930,346 @@ def _slice7(frames, want0) -> list[dict]:
     ]
 
 
+# ---- phase 17: the probes B1-B3 (benchmarks/, the JAX package's last
+# pallas_call sites), built into their own library while phases 2-16 run ----
+PROBE_B3_SIGMA = 10.0  # K1's loaders at the tile k1_geometry picks for blur_u8 here
+
+
+def _probe_build_start() -> tuple:
+    """Start building the probes' library beside phase 1's build; the
+    thread's failure is raised by ``_probe_build_wait``."""
+    import threading
+
+    from blur_algorithms_tpu_torch.utils import build
+
+    failed: list = []
+
+    def run():
+        try:
+            build.load_probe_library()
+        except Exception as e:  # noqa: BLE001 - re-raised in phase 17
+            failed.append(e)
+
+    t = threading.Thread(target=run, name="probe-build")
+    t.start()
+    return t, failed
+
+
+def _probe_build_wait(started: tuple) -> None:
+    from blur_algorithms_tpu_torch.utils import build
+
+    t0 = time.perf_counter()
+    thread, failed = started
+    thread.join()
+    if failed:
+        raise RuntimeError(f"the probes' library did not build: {failed[0]}") from failed[0]
+    rec = build.last_probe_build
+    print(f"phase 17 build: {rec['library']} (built now: {rec['built']}) in "
+          f"{rec['seconds']:.2f} s beside phases 1-16, {time.perf_counter() - t0:.2f} s waited "
+          f"here", flush=True)
+    lines = _ptxas_lines(("mma_chain_kernel", "fft_ablation_kernel", "fetch_window_cp_async",
+                          "fetch_window_tma", "fetch_k1_direct", "fetch_k1_assembled"),
+                         rec["log"])
+    for name, line in lines:
+        print(f"phase 17 ptxas {name}: {line}", flush=True)
+    # mask 0 is the production body: the same code as K3/K3f's kernels
+    prod = dict(_ptxas_lines(("fft_conv_rows_kernel",)))
+    twins = 0
+    for name, line in lines:
+        if name.startswith("fft_ablation_kernel") and name.endswith(", 0>"):
+            twin = name.replace("fft_ablation_kernel", "fft_conv_rows_kernel")[:-4] + ">"
+            print(f"phase 17 ptxas {name} == {twin}: {line == prod.get(twin)}", flush=True)
+            if line != prod.get(twin):
+                raise RuntimeError(f"{name} (mask 0) does not compile to {twin}: {line} against "
+                                   f"{prod.get(twin)}")
+            twins += 1
+    if twins != 4:
+        raise RuntimeError(f"the probes' build holds {twins} mask-0 kernels, not 4")
+
+
+def _probe_wrappers() -> dict:
+    """The probes' wrappers whose ``launches`` count, by kernels-line name;
+    B1's and B3's count by path or form."""
+    from blur_algorithms_tpu_torch.benchmarks import dma_fetch_rate as b3
+    from blur_algorithms_tpu_torch.benchmarks import fft_mxu_ablation as b2
+    from blur_algorithms_tpu_torch.benchmarks import mxu_dot_rate as b1
+
+    return {**{f"mma_rate_{p}": (b1.chain, p) for p in b1.PATHS},
+            "fft_ablation": (b2.conv_rows_ablation, None),
+            **{f"fetch_rate_{f}": (b3.fetch_windows, f) for f in b3.fetch_windows.launches},
+            **{f"fetch_rate_k1_{f}": (b3.fetch_k1, f) for f in b3.fetch_k1.launches}}
+
+
+def _probe_counts(zero: bool = False) -> dict:
+    """Each probe kernel's launches (set to 0 first with ``zero``)."""
+    out = {}
+    for name, (fn, key) in _probe_wrappers().items():
+        if zero:
+            if key is None:
+                fn.launches = 0
+            else:
+                fn.launches[key] = 0
+        out[name] = fn.launches if key is None else fn.launches[key]
+    return out
+
+
+def _run_probe(module, argv: list[str], what: str) -> list[dict]:
+    """The probe's entry point as ``python -m`` runs it on the card (its
+    ``main``), with its JSON lines captured, printed and returned."""
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    if rc:
+        raise RuntimeError(f"{what} exited {rc}")
+    recs = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    print(f"phase 17 {what}: {len(recs)} records in {time.perf_counter() - t0:.1f} s", flush=True)
+    if not recs:
+        raise RuntimeError(f"{what} printed no record")
+    return recs
+
+
+def _b1_phase(dev) -> list[dict]:
+    """B1: both paths against the plain chain at every shape and in the
+    launches the rates time, the probe's entry point (the rates and the
+    launches), and the kernels-line entries (one chained product of the
+    cube)."""
+    from blur_algorithms_tpu_torch.benchmarks import mxu_dot_rate as b1
+    from blur_algorithms_tpu_torch.utils import timing
+
+    errs = {p: 0.0 for p in b1.PATHS}
+
+    def hold(got, want, a, rhs, dtype, path, what):
+        diff = (got.double() - want.double()).abs()
+        ok = (torch.equal(got, want) if dtype == "int8"
+              else bool((diff <= b1.bf16_bound(a, rhs, want)).all()))
+        errs[path] = max(errs[path], float(diff.max()))
+        print(f"phase 17 B1 {path} vs plain: {what} "
+              f"{'equal' if dtype == 'int8' else 'within bf16_bound'}={ok} "
+              f"max_abs_err={float(diff.max()):.3e}", flush=True)
+        if not ok:
+            raise RuntimeError(f"B1 {path} disagrees with its plain version: {what}")
+
+    for m, k, n, label in b1.SHAPES:
+        for dtype in ("int8", "bf16"):
+            a, b = (t.to(dev) for t in b1.operands(m, k, n, dtype, seed=17))
+            inner, steps = (3, 2) if dtype == "int8" else (1, 1)
+            want = b1.chain_ref(a, b, inner)
+            for path in b1.PATHS:
+                got = b1.chain(a, b, inner, steps, path=path)
+                torch.cuda.synchronize()
+                hold(got, want, a, b, dtype, path,
+                     f"{dtype} m={m} k={k} n={n} inner={inner} steps={steps}")
+    # the launches the rates time: filling the card, streamed and resident
+    # (on the rhs the resident stages stand for), at the cube (n = k) and
+    # the narrowest cols band (n < k; m and k padded)
+    for m, k, n, label in (b1.SHAPES[0], b1.SHAPES[5]):
+        for dtype in ("int8", "bf16"):
+            a, b = (t.to(dev) for t in b1.operands(m, k, n, dtype, seed=18))
+            inner = 3 if dtype == "int8" else 1
+            for resident in (False, True):
+                rhs = b1.resident_rhs(b) if resident else b
+                want = b1.chain_ref(a, rhs, inner)
+                for path in b1.PATHS:
+                    got = b1.chain(a, b, inner, 2, path=path, resident=resident, copies=True)
+                    torch.cuda.synchronize()
+                    hold(got, want, a, rhs, dtype, path,
+                         f"{dtype} m={m} k={k} n={n} inner={inner} steps=2, filling the card, "
+                         f"{'resident' if resident else 'streamed'}")
+    # the probe's path: its entry point, every count at 0 just before
+    _probe_counts(zero=True)
+    recs = _run_probe(b1, [], "B1 mxu_dot_rate.main()")
+    launched = {p: b1.chain.launches[p] for p in b1.PATHS}
+    print(f"phase 17 B1 path launches: {launched}", flush=True)
+    if min(launched.values()) < 1:
+        raise RuntimeError(f"B1's entry point did not launch both paths: {launched}")
+    tops = {(r["dtype"], r["label"], r["path"] + ("_resident" if r["resident"] else "")):
+            r["tops"] for r in recs}
+    rates = []
+    for dtype in ("int8", "bf16"):
+        for m, k, n, label in b1.SHAPES:
+            a, b = (t.to(dev) for t in b1.operands(m, k, n, dtype))
+            lib = ((lambda a=a, b=b: torch._int_mm(a, b)) if dtype == "int8"
+                   else (lambda a=a, b=b: a @ b))
+            t_lib = timing.time_cuda(lib, iters=10, warmup=2).median_ms
+            row = {"dtype": dtype, "shape": [m, k, n], "label": label,
+                   "library_tops": 2 * m * k * n / t_lib / 1e9}
+            for path in b1.PATHS:
+                for resident in ("", "_resident"):
+                    row[f"{path}{resident}_tops"] = tops[dtype, label, path + resident]
+            rates.append(row)
+            peak = b1.PEAK_OPS[dtype] / 1e12
+            print(f"phase 17 B1 rate {dtype} {label} (m={m} k={k} n={n}), TOP/s and share of "
+                  f"the published {peak:.0f}: " + "; ".join(
+                      f"{key[:-5]} {v:.1f} ({v / peak:.1%})" for key, v in row.items()
+                      if key.endswith("_tops")), flush=True)
+    print("phase 17 B1 rates " + json.dumps(rates), flush=True)
+
+    m, k, n, label = b1.SHAPES[0]
+    a, b = (t.to(dev) for t in b1.operands(m, k, n, "int8"))
+    t_plain = _time(b1.chain_ref, a, b, 1, name="B1 plain version (cube, one product)")
+    t_lib = _time(torch._int_mm, a, b, name="B1 yardstick torch._int_mm (cube)")
+    bound = _bound_ms(m * k + k * n + 4 * m * k, 2 * m * k * n, INT8_OP_PER_S)
+    out = []
+    for path in b1.PATHS:
+        launch = b1.prepare(a, b, 1, path=path, copies=False)  # operands laid out once
+        t = _time(launch, name=f"B1 {path} (cube, one product, a block a panel)")
+        for res in (t, t_plain, t_lib):
+            print(f"phase 17 time: {res}", flush=True)
+        out.append({
+            "name": f"mma_rate_{path}", "route": "cuda",
+            "source": "blur_algorithms_tpu_torch/csrc/probes/mma_rate.cu",
+            "replaces": "benchmarks/mxu_dot_rate.py:61", "launches": launched[path],
+            "max_abs_err": errs[path], "ms": t.median_ms, "plain_ms": t_plain.median_ms,
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": t_lib.median_ms,
+            "at": f"int8 {m}x{k}x{n}, one product, one block a 64-row panel",
+            "rates_tops": {f"{r['dtype']} {r['label']}": r[f"{path}_tops"] for r in rates},
+            "resident_rates_tops": {f"{r['dtype']} {r['label']}": r[f"{path}_resident_tops"]
+                                    for r in rates}})
+    return out
+
+
+def _b2_phase(dev) -> dict:
+    """B2: full against K3's and K3f's production kernels at every cell,
+    then the probe's entry point (ms per mode) at the JAX probe's default
+    and at the 4K cells; the kernels-line entry at the default."""
+    from blur_algorithms_tpu_torch.benchmarks import fft_mxu_ablation as b2
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    err, entry = 0.0, None
+    for label, nrows, n, ax, framed in [b2.jax_default(), *b2.cells()]:
+        x = torch.randn((nrows, ax.dim if framed else n), generator=gen, device=dev)
+        prod = (fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows)(x, n, ax)
+        full = b2.conv_rows_ablation(x, n, ax, "full", framed)
+        torch.cuda.synchronize()
+        equal = torch.equal(full, prod)
+        err = max(err, float((full - prod).abs().max()))
+        print(f"phase 17 B2 full vs {'K3f' if framed else 'K3'}: {label}, {nrows} rows, n={n}: "
+              f"equal={equal}", flush=True)
+        if not equal:
+            raise RuntimeError(f"B2's full mode differs from the production kernel at {label}")
+        del full, prod
+        if entry is None:  # the JAX probe's default cell
+            t_plain = _time(_conv_rows_einsum, x, n, ax, name="B2 plain version (K3's)")
+            rows, lib = _fft_yardstick(x, ax, n, False)
+            t_lib = _time(lib, rows, name="B2 yardstick cuFFT rfft -> multiply -> irfft")
+            nbytes, ops = _fft_work(nrows, n, 4 * n, not ax.symmetric)
+            bound = _bound_ms(nbytes, ops, F32_FLOP_PER_S)
+            entry = {"name": "fft_ablation", "route": "cuda",
+                     "source": "blur_algorithms_tpu_torch/csrc/probes/fft_ablation.cu",
+                     "replaces": "benchmarks/fft_mxu_ablation.py:125",
+                     "plain_ms": t_plain.median_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                     "library_ms": t_lib.median_ms, "at": f"{label} (mode full)"}
+            del rows
+        del x
+        torch.cuda.empty_cache()
+    # the probe's path: its entry point at its default and at the cells,
+    # every count at 0 just before
+    _probe_counts(zero=True)
+    recs = (_run_probe(b2, [], "B2 fft_mxu_ablation.main()")
+            + _run_probe(b2, ["--cells"], "B2 fft_mxu_ablation.main(--cells)"))
+    launched = b2.conv_rows_ablation.launches
+    print(f"phase 17 B2 path launches: {launched}", flush=True)
+    if launched < 1:
+        raise RuntimeError("B2's entry point launched no kernel")
+    table: dict = {}
+    for r in recs:
+        if r["ms"] is not None:
+            table.setdefault(r["cell"], {})[r["mode"]] = r["ms"]
+    for label, row in table.items():
+        print(f"phase 17 B2 {label}: " + "; ".join(
+            f"{mode} {ms:.4f} ms ({ms - row['full']:+.4f})" for mode, ms in row.items())
+            + f"; 1dot: {b2.ONE_DOT}", flush=True)
+    print("phase 17 B2 modes " + json.dumps(table), flush=True)
+    default = b2.jax_default()[0]
+    return {**entry, "launches": launched, "max_abs_err": err, "ms": table[default]["full"],
+            "modes_ms": table}
+
+
+def _b3_phase(dev) -> list[dict]:
+    """B3: every loader's store against its plain version, then GB/s and the
+    read amplification; one kernels-line entry a loader."""
+    from blur_algorithms_tpu_torch import make_plan
+    from blur_algorithms_tpu_torch.benchmarks import dma_fetch_rate as b3
+    from blur_algorithms_tpu_torch.cuda_kernels.assemble import assemble_padded
+
+    rng = np.random.default_rng(17)
+    frame = torch.from_numpy(rng.integers(0, 256, (b3.BC, b3.HP, b3.WP), dtype=np.uint8)).to(dev)
+    planar = torch.from_numpy(rng.integers(0, 256, (BATCH * 3, H, W), dtype=np.uint8)).to(dev)
+    plan = make_plan((H, W), PROBE_B3_SIGMA)
+    jobs = [("windowed", "cp.async", lambda: b3.fetch_windows(frame),
+             lambda: b3.fetch_windows_ref(frame), b3.window_bytes(), frame),
+            ("windowed_tma", "TMA", lambda: b3.fetch_windows(frame, tma=True),
+             lambda: b3.fetch_windows_ref(frame), b3.window_bytes(), frame),
+            ("strip", "cp.async", lambda: b3.fetch_windows(frame, strip=True),
+             lambda: b3.fetch_windows_ref(frame, True), b3.window_bytes(b3.WP, 1, rows=b3.HP),
+             frame)]
+    for form in ("direct", "assembled"):
+        lo = b3.k1_loader(plan, form, dev)
+        padded = (assemble_padded(planar, lo.rh, lo.rw, lo.rh, lo.rw, lo.xh, lo.xw)
+                  if lo.slots else None)
+        jobs.append((f"k1_{form}", f"K1 {form} th={lo.th} tw={lo.tw} smem={lo.smem}",
+                     lambda lo=lo, padded=padded: b3.fetch_k1(planar, lo, padded),
+                     lambda lo=lo, padded=padded: b3.fetch_k1_ref(planar, lo, padded),
+                     b3.k1_bytes(H, W, lo, BATCH * 3), planar))
+    checked = {}
+    for name, how, fn, ref, fetched, src in jobs:
+        got, want = fn(), ref()
+        torch.cuda.synchronize()
+        checked[name] = int((got.int() - want.int()).abs().max())
+        if not torch.equal(got, want):
+            raise RuntimeError(f"B3 {name} stores differ from their plain version")
+    # the probe's path: its entry point, every count at 0 just before
+    _probe_counts(zero=True)
+    _run_probe(b3, [], "B3 dma_fetch_rate.main()")
+    launched = {name: n for name, n in _probe_counts().items() if name.startswith("fetch_rate")}
+    print(f"phase 17 B3 path launches: {launched}", flush=True)
+    if min(launched.values()) < 1:
+        raise RuntimeError(f"B3's entry point did not launch every loader: {launched}")
+    out = []
+    for name, how, fn, ref, fetched, src in jobs:
+        t = _time(fn, name=f"B3 {name} ({how})")
+        t_plain = _time(ref, name=f"B3 {name} plain version")
+        dst = torch.empty_like(src)
+        t_lib = _time(dst.copy_, src, name="B3 yardstick copy_ of the frame")
+        del dst
+        bound = _bound_ms(src.numel() + 1024 * src.shape[0], 0, INT8_OP_PER_S)
+        ms = t.median_ms
+        print(f"phase 17 B3 {name} ({how}): equal to plain=True; {ms:.4f} ms, fetched "
+              f"{fetched / 1e6:.1f} MB at {fetched / ms / 1e6:.1f} GB/s "
+              f"({fetched / (ms * 1e-3) / HBM_BYTES_PER_S:.1%} of 3.35 TB/s), "
+              f"frame {src.numel() / 1e6:.1f} MB at {src.numel() / ms / 1e6:.1f} GB/s, read "
+              f"amplification {fetched / src.numel():.3f}; copy_ of the frame "
+              f"{t_lib.median_ms:.4f} ms; bound {bound[0]:.4f} ms", flush=True)
+        out.append({"name": f"fetch_rate_{name}", "route": "cuda",
+                    "source": "blur_algorithms_tpu_torch/csrc/probes/fetch_rate.cu",
+                    "replaces": "benchmarks/dma_fetch_rate.py:73" if name != "strip"
+                    else "benchmarks/dma_fetch_rate.py:85",
+                    "launches": launched[f"fetch_rate_{name}"],
+                    "max_abs_err": checked[name], "ms": ms, "plain_ms": t_plain.median_ms,
+                    "bound_ms": bound[0], "bound_by": bound[1], "library_ms": t_lib.median_ms,
+                    "fetched_gbps": fetched / ms / 1e6, "frame_gbps": src.numel() / ms / 1e6,
+                    "read_amplification": fetched / src.numel(), "loader": how})
+    return out
+
+
+def _slice11(probe_build) -> list[dict]:
+    """Phase 17: the probes B1-B3 on the card; returns their kernels-line
+    entries, each probe's launches counted over its entry point's run (no
+    route of the blur runs a probe: main checks that its counts stay 0 over
+    phases 3-16)."""
+    t0 = time.perf_counter()
+    _probe_build_wait(probe_build)
+    dev = torch.device("cuda")
+    entries = [*_b1_phase(dev), _b2_phase(dev), *_b3_phase(dev)]
+    print(f"phase 17: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -2926,6 +3288,7 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     t0 = time.perf_counter()
+    probe_build = _probe_build_start()  # phase 17's library, beside this one
     build.load_library()
     ptxas = [ln.strip() for ln in build.last_build["log"].splitlines()
              if "registers" in ln or "spill" in ln]
@@ -2954,6 +3317,7 @@ def main() -> int:
             raise RuntimeError(f"K1 disagrees with its plain version at {(h, w, sigma)}")
 
     # ---- phase 3: the main path at bench.py's size ----
+    _probe_counts(zero=True)  # read before phase 17: no route runs a probe
     frames = make_frames(BATCH, H, W)  # (B, C, H, W) uint8
     img = np.ascontiguousarray(np.moveaxis(frames, 1, -1))
     x = torch.from_numpy(img).cuda()
@@ -3044,6 +3408,11 @@ def main() -> int:
     slice5_kernels = _slice5(frames, k1.median_ms, {**split_launched, **auto_launched})
     slice6_kernels = _slice6(frames)
     slice7_kernels = _slice7(frames, want0)
+    on_blur = _probe_counts()  # set to 0 before phase 3
+    print(f"phase 17 probe launches over the blur's paths (phases 3-16): {on_blur}", flush=True)
+    if any(on_blur.values()):
+        raise RuntimeError(f"a route of the blur launched a probe's kernel: {on_blur}")
+    slice11_kernels = _slice11(probe_build)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -3071,7 +3440,7 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
     }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels,
-        *slice7_kernels]}), flush=True)
+        *slice7_kernels, *slice11_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

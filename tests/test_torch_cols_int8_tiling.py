@@ -40,6 +40,18 @@ from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (  # noqa: E402
 )
 from blur_algorithms_tpu_torch.ops.pad import reflect_101  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test. The plain versions sum tap by tap in small
+    torch ops; beside the suite's other workers their intra-op threads wait
+    on one another (the r 4096 rows case: 0.1 s alone, 65 s beside seven
+    busy processes, on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 M32 = 0xFFFFFFFF
 
 
@@ -274,10 +286,8 @@ def _model_sums(e16, plan, pre=False):
                 prod = np.rint(np.matmul(am.astype(np.float64), bk.astype(np.float64)))
                 prod = prod.astype(np.int64)  # (A digit, E digit, n, blocks, 16, 32)
                 upd = np.stack([prod[0, 0], prod[0, 1] + prod[1, 0], prod[1, 1]])
-                for i, _ in enumerate(blocks):
-                    rows_i = out[i][keep[i]]
-                    sums[:, :, rows_i[:, None], jj[kc][None, :]] += \
-                        upd[:, :, i][:, :, keep[i]][:, :, :, kc]
+                # the blocks' output rows are distinct: one scatter for all
+                sums[:, :, out[keep][:, None], jj[kc][None, :]] += upd[:, :, keep][..., kc]
                 if ch + 2 < nload:
                     slot[(ch + 2) % 3] = ch + 2
     return sums

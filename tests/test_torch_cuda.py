@@ -670,3 +670,76 @@ def test_sharded_on_a_repeated_device_mesh(cuda_device, dp, sp, sigma):
     x = _f32_planes((4, 3, 240, 320), seed=46).to(cuda_device)
     got = blur_sharded(x, plan, mesh)
     assert float((got - blur(x, sigma)).abs().max()) <= 1e-3 * float(x.abs().max()) / 255
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["mma_sync", "wgmma"])
+@pytest.mark.parametrize("m, k, n", [(120, 1144, 384), (1024, 1024, 1024), (200, 256, 512)])
+def test_b1_chain_equals_plain_version_on_the_card(cuda_device, path, m, k, n):
+    from blur_algorithms_tpu_torch.benchmarks import mxu_dot_rate as b1
+
+    a, b = (t.to(cuda_device) for t in b1.operands(m, k, n, "int8", seed=2))
+    before = b1.chain.launches[path]
+    got = b1.chain(a, b, 3, 2, path=path)
+    torch.cuda.synchronize()
+    assert b1.chain.launches[path] == before + 1
+    assert torch.equal(got, b1.chain_ref(a, b, 3))
+    a, b = (t.to(cuda_device) for t in b1.operands(m, k, n, "bf16", seed=2))
+    got, want = b1.chain(a, b, 1, path=path), b1.chain_ref(a, b, 1)
+    torch.cuda.synchronize()
+    assert ((got.double() - want.double()).abs() <= b1.bf16_bound(a, b, want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["mma_sync", "wgmma"])
+@pytest.mark.parametrize("resident", [False, True])
+def test_b1_card_filling_launches_equal_plain_version(cuda_device, path, resident):
+    """The launches the rates time: one block for each the card holds, the
+    rhs streamed, or resident (against the plain chain on resident_rhs)."""
+    from blur_algorithms_tpu_torch.benchmarks import mxu_dot_rate as b1
+
+    a, b = (t.to(cuda_device) for t in b1.operands(120, 1144, 384, "int8", seed=3))
+    rhs = b1.resident_rhs(b) if resident else b
+    got = b1.chain(a, b, 3, 2, path=path, resident=resident, copies=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, b1.chain_ref(a, rhs, 3))
+    a, b = (t.to(cuda_device) for t in b1.operands(120, 1144, 384, "bf16", seed=3))
+    rhs = b1.resident_rhs(b) if resident else b
+    got = b1.chain(a, b, 1, path=path, resident=resident, copies=True)
+    want = b1.chain_ref(a, rhs, 1)
+    torch.cuda.synchronize()
+    assert ((got.double() - want.double()).abs() <= b1.bf16_bound(a, rhs, want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma, n, framed", [(250.0, 6144, True), (400.0, 8192, False)])
+def test_b2_full_mode_equals_the_production_kernel(cuda_device, sigma, n, framed):
+    from blur_algorithms_tpu_torch.benchmarks import fft_mxu_ablation as b2
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    ax = make_plan((64, 3840), sigma).row
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (37, ax.dim if framed else n), dtype=np.float32)).to(cuda_device)
+    want = (fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows)(x, n, ax)
+    assert torch.equal(b2.conv_rows_ablation(x, n, ax, "full", framed), want)
+    for mode in ("nodot", "norot", "io_only"):  # timing only: they run
+        assert b2.conv_rows_ablation(x, n, ax, mode, framed).shape == x.shape
+
+
+@pytest.mark.cuda
+def test_b3_stores_equal_their_plain_versions(cuda_device):
+    from blur_algorithms_tpu_torch.benchmarks import dma_fetch_rate as b3
+    from blur_algorithms_tpu_torch.cuda_kernels.assemble import assemble_padded
+
+    frame = _planes((2, b3.HP, b3.WP), seed=9).to(cuda_device)
+    for kw in ({}, {"tma": True}, {"strip": True}):
+        assert torch.equal(b3.fetch_windows(frame, **kw),
+                           b3.fetch_windows_ref(frame, kw.get("strip", False)))
+    planar = _planes((3, 541, 963), seed=10).to(cuda_device)
+    plan = make_plan((541, 963), 10.0)
+    for form in ("direct", "assembled"):
+        lo = b3.k1_loader(plan, form, cuda_device, planes=3)
+        padded = (assemble_padded(planar, lo.rh, lo.rw, lo.rh, lo.rw, lo.xh, lo.xw)
+                  if lo.slots else None)
+        assert torch.equal(b3.fetch_k1(planar, lo, padded),
+                           b3.fetch_k1_ref(planar, lo, padded))

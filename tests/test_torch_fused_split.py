@@ -31,6 +31,19 @@ from blur_algorithms_tpu_torch.cuda_kernels import fused_split as t_split  # noq
 from blur_algorithms_tpu_torch.ops import plan as t_plan  # noqa: E402
 from blur_algorithms_tpu_torch.utils.hw import DeviceSpec  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test. The plain versions sum tap by tap in small
+    torch ops; beside the suite's other workers their intra-op threads wait
+    on one another (the r 4096 rows case: 0.1 s alone, 65 s beside seven
+    busy processes, on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 SHARPEN5 = [-0.125, -0.25, 1.75, -0.25, -0.125]
 GAUSS7 = [0.03, 0.1, 0.22, 0.3, 0.22, 0.1, 0.03]
 

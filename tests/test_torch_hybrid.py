@@ -47,6 +47,18 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "benchma
 import certify_device as j_certify_device  # noqa: E402
 import default_prec_cert as j_cert  # noqa: E402
 
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test. The plain versions sum tap by tap in small
+    torch ops; beside the suite's other workers their intra-op threads wait
+    on one another (the r 4096 rows case of test_torch_split_tiling.py: 0.1 s
+    alone, 65 s beside seven busy processes, on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
 RUNGS = ("hybrid", "bf16")
 PLAIN = {"hybrid": t_dma.blur_fused_u8_hybrid_ref, "bf16": t_dma.blur_fused_u8_bf16_ref}
 # (h, w), sigma: single and multi tile, anisotropic both ways, ragged

@@ -6,11 +6,12 @@ the card's tensor cores; no card is needed to check how they cut the work:
 - the rows pass (``split_rows_int8_kernel``): the shifted tap copies the
   kernel builds in shared memory, the A fragments each lane of a warp loads
   from them (``mma.m16n8k32``, 16 output columns x 32 window columns a
-  k-step), checked against the band ``q[32s + k - m]``, multiplied out in
-  int64 over the kernel's 128-column blocks, 16-column warp blocks and
-  k-steps against the raw bytes of its window (reflect-101 as its loader
-  does it), then recentred: equal to ``fused_split_rows_int8_ref`` exactly
-  at r 1 to 4096, on ragged widths and widths under 2r + 1;
+  k-step), checked against the band ``q[32s + k - m]``, multiplied out
+  exactly (one float64 product, every sum an integer below 2^53) over the
+  kernel's 16-column warp blocks and k-steps against the raw bytes of
+  their 128-column blocks' windows (reflect-101 as its loader does it),
+  then recentred: equal to ``fused_split_rows_int8_ref`` exactly at r 1 to
+  4096, on ragged widths and widths under 2r + 1;
 - the hybrid pass 2 (``split_cols_hybrid_kernel``): the bf16 tap groups
   (12 words apart) and the A fragments each lane loads (``mma.m16n8k16``,
   on 32 banks), checked against the block-Toeplitz band ``c[16 (s - m) + k]``;
@@ -41,6 +42,18 @@ from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (  # noqa: E402
     store_u8_ref,
 )
 from blur_algorithms_tpu_torch.ops.pad import reflect_101  # noqa: E402
+
+
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """One torch thread a test. The plain versions sum tap by tap in small
+    torch ops; beside the suite's other workers their intra-op threads wait
+    on one another (the r 4096 rows case: 0.1 s alone, 65 s beside seven
+    busy processes, on 8 cores)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 HYBRID_TOL = 2e-2  # the f32 store at 0..255 scale; the uint8 store: 1 count
 
@@ -112,28 +125,27 @@ def _rows_band(q, rw, steps):
 
 def _rows_model(x, plan, q):
     """R of the rows pass with taps ``q`` as the kernel tiles it: per
-    128-column block, its window of raw bytes (reflect-101), per 16-column
-    warp block the k-steps of 32 columns from the block's own first column,
-    two digits, int64; then R = 128 (hi - 128 Q_hi) + lo - 128 Q_lo."""
+    16-column warp block (its 128-column block's window of raw bytes,
+    reflect-101, from the block's own first column) the k-steps of 32
+    columns, two digits; then R = 128 (hi - 128 Q_hi) + lo - 128 Q_lo. All
+    blocks and k-steps are one float64 product per digit: every partial sum
+    is an integer below 2^53 (|digit x byte| < 2^16 over at most ~8200
+    columns), so it is exact whatever order the product sums in."""
     rw = plan.row.support_radius
     delta, steps = fs.rows_geometry(rw)
     a = _rows_fragments(_tap_copies(q, rw), steps)
     assert np.array_equal(a, _rows_band(q, rw, steps))
     n, h, w = x.shape
-    tn = fs.ROWS_TILE[1]
-    r = np.zeros((n, h, w), np.int64)
-    for j0 in range(0, w, tn):
-        window = x[:, :, _reflect101(j0 - rw - delta + np.arange(tn - 16 + 32 * steps), w)]
-        for u in range(tn // 16):
-            cols = j0 + 16 * u + np.arange(16)
-            if cols[0] >= w:
-                break
-            b = window[:, :, 16 * u : 16 * u + 32 * steps].astype(np.int64)
-            b = b.reshape(n, h, steps, 32)
-            hi, lo = (np.einsum("smk,nhsk->nhm", a[d], b) for d in (0, 1))
-            keep = cols < w
-            r[:, :, cols[keep]] = (128 * hi + lo - 128 * int(q.sum()))[..., keep]
-    return r
+    assert fs.ROWS_TILE[1] % 16 == 0  # warp blocks never straddle a 128-column block
+    # warp block c0 (a multiple of 16 below w) reads window columns c0 - j0
+    # .. + 32 steps of its block's window, which starts at j0 - rw - delta
+    starts = np.arange(0, w, 16)
+    cols = _reflect101(starts[:, None] - rw - delta + np.arange(32 * steps), w)
+    b = x[:, :, cols].astype(np.float64)  # (n, h, blocks, steps * 32)
+    am = a.transpose(0, 1, 3, 2).reshape(2, 32 * steps, 16).astype(np.float64)
+    hi, lo = (np.rint(b @ am[d]).astype(np.int64) for d in (0, 1))  # (n, h, blocks, 16)
+    r = 128 * hi + lo - 128 * int(q.sum())
+    return r.reshape(n, h, -1)[:, :, :w]
 
 
 @pytest.mark.parametrize("shape, sigma", [
