@@ -8,9 +8,10 @@ only ``[:8, :128]`` of the last window or of the plane, so that the fetch
 cannot be dropped and the store can be checked. Here the windows are
 fetched by 16-byte ``cp.async`` or by TMA boxes, and beside them K1's own
 loaders at the tile ``fused_dma.k1_geometry`` picks for ``blur_u8`` at
-sigma 10 on the same batch: the direct form's reflect-101 gather and the
-assembled form's (K1a) rectangles of A5's padded frame; each stores
-``[:8, :128]`` of its plane's last window.
+sigma 10 on the same batch, as the int8 and hybrid bodies stage raw bytes:
+the direct form's windows (16-byte ``cp.async`` inside the frame, mirrored
+aligned words past its edges) and the assembled form's (K1a) rectangles of
+A5's padded frame; each stores ``[:8, :128]`` of its plane's last window.
 
 A CUDA tensor runs ``csrc/probes/fetch_rate.cu``; a CPU tensor the plain
 versions (the slices the kernels store). Rates: bytes fetched per second,
@@ -113,8 +114,9 @@ class K1Loader:
     tw: int
     rh: int
     rw: int
-    t4h: int
-    t4w: int
+    rows: int  # window rows a tile stages: round16(th + 2rh)
+    sw: int  # window bytes a row
+    delta: int  # the direct window starts delta columns left of j0 - rw
     smem: int
     slots: int  # the assembled form's buffers (0 for direct)
     xh: int  # A5's padded frame (assembled)
@@ -123,8 +125,7 @@ class K1Loader:
     @property
     def window(self) -> tuple[int, int]:
         """Rows and bytes of a row the form stages per tile."""
-        sw = self.tw + self.t4w
-        return self.th + self.t4h, sw if not self.slots else -(-sw // 16) * 16
+        return self.rows, self.sw
 
 
 def k1_loader(plan, form: str, device: torch.device, precision: str = "hybrid",
@@ -132,15 +133,18 @@ def k1_loader(plan, form: str, device: torch.device, precision: str = "hybrid",
     """K1's ``form`` ("direct" or "assembled") as ``k1_geometry`` sizes it
     for ``precision`` on ``planes`` planes on ``device`` (the H100's
     shared memory on the CPU)."""
-    from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import k1_geometry
+    from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import k1_geometry, tc_layout
 
+    if precision == "bf16" or form not in ("direct", "assembled"):
+        raise ValueError(f"the probe times the int8 and hybrid bodies' direct and assembled "
+                         f"loaders, not {precision} {form}")
     geo = k1_geometry(form, precision, plan, planes, device=device)
-    if geo is None or form not in ("direct", "assembled"):
+    if geo is None:
         raise ValueError(f"K1's {form} form does not serve this plan")
     rh, rw = plan.col.support_radius, plan.row.support_radius
-    r4 = lambda v: -(-v // 4) * 4  # noqa: E731
-    lo = K1Loader(geo.th, geo.tw, rh, rw, r4(2 * rh + 1), r4(2 * rw + 1), geo.smem,
-                  geo.slots, geo.hp, geo.wp)
+    lay = tc_layout(form, precision, geo.th, geo.tw, rh, rw, geo.slots)
+    lo = K1Loader(geo.th, geo.tw, rh, rw, lay.rows, lay.sw, lay.delta, geo.smem, geo.slots,
+                  geo.hp, geo.wp)
     if lo.window[1] < STORE[1]:
         raise ValueError(f"K1's {form} window is {lo.window[1]} bytes wide: the probe "
                          f"stores {STORE[1]}")
@@ -168,7 +172,7 @@ def fetch_k1_ref(planar: torch.Tensor, lo: K1Loader,
             frame = assemble_padded_ref(x, lo.rh, lo.rw, lo.rh, lo.rw, lo.xh, lo.xw)
         return frame[:, i0:i0 + STORE[0], j0:j0 + STORE[1]].clone()
     rows = _reflect101(i0 - lo.rh + np.arange(STORE[0]), h)
-    cols = _reflect101(j0 - lo.rw + np.arange(STORE[1]), w)
+    cols = _reflect101(j0 - lo.rw - lo.delta + np.arange(STORE[1]), w)
     return x[:, torch.from_numpy(rows)][:, :, torch.from_numpy(cols)].clone()
 
 
@@ -200,7 +204,7 @@ def fetch_k1(planar: torch.Tensor, lo: K1Loader, frame: torch.Tensor | None = No
     out = torch.empty((x.shape[0], *STORE), dtype=torch.uint8, device=x.device)
     rc = load_probe_library().fetch_k1(
         int(assembled), src.data_ptr(), out.data_ptr(), x.shape[0], h, w, lo.th, lo.tw,
-        lo.rh, lo.rw, lo.t4h, lo.t4w, lo.xh, lo.xw, lo.slots, lo.smem,
+        lo.rh, lo.rw, lo.xh, lo.xw, lo.slots, lo.smem,
         torch.cuda.current_stream(x.device).cuda_stream)
     check_launch(rc, "fetch_k1")
     fetch_k1.launches["assembled" if assembled else "direct"] += 1

@@ -24,9 +24,11 @@ oracle ``box_oracle_u8``):
    the split's hybrid pass 2 against its int8 pass 2, in turns on a batch
    of 4 RGB 2160x3840 frames (CUDA events). A rung routes from the smallest
    radius from which it is at least as fast at every radius upward
-   (``route_floor``: 0 where it wins everywhere, None where it never does);
-   the split's hybrid pass 2 keeps its ceiling only if it is at least as
-   fast everywhere.
+   (``route_floor``: 0 where it wins everywhere, None where it never does),
+   counting only the radii under the device's uint8 split radius (the
+   record's ``k1_ceiling``): from there AUTO runs the split, not K1, so
+   K1's times past it route nothing; the split's hybrid pass 2 keeps its
+   ceiling only if it is at least as fast everywhere.
 
 Run on the card from the repository root:
 
@@ -269,12 +271,23 @@ def _in_turns(fns: dict, *args, iters: int = 10) -> dict[str, float]:
     return {k: float(np.mean(v)) for k, v in t.items()}
 
 
+def k1_ceiling(spec) -> int | None:
+    """The radius from which AUTO runs the split in place of K1 on uint8
+    frames on a device of ``spec`` (``fused_blur._split_wins``), or None
+    where K1 runs to its domain."""
+    if spec.fused_split_min_radius_u8 is not None:
+        return spec.fused_split_min_radius_u8
+    return spec.fused_split_min_radius
+
+
 def route_probe(precisions, log=print) -> dict:
     """K1's rungs against int8 at the radius ladder, and the split's pass 2
-    forms at the split ladder, on a batch of RGB 4K frames."""
+    forms at the split ladder, on a batch of RGB 4K frames; with the
+    device's ``k1_ceiling``."""
     from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma, fused_split
     from blur_algorithms_tpu_torch.ops.plan import make_plan
     from blur_algorithms_tpu_torch.utils.frames import make_frames
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
 
     x = torch.from_numpy(make_frames(ROUTE_BATCH, *ROUTE_HW)).cuda()
     bodies = {"int8": functools.partial(fused_dma.blur_fused_u8_dma, direct=True),
@@ -296,7 +309,7 @@ def route_probe(precisions, log=print) -> dict:
         split[r] = {"radius": r, **_in_turns(fns, e)}
         log(json.dumps({"route": "split pass 2", "r": r, **split[r]}))
         del e
-    return {"k1": k1, "split": split}
+    return {"k1": k1, "split": split, "k1_ceiling": k1_ceiling(device_spec(x.device))}
 
 
 def entry(record: dict) -> dict[str, int | None]:
@@ -317,9 +330,12 @@ def entry(record: dict) -> dict[str, int | None]:
         field = "hybrid_split_cert_max_radius" + ("_box" if kernel == "box_fast" else "")
         out[field] = split_ceiling(rows) if split_fast else None
     if route is not None:
+        ceiling = route.get("k1_ceiling")
+        k1 = {rt: v for rt, v in route["k1"].items()
+              if ceiling is None or v["radius"] < ceiling}
         for prec in ("hybrid", "bf16"):
             if any(prec in v for v in route["k1"].values()):
-                out[f"{prec}_route_min_radius"] = route_floor(route["k1"], prec)
+                out[f"{prec}_route_min_radius"] = route_floor(k1, prec)
     return out
 
 

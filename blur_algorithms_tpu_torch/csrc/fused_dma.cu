@@ -1,102 +1,125 @@
 // Fused separable Gaussian blur of uint8 planes (K1): the int8, hybrid and
 // bf16 rungs of the precision ladder, in five staging forms that share the
-// three bodies.
+// bodies.
 //
 // Replaces: blur_algorithms_tpu/pallas_kernels/fused_dma.py:_kernel_direct
 // (1023; the direct form) and the same file's _kernel_strip (285; the strip
 // form K1s), _kernel (223) and _kernel_pipe (899; the assembled form K1a
 // and its pipelined variant) and _kernel_resident (604; the rows-resident
-// form K1r), with their tile bodies _tile_int8 (1242), _tile_hybrid (1306)
-// and _tile_bf16 (1415); and the assembly kernels A5 and A4 that feed K1a
-// (_assemble_padded and _assemble_padded_prepad, at the end of this file).
-// K1a on A4's frame is the JAX rows_prepadded mode (blur_fused_haloed_dma,
-// 2589): the caller's halo rows sit where A5 puts reflected rows, so the
-// kernel is the same.
+// form K1r), with their tile bodies _rows_int8 (1200), _cols_int8 (1262),
+// _tile_hybrid (1306) and _tile_bf16 (1415); and the assembly kernels A5
+// and A4 that feed K1a (_assemble_padded and _assemble_padded_prepad, at
+// the end of this file). K1a on A4's frame is the JAX rows_prepadded mode
+// (blur_fused_haloed_dma, 2589): the caller's halo rows sit where A5 puts
+// reflected rows, so the kernel is the same.
 //
-// The bodies (device functions rows_pass and cols_pass below):
+// The int8 and hybrid bodies are band products on the tensor cores, as the
+// JAX bodies are band matmuls on the MXU (the two-pass split's passes,
+// csrc/fused_split.cu, share the design):
 //
-// - int8, uint8 -> uint8 or f32, exact int8 fixed point (_rows_int8, _cols_int8):
-//   the JAX band matmuls are 1-D correlations with one integer tap vector
-//   per axis, so the rows pass computes R = sum_t q_row[t] * xc[j - rw + t]
-//   on the recentred input (x ^ 0x80 == x - 128) exactly in int32 as
-//   128 * (q_hi dots) + (q_lo dots) with __dp4a, requantises
-//   E = (R + 2^(s-1)) >> s and keeps its base-128 digits e1, e0 in shared
-//   memory, column-major; the cols pass sums p1 = sum b_hi*e1, p23 = sum
-//   b_hi*e0 + b_lo*e1, p4 = sum b_lo*e0 over the 2rh + 1 column taps with
-//   __dp4a on four consecutive rows of a digit column; the epilogue
-//   y = f32(p1)*c1 + f32(p23)*c2 + f32(p4)*c3 + 128 (int8_epilogue), then
-//   clip(y + 0.5, 0, 255.5) and a truncating store, or y itself as f32
-//   (the JAX _compute_store with out_u8=False, which the sharded path asks
-//   for). For the uint8 store every product and sum is rounded on its own
-//   (__fmul_rn/__fadd_rn, and the build passes --fmad=false), the form
-//   the card's earlier certification ran. The f32 store rounds as XLA
-//   compiles the JAX expression when the kernel is interpreted on an FMA
-//   host, two multiply-adds contracted: fma(p4, c3, fma(p23, c2,
-//   p1 * c1)) + 128. Both stores are bit-identical to the JAX kernel run
-//   in interpret mode.
-// - hybrid: the int8 rows sum R without the requantisation (the JAX body
-//   folds the shift into its output scale), y = bf16(f32(R)) kept in the
-//   bytes E's digit planes take, then acc = sum_t bf16(c_t) * y[t] in f32
-//   and out = fma(acc, 1 / (127 * 2^s), 128).
-// - bf16: the rows staged as bf16 (uint8 values are exact there),
-//   y = bf16(sum_t bf16(r_t) * x[t]) in f32, then out = sum_t bf16(c_t) *
-//   y[t]; no epilogue. A bf16 x bf16 product is exact in f32, so with every
-//   sum taken in ascending tap order (__fmaf_rn) the hybrid and bf16 results
-//   are the plain versions' (cuda_kernels/fused_dma.py) bit for bit.
-//
-// Each rows item is 4 outputs of one row, each cols item 4 outputs of one
-// column; the tap windows are read as consecutive 4-byte (int8) or 8-byte
-// (bf16, two per 8 values) words. Taps are zero-padded to a multiple of 4:
-// the padding rows and columns a tile stages meet zero taps, so every form
-// computes every output from the same terms in the same order and all five
-// are bit-identical.
+// - rows pass (both bodies, rows_mma): R = sum_t q[t] * (x[j - rw + t] -
+//   128), q = 128 q_hi + q_lo, on mma.sync.m16n8k32.row.col.s32.s8.u8.s32.
+//   A (16 x 32, s8) is the band of one tap digit, A[m][k] = q[32s + k - m]
+//   for 16 output columns and k-step s, from four byte-shifted copies of
+//   each digit's taps in shared memory (each A register one aligned 32-bit
+//   load); B (32 x 8, u8) is 8 staged rows x 32 window columns of the RAW
+//   bytes, fed by ldmatrix. The recentring is one subtraction, R = 128 (hi
+//   - 128 Q_hi) + lo - 128 Q_lo (Q the digits' sums), exact in int32. The
+//   accumulator (output column m, row n) goes straight into the rows-output
+//   plane: int8, the base-128 digits e1 = (E + 64) >> 7, e0 = E - 128 e1 of
+//   E = (R + 2^(s-1)) >> s in column-major digit planes; hybrid, y =
+//   bf16(f32(R)) in a row-major plane.
+// - int8 cols pass (cols_int8_mma): p1 = sum b_hi e1, p23 = sum b_hi e0 +
+//   b_lo e1, p4 = sum b_lo e0 as four digit products on
+//   mma.sync.m16n8k32.row.col.s32.s8.s8.s32, A the band of one column-tap
+//   digit (the rows pass's copies with no leading zeros), B 32 plane rows x
+//   8 columns of one digit: the digits are column-major, so non-transposed
+//   ldmatrix gives the .col fragment. A warp takes two 16-row blocks whose
+//   windows are 16 rows apart, so a step's ldmatrix x4 brings two new
+//   16-row matrices of each digit and the third carries over. Then the
+//   epilogue y = f32(p1)*c1 + f32(p23)*c2 + f32(p4)*c3 + 128
+//   (int8_epilogue), and clip(y + 0.5, 0, 255.5) truncated, or y itself as
+//   f32 (the JAX _compute_store with out_u8=False, which the sharded path
+//   asks for). For the uint8 store every product and sum of the epilogue
+//   is rounded on its own (__fmul_rn/__fadd_rn, and the build passes
+//   --fmad=false); the f32 store rounds as XLA compiles the JAX expression
+//   when the kernel is interpreted on an FMA host, fma(p4, c3, fma(p23, c2,
+//   p1 * c1)) + 128. Every product and sum before it is an exact integer,
+//   so both stores are bit-identical to the plain version and to the JAX
+//   kernel in interpret mode, in every form and at every tiling.
+// - hybrid cols pass (cols_hybrid_mma): acc = sum_t bf16(c_t) y[t] in f32
+//   on mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, out = fma(acc, 1 /
+//   (127 * 2^s), 128). The tensor core sums a k-step's 16 products in its
+//   own order and rounding, so an output's f32 result depends on how its
+//   taps are grouped into k-steps. Every output row sums its taps in the
+//   aligned groups of 16 of its OWN tap index, [16 g, 16 g + 16), tap t at
+//   lane t - 16 g, in ascending g: a fragment's 8 n-rows are output rows
+//   f + 16 n (16 apart), A (16 x 16) is 16 columns x the 16 plane rows from
+//   f + 16 s (ldmatrix.trans of the row-major y), and B the
+//   block-Toeplitz taps, B[k][n] = c[16 (s - n) + k], the same for every
+//   fragment, so row f + 16 n takes group s - n at step s. Nothing depends
+//   on where a tile, a strip window, K1r's ring step or a shard starts: all
+//   five forms are bit-identical to each other, and K1a on A4's caller rows
+//   to the single-card call. Against the plain version
+//   (blur_fused_u8_hybrid_ref, tap by tap in ascending order) it agrees
+//   within 2e-2 at 0..255 scale on the f32 store and 1 count on the uint8
+//   store, the contract of the split's hybrid pass 2.
+// - bf16 (not redesigned: the H100's ladder never routes it): the rows
+//   staged as bf16, y = bf16(sum_t bf16(r_t) * x[t]) in f32 with __fmaf_rn,
+//   then out = sum_t bf16(c_t) * y[t], both in ascending tap order on the
+//   FMA units, four outputs an item, bit-equal to its plain version. It
+//   keeps its own staging (load_rows, load_columns, convert) and layout
+//   (bf16_layout).
 //
 // The forms differ only in the loader and in where the rows output lives.
 // One block of 256 threads per:
 //
-// - direct (K1), (plane, th x tw output tile): stages the th + 2rh halo rows
-//   in groups of g rows, each row segment of tw + 2rw bytes gathered with
-//   reflect-101 index math (i < 0 -> -i, i >= n -> 2(n-1) - i), which
-//   replaces the JAX form's edge strips and window splices.
+// - direct (K1), (plane, th x tw output tile): stages its round16(th + 2rh)
+//   window rows in groups of stage_rows(tw) rows, two groups in flight. The rows
+//   taps get (-rw) mod 16 leading zeros, so every window starts on a
+//   16-byte boundary of the image row: interior segments are 16-byte
+//   cp.async copies, segments past the frame's edge the two aligned words
+//   they mirror, byte-reversed with __byte_perm; reflect-101 byte loads are
+//   left for rows that are not 16-byte aligned and windows past one
+//   reflection (load_window). Rows are reflect-101 index math.
 // - strip (K1s), (plane, row strip): walks the strip's column windows left
-//   to right with the whole (th + 2rh) x (tw + 2rw) window staged, and
-//   carries its last 2rw columns to the next window (a shared-memory move,
-//   tw columns at a time), so each input byte of the strip is read from
-//   global memory once; reflect-101 of the columns matters only at the
-//   first and last windows. A strip of a 4K row at r 32 (96 x 3840 B) does
-//   not fit a block's 227 KB, which is why the window walks and not the
-//   strip.
+//   to right with the whole window staged, and carries its last columns to
+//   the next window (16-byte shared-memory moves), so each input byte of the
+//   strip is read from global memory once.
 // - assembled (K1a), (plane, tile): reads plain rectangles of A5's padded
-//   frame (the frame at (rh, rw), rows 16-byte aligned, so every window
-//   starts on a 16-byte boundary) with 16-byte cp.async, no index math,
-//   two row groups in flight while the rows pass runs on the group before
-//   (one where three buffers do not fit). The JAX form keeps n_slots - 1
-//   windows in flight; a block here holds one window's digits, and the
-//   card hides the rest with other blocks. The pipelined variant (int8)
-//   walks `seg` windows of a strip per block and runs window j's rows pass
-//   and window j-1's cols pass between the same barriers, on
-//   double-buffered digit planes (_kernel_pipe).
+//   frame (the plane at (rh, rw), rows 16-byte aligned, so every window
+//   starts on a 16-byte boundary with no leading zero taps) with 16-byte
+//   cp.async, no index math, slots - 1 row groups in flight, the bytes
+//   staged as they are. The pipelined variant (int8) walks `seg` windows of
+//   a strip per block and runs window j's rows pass and a slice of window
+//   j-1's cols pass between the same barriers, on double-buffered planes.
 // - resident (K1r), (plane, column window): walks down the frame th new
-//   rows a step, with the rows output of the last th + 2rh rows resident in
-//   a ring of R = th + t4h rows (digit planes for int8, bf16 y for hybrid),
-//   so every rows value is computed once; rows below t4h + 4 are mirrored
-//   past R, so each cols item reads its t4h + 4 rows contiguously. Every
-//   column of the window is rows-passed (the last window past w too).
+//   rows a step, the rows output of the last round16(th + 2rh) rows
+//   resident in a ring of as many rows, so every rows value is computed
+//   once. The ring's length and every chunk a cols fragment reads are
+//   multiples of 16 rows, so no fragment straddles the wrap.
 //
-// What bounds them on an H100: integer and FMA issue, not bytes. At r 32 a
-// direct tile does (1 + 2rh/th) rows passes per output (about 1.28x) and
-// reads each input byte (1 + 2rh/th)(1 + 2rw/tw) times from L2; device
-// memory traffic (1 byte in, 1 byte out per pixel) is far below the card's
-// bandwidth. The forms attack the redundant parts: K1r the repeated rows
-// work (2.5x at r 332), K1s and K1a the loader's repeated reads and index
-// math. K1s and K1r trade blocks for it (one per strip, one per column
-// window), so the card sees fewer, longer blocks; which form wins where is
-// measured (chip_smoke.py phase 15) and routed by utils/hw.py.
+// What bounds them on an H100: bytes would, 1 in and 1 out a pixel (0.0594
+// ms for 12 planes of 2160 x 3840), and the band products are ~0.03 ms at
+// the tensor cores' int8 and bf16 peaks at r 32. The design keeps the rest
+// off the path: the loader is 16-byte copies (no recentring), the
+// fragments come from shared memory by ldmatrix, the tap copies make every
+// A register one load. What is left is the halo (a direct tile stages (1 +
+// 2rh/th) rows and computes their rows pass), the band's zero taps (the
+// int8 passes round to 32 a step, the hybrid cols pass reads groups + 7
+// steps of 16 for `groups` tap groups: ~2.9x the taps at r 32), mma.sync's
+// rate below wgmma's, and latency: measured on an NVIDIA H100 80GB HBM3 at
+// 700 W (probes/k1_tc_ablation.py), the hybrid direct form takes 0.44 ms
+// at r 32 on that batch, its loader alone 0.09-0.17, rows pass alone
+// 0.18, cols pass alone 0.26, the parts overlapping; on a dp 2 x sp 2
+// shard K1a takes 0.14 ms, each part alone nearly as long and the blocks
+// with none of them (setup, barriers, loops) half of it: its 1,800 blocks'
+// latency, not one unit, sets it.
 //
 // The loaders' probe (B3, csrc/probes/fetch_rate.cu) includes this file
-// with FUSED_DMA_LOADERS_ONLY defined: the helpers and loaders above the
-// bodies (load_rows, convert, issue_group) and nothing else, so that it
-// times the staging code K1 runs.
+// with FUSED_DMA_LOADERS_ONLY defined: the helpers, layouts and loaders
+// above the bodies and nothing else, so that it times the staging code K1
+// runs.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
@@ -105,102 +128,138 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <climits>
-
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kNoRing = INT_MAX;
+constexpr int kWarps = kThreads / 32;
+// the int8 and hybrid forms' blocks an SM, for the registers' launch bound:
+// hybrid 3 (80 registers a thread, a few spilled words; 0.4445 against
+// 0.4916 ms uncapped for K1 hybrid direct at 4K r 32), int8 2 (its cols
+// pass keeps 48 accumulators; capped at 80 it spills up to 208 bytes and
+// ran slower), probes/k1_tc_ablation.py on an H100
+template <int B>
+constexpr int kTcBlocks = B == 0 ? 2 : 3;
+constexpr int kNoRing = 0;
 
 enum Body { kInt8 = 0, kHybrid = 1, kBf16 = 2 };
 enum Form { kDirect = 0, kStrip = 1, kAssembled = 2, kPipelined = 3, kResident = 4 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
+__host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
+__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 
-// plane column stride in elements for `rows` rows (a multiple of 4): an odd
-// number of 4-row words, so threads on neighbouring columns hit different
-// banks
+// the least odd multiple of 16 bytes >= n: eight rows at that stride fall
+// on eight different bank groups (ldmatrix's eight row addresses)
+__host__ __device__ inline int odd16(int n) {
+  n = round16(n);
+  return (n >> 4) & 1 ? n : n + 16;
+}
+
+// words of each of a digit's four shifted tap copies for `steps` k-steps:
+// 8 a step and 4 more, a count = 8 (mod 32) so the four copies fall on
+// different banks
+__host__ __device__ inline int copy_words(int steps) {
+  const int need = 8 * steps + 4;
+  return need + ((8 - need) % 32 + 32) % 32;
+}
+
+// plane column stride of the bf16 body in elements for `rows` rows (a
+// multiple of 4): an odd number of 4-row words
 __host__ __device__ inline int odd_words(int rows) {
   return ((rows >> 2) & 1) ? rows : rows + 4;
 }
 
-// Shared memory of one block, in bytes: taps, the rows-output plane(s), the
-// staged input, and the assembled forms' `slots` raw cp.async buffers of a
-// row group each at a 16-byte offset (int8 and hybrid recentre a buffer in
-// place and read it as their stage; bf16 converts it into its stage). The
-// wrappers (cuda_kernels/fused_dma.py, layout_bytes) size the tiles with
-// the same formula and pass their total, which the launch checks.
-struct Layout {
-  int taps, plane, nplanes, stage, raw_off, total, cs;
+// ---- the layouts: the wrappers (cuda_kernels/fused_dma.py, layout_bytes)
+// size the tiles with the same formulas and pass their total, which the
+// launch checks ----
+
+// Rows a staged group of the int8 and hybrid bodies: 4096 / tw (four rows
+// units of 16 columns x 8 rows a warp), halved while two groups would pass
+// kStageBudget, down to one unit a warp (1024 / tw).
+constexpr int kStageBudget = 48 * 1024;
+
+__host__ __device__ inline int stage_rows(int tw, int sp) {
+  int g = 4096 / tw;
+  while (g > 1024 / tw && 2 * g * sp > kStageBudget) g >>= 1;
+  return g;
+}
+
+// The int8 and hybrid bodies' block: the rows-output plane(s), the stage,
+// the tap tables.
+struct TcLayout {
+  int delta;   // leading zero rows taps: the window's first column is 16-byte aligned
+  int rsteps;  // rows k-steps of 32 window columns
+  int csteps;  // int8 cols k-steps of 32 plane rows
+  int groups;  // hybrid column tap groups of 16
+  int sw;      // window bytes a staged row: tw - 16 + 32 rsteps
+  int sp;      // stage pitch
+  int g;       // rows a staged group (stage_rows)
+  int rows;    // window rows the rows pass computes: round16(th + 2rh); K1r's ring
+  int pr;      // plane rows the cols pass reads
+  int cs;      // int8: bytes a digit column; hybrid: bytes a y row
+  int rwords;  // words of each rows tap copy
+  int cwords;  // int8: words of each cols tap copy; hybrid: words of the tap groups
+  int plane, nplanes, stage, taps, total;
 };
 
-__host__ __device__ inline Layout make_layout(int form, int body, int th, int tw,
-                                              int rh, int rw, int slots) {
-  Layout L;
-  const int t4w = round4(2 * rw + 1), t4h = round4(2 * rh + 1);
-  const int g = kThreads / (tw >> 2);
-  const int sw = tw + t4w;
-  const int es = body == kBf16 ? 2 : 1;
-  L.taps = body == kInt8 ? 2 * t4w + 2 * t4h : 4 * t4h + (body == kBf16 ? 4 : 2) * t4w;
-  L.cs = odd_words(form == kResident ? th + 2 * t4h + 4 : th + t4h);
-  L.plane = 2 * tw * L.cs;
+__host__ __device__ inline TcLayout tc_layout(int form, int body, int th, int tw, int rh, int rw,
+                                              int slots) {
+  TcLayout L;
+  const bool framed = form == kAssembled || form == kPipelined;
+  L.delta = framed ? 0 : (16 - rw % 16) % 16;
+  L.rsteps = (L.delta + 2 * rw + 1 + 15 + 31) / 32;
+  L.csteps = (2 * rh + 1 + 15 + 31) / 32;
+  L.groups = (2 * rh + 1 + 15) / 16;
+  L.sw = tw - 16 + 32 * L.rsteps;
+  L.sp = odd16(L.sw);
+  L.g = stage_rows(tw, L.sp);
+  L.rows = round16(th + 2 * rh);
+  if (form == kResident) {
+    L.pr = L.rows;
+  } else if (body == kInt8) {
+    L.pr = imax(L.rows, round_up(th, 32) - 16 + 32 * L.csteps);
+  } else {
+    L.pr = imax(L.rows, round_up(th, 128) + 16 * L.groups);
+  }
+  if (body == kInt8) {
+    L.cs = odd16(L.pr);
+    L.plane = 2 * tw * L.cs;
+  } else {
+    L.cs = 2 * tw + 16;
+    L.plane = L.pr * L.cs;
+  }
   L.nplanes = form == kPipelined ? 2 : 1;
-  const bool raw = form == kAssembled || form == kPipelined;
-  L.stage = (form == kStrip ? th + t4h : (raw && body != kBf16 ? 0 : g)) * sw * es;
-  const int end = L.taps + L.nplanes * L.plane + L.stage;
-  L.raw_off = raw ? round16(end) : end;
-  L.total = raw ? L.raw_off + slots * g * round16(sw) : end;
+  L.stage = form == kStrip ? L.rows * L.sp : (framed ? slots : 2) * L.g * L.sp;
+  L.rwords = copy_words(L.rsteps);
+  L.cwords = body == kInt8 ? copy_words(L.csteps) : 12 * (L.groups + 14);
+  L.taps = round16(16 + 4 * (8 * L.rwords + (body == kInt8 ? 8 * L.cwords : L.cwords)));
+  L.total = L.nplanes * L.plane + L.stage + L.taps;
   return L;
 }
 
-struct K1Params {
-  const uint8_t* x;      // input planes (the padded frame for K1a)
-  void* out;             // output planes, h x w
-  const int* taps_i;     // int8: q_hi|q_lo|b_hi|b_lo words; else the row taps
-  const float* taps_f;   // hybrid, bf16: the column taps
-  int h, w, rh, rw;      // frame and support radii
-  int th, tw, nbh, nbw;  // tile and tile counts
-  int seg, nseg;         // K1a: windows per block, blocks per row strip
-  int slots;             // K1a: raw row-group buffers (2 or 3), slots - 1 in flight
-  int xh, xw;            // rows and row length of an input plane
-  int rows_shift;
-  float c1, c2, c3, scale;  // int8 epilogue; hybrid scale
+// The bf16 body's block: taps, the rows-output plane, the staged input, and
+// the assembled form's `slots` raw cp.async buffers of a row group each at a
+// 16-byte offset, converted into the stage.
+struct Bf16Layout {
+  int taps, plane, stage, raw_off, total, cs;
 };
 
-struct Smem {
-  const int* ti;    // int8: all taps; hybrid: rows taps; bf16: rows taps (f32 bits)
-  const float* ct;  // hybrid, bf16: column taps
-  unsigned char* plane[2];
-  unsigned char* stage;
-  unsigned char* raw;
-};
-
-template <int B>
-__device__ __forceinline__ Smem carve(unsigned char* smem, const Layout& L, const K1Params& p) {
-  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int nqw = t4w >> 2, nqh = t4h >> 2;
-  Smem s;
-  if (B == kInt8) {
-    int* ti = reinterpret_cast<int*>(smem);
-    for (int k = threadIdx.x; k < 2 * nqw + 2 * nqh; k += kThreads) ti[k] = p.taps_i[k];
-    s.ti = ti;
-    s.ct = nullptr;
-  } else {
-    float* ct = reinterpret_cast<float*>(smem);
-    int* ti = reinterpret_cast<int*>(smem + 4 * t4h);
-    for (int k = threadIdx.x; k < t4h; k += kThreads) ct[k] = p.taps_f[k];
-    for (int k = threadIdx.x; k < (B == kBf16 ? t4w : 2 * nqw); k += kThreads) {
-      ti[k] = p.taps_i[k];
-    }
-    s.ti = ti;
-    s.ct = ct;
-  }
-  s.plane[0] = smem + L.taps;
-  s.plane[1] = s.plane[0] + L.plane;
-  s.stage = smem + L.taps + L.nplanes * L.plane;
-  s.raw = smem + L.raw_off;
-  return s;
+__host__ __device__ inline Bf16Layout bf16_layout(int form, int th, int tw, int rh, int rw,
+                                                  int slots) {
+  Bf16Layout L;
+  const int t4w = round4(2 * rw + 1), t4h = round4(2 * rh + 1);
+  const int g = kThreads / (tw >> 2);
+  const int sw = tw + t4w;
+  L.taps = 4 * t4h + 4 * t4w;
+  L.cs = odd_words(th + t4h);
+  L.plane = 2 * tw * L.cs;
+  L.stage = (form == kStrip ? th + t4h : g) * sw * 2;
+  const int end = L.taps + L.plane + L.stage;
+  const bool raw = form == kAssembled;
+  L.raw_off = raw ? round16(end) : end;
+  L.total = raw ? L.raw_off + slots * g * round16(sw) : end;
+  return L;
 }
 
 // reflect-101 source index; exact for -(n-1) <= i <= 2(n-1), clamped
@@ -211,68 +270,114 @@ __device__ __forceinline__ int reflect101(int i, int n) {
   return min(max(i, 0), n - 1);
 }
 
-// four int8 lanes starting k bytes into the 8-byte pair (lo, hi)
-__device__ __forceinline__ int shifted(int lo, int hi, int k) {
-  return __byte_perm(lo, hi, 0x3210 + 0x1111 * k);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 __device__ __forceinline__ unsigned short to_bf16(float f) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(f));
 }
 
-// eight consecutive bf16 values, two 8-byte words, as f32 (element 0 is the
-// low half of a.x)
-__device__ __forceinline__ void unpack8(uint2 a, uint2 b, float v[8]) {
-  v[0] = __uint_as_float(a.x << 16);
-  v[1] = __uint_as_float(a.x & 0xffff0000u);
-  v[2] = __uint_as_float(a.y << 16);
-  v[3] = __uint_as_float(a.y & 0xffff0000u);
-  v[4] = __uint_as_float(b.x << 16);
-  v[5] = __uint_as_float(b.x & 0xffff0000u);
-  v[6] = __uint_as_float(b.y << 16);
-  v[7] = __uint_as_float(b.y & 0xffff0000u);
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// acc[s] += t[u] * v[u + s], taps u in ascending order: 4 outputs, 4 taps
-__device__ __forceinline__ void fma_window(const float4 t, const float v[8],
-                                           float acc[4]) {
-  const float tq[4] = {t.x, t.y, t.z, t.w};
+// ---- the int8 and hybrid bodies' loaders: raw bytes ----
+
+// Window rows [0, nr) (image rows reflect-101 of row0 + rr) x window bytes
+// [c_begin, c_end) (multiples of 16) of a plane, window byte c being image
+// column gc0 + c, into staged rows of pitch sp. With `vec` (the planes and
+// their rows 16-byte aligned) and gc0 a multiple of 16, every segment lies
+// wholly inside the row or wholly past one edge: inside, a 16-byte
+// cp.async; past an edge within one reflection, the two aligned words it
+// mirrors, byte-reversed; else reflect-101 byte loads.
+__device__ __forceinline__ void load_window(unsigned char* st, int sp, const uint8_t* xp, int h,
+                                            int w, int row0, int nr, int gc0, int c_begin,
+                                            int c_end, bool vec) {
+  const int nseg = (c_end - c_begin) >> 4;
+  for (int k = threadIdx.x; k < nr * nseg; k += kThreads) {
+    const int rr = k / nseg;
+    const int c = c_begin + ((k - rr * nseg) << 4);
+    const uint8_t* src = xp + static_cast<size_t>(reflect101(row0 + rr, h)) * w;
+    unsigned char* dst = st + rr * sp + c;
+    const int gc = gc0 + c;
+    if (vec && gc >= 0 && gc + 16 <= w) {
+      cp_async16(dst, src + gc);
+    } else if (vec && gc < 0 && gc >= 16 - w) {
+      // left of the frame: x[-gc - k], k = 0..15, reversed out of the
+      // aligned words at -gc - 16 and -gc
+      const uint4 a = *reinterpret_cast<const uint4*>(src - gc - 16);
+      const uint4 b = *reinterpret_cast<const uint4*>(src - gc);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(__byte_perm(a.w, b.x, 0x1234), __byte_perm(a.z, a.w, 0x1234),
+                     __byte_perm(a.y, a.z, 0x1234), __byte_perm(a.x, a.y, 0x1234));
+    } else if (vec && gc >= w && gc <= 2 * w - 32) {
+      // right of it: x[2(w - 1) - gc - k], out of the aligned words at
+      // 2w - 32 - gc and 2w - 16 - gc
+      const uint4 a = *reinterpret_cast<const uint4*>(src + 2 * w - 32 - gc);
+      const uint4 b = *reinterpret_cast<const uint4*>(src + 2 * w - 16 - gc);
+      *reinterpret_cast<uint4*>(dst) =
+          make_uint4(__byte_perm(b.z, b.w, 0x3456), __byte_perm(b.y, b.z, 0x3456),
+                     __byte_perm(b.x, b.y, 0x3456), __byte_perm(a.w, b.x, 0x3456));
+    } else {
+      unsigned v[4];
 #pragma unroll
-  for (int u = 0; u < 4; ++u) {
+      for (int q = 0; q < 4; ++q) {
+        unsigned word = 0;
 #pragma unroll
-    for (int s = 0; s < 4; ++s) acc[s] = __fmaf_rn(tq[u], v[u + s], acc[s]);
+        for (int b = 0; b < 4; ++b) {
+          word |= static_cast<unsigned>(src[reflect101(gc + 4 * q + b, w)]) << (8 * b);
+        }
+        v[q] = word;
+      }
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    }
   }
 }
 
-// ---- the loaders' staging: int8 recentred, or bf16 ----
-
-template <int B>
-__device__ __forceinline__ void put_stage(unsigned char* stage, int k, uint8_t v) {
-  if (B == kBf16) {
-    reinterpret_cast<unsigned short*>(stage)[k] = to_bf16(static_cast<float>(v));
-  } else {
-    stage[k] = v ^ 0x80;
+// The assembled forms' loader: nr rows x sw bytes of the padded frame from
+// `src` (xw bytes a row, 16-byte aligned) into staged rows of pitch sp, by
+// 16-byte cp.async.
+__device__ __forceinline__ void load_rect(unsigned char* st, int sp, const uint8_t* src, int xw,
+                                          int nr, int sw) {
+  const int nch = sw >> 4;
+  for (int e = threadIdx.x; e < nr * nch; e += kThreads) {
+    const int rr = e / nch;
+    const int q = e - rr * nch;
+    cp_async16(st + rr * sp + (q << 4), src + static_cast<size_t>(rr) * xw + (q << 4));
   }
+}
+
+// ---- the bf16 body's loaders: rows staged as bf16 ----
+
+__device__ __forceinline__ void put_bf16(unsigned char* stage, int k, uint8_t v) {
+  reinterpret_cast<unsigned short*>(stage)[k] = to_bf16(static_cast<float>(v));
 }
 
 // rows [row0, row0 + nr) x columns [col0 + c_begin, col0 + c_end) of the
 // plane, reflect-101, into staged rows of sw elements; threads over columns
-template <int B>
-__device__ __forceinline__ void load_rows(unsigned char* stage, int sw, const uint8_t* xp,
-                                          int h, int w, int row0, int col0, int nr,
-                                          int c_begin, int c_end) {
+__device__ __forceinline__ void load_rows(unsigned char* stage, int sw, const uint8_t* xp, int h,
+                                          int w, int row0, int col0, int nr, int c_begin,
+                                          int c_end) {
   for (int c = c_begin + threadIdx.x; c < c_end; c += kThreads) {
     const int gj = reflect101(col0 + c, w);
     for (int rr = 0; rr < nr; ++rr) {
       const int gi = reflect101(row0 + rr, h);
-      put_stage<B>(stage, rr * sw + c, xp[static_cast<size_t>(gi) * w + gj]);
+      put_bf16(stage, rr * sw + c, xp[static_cast<size_t>(gi) * w + gj]);
     }
   }
 }
 
 // the same for ncols (a divisor of kThreads) columns from c_begin: each
 // thread one column, kThreads / ncols rows at a time
-template <int B>
 __device__ __forceinline__ void load_columns(unsigned char* stage, int sw, const uint8_t* xp,
                                              int h, int w, int row0, int col0, int nr,
                                              int c_begin, int ncols) {
@@ -281,148 +386,242 @@ __device__ __forceinline__ void load_columns(unsigned char* stage, int sw, const
   const int gj = gc >= 0 && gc < w ? gc : reflect101(gc, w);
   for (int rr = threadIdx.x / ncols; rr < nr; rr += kThreads / ncols) {
     const int gi = reflect101(row0 + rr, h);
-    put_stage<B>(stage, rr * sw + c, xp[static_cast<size_t>(gi) * w + gj]);
+    put_bf16(stage, rr * sw + c, xp[static_cast<size_t>(gi) * w + gj]);
   }
 }
 
-// nr raw byte rows (stride swa) -> staged rows: bf16 into `stage` (stride
-// sw), int8 and hybrid recentred in place
-template <int B>
-__device__ __forceinline__ void convert(unsigned char* raw, int swa, unsigned char* stage,
+// nr raw byte rows (stride swa) -> bf16 staged rows (stride sw)
+__device__ __forceinline__ void convert(const unsigned char* raw, int swa, unsigned char* stage,
                                         int sw, int nr) {
   const int nw = sw >> 2;
   for (int e = threadIdx.x; e < nr * nw; e += kThreads) {
     const int rr = e / nw;
     const int q = e - rr * nw;
-    unsigned* src = reinterpret_cast<unsigned*>(raw + rr * swa) + q;
-    const unsigned v = *src;
-    if (B == kBf16) {
-      uint2 o;
-      o.x = to_bf16(static_cast<float>(v & 0xff)) |
-            (static_cast<unsigned>(to_bf16(static_cast<float>((v >> 8) & 0xff))) << 16);
-      o.y = to_bf16(static_cast<float>((v >> 16) & 0xff)) |
-            (static_cast<unsigned>(to_bf16(static_cast<float>(v >> 24))) << 16);
-      reinterpret_cast<uint2*>(reinterpret_cast<unsigned short*>(stage) + rr * sw)[q] = o;
-    } else {
-      *src = v ^ 0x80808080u;
-    }
+    const unsigned v = reinterpret_cast<const unsigned*>(raw + rr * swa)[q];
+    uint2 o;
+    o.x = to_bf16(static_cast<float>(v & 0xff)) |
+          (static_cast<unsigned>(to_bf16(static_cast<float>((v >> 8) & 0xff))) << 16);
+    o.y = to_bf16(static_cast<float>((v >> 16) & 0xff)) |
+          (static_cast<unsigned>(to_bf16(static_cast<float>(v >> 24))) << 16);
+    reinterpret_cast<uint2*>(reinterpret_cast<unsigned short*>(stage) + rr * sw)[q] = o;
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The assembled forms' loader: row group t of a block's run of `total`
-// groups, ngr a window (window win at column (jw0 + win) * tw of the padded
-// frame plane fp, xw bytes a row; its rows from row i0), by 16-byte
-// cp.async into buffer t % slots of `raw` (g rows of swa bytes), then one
-// commit group (empty past the last group).
+// The bf16 assembled form's loader: row group t of a block's ngr groups
+// (window at column jw0 * tw of the padded frame plane fp, xw bytes a row;
+// its rows from row i0), by 16-byte cp.async into buffer t % slots of `raw`
+// (g rows of swa bytes), then one commit group (empty past the last group).
 __device__ __forceinline__ void issue_group(unsigned char* raw, const uint8_t* fp, int xw,
                                             int i0, int jw0, int tw, int hp, int g, int swa,
                                             int ngr, int total, int slots, int t) {
   if (t < total) {
     const int win = t / ngr;
     const int r0 = (t - win * ngr) * g;
-    const int nr = min(g, hp - r0);
-    const int nch = swa >> 4;
-    unsigned char* dst = raw + (t % slots) * g * swa;
     const uint8_t* src =
         fp + static_cast<size_t>(i0 + r0) * xw + static_cast<size_t>(jw0 + win) * tw;
-    for (int e = threadIdx.x; e < nr * nch; e += kThreads) {
-      const int rr = e / nch;
-      const int q = e - rr * nch;
-      cp_async16(dst + rr * swa + (q << 4), src + static_cast<size_t>(rr) * xw + (q << 4));
-    }
+    load_rect(raw + (t % slots) * g * swa, swa, src, xw, min(g, hp - r0), swa);
   }
   cp_async_commit();
 }
 
 #ifndef FUSED_DMA_LOADERS_ONLY
 
-// ---- the bodies ----
+struct K1Params {
+  const uint8_t* x;      // input planes (the padded frame for K1a)
+  void* out;             // output planes, h x w
+  const int* taps_i;     // int8, hybrid: the host's tap tables (tc_carve); bf16: row taps
+  const float* taps_f;   // bf16: the column taps
+  int h, w, rh, rw;      // frame and support radii
+  int th, tw, nbh, nbw;  // tile and tile counts
+  int seg, nseg;         // K1a: windows per block, blocks per row strip
+  int slots;             // K1a: raw row-group buffers (2 or 3), slots - 1 in flight
+  int xh, xw;            // rows and row length of an input plane
+  int rows_shift;
+  float c1, c2, c3, scale;  // int8 epilogue; hybrid scale
+};
 
-// Rows pass of nr staged rows (stride sw elements), staged row rr being
-// rows-output row m0 + rr, which goes to plane row (m0 + rr) % ring and, for
-// a row below `mirror`, also to that row + ring.
+// ---- the tensor-core bodies (int8, hybrid) ----
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2(unsigned addr, unsigned (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned addr, unsigned (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(unsigned addr, unsigned (&r)[2]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 u8, col), s32
+__device__ __forceinline__ void mma_s8u8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 32 s8, row) * b (32 x 8 s8, col), s32
+__device__ __forceinline__ void mma_s8s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a (16 x 16 bf16, row) * b (16 x 8 bf16, col), f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct TcSmem {
+  unsigned char* plane[2];
+  unsigned char* stage;
+  const unsigned* qoff;  // 128 Q: the recentring of the raw-byte rows product
+  const unsigned* rq;    // rows tap copies: [digit][copy][rwords]
+  const unsigned* cq;    // int8: cols tap copies [digit][copy][cwords]; hybrid: tap groups
+};
+
+// Carve the block's shared memory and start the copy of its tap tables:
+// the host builds them once a plan (cuda_kernels/fused_dma.py,
+// tc_tables), L.taps bytes [qoff, 0, 0, 0 | rows copies | cols copies or
+// tap groups], and every block copies them with 16-byte cp.async, left
+// uncommitted so that the first row group's commit covers them (they are
+// there after the first wait and barrier). The copies: word i of copy c of
+// a digit holds its taps [4i + c - 16 - delta, 4i + c - 13 - delta], one
+// byte each; the tap groups -7 .. groups + 6 are bf16 pairs, word q of
+// stored group gs at 12 gs + q. The hybrid plane's rows past the rows
+// pass's are zeroed: the cols pass reads them against zero taps, and an
+// uninitialised word could be a NaN.
 template <int B>
-__device__ __forceinline__ void rows_pass(const unsigned char* stage, int sw, int nr, int m0,
-                                          int tw, int nqw, const Smem& s, int rows_shift,
-                                          unsigned char* plane, int cs, int ring,
-                                          int mirror) {
-  const int ngrp = tw >> 2;  // 4-column output groups per row
-  for (int k = threadIdx.x; k < nr * ngrp; k += kThreads) {
-    const int rr = k / ngrp;
-    const int c0 = (k - rr * ngrp) << 2;
-    int m = m0 + rr;
-    if (m >= ring) m -= (m / ring) * ring;
-    if (B == kBf16) {
-      const uint2* xw = reinterpret_cast<const uint2*>(
-          reinterpret_cast<const unsigned short*>(stage) + rr * sw + c0);
-      const float4* rt = reinterpret_cast<const float4*>(s.ti);
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      uint2 cur = xw[0];
-      for (int q = 0; q < nqw; ++q) {
-        const uint2 nxt = xw[q + 1];
-        float v[8];
-        unpack8(cur, nxt, v);
-        fma_window(rt[q], v, acc);
-        cur = nxt;
+__device__ __forceinline__ TcSmem tc_carve(unsigned char* smem, const TcLayout& L,
+                                           const K1Params& p) {
+  TcSmem s;
+  s.plane[0] = smem;
+  s.plane[1] = smem + L.plane;
+  s.stage = smem + L.nplanes * L.plane;
+  unsigned char* tab = s.stage + L.stage;
+  const unsigned char* src = reinterpret_cast<const unsigned char*>(p.taps_i);
+  for (int k = threadIdx.x; k < L.taps >> 4; k += kThreads) {
+    cp_async16(tab + (k << 4), src + (k << 4));
+  }
+  if (B == kHybrid) {
+    for (int n = 0; n < L.nplanes; ++n) {
+      uint4* tail = reinterpret_cast<uint4*>(s.plane[n] + L.rows * L.cs);
+      for (int k = threadIdx.x; k < ((L.pr - L.rows) * L.cs) >> 4; k += kThreads) {
+        tail[k] = make_uint4(0u, 0u, 0u, 0u);
       }
-      unsigned short* y = reinterpret_cast<unsigned short*>(plane);
+    }
+  }
+  s.qoff = reinterpret_cast<const unsigned*>(tab);
+  s.rq = s.qoff + 4;
+  s.cq = s.rq + 8 * L.rwords;
+  return s;
+}
+
+// Rows pass of staged rows [0, nr) (nr a multiple of 8; pitch L.sp, window
+// column 0 at byte 0), staged row rr being rows-output row m0 + rr (m0 a
+// multiple of 8), which goes to plane row (m0 + rr) mod ring (ring 0: no
+// ring). A unit is 16 output columns x 8 rows (one n-block); a warp keeps
+// one 16-column block and takes up to four n-blocks at once, which share
+// each step's A fragments.
+template <int B>
+__device__ __forceinline__ void rows_mma(const TcSmem& s, const TcLayout& L, int tw,
+                                         int rows_shift, const unsigned char* st, int nr,
+                                         int m0, int ring, unsigned char* plane) {
+  constexpr int kNb = 4;  // n-blocks a warp at once
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  // A: row m = g of the block, taps 32s + 4 tig - g (+ 0, -8, +16, +8 for
+  // the four registers), all in the copy (4 tig - g) mod 4
+  const int bq = 4 * tig - g + 16;
+  const unsigned* qh = s.rq + (bq & 3) * L.rwords + (bq >> 2);
+  const unsigned* ql = qh + 4 * L.rwords;
+  // B: ldmatrix x2 of rows 8 nb + (0..7) at window columns 16 mb + 32 s +
+  // (0, 16)
+  const int mbs = tw >> 4;  // 2, 4 or 8: a divisor of kWarps
+  const int mb = warp % mbs, nstride = kWarps / mbs;
+  const int nbs = nr >> 3;
+  const int base = ring ? m0 % ring : m0;
+  const unsigned xa = smem_u32(st) + (lane & 7) * L.sp + 16 * mb + (((lane >> 3) & 1) << 4);
+  for (int nb0 = warp / mbs; nb0 < nbs; nb0 += kNb * nstride) {
+    int acc_h[kNb][4], acc_l[kNb][4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const unsigned short b = to_bf16(acc[u]);
-        y[(c0 + u) * cs + m] = b;
-        if (m < mirror) y[(c0 + u) * cs + m + ring] = b;
-      }
-    } else {
-      const int* xw = reinterpret_cast<const int*>(stage + rr * sw + c0);
-      int hi[4] = {0, 0, 0, 0}, lo[4] = {0, 0, 0, 0};
-      int cur = xw[0];
-      for (int q = 0; q < nqw; ++q) {
-        const int nxt = xw[q + 1];
-        const int qh = s.ti[q], ql = s.ti[nqw + q];
+    for (int k = 0; k < kNb; ++k) {
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int v = shifted(cur, nxt, u);
-          hi[u] = __dp4a(v, qh, hi[u]);
-          lo[u] = __dp4a(v, ql, lo[u]);
+      for (int v = 0; v < 4; ++v) acc_h[k][v] = acc_l[k][v] = 0;
+    }
+    for (int st8 = 0; st8 < L.rsteps; ++st8) {
+      const unsigned* h8 = qh + 8 * st8;
+      const unsigned* l8 = ql + 8 * st8;
+      const unsigned ah[4] = {h8[0], h8[-2], h8[4], h8[2]};
+      const unsigned al[4] = {l8[0], l8[-2], l8[4], l8[2]};
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+        const int nb = nb0 + k * nstride;
+        if (nb < nbs) {
+          unsigned b[2];
+          ldsm_x2(xa + 8 * nb * L.sp + 32 * st8, b);
+          mma_s8u8(acc_h[k], ah, b[0], b[1]);
+          mma_s8u8(acc_l[k], al, b[0], b[1]);
         }
-        cur = nxt;
       }
-      if (B == kInt8) {
-        signed char* d1 = reinterpret_cast<signed char*>(plane);
-        signed char* d0 = d1 + tw * cs;
+    }
+    // accumulator v: output column 16 mb + g + 8 (v >> 1), staged row 8 nb
+    // + 2 tig + (v & 1); the two rows of a pair are neighbours in a plane
+    // column and never straddle the ring (a multiple of 16 rows)
 #pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int r = hi[u] * 128 + lo[u];
-          const int e = (r + (1 << (rows_shift - 1))) >> rows_shift;
-          const int e1 = (e + 64) >> 7;
-          const signed char v1 = static_cast<signed char>(e1);
-          const signed char v0 = static_cast<signed char>(e - e1 * 128);
-          d1[(c0 + u) * cs + m] = v1;
-          d0[(c0 + u) * cs + m] = v0;
-          if (m < mirror) {
-            d1[(c0 + u) * cs + m + ring] = v1;
-            d0[(c0 + u) * cs + m + ring] = v0;
+    for (int n = 0; n < kNb; ++n) {
+      const int nb = nb0 + n * nstride;
+      if (nb >= nbs) break;
+      int m = base + 8 * nb + 2 * tig;
+      if (ring && m >= ring) m -= ring;
+#pragma unroll
+      for (int hv = 0; hv < 2; ++hv) {
+        const int col = 16 * mb + g + 8 * hv;
+        int r[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          // R = 128 (hi - 128 Q_hi) + (lo - 128 Q_lo), exact modulo 2^32
+          r[e] = static_cast<int>(128u * static_cast<unsigned>(acc_h[n][2 * hv + e]) +
+                                  static_cast<unsigned>(acc_l[n][2 * hv + e]) - *s.qoff);
+        }
+        if (B == kInt8) {
+          unsigned d1 = 0, d0 = 0;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int ev = (r[e] + (1 << (rows_shift - 1))) >> rows_shift;
+            const int e1 = (ev + 64) >> 7;
+            d1 |= (static_cast<unsigned>(e1) & 0xffu) << (8 * e);
+            d0 |= (static_cast<unsigned>(ev - e1 * 128) & 0xffu) << (8 * e);
           }
-        }
-      } else {
-        unsigned short* y = reinterpret_cast<unsigned short*>(plane);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const unsigned short b = to_bf16(__int2float_rn(hi[u] * 128 + lo[u]));
-          y[(c0 + u) * cs + m] = b;
-          if (m < mirror) y[(c0 + u) * cs + m + ring] = b;
+          *reinterpret_cast<unsigned short*>(plane + col * L.cs + m) =
+              static_cast<unsigned short>(d1);
+          *reinterpret_cast<unsigned short*>(plane + tw * L.cs + col * L.cs + m) =
+              static_cast<unsigned short>(d0);
+        } else {
+          unsigned short* y = reinterpret_cast<unsigned short*>(plane + m * L.cs) + col;
+          y[0] = to_bf16(__int2float_rn(r[0]));
+          y[L.cs >> 1] = to_bf16(__int2float_rn(r[1]));
         }
       }
     }
@@ -448,67 +647,525 @@ __device__ __forceinline__ float int8_epilogue(int p1, int p23, int p4, float c1
   return __fadd_rn(y, 128.0f);
 }
 
-// Cols pass and store of items [k_begin, k_end) of a th x tw tile whose
-// output row 0 reads from plane row b0 (modulo ring, b0 < ring): 4 output
-// rows of one column per item, the tile's rows at (i0, j0) of the output.
+__device__ __forceinline__ uint8_t store_u8(float y) {
+  const float v = fminf(fmaxf(__fadd_rn(y, 0.5f), 0.0f), 255.5f);
+  return static_cast<uint8_t>(__float2int_rz(v));
+}
+
+// plane row of window row x from base b0 (b0 < ring), modulo the ring
+__device__ __forceinline__ int ring_row(int x, int ring) {
+  return ring && x >= ring ? x % ring : x;
+}
+
+// Units of the int8 cols pass of a th x tw tile: (row pairs of 32) x
+// (column pairs of 16).
+__host__ __device__ inline int int8_col_units(int th, int tw) {
+  return ((th + 31) / 32) * (tw / 16);
+}
+
+// Int8 cols pass and store of units [u_begin, u_end) of the tile at (i0,
+// j0), whose output row 0 reads from plane row b0 (modulo ring).
+template <bool kOutU8>
+__device__ __forceinline__ void cols_int8_mma(const TcSmem& s, const TcLayout& L,
+                                              const K1Params& p, const unsigned char* plane,
+                                              int u_begin, int u_end, int b0, int ring, int i0,
+                                              int j0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3, mi = lane >> 3;
+  const int bq = 4 * tig - g + 16;
+  const unsigned* qh = s.cq + (bq & 3) * L.cwords + (bq >> 2);
+  const unsigned* ql = qh + 4 * L.cwords;
+  const int nps = p.tw >> 4;
+  const int dplane = p.tw * L.cs;  // bytes of a digit plane
+  const size_t out_off = static_cast<size_t>(blockIdx.y) * p.h * p.w;
+  const unsigned pl = smem_u32(plane);
+  for (int u = u_begin + warp; u < u_end; u += kWarps) {
+    const int rp = u / nps, np = u - rp * nps;
+    const int ib = 32 * rp;
+    if (ib >= p.th || i0 + ib >= p.h) continue;
+    // this lane's column in each n-block (ldmatrix row address)
+    const unsigned ca0 = pl + (16 * np + (lane & 7)) * L.cs;
+    const unsigned ca1 = ca0 + 8 * L.cs;
+    // M0 of step 0 (rows ib + 0..15): x4 of e1 n0, e0 n0, e1 n1, e0 n1
+    unsigned m0[2][2];
+    {
+      unsigned r[4];
+      ldsm_x4((mi >> 1 ? ca1 : ca0) + (mi & 1) * dplane + ring_row(b0 + ib, ring), r);
+      m0[0][0] = r[0];
+      m0[0][1] = r[1];
+      m0[1][0] = r[2];
+      m0[1][1] = r[3];
+    }
+    int acc[2][2][3][4];  // [m block][n block][p1, p23, p4][fragment]
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[b][n][k][v] = 0;
+        }
+      }
+    }
+    for (int st8 = 0; st8 < L.csteps; ++st8) {
+      const unsigned* h8 = qh + 8 * st8;
+      const unsigned* l8 = ql + 8 * st8;
+      const unsigned ah[4] = {h8[0], h8[-2], h8[4], h8[2]};
+      const unsigned al[4] = {l8[0], l8[-2], l8[4], l8[2]};
+      // block 0 (rows ib + 0..15) reads M0 = rows ib + 32 s + (0..15) and
+      // M1 (+ 16..31); block 1 reads M1 and M2 (+ 32..47), the next M0.
+      // x4: e1 M1, e1 M2, e0 M1, e0 M2
+      const int roff = ring_row(b0 + ib + 32 * st8 + 16 + 16 * (mi & 1), ring);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        unsigned b[4];
+        ldsm_x4((n ? ca1 : ca0) + (mi >> 1) * dplane + roff, b);
+        mma_s8s8(acc[0][n][0], ah, m0[n][0], b[0]);
+        mma_s8s8(acc[1][n][0], ah, b[0], b[1]);
+        mma_s8s8(acc[0][n][1], ah, m0[n][1], b[2]);
+        mma_s8s8(acc[1][n][1], ah, b[2], b[3]);
+        mma_s8s8(acc[0][n][1], al, m0[n][0], b[0]);
+        mma_s8s8(acc[1][n][1], al, b[0], b[1]);
+        mma_s8s8(acc[0][n][2], al, m0[n][1], b[2]);
+        mma_s8s8(acc[1][n][2], al, b[2], b[3]);
+        m0[n][0] = b[1];
+        m0[n][1] = b[3];
+      }
+    }
+    // fragment v: output row ib + 16 b + g + 8 (v >> 1), column 16 np + 8 n
+    // + 2 tig + (v & 1)
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+      for (int hv = 0; hv < 2; ++hv) {
+        const int ii = ib + 16 * b + g + 8 * hv;
+        const int gi = i0 + ii;
+        if (ii >= p.th || gi >= p.h) continue;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int gj = j0 + 16 * np + 8 * n + 2 * tig;
+          if (gj >= p.w) continue;
+          const float y0 = int8_epilogue<kOutU8>(acc[b][n][0][2 * hv], acc[b][n][1][2 * hv],
+                                                 acc[b][n][2][2 * hv], p.c1, p.c2, p.c3);
+          const float y1 = int8_epilogue<kOutU8>(acc[b][n][0][2 * hv + 1],
+                                                 acc[b][n][1][2 * hv + 1],
+                                                 acc[b][n][2][2 * hv + 1], p.c1, p.c2, p.c3);
+          const size_t o = out_off + static_cast<size_t>(gi) * p.w + gj;
+          const bool pair = gj + 1 < p.w;
+          if (kOutU8) {
+            uint8_t* op = static_cast<uint8_t*>(p.out) + o;
+            if (pair && !(o & 1)) {
+              *reinterpret_cast<uint16_t*>(op) =
+                  static_cast<uint16_t>(store_u8(y0) | (store_u8(y1) << 8));
+            } else {
+              op[0] = store_u8(y0);
+              if (pair) op[1] = store_u8(y1);
+            }
+          } else {
+            float* op = static_cast<float*>(p.out) + o;
+            if (pair && !(o & 1)) {
+              *reinterpret_cast<float2*>(op) = make_float2(y0, y1);
+            } else {
+              op[0] = y0;
+              if (pair) op[1] = y1;
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The hybrid cols pass takes 16-column blocks four at a time (one tap
+// fragment per step serves all four).
+constexpr int kHybCb = 4;
+
+// Units of the hybrid cols pass of a th x tw tile: (128-row blocks) x (8
+// fragment pairs f, f + 8) x (runs of kHybCb 16-column blocks).
+__host__ __device__ inline int hybrid_col_units(int th, int tw) {
+  return ((th + 127) / 128) * 8 * ((tw / 16 + kHybCb - 1) / kHybCb);
+}
+
+// Hybrid cols pass and store of units [u_begin, u_end) of the tile at (i0,
+// j0), whose output row 0 reads from plane row b0 (modulo ring). Fragment
+// f of a 128-row block holds its output rows f + 16 n (n = 0..7); at step s
+// it reads plane rows f + 16 s + (0..15) (A) against the taps of group s -
+// n (B), so output row f + 16 n sums its tap groups 0, 1, ... in order,
+// each at its own lanes. A warp takes fragments f and f + 8, which share 8
+// of those 16 rows a step: X_j = rows f + 8 j + (0..7), f takes X_2s and
+// X_2s+1, f + 8 takes X_2s+1 and X_2s+2 (the next step's X_2s); and up to
+// kHybCb 16-column blocks, which share the step's B fragment.
+template <bool kOutU8>
+__device__ __forceinline__ void cols_hybrid_mma(const TcSmem& s, const TcLayout& L,
+                                                const K1Params& p, const unsigned char* plane,
+                                                int u_begin, int u_end, int b0, int ring,
+                                                int i0, int j0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int cbs = p.tw >> 4;
+  const int runs = (cbs + kHybCb - 1) / kHybCb;
+  const int steps = L.groups + 7;
+  // B: column n = g takes group s - g (stored at s - g + 7), words tig and
+  // tig + 4 (taps 2 tig, + 1 and 2 tig + 8, + 9 of the group)
+  const unsigned* ct = s.cq + 12 * (7 - g) + tig;
+  const size_t out_off = static_cast<size_t>(blockIdx.y) * p.h * p.w;
+  const unsigned pl = smem_u32(plane);
+  // ldmatrix.trans lanes: row (lane & 7) of matrix lane >> 3; matrices 0, 1
+  // the 8 rows of X_2s+1 at columns +0, +8, matrices 2, 3 those of X_2s+2
+  const int lr = ((lane >> 4) << 3) + (lane & 7);
+  const int lc = 2 * 8 * ((lane >> 3) & 1);
+  for (int u = u_begin + warp; u < u_end; u += kWarps) {
+    const int run = u % runs;
+    const int f = (u / runs) & 7;
+    const int bk = u / (8 * runs);
+    const int rb = 128 * bk + f;  // fragment f's first output row
+    if (rb >= p.th || i0 + rb >= p.h) continue;
+    const int cb0 = run * kHybCb;
+    const unsigned ca = pl + 32 * cb0 + lc;
+    const unsigned xa = ca + ring_row(b0 + rb + (lane & 7), ring) * L.cs;
+    unsigned x0[kHybCb][2];
+    float acc[kHybCb][2][4];
+#pragma unroll
+    for (int c = 0; c < kHybCb; ++c) {
+      if (cb0 + c < cbs) ldsm_x2_t(xa + 32 * c, x0[c]);
+#pragma unroll
+      for (int fi = 0; fi < 2; ++fi) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) acc[c][fi][v] = 0.0f;
+      }
+    }
+    for (int st = 0; st < steps; ++st) {
+      const unsigned bt0 = ct[12 * st], bt1 = ct[12 * st + 4];
+      const unsigned ra = ca + ring_row(b0 + rb + 16 * st + 8 + lr, ring) * L.cs;
+#pragma unroll
+      for (int c = 0; c < kHybCb; ++c) {
+        if (cb0 + c < cbs) {
+          unsigned r[4];
+          ldsm_x4_t(ra + 32 * c, r);
+          const unsigned af[4] = {x0[c][0], x0[c][1], r[0], r[1]};
+          const unsigned ag[4] = {r[0], r[1], r[2], r[3]};
+          mma_bf16(acc[c][0], af, bt0, bt1);
+          mma_bf16(acc[c][1], ag, bt0, bt1);
+          x0[c][0] = r[2];
+          x0[c][1] = r[3];
+        }
+      }
+    }
+    // fragment v: column 16 cb + g + 8 (v >> 1), output row rb + 8 fi + 16
+    // (2 tig + (v & 1))
+#pragma unroll
+    for (int c = 0; c < kHybCb; ++c) {
+      if (cb0 + c >= cbs) break;
+#pragma unroll
+      for (int fi = 0; fi < 2; ++fi) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int ii = rb + 8 * fi + 16 * (2 * tig + (v & 1));
+          const int gi = i0 + ii, gj = j0 + 16 * (cb0 + c) + g + 8 * (v >> 1);
+          if (ii >= p.th || gi >= p.h || gj >= p.w) continue;
+          const float y = __fmaf_rn(acc[c][fi][v], p.scale, 128.0f);
+          const size_t o = out_off + static_cast<size_t>(gi) * p.w + gj;
+          if (kOutU8) {
+            static_cast<uint8_t*>(p.out)[o] = store_u8(y);
+          } else {
+            static_cast<float*>(p.out)[o] = y;
+          }
+        }
+      }
+    }
+  }
+}
+
 template <int B, bool kOutU8>
-__device__ __forceinline__ void cols_pass(const unsigned char* plane, int cs, int nqw, int nqh,
-                                          const Smem& s, const K1Params& p, int k_begin,
-                                          int k_end, int b0, int ring, int i0, int j0) {
+__device__ __forceinline__ void cols_mma(const TcSmem& s, const TcLayout& L, const K1Params& p,
+                                         const unsigned char* plane, int u_begin, int u_end,
+                                         int b0, int ring, int i0, int j0) {
+  if (B == kInt8) {
+    cols_int8_mma<kOutU8>(s, L, p, plane, u_begin, u_end, b0, ring, i0, j0);
+  } else {
+    cols_hybrid_mma<kOutU8>(s, L, p, plane, u_begin, u_end, b0, ring, i0, j0);
+  }
+}
+
+template <int B>
+__host__ __device__ inline int col_units(int th, int tw) {
+  return B == kInt8 ? int8_col_units(th, tw) : hybrid_col_units(th, tw);
+}
+
+// Window rows [r_begin, r_end) (window row r: image row row0 + r,
+// reflect-101; window byte c: image column gc0 + c) through the stage, two
+// groups of L.g rows in flight, each rows-passed into `plane` (ring as in
+// rows_mma). Ends on a barrier: the plane is complete and the stage free.
+template <int B>
+__device__ __forceinline__ void rows_through_stage(const TcSmem& s, const TcLayout& L,
+                                                   const K1Params& p, const uint8_t* xp,
+                                                   int row0, int gc0, bool vec, int r_begin,
+                                                   int r_end, unsigned char* plane, int ring) {
+  const int ngr = (r_end - r_begin + L.g - 1) / L.g;
+  auto issue = [&](int t) {
+    if (t < ngr) {
+      const int r0 = r_begin + t * L.g;
+      load_window(s.stage + (t & 1) * L.g * L.sp, L.sp, xp, p.h, p.w, row0 + r0,
+                  min(L.g, r_end - r0), gc0, 0, L.sw, vec);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int t = 0; t < ngr; ++t) {
+    issue(t + 1);        // into the buffer group t - 1 held
+    cp_async_wait<1>();  // group t landed (this thread's copies)
+    __syncthreads();     // ... and every thread's
+    const int r0 = r_begin + t * L.g;
+    rows_mma<B>(s, L, p.tw, p.rows_shift, s.stage + (t & 1) * L.g * L.sp,
+                min(L.g, r_end - r0), r0, ring, plane);
+    __syncthreads();
+  }
+}
+
+// the planes and their rows 16-byte aligned: the loaders' 16-byte paths
+__device__ __forceinline__ bool vec_planes(const K1Params& p) {
+  return ((reinterpret_cast<uintptr_t>(p.x) | static_cast<uintptr_t>(p.w)) & 15) == 0;
+}
+
+// ---- the forms (int8, hybrid) ----
+
+template <int B, bool kOutU8>
+__global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_direct(K1Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout L = tc_layout(kDirect, B, p.th, p.tw, p.rh, p.rw, 0);
+  const TcSmem s = tc_carve<B>(smem, L, p);
+  const int i0 = (blockIdx.x / p.nbw) * p.th;
+  const int j0 = (blockIdx.x % p.nbw) * p.tw;
+  const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
+  rows_through_stage<B>(s, L, p, xp, i0 - p.rh, j0 - p.rw - L.delta, vec_planes(p), 0, L.rows,
+                        s.plane[0], kNoRing);
+  cols_mma<B, kOutU8>(s, L, p, s.plane[0], 0, col_units<B>(p.th, p.tw), 0, kNoRing, i0, j0);
+}
+
+template <int B, bool kOutU8>
+__global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_strip(K1Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout L = tc_layout(kStrip, B, p.th, p.tw, p.rh, p.rw, 0);
+  const TcSmem s = tc_carve<B>(smem, L, p);
+  const int i0 = blockIdx.x * p.th;
+  const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
+  const bool vec = vec_planes(p);
+  const int carry = L.sw - p.tw;  // window bytes the next window keeps
+  for (int jw = 0; jw < p.nbw; ++jw) {
+    const int j0 = jw * p.tw;
+    const int gc0 = j0 - p.rw - L.delta;
+    if (jw == 0) {
+      load_window(s.stage, L.sp, xp, p.h, p.w, i0 - p.rh, L.rows, gc0, 0, L.sw, vec);
+    } else {
+      // carry the window's last `carry` bytes to its front, tw at a time in
+      // ascending order (source and target of one move are tw apart, so
+      // they never overlap)
+      for (int c = 0; c < carry; c += p.tw) {
+        const int n = min(p.tw, carry - c) >> 4;
+        for (int e = threadIdx.x; e < L.rows * n; e += kThreads) {
+          const int rr = e / n;
+          uint4* row = reinterpret_cast<uint4*>(s.stage + rr * L.sp + c);
+          const int q = e - rr * n;
+          row[q] = row[q + (p.tw >> 4)];
+        }
+        __syncthreads();
+      }
+      load_window(s.stage, L.sp, xp, p.h, p.w, i0 - p.rh, L.rows, gc0, carry, L.sw, vec);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // the window is staged; the last cols pass is done
+    rows_mma<B>(s, L, p.tw, p.rows_shift, s.stage, L.rows, 0, kNoRing, s.plane[0]);
+    __syncthreads();
+    cols_mma<B, kOutU8>(s, L, p, s.plane[0], 0, col_units<B>(p.th, p.tw), 0, kNoRing, i0, j0);
+  }
+}
+
+template <int B, bool kOutU8, bool kPipe>
+__global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_assembled(K1Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout L =
+      tc_layout(kPipe ? kPipelined : kAssembled, B, p.th, p.tw, p.rh, p.rw, p.slots);
+  const TcSmem s = tc_carve<B>(smem, L, p);
+  const int ngr = (L.rows + L.g - 1) / L.g;  // row groups per window
+  const int i0 = (blockIdx.x / p.nseg) * p.th;
+  const int jw0 = (blockIdx.x % p.nseg) * p.seg;
+  const int nwin = min(p.seg, p.nbw - jw0);
+  const int total = nwin * ngr;
+  const int units = col_units<B>(p.th, p.tw);
+  // the frame holds the plane at (rh, rw): window (i0, j0)'s staged rows
+  // and columns start at frame row i0 and column j0
+  const uint8_t* fp = p.x + static_cast<size_t>(blockIdx.y) * p.xh * p.xw;
+
+  auto issue = [&](int t) {
+    if (t < total) {
+      const int win = t / ngr;
+      const int r0 = (t - win * ngr) * L.g;
+      load_rect(s.stage + (t % p.slots) * L.g * L.sp, L.sp,
+                fp + static_cast<size_t>(i0 + r0) * p.xw + static_cast<size_t>(jw0 + win) * p.tw,
+                p.xw, min(L.g, L.rows - r0), L.sw);
+    }
+    cp_async_commit();
+  };
+
+  for (int t = 0; t < p.slots - 1; ++t) issue(t);
+  for (int t = 0; t < total; ++t) {
+    const int win = t / ngr;
+    const int gr = t - win * ngr;
+    const int r0 = gr * L.g;
+    if (p.slots == 3) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // group t landed; the next slot and the plane are free
+    issue(t + p.slots - 1);
+    rows_mma<B>(s, L, p.tw, p.rows_shift, s.stage + (t % p.slots) * L.g * L.sp,
+                min(L.g, L.rows - r0), r0, kNoRing, s.plane[kPipe ? (win & 1) : 0]);
+    const int j0 = (jw0 + win) * p.tw;
+    if (kPipe) {
+      // a slice of the previous window's cols pass beside this group's rows
+      if (win > 0) {
+        const int per = (units + ngr - 1) / ngr;
+        cols_mma<B, kOutU8>(s, L, p, s.plane[(win - 1) & 1], gr * per,
+                            min(units, (gr + 1) * per), 0, kNoRing, i0, j0 - p.tw);
+      }
+    } else if (gr == ngr - 1) {
+      __syncthreads();
+      cols_mma<B, kOutU8>(s, L, p, s.plane[0], 0, units, 0, kNoRing, i0, j0);
+    }
+  }
+  if (kPipe) {
+    __syncthreads();
+    cols_mma<B, kOutU8>(s, L, p, s.plane[(nwin - 1) & 1], 0, units, 0, kNoRing, i0,
+                        (jw0 + nwin - 1) * p.tw);
+  }
+  cp_async_wait<0>();
+}
+
+template <int B, bool kOutU8>
+__global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_resident(K1Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const TcLayout L = tc_layout(kResident, B, p.th, p.tw, p.rh, p.rw, 0);
+  const TcSmem s = tc_carve<B>(smem, L, p);
+  const int ring = L.rows;
+  const int j0 = blockIdx.x * p.tw;
+  const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
+  const bool vec = vec_planes(p);
+  const int units = col_units<B>(p.th, p.tw);
+  for (int i = 0; i < p.nbh; ++i) {
+    // rows-output rows [0, ring + i th) are computed once this step is
+    // staged; the ring holds the last `ring` of them
+    const int r_begin = i == 0 ? 0 : ring + (i - 1) * p.th;
+    rows_through_stage<B>(s, L, p, xp, -p.rh, j0 - p.rw - L.delta, vec, r_begin,
+                          ring + i * p.th, s.plane[0], ring);
+    cols_mma<B, kOutU8>(s, L, p, s.plane[0], 0, units, (i * p.th) % ring, ring, i * p.th, j0);
+  }
+}
+
+// ---- the bf16 body (FMA units) ----
+
+// eight consecutive bf16 values, two 8-byte words, as f32 (element 0 is the
+// low half of a.x)
+__device__ __forceinline__ void unpack8(uint2 a, uint2 b, float v[8]) {
+  v[0] = __uint_as_float(a.x << 16);
+  v[1] = __uint_as_float(a.x & 0xffff0000u);
+  v[2] = __uint_as_float(a.y << 16);
+  v[3] = __uint_as_float(a.y & 0xffff0000u);
+  v[4] = __uint_as_float(b.x << 16);
+  v[5] = __uint_as_float(b.x & 0xffff0000u);
+  v[6] = __uint_as_float(b.y << 16);
+  v[7] = __uint_as_float(b.y & 0xffff0000u);
+}
+
+// acc[s] += t[u] * v[u + s], taps u in ascending order: 4 outputs, 4 taps
+__device__ __forceinline__ void fma_window(const float4 t, const float v[8], float acc[4]) {
+  const float tq[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+#pragma unroll
+    for (int s = 0; s < 4; ++s) acc[s] = __fmaf_rn(tq[u], v[u + s], acc[s]);
+  }
+}
+
+struct Bf16Smem {
+  const float* rt;  // row taps
+  const float* ct;  // column taps
+  unsigned char* plane;
+  unsigned char* stage;
+  unsigned char* raw;
+};
+
+__device__ __forceinline__ Bf16Smem bf16_carve(unsigned char* smem, const Bf16Layout& L,
+                                               const K1Params& p) {
+  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
+  Bf16Smem s;
+  float* ct = reinterpret_cast<float*>(smem);
+  float* rt = ct + t4h;
+  for (int k = threadIdx.x; k < t4h; k += kThreads) ct[k] = p.taps_f[k];
+  for (int k = threadIdx.x; k < t4w; k += kThreads) {
+    rt[k] = reinterpret_cast<const float*>(p.taps_i)[k];
+  }
+  s.rt = rt;
+  s.ct = ct;
+  s.plane = smem + L.taps;
+  s.stage = s.plane + L.plane;
+  s.raw = smem + L.raw_off;
+  return s;
+}
+
+// Rows pass of nr staged rows (stride sw elements), staged row rr being
+// rows-output row m0 + rr: 4 outputs of one row an item.
+__device__ __forceinline__ void bf16_rows_pass(const unsigned char* stage, int sw, int nr, int m0,
+                                               int tw, int nqw, const Bf16Smem& s, int cs) {
+  const int ngrp = tw >> 2;  // 4-column output groups per row
+  for (int k = threadIdx.x; k < nr * ngrp; k += kThreads) {
+    const int rr = k / ngrp;
+    const int c0 = (k - rr * ngrp) << 2;
+    const int m = m0 + rr;
+    const uint2* xw = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const unsigned short*>(stage) + rr * sw + c0);
+    const float4* rt = reinterpret_cast<const float4*>(s.rt);
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    uint2 cur = xw[0];
+    for (int q = 0; q < nqw; ++q) {
+      const uint2 nxt = xw[q + 1];
+      float v[8];
+      unpack8(cur, nxt, v);
+      fma_window(rt[q], v, acc);
+      cur = nxt;
+    }
+    unsigned short* y = reinterpret_cast<unsigned short*>(s.plane);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) y[(c0 + u) * cs + m] = to_bf16(acc[u]);
+  }
+}
+
+// Cols pass and store of a th x tw tile at (i0, j0): 4 output rows of one
+// column an item.
+template <bool kOutU8>
+__device__ __forceinline__ void bf16_cols_pass(int cs, int nqh, const Bf16Smem& s,
+                                               const K1Params& p, int i0, int j0) {
   const int tw = p.tw;
   const size_t plane_off = static_cast<size_t>(blockIdx.y) * p.h * p.w;
-  for (int k = k_begin + threadIdx.x; k < k_end; k += kThreads) {
+  for (int k = threadIdx.x; k < (p.th >> 2) * tw; k += kThreads) {
     const int a = k / tw;
     const int j = k - a * tw;
     const int ii = a << 2;
     const int gj = j0 + j;
     if (gj >= p.w || i0 + ii >= p.h) continue;
-    int pos = b0 + ii;
-    if (pos >= ring) pos -= ring;
-    float out[4];
-    if (B == kInt8) {
-      const int* bhi = s.ti + 2 * nqw;
-      const int* blo = bhi + nqh;
-      const signed char* e1p = reinterpret_cast<const signed char*>(plane);
-      const int* d1 = reinterpret_cast<const int*>(e1p + j * cs + pos);
-      const int* d0 = reinterpret_cast<const int*>(e1p + tw * cs + j * cs + pos);
-      int p1[4] = {0, 0, 0, 0}, p23[4] = {0, 0, 0, 0}, p4[4] = {0, 0, 0, 0};
-      int cur1 = d1[0], cur0 = d0[0];
-      for (int q = 0; q < nqh; ++q) {
-        const int nxt1 = d1[q + 1], nxt0 = d0[q + 1];
-        const int bh = bhi[q], bl = blo[q];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int e1 = shifted(cur1, nxt1, u);
-          const int e0 = shifted(cur0, nxt0, u);
-          p1[u] = __dp4a(e1, bh, p1[u]);
-          p23[u] = __dp4a(e1, bl, __dp4a(e0, bh, p23[u]));
-          p4[u] = __dp4a(e0, bl, p4[u]);
-        }
-        cur1 = nxt1;
-        cur0 = nxt0;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        out[u] = int8_epilogue<kOutU8>(p1[u], p23[u], p4[u], p.c1, p.c2, p.c3);
-      }
-    } else {
-      const float4* ct = reinterpret_cast<const float4*>(s.ct);
-      const uint2* d = reinterpret_cast<const uint2*>(
-          reinterpret_cast<const unsigned short*>(plane) + j * cs + pos);
-      float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      uint2 cur = d[0];
-      for (int q = 0; q < nqh; ++q) {
-        const uint2 nxt = d[q + 1];
-        float v[8];
-        unpack8(cur, nxt, v);
-        fma_window(ct[q], v, acc);
-        cur = nxt;
-      }
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        out[u] = B == kBf16 ? acc[u] : __fmaf_rn(acc[u], p.scale, 128.0f);
-      }
+    const float4* ct = reinterpret_cast<const float4*>(s.ct);
+    const uint2* d = reinterpret_cast<const uint2*>(
+        reinterpret_cast<const unsigned short*>(s.plane) + j * cs + ii);
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    uint2 cur = d[0];
+    for (int q = 0; q < nqh; ++q) {
+      const uint2 nxt = d[q + 1];
+      float v[8];
+      unpack8(cur, nxt, v);
+      fma_window(ct[q], v, acc);
+      cur = nxt;
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -516,22 +1173,19 @@ __device__ __forceinline__ void cols_pass(const unsigned char* plane, int cs, in
       if (gi >= p.h) break;
       const size_t o = plane_off + static_cast<size_t>(gi) * p.w + gj;
       if (kOutU8) {
-        const float v = fminf(fmaxf(__fadd_rn(out[u], 0.5f), 0.0f), 255.5f);
-        static_cast<uint8_t*>(p.out)[o] = static_cast<uint8_t>(__float2int_rz(v));
+        static_cast<uint8_t*>(p.out)[o] = store_u8(acc[u]);
       } else {
-        static_cast<float*>(p.out)[o] = out[u];
+        static_cast<float*>(p.out)[o] = acc[u];
       }
     }
   }
 }
 
-// ---- the forms ----
-
-template <int B, bool kOutU8>
-__global__ void __launch_bounds__(kThreads) k1_direct(K1Params p) {
+template <bool kOutU8>
+__global__ void __launch_bounds__(kThreads) k1_bf16_direct(K1Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(kDirect, B, p.th, p.tw, p.rh, p.rw, 0);
-  const Smem s = carve<B>(smem, L, p);
+  const Bf16Layout L = bf16_layout(kDirect, p.th, p.tw, p.rh, p.rw, 0);
+  const Bf16Smem s = bf16_carve(smem, L, p);
   const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
   const int hp = p.th + t4h, sw = p.tw + t4w, g = kThreads / (p.tw >> 2);
   const int i0 = (blockIdx.x / p.nbw) * p.th;
@@ -540,38 +1194,36 @@ __global__ void __launch_bounds__(kThreads) k1_direct(K1Params p) {
   for (int r0 = 0; r0 < hp; r0 += g) {
     const int nr = min(g, hp - r0);
     __syncthreads();  // the previous group is done with the stage
-    load_rows<B>(s.stage, sw, xp, p.h, p.w, i0 - p.rh + r0, j0 - p.rw, nr, 0, sw);
+    load_rows(s.stage, sw, xp, p.h, p.w, i0 - p.rh + r0, j0 - p.rw, nr, 0, sw);
     __syncthreads();
-    rows_pass<B>(s.stage, sw, nr, r0, p.tw, t4w >> 2, s, p.rows_shift, s.plane[0], L.cs,
-                 kNoRing, 0);
+    bf16_rows_pass(s.stage, sw, nr, r0, p.tw, t4w >> 2, s, L.cs);
   }
   __syncthreads();
-  cols_pass<B, kOutU8>(s.plane[0], L.cs, t4w >> 2, t4h >> 2, s, p, 0, (p.th >> 2) * p.tw, 0,
-                       kNoRing, i0, j0);
+  bf16_cols_pass<kOutU8>(L.cs, t4h >> 2, s, p, i0, j0);
 }
 
-template <int B, bool kOutU8>
-__global__ void __launch_bounds__(kThreads) k1_strip(K1Params p) {
+template <bool kOutU8>
+__global__ void __launch_bounds__(kThreads) k1_bf16_strip(K1Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(kStrip, B, p.th, p.tw, p.rh, p.rw, 0);
-  const Smem s = carve<B>(smem, L, p);
+  const Bf16Layout L = bf16_layout(kStrip, p.th, p.tw, p.rh, p.rw, 0);
+  const Bf16Smem s = bf16_carve(smem, L, p);
   const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int hp = p.th + t4h, sw = p.tw + t4w, es = B == kBf16 ? 2 : 1;
-  const int row_words = sw * es / 4, tw_words = p.tw * es / 4;
+  const int hp = p.th + t4h, sw = p.tw + t4w;
+  const int row_words = sw / 2, tw_words = p.tw / 2;
   const int i0 = blockIdx.x * p.th;
   const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
   int* sw4 = reinterpret_cast<int*>(s.stage);
   for (int jw = 0; jw < p.nbw; ++jw) {
     const int j0 = jw * p.tw;
     if (jw == 0) {
-      load_rows<B>(s.stage, sw, xp, p.h, p.w, i0 - p.rh, j0 - p.rw, hp, 0, sw);
+      load_rows(s.stage, sw, xp, p.h, p.w, i0 - p.rh, j0 - p.rw, hp, 0, sw);
     } else {
       // carry the window's last t4w columns to its front, tw columns at a
       // time in ascending order (source and target of one move are apart
       // by tw, so they never overlap)
       for (int c = 0; c < t4w; c += p.tw) {
-        const int n = min(p.tw, t4w - c) * es / 4;
-        const int cw = c * es / 4;
+        const int n = min(p.tw, t4w - c) / 2;
+        const int cw = c / 2;
         for (int e = threadIdx.x; e < hp * n; e += kThreads) {
           const int rr = e / n;
           const int q = cw + e - rr * n;
@@ -579,46 +1231,35 @@ __global__ void __launch_bounds__(kThreads) k1_strip(K1Params p) {
         }
         __syncthreads();
       }
-      load_columns<B>(s.stage, sw, xp, p.h, p.w, i0 - p.rh, j0 - p.rw, hp, t4w, p.tw);
+      load_columns(s.stage, sw, xp, p.h, p.w, i0 - p.rh, j0 - p.rw, hp, t4w, p.tw);
     }
     __syncthreads();  // the window is staged; the last cols pass is done
-    rows_pass<B>(s.stage, sw, hp, 0, p.tw, t4w >> 2, s, p.rows_shift, s.plane[0], L.cs,
-                 kNoRing, 0);
+    bf16_rows_pass(s.stage, sw, hp, 0, p.tw, t4w >> 2, s, L.cs);
     __syncthreads();
-    cols_pass<B, kOutU8>(s.plane[0], L.cs, t4w >> 2, t4h >> 2, s, p, 0, (p.th >> 2) * p.tw,
-                         0, kNoRing, i0, j0);
+    bf16_cols_pass<kOutU8>(L.cs, t4h >> 2, s, p, i0, j0);
   }
 }
 
-template <int B, bool kOutU8, bool kPipe>
-__global__ void __launch_bounds__(kThreads) k1_assembled(K1Params p) {
+template <bool kOutU8>
+__global__ void __launch_bounds__(kThreads) k1_bf16_assembled(K1Params p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L =
-      make_layout(kPipe ? kPipelined : kAssembled, B, p.th, p.tw, p.rh, p.rw, p.slots);
-  const Smem s = carve<B>(smem, L, p);
+  const Bf16Layout L = bf16_layout(kAssembled, p.th, p.tw, p.rh, p.rw, p.slots);
+  const Bf16Smem s = bf16_carve(smem, L, p);
   const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int nqw = t4w >> 2, nqh = t4h >> 2;
   const int hp = p.th + t4h, sw = p.tw + t4w, swa = round16(sw);
   const int g = kThreads / (p.tw >> 2);
-  const int ngr = (hp + g - 1) / g;  // row groups per window
+  const int ngr = (hp + g - 1) / g;  // row groups of the window
   const int i0 = (blockIdx.x / p.nseg) * p.th;
-  const int jw0 = (blockIdx.x % p.nseg) * p.seg;
-  const int nwin = min(p.seg, p.nbw - jw0);
-  const int total = nwin * ngr;
-  const int items = (p.th >> 2) * p.tw;
-  // the frame holds the plane at (rh, rw): window (i0, j0)'s staged rows
-  // and columns start at frame row i0 and column j0
+  const int jw0 = blockIdx.x % p.nseg;
   const uint8_t* fp = p.x + static_cast<size_t>(blockIdx.y) * p.xh * p.xw;
 
   auto issue = [&](int t) {
-    issue_group(s.raw, fp, p.xw, i0, jw0, p.tw, hp, g, swa, ngr, total, p.slots, t);
+    issue_group(s.raw, fp, p.xw, i0, jw0, p.tw, hp, g, swa, ngr, ngr, p.slots, t);
   };
 
   for (int t = 0; t < p.slots - 1; ++t) issue(t);
-  for (int t = 0; t < total; ++t) {
-    const int win = t / ngr;
-    const int gr = t - win * ngr;
-    const int r0 = gr * g;
+  for (int t = 0; t < ngr; ++t) {
+    const int r0 = t * g;
     const int nr = min(g, hp - r0);
     if (p.slots == 3) {
       cp_async_wait<1>();
@@ -627,58 +1268,13 @@ __global__ void __launch_bounds__(kThreads) k1_assembled(K1Params p) {
     }
     __syncthreads();  // group t landed; the stage and the next slot are free
     issue(t + p.slots - 1);
-    unsigned char* raw = s.raw + (t % p.slots) * g * swa;
-    convert<B>(raw, swa, s.stage, sw, nr);
+    convert(s.raw + (t % p.slots) * g * swa, swa, s.stage, sw, nr);
     __syncthreads();
-    rows_pass<B>(B == kBf16 ? s.stage : raw, B == kBf16 ? sw : swa, nr, r0, p.tw, nqw, s,
-                 p.rows_shift, s.plane[kPipe ? (win & 1) : 0], L.cs, kNoRing, 0);
-    const int j0 = (jw0 + win) * p.tw;
-    if (kPipe) {
-      // a slice of the previous window's cols pass beside this group's rows
-      if (win > 0) {
-        const int per = (items + ngr - 1) / ngr;
-        cols_pass<B, kOutU8>(s.plane[(win - 1) & 1], L.cs, nqw, nqh, s, p, gr * per,
-                             min(items, (gr + 1) * per), 0, kNoRing, i0, j0 - p.tw);
-      }
-    } else if (gr == ngr - 1) {
-      __syncthreads();
-      cols_pass<B, kOutU8>(s.plane[0], L.cs, nqw, nqh, s, p, 0, items, 0, kNoRing, i0, j0);
-    }
+    bf16_rows_pass(s.stage, sw, nr, r0, p.tw, t4w >> 2, s, L.cs);
   }
-  if (kPipe) {
-    __syncthreads();
-    cols_pass<B, kOutU8>(s.plane[(nwin - 1) & 1], L.cs, nqw, nqh, s, p, 0, items, 0, kNoRing,
-                         i0, (jw0 + nwin - 1) * p.tw);
-  }
+  __syncthreads();
+  bf16_cols_pass<kOutU8>(L.cs, t4h >> 2, s, p, i0, jw0 * p.tw);
   cp_async_wait<0>();
-}
-
-template <int B, bool kOutU8>
-__global__ void __launch_bounds__(kThreads) k1_resident(K1Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L = make_layout(kResident, B, p.th, p.tw, p.rh, p.rw, 0);
-  const Smem s = carve<B>(smem, L, p);
-  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int ring = p.th + t4h, mirror = t4h + 4;
-  const int sw = p.tw + t4w, g = kThreads / (p.tw >> 2);
-  const int j0 = blockIdx.x * p.tw;
-  const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
-  int m_next = 0;  // rows-output rows [0, m_next) were computed
-  for (int i = 0; i < p.nbh; ++i) {
-    const int target = i * p.th + ring;  // this step's window ends here
-    for (int r0 = m_next; r0 < target; r0 += g) {
-      const int nr = min(g, target - r0);
-      __syncthreads();  // the stage, and the ring rows this group replaces, are free
-      load_rows<B>(s.stage, sw, xp, p.h, p.w, r0 - p.rh, j0 - p.rw, nr, 0, sw);
-      __syncthreads();
-      rows_pass<B>(s.stage, sw, nr, r0, p.tw, t4w >> 2, s, p.rows_shift, s.plane[0], L.cs,
-                   ring, mirror);
-    }
-    m_next = target;
-    __syncthreads();
-    cols_pass<B, kOutU8>(s.plane[0], L.cs, t4w >> 2, t4h >> 2, s, p, 0, (p.th >> 2) * p.tw,
-                         (i * p.th) % ring, ring, i * p.th, j0);
-  }
 }
 
 template <int B, bool kOutU8>
@@ -687,15 +1283,27 @@ int launch(int form, const K1Params& p, int planes, int smem, cudaStream_t strea
   dim3 grid(1, planes);
   switch (form) {
     case kDirect:
-      kernel = k1_direct<B, kOutU8>;
+      if constexpr (B == kBf16) {
+        kernel = k1_bf16_direct<kOutU8>;
+      } else {
+        kernel = k1_direct<B, kOutU8>;
+      }
       grid.x = p.nbh * p.nbw;
       break;
     case kStrip:
-      kernel = k1_strip<B, kOutU8>;
+      if constexpr (B == kBf16) {
+        kernel = k1_bf16_strip<kOutU8>;
+      } else {
+        kernel = k1_strip<B, kOutU8>;
+      }
       grid.x = p.nbh;
       break;
     case kAssembled:
-      kernel = k1_assembled<B, kOutU8, false>;
+      if constexpr (B == kBf16) {
+        kernel = k1_bf16_assembled<kOutU8>;
+      } else {
+        kernel = k1_assembled<B, kOutU8, false>;
+      }
       grid.x = p.nbh * p.nseg;
       break;
     case kPipelined:
@@ -813,15 +1421,17 @@ int smem_limit(int* limit) {
 // 4 resident) with one of its bodies (0 int8, 1 hybrid, 2 bf16), uint8
 // planes -> uint8 (out_u8 = 1) or float, the epilogue's value before the
 // uint8 store (int8: p1*c1 + p23*c2 + p4*c3 + 128).
-// taps_i: int8, int32 words [q_hi (nqw) | q_lo (nqw) | b_hi (nqh) |
-// b_lo (nqh)], each word four int8 taps, tap 4k + u in byte u; hybrid, the
-// rows words [q_hi | q_lo]; bf16, float [t4w] row taps. taps_f: hybrid and
-// bf16, float [t4h] column taps. All zero-padded to a multiple of 4.
-// (th, tw): the tile (th a multiple of 4; tw 32, 64 or 128); seg, slots:
-// windows per block and raw row-group buffers (2 or 3) of the assembled
-// forms. (xh, xw): the planes' rows and row length (the padded frame's for
-// the assembled forms: the plane at (rh, rw), xw a multiple of 16). smem:
-// the wrapper's shared-memory bytes, which must equal this file's layout.
+// taps_i: int8 and hybrid, the tap tables of tc_carve (tc_layout's `taps`
+// bytes, built by cuda_kernels/fused_dma.py tc_tables for this body and
+// form family: the assembled forms' rows copies take no leading zeros);
+// bf16, float [t4w] row taps. taps_f: bf16, float [t4h] column taps, both
+// zero-padded to a multiple of 4.
+// (th, tw): the tile (tw 32, 64 or 128; th a multiple of 16 for int8 and
+// hybrid, of 4 for bf16); seg, slots: windows per block and raw row-group
+// buffers (2 or 3) of the assembled forms. (xh, xw): the planes' rows and
+// row length (the padded frame's for the assembled forms: the plane at
+// (rh, rw), xw a multiple of 16). smem: the wrapper's shared-memory bytes,
+// which must equal this file's layout (tc_layout, bf16_layout).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, void* out,
                                 const void* taps_i, const void* taps_f, int planes, int h,
@@ -829,17 +1439,20 @@ extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, v
                                 int xh, int xw, int smem, int rows_shift, float c1, float c2,
                                 float c3, float scale, void* stream) {
   const bool tw_ok = tw == 32 || tw == 64 || tw == 128;
+  const bool tc = body == kInt8 || body == kHybrid;
   if (form < kDirect || form > kResident || body < kInt8 || body > kBf16 || !tw_ok ||
-      th < 4 || th % 4 || seg < 1 || planes < 1 || planes > 65535 || rh < 1 || rw < 1) {
+      th < 4 || th % (tc ? 16 : 4) || seg < 1 || planes < 1 || planes > 65535 || rh < 1 ||
+      rw < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool asm_form = form == kAssembled || form == kPipelined;
   if (asm_form && slots != 2 && slots != 3) return static_cast<int>(cudaErrorInvalidValue);
-  const Layout L = make_layout(form, body, th, tw, rh, rw, asm_form ? slots : 0);
+  const TcLayout T = tc_layout(form, body, th, tw, rh, rw, asm_form ? slots : 0);
+  const int total = tc ? T.total : bf16_layout(form, th, tw, rh, rw, slots).total;
   int limit = 0;
   const int lerr = smem_limit(&limit);
   if (lerr) return lerr;
-  if (L.total != smem || smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  if (total != smem || smem > limit) return static_cast<int>(cudaErrorInvalidValue);
   K1Params p;
   p.x = static_cast<const uint8_t*>(x);
   p.out = out;
@@ -859,9 +1472,12 @@ extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, v
   p.xh = h;
   p.xw = w;
   if (asm_form) {
+    // the frame must hold every window the blocks read
     const int t4w = round4(2 * rw + 1), t4h = round4(2 * rh + 1);
-    if (xh < p.nbh * th + t4h || xw % 16 || xw < (p.nbw - 1) * tw + round16(tw + t4w) ||
-        (form == kPipelined && seg < 2)) {
+    const int rows = tc ? (p.nbh - 1) * th + T.rows : p.nbh * th + t4h;
+    const int cols = tc ? (p.nbw - 1) * tw + T.sw : (p.nbw - 1) * tw + round16(tw + t4w);
+    if (xh < rows || xw % 16 || xw < cols || (form == kPipelined && seg < 2) ||
+        (form == kAssembled && !tc && seg != 1)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.xh = xh;

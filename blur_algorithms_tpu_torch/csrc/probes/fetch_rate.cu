@@ -24,22 +24,21 @@
 // run from csrc/fused_dma.cu itself (included with FUSED_DMA_LOADERS_ONLY:
 // its helpers and loaders, none of its kernels), in K1's loops with the
 // band work left out:
-// - fetch_k1_direct: the direct form's staging (load_rows, the hybrid
-//   body's): the th + t4h halo rows in groups of g, each byte of the
-//   (tw + t4w)-column window gathered with reflect-101 index math and
-//   recentred (x ^ 0x80);
+// - fetch_k1_direct: the direct form's staging (load_window, the hybrid
+//   body's layout): the round16(th + 2rh) halo rows in groups, two in
+//   flight, each window row 16-byte cp.async copies inside the frame and
+//   mirrored aligned words past its edges;
 // - fetch_k1_assembled: the assembled form's (K1a) row groups of A5's
-//   padded frame by 16-byte cp.async (issue_group), two in flight where
-//   three buffers fit, each recentred in place (convert).
-// The last tile of each plane stores [:8, :128] of its window, its bytes
-// un-recentred.
+//   padded frame by 16-byte cp.async (load_rect), two in flight where
+//   three buffers fit.
+// Both stage the raw bytes, as the int8 and hybrid bodies read them. The
+// last tile of each plane stores [:8, :128] of its window.
 //
 // What bounds it on an H100: device memory for the whole strip (each byte
 // read once); L2 and the loaders' issue for the windows, which read a byte
 // (1 + 2r/t) times per axis. The rates (chip_smoke.py phase 17) are bytes
 // fetched per second and frame bytes per second; their ratio is the read
-// amplification. Measured there: the 16-byte rings near a copy_'s rate,
-// the direct form's byte gather at a fifth of it (issue-bound).
+// amplification.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
@@ -53,8 +52,8 @@
 
 namespace {
 
-// kThreads (256), cp_async16 / _commit / _wait, reflect101, load_rows,
-// convert and issue_group: csrc/fused_dma.cu's
+// kThreads (256), cp_async16 / _commit / _wait, tc_layout, load_window and
+// load_rect: csrc/fused_dma.cu's
 constexpr int kStoreRows = 8, kStoreCols = 128;  // what B3 stores per plane
 constexpr int kBoxCols = 128;                     // TMA box: 128 bytes x g rows
 constexpr int kTmaSlots = 4;
@@ -64,11 +63,10 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // rows 0..7 x columns 0..127 of a staged block (pitch bytes a row) to the
-// plane's 8 x 128 output, each byte xor `flip` (0x80 undoes K1's recentring)
-__device__ __forceinline__ void store_corner(const uint8_t* staged, int pitch, uint8_t* out,
-                                             uint8_t flip = 0) {
+// plane's 8 x 128 output
+__device__ __forceinline__ void store_corner(const uint8_t* staged, int pitch, uint8_t* out) {
   for (int e = threadIdx.x; e < kStoreRows * kStoreCols; e += blockDim.x)
-    out[e] = staged[(e / kStoreCols) * pitch + e % kStoreCols] ^ flip;
+    out[e] = staged[(e / kStoreCols) * pitch + e % kStoreCols];
 }
 
 // Block (plane, window, chunk): rows [chunk * chunk_rows, +chunk_rows) of
@@ -170,42 +168,57 @@ __global__ void __launch_bounds__(kThreads) fetch_window_tma(
 }
 
 // K1 direct's staging of tile (blockIdx.x) of plane blockIdx.y, as
-// k1_direct runs it: its th + t4h window rows in groups of g = 256 /
-// (tw / 4), each of tw + t4w bytes gathered by load_rows.
+// k1_direct runs it (rows_through_stage, the hybrid body's layout): its
+// round16(th + 2rh) window rows in groups of L.g, two in flight, each of
+// L.sw bytes from image column j0 - rw - delta by load_window.
 __global__ void __launch_bounds__(kThreads) fetch_k1_direct(
     const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int h, int w, int th, int tw,
-    int rh, int rw, int t4h, int t4w, int nbw) {
+    int rh, int rw, int nbw) {
   extern __shared__ __align__(16) uint8_t stage[];
-  const int hp = th + t4h, sw = tw + t4w, g = kThreads / (tw >> 2);
+  const TcLayout L = tc_layout(kDirect, kHybrid, th, tw, rh, rw, 0);
   const int i0 = (blockIdx.x / nbw) * th, j0 = (blockIdx.x % nbw) * tw;
   const uint8_t* xp = x + static_cast<size_t>(blockIdx.y) * h * w;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | static_cast<uintptr_t>(w)) & 15) == 0;
   const bool store = blockIdx.x == gridDim.x - 1;
-  for (int r0 = 0; r0 < hp; r0 += g) {
-    const int nr = min(g, hp - r0);
-    __syncthreads();  // the previous group is done with the stage
-    load_rows<kHybrid>(stage, sw, xp, h, w, i0 - rh + r0, j0 - rw, nr, 0, sw);
+  const int ngr = (L.rows + L.g - 1) / L.g;
+  auto issue = [&](int t) {
+    if (t < ngr) {
+      load_window(stage + (t & 1) * L.g * L.sp, L.sp, xp, h, w, i0 - rh + t * L.g,
+                  min(L.g, L.rows - t * L.g), j0 - rw - L.delta, 0, L.sw, vec);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  for (int t = 0; t < ngr; ++t) {
+    issue(t + 1);
+    cp_async_wait<1>();
     __syncthreads();
-    if (store && r0 == 0)
-      store_corner(stage, sw, out + blockIdx.y * kStoreRows * kStoreCols, 0x80);
+    if (store && t == 0) store_corner(stage, L.sp, out + blockIdx.y * kStoreRows * kStoreCols);
+    __syncthreads();
   }
 }
 
 // K1a's staging of tile blockIdx.x of plane blockIdx.y from A5's padded
 // frame (xh x xw a plane, the plane at (rh, rw)), as k1_assembled runs it
-// (one window a block): row groups of g rows x round16(tw + t4w) bytes by
-// issue_group into `slots` buffers, slots - 1 groups in flight, each
-// recentred in place by convert.
+// (one window a block, the hybrid body's layout): row groups of L.g rows x
+// L.sw bytes by load_rect into `slots` buffers, slots - 1 groups in flight,
+// the bytes staged as they are.
 template <int kSlots>
 __global__ void __launch_bounds__(kThreads) fetch_k1_assembled(
     const uint8_t* __restrict__ frame, uint8_t* __restrict__ out, int xh, int xw, int th,
-    int tw, int t4h, int t4w, int nbw) {
+    int tw, int rh, int rw, int nbw) {
   extern __shared__ __align__(16) uint8_t raw[];
-  const int hp = th + t4h, sw = tw + t4w, swa = round16(sw), g = kThreads / (tw >> 2);
-  const int ngr = (hp + g - 1) / g;
-  const int i0 = (blockIdx.x / nbw) * th, jw0 = blockIdx.x % nbw;
+  const TcLayout L = tc_layout(kAssembled, kHybrid, th, tw, rh, rw, kSlots);
+  const int ngr = (L.rows + L.g - 1) / L.g;
+  const int i0 = (blockIdx.x / nbw) * th, j0 = (blockIdx.x % nbw) * tw;
   const uint8_t* fp = frame + static_cast<size_t>(blockIdx.y) * xh * xw;
   auto issue = [&](int t) {
-    issue_group(raw, fp, xw, i0, jw0, tw, hp, g, swa, ngr, ngr, kSlots, t);
+    if (t < ngr) {
+      load_rect(raw + (t % kSlots) * L.g * L.sp, L.sp,
+                fp + static_cast<size_t>(i0 + t * L.g) * xw + j0, xw,
+                min(L.g, L.rows - t * L.g), L.sw);
+    }
+    cp_async_commit();
   };
   for (int t = 0; t < kSlots - 1; ++t) issue(t);
   const bool store = blockIdx.x == gridDim.x - 1;
@@ -213,11 +226,7 @@ __global__ void __launch_bounds__(kThreads) fetch_k1_assembled(
     cp_async_wait<kSlots - 2>();
     __syncthreads();  // group t landed; the slot of group t - 1 is free
     issue(t + kSlots - 1);
-    uint8_t* slot = raw + (t % kSlots) * g * swa;
-    convert<kHybrid>(slot, swa, nullptr, sw, min(g, hp - t * g));
-    __syncthreads();
-    if (store && t == 0)
-      store_corner(slot, swa, out + blockIdx.y * kStoreRows * kStoreCols, 0x80);
+    if (store && t == 0) store_corner(raw, L.sp, out + blockIdx.y * kStoreRows * kStoreCols);
   }
   cp_async_wait<0>();
 }
@@ -292,18 +301,20 @@ extern "C" int fetch_windows(int tma, const void* x, void* out, int planes, int 
 }
 
 // K1's loaders on `planes` planes of h x w bytes at tile (th, tw) and
-// support radii (rh, rw), t4h / t4w = the radii's tap counts rounded up to
-// 4, holding smem bytes of shared memory a block (K1's): assembled 0 is the
-// direct form's gather from x; assembled 1 the assembled form's cp.async
-// from A5's frame x (xh x xw a plane) with `slots` (2 or 3) buffers. out:
-// planes x 8 x 128 bytes. Returns the cudaError_t (0 = launched).
+// support radii (rh, rw), holding smem bytes of shared memory a block (K1's
+// hybrid body's): assembled 0 is the direct form's staging from x;
+// assembled 1 the assembled form's cp.async from A5's frame x (xh x xw a
+// plane) with `slots` (2 or 3) buffers. out: planes x 8 x 128 bytes.
+// Returns the cudaError_t (0 = launched).
 extern "C" int fetch_k1(int assembled, const void* x, void* out, int planes, int h, int w,
-                        int th, int tw, int rh, int rw, int t4h, int t4w, int xh, int xw,
-                        int slots, int smem, void* stream) {
+                        int th, int tw, int rh, int rw, int xh, int xw, int slots, int smem,
+                        void* stream) {
   const int nbw = (w + tw - 1) / tw, nbh = (h + th - 1) / th;
-  const int g = tw >= 4 ? kThreads / (tw >> 2) : 0;
-  if (planes < 1 || tw < 32 || tw % 32 || th < 4 || tw + t4w < kStoreCols ||
-      g < kStoreRows || (assembled && slots != 2 && slots != 3))
+  const bool tw_ok = tw == 32 || tw == 64 || tw == 128;
+  const TcLayout L = tc_layout(assembled ? kAssembled : kDirect, kHybrid, th, tw, rh, rw,
+                               assembled ? slots : 0);
+  if (planes < 1 || !tw_ok || th < 16 || th % 16 || rh < 1 || rw < 1 ||
+      L.sw < kStoreCols || L.stage > smem || (assembled && slots != 2 && slots != 3))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(nbh * nbw, planes);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -316,7 +327,7 @@ extern "C" int fetch_k1(int assembled, const void* x, void* out, int planes, int
   };
   const uint8_t* xs = static_cast<const uint8_t*>(x);
   uint8_t* os = static_cast<uint8_t*>(out);
-  if (!assembled) return run(fetch_k1_direct, xs, os, h, w, th, tw, rh, rw, t4h, t4w, nbw);
-  if (slots == 3) return run(fetch_k1_assembled<3>, xs, os, xh, xw, th, tw, t4h, t4w, nbw);
-  return run(fetch_k1_assembled<2>, xs, os, xh, xw, th, tw, t4h, t4w, nbw);
+  if (!assembled) return run(fetch_k1_direct, xs, os, h, w, th, tw, rh, rw, nbw);
+  if (slots == 3) return run(fetch_k1_assembled<3>, xs, os, xh, xw, th, tw, rh, rw, nbw);
+  return run(fetch_k1_assembled<2>, xs, os, xh, xw, th, tw, rh, rw, nbw);
 }

@@ -29,7 +29,8 @@ The port of the JAX package's ``pallas_kernels/fused_blur.py``:
   single-axis form (``blur_fused_axis_f32``, K2's wide form in
   ``csrc/fused_blur.cu``). ``blur_fused`` and ``blur_fused_u8`` take the
   split past ``MAX_RADIUS`` and, where the device measured it faster, from
-  ``DeviceSpec.fused_split_min_radius``; it reaches ``SPLIT_MAX_RADIUS``.
+  ``DeviceSpec.fused_split_min_radius`` (``fused_split_min_radius_u8`` on
+  K1's uint8 path); it reaches ``SPLIT_MAX_RADIUS``.
   Past that, strip streaming (``ops/streamed``) is not ported and every
   entry raises.
 - The haloed entry points (``blur_fused_haloed``, ``_blur_fused_haloed_split``,
@@ -141,12 +142,13 @@ def pick_int8_scale(taps: np.ndarray, pow2: bool = False) -> int:
     return max(_INT8_SCALE, min(_INT8_MAX_SCALE, int(_INT8_SCALE / t_max)))
 
 
+@functools.lru_cache(maxsize=256)
 def int8_applicable(plan: BlurPlan, dtype: torch.dtype) -> bool:
     """int8 precision needs a uint8 input, row radius >= 1, and >= 0 taps.
 
     The taps must also sum to 1: the recentering identity
     ``R = scale * (conv - 128)`` assumes it (blur plans always do; custom
-    plans may not be normalized).
+    plans may not be normalized). Cached per plan: every K1 launch asks.
     """
     return (
         dtype == torch.uint8
@@ -419,13 +421,17 @@ def _split_wins(plan: BlurPlan, in_bytes: int, precision,
     Past ``MAX_RADIUS`` the single kernels do not serve, so the split runs.
     Below it the split runs only from the device's measured
     ``fused_split_min_radius`` (the chip_smoke.py phase 13 sweep in turns,
-    in place of the JAX package's TPU cost model) and within its memory
-    budget."""
+    in place of the JAX package's TPU cost model), on K1's uint8 path
+    (``in_bytes`` 1, ``precision`` "int8") from its own
+    ``fused_split_min_radius_u8`` where the device has one, and within its
+    memory budget."""
     r = max(plan.col.support_radius, plan.row.support_radius)
     if r > MAX_RADIUS:
         return True
     spec = device_spec(device)
     floor = spec.fused_split_min_radius
+    if in_bytes == 1 and precision == "int8" and spec.fused_split_min_radius_u8 is not None:
+        floor = spec.fused_split_min_radius_u8
     return (floor is not None and r >= floor
             and split_hbm_bytes(plan, in_bytes, precision) <= spec.split_hbm_budget)
 

@@ -5,7 +5,10 @@ The port of the JAX package's ``pallas_kernels/fused_dma.py``:
 ``_blur_fused_dma_impl`` there runs one of its Pallas kernels with one of
 its tile bodies; here ``blur_fused_u8_dma`` does the same with the kernels
 of ``csrc/fused_dma.cu`` on a CUDA tensor, and runs the body's plain
-PyTorch version on a CPU tensor. The bodies:
+PyTorch version on a CPU tensor. The int8 and hybrid bodies are band
+products on the tensor cores, as the JAX bodies are band matmuls on the
+MXU (``tc_layout`` sizes their blocks); the bf16 body runs on the FMA
+units. The bodies:
 
 - int8 (``_rows_int8`` / ``_cols_int8``), plain version
   ``blur_fused_u8_dma_ref``. Both compute the JAX kernel's integers
@@ -18,18 +21,25 @@ PyTorch version on a CPU tensor. The bodies:
   multiply-adds, as XLA compiles the JAX expression on an FMA host
   (``int8_cols_ref``).
 - hybrid (``_tile_hybrid``): the exact int8 rows sum ``R``, ``y =
-  bf16(f32(R))``, one f32 sum of ``bf16(c_t) * y`` per output in ascending
-  tap order, and one fused ``fma(acc, 1 / (127 * 2^s), 128)``; plain
-  version ``blur_fused_u8_hybrid_ref``.
+  bf16(f32(R))``, an f32 sum of ``bf16(c_t) * y`` per output, and one fused
+  ``fma(acc, 1 / (127 * 2^s), 128)``; plain version
+  ``blur_fused_u8_hybrid_ref``, which sums tap by tap in ascending order.
+  The kernel sums each output's taps on the tensor cores in the aligned
+  groups of 16 of its own tap index, in ascending group order, whatever
+  the form, tile or shard origin: every form is bit-identical to the
+  direct form, K1a on the sharded path's caller rows to the single-card
+  call, and all within 2e-2 at 0..255 scale (f32 store) and 1 count
+  (uint8 store) of the plain version.
 - bf16 (``_tile_bf16``): ``y = bf16(sum bf16(r_t) * x)``, then ``sum
   bf16(c_t) * y``, both f32 sums in ascending tap order, no epilogue;
-  plain version ``blur_fused_u8_bf16_ref``.
+  plain version ``blur_fused_u8_bf16_ref``, bit-equal.
 
 The forms (``k1_geometry`` sizes each; one wrapper and launch count each):
 
-- direct (``_kernel_direct``): one block per output tile gathers its
-  reflect-101 window; ``blur_fused_u8_dma`` (int8),
-  ``blur_fused_u8_hybrid``, ``blur_fused_u8_bf16``;
+- direct (``_kernel_direct``): one block per output tile stages its
+  window (16-byte copies, mirrored edge words, reflect-101 rows);
+  ``blur_fused_u8_dma`` (int8), ``blur_fused_u8_hybrid``,
+  ``blur_fused_u8_bf16``;
 - strip (``_kernel_strip``): one block per row strip walks its windows,
   each input byte read once; ``blur_fused_u8_strip``;
 - assembled (``_kernel``): windows are plain rectangles of A5's padded
@@ -41,18 +51,20 @@ The forms (``k1_geometry`` sizes each; one wrapper and launch count each):
   the frame with the rows output in a ring, each rows value computed once;
   ``blur_fused_u8_resident`` (int8, hybrid).
 
-Every form computes K1's function from the same terms in the same order,
-so the forms are bit-identical to the direct form and to the plain
-versions (as in the JAX package, where each is bit-identical to
-``_kernel_direct``). A bf16 product is exact in f32, so a sum taken in
-the same order is the same number: the plain versions equal the JAX
-bodies in interpret mode wherever XLA's CPU dot sums in ascending order
-(short contractions; past those, one rounding of the sum may differ).
+Every form computes K1's function from the same terms, grouped the same
+way, so the forms are bit-identical to the direct form (as in the JAX
+package, where each is bit-identical to ``_kernel_direct``), and the int8
+and bf16 bodies to their plain versions. A bf16 product is exact in f32,
+so a sum taken in the same order is the same number: the bf16 plain
+version equals the JAX body in interpret mode wherever XLA's CPU dot sums
+in ascending order (short contractions; past those, one rounding of the
+sum may differ).
 
 The JAX kernel contracts every window with band matrices. Every column of a
 band matrix holds the same tap vector, shifted, so the band dots are 1-D
 correlations with one tap vector per axis: ``int8_operands``,
-``hybrid_operands`` and ``bf16_operands`` yield those vectors.
+``hybrid_operands`` and ``bf16_operands`` yield those vectors, and the
+kernels rebuild the bands from them as tensor-core fragments.
 
 The bf16x3 tile body has the numerics of the blocked kernel
 ``fused_blur._kernel`` and runs as K2 (``cuda_kernels/fused_blur.py``).
@@ -94,6 +106,7 @@ __all__ = [
     "FORMS",
     "K1Geometry",
     "RUNGS",
+    "TcLayout",
     "bf16_operands",
     "blur_fused_u8_assembled",
     "blur_fused_u8_bf16",
@@ -112,6 +125,9 @@ __all__ = [
     "int8_operands",
     "k1_geometry",
     "layout_bytes",
+    "stage_rows",
+    "tc_layout",
+    "tc_tables",
 ]
 
 @dataclasses.dataclass(frozen=True)
@@ -442,15 +458,63 @@ def _pack_int8_words(taps: np.ndarray) -> np.ndarray:
     return padded.view("<i4").astype(np.int32)
 
 
+def _tap_copies(q: np.ndarray, delta: int, words: int) -> np.ndarray:
+    """``(2, 4, words)`` uint32: for each base-128 digit of the int8 taps
+    ``q`` (``q >> 7``, ``q & 127``) four byte-shifted copies, word i of copy
+    c holding the digit taps ``[4i + c - 16 - delta, 4i + c - 13 - delta]``,
+    one byte each, zero outside the taps: what a lane's A-fragment register
+    reads as one aligned word (``rows_mma``, ``cols_int8_mma``)."""
+    out = np.zeros((2, 4, words), np.uint32)
+    for d, digits in enumerate((q >> 7, q & 127)):
+        t = np.zeros(4 * words + 8, np.uint32)
+        t[16 + delta : 16 + delta + digits.size] = digits.astype(np.uint32) & 0xFF
+        for c in range(4):
+            idx = 4 * np.arange(words)[:, None] + c + np.arange(4)[None, :]
+            out[d, c] = (t[idx] << (8 * np.arange(4, dtype=np.uint32))).sum(axis=1)
+    return out
+
+
+def _tap_groups(c: np.ndarray, groups: int) -> np.ndarray:
+    """``(groups + 14, 12)`` uint32: the column taps ``c`` (bf16 values) in
+    the hybrid cols pass's groups of 16, stored from group -7 to groups + 6
+    (zero outside the taps), word q < 8 of a group the bf16 pair of its taps
+    2q, 2q + 1 (the low half first), words 8..11 zero (12 words a group put
+    a load's 8 lanes on 8 banks)."""
+    bits = torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(torch.bfloat16)
+    bits = bits.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+    t = 16 * (np.arange(groups + 14)[:, None] - 7) + 2 * np.arange(8)[None, :]
+
+    def at(i):
+        return np.where((i >= 0) & (i < c.size), bits[np.clip(i, 0, c.size - 1)], 0)
+
+    out = np.zeros((groups + 14, 12), np.uint32)
+    out[:, :8] = at(t) | (at(t + 1) << 16)
+    return out
+
+
 @functools.lru_cache(maxsize=64)
-def _device_taps(plan: BlurPlan, device: torch.device) -> torch.Tensor:
-    # the kernel's layout: rows hi | rows lo | cols hi | cols lo digits
+def tc_tables(plan: BlurPlan, precision: str, framed: bool,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """The tap tables of K1's int8 or hybrid body, int32 words in the order
+    ``tc_carve`` of ``csrc/fused_dma.cu`` copies them into shared memory
+    (``tc_layout(...).taps`` bytes): ``[qoff, 0, 0, 0]`` (``128 * Q``, Q =
+    128 sum q_hi + sum q_lo, the raw-byte rows product's recentring, modulo
+    2^32), the rows taps' copies (``_tap_copies``, after (-rw) mod 16 leading
+    zeros, none in the ``framed`` assembled forms), then the column taps'
+    copies (int8) or groups (hybrid, ``_tap_groups``). Built once a plan,
+    rung and form family on the host, so no block builds them."""
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    lay = tc_layout("assembled" if framed else "direct", precision, 16, 64, rh, rw, 2)
     ops = int8_operands(plan)
-    words = np.concatenate([
-        _pack_int8_words(digits.astype(np.int8))
-        for q in (ops.q_row, ops.q_col) for digits in (q >> 7, q & 127)
-    ])
-    return torch.from_numpy(words).to(device)
+    q = ops.q_row.astype(np.int64)
+    qoff = (128 * (128 * int((q >> 7).sum()) + int((q & 127).sum()))) % (1 << 32)
+    cols = (_tap_copies(ops.q_col.astype(np.int64), 0, lay.cwords) if precision == "int8"
+            else _tap_groups(hybrid_operands(plan).c_col, lay.groups))
+    words = np.zeros(lay.taps // 4, np.uint32)
+    body = np.concatenate([np.array([qoff, 0, 0, 0], np.uint32),
+                           _tap_copies(q, lay.delta, lay.rwords).ravel(), cols.ravel()])
+    words[: body.size] = body
+    return torch.from_numpy(words.view(np.int32)).to(device)
 
 
 def _padded_f32(taps: np.ndarray) -> np.ndarray:
@@ -460,21 +524,13 @@ def _padded_f32(taps: np.ndarray) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _rung_taps(plan: BlurPlan, precision: str,
-               device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(row taps, column taps) in the layout of ``blur_fused_u8_bf16cols``:
-    the rows as int8 hi | lo words (hybrid) or float32 (bf16), the columns
-    as float32, each zero-padded to a multiple of 4."""
-    if precision == "hybrid":
-        ops = hybrid_operands(plan)
-        rows = np.concatenate([_pack_int8_words(d.astype(np.int8))
-                               for d in (ops.q_row >> 7, ops.q_row & 127)])
-        cols = ops.c_col
-    else:
-        ops = bf16_operands(plan)
-        rows, cols = _padded_f32(ops.c_row), ops.c_col
-    return (torch.from_numpy(rows).to(device),
-            torch.from_numpy(_padded_f32(cols)).to(device))
+def _bf16_taps_device(plan: BlurPlan,
+                      device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 body's (row taps, column taps) as float32, each zero-padded
+    to a multiple of 4."""
+    ops = bf16_operands(plan)
+    return (torch.from_numpy(_padded_f32(ops.c_row)).to(device),
+            torch.from_numpy(_padded_f32(ops.c_col)).to(device))
 
 
 def _check_body(plan: BlurPlan, precision: str, out_u8: bool) -> None:
@@ -518,25 +574,107 @@ def _odd_words(rows: int) -> int:
     return rows if (rows >> 2) & 1 else rows + 4
 
 
+def _odd16(n: int) -> int:
+    """The least odd multiple of 16 bytes >= n (eight rows at that stride
+    fall on eight bank groups)."""
+    n = _r16(n)
+    return n if (n >> 4) & 1 else n + 16
+
+
+def _copy_words(steps: int) -> int:
+    need = 8 * steps + 4
+    return need + (8 - need) % 32
+
+
+STAGE_BUDGET = 48 * 1024  # csrc/fused_dma.cu kStageBudget
+
+
+def stage_rows(tw: int, sp: int) -> int:
+    """Rows a staged group of the int8 and hybrid bodies: 4096 / tw, halved
+    while two groups of pitch ``sp`` would pass ``STAGE_BUDGET``, down to
+    1024 / tw (``stage_rows`` of ``csrc/fused_dma.cu``)."""
+    g = 4096 // tw
+    while g > 1024 // tw and 2 * g * sp > STAGE_BUDGET:
+        g >>= 1
+    return g
+
+
+@dataclasses.dataclass(frozen=True)
+class TcLayout:
+    """The block of K1's int8 and hybrid bodies in one form (``tc_layout``
+    of ``csrc/fused_dma.cu``): the rows pass's k-steps over ``delta``
+    leading zero taps, the staged window (``sw`` bytes a row at pitch
+    ``sp``, ``g`` rows a group), the ``rows`` window rows the rows pass
+    computes (K1r's ring), the ``pr`` plane rows the cols pass reads, and
+    the byte counts."""
+
+    delta: int
+    rsteps: int
+    csteps: int
+    groups: int
+    sw: int
+    sp: int
+    g: int
+    rows: int
+    pr: int
+    cs: int
+    plane: int
+    nplanes: int
+    stage: int
+    rwords: int
+    cwords: int
+    taps: int
+    total: int
+
+
+def tc_layout(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
+              slots: int = 0) -> TcLayout:
+    """K1's int8 or hybrid block in ``form`` (see ``TcLayout``)."""
+    framed = form in ("assembled", "pipelined")
+    delta = 0 if framed else (16 - rw % 16) % 16
+    rsteps = (delta + 2 * rw + 1 + 15 + 31) // 32
+    csteps = (2 * rh + 1 + 15 + 31) // 32
+    groups = (2 * rh + 1 + 15) // 16
+    sw = tw - 16 + 32 * rsteps
+    sp = _odd16(sw)
+    g = stage_rows(tw, sp)
+    rows = _r16(th + 2 * rh)
+    if form == "resident":
+        pr = rows
+    elif precision == "int8":
+        pr = max(rows, -(-th // 32) * 32 - 16 + 32 * csteps)
+    else:
+        pr = max(rows, -(-th // 128) * 128 + 16 * groups)
+    if precision == "int8":
+        cs = _odd16(pr)
+        plane = 2 * tw * cs
+    else:
+        cs = 2 * tw + 16
+        plane = pr * cs
+    nplanes = 2 if form == "pipelined" else 1
+    stage = rows * sp if form == "strip" else (slots if framed else 2) * g * sp
+    rwords = _copy_words(rsteps)
+    cwords = _copy_words(csteps) if precision == "int8" else 12 * (groups + 14)
+    taps = _r16(16 + 4 * (8 * rwords + (8 * cwords if precision == "int8" else cwords)))
+    return TcLayout(delta, rsteps, csteps, groups, sw, sp, g, rows, pr, cs, plane, nplanes,
+                    stage, rwords, cwords, taps, nplanes * plane + stage + taps)
+
+
 def layout_bytes(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
                  slots: int = 0) -> int:
     """Shared memory of one block of ``form`` with K1's ``precision`` body:
-    ``make_layout`` of ``csrc/fused_dma.cu``, which checks the launch
-    against it (taps, the rows-output plane or planes, the staged input,
-    and the assembled forms' ``slots`` cp.async buffers of a row group,
-    which int8 and hybrid read as their stage)."""
+    ``tc_layout`` (int8, hybrid) or ``bf16_layout`` (bf16) of
+    ``csrc/fused_dma.cu``, which checks the launch against it. The bf16
+    body's: taps, the rows-output plane, the staged bf16 input, and the
+    assembled form's ``slots`` cp.async buffers of a row group."""
+    if precision != "bf16":
+        return tc_layout(form, precision, th, tw, rh, rw, slots).total
     t4w, t4h = _r4(2 * rw + 1), _r4(2 * rh + 1)
     g = _THREADS // (tw // 4)
     sw = tw + t4w
-    es = 2 if precision == "bf16" else 1
-    taps = (2 * t4w + 2 * t4h if precision == "int8"
-            else 4 * t4h + (4 if precision == "bf16" else 2) * t4w)
-    cs = _odd_words(th + 2 * t4h + 4 if form == "resident" else th + t4h)
-    planes = 2 if form == "pipelined" else 1
-    raw = form in ("assembled", "pipelined")
-    stage = (th + t4h if form == "strip" else (0 if raw and es == 1 else g)) * sw * es
-    end = taps + planes * 2 * tw * cs + stage
-    return _r16(end) + slots * g * _r16(sw) if raw else end
+    end = 4 * t4h + 4 * t4w + 2 * tw * _odd_words(th + t4h) + (
+        th + t4h if form == "strip" else g) * sw * 2
+    return _r16(end) + slots * g * _r16(sw) if form == "assembled" else end
 
 
 @dataclasses.dataclass(frozen=True)
@@ -562,33 +700,56 @@ def k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int = 1,
     """The launch of K1's ``precision`` body in ``form`` on ``planes``
     planes of the plan's shape, or None where the form does not serve it.
 
-    Tiles as K1's direct policy (the fastest of nine measured shapes at 4K:
-    64 columns to rw 100, else 32; 256, 512 or 1024 rows by rh, halved until
-    the block fits the device's shared memory, then balanced over the
-    frame); the strip form halves its rows further while the frame has
-    fewer than two strips per SM, since it runs one block per strip; the
-    resident form steps 64 rows (halved to fit): its rows work does not
-    depend on the step. The assembled forms keep two row groups in flight
-    where three buffers fit, else one. ``tile=(th, tw)`` pins either (0 = the policy). The
-    resident form serves int8 and hybrid (its ring holds digit planes or
-    bf16 ``y``), the pipelined variant int8 on frames of two windows or
-    more. Sized by ``device``'s shared memory (the H100's on the CPU)."""
+    Tiles as K1's direct policy: columns for the int8 and hybrid bodies 64
+    to rw 100, 128 to 200, 64 to 400, else 32 (the fastest measured at r
+    9..598; narrower where a 32-row block does not fit), for bf16 64 to rw
+    100, else 32; 256, 512 or 1024 rows by rh, halved until
+    the block fits the device's shared memory, then balanced over the frame
+    (rounded up to 16 rows for the int8 and hybrid bodies, whose fragments
+    are 16 or 8 rows, to 4 for bf16); the strip form halves its rows further while the frame has fewer
+    than two strips per SM, since it runs one block per strip; the resident
+    form steps 64 rows (int8, halved to fit) or 128 (hybrid: one block of
+    its cols fragments, rows 16 apart): its rows work does not depend on
+    the step. The assembled forms keep two row groups in flight where three
+    buffers fit, else one. ``tile=(th, tw)`` pins either (0 = the policy;
+    th a multiple of 16 for int8 and hybrid). The resident form serves int8
+    and hybrid (its ring holds digit planes or bf16 ``y``), the pipelined
+    variant int8 on frames of two windows or more. Sized by ``device``'s
+    shared memory (the H100's on the CPU)."""
     if form not in FORMS:
         raise ValueError(f"K1's forms are {FORMS}, not {form!r}")
+    return _k1_geometry(form, precision, plan, planes, tuple(tile) if tile else None,
+                        device_spec(device))
+
+
+@functools.lru_cache(maxsize=256)
+def _k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int, tile,
+                 spec) -> K1Geometry | None:
+    """``k1_geometry`` for a device of ``spec``, cached: every launch asks."""
     if ((form == "resident" and precision == "bf16")
             or (form == "pipelined" and precision != "int8")):
         return None
-    spec = device_spec(device)
     limit = spec.smem_optin_bytes or HOPPER_SMEM_OPTIN
     sms = spec.sm_count or HOPPER_SMS
     h, w = plan.shape
     rh, rw = plan.col.support_radius, plan.row.support_radius
+    gran = 4 if precision == "bf16" else 16
     th_pin, tw_pin = tile or (0, 0)
-    tw = tw_pin or (64 if rw <= 100 else 32)
-    if tw not in (32, 64, 128) or th_pin % 4 or th_pin < 0:
-        raise ValueError(f"tile {tile}: rows a multiple of 4, columns 32, 64 or 128")
-
+    if (tw_pin and tw_pin not in (32, 64, 128)) or th_pin % gran or th_pin < 0:
+        raise ValueError(f"tile {tile}: rows a multiple of {gran}, columns 32, 64 or 128")
     raw = form in ("assembled", "pipelined")
+    if tw_pin:
+        tw = tw_pin
+    elif precision == "bf16":
+        tw = 64 if rw <= 100 else 32
+    else:
+        # the fastest measured columns by row radius (probes/k1_tc_ablation.py
+        # on an H100: 64 at r 9..99, 128 at r 165, 64 at r 332, 32 at r 598),
+        # narrowed where a 32-row block does not fit
+        tw = 64 if rw <= 100 else 128 if rw <= 200 else 64 if rw <= 400 else 32
+        while tw > 32 and layout_bytes(form, precision, 32, tw, rh, rw,
+                                       2 if raw else 0) > limit:
+            tw //= 2
 
     def fits(t: int, slots: int = 2 if raw else 0) -> bool:
         return layout_bytes(form, precision, t, tw, rh, rw, slots) <= limit
@@ -596,8 +757,8 @@ def k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int = 1,
     if th_pin:
         th = th_pin
     elif form == "resident":
-        th = 64
-        while th > 4 and not fits(th):
+        th = 128 if precision == "hybrid" else 64
+        while th > 16 and precision == "int8" and not fits(th):
             th //= 2
     else:
         target = 256 if rh <= 100 else (512 if rh <= 400 else 1024)
@@ -607,7 +768,7 @@ def k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int = 1,
             while target > 32 and planes * -(-h // target) < 2 * sms:
                 target >>= 1
         tiles = -(-h // target)
-        th = _r4(-(-h // tiles))
+        th = -(-(-(-h // tiles)) // gran) * gran
     if not fits(th):
         return None
     nbw = -(-w // tw)
@@ -619,9 +780,14 @@ def k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int = 1,
     slots = hp = wp = 0
     if raw:
         slots = 3 if fits(th, 3) else 2
-        t4w, t4h = _r4(2 * rw + 1), _r4(2 * rh + 1)
-        hp = -(-h // th) * th + t4h
-        wp = _r16((nbw - 1) * tw + _r16(tw + t4w))
+        nbh = -(-h // th)
+        if precision == "bf16":
+            hp = nbh * th + _r4(2 * rh + 1)
+            wp = _r16((nbw - 1) * tw + _r16(tw + _r4(2 * rw + 1)))
+        else:
+            lay = tc_layout(form, precision, th, tw, rh, rw, slots)
+            hp = (nbh - 1) * th + lay.rows
+            wp = _r16((nbw - 1) * tw + lay.sw)
     return K1Geometry(form, th, tw, seg, layout_bytes(form, precision, th, tw, rh, rw, slots),
                       slots, hp, wp)
 
@@ -702,14 +868,16 @@ def _launch(fn, geo: K1Geometry, x: torch.Tensor, plan: BlurPlan, precision: str
                       device=x.device)
     if x.shape[0] == 0:
         return out
-    if precision == "int8":
-        ops = int8_operands(plan)
-        taps_i, taps_f = _device_taps(plan, x.device), None
-        shift, consts, scale = ops.rows_shift, ops.epilogue_constants(), 1.0
+    shift, consts, scale, taps_f = 0, (0.0, 0.0, 0.0), 1.0, None
+    if precision == "bf16":
+        taps_i, taps_f = _bf16_taps_device(plan, x.device)
     else:
-        taps_i, taps_f = _rung_taps(plan, precision, x.device)
-        shift, consts = 0, (0.0, 0.0, 0.0)
-        scale = float(hybrid_operands(plan).scale) if precision == "hybrid" else 1.0
+        taps_i = tc_tables(plan, precision, geo.form in ("assembled", "pipelined"), x.device)
+        if precision == "int8":
+            ops = int8_operands(plan)
+            shift, consts = ops.rows_shift, ops.epilogue_constants()
+        else:
+            scale = float(hybrid_operands(plan).scale)
     lib = load_library()
     with torch.cuda.device(x.device):
         rc = lib.blur_fused_u8_k1(
@@ -786,7 +954,8 @@ def blur_fused_u8_dma(planar_u8: torch.Tensor, plan: BlurPlan,
     package also routes its assembled form where its direct form cannot
     splice a window (``_direct_applicable``: one column window, tiny frames,
     prepadded rows): that is a TPU DMA alignment limit, and the card's direct
-    loader, which gathers with reflect-101 index math, has none.
+    loader (16-byte copies inside the frame, mirrored aligned words past its
+    edges, reflect-101 bytes elsewhere) has none.
 
     ``blur_fused_u8_dma.launches`` counts launches of the direct form's int8
     body; ``blur_fused_u8_hybrid`` / ``_bf16`` count the direct form's other

@@ -192,7 +192,7 @@ def _declare_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fetch_windows.restype = i
     lib.fetch_k1.argtypes = [
         i, vp, vp,  # assembled, x, out
-        i, i, i, i, i, i, i, i, i,  # planes, h, w, th, tw, rh, rw, t4h, t4w
+        i, i, i, i, i, i, i,  # planes, h, w, th, tw, rh, rw
         i, i, i, i,  # xh, xw, slots, smem
         vp,  # stream
     ]

@@ -49,43 +49,59 @@ _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
 
 # Largest swept box support radius at which a box on the fused engine is
 # at least as fast as the box scan (K4), for uint8 (K1) and float (K2)
-# alike, by device name: the chip_smoke.py phase 13 sweep at batch 4 RGB
-# 2160x3840 (PERF.md, "Routing sweeps"), K1 on its AUTO rung. NVIDIA H100
-# 80GB HBM3 at 700 W, with the segmented K4: uint8 K1 (hybrid) 1.7066 vs K4
-# 1.8691 ms at support 32, 2.9466 vs 1.8144 at 82; float K2 1.3098 vs
-# 1.4946 at 32, 4.2563 vs 1.5697 at 82 (K4 before: 2.32 / 1.94 ms at 32).
+# alike (the smaller of the two), by device name: the chip_smoke.py phase
+# 13 sweep at batch 4 RGB 2160x3840 (PERF.md, "Routing sweeps"), K1 on its
+# AUTO rung and form. NVIDIA H100 80GB HBM3 at 700 W, K1 on the tensor
+# cores: uint8 K1 0.8681 vs K4 1.8618 ms at support 32, 1.2383 vs 1.8037 at
+# 82, 2.0107 vs 1.7546 at 164 (uint8 alone would take K1 to 82); float K2
+# 1.3010 vs 1.4914 at 32, 4.2248 vs 1.5637 at 82.
 _MEASURED_BOX_SCAN: dict[str, int] = {
     "NVIDIA H100 80GB HBM3": 32,
 }
 
 # Smallest swept support radius from which the two-pass split is faster
-# than the single fused kernel at every swept radius, for uint8 and float
-# alike, by device name: the chip_smoke.py phase 13 sweep (r 32..332), K1 on
-# its AUTO rung (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W,
-# the split's passes on the tensor cores, r 32, the smallest swept:
-# uint8 split (int8 rows, hybrid pass 2) 0.6489 vs K1 hybrid 1.2781 ms, f32
-# split 1.2919 vs K2 1.3003 ms (probes/split_radius.py: three rounds in
-# turns, all alike; at r 24 the f32 split loses, 1.2270 vs K2 1.0693, the
-# uint8 one wins down to r 9, 0.6267 vs 0.6615). Absent: the split runs
-# past 600 only.
+# than the single fused kernel at every swept radius, for float (and for
+# uint8 where the device has no entry of its own below), by device name:
+# the chip_smoke.py phase 13 sweep (r 32..332), K2 against the f32 split
+# (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W: f32 split
+# 1.2610 vs K2 1.2698 ms at r 32, 1.4983 vs 2.5407 at r 49 (and 1.2270 vs
+# K2 1.0693 at r 24, probes/split_radius.py). Absent: the split runs past
+# 600 only.
 _MEASURED_SPLIT_MIN: dict[str, int] = {
     "NVIDIA H100 80GB HBM3": 32,
+}
+
+# The same for K1's uint8 path alone (the int8, hybrid and bf16 rungs),
+# where it differs: the smallest swept support radius from which the int8
+# split beats K1 (on AUTO's rung, in the form the card's rule picks) at
+# every swept radius, for gaussian and box taps alike, by device name: the
+# chip_smoke.py phase 13 uint8 sweep from r 1 (PERF.md, "Routing sweeps");
+# MAX_RADIUS + 1 (601) where the split never wins under K1's domain. Absent:
+# the uint8 path splits where the float path does. NVIDIA H100 80GB HBM3 at
+# 700 W, K1 on the tensor cores: gaussian K1 (hybrid) 0.4382 vs the split
+# 0.6438 ms at r 32, 0.6675 vs 0.7441 at r 65, 0.8093 vs 0.7791 at r 82,
+# 1.5859 vs 0.9543 at r 165; box taps alike (support 66: 0.6674 vs 0.7440,
+# 82: 0.8097 vs 0.7740).
+_MEASURED_SPLIT_MIN_U8: dict[str, int] = {
+    "NVIDIA H100 80GB HBM3": 82,
 }
 
 # The certified precision ladder, by device name: the DeviceSpec fields of
 # the same names, from ``python -m blur_algorithms_tpu_torch.certify``
 # (PERF.md, "Certification of the precision ladder"). Absent: every floor
 # None, AUTO runs int8.
-# NVIDIA H100 80GB HBM3 at 700 W: hybrid max 1 count at every gaussian
-# radius 3..498 and box support 2..600; bf16 max 2 at r 5 and 9 and box
-# support 2, max 1 from r 12 and support 4; the split's hybrid pass 2 max 1
-# at column radius 1..4094 (gaussian) and support 2..1022 (box). In
-# turns on 4 RGB 4K frames: hybrid faster than int8 at every radius
-# 6..597 (0.59 vs 0.72 ms at r 6, 1.28 vs 1.48 at r 32, 40.11 vs 41.64 at
-# r 597), bf16 slower at every one (1.66 ms at r 32), the hybrid pass 2
-# faster than the int8 one (11.52 vs 15.06 ms at r 831). The split's pass
-# 2 sweep starts under the hybrid floors (column radius 1, box support 2):
-# the split runs from r 49 here, and at any column radius on an
+# NVIDIA H100 80GB HBM3 at 700 W, K1 on the tensor cores: hybrid max 1
+# count at every gaussian radius 3..498 and box support 2..600; bf16 max 2
+# at r 5 and 9 and box support 2, max 1 from r 12 and support 4; the
+# split's hybrid pass 2 max 1 at column radius 1..4094 (gaussian) and
+# support 2..1022 (box). In turns on 4 RGB 4K frames, K1 direct: hybrid
+# faster than int8 at every radius under the uint8 split radius (0.3297 vs
+# 0.3686 ms at r 6, 0.4412 vs 0.5192 at r 32, 0.6662 vs 0.6999 at r 64;
+# past it, where AUTO runs the split, 1.1212 vs 1.0450 at r 104 and 31.58
+# vs 20.30 at r 597), bf16 slower at every one (1.41 ms at r 32), the
+# hybrid pass 2 faster than the int8 one (1.40 vs 2.29 ms at r 831). The
+# split's pass 2 sweep starts under the hybrid floors (column radius 1, box
+# support 2): the split runs from r 82 here, and at any column radius on an
 # anisotropic plan.
 _MEASURED_PRECISION: dict[str, dict[str, int | None]] = {
     "NVIDIA H100 80GB HBM3": {
@@ -128,20 +144,20 @@ def _auto_sp_min_px(hbm_gbps: float | None) -> int:
 # and plane count, each step names the form that measured fastest at that
 # swept radius, where it differs from the step below; absent: K1 direct
 # everywhere. The strip form K1s lost at every swept point and is never
-# routed (``strip=True`` reaches it). The two-pass split stays faster than
-# every form from r 49 (7.46 ms at r 332), so AUTO's split radius is
-# unchanged and the forms serve the pins and K1's own callers past it.
+# routed (``strip=True`` reaches it). NVIDIA H100 80GB HBM3 at 700 W, K1 on
+# the tensor cores, 12 planes: hybrid direct 0.4453 vs resident 0.5206 ms
+# at r 32, 0.7079 vs 0.6766 at r 65, 31.58 vs 11.41 at r 598. AUTO runs K1
+# under the uint8 split radius (82) only; the forms past it serve the pins
+# and K1's own callers.
 _MEASURED_K1_FORM: dict[str, dict] = {
     "NVIDIA H100 80GB HBM3": {
         "k1_forms": (
-            ("hybrid", 3, ((99, "assembled"), (165, "resident"), (248, "assembled"),
-                           (332, "direct"), (448, "assembled"))),
-            ("hybrid", 6, ((99, "resident"), (332, "direct"), (448, "assembled"))),
-            ("hybrid", 12, ((65, "resident"), (332, "direct"), (448, "assembled"))),
-            ("int8", 3, ((99, "assembled"),)),
-            ("int8", 6, ((99, "assembled"), (332, "resident"), (448, "assembled"))),
-            ("int8", 12, ((99, "resident"), (248, "assembled"), (332, "resident"),
-                          (448, "assembled"))),
+            ("hybrid", 3, ((248, "assembled"), (332, "resident"))),
+            ("hybrid", 6, ((65, "resident"), (99, "direct"), (248, "resident"))),
+            ("hybrid", 12, ((65, "resident"),)),
+            ("int8", 3, ((248, "assembled"), (448, "resident"))),
+            ("int8", 6, ((248, "resident"),)),
+            ("int8", 12, ((99, "resident"),)),
         ),
     },
 }
@@ -191,6 +207,9 @@ class DeviceSpec:
     # Support radius from which ``blur_fused`` prefers the two-pass split
     # to the single kernel; None = only past the single kernels' domain.
     fused_split_min_radius: int | None = None
+    # The same for K1's uint8 path (``blur_fused_u8``'s int8, hybrid and
+    # bf16 rungs, the int8 split against K1); None = fused_split_min_radius.
+    fused_split_min_radius_u8: int | None = None
     # AUTO shards a single frame's rows over the devices (``parallel/``) only
     # from this many pixels, and a batch's rows over its spare devices
     # likewise (the JAX field of the same name).
@@ -266,6 +285,7 @@ def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
         box_scan_crossover_radius=_MEASURED_BOX_SCAN.get(name, 600),
         split_hbm_budget=total_memory * 11 // 16,
         fused_split_min_radius=_MEASURED_SPLIT_MIN.get(name),
+        fused_split_min_radius_u8=_MEASURED_SPLIT_MIN_U8.get(name),
         auto_sp_min_px=_auto_sp_min_px(_HBM_GBPS.get(name)),
         **_MEASURED_PRECISION.get(name, {}),
         **_MEASURED_K1_FORM.get(name, {}),

@@ -8,15 +8,19 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    PyTorch version on the card, uint8 RGB 1080x1920 frames at
    sigma 1, 3, 10, 50, 150 and 180 (support radius up to 598), an
    anisotropic sigma (5, 11) and a ragged 1001x1777 frame; each must be
-   ``torch.equal``;
+   ``torch.equal``; then K1's int8 and hybrid instantiations in the built
+   library's SASS (``cuobjdump -sass``): IMMA in each, HMMA in the hybrid
+   ones, no IDP4A, with ptxas's registers and spills;
 3. main path of slice 1: ``blur_u8`` on a (4, 2160, 3840, 3) uint8
    CUDA tensor at sigma 10 (``bench.py``'s configuration, and its frames
    through the port's copy ``utils/frames.make_frames``), K1 on the rung
    AUTO routes (``utils/hw.py``'s certified ladder: K1's hybrid body on the
-   H100), through AUTO, or through the rung's pin where the card's split
-   radius covers r 32 (the H100's does): that body's launch count must
-   rise, the result must equal its plain version bit for bit and frame 0
-   must be within 1 count of the NumPy oracle; where the rung is not int8,
+   H100), through AUTO, or through the rung's pin where the card's uint8
+   split radius covers r 32 (the H100's, 82, does not): that body's launch
+   count must rise, the result must equal its plain version bit for bit
+   (int8; the hybrid body, which sums its taps on the tensor cores in
+   groups of 16, within 1 count) and frame 0 must be within 1 count of the
+   NumPy oracle; where the rung is not int8,
    the same for K1 int8 through the ``precision="int8"`` pin; then AUTO
    where it splits: the split's two passes once each, frame 0 within 1
    count;
@@ -99,9 +103,11 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    pad + ``avg_pool2d`` per pass for K4, depthwise ``conv2d`` per axis with
    TF32 off for the f32 form), and two sweeps in turns that set
    ``utils/hw.py``'s ``box_scan_crossover_radius`` (box on the fused engine
-   against K4 at support 2..338) and ``fused_split_min_radius`` (the split
-   against the single kernels at r 32..332; and against FFT_MXU at r
-   665..1330, for the record), K1 on the rung and in the form AUTO routes;
+   against K4 at support 2..338), ``fused_split_min_radius_u8`` (the int8
+   split against K1 from r 1, gaussian r 1..332 and box support 2..338) and
+   ``fused_split_min_radius`` (the f32 split against K2 at r 32..332; and
+   the split against FFT_MXU at r 665..1330, for the record), K1 on the
+   rung and in the form AUTO routes;
 14. K1's hybrid and bf16 bodies against their plain versions as phase 2,
    (each ``torch.equal``) and the split's hybrid pass 2 at column radius
    332, 831 and 1996, uint8 and f32 out (within 2e-2, 1 count, printing
@@ -128,7 +134,7 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    where its block fits, uint8 and f32 out, and A5 against its plain
    version at the JAX geometries; at batch 4 RGB 4K sigma 10, counts set to
    0 first: ``blur_u8`` with AUTO's rung pinned (the form the card
-   routes; AUTO splits there on the H100), then with the card's form rule
+   routes), then with the card's form rule
    replaced to route K1a and K1r, and
    ``blur_fused_u8_dma`` with ``strip=True`` and ``pipelined=True`` (each
    form launched once, equal to the plain version, frame 0 within 1
@@ -236,6 +242,10 @@ SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
 # 332) and against FFT_MXU (r 665, 831, 1330)
 BOX_SWEEP_R = (1, 4, 16, 41, 82, 169)
 SPLIT_SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0)
+# phase 13's uint8 split sweep from r 1: gaussian r 1..332, box support 2..338
+U8_SPLIT_SIGMAS = (0.6, 1.0, 2.1, 3.0, 5.1, 7.0, 10.0, 15.0, 20.0, 25.0, 30.0, 36.0, 50.0,
+                   100.0)
+U8_SPLIT_BOX_R = (1, 2, 4, 8, 16, 24, 33, 41, 50, 66, 82, 169)
 SPLIT_FFT_SIGMAS = (200.0, 250.0, 400.0)
 # phase 11 cases: K4 (radius per pass, passes) on HD planes; the int8 split
 # forms and K2's single-axis form as (frame shape, sigma)
@@ -758,6 +768,65 @@ def _ptxas_lines(kernels, log: str | None = None) -> list[tuple[str, str]]:
     return [tuple(x) for x in out]
 
 
+SASS_OPS = ("IMMA", "HMMA", "IDP4A")
+
+
+def _sass_counts(kernels) -> dict[str, dict[str, int]]:
+    """Instruction counts of ``SASS_OPS`` in the kernel library's SASS
+    (``cuobjdump -sass``), per entry function whose name holds one of
+    ``kernels``, keyed as ``_ptxas_lines`` keys them (name<template
+    arguments>): what shows whether a body runs on the tensor cores (IMMA,
+    HMMA) or on ``__dp4a`` (IDP.4A)."""
+    import shutil
+
+    from blur_algorithms_tpu_torch.utils import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", build.last_build["library"]], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ", 1)[1].strip()
+            hit = [k for k in kernels if k in fn]
+            name = None
+            if hit:
+                tail = fn.split(hit[0], 1)[1].split("Ev")[0]
+                args = [("false", "true")[int(v)] if k == "b" else v
+                        for k, v in re.findall(r"L([ib])(\d+)E", tail)]
+                name = hit[0] + (f"<{', '.join(args)}>" if args else "")
+                out[name] = dict.fromkeys(SASS_OPS, 0)
+        elif name:
+            op = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)(\.[A-Z0-9.]+)?", ln)
+            if op:
+                code = op.group(1) + ("4A" if (op.group(2) or "").startswith(".4A") else "")
+                if code in out[name]:
+                    out[name][code] += 1
+    return out
+
+
+K1_TC_KERNELS = ("k1_direct", "k1_strip", "k1_assembled", "k1_resident")
+
+
+def _k1_sass() -> None:
+    """Phase 2: K1's int8 and hybrid instantiations on the tensor cores, from
+    the built library's SASS: IMMA in every one (the rows pass, and the int8
+    cols pass), HMMA in the hybrid ones (its cols pass), no IDP4A (the
+    per-lane dp4a the bodies ran before); with ptxas's registers and
+    spills."""
+    sass = _sass_counts(K1_TC_KERNELS)
+    ptx = dict(_ptxas_lines(K1_TC_KERNELS))
+    for name, c in sass.items():
+        body = "int8" if name.split("<")[1].startswith("0") else "hybrid"
+        print(f"phase 2 SASS {name} ({body}): IMMA {c['IMMA']}, HMMA {c['HMMA']}, IDP4A "
+              f"{c['IDP4A']}; ptxas {ptx.get(name, 'not reported')}", flush=True)
+        if c["IDP4A"] or not c["IMMA"] or (body == "hybrid" and not c["HMMA"]):
+            raise RuntimeError(f"{name} ({body}) is not on the tensor cores: {c}")
+    if len(sass) != 18:  # 4 forms x 2 bodies x 2 stores, and int8's pipelined pair
+        raise RuntimeError(f"the SASS holds {len(sass)} K1 tensor-core instantiations, not "
+                           f"18: {sorted(sass)}")
+
+
 def _crossover_sweep(frames) -> dict:
     """``blur_u8`` fused vs FFT_MXU and ``blur`` fused vs FFT_MXU (the
     fused engine as routed: K1 or K2, the two-pass split from the device's
@@ -1267,32 +1336,42 @@ def _sweeps(frames) -> dict:
     box_cross = min((b or 0) for b in best.values())
 
     planar_u8 = x_u8.movedim(-1, -3).contiguous()
-    split = []
-    wins_from = {"u8": None, "f32": None}
+    # uint8 from r 1: K1 (AUTO's rung, the card's form) against the int8
+    # split, gaussian and box taps; the uint8 split radius is where the split
+    # wins from, at every larger swept radius, for both families
+    split, u8_from = [], {}
+    for family, plans in (("gaussian", [make_plan((H, W), s) for s in U8_SPLIT_SIGMAS]),
+                          ("box", [_box_plan(H, W, r, 2, "auto") for r in U8_SPLIT_BOX_R])):
+        wins = None
+        for plan in plans:
+            r = max(plan.row.support_radius, plan.col.support_radius)
+            t = _in_turns(f"split u8 {family} r={r}", {
+                "single": lambda t: k1(plan)(t, plan),
+                "split": lambda t: fused_blur._blur_fused_split(t, plan, "int8", True)},
+                planar_u8)
+            wins = (wins or r) if t["split"] < t["single"] else None
+            split.append({"taps": family, "r": r, **{f"u8_{k}": v for k, v in t.items()}})
+            print(f"phase 13 uint8 split sweep {family} r={r}: K1 "
+                  f"({_u8_dma_precision(plan, spec)}) {t['single']:.4f} vs int8 split "
+                  f"{t['split']:.4f} ms", flush=True)
+        u8_from[family] = wins
+    # never winning under K1's domain: MAX_RADIUS + 1
+    split_min_u8 = max(v or fused_blur.MAX_RADIUS + 1 for v in u8_from.values())
+    wins_from = None
     for sigma in SPLIT_SWEEP_SIGMAS:
         plan = make_plan((H, W), sigma)
         r = plan.row.support_radius
         line = {"r": r}
-        line.update({f"u8_{k}": v for k, v in _in_turns(
-            f"split u8 r={r}",
-            {"single": lambda t: k1(plan)(t, plan),
-             "split": lambda t: fused_blur._blur_fused_split(t, plan, "int8", True)},
-            planar_u8).items()})
         line.update({f"f32_{k}": v for k, v in _in_turns(
             f"split f32 r={r}",
             {"single": lambda t: fused_blur.blur_fused_f32(t, plan),
              "split": lambda t: fused_blur._blur_fused_split(t, plan, "bf16x3", False)},
             x).items()})
-        for kind in ("u8", "f32"):
-            if line[f"{kind}_split"] < line[f"{kind}_single"]:
-                wins_from[kind] = wins_from[kind] or r
-            else:
-                wins_from[kind] = None
+        wins_from = (wins_from or r) if line["f32_split"] < line["f32_single"] else None
         split.append(line)
-        print(f"phase 13 split sweep r={r}: uint8 K1 {line['u8_single']:.4f} vs int8 "
-              f"split {line['u8_split']:.4f} ms; f32 K2 {line['f32_single']:.4f} vs "
+        print(f"phase 13 split sweep r={r}: f32 K2 {line['f32_single']:.4f} vs "
               f"f32 split {line['f32_split']:.4f} ms", flush=True)
-    split_min = (None if None in wins_from.values() else max(wins_from.values()))
+    split_min = wins_from
     for sigma in SPLIT_FFT_SIGMAS:
         r = make_plan((H, W), sigma).row.support_radius
         line = {"r": r}
@@ -1309,10 +1388,13 @@ def _sweeps(frames) -> dict:
               f"FFT_MXU {line['u8_fft_mxu']:.4f} ms; f32 split {line['f32_split']:.4f} vs "
               f"FFT_MXU {line['f32_fft_mxu']:.4f} ms", flush=True)
     out = {"box": box, "box_fused_best": best, "box_scan_crossover_radius": box_cross,
-           "split": split, "fused_split_min_radius": split_min}
+           "split": split, "fused_split_min_radius": split_min,
+           "fused_split_min_radius_u8": split_min_u8}
     print(f"phase 13 sweeps set: box_scan_crossover_radius={box_cross} (largest "
           f"support at which the fused engine is at least as fast: {best}); "
-          f"fused_split_min_radius={split_min} (utils/hw.py)", flush=True)
+          f"fused_split_min_radius={split_min} (the float sweep); "
+          f"fused_split_min_radius_u8={split_min_u8} (the uint8 sweep from r 1, by taps: "
+          f"{u8_from}) (utils/hw.py)", flush=True)
     return out
 
 
@@ -1649,13 +1731,16 @@ def _phase14_kernels(cases) -> dict:
             for out_u8 in (False, True):
                 got = body(x, plan, out_u8)
                 ref = fused_dma.store_u8_ref(want) if out_u8 else want
+                label = (f"phase 14 K1 {rung} vs plain: {h}x{w} RGB sigma={sigma} "
+                         f"r=({plan.col.support_radius}, {plan.row.support_radius})")
+                if rung == "hybrid":  # tensor-core groups of 16 taps
+                    errs[rung] = max(errs[rung], _check_hybrid(label, got, ref, out_u8))
+                    continue
                 torch.cuda.synchronize()
                 err = float((got.double() - ref.double()).abs().max())
                 errs[rung] = max(errs[rung], err)
                 equal = torch.equal(got, ref)
-                print(f"phase 14 K1 {rung} vs plain: {h}x{w} RGB sigma={sigma} "
-                      f"r=({plan.col.support_radius}, {plan.row.support_radius}) "
-                      f"{'uint8' if out_u8 else 'f32'} out equal={equal}", flush=True)
+                print(f"{label} {'uint8' if out_u8 else 'f32'} out equal={equal}", flush=True)
                 if not equal:
                     raise RuntimeError(f"K1 {rung} disagrees with its plain version at "
                                        f"{(h, w, sigma)}")
@@ -1674,11 +1759,12 @@ def _phase14_kernels(cases) -> dict:
 
 
 def _check_hybrid(label: str, got: torch.Tensor, ref: torch.Tensor, out_u8: bool) -> float:
-    """The split's hybrid pass 2 against its plain version: the tensor cores
-    add each output's taps in groups of 16, the plain version one by one,
-    so within HYBRID_TOL at 0..255 scale on the f32 store and 1 count on
-    the uint8 store; prints the worst difference and the share of outputs
-    that differ; returns the worst difference."""
+    """A hybrid body on the tensor cores (K1's, or the split's pass 2)
+    against its plain version: the tensor cores add each output's taps in
+    groups of 16, the plain version one by one, so within HYBRID_TOL at
+    0..255 scale on the f32 store and 1 count on the uint8 store; prints the
+    worst difference and the share of outputs that differ; returns the
+    worst difference."""
     torch.cuda.synchronize()
     d = (got.double() - ref.double()).abs()
     err, share = float(d.max()), float((d > 0).double().mean())
@@ -1686,7 +1772,7 @@ def _check_hybrid(label: str, got: torch.Tensor, ref: torch.Tensor, out_u8: bool
     print(f"{label} {'uint8' if out_u8 else 'f32'} out max_abs_err={err:.3e} "
           f"(limit {limit:.0e}), share differing={share:.3e}", flush=True)
     if got.shape != ref.shape or got.dtype != ref.dtype or not err <= limit:
-        raise RuntimeError(f"the hybrid pass 2 disagrees with its plain version: {label}")
+        raise RuntimeError(f"a hybrid body disagrees with its plain version: {label}")
     return err
 
 
@@ -1834,13 +1920,17 @@ def _slice5(frames, k1_int8_ms: float, earlier: dict) -> list[dict]:
         launched[rung] = ran[body.__name__]
         ref = ref_fn(planar, plan).movedim(-3, -1)
         torch.cuda.synchronize()
+        err = int((out.int() - ref.int()).abs().max())
+        # hybrid: tensor-core groups of 16 taps, within 1 count of the plain
+        # version's tap-by-tap sums; bf16: bit-equal
+        held = err <= 1 if rung == "hybrid" else torch.equal(out, ref)
         d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
         print(f"phase 14 main path: {what} {tuple(x.shape)} "
-              f"sigma={SIGMA}: launches {ran}; equal to plain version="
-              f"{torch.equal(out, ref)}; frame 0 vs oracle max={int(d.max())} "
-              f"exact={float((d == 0).mean())}", flush=True)
-        if launched[rung] != 1 or sum(ran.values()) != 1 or not torch.equal(out, ref):
-            raise RuntimeError(f"{what} did not run {body.__name__} alone, equal to its "
+              f"sigma={SIGMA}: launches {ran}; vs plain version max_abs_err={err} "
+              f"({'limit 1' if rung == 'hybrid' else 'equal'}: {held}); frame 0 vs oracle "
+              f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+        if launched[rung] != 1 or sum(ran.values()) != 1 or not held:
+            raise RuntimeError(f"{what} did not run {body.__name__} alone, held to its "
                                "plain version")
         if d.max() > 1:
             raise RuntimeError(f"{what}: frame 0 is {int(d.max())} counts from the oracle")
@@ -2048,13 +2138,20 @@ def _phase15_equal(cases) -> dict:
                     torch.cuda.synchronize()
                     err = float((got.double() - want.double()).abs().max())
                     errs[form] = max(errs[form], err)
-                    if not (torch.equal(got, want) and torch.equal(got, direct)):
+                    # every form bit-equal to K1 direct; int8 and bf16 to the
+                    # plain version too, hybrid (tensor-core groups of 16
+                    # taps) within HYBRID_TOL / 1 count of it
+                    near = (err <= (1 if out_u8 else HYBRID_TOL) if rung == "hybrid"
+                            else torch.equal(got, want))
+                    if not (near and torch.equal(got, direct)):
                         raise RuntimeError(f"K1 {form} {rung} differs from K1 direct or its "
                                            f"plain version at {(h, w, sigma)} by {err}")
                     served.append(form)
-                print(f"phase 15 forms vs K1 direct and plain: {h}x{w} RGB sigma={sigma} "
-                      f"r=({plan.col.support_radius}, {plan.row.support_radius}) {rung} "
-                      f"{'uint8' if out_u8 else 'f32'} out: equal for {served}", flush=True)
+                print(f"phase 15 forms vs K1 direct (equal) and plain "
+                      f"({'within tolerance' if rung == 'hybrid' else 'equal'}): {h}x{w} RGB "
+                      f"sigma={sigma} r=({plan.col.support_radius}, {plan.row.support_radius}) "
+                      f"{rung} {'uint8' if out_u8 else 'f32'} out: held for {served}",
+                      flush=True)
     port_case = (*RAGGED, 33, 33, 33, 33, 1104, 1856)  # the plane at (rh, rw)
     for h, w, rh, rw, orh, orw, hp, wp in (*A5_JAX_CASES, port_case):
         x = _case_frames(h, w, seed=510)
@@ -2159,9 +2256,13 @@ def _slice6(frames) -> list[dict]:
     refs = {"int8": fused_dma.blur_fused_u8_dma_ref,
             "hybrid": fused_dma.blur_fused_u8_hybrid_ref}
     ref = refs[rung](planar, plan).movedim(-3, -1)
+    # hybrid: every form bit-equal to K1 direct, and within 1 count of the
+    # plain version (tensor-core groups of 16 taps); int8: equal to plain
+    direct = (fused_dma.blur_fused_u8_dma(planar, plan, precision=rung, direct=True)
+              .movedim(-3, -1) if rung == "hybrid" else ref)
     launched = {}
 
-    def drive(what, call, want, form_names):
+    def drive(what, call, want, form_names, plain=None):
         torch.cuda.synchronize()
         for c in counters:
             c.launches = 0
@@ -2170,16 +2271,20 @@ def _slice6(frames) -> list[dict]:
         ran = _launched(counters)
         d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
         equal = torch.equal(out, want)
+        err = 0 if plain is None else int((out.int() - plain.int()).abs().max())
         print(f"phase 15 main path: {what} {tuple(x.shape)} sigma={SIGMA} rung {rung}: "
-              f"launches {ran}; equal to plain version={equal}; frame 0 vs oracle "
-              f"max={int(d.max())} exact={float((d == 0).mean())}", flush=True)
+              f"launches {ran}; equal to "
+              f"{'K1 direct' if plain is not None else 'the plain version'}={equal}"
+              + ("" if plain is None else f", vs plain version max_abs_err={err} (limit 1)")
+              + f"; frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
+              flush=True)
         for name in form_names:
             launched[name] = launched.get(name, 0) + ran[name]
             if ran[name] != 1:
                 raise RuntimeError(f"{what} launched {name} {ran[name]} times, not once")
-        if not equal or d.max() > 1:
-            raise RuntimeError(f"{what}: not equal to its plain version, or frame 0 is "
-                               f"{int(d.max())} counts from the oracle")
+        if not equal or err > 1 or d.max() > 1:
+            raise RuntimeError(f"{what}: not held to K1 direct and its plain version, or "
+                               f"frame 0 is {int(d.max())} counts from the oracle")
 
     # K1 on AUTO's rung as the card's form rule routes it (through the
     # rung's pin: the card's split radius covers sigma 10's r 32, where AUTO
@@ -2191,20 +2296,22 @@ def _slice6(frames) -> list[dict]:
     print(f"phase 15 K1's form rule at sigma {SIGMA}: rung {rung}, form {geo.form} {geo}; "
           f"the card's rule: {spec.k1_forms}", flush=True)
     pin = f"blur_u8(precision={rung!r})"
-    drive(pin, lambda: blur_u8(x, SIGMA, precision=rung), ref, _routed(geo.form, rung))
+    plain = ref if rung == "hybrid" else None
+    drive(pin, lambda: blur_u8(x, SIGMA, precision=rung), direct, _routed(geo.form, rung),
+          plain)
     for form in ("assembled", "resident"):
         if geo.form != form:
             with _k1_rule_as(x.device, k1_forms=((rung, 1, ((0, form),)),)):
                 drive(f"{pin} ({form} routed)", lambda: blur_u8(x, SIGMA, precision=rung),
-                      ref, _routed(form, rung))
+                      direct, _routed(form, rung), plain)
     drive("blur_fused_u8_dma(strip=True)", lambda: fused_dma.blur_fused_u8_dma(
-        planar, plan, precision=rung, strip=True).movedim(-3, -1), ref,
-        _routed("strip", rung))
+        planar, plan, precision=rung, strip=True).movedim(-3, -1), direct,
+        _routed("strip", rung), plain)
     ref8 = fused_dma.blur_fused_u8_dma_ref(planar, plan).movedim(-3, -1)
     drive("blur_fused_u8_dma(pipelined=True)", lambda: fused_dma.blur_fused_u8_dma(
         planar, plan, pipelined=True).movedim(-3, -1), ref8,
         ["blur_fused_u8_pipelined", "assemble_padded"])
-    del ref, ref8
+    del ref, ref8, direct
     # the repaired int8 pin past the split radius: K1's int8 body alone
     k1_int8 = ("blur_fused_u8_dma", *(f.__name__ for f in wrappers.values()))
     for sigma in PIN_SIGMAS:
@@ -2424,7 +2531,10 @@ def _phase16_equal() -> dict:
                 torch.cuda.synchronize()
                 err = float((got.double() - want.double()).abs().max())
                 errs["k1a"] = max(errs["k1a"], err)
-                if not torch.equal(got, want):
+                # hybrid: tensor-core groups of 16 taps, within HYBRID_TOL /
+                # 1 count of the plain version; int8, bf16: bit-equal
+                if not (err <= (1 if out_u8 else HYBRID_TOL) if rung == "hybrid"
+                        else torch.equal(got, want)):
                     raise RuntimeError(f"K1a on caller rows ({rung}, out_u8={out_u8}) "
                                        f"differs from its plain version at sigma {sigma}")
         xf = _f32_planes(h + 2 * rh, w, seed=620 + k)
@@ -2751,7 +2861,8 @@ def _slice7(frames, want0) -> list[dict]:
     for out_u8 in (True, False):
         hold("k1a", f"K1a {rung} (out_u8={out_u8}) on A4's frame",
              fused_dma.blur_fused_u8_assembled(frame, local, rung, out_u8),
-             fused_dma.blur_fused_u8_padded_ref(frame, local, rh, rw, rung, out_u8))
+             fused_dma.blur_fused_u8_padded_ref(frame, local, rh, rw, rung, out_u8),
+             None if rung != "hybrid" else 1 if out_u8 else HYBRID_TOL)
     del frame
     meshes = {(dp, sp): make_mesh(dp=dp, sp=sp, devices=[x.device] * (dp * sp))
               for dp, sp in (*SHARD_MESHES, (1, GATHER_SP))}
@@ -3315,6 +3426,7 @@ def main() -> int:
               f"equal={equal} max_abs_err={err}", flush=True)
         if not equal:
             raise RuntimeError(f"K1 disagrees with its plain version at {(h, w, sigma)}")
+    _k1_sass()
 
     # ---- phase 3: the main path at bench.py's size ----
     _probe_counts(zero=True)  # read before phase 17: no route runs a probe
@@ -3353,12 +3465,15 @@ def main() -> int:
         err = int((out.int() - ref.int()).abs().max())
         if prec == "int8":
             max_err = max(max_err, err)
-        if not torch.equal(out, ref):
+        # int8 and bf16 bit-equal to the plain version; hybrid (tensor-core
+        # groups of 16 taps against tap-by-tap sums) within 1 count
+        if not (err <= 1 if prec == "hybrid" else torch.equal(out, ref)):
             raise RuntimeError(f"blur_u8 ({prec}) differs from the plain version by {err}")
         d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
         what = "AUTO" if auto else f"precision='{prec}'"
         print(f"phase 3 main path: blur_u8 {what} {tuple(x.shape)} sigma={SIGMA}: rung {prec}, "
-              f"{body.__name__} launches={body.launches}, equal to plain version=True, "
+              f"{body.__name__} launches={body.launches}, vs plain version max_abs_err={err} "
+              f"({'limit 1' if prec == 'hybrid' else 'equal'}), "
               f"frame 0 vs oracle max={int(d.max())} exact={float((d == 0).mean())}",
               flush=True)
         if d.max() > 1:

@@ -187,8 +187,8 @@ def test_make_frames_is_bench_make_frames_bit_for_bit():
 
 
 def test_int8_pin_runs_k1_int8_where_it_applies(monkeypatch):
-    """On the H100's spec the split runs from r 32 (with the hybrid pass 2
-    there); the ``precision="int8"`` pin still runs K1's exact int8 body
+    """On the H100's spec the uint8 split runs from r 82 (with the hybrid
+    pass 2 there); the ``precision="int8"`` pin still runs K1's exact int8 body
     wherever ``dma_form_applicable`` holds, as the JAX pin does, and equals
     what JAX ``blur_u8(..., precision="int8")`` runs there,
     ``fused_dma.blur_fused_u8_dma(..., precision="int8")`` (interpret mode),
@@ -200,8 +200,8 @@ def test_int8_pin_runs_k1_int8_where_it_applies(monkeypatch):
     spec = spec_for("NVIDIA H100 80GB HBM3", 132, 232448, 80 << 30)
     monkeypatch.setattr(api, "device_spec", lambda device: spec)
     monkeypatch.setattr(t_fused, "device_spec", lambda device: spec)
-    plan = port.make_plan((160, 200), 15.0)
-    assert plan.row.support_radius == 49
+    plan = port.make_plan((192, 256), 26.0)
+    assert plan.row.support_radius == 85
     assert t_fused._split_wins(plan, 1, "int8", "cpu")  # AUTO would split here
     calls = []
     real = api.blur_fused_u8_dma
@@ -215,11 +215,11 @@ def test_int8_pin_runs_k1_int8_where_it_applies(monkeypatch):
 
     monkeypatch.setattr(api, "blur_fused_u8_dma", k1)
     monkeypatch.setattr(t_fused, "_blur_fused_split", split)
-    img = _frames((1, 160, 200, 3), seed=12)[0]
-    got = port.blur_u8(torch.from_numpy(img), 15.0, precision="int8")
+    img = _frames((1, 192, 256, 3), seed=12)[0]
+    got = port.blur_u8(torch.from_numpy(img), 26.0, precision="int8")
     assert calls == ["int8"]
     planar = jnp.asarray(np.moveaxis(img, -1, -3))
-    want = j_dma.blur_fused_u8_dma(planar, j_make_plan((160, 200), 15.0), precision="int8")
+    want = j_dma.blur_fused_u8_dma(planar, j_make_plan((192, 256), 26.0), precision="int8")
     np.testing.assert_array_equal(got.numpy(), np.moveaxis(np.asarray(want), -3, -1))
-    blocked = np.asarray(jax_pkg.blur_u8(jnp.asarray(img), 15.0, precision="int8"))
+    blocked = np.asarray(jax_pkg.blur_u8(jnp.asarray(img), 26.0, precision="int8"))
     assert np.abs(got.numpy().astype(int) - blocked.astype(int)).max() <= 1

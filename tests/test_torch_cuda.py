@@ -335,11 +335,12 @@ def test_slice_4_paths_on_the_card_match_the_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# K1's hybrid and bf16 bodies: sums in the plain versions' ascending order,
-# so bit-equal for f32 and uint8 out. The split's hybrid pass 2 sums on the
-# tensor cores in aligned groups of 16 taps: within 2e-2 at 0..255 scale of
-# its plain version (ascending order) on the f32 store, 1 count on the
-# uint8 store, and bit-equal to itself over any tiling of the rows.
+# K1's bf16 body sums in its plain version's ascending order, so it is
+# bit-equal for f32 and uint8 out. K1's hybrid body and the split's hybrid
+# pass 2 sum on the tensor cores in aligned groups of 16 taps: within 2e-2
+# at 0..255 scale of their plain versions (ascending order) on the f32
+# store, 1 count on the uint8 store, and bit-equal to themselves over any
+# tiling of the rows (K1's: in every form).
 
 HYBRID_TOL = 2e-2
 
@@ -362,7 +363,12 @@ def test_k1_rungs_equal_plain_versions_on_the_card(cuda_device, shape, sigma, ru
         want = ref(x, plan, out_u8)
         torch.cuda.synchronize()
         assert fn.launches == before + 1
-        assert got.dtype == want.dtype and torch.equal(got, want)
+        assert got.dtype == want.dtype and got.shape == want.shape
+        if rung == "bf16":
+            assert torch.equal(got, want)
+        else:
+            d = float((got.double() - want.double()).abs().max())
+            assert d <= (1 if out_u8 else HYBRID_TOL)
 
 
 @pytest.mark.cuda
@@ -428,7 +434,11 @@ def test_auto_on_the_card_runs_the_certified_rung(cuda_device):
     planar = img.movedim(-1, -3).contiguous()
     ref = {"int8": fused_dma.blur_fused_u8_dma_ref, "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
            "bf16": fused_dma.blur_fused_u8_bf16_ref}[rung]
-    assert torch.equal(got.cpu(), from_planar(ref(planar, plan)))
+    want = from_planar(ref(planar, plan))
+    if rung == "hybrid":  # tensor-core groups of 16 taps: within 1 count
+        assert int((got.cpu().int() - want.int()).abs().max()) <= 1
+    else:
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -438,13 +448,15 @@ def test_hybrid_pin_on_the_card_matches_the_cpu(cuda_device):
     got = blur_u8(img.to(cuda_device), 4.0, precision="hybrid")
     torch.cuda.synchronize()
     assert fused_dma.blur_fused_u8_hybrid.launches == before + 1
-    assert torch.equal(got.cpu(), blur_u8(img, 4.0, precision="hybrid"))
+    # the CPU runs the plain version (taps one by one): within 1 count
+    assert int((got.cpu().int() - blur_u8(img, 4.0, precision="hybrid").int()).abs().max()) <= 1
 
 
 # ---------------------------------------------------------------------------
 # K1's staging forms (strip, assembled with A5, pipelined, resident): each
-# computes K1's function, so each equals the body's plain version and K1
-# direct bit for bit; a form that does not fit raises.
+# computes K1's function from the same terms, so each equals K1 direct bit
+# for bit, and the int8 and bf16 bodies' plain versions too (the hybrid
+# one's within 2e-2 / 1 count); a form that does not fit raises.
 
 _FORM_KW = {"strip": {"strip": True}, "assembled": {"direct": False},
             "pipelined": {"pipelined": True}, "resident": {"resident": True}}
@@ -492,7 +504,12 @@ def test_k1_forms_equal_plain_versions_on_the_card(cuda_device, shape, sigma, fo
         torch.cuda.synchronize()
         assert counter.launches == before + 1
         assert assemble.assemble_padded.launches == a5 + (form in ("assembled", "pipelined"))
-        assert torch.equal(got, want) and torch.equal(got, direct)
+        assert torch.equal(got, direct)
+        if rung == "hybrid":
+            d = float((got.double() - want.double()).abs().max())
+            assert d <= (1 if out_u8 else HYBRID_TOL)
+        else:
+            assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -568,7 +585,37 @@ def test_haloed_dma_equals_plain_version_on_the_card(cuda_device, shape, sigma, 
         assert assemble.assemble_padded_prepad.launches == a4 + 1
         assert fused_dma.blur_fused_u8_assembled.launches == k1a + 1
         want = fused_dma.blur_fused_haloed_dma(x, plan, rung, out_u8=out_u8)
-        assert torch.equal(got.cpu(), want)
+        if rung == "hybrid":  # the CPU's plain version sums tap by tap
+            d = float((got.cpu().double() - want.double()).abs().max())
+            assert d <= (1 if out_u8 else HYBRID_TOL)
+        else:
+            assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [3.0, 9.0, 50.0, 150.0])
+def test_k1_hybrid_is_tiling_invariant_on_the_card(cuda_device, sigma):
+    """K1a on caller rows at shard origins 0, 7, 135, 251, 465, 1001 (A4's
+    frame, the sharded step) is bit-equal to the same rows of K1 hybrid
+    direct over the whole frame: every output row sums its own tap groups
+    in the same order wherever its tile starts."""
+    from blur_algorithms_tpu_torch.ops.pad import reflect_101
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+
+    shape = (2160, 640)
+    plan = make_plan(shape, sigma)
+    rh = plan.col.support_radius
+    x = _planes((3, *shape), seed=48).to(cuda_device)
+    xp = reflect_101(x, [(rh, rh)], axes=[-2])
+    for out_u8 in (False, True):
+        whole = fused_dma.blur_fused_u8_hybrid(x, plan, out_u8)
+        for origin, h_loc in ((0, 135), (7, 300), (135, 135), (251, 251), (465, 465),
+                              (1001, 1159)):
+            local = _local_plan(plan, h_loc, shape[1])
+            part = xp[:, origin : origin + h_loc + 2 * rh].contiguous()
+            got = fused_dma.blur_fused_haloed_dma(part, local, "hybrid", out_u8=out_u8)
+            torch.cuda.synchronize()
+            assert torch.equal(got, whole[:, origin : origin + h_loc])
 
 
 @pytest.mark.cuda

@@ -113,7 +113,7 @@ def test_k1_loaders_plain_version_is_the_last_windows_corner(shape, sigma, form)
     i0 = (-(-h // lo.th) - 1) * lo.th
     j0 = (-(-w // lo.tw) - 1) * lo.tw
     rows = _reflect101(i0 - lo.rh + np.arange(8), h)
-    cols = _reflect101(j0 - lo.rw + np.arange(128), w)
+    cols = _reflect101(j0 - lo.rw - lo.delta + np.arange(128), w)
     want = x[:, rows][:, :, cols]
     before = dict(b3.fetch_k1.launches)
     got = b3.fetch_k1(torch.from_numpy(x), lo)
@@ -134,11 +134,13 @@ def test_k1_read_amplification_is_the_windows_over_the_tiles():
     plan = make_plan((2160, 3840), 10.0)
     lo = b3.k1_loader(plan, "direct", torch.device("cpu"))
     rows, row_bytes = lo.window
-    assert (rows, row_bytes) == (lo.th + lo.t4h, lo.tw + lo.t4w)
+    # round16(th + 2rh) rows of tw - 16 + 32 k-steps of window bytes
+    steps = -(-(lo.delta + 2 * lo.rw + 1 + 15) // 32)
+    assert (rows, row_bytes) == (-(-(lo.th + 2 * lo.rh) // 16) * 16, lo.tw - 16 + 32 * steps)
     fetched = b3.k1_bytes(2160, 3840, lo, b3.BC)
-    # 2160 / 240 and 3840 / 64 tiles exactly: (1 + t4h / th)(1 + t4w / tw)
+    # 2160 / 240 and 3840 / 64 tiles exactly: (rows / th)(row bytes / tw)
     assert fetched / (b3.BC * 2160 * 3840) == pytest.approx(
-        (1 + lo.t4h / lo.th) * (1 + lo.t4w / lo.tw))
+        (rows / lo.th) * (row_bytes / lo.tw))
 
 
 _CSRC = pathlib.Path(b3.__file__).resolve().parents[1] / "csrc"
@@ -152,19 +154,22 @@ def test_k1_loaders_probe_runs_fused_dma_cus_own_loaders():
     probe = (_CSRC / "probes" / "fetch_rate.cu").read_text()
     k1 = (_CSRC / "fused_dma.cu").read_text()
     assert '#define FUSED_DMA_LOADERS_ONLY\n#include "../fused_dma.cu"' in probe
-    for fn in ("load_rows<kHybrid>(", "convert<kHybrid>(", "issue_group("):
+    for fn in ("tc_layout(", "load_window(", "load_rect("):
         assert fn in probe
-    for own in ("int reflect101(", "void cp_async16(", "kThreads ="):
+    for own in ("int reflect101(", "void cp_async16(", "kThreads =", "TcLayout tc_layout("):
         assert own not in probe
     guard = k1.index("#ifndef FUSED_DMA_LOADERS_ONLY")
-    for fn in ("void load_rows(", "void convert(", "void issue_group(", "int reflect101("):
+    for fn in ("TcLayout tc_layout(", "void load_window(", "void load_rect(",
+               "int reflect101("):
         assert k1.index(fn) < guard
-    assert k1.index("// ---- the bodies ----") > guard
+    assert k1.index("// ---- the tensor-core bodies") > guard
     assert k1.rstrip().endswith("#endif  // FUSED_DMA_LOADERS_ONLY")
+    staging = k1[k1.index("void rows_through_stage("):k1.index("bool vec_planes(")]
+    assert "load_window(" in staging
     direct = k1[k1.index("k1_direct(K1Params p)"):k1.index("k1_strip(K1Params p)")]
-    assert "load_rows<B>(" in direct
+    assert "rows_through_stage<B>(" in direct
     assembled = k1[k1.index("k1_assembled(K1Params p)"):k1.index("k1_resident(K1Params p)")]
-    assert "issue_group(" in assembled and "convert<B>(" in assembled
+    assert "load_rect(" in assembled and "convert(" not in assembled
 
 
 def test_probe_library_is_keyed_by_the_sources_it_includes(monkeypatch):

@@ -295,9 +295,9 @@ def test_haloed_fused_feasible():
 
 
 def test_haloed_router_takes_the_split_from_the_device_split_radius(monkeypatch):
-    """Under a spec with a split radius (the H100's 32) the haloed step runs
-    the haloed split, int8-e32 for uint8 with the device's pass 2; below it
-    one kernel. The router reads ``fused_blur.device_spec``."""
+    """Under a spec with a split radius (the H100's uint8 82) the haloed
+    step runs the haloed split, int8-e32 for uint8 with the device's pass
+    2; below it one kernel. The router reads ``fused_blur.device_spec``."""
     h100 = hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448, 80 << 30)
     monkeypatch.setattr(t_fused, "device_spec", lambda device: h100)
     ran = []
@@ -306,7 +306,7 @@ def test_haloed_router_takes_the_split_from_the_device_split_radius(monkeypatch)
         real = getattr(t_split, name)
         monkeypatch.setattr(t_split, name, lambda *a, _n=name, _r=real, **k: (
             ran.append((_n, k.get("pre_padded_col", False))), _r(*a, **k))[1])
-    wide = make_plan((24, 300), 20.0)  # r 66 >= 32
+    wide = make_plan((24, 300), 26.0)  # r 85 >= 82
     x = torch.from_numpy(_shard(24, 300, wide.col.support_radius, seed=13))
     t_fused.blur_fused_haloed(x, wide, "int8", out_u8=True)
     assert ran == [("fused_split_rows_int8", False), ("fused_split_cols_hybrid", True)]

@@ -80,10 +80,11 @@ def test_assembled_forms_equal_the_jax_assembled_kernels(pipelined):
 
 RESIDENT_CASES = [
     # (h, w, sigma, th): the JAX test's cases (r 12 over 16-row steps, a
-    # ragged 200 / 48, an anisotropic plan)
+    # ragged 200 / 48, an anisotropic plan), steps a multiple of 16 rows
+    # (the tensor-core bodies' fragments)
     (96, 640, 4.0, 16),
     (200, 384, 11.0, 48),
-    (104, 896, (2.0, 13.0), 24),
+    (104, 896, (2.0, 13.0), 32),
 ]
 
 
@@ -146,25 +147,23 @@ def test_padded_ref_equals_k1_plain(rung, geometry):
 # K1r's ring walk, modelled with the kernel's index arithmetic
 
 
-def _r4(n):
-    return (n + 3) & ~3
+def _r16(n):
+    return (n + 15) & ~15
 
 
 def _resident_model(x, plan, th, tw):
     """``k1_resident``'s walk for the int8 body: per column window, the rows
-    output of padded row m at ring row m % R (rows below t4h + 4 also at
-    m % R + R), steps of th new rows, each step's cols pass reading t4h + 4
-    contiguous ring rows from (i*th + ii) % R for every 4 output rows."""
+    output of rows-output row m (image row m - rh) at ring row m % R, R =
+    round16(th + 2rh); step i computes rows up to R + i th, then its cols
+    pass reads, for output row i th + ii, the ring rows of window rows ii +
+    t in 16-row chunks from b0 = (i th) % R: chunk c at ring row (b0 + 16 c)
+    % R, contiguous (R and b0 are multiples of 16, so no chunk straddles the
+    wrap)."""
     ops = t_dma.int8_operands(plan)
     h, w = plan.shape
     rh, rw = plan.col.support_radius, plan.row.support_radius
-    t4w, t4h = _r4(2 * rw + 1), _r4(2 * rh + 1)
-    ring, mirror = th + t4h, t4h + 4
-    q_row = np.zeros(t4w, np.int64)
-    q_row[: 2 * rw + 1] = ops.q_row
-    q_col = np.zeros(t4h, np.int64)
-    q_col[: 2 * rh + 1] = ops.q_col
-    b_hi, b_lo = q_col >> 7, q_col & 127
+    ring = _r16(th + 2 * rh)
+    b_hi, b_lo = ops.q_col >> 7, ops.q_col & 127
     c1, c2, c3 = ops.epilogue_constants()
     nbh, nbw = -(-h // th), -(-w // tw)
 
@@ -177,47 +176,42 @@ def _resident_model(x, plan, th, tw):
     xc = x.astype(np.int64) - 128
     for jw in range(nbw):  # one block per column window
         j0 = jw * tw
-        cols = refl(np.arange(j0 - rw, j0 + tw + t4w), w)
-        d1 = np.full((ring + mirror, tw), -999, np.int64)
-        d0 = np.full((ring + mirror, tw), -999, np.int64)
-        m_next = 0
+        cols = refl(np.arange(j0 - rw, j0 + tw + rw), w)
+        d1 = np.full((ring, tw), -999, np.int64)
+        d0 = np.full((ring, tw), -999, np.int64)
         for i in range(nbh):
-            target = i * th + ring
-            for m in range(m_next, target):
+            r_begin = 0 if i == 0 else ring + (i - 1) * th
+            for m in range(r_begin, ring + i * th):
                 row = xc[refl(np.array(m - rh), h)][cols]
-                r = np.array([np.dot(row[c : c + t4w], q_row) for c in range(tw)])
+                r = np.array([np.dot(row[c : c + 2 * rw + 1], ops.q_row) for c in range(tw)])
                 e = (r + (1 << (ops.rows_shift - 1))) >> ops.rows_shift
                 e1 = (e + 64) >> 7
-                p = m % ring
-                d1[p], d0[p] = e1, e - e1 * 128
-                if p < mirror:
-                    d1[p + ring], d0[p + ring] = e1, e - e1 * 128
-            m_next = target
+                d1[m % ring], d0[m % ring] = e1, e - e1 * 128
             b0 = (i * th) % ring
-            for ii in range(0, th, 4):
-                pos = b0 + ii
-                pos = pos - ring if pos >= ring else pos
-                for u in range(4):
-                    gi = i * th + ii + u
-                    if gi >= h:
-                        break
-                    s1 = d1[pos + u : pos + u + t4h]
-                    s0 = d0[pos + u : pos + u + t4h]
-                    assert (s1 != -999).all()
-                    p1 = b_hi @ s1
-                    p23 = b_hi @ s0 + b_lo @ s1
-                    p4 = b_lo @ s0
-                    y = (np.float32(p1) * c1 + np.float32(p23) * c2) + np.float32(p4) * c3
-                    y = np.float32(y) + np.float32(128.0)
-                    v = np.clip(y + np.float32(0.5), 0, 255.5).astype(np.int32)
-                    keep = j0 + np.arange(tw) < w
-                    out[gi, j0 : j0 + tw][: keep.sum()] = v[keep].astype(np.uint8)
+            assert b0 % 16 == 0 and ring % 16 == 0
+            for ii in range(th):
+                gi = i * th + ii
+                if gi >= h:
+                    break
+                offs = ii + np.arange(2 * rh + 1)
+                rows = (b0 + offs // 16 * 16) % ring + offs % 16
+                assert (rows < ring).all()
+                s1, s0 = d1[rows], d0[rows]
+                assert (s1 != -999).all()
+                p1 = b_hi @ s1
+                p23 = b_hi @ s0 + b_lo @ s1
+                p4 = b_lo @ s0
+                y = (np.float32(p1) * c1 + np.float32(p23) * c2) + np.float32(p4) * c3
+                y = np.float32(y) + np.float32(128.0)
+                v = np.clip(y + np.float32(0.5), 0, 255.5).astype(np.int32)
+                keep = j0 + np.arange(tw) < w
+                out[gi, j0 : j0 + tw][: keep.sum()] = v[keep].astype(np.uint8)
     return out
 
 
 @pytest.mark.parametrize("h, w, sigma, th, tw", [
     (70, 100, 3.0, 16, 32),  # w % tw = 4: the last window is rows-passed whole
-    (45, 70, (4.0, 2.0), 8, 32),  # th < t4h: the ring wraps inside a cols read
+    (45, 70, (4.0, 2.0), 16, 32),  # th < 2rh: the ring wraps inside a cols read
 ])
 def test_resident_ring_model_equals_k1_plain(h, w, sigma, th, tw):
     plan = make_plan((h, w), sigma)
@@ -226,6 +220,8 @@ def test_resident_ring_model_equals_k1_plain(h, w, sigma, th, tw):
     np.testing.assert_array_equal(_resident_model(x[0], plan, th, tw), want)
     geo = t_dma.k1_geometry("resident", "int8", plan, 1, (th, tw))
     assert -(-w // geo.tw) * geo.tw >= w  # the launch covers every column
+    assert t_dma.tc_layout("resident", "int8", th, tw, plan.col.support_radius,
+                           plan.row.support_radius).rows == _r16(th + 2 * plan.col.support_radius)
 
 
 # ---------------------------------------------------------------------------
@@ -291,14 +287,23 @@ def test_geometry_sized_by_the_device(monkeypatch):
 
 
 def test_layout_matches_the_kernels_formula():
-    """``layout_bytes`` is ``make_layout`` of ``csrc/fused_dma.cu``: the
-    direct form at the old tile policy's shapes (41,808 bytes at 4K r 32)."""
+    """``layout_bytes`` is ``tc_layout`` of ``csrc/fused_dma.cu``: the int8
+    direct form at 4K r 32 (240 x 64 tiles): the digit planes of 336 rows
+    (the cols pass's fragments read 256 - 16 + 3 k-steps of 32), two staged
+    groups of 64 rows of 144 window bytes (3 k-steps of 32 past 48), and the
+    host's tap tables: a 16-byte header (128 Q) and the two digits' four tap
+    copies of 40 words (8 a step, 4 more, = 8 mod 32) an axis: 64,016
+    bytes."""
     plan = make_plan((2160, 3840), 10.0)
     geo = t_dma.k1_geometry("direct", "int8", plan, 12)
     assert (geo.th, geo.tw) == (240, 64)
-    t4 = 68
-    cs = 240 + t4 + 4 if ((240 + t4) >> 2) % 2 == 0 else 240 + t4
-    assert geo.smem == 2 * t4 + 2 * t4 + 2 * 64 * cs + 16 * (64 + t4)
+    plane, stage, taps = 2 * 64 * 336, 2 * 64 * 144, 16 + 4 * 8 * 40 * 2
+    assert geo.smem == plane + stage + taps == 64016
+    assert t_dma.tc_tables(plan, "int8", False).numel() * 4 == taps
+    hyb = t_dma.k1_geometry("direct", "hybrid", plan, 12)
+    # bf16 y of 256 + 16 * 5 rows at 144 bytes a row, the header, one tap
+    # copy table and 5 + 14 tap groups of 12 words
+    assert hyb.smem == 336 * 144 + stage + 16 + 4 * 8 * 40 + 4 * 12 * 19 == 69024
 
 
 # ---------------------------------------------------------------------------
@@ -412,13 +417,15 @@ def test_the_cpu_spec_runs_k1_direct():
     (15.0, 12, "int8", "direct"),  # r 49
     (30.0, 12, "hybrid", "resident"),  # r 99
     (100.0, 12, "int8", "resident"),  # r 332
-    (100.0, 12, "hybrid", "direct"),
-    (30.0, 3, "int8", "assembled"),  # r 99 on 3 planes
-    (50.0, 3, "hybrid", "resident"),  # r 165
+    (100.0, 12, "hybrid", "resident"),
+    (75.0, 3, "int8", "assembled"),  # r 248 on 3 planes
+    (100.0, 3, "hybrid", "resident"),  # r 332
     (100.0, 6, "int8", "resident"),  # r 332 on 6 planes
-    (30.0, 9, "hybrid", "resident"),  # 9 planes: the 6-plane row
+    (20.0, 9, "hybrid", "resident"),  # 9 planes: the 6-plane row, r 65
+    (30.0, 9, "hybrid", "direct"),  # ... r 99, back to direct there
     (10.0, 1, "hybrid", "direct"),  # fewer planes than any row
-    (180.0, 12, "int8", "assembled"),  # r 598
+    (180.0, 12, "int8", "resident"),  # r 598
+    (75.0, 3, "hybrid", "assembled"),  # r 248
 ])
 def test_the_h100_rule(monkeypatch, sigma, planes, rung, want):
     spec = hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448, 80 << 30)
@@ -443,3 +450,91 @@ def test_auto_through_the_api_keeps_its_result(monkeypatch):
     _route(monkeypatch, k1_forms=_rows(((1, _RES),)))
     assert torch.equal(blur_u8(img, 4.0), base)
     assert api._u8_dma_precision(make_plan((48, 160), 4.0), hw.device_spec("cpu")) == "int8"
+
+
+# ---------------------------------------------------------------------------
+# the uint8 split radius, AUTO's rung and the route floor on the H100's spec
+
+
+def _h100(monkeypatch):
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+
+    spec = hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448, 80 << 30)
+    for mod in (api, fused_blur, t_dma):
+        monkeypatch.setattr(mod, "device_spec", lambda device: spec)
+    return spec
+
+
+def test_uint8_has_its_own_split_radius(monkeypatch):
+    """On the H100's spec K1's uint8 path splits from r 82 (the phase 13
+    uint8 sweep from r 1), the float path from r 32; K2's uint8 path (the
+    bf16x3 rung) keeps the float radius; an unmeasured device has no uint8
+    entry and splits uint8 where it splits float."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+
+    assert hw.device_spec("cpu").fused_split_min_radius_u8 is None
+    spec = _h100(monkeypatch)
+    assert (spec.fused_split_min_radius_u8, spec.fused_split_min_radius) == (82, 32)
+    r65, r82 = make_plan((2160, 3840), 20.0), make_plan((2160, 3840), 25.0)
+    assert (r65.row.support_radius, r82.row.support_radius) == (65, 82)
+    assert not fused_blur._split_wins(r65, 1, "int8", "cpu")
+    assert fused_blur._split_wins(r82, 1, "int8", "cpu")
+    assert fused_blur._split_wins(r65, 4, "bf16x3", "cpu")  # float: from r 32
+    assert fused_blur._split_wins(r65, 1, "bf16x3", "cpu")  # K2's uint8 path too
+    other = dataclasses.replace(spec, fused_split_min_radius_u8=None)
+    monkeypatch.setattr(fused_blur, "device_spec", lambda device: other)
+    assert fused_blur._split_wins(r65, 1, "int8", "cpu")
+
+
+@pytest.mark.parametrize("sigma, want", [
+    (10.0, ["hybrid"]),  # r 32: K1's hybrid body, no split
+    (26.0, ["split"]),  # r 85: past the uint8 split radius
+])
+def test_auto_runs_k1_hybrid_under_the_uint8_split_radius(monkeypatch, sigma, want):
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+
+    _h100(monkeypatch)
+    ran = []
+    real_k1, real_split = t_dma.blur_fused_u8_dma, fused_blur._blur_fused_split
+
+    def k1(*args, **kw):
+        ran.append(kw.get("precision", "int8"))
+        return real_k1(*args, **kw)
+
+    def split(*args, **kw):
+        ran.append("split")
+        return real_split(*args, **kw)
+
+    monkeypatch.setattr(t_dma, "blur_fused_u8_dma", k1)
+    monkeypatch.setattr(api, "blur_fused_u8_dma", k1)
+    monkeypatch.setattr(fused_blur, "_blur_fused_split", split)
+    img = torch.from_numpy(np.moveaxis(_frames((192, 256), seed=13), 0, -1).copy())
+    plan = make_plan((192, 256), sigma)
+    assert api._u8_dma_precision(plan, hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448,
+                                                   80 << 30)) == "hybrid"
+    got = blur_u8(img, sigma)
+    assert ran == want
+    if want == ["hybrid"]:
+        assert torch.equal(got, from_planar(_plain(img.movedim(-1, -3).contiguous(), plan,
+                                                   "hybrid")))
+
+
+def test_route_floor_counts_only_the_radii_k1_runs_at():
+    """The route section's floor for a rung reads K1's times under the
+    device's uint8 split radius (the record's ``k1_ceiling``) only: past it
+    AUTO runs the split. The H100's times in turns: hybrid faster than int8
+    to r 64, slower at r 104, 331 and 597."""
+    from blur_algorithms_tpu_torch import certify
+
+    k1 = {7: (6, 0.3686, 0.3297), 33: (32, 0.5192, 0.4412), 65: (64, 0.6999, 0.6662),
+          105: (104, 1.0450, 1.1212), 332: (331, 4.9113, 5.0410),
+          598: (597, 20.2976, 31.5824)}
+    route = {"k1": {rt: {"radius": r, "int8": a, "hybrid": b} for rt, (r, a, b) in k1.items()},
+             "split": {831: {"radius": 831, "int8": 2.29, "hybrid": 1.40}}}
+    assert certify.entry({"route": {**route, "k1_ceiling": None}}) == {
+        "hybrid_route_min_radius": None}
+    assert certify.entry({"route": {**route, "k1_ceiling": 82}}) == {
+        "hybrid_route_min_radius": 0}
+    assert certify.k1_ceiling(hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448,
+                                          80 << 30)) == 82
+    assert certify.k1_ceiling(hw.device_spec("cpu")) is None

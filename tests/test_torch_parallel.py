@@ -182,12 +182,12 @@ def test_wide_radius_reroutes_to_the_fft(jax_dma, monkeypatch):
     assert np.abs(got.numpy().astype(int) - want.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("sigma, route", [(3.0, "k1a hybrid"), (20.0, "split")])
+@pytest.mark.parametrize("sigma, route", [(3.0, "k1a hybrid"), (26.0, "split")])
 def test_shards_route_as_one_device_does(monkeypatch, sigma, route):
     """Under the H100 spec a uint8 shard takes the kernel ``blur_fused_u8``
-    takes on one device: the haloed split from the card's split radius (r
-    66 >= 49; the JAX path would take its DMA form there), K1a with the
-    certified hybrid rung below it (r 9). The result equals the
+    takes on one device: the haloed split from the card's uint8 split
+    radius (r 85 >= 82; the JAX path would take its DMA form there), K1a
+    with the certified hybrid rung below it (r 9). The result equals the
     single-device fused engine's under the same spec."""
     h100 = hw.spec_for("NVIDIA H100 80GB HBM3", 132, 232448, 80 << 30)
     for mod in (t_sharded, t_fused):
@@ -197,8 +197,8 @@ def test_shards_route_as_one_device_does(monkeypatch, sigma, route):
         real = getattr(mod, name)
         monkeypatch.setattr(mod, name, lambda *a, _n=name, _r=real, **k: (
             ran.append((_n, k.get("precision", a[2] if len(a) > 2 else None))), _r(*a, **k))[1])
-    img = _u8((2, 96, 160, 3), seed=21)
-    plan = make_plan((96, 160), sigma)
+    img = _u8((2, 96, 192, 3), seed=21)
+    plan = make_plan((96, 192), sigma)
     got = t_sharded.blur_sharded_u8(torch.from_numpy(img), plan, _t_mesh(1, 2))
     want = t_fused.blur_fused_u8(torch.from_numpy(img).movedim(-1, -3).contiguous(), plan,
                                  api._u8_dma_precision(plan, h100))
