@@ -8,10 +8,20 @@ The port of the JAX package's ``pallas_kernels/fused_blur.py``:
   on a CPU tensor. K2 replaces the Pallas kernel ``_kernel`` on its bf16x3
   branch (and K1's ``_tile_bf16x3`` body, which has the same numerics): f32
   or uint8 planes in, f32 or uint8 out, any odd taps per axis, support
-  radius 0..600 per axis. The TPU emulates f32 with hi/lo bfloat16 split
-  dots; K2 accumulates in plain f32 with one fused multiply-add per tap,
-  and the plain version reproduces that rounding (an exact float64 product
-  and sum, rounded to f32 after every tap).
+  radius 0..600 per axis. The TPU runs each pass as a band matrix product
+  in hi/lo bfloat16 split dots; K2 runs it as a band product on the H100's
+  TF32 tensor cores in hi/lo tf32 halves (3xTF32: ``hi Thi + hi Tlo + lo
+  Thi``, two products for uint8 input, which is exact in tf32), about 21
+  bits a product. The band tables ``Thi`` / ``Tlo`` are split once on the
+  host (``tc_table``, cached per plan by ``_device_tables``), laid out as
+  the kernel reads them. The plain version ``blur_fused_f32_ref`` rounds
+  tap by tap in ascending order (an exact float64 product and sum, rounded
+  to f32 after every tap) and stays the kernels' reference: they agree
+  within ``1e-3 * max|x| / 255`` (f32) and 1 count (uint8).
+  ``blur_fused_f32_tc_model`` is a plain model of the kernels' 3xTF32
+  arithmetic (tf32 rounding by bit arithmetic, the same tables, each
+  output's products summed in float64 and rounded once to f32), which the
+  CPU tests hold against the reference and the JAX kernel; no route runs it.
 - ``blur_fused`` is the differentiable float entry (a
   ``torch.autograd.Function``: forward K2, backward ``ops.adjoint.
   blur_adjoint``), the counterpart of the JAX ``custom_vjp``
@@ -27,7 +37,8 @@ The port of the JAX package's ``pallas_kernels/fused_blur.py``:
   (``cuda_kernels/fused_split.py``); otherwise pass 1 is the int8 rows
   form with an f32 result, or the f32 single-axis form, and pass 2 the f32
   single-axis form (``blur_fused_axis_f32``, K2's wide form in
-  ``csrc/fused_blur.cu``). ``blur_fused`` and ``blur_fused_u8`` take the
+  ``csrc/fused_blur.cu``, the same 3xTF32 band product with its window
+  streamed in chunks). ``blur_fused`` and ``blur_fused_u8`` take the
   split past ``MAX_RADIUS`` and, where the device measured it faster, from
   ``DeviceSpec.fused_split_min_radius`` (``fused_split_min_radius_u8`` on
   K1's uint8 path); it reaches ``SPLIT_MAX_RADIUS``.
@@ -62,6 +73,7 @@ __all__ = [
     "blur_fused_axis_f32",
     "blur_fused_f32",
     "blur_fused_f32_ref",
+    "blur_fused_f32_tc_model",
     "blur_fused_haloed",
     "blur_fused_u8",
     "e32_split_applicable",
@@ -70,6 +82,7 @@ __all__ = [
     "pick_int8_scale",
     "split_feasible",
     "split_hbm_bytes",
+    "tc_table",
 ]
 
 # Largest support radius K2 serves per axis: the JAX single-kernel DMA
@@ -204,7 +217,7 @@ def _correlate_ref(x: torch.Tensor, taps: np.ndarray, axis: int,
 
     In float32 every tap is one fused multiply-add: the product of two
     float32 values is exact in float64, so the float64 sum rounded to
-    float32 is K2's ``fmaf`` (but for a rare double rounding, one ulp). A
+    float32 is one ``fmaf`` (but for a rare double rounding, one ulp). A
     radius-0 axis is skipped (a copy)."""
     r = (int(taps.shape[0]) - 1) // 2
     if r == 0:
@@ -243,12 +256,92 @@ def blur_fused_f32_ref(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = Fals
     return y.reshape(*planar.shape[:-2], *plan.shape)
 
 
+# ---------------------------------------------------------------------------
+# the kernels' 3xTF32 band tables, and a plain model of their arithmetic
+
+
+def band_steps(r: int) -> int:
+    """k-steps of 8 window positions that cover a radius-r band for 8
+    consecutive outputs (``csrc/fused_blur.cu:band_steps``)."""
+    return (2 * r + 15) // 8
+
+
+def _tf32_bits(bits):
+    """float32 bit patterns (int32) -> those of the nearest tf32 value, ties
+    away from zero (``cvt.rna.tf32.f32`` on a finite value): add half of the
+    13 dropped mantissa bits' range to the magnitude, then clear them."""
+    return (bits + 0x1000) & -0x2000
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    return _tf32_bits(x.to(torch.float32).contiguous().view(torch.int32)).view(torch.float32)
+
+
+def tc_table(taps: np.ndarray) -> np.ndarray:
+    """The band table of one axis's ``2r + 1`` taps as the kernels read it:
+    ``Thi`` then ``Tlo``, ``8 S + 8`` float32 values each (``S =
+    band_steps(r)``), tap ``t`` at ``7 + t`` and zeros elsewhere; ``Thi``
+    is the tf32 rounding of the f32 tap, ``Tlo`` that of the remainder
+    (``Thi + Tlo`` is the tap to 2^-23 of it). The lane ``(g, tig)`` of a
+    warp reads the band entries ``B[tig][g]`` and ``B[tig + 4][g]`` of step
+    ``s`` at ``7 + 8 s + tig - g`` and 4 past it."""
+    t = np.asarray(taps, np.float32)
+    r = (t.shape[0] - 1) // 2
+    n = 8 * band_steps(r) + 8
+    hi = _tf32_bits(t.view(np.int32)).view(np.float32)
+    lo = _tf32_bits((t - hi).view(np.int32)).view(np.float32)
+    table = np.zeros(2 * n, np.float32)
+    table[7 : 8 + 2 * r] = hi
+    table[n + 7 : n + 8 + 2 * r] = lo
+    return table
+
+
 @functools.lru_cache(maxsize=64)
-def _device_taps(plan: BlurPlan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    return tuple(
-        torch.from_numpy(np.array(t, dtype=np.float32)).to(device)
-        for t in (plan.row.taps, plan.col.taps)
-    )
+def _device_tables(plan: BlurPlan, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """``tc_table`` of the row and column taps on ``device``."""
+    return tuple(torch.from_numpy(tc_table(t)).to(device)
+                 for t in (plan.row.taps, plan.col.taps))
+
+
+def _correlate_tc(x: torch.Tensor, taps: np.ndarray, axis: int,
+                  padded: bool) -> torch.Tensor:
+    """One pass of the kernels' arithmetic: the reflect-101 (or pre-padded)
+    window split into tf32 halves, the 3xTF32 products with ``tc_table``'s
+    halves summed in float64 and rounded to f32 once; radius 0 a copy."""
+    r = (int(taps.shape[0]) - 1) // 2
+    if r == 0:
+        return x.to(torch.float32)
+    axis %= x.ndim
+    n = x.shape[axis] - (2 * r if padded else 0)
+    xp = (x if padded else reflect_101(x, [(r, r)], axes=[axis])).to(torch.float32)
+    hi = _tf32(xp)
+    lo = _tf32(xp - hi)
+    hi, lo = hi.to(torch.float64), lo.to(torch.float64)
+    table = tc_table(taps).astype(np.float64)
+    m = table.shape[0] // 2
+    acc = torch.zeros((*x.shape[:axis], n, *x.shape[axis + 1:]), dtype=torch.float64,
+                      device=x.device)
+    for t in range(2 * r + 1):
+        th, tl = float(table[7 + t]), float(table[m + 7 + t])
+        acc += hi.narrow(axis, t, n) * (th + tl) + lo.narrow(axis, t, n) * th
+    return acc.to(torch.float32)
+
+
+def blur_fused_f32_tc_model(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
+                            pre_padded_col: bool = False) -> torch.Tensor:
+    """A plain model of the kernels' 3xTF32 arithmetic, for tests: as
+    ``blur_fused_f32_ref`` (float32 or uint8 in, float32 or uint8 out,
+    ``pre_padded_col``), each pass ``hi Thi + hi Tlo + lo Thi`` over
+    ``tc_table``'s halves, summed exactly and rounded to f32 once per
+    output. The tensor core's own order and rounding of each k-step's sum
+    are not modelled (about one f32 rounding per step)."""
+    _check_planes(planar, plan, pre_padded_col)
+    x = planar.reshape(-1, *planar.shape[-2:])
+    y = _correlate_tc(x, plan.row.taps, -1, False)
+    y = _correlate_tc(y, plan.col.taps, -2, pre_padded_col)
+    if out_u8:
+        y = _store_u8(y)
+    return y.reshape(*planar.shape[:-2], *plan.shape)
 
 
 def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
@@ -260,7 +353,8 @@ def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
     rows are the caller's halo rows (another shard's rows,
     ``parallel/sharded.py``); the kernel reads them as they are and reflects
     only the columns (the JAX ``pre_padded_col``). A CUDA tensor launches the
-    kernel of ``csrc/fused_blur.cu``; a CPU tensor runs the plain version. A
+    kernel of ``csrc/fused_blur.cu`` (3xTF32 band products on the tensor
+    cores, over ``tc_table``'s tables); a CPU tensor runs the plain version. A
     plan with one radius-0 axis past ``MAX_RADIUS`` runs the single-axis wide
     form (``blur_fused_axis_f32``). Any other device, a non-contiguous or
     float64 CUDA tensor, or two axes past ``MAX_RADIUS`` raises.
@@ -278,7 +372,7 @@ def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
     out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
     if x.shape[0]:
-        taps_row, taps_col = _device_taps(plan, x.device)
+        taps_row, taps_col = _device_tables(plan, x.device)
         lib = load_library()
         with torch.cuda.device(x.device):
             rc = lib.blur_fused_f32(
@@ -341,7 +435,7 @@ def blur_fused_axis_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = Fal
     out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
                       device=x.device)
     if x.shape[0]:
-        taps = _device_taps(plan, x.device)[0 if rw else 1]
+        taps = _device_tables(plan, x.device)[0 if rw else 1]
         lib = load_library()
         with torch.cuda.device(x.device):
             rc = lib.blur_fused_axis_f32(

@@ -41,8 +41,8 @@ CPU_SPLIT_HBM_BUDGET = 4 << 30
 # H100 80GB HBM3 at 700 W, the radix-32 K3f against the split on the tensor
 # cores: the uint8 split won at every swept radius, 5.3140 vs FFT_MXU 6.1319
 # ms at r 1830 and 5.5449 vs 6.1203 at r 1920, the largest radius of a plan
-# on 3840 columns (past it unmeasured); float split 2.7900 vs 3.0290 ms at
-# r 119, 3.9247 vs 3.1300 at r 165.
+# on 3840 columns (past it unmeasured); the float split on 3xTF32 tensor
+# cores 2.3999 vs 3.0173 ms at r 119, 3.3431 vs 3.0985 at r 165.
 _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
     "NVIDIA H100 80GB HBM3": (1920, 119),
 }
@@ -53,8 +53,8 @@ _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
 # 13 sweep at batch 4 RGB 2160x3840 (PERF.md, "Routing sweeps"), K1 on its
 # AUTO rung and form. NVIDIA H100 80GB HBM3 at 700 W, K1 on the tensor
 # cores: uint8 K1 0.8681 vs K4 1.8618 ms at support 32, 1.2383 vs 1.8037 at
-# 82, 2.0107 vs 1.7546 at 164 (uint8 alone would take K1 to 82); float K2
-# 1.3010 vs 1.4914 at 32, 4.2248 vs 1.5637 at 82.
+# 82, 2.0107 vs 1.7546 at 164 (uint8 alone would take K1 to 82); float K2 on
+# 3xTF32 tensor cores 1.1395 vs 1.4847 at 32, 4.1107 vs 1.5369 at 82.
 _MEASURED_BOX_SCAN: dict[str, int] = {
     "NVIDIA H100 80GB HBM3": 32,
 }
@@ -62,13 +62,13 @@ _MEASURED_BOX_SCAN: dict[str, int] = {
 # Smallest swept support radius from which the two-pass split is faster
 # than the single fused kernel at every swept radius, for float (and for
 # uint8 where the device has no entry of its own below), by device name:
-# the chip_smoke.py phase 13 sweep (r 32..332), K2 against the f32 split
-# (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W: f32 split
-# 1.2610 vs K2 1.2698 ms at r 32, 1.4983 vs 2.5407 at r 49 (and 1.2270 vs
-# K2 1.0693 at r 24, probes/split_radius.py). Absent: the split runs past
-# 600 only.
+# the chip_smoke.py phase 13 sweep (r 2..332), K2 against the f32 split
+# (PERF.md, "Routing sweeps"). NVIDIA H100 80GB HBM3 at 700 W, both on
+# 3xTF32 tensor cores: K2 0.7417 vs the f32 split 0.7770 ms at r 15, 0.8987
+# vs 0.8245 at r 19, 1.1495 vs 0.9986 at r 32, 1.8237 vs 1.2825 at r 49.
+# Absent: the split runs past 600 only.
 _MEASURED_SPLIT_MIN: dict[str, int] = {
-    "NVIDIA H100 80GB HBM3": 32,
+    "NVIDIA H100 80GB HBM3": 19,
 }
 
 # The same for K1's uint8 path alone (the int8, hybrid and bf16 rungs),

@@ -4,6 +4,10 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
 
 1. prints the card (``nvidia-smi`` name and power limit), then builds the
    CUDA kernels from ``blur_algorithms_tpu_torch/csrc`` and prints the time;
+   then K2's and its single-axis form's 12 instantiations in the built
+   library's SASS (``cuobjdump -sass``): HMMA, their 3xTF32 band products,
+   in each, and fewer FFMA than HMMA (no per-tap FMA loop), with ptxas's
+   registers and spills;
 2. kernel vs plain version: K1 (the fused int8 blur) against its plain
    PyTorch version on the card, uint8 RGB 1080x1920 frames at
    sigma 1, 3, 10, 50, 150 and 180 (support radius up to 598), an
@@ -26,7 +30,8 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    count;
 4. times from CUDA events (median of 20 after warm-up): K1 alone, the plain
    version, and the whole ``blur_u8`` AUTO with its layout copies;
-5. K2 (the fused f32 blur) against its plain version on the card: f32
+5. K2 (the fused f32 blur, 3xTF32 band products on the tensor cores)
+   against its plain version (one fmaf a tap) on the card: f32
    planes 1080x1920 at sigma 1, 10, 50 and 180 (r up to 598), sigma
    (5, 11), a radius-0 row axis, asymmetric custom taps on both axes, a
    ragged 1001x1777 frame, and uint8 in / uint8 out with a signed sharpen
@@ -42,8 +47,10 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    launches K2, not K1, within 1 count of the plain version;
 7. times from CUDA events (median of 20): K2 alone, its plain version,
    ``blur`` forward, forward + backward, the uint8 ``convolve_separable``,
-   and a yardstick the port never calls (reflect pad + two depthwise
-   ``F.conv2d``, TF32 off);
+   a yardstick the port never calls (reflect pad + two depthwise
+   ``F.conv2d``, TF32 off), the f32 split's two passes (K2's single-axis
+   form at r 32) and the bounds (an earlier source's kernels are timed
+   against these in turns by ``probes/k2_variants.py --earlier``);
 8. K3 (FFT convolution of framed rows) at n 256, 2048, 6144, 7168, 8192
    and 16384, K3f (the same with the framing in the kernel) at n 4096,
    5120, 6144 and 7168 (the main path's lengths), symmetric and asymmetric
@@ -76,7 +83,8 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    axes, uint8 and f32 in and out; the int8 split forms (rows to int16 E,
    rows to f32, cols from E to uint8 and f32) at r 2..1996, bit-equal; K2's single-axis form
    at r up to 3994 on both axes, f32 and uint8 in; each against its plain
-   version on the card;
+   version on the card (the single-axis form against its float64 mode:
+   the f32 mode's own rounding reaches the limit at r 3994);
 12. the slice's paths at full width, counts set to 0 first: ``box_blur`` at
    nsmooth 20 (support 800) on the uint8 batch runs K4 twice and no K1,
    frame 0 within 1 count of the float64 box oracle; on the float batch
@@ -105,7 +113,7 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    ``utils/hw.py``'s ``box_scan_crossover_radius`` (box on the fused engine
    against K4 at support 2..338), ``fused_split_min_radius_u8`` (the int8
    split against K1 from r 1, gaussian r 1..332 and box support 2..338) and
-   ``fused_split_min_radius`` (the f32 split against K2 at r 32..332; and
+   ``fused_split_min_radius`` (the f32 split against K2 at r 2..332; and
    the split against FFT_MXU at r 665..1330, for the record), K1 on the
    rung and in the form AUTO routes;
 14. K1's hybrid and bf16 bodies against their plain versions as phase 2,
@@ -150,7 +158,8 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    and bf16, uint8 and f32 out), K2 with ``pre_padded_col`` (2-D at r
    2..598; single-axis at column radius 960 and 3994) and the split's int8
    and hybrid pass 2 on pre-padded ``E`` against their plain versions
-   (bit-equal; K2 within phase 5's tolerances, the hybrid pass 2 within
+   (bit-equal; K2 within phase 5's tolerances, the single-axis form against
+   the plain version in float64 as in phase 11, the hybrid pass 2 within
    phase 14's); then at full width, counts
    set to 0 before each call: ``blur_sharded_u8`` at sigma 9 (r 29, under
    the card's split radius) on dp 2 x sp 2 and dp 1 x sp 4 (A4 and K1a once
@@ -159,15 +168,16 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    (the multi-hop gather) and on a 1001-row crop on sp 4 at sigma 9 (the
    pad-row fill), each ``torch.equal`` to single-card ``blur_u8`` on the
    same rung; ``blur_sharded`` uint8 -> f32 (K1a's int8 f32 store, equal to
-   K1 int8's plain version), and on the float batch at sigma 9 (K2
-   pre-padded) and 50 (the haloed f32 split, the card's float crossover
-   raised to r 165 for the call) against single-card ``blur``;
+   K1 int8's plain version), and on the float batch at sigma 5 (r 15: K2
+   pre-padded, as AUTO routes it under the card's float split radius) and
+   50 (the haloed f32 split, the card's float crossover raised to r 165 for
+   the call) against single-card ``blur``;
    ``blur_sharded_u8`` at sigma 155 with the card's uint8 crossover
    lowered to 165 rerouted to ``blur_fft_sharded`` (no kernel),
    ``blur_fft_sharded_u8`` at sigma 250, both within 1 count of the
    oracle; the haloed int8 split (hybrid, then int8 pass 2) at sigma 250
    under the card's crossover; times of each kernel on a dp 2
-   x sp 2 shard at sigma 9, the plain versions, the ``F.pad`` and ``conv2d``
+   x sp 2 shard at sigma 9 (K2 pre-padded at 5), the plain versions, the ``F.pad`` and ``conv2d``
    yardsticks, the sharded calls against the single-card ones in turns,
    and ``blur_sharded_u8``'s time in parts;
 17. the probes B1-B3 (the JAX package's ``benchmarks/`` kernels; their
@@ -221,6 +231,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor-core rate
+TF32_FLOP_PER_S = 495e12  # H100 SXM dense TF32 tensor-core rate
 HD, RAGGED = (1080, 1920), (1001, 1777)  # phase 5 frame shapes
 SHARPEN5 = [-0.125, -0.25, 1.75, -0.25, -0.125]  # signed, sums to 1
 SIGMA_U8_WIDE, SIGMA_F32_WIDE = 250.0, 400.0  # phase 9: r 831 and r 1330
@@ -238,10 +249,12 @@ BOX_NSMOOTH = 20.0  # phase 12: box_blur radius 400, support radius 800
 PANO_H, PANO_W = 2160, 15360  # phase 12: a panorama FFT_MXU cannot serve
 SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
 # phase 13 sweeps: box radius per pass (2 passes: support 2..338), and the
-# split against the single kernels (r 32, 49, 65, 82, 119, 165, 212, 265,
-# 332) and against FFT_MXU (r 665, 831, 1330)
+# split against the single kernels (r 2, 4, 7, 10, 12, 15, 19, 24, 29, 32,
+# 49, 65, 82, 119, 165, 212, 265, 332) and against FFT_MXU (r 665, 831,
+# 1330)
 BOX_SWEEP_R = (1, 4, 16, 41, 82, 169)
-SPLIT_SWEEP_SIGMAS = (10.0, 15.0, 20.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0)
+SPLIT_SWEEP_SIGMAS = (1.0, 1.5, 2.5, 3.5, 4.0, 5.0, 6.0, 7.5, 9.0, 10.0, 15.0, 20.0, 25.0,
+                      36.0, 50.0, 64.0, 80.0, 100.0)
 # phase 13's uint8 split sweep from r 1: gaussian r 1..332, box support 2..338
 U8_SPLIT_SIGMAS = (0.6, 1.0, 2.1, 3.0, 5.1, 7.0, 10.0, 15.0, 20.0, 25.0, 30.0, 36.0, 50.0,
                    100.0)
@@ -451,13 +464,28 @@ def _slice2(frames, make_plan, oracle, fused_blur, fused_dma, timing) -> dict:
                                megapixels=mp)
     finally:
         torch.backends.cudnn.allow_tf32 = prev
-    for res in (k2, plain, fwd, both, conv, lib):
+    # the f32 split's two passes at sigma 10 (K2's single-axis form), what
+    # blur AUTO runs where the card's split radius covers r 32
+    rows10, cols10 = fused_blur._split_plans(plan)
+    y10 = fused_blur.blur_fused_axis_f32(x, rows10)
+    passes = {"rows": timing.time_cuda(fused_blur.blur_fused_axis_f32, x, rows10, iters=ITERS,
+                                       name=f"K2 single-axis rows pass r={rw}", megapixels=mp),
+              "cols": timing.time_cuda(fused_blur.blur_fused_axis_f32, y10, cols10,
+                                       iters=ITERS, name=f"K2 single-axis cols pass r={rh}",
+                                       megapixels=mp)}
+    for res in (k2, plain, fwd, both, conv, lib, *passes.values()):
         print(f"phase 7 time: {res}", flush=True)
     print(f"phase 7 yardstick vs blur: max_abs_err={lib_err:.3e}", flush=True)
 
     outputs = x.numel()
-    bound, by = _bound_ms(
-        8 * outputs, 2 * outputs * (2 * rw + 1 + 2 * rh + 1), F32_FLOP_PER_S)
+    bound, by = _bound_ms(8 * outputs, outputs * (_band_flop(rw) + _band_flop(rh)),
+                          TF32_FLOP_PER_S)
+    b_pass = _bound_ms(8 * outputs, outputs * _band_flop(rw), TF32_FLOP_PER_S)
+    print(f"phase 7 bounds (ms): K2 {bound:.4f} ({by}), a single-axis pass at r {rw} "
+          f"{b_pass[0]:.4f} ({b_pass[1]}); the earlier f32 bound of K2 (one fmaf a tap at 67 "
+          f"TFLOP/s) {_bound_ms(8 * outputs, 2 * outputs * (2 * rw + 2 * rh + 2), F32_FLOP_PER_S)[0]:.4f}",
+          flush=True)
+    del y10
     return {
         "name": "fused_blur_f32",
         "route": "cuda",
@@ -745,6 +773,16 @@ def _sum_axes(a: dict, b: dict) -> dict:
             "bound_by": by, "err": max(a["err"], b["err"])}
 
 
+def _template_args(tail: str) -> list[str]:
+    """The template arguments in the tail of a mangled kernel name, in
+    order: int and bool literals, after a leading float or uint8_t type
+    argument where there is one (K2's input type)."""
+    lead = re.match(r"I([fh])", tail)
+    return ([{"f": "float", "h": "uint8_t"}[lead.group(1)]] if lead else []) + [
+        ("false", "true")[int(v)] if k == "b" else v
+        for k, v in re.findall(r"L([ib])(\d+)E", tail)]
+
+
 def _ptxas_lines(kernels, log: str | None = None) -> list[tuple[str, str]]:
     """(kernel and template arguments, registers / shared memory / spills)
     from a build's ``-Xptxas -v`` output (the kernel library's unless
@@ -759,8 +797,7 @@ def _ptxas_lines(kernels, log: str | None = None) -> list[tuple[str, str]]:
             name = None
             if hit:
                 tail = ln.split(hit[0], 1)[1].split("EvP")[0]  # the template arguments
-                args = [("false", "true")[int(v)] if k == "b" else v
-                        for k, v in re.findall(r"L([ib])(\d+)E", tail)]
+                args = _template_args(tail)
                 name = hit[0] + (f"<{', '.join(args)}>" if args else "")
                 out.append([name, ""])
         elif name and ("Used" in ln or "spill" in ln):
@@ -768,7 +805,7 @@ def _ptxas_lines(kernels, log: str | None = None) -> list[tuple[str, str]]:
     return [tuple(x) for x in out]
 
 
-SASS_OPS = ("IMMA", "HMMA", "IDP4A")
+SASS_OPS = ("IMMA", "HMMA", "IDP4A", "FFMA")
 
 
 def _sass_counts(kernels) -> dict[str, dict[str, int]]:
@@ -792,8 +829,7 @@ def _sass_counts(kernels) -> dict[str, dict[str, int]]:
             name = None
             if hit:
                 tail = fn.split(hit[0], 1)[1].split("Ev")[0]
-                args = [("false", "true")[int(v)] if k == "b" else v
-                        for k, v in re.findall(r"L([ib])(\d+)E", tail)]
+                args = _template_args(tail)
                 name = hit[0] + (f"<{', '.join(args)}>" if args else "")
                 out[name] = dict.fromkeys(SASS_OPS, 0)
         elif name:
@@ -825,6 +861,36 @@ def _k1_sass() -> None:
     if len(sass) != 18:  # 4 forms x 2 bodies x 2 stores, and int8's pipelined pair
         raise RuntimeError(f"the SASS holds {len(sass)} K1 tensor-core instantiations, not "
                            f"18: {sorted(sass)}")
+
+
+K2_KERNELS = ("fused_blur_f32_kernel", "fused_axis_kernel")
+
+
+def _k2_sass() -> None:
+    """Phase 1: K2 and its single-axis form on the tensor cores, from the
+    built library's SASS: HMMA (the 3xTF32 band products) in each of the 12
+    instantiations (K2, and the single-axis form on each axis, x two input
+    types x two stores), and no per-tap FFMA loop (fewer FFMA than HMMA;
+    the kernels ran one fmaf a tap before); with ptxas's registers and
+    spills."""
+    sass = _sass_counts(K2_KERNELS)
+    ptx = dict(_ptxas_lines(K2_KERNELS))
+    for name, c in sorted(sass.items()):
+        print(f"phase 1 SASS {name}: HMMA {c['HMMA']}, FFMA {c['FFMA']}; ptxas "
+              f"{ptx.get(name, 'not reported')}", flush=True)
+        if not c["HMMA"] or c["FFMA"] >= c["HMMA"]:
+            raise RuntimeError(f"{name} is not on the tensor cores: {c}")
+    if len(sass) != 12:
+        raise RuntimeError(f"the SASS holds {len(sass)} K2 instantiations, not 12: "
+                           f"{sorted(sass)}")
+
+
+def _band_flop(r: int, products: int = 3) -> float:
+    """TF32 operations an output of one 3xTF32 pass needs: the function's
+    2r + 1 taps in each product, three products for f32 input, two for
+    uint8 (the kernels' band products do 8 S / (2r + 1) times as many, S =
+    (2r + 15) // 8, ``csrc/fused_blur.cu``); a radius-0 axis is a copy."""
+    return 2.0 * products * (2 * r + 1) if r else 0.0
 
 
 def _crossover_sweep(frames) -> dict:
@@ -1051,20 +1117,27 @@ def _phase11() -> dict:
                   f"equal={torch.equal(a, b)}", flush=True)
             if not torch.equal(a, b):
                 raise RuntimeError(f"{name} is not bit-equal to its plain version")
-    # K2's single-axis form: r up to 3994, both axes, f32 and uint8 in
+    # K2's single-axis form: r up to 3994, both axes, f32 and uint8 in;
+    # against the plain version in its float64 mode, whose f32 mode is
+    # itself 1.01e-3 from the exact correlation on the (8400, 96) planes at
+    # r 3994 (its 7989 roundings at 0..255 scale)
     for shape, sigma in AXIS_CASES:
         plan = make_plan(shape, sigma)
         for axis_plan in fused_blur._split_plans(plan):
             r = max(axis_plan.col.support_radius, axis_plan.row.support_radius)
             for x in (_f32_planes(*shape, seed=303), _case_frames(*shape, seed=304)):
                 got = fused_blur.blur_fused_axis_f32(x, axis_plan)
-                want = fused_blur.blur_fused_f32_ref(x, axis_plan)
+                want = fused_blur.blur_fused_f32_ref(x.double(), axis_plan)
+                plain32 = fused_blur.blur_fused_f32_ref(x, axis_plan)
                 torch.cuda.synchronize()
-                err = float((got - want).abs().max())
+                err = float((got.double() - want).abs().max())
                 errs["axis"] = max(errs["axis"], err)
                 _check("fused_blur_axis_f32", err, 1e-3 * float(x.float().abs().max()) / 255,
                        f"{shape} {'rows' if axis_plan.row.support_radius else 'cols'} "
-                       f"r={r} {x.dtype} in")
+                       f"r={r} {x.dtype} in (float64 mode; against the f32 mode "
+                       f"{float((got - plain32).abs().max()):.3e}, the f32 mode against "
+                       f"the float64 one {float((plain32.double() - want).abs().max()):.3e})")
+                del plain32
     return errs
 
 
@@ -1639,7 +1712,7 @@ def _slice4(frames) -> tuple[list[dict], dict]:
     finally:
         torch.backends.cudnn.allow_tf32 = prev
     del y
-    ax_bound = _bound_ms(2 * 8 * outputs, 2 * 2 * outputs * (2 * rr + 1), F32_FLOP_PER_S)
+    ax_bound = _bound_ms(2 * 8 * outputs, 2 * outputs * _band_flop(rr), TF32_FLOP_PER_S)
     for res in (t_rows, t_cols, k_rows_hd, k_cols_hd, p_rows, p_cols, t_ax_rows, t_ax_cols,
                 k_ax_hd, p_ax, l_rows, l_cols):
         print(f"phase 13 time: {res}", flush=True)
@@ -2443,9 +2516,12 @@ A4_RADII = (1, 32, 332, 598)
 HALO_SIGMAS = (1.0, 10.0, 50.0, 180.0)
 HALO_AXIS_CASES = ((HD, 400.0, 540), ((8400, 96), 1200.0, 525))  # (frame, sigma, h_loc)
 SHARD_MESHES = ((2, 2), (1, 4))  # blur_sharded_u8 at SIGMA_SHARD_K1
-# K1a's and K2's sharded path: sigma 9 (r 29), under the card's split radius
-# (r 32 on the H100, which covers sigma 10); sigma 10 takes the haloed split
+# K1a's sharded path: sigma 9 (r 29), under the card's uint8 split radius
+# (r 82 on the H100)
 SIGMA_SHARD_K1 = 9.0
+# K2's sharded path: sigma 5 (r 15), under the card's float split radius (r
+# 19 on the H100); from there AUTO takes the haloed f32 split
+SIGMA_SHARD_K2 = 5.0
 GATHER_SP, SIGMA_GATHER = 16, 50.0  # h_loc 135 < r 165 <= 165: the multi-hop gather
 RAGGED_ROWS = 1001  # on sp 4: the pad-row fill
 # blur_sharded f32, r 165 >= 49: the haloed split, with the card's float
@@ -2558,12 +2634,14 @@ def _phase16_equal() -> dict:
         rows_h, (_, cols) = fused_blur._haloed_rows_plan(plan), fused_blur._split_plans(plan)
         x = _case_frames(h_loc + 2 * rh, shape[1], seed=630 + k)
         xf = _f32_planes(h_loc + 2 * rh, shape[1], seed=640 + k)
+        # against the plain version in float64, as in phase 11 (r 960, 3994)
         got = fused_blur.blur_fused_axis_f32(xf, cols, pre_padded_col=True)
-        want = fused_blur.blur_fused_f32_ref(xf, cols, pre_padded_col=True)
+        want = fused_blur.blur_fused_f32_ref(xf.double(), cols, pre_padded_col=True)
         got8 = fused_blur.blur_fused_axis_f32(x, cols, out_u8=True, pre_padded_col=True)
-        want8 = fused_blur.blur_fused_f32_ref(x, cols, out_u8=True, pre_padded_col=True)
+        want8 = fused_blur.blur_fused_f32_ref(x.double(), cols, out_u8=True, pre_padded_col=True)
         torch.cuda.synchronize()
-        ea, ea8 = float((got - want).abs().max()), int((got8.int() - want8.int()).abs().max())
+        ea = float((got.double() - want).abs().max())
+        ea8 = int((got8.int() - want8.int()).abs().max())
         errs["axis"], errs["axis_u8"] = max(errs["axis"], ea), max(errs["axis_u8"], ea8)
         if ea > 1e-3 * float(xf.abs().max()) / 255 or ea8 > 1:
             raise RuntimeError(f"K2's single-axis form pre-padded differs at {shape, sigma}")
@@ -2705,9 +2783,10 @@ def _phase16_paths(img, want0, counters, sharded_fft) -> dict:
         raise RuntimeError("blur_sharded uint8 -> f32 differs from K1 int8's f32 store")
     del out, want
 
-    # float planes: K2 pre-padded at sigma 9, the haloed f32 split at sigma 50
+    # float planes: K2 pre-padded at sigma 5, the haloed f32 split at sigma
+    # 50 (the card's float crossover raised to r 165 for the call)
     xf = planar.float()
-    for sigma, expect in ((SIGMA_SHARD_K1, {"blur_fused_f32": 4}),
+    for sigma, expect in ((SIGMA_SHARD_K2, {"blur_fused_f32": 4}),
                           (SIGMA_SHARD_SPLIT, {"blur_fused_axis_f32": 8})):
         p = make_plan((H, W), sigma)
         r = max(p.col.support_radius, p.row.support_radius)
@@ -2877,9 +2956,10 @@ def _slice7(frames, want0) -> list[dict]:
     t_gather = _in_turns(f"blur_u8 vs blur_sharded_u8 sp {GATHER_SP} sigma={SIGMA_GATHER}", {
         "single": lambda u: blur_u8(u, SIGMA_GATHER),
         "sharded": lambda u: blur_sharded_u8(u, p50, meshes[1, GATHER_SP])}, x)
-    t_float = _in_turns(f"blur vs blur_sharded f32 dp 2 x sp 2 sigma={SIGMA_SHARD_K1}", {
-        "single": lambda u: blur(u, SIGMA_SHARD_K1),
-        "sharded": lambda u: blur_sharded(u, plan, mesh22)}, planar.float())
+    plan2 = make_plan((H, W), SIGMA_SHARD_K2)
+    t_float = _in_turns(f"blur vs blur_sharded f32 dp 2 x sp 2 sigma={SIGMA_SHARD_K2}", {
+        "single": lambda u: blur(u, SIGMA_SHARD_K2),
+        "sharded": lambda u: blur_sharded(u, plan2, mesh22)}, planar.float())
     # where blur_sharded_u8's time goes on dp 2 x sp 2: the layout copies,
     # the cut into blocks, the halo exchange, the shards' steps, the gather
     blocks = sharded._blocks(planar, mesh22)
@@ -2903,29 +2983,32 @@ def _slice7(frames, want0) -> list[dict]:
     }
     del blocks, halo, outs
 
-    # K2 pre-padded on the float shard; its yardstick: reflect the columns,
-    # two depthwise conv2d (TF32 off), rows valid
-    hf = hx.float()
+    # K2 pre-padded on the float shard at sigma 5; its yardstick: reflect
+    # the columns, two depthwise conv2d (TF32 off), rows valid
+    local2 = _local_plan(make_plan((H, W), SIGMA_SHARD_K2), H // 2, W)
+    rh2, rw2 = local2.col.support_radius, local2.row.support_radius
+    hf = haloed(rh2).float()
+    hs2 = hf.shape[2]
     c = 3
-    w_row = torch.from_numpy(local.row.taps).cuda().view(1, 1, 1, -1).repeat(c, 1, 1, 1)
-    w_col = torch.from_numpy(local.col.taps).cuda().view(1, 1, -1, 1).repeat(c, 1, 1, 1)
+    w_row = torch.from_numpy(local2.row.taps).cuda().view(1, 1, 1, -1).repeat(c, 1, 1, 1)
+    w_col = torch.from_numpy(local2.col.taps).cuda().view(1, 1, -1, 1).repeat(c, 1, 1, 1)
 
     def lib_k2(u):
-        u = F.conv2d(F.pad(u, (rw, rw, 0, 0), mode="reflect"), w_row, groups=c)
+        u = F.conv2d(F.pad(u, (rw2, rw2, 0, 0), mode="reflect"), w_row, groups=c)
         return F.conv2d(u, w_col, groups=c)
 
     prev = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     try:
-        t["k2"] = _time(fused_blur.blur_fused_f32, hf, local, False, True,
+        t["k2"] = _time(fused_blur.blur_fused_f32, hf, local2, False, True,
                         name="K2 pre-padded on the float shard").median_ms
-        t["k2_plain"] = _time(fused_blur.blur_fused_f32_ref, hf, local, False, True,
+        t["k2_plain"] = _time(fused_blur.blur_fused_f32_ref, hf, local2, False, True,
                               name="K2 pre-padded plain version").median_ms
         t["k2_lib"] = _time(lib_k2, hf, name="K2 pre-padded yardstick: column reflect + 2 "
                             "depthwise conv2d").median_ms
         k2_limit = 1e-3 * float(hf.abs().max()) / 255  # phase 5's
-        hold("k2", "K2 pre-padded f32", fused_blur.blur_fused_f32(hf, local, False, True),
-             fused_blur.blur_fused_f32_ref(hf, local, False, True), k2_limit)
+        hold("k2", "K2 pre-padded f32", fused_blur.blur_fused_f32(hf, local2, False, True),
+             fused_blur.blur_fused_f32_ref(hf, local2, False, True), k2_limit)
         # the single-axis cols pass of the sigma 50 haloed split
         p50 = _local_plan(make_plan((H, W), SIGMA_SHARD_SPLIT), H // 2, W)
         r50 = p50.col.support_radius
@@ -2990,12 +3073,13 @@ def _slice7(frames, want0) -> list[dict]:
     ops = ((2 * outputs * 2 * tr, 2 * outputs * tc) if rung == "hybrid"
            else (2 * outputs * (2 * tr + 4 * tc), 0))
     b_k1a = _bound_mixed(outputs + frame_bytes, *ops)
-    # K2: the rows pass over every halo row, the cols pass per output; f32
-    # in and out
-    b_k2 = _bound_ms(4 * (planes * hs * W + outputs),
-                     2 * (planes * hs * W * tr + outputs * tc), F32_FLOP_PER_S)
+    # K2: f32 in and out; its 3xTF32 band products, the rows pass over every
+    # halo row, the cols pass per output
+    b_k2 = _bound_ms(4 * (planes * hs2 * W + outputs),
+                     planes * hs2 * W * _band_flop(rw2) + outputs * _band_flop(rh2),
+                     TF32_FLOP_PER_S)
     b_axis = _bound_ms(4 * (planes * (H // 2 + 2 * r50) * W + outputs),
-                       2 * outputs * (2 * r50 + 1), F32_FLOP_PER_S)
+                       outputs * _band_flop(r50), TF32_FLOP_PER_S)
     te = 2 * re_ + 1
     e_bytes = 2 * planes * (H // 2 + 2 * re_) * W
     b_int8 = _bound_ms(e_bytes + outputs, 2 * outputs * 4 * te, INT8_OP_PER_S)
@@ -3024,7 +3108,7 @@ def _slice7(frames, want0) -> list[dict]:
               blur_u8_sigma50_ms_in_turns=t_gather["single"], sharded_u8_parts_ms=t_parts),
         entry("fused_blur_f32_prepadded", "fused_blur.cu", "fused_blur.py:136",
               launched.get("blur_fused_f32", 0), t["k2"], t["k2_plain"], b_k2,
-              max(errs["k2"], errs["k2_u8"]), t["k2_lib"], at=shard,
+              max(errs["k2"], errs["k2_u8"]), t["k2_lib"], at=f"{shard}, sigma {SIGMA_SHARD_K2}",
               max_abs_err_u8=errs["k2_u8"], sharded_f32_ms_in_turns=t_float["sharded"],
               blur_f32_ms_in_turns=t_float["single"]),
         entry("fused_blur_axis_f32_prepadded", "fused_blur.cu", "fused_blur.py:136",
@@ -3407,6 +3491,7 @@ def main() -> int:
           f"(built now: {build.last_build['built']}) in "
           f"{time.perf_counter() - t0:.2f} s; ptxas: {' | '.join(ptxas)}",
           flush=True)
+    _k2_sass()
 
     # ---- phase 2: K1 against its plain version on the card ----
     cases = [((1080, 1920), s) for s in (1.0, 3.0, 10.0, 50.0, 150.0, 180.0)]

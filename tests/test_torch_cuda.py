@@ -92,8 +92,8 @@ def _f32_planes(shape, seed):
     make_custom_plan((129, 77), [0.25, 0.5, 0.25], [1.0]),
 ], ids=["sigma10", "aniso-wide", "r598", "asymmetric", "row-radius-0", "col-radius-0"])
 def test_k2_equals_plain_version_on_the_card(cuda_device, plan):
-    """f32 within 1e-3 * max|x| / 255; the plain version reproduces the
-    kernel's fmaf rounding, so the two agree far closer than that."""
+    """f32 within 1e-3 * max|x| / 255 (3xTF32 band products against one
+    fmaf a tap: ~1e-4 apart at 0..255 scale)."""
     x = _f32_planes((3, *plan.shape), seed=11).to(cuda_device)
     before = fused_blur.blur_fused_f32.launches
     got = fused_blur.blur_fused_f32(x, plan)
@@ -249,8 +249,10 @@ def test_fft_engines_on_the_card_match_the_cpu(cuda_device):
 # K4 (box scan), the int8 split forms and K2's single-axis wide form against
 # their plain versions. K4 and its plain version both sum in float64 and
 # round each pass to f32: f32 within 1e-3 * max|x| / 255, uint8 within 1.
-# The int8 forms are bit-equal; the f32 single-axis form reproduces K2's
-# fmaf order (within 1e-3 * max|x| / 255).
+# The int8 forms are bit-equal; the single-axis form (3xTF32 band products)
+# within 1e-3 * max|x| / 255 of its plain version in float64 (the f32 mode
+# rounds each of its up to 8193 taps and drifts ~1e-3 from the exact sum at
+# r 4000 by itself), uint8 within 1.
 
 
 @pytest.mark.cuda
@@ -311,7 +313,7 @@ def test_k2_single_axis_form_on_the_card(cuda_device, shape, sigma, in_u8):
         for out_u8 in (False, True):
             before = fused_blur.blur_fused_axis_f32.launches
             got = fused_blur.blur_fused_axis_f32(x, axis_plan, out_u8=out_u8)
-            want = fused_blur.blur_fused_f32_ref(x, axis_plan, out_u8=out_u8)
+            want = fused_blur.blur_fused_f32_ref(x.double(), axis_plan, out_u8=out_u8)
             torch.cuda.synchronize()
             assert fused_blur.blur_fused_axis_f32.launches == before + 1
             d = float((got.double() - want.double()).abs().max())
@@ -659,7 +661,8 @@ def test_pre_padded_split_forms_on_the_card(cuda_device, shape, sigma):
         d = float((got.double() - want.double()).abs().max())
         assert d <= (1 if out_u8 else HYBRID_TOL)
         got = fused_blur.blur_fused_axis_f32(y, cols, out_u8=out_u8, pre_padded_col=True)
-        want = fused_blur.blur_fused_f32_ref(y, cols, out_u8=out_u8, pre_padded_col=True)
+        want = fused_blur.blur_fused_f32_ref(y.double(), cols, out_u8=out_u8,
+                                             pre_padded_col=True)
         torch.cuda.synchronize()
         d = float((got.double() - want.double()).abs().max())
         assert d <= (1 if out_u8 else 1e-3 * float(y.abs().max()) / 255)

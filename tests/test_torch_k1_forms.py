@@ -467,19 +467,20 @@ def _h100(monkeypatch):
 
 def test_uint8_has_its_own_split_radius(monkeypatch):
     """On the H100's spec K1's uint8 path splits from r 82 (the phase 13
-    uint8 sweep from r 1), the float path from r 32; K2's uint8 path (the
-    bf16x3 rung) keeps the float radius; an unmeasured device has no uint8
-    entry and splits uint8 where it splits float."""
+    uint8 sweep from r 1), the float path from r 19 (the float sweep from r
+    2, K2 on 3xTF32); K2's uint8 path (the bf16x3 rung) keeps the float
+    radius; an unmeasured device has no uint8 entry and splits uint8 where
+    it splits float."""
     from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
 
     assert hw.device_spec("cpu").fused_split_min_radius_u8 is None
     spec = _h100(monkeypatch)
-    assert (spec.fused_split_min_radius_u8, spec.fused_split_min_radius) == (82, 32)
+    assert (spec.fused_split_min_radius_u8, spec.fused_split_min_radius) == (82, 19)
     r65, r82 = make_plan((2160, 3840), 20.0), make_plan((2160, 3840), 25.0)
     assert (r65.row.support_radius, r82.row.support_radius) == (65, 82)
     assert not fused_blur._split_wins(r65, 1, "int8", "cpu")
     assert fused_blur._split_wins(r82, 1, "int8", "cpu")
-    assert fused_blur._split_wins(r65, 4, "bf16x3", "cpu")  # float: from r 32
+    assert fused_blur._split_wins(r65, 4, "bf16x3", "cpu")  # float: from r 19
     assert fused_blur._split_wins(r65, 1, "bf16x3", "cpu")  # K2's uint8 path too
     other = dataclasses.replace(spec, fused_split_min_radius_u8=None)
     monkeypatch.setattr(fused_blur, "device_spec", lambda device: other)
