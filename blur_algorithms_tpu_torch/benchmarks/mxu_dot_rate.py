@@ -10,10 +10,15 @@ the published peaks, at the nine shapes of the JAX probe (a cube, and the
 band shapes of the fused kernels' rows and cols passes).
 
 A CUDA tensor runs ``csrc/probes/mma_rate.cu`` (one 64-row panel of the lhs
-a block, in shared memory for the whole chain; the rhs streamed from L2; by
-either instruction path). ``resident=True`` keeps the rhs's first two
-stages in shared memory for the instruction's rate alone: every stage of
-the chain then reads one of those two, so the launch multiplies by
+a thread-block cluster, in every CTA's shared memory for the whole chain;
+CTA r of the cluster on the rhs's 128-column tiles r, r + C, ..., streamed
+from L2 by TMA; one chain a CTA a tile, the cast tiles exchanged through
+distributed shared memory; the launch that fills the card clusters of one
+CTA that computes every tile of its panel and exchanges nothing; by either
+instruction path). ``launch_geometry`` models the launch.
+``resident=True`` keeps the first ``STAGES`` stages of the rhs's first
+tile in shared memory for the instruction's rate alone: every stage of the
+chain then reads one of those, so the launch multiplies by
 ``resident_rhs(b)`` in place of ``b``, and is held to the plain chain on that.
 A CPU tensor runs the plain version ``chain_ref``: the products in float64,
 exact for int8 here (|a| <= 128, |b| <= 128, k <= 1536, so every sum is an
@@ -43,8 +48,9 @@ from blur_algorithms_tpu_torch.benchmarks._common import (
     emit,
 )
 
-__all__ = ["ITERS", "PATHS", "PEAK_OPS", "SHAPES", "ChainLaunch", "bf16_bound", "chain",
-           "chain_ref", "inner_for", "operands", "prepare", "rate", "resident_rhs"]
+__all__ = ["ITERS", "MAX_CLUSTER", "MAX_TILES", "PATHS", "PEAK_OPS", "SHAPES", "STAGES", "ChainLaunch",
+           "LaunchGeometry", "bf16_bound", "chain", "chain_ref", "inner_for",
+           "launch_geometry", "operands", "prepare", "rate", "resident_rhs"]
 
 # (m, k, n, label): the JAX probe's shapes (mxu_dot_rate.py main)
 SHAPES = (
@@ -63,9 +69,12 @@ PATHS = ("mma_sync", "wgmma")
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12}
 ITERS = 10  # timed launches a rate
 
-_ROWS = 64  # rows of a block's panel (csrc/probes/mma_rate.cu: kRows)
-_TILE = 128  # columns of the rhs per tile (kTile)
-_STAGE_K = 128  # bytes of K per stage (kStageK)
+_ROWS = 64  # rows of a cluster's panel (csrc/probes/mma_rate.cu: kRows)
+_TILE = 128  # columns of the rhs a CTA's tile (kTile)
+_STAGE_K = 64  # bytes of K a stage (kStageK)
+STAGES = 4  # stages of the ring (kStages): what a resident launch keeps
+MAX_CLUSTER = 8  # CTAs a cluster at most (kMaxCluster: portable clusters)
+MAX_TILES = 8  # 128-column tiles of the rhs at most (kMaxTiles)
 _DTYPES = {"int8": torch.int8, "bf16": torch.bfloat16}
 
 
@@ -103,18 +112,18 @@ def chain_ref(a: torch.Tensor, b: torch.Tensor, inner: int) -> torch.Tensor:
 
 
 def resident_rhs(b: torch.Tensor) -> torch.Tensor:
-    """The (k, n) rhs a ``resident`` launch multiplies by: the kernel loads
-    the first two stages of the zero-padded rhs (its first 128 columns, K
-    bytes [0, 128) and [128, 256)) once, and its K stage kc of every
-    128-column tile reads stage kc & 1 of those (stage 0 alone where K fits
-    one stage)."""
+    """The (k, n) rhs a ``resident`` launch multiplies by: every CTA loads
+    the first ``STAGES`` stages of the zero-padded rhs's first tile (its
+    first 128 columns, K bytes [64 s, 64 s + 64) for stage s) once, and K
+    stage kc of every 128-column tile reads stage kc mod ``STAGES`` of those
+    (only the stages K has, where it has fewer)."""
     k, n = b.shape
     per = _STAGE_K // b.element_size()  # elements of K a stage
-    bp = torch.zeros((max(k, 2 * per), max(n, _TILE)), dtype=b.dtype, device=b.device)
+    bp = torch.zeros((max(k, STAGES * per), max(n, _TILE)), dtype=b.dtype, device=b.device)
     bp[:k, :n] = b
     rows = torch.arange(k, device=b.device)
     cols = torch.arange(n, device=b.device) % _TILE
-    return bp[(((rows // per) & 1) * per + rows % per)[:, None], cols[None, :]]
+    return bp[(((rows // per) % STAGES) * per + rows % per)[:, None], cols[None, :]]
 
 
 def bf16_bound(a: torch.Tensor, b: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
@@ -133,16 +142,58 @@ def bf16_bound(a: torch.Tensor, b: torch.Tensor, want: torch.Tensor) -> torch.Te
     return 2.0 ** -7 * want.abs().double() + k * 2.0 ** -23 * sums
 
 
+@dataclasses.dataclass(frozen=True)
+class LaunchGeometry:
+    """B1's launch for an (m, k) @ (k, n) chain of ``es``-byte elements:
+    ``panels`` 64-row panels, K padded to ``kb`` bytes and n to ``np``
+    columns (``ntile`` tiles of 128), clusters of ``cluster`` CTAs (one
+    chain: the least power of two >= ``ntile``; filling the card: 1), CTA r
+    owning tiles r, r + cluster, ... (at most ``tiles`` of them; CTAs past
+    ``ntile`` own none: they receive the exchange and send none), and after
+    each product the columns ``exchanged`` of the next lhs ([0, min(n, k)))
+    passed between the cluster's CTAs."""
+
+    panels: int
+    kb: int
+    np: int
+    ntile: int
+    cluster: int
+    tiles: int
+    exchanged: tuple[int, int]
+
+    def owned(self, rank: int) -> list[int]:
+        """The tiles CTA ``rank`` of a cluster computes, in its order."""
+        return list(range(rank, self.ntile, self.cluster))
+
+    def grid(self, chains: int) -> int:
+        """CTAs of a launch of ``chains`` clusters (at least one a panel)."""
+        return max(chains, self.panels) * self.cluster
+
+
+def launch_geometry(m: int, k: int, n: int, es: int, copies: bool = False) -> LaunchGeometry:
+    """B1's launch geometry (``csrc/probes/mma_rate.cu``): one chain, or
+    with ``copies`` the launch that fills the card; ``ValueError`` where n
+    needs more than ``MAX_TILES`` tiles."""
+    ntile = -(-n // _TILE)
+    if ntile > MAX_TILES:
+        raise ValueError(f"n = {n}: B1 takes at most {MAX_TILES} tiles of {_TILE} columns")
+    cluster = 1 if copies else 1 << (ntile - 1).bit_length()
+    return LaunchGeometry(panels=-(-m // _ROWS), kb=-(-k * es // _STAGE_K) * _STAGE_K,
+                          np=ntile * _TILE, ntile=ntile, cluster=cluster,
+                          tiles=-(-ntile // cluster), exchanged=(0, min(n, k)))
+
+
 @dataclasses.dataclass
 class ChainLaunch:
     """One prepared launch of the chain kernel: the operands padded and
-    laid out as the kernel reads them, the output, the scratch rows and the
-    grid. Calling it launches the kernel (``chain.launches`` counts)."""
+    laid out as the kernel reads them, their TMA tensor maps, the output,
+    the cluster size and the grid. Calling it launches the kernel
+    (``chain.launches`` counts)."""
 
     a: torch.Tensor  # (panels * 64, kb / es) lhs, zero-padded
     bt: torch.Tensor  # (np, kb / es) rhs transposed, zero-padded
     out: torch.Tensor  # (m, k) int32 or f32
-    scratch: torch.Tensor  # grid x 64 x kkb bytes
+    maps: ctypes.Array  # the two encoded tensor maps (mma_rate_maps)
     m: int
     k: int
     n: int
@@ -152,6 +203,7 @@ class ChainLaunch:
     resident: bool
     inner: int
     steps: int
+    cluster: int
 
     @property
     def bf16(self) -> bool:
@@ -159,9 +211,10 @@ class ChainLaunch:
 
     @property
     def real_rows(self) -> int:
-        """Rows of the frame the grid's blocks multiply, the padding left out."""
+        """Rows of the frame the grid's clusters multiply, the padding left
+        out."""
         per_panel = [min(_ROWS, self.m - _ROWS * p) for p in range(self.panels)]
-        return sum(per_panel[g % self.panels] for g in range(self.grid))
+        return sum(per_panel[g % self.panels] for g in range(self.grid // self.cluster))
 
     @property
     def ops(self) -> float:
@@ -174,33 +227,35 @@ class ChainLaunch:
         es = self.a.element_size()
         kb = self.a.shape[1] * es
         rc = load_probe_library().mma_rate_chain(
-            int(self.wgmma), int(self.bf16), int(self.resident),
-            self.a.data_ptr(), self.bt.data_ptr(), self.out.data_ptr(),
-            self.scratch.data_ptr(), self.m, self.k, kb, self.bt.shape[0],
-            min(self.n, self.k) * es, self.panels, self.inner, self.steps, self.grid,
+            int(self.wgmma), int(self.bf16), int(self.resident), self.maps,
+            self.out.data_ptr(), self.m, self.k, kb, self.bt.shape[0], min(self.n, self.k),
+            self.panels, self.inner, self.steps, self.cluster, self.grid,
             torch.cuda.current_stream(self.a.device).cuda_stream)
         check_launch(rc, "mma_rate_chain")
         chain.launches["wgmma" if self.wgmma else "mma_sync"] += 1
         return self.out
 
 
-def _blocks_per_sm(wgmma: bool, bf16: bool, resident: bool, kb: int) -> int:
+def _max_clusters(wgmma: bool, bf16: bool, resident: bool, kb: int, cluster: int) -> int:
     from blur_algorithms_tpu_torch.utils.build import load_probe_library
 
-    blocks = ctypes.c_int(0)
-    rc = load_probe_library().mma_rate_blocks_per_sm(
-        int(wgmma), int(bf16), int(resident), kb, ctypes.byref(blocks))
-    check_launch(rc, "mma_rate_blocks_per_sm")
-    if blocks.value < 1:
-        raise RuntimeError(f"the chain kernel's block ({kb} bytes of K) does not fit an SM")
-    return blocks.value
+    clusters = ctypes.c_int(0)
+    rc = load_probe_library().mma_rate_clusters(
+        int(wgmma), int(bf16), int(resident), kb, cluster, ctypes.byref(clusters))
+    check_launch(rc, "mma_rate_clusters")
+    if clusters.value < 1:
+        raise RuntimeError(f"no cluster of {cluster} chain CTAs ({kb} bytes of K) fits the card")
+    return clusters.value
 
 
 def prepare(a: torch.Tensor, b: torch.Tensor, inner: int, steps: int = 1, *,
             path: str = "wgmma", resident: bool = False, copies: bool = True) -> ChainLaunch:
-    """The launch of the chain on CUDA ``a`` and ``b``: ``copies`` fills the
-    card (one block for each block an SM holds at once on every SM, block g
-    on panel g mod panels), else one block a panel."""
+    """The launch of the chain on CUDA ``a`` and ``b`` (``launch_geometry``):
+    ``copies`` fills the card (clusters of one CTA, as many as it holds at
+    once, at least one a panel, cluster g on panel g mod panels), else one
+    cluster a panel."""
+    from blur_algorithms_tpu_torch.utils.build import load_probe_library
+
     _check(a, b)
     if path not in PATHS:
         raise ValueError(f"B1's paths are {PATHS}, not {path!r}")
@@ -214,29 +269,28 @@ def prepare(a: torch.Tensor, b: torch.Tensor, inner: int, steps: int = 1, *,
     if (min(n, k) * es) % 16:
         raise ValueError(f"min(n, k) * {es} = {min(n, k) * es} bytes: the kernel moves "
                          "the replaced columns in 16-byte pieces")
-    panels = -(-m // _ROWS)
-    kp = -(-k * es // _STAGE_K) * _STAGE_K // es
-    np_ = -(-n // _TILE) * _TILE
-    ap = torch.zeros((panels * _ROWS, kp), dtype=a.dtype, device=a.device)
+    geo = launch_geometry(m, k, n, es, copies)
+    ap = torch.zeros((geo.panels * _ROWS, geo.kb // es), dtype=a.dtype, device=a.device)
     ap[:m, :k] = a
-    bt = torch.zeros((np_, kp), dtype=a.dtype, device=a.device)
+    bt = torch.zeros((geo.np, geo.kb // es), dtype=a.dtype, device=a.device)
     bt[:n, :k] = b.t()
     wgmma = path == "wgmma"
-    grid = panels
-    if copies:
-        sms = torch.cuda.get_device_properties(a.device).multi_processor_count
-        grid = max(panels, sms * _blocks_per_sm(wgmma, es == 2, resident, kp * es))
+    chains = (_max_clusters(wgmma, es == 2, resident, geo.kb, geo.cluster) if copies
+              else geo.panels)
+    maps = ctypes.create_string_buffer(256)
+    with torch.cuda.device(a.device):
+        check_launch(load_probe_library().mma_rate_maps(
+            ap.data_ptr(), bt.data_ptr(), ap.shape[0], geo.kb, geo.np, maps), "mma_rate_maps")
     out = torch.empty((m, k), dtype=torch.int32 if es == 1 else torch.float32,
                       device=a.device)
-    scratch = torch.empty(grid * _ROWS * min(n, k) * es, dtype=torch.uint8, device=a.device)
-    return ChainLaunch(ap, bt, out, scratch, m, k, n, panels, grid, wgmma, resident,
-                       inner, steps)
+    return ChainLaunch(ap, bt, out, maps, m, k, n, geo.panels, geo.grid(chains), wgmma,
+                       resident, inner, steps, geo.cluster)
 
 
 def chain(a: torch.Tensor, b: torch.Tensor, inner: int, steps: int = 1, *,
           path: str = "wgmma", resident: bool = False, copies: bool = False) -> torch.Tensor:
     """B1's chain: ``inner`` products, ``steps`` times over (the same
-    result). A CUDA tensor launches the kernel by ``path`` (one block a
+    result). A CUDA tensor launches the kernel by ``path`` (one cluster a
     panel, or filling the card with ``copies``); a CPU tensor runs the plain
     version (on ``resident_rhs(b)`` where ``resident``).
     ``chain.launches[path]`` counts kernel launches."""
@@ -251,8 +305,8 @@ chain.launches = dict.fromkeys(PATHS, 0)
 
 def inner_for(launch_rows: int, k: int, n: int, steps: int = 1) -> int:
     """Products a step for ~0.5 T multiply-adds a launch, at least 16: the
-    JAX probe's sizing (mxu_dot_rate.py run), over the rows every block of
-    the launch multiplies."""
+    JAX probe's sizing (mxu_dot_rate.py run), over the rows every cluster
+    of the launch multiplies."""
     return max(16, int(5e11 / (launch_rows * k * n * steps)))
 
 
@@ -267,7 +321,8 @@ def rate(a: torch.Tensor, b: torch.Tensor, path: str, resident: bool = False) ->
     launch = dataclasses.replace(probe, inner=inner_for(probe.real_rows, k, n))
     res = time_cuda(launch, iters=ITERS, warmup=2, name=f"B1 {path}")
     return {"ms": res.median_ms, "ops": launch.ops, "inner": launch.inner,
-            "grid": launch.grid, "tops": launch.ops / (res.median_ms * 1e-3) / 1e12}
+            "grid": launch.grid, "cluster": launch.cluster,
+            "tops": launch.ops / (res.median_ms * 1e-3) / 1e12}
 
 
 def main(argv: list[str] | None = None) -> int:

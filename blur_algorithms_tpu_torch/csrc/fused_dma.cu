@@ -13,8 +13,8 @@
 // (blur_fused_haloed_dma, 2589): the caller's halo rows sit where A5 puts
 // reflected rows, so the kernel is the same.
 //
-// The int8 and hybrid bodies are band products on the tensor cores, as the
-// JAX bodies are band matmuls on the MXU (the two-pass split's passes,
+// The three bodies are band products on the tensor cores, as the JAX bodies
+// are band matmuls on the MXU (the two-pass split's passes,
 // csrc/fused_split.cu, share the design):
 //
 // - rows pass (both bodies, rows_mma): R = sum_t q[t] * (x[j - rw + t] -
@@ -64,12 +64,31 @@
 //   (blur_fused_u8_hybrid_ref, tap by tap in ascending order) it agrees
 //   within 2e-2 at 0..255 scale on the f32 store and 1 count on the uint8
 //   store, the contract of the split's hybrid pass 2.
-// - bf16 (not redesigned: the H100's ladder never routes it): the rows
-//   staged as bf16, y = bf16(sum_t bf16(r_t) * x[t]) in f32 with __fmaf_rn,
-//   then out = sum_t bf16(c_t) * y[t], both in ascending tap order on the
-//   FMA units, four outputs an item, bit-equal to its plain version. It
-//   keeps its own staging (load_rows, load_columns, convert) and layout
-//   (bf16_layout).
+// - bf16 rows pass (rows_bf16_mma): y = bf16(sum_t bf16(r_t) * x[j - rw +
+//   t]) on mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32, A (16 x 16) the band
+//   of the bf16 row taps from the host's table (two copies, one for each
+//   parity of a tap pair's first index, so each A register is one aligned
+//   32-bit load), B (16 x 8) the staged RAW bytes of 8 rows converted to bf16
+//   as the fragment is built (one 32-bit load of 4 window bytes a lane;
+//   every byte is exact in bf16). A lane's k = 2 tig, 2 tig + 1 take window
+//   bytes 4 tig, 4 tig + 1 and k = 2 tig + 8, + 9 bytes 4 tig + 2, + 3; the
+//   table pairs the taps the same way. The f32 sum depends on which taps
+//   share a k-step, so every form groups them alike: a k-step is 16 window
+//   bytes starting on a 16-byte boundary of the IMAGE row (delta leading
+//   zero taps in all three forms; the assembled form, whose frame holds
+//   the plane at column rw, reads its staged bytes delta to the left, the
+//   bytes before its window meeting zero taps). y goes into the hybrid
+//   body's row-major bf16 plane.
+// - bf16 cols pass: the hybrid body's (cols_hybrid_mma) on the bf16 column
+//   taps, with no epilogue: out = acc. Against the plain version
+//   (blur_fused_u8_bf16_ref, both sums tap by tap in ascending order) the
+//   rows sum changes order, and where y lies within that sum's rounding of a
+//   bf16 rounding boundary it can round to the other bf16 neighbour (a step
+//   of 1.0 for y in [128, 256)), which moves every output that reads it by
+//   that step times its tap: the bound is 2e-2 at 0..255 scale plus, for
+//   each output, its taps times the steps of those y it reads
+//   (cuda_kernels/fused_dma.py, bf16_bound), on the f32 store; 1 count on
+//   the uint8 store. Its forms are bit-identical to each other.
 //
 // The forms differ only in the loader and in where the rows output lives.
 // One block of 256 threads per:
@@ -101,7 +120,9 @@
 //
 // What bounds them on an H100: bytes would, 1 in and 1 out a pixel (0.0594
 // ms for 12 planes of 2160 x 3840), and the band products are ~0.03 ms at
-// the tensor cores' int8 and bf16 peaks at r 32. The design keeps the rest
+// the tensor cores' int8 and bf16 peaks at r 32 (the bf16 rows pass twice
+// the hybrid's: bf16 mma at half the int8 rate, and a conversion a byte a
+// fragment). The design keeps the rest
 // off the path: the loader is 16-byte copies (no recentring), the
 // fragments come from shared memory by ldmatrix, the tap copies make every
 // A register one load. What is left is the halo (a direct tile stages (1 +
@@ -144,7 +165,6 @@ constexpr int kNoRing = 0;
 enum Body { kInt8 = 0, kHybrid = 1, kBf16 = 2 };
 enum Form { kDirect = 0, kStrip = 1, kAssembled = 2, kPipelined = 3, kResident = 4 };
 
-__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 __host__ __device__ inline int round16(int n) { return (n + 15) & ~15; }
 __host__ __device__ inline int round_up(int n, int m) { return (n + m - 1) / m * m; }
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
@@ -164,10 +184,12 @@ __host__ __device__ inline int copy_words(int steps) {
   return need + ((8 - need) % 32 + 32) % 32;
 }
 
-// plane column stride of the bf16 body in elements for `rows` rows (a
-// multiple of 4): an odd number of 4-row words
-__host__ __device__ inline int odd_words(int rows) {
-  return ((rows >> 2) & 1) ? rows : rows + 4;
+// words of each of the bf16 rows taps' two copies for `steps` k-steps of
+// 16: 8 a step and 16 more, a count = 16 (mod 32) so the two copies' words
+// a load reads fall on different banks
+__host__ __device__ inline int bf16_words(int steps) {
+  const int need = 8 * steps + 16;
+  return need + ((16 - need) % 32 + 32) % 32;
 }
 
 // ---- the layouts: the wrappers (cuda_kernels/fused_dma.py, layout_bytes)
@@ -185,20 +207,19 @@ __host__ __device__ inline int stage_rows(int tw, int sp) {
   return g;
 }
 
-// The int8 and hybrid bodies' block: the rows-output plane(s), the stage,
-// the tap tables.
+// A body's block: the rows-output plane(s), the stage, the tap tables.
 struct TcLayout {
   int delta;   // leading zero rows taps: the window's first column is 16-byte aligned
-  int rsteps;  // rows k-steps of 32 window columns
+  int rsteps;  // rows k-steps of 32 window columns (bf16: of 16)
   int csteps;  // int8 cols k-steps of 32 plane rows
   int groups;  // hybrid column tap groups of 16
-  int sw;      // window bytes a staged row: tw - 16 + 32 rsteps
+  int sw;      // window bytes a staged row: tw - 16 + 32 rsteps (bf16: 16 rsteps)
   int sp;      // stage pitch
   int g;       // rows a staged group (stage_rows)
   int rows;    // window rows the rows pass computes: round16(th + 2rh); K1r's ring
   int pr;      // plane rows the cols pass reads
   int cs;      // int8: bytes a digit column; hybrid: bytes a y row
-  int rwords;  // words of each rows tap copy
+  int rwords;  // words of each rows tap copy (four a digit; bf16: two copies)
   int cwords;  // int8: words of each cols tap copy; hybrid: words of the tap groups
   int plane, nplanes, stage, taps, total;
 };
@@ -207,11 +228,13 @@ __host__ __device__ inline TcLayout tc_layout(int form, int body, int th, int tw
                                               int slots) {
   TcLayout L;
   const bool framed = form == kAssembled || form == kPipelined;
-  L.delta = framed ? 0 : (16 - rw % 16) % 16;
-  L.rsteps = (L.delta + 2 * rw + 1 + 15 + 31) / 32;
+  // bf16 groups its rows taps by image column in every form (its f32 sums)
+  L.delta = framed && body != kBf16 ? 0 : (16 - rw % 16) % 16;
+  L.rsteps = body == kBf16 ? (L.delta + 2 * rw + 1 + 15 + 15) / 16
+                           : (L.delta + 2 * rw + 1 + 15 + 31) / 32;
   L.csteps = (2 * rh + 1 + 15 + 31) / 32;
   L.groups = (2 * rh + 1 + 15) / 16;
-  L.sw = tw - 16 + 32 * L.rsteps;
+  L.sw = tw - 16 + (body == kBf16 ? 16 : 32) * L.rsteps;
   L.sp = odd16(L.sw);
   L.g = stage_rows(tw, L.sp);
   L.rows = round16(th + 2 * rh);
@@ -231,34 +254,11 @@ __host__ __device__ inline TcLayout tc_layout(int form, int body, int th, int tw
   }
   L.nplanes = form == kPipelined ? 2 : 1;
   L.stage = form == kStrip ? L.rows * L.sp : (framed ? slots : 2) * L.g * L.sp;
-  L.rwords = copy_words(L.rsteps);
+  L.rwords = body == kBf16 ? bf16_words(L.rsteps) : copy_words(L.rsteps);
   L.cwords = body == kInt8 ? copy_words(L.csteps) : 12 * (L.groups + 14);
-  L.taps = round16(16 + 4 * (8 * L.rwords + (body == kInt8 ? 8 * L.cwords : L.cwords)));
+  L.taps = round16(16 + 4 * ((body == kBf16 ? 2 : 8) * L.rwords +
+                             (body == kInt8 ? 8 * L.cwords : L.cwords)));
   L.total = L.nplanes * L.plane + L.stage + L.taps;
-  return L;
-}
-
-// The bf16 body's block: taps, the rows-output plane, the staged input, and
-// the assembled form's `slots` raw cp.async buffers of a row group each at a
-// 16-byte offset, converted into the stage.
-struct Bf16Layout {
-  int taps, plane, stage, raw_off, total, cs;
-};
-
-__host__ __device__ inline Bf16Layout bf16_layout(int form, int th, int tw, int rh, int rw,
-                                                  int slots) {
-  Bf16Layout L;
-  const int t4w = round4(2 * rw + 1), t4h = round4(2 * rh + 1);
-  const int g = kThreads / (tw >> 2);
-  const int sw = tw + t4w;
-  L.taps = 4 * t4h + 4 * t4w;
-  L.cs = odd_words(th + t4h);
-  L.plane = 2 * tw * L.cs;
-  L.stage = (form == kStrip ? th + t4h : g) * sw * 2;
-  const int end = L.taps + L.plane + L.stage;
-  const bool raw = form == kAssembled;
-  L.raw_off = raw ? round16(end) : end;
-  L.total = raw ? L.raw_off + slots * g * round16(sw) : end;
   return L;
 }
 
@@ -290,7 +290,7 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// ---- the int8 and hybrid bodies' loaders: raw bytes ----
+// ---- the loaders: raw bytes ----
 
 // Window rows [0, nr) (image rows reflect-101 of row0 + rr) x window bytes
 // [c_begin, c_end) (multiples of 16) of a plane, window byte c being image
@@ -356,81 +356,12 @@ __device__ __forceinline__ void load_rect(unsigned char* st, int sp, const uint8
   }
 }
 
-// ---- the bf16 body's loaders: rows staged as bf16 ----
-
-__device__ __forceinline__ void put_bf16(unsigned char* stage, int k, uint8_t v) {
-  reinterpret_cast<unsigned short*>(stage)[k] = to_bf16(static_cast<float>(v));
-}
-
-// rows [row0, row0 + nr) x columns [col0 + c_begin, col0 + c_end) of the
-// plane, reflect-101, into staged rows of sw elements; threads over columns
-__device__ __forceinline__ void load_rows(unsigned char* stage, int sw, const uint8_t* xp, int h,
-                                          int w, int row0, int col0, int nr, int c_begin,
-                                          int c_end) {
-  for (int c = c_begin + threadIdx.x; c < c_end; c += kThreads) {
-    const int gj = reflect101(col0 + c, w);
-    for (int rr = 0; rr < nr; ++rr) {
-      const int gi = reflect101(row0 + rr, h);
-      put_bf16(stage, rr * sw + c, xp[static_cast<size_t>(gi) * w + gj]);
-    }
-  }
-}
-
-// the same for ncols (a divisor of kThreads) columns from c_begin: each
-// thread one column, kThreads / ncols rows at a time
-__device__ __forceinline__ void load_columns(unsigned char* stage, int sw, const uint8_t* xp,
-                                             int h, int w, int row0, int col0, int nr,
-                                             int c_begin, int ncols) {
-  const int c = c_begin + threadIdx.x % ncols;
-  const int gc = col0 + c;
-  const int gj = gc >= 0 && gc < w ? gc : reflect101(gc, w);
-  for (int rr = threadIdx.x / ncols; rr < nr; rr += kThreads / ncols) {
-    const int gi = reflect101(row0 + rr, h);
-    put_bf16(stage, rr * sw + c, xp[static_cast<size_t>(gi) * w + gj]);
-  }
-}
-
-// nr raw byte rows (stride swa) -> bf16 staged rows (stride sw)
-__device__ __forceinline__ void convert(const unsigned char* raw, int swa, unsigned char* stage,
-                                        int sw, int nr) {
-  const int nw = sw >> 2;
-  for (int e = threadIdx.x; e < nr * nw; e += kThreads) {
-    const int rr = e / nw;
-    const int q = e - rr * nw;
-    const unsigned v = reinterpret_cast<const unsigned*>(raw + rr * swa)[q];
-    uint2 o;
-    o.x = to_bf16(static_cast<float>(v & 0xff)) |
-          (static_cast<unsigned>(to_bf16(static_cast<float>((v >> 8) & 0xff))) << 16);
-    o.y = to_bf16(static_cast<float>((v >> 16) & 0xff)) |
-          (static_cast<unsigned>(to_bf16(static_cast<float>(v >> 24))) << 16);
-    reinterpret_cast<uint2*>(reinterpret_cast<unsigned short*>(stage) + rr * sw)[q] = o;
-  }
-}
-
-// The bf16 assembled form's loader: row group t of a block's ngr groups
-// (window at column jw0 * tw of the padded frame plane fp, xw bytes a row;
-// its rows from row i0), by 16-byte cp.async into buffer t % slots of `raw`
-// (g rows of swa bytes), then one commit group (empty past the last group).
-__device__ __forceinline__ void issue_group(unsigned char* raw, const uint8_t* fp, int xw,
-                                            int i0, int jw0, int tw, int hp, int g, int swa,
-                                            int ngr, int total, int slots, int t) {
-  if (t < total) {
-    const int win = t / ngr;
-    const int r0 = (t - win * ngr) * g;
-    const uint8_t* src =
-        fp + static_cast<size_t>(i0 + r0) * xw + static_cast<size_t>(jw0 + win) * tw;
-    load_rect(raw + (t % slots) * g * swa, swa, src, xw, min(g, hp - r0), swa);
-  }
-  cp_async_commit();
-}
-
 #ifndef FUSED_DMA_LOADERS_ONLY
 
 struct K1Params {
   const uint8_t* x;      // input planes (the padded frame for K1a)
   void* out;             // output planes, h x w
-  const int* taps_i;     // int8, hybrid: the host's tap tables (tc_carve); bf16: row taps
-  const float* taps_f;   // bf16: the column taps
+  const int* taps_i;     // the host's tap tables (tc_carve)
   int h, w, rh, rw;      // frame and support radii
   int th, tw, nbh, nbw;  // tile and tile counts
   int seg, nseg;         // K1a: windows per block, blocks per row strip
@@ -440,7 +371,7 @@ struct K1Params {
   float c1, c2, c3, scale;  // int8 epilogue; hybrid scale
 };
 
-// ---- the tensor-core bodies (int8, hybrid) ----
+// ---- the tensor-core bodies ----
 
 __device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
@@ -508,10 +439,11 @@ struct TcSmem {
 // uncommitted so that the first row group's commit covers them (they are
 // there after the first wait and barrier). The copies: word i of copy c of
 // a digit holds its taps [4i + c - 16 - delta, 4i + c - 13 - delta], one
-// byte each; the tap groups -7 .. groups + 6 are bf16 pairs, word q of
-// stored group gs at 12 gs + q. The hybrid plane's rows past the rows
-// pass's are zeroed: the cols pass reads them against zero taps, and an
-// uninitialised word could be a NaN.
+// byte each (bf16: word i of copy c holds the bf16 pair of taps 2i + c - 32
+// - delta and the next, the first in the low half); the tap groups -7 ..
+// groups + 6 are bf16 pairs, word q of stored group gs at 12 gs + q. The
+// bf16 y plane's rows past the rows pass's are zeroed: the cols pass reads
+// them against zero taps, and an uninitialised word could be a NaN.
 template <int B>
 __device__ __forceinline__ TcSmem tc_carve(unsigned char* smem, const TcLayout& L,
                                            const K1Params& p) {
@@ -524,7 +456,7 @@ __device__ __forceinline__ TcSmem tc_carve(unsigned char* smem, const TcLayout& 
   for (int k = threadIdx.x; k < L.taps >> 4; k += kThreads) {
     cp_async16(tab + (k << 4), src + (k << 4));
   }
-  if (B == kHybrid) {
+  if (B != kInt8) {
     for (int n = 0; n < L.nplanes; ++n) {
       uint4* tail = reinterpret_cast<uint4*>(s.plane[n] + L.rows * L.cs);
       for (int k = threadIdx.x; k < ((L.pr - L.rows) * L.cs) >> 4; k += kThreads) {
@@ -534,8 +466,88 @@ __device__ __forceinline__ TcSmem tc_carve(unsigned char* smem, const TcLayout& 
   }
   s.qoff = reinterpret_cast<const unsigned*>(tab);
   s.rq = s.qoff + 4;
-  s.cq = s.rq + 8 * L.rwords;
+  s.cq = s.rq + (B == kBf16 ? 2 : 8) * L.rwords;
   return s;
+}
+
+// four raw bytes v (window bytes 4 tig .. 4 tig + 3 of a staged row) as the
+// bf16 rows pass's B fragment: b0 = (byte 0, byte 1) for k = 2 tig, 2 tig +
+// 1, b1 = (byte 2, byte 3) for k = 2 tig + 8, + 9. 2^23 + byte as an f32,
+// less 2^23, is the byte exactly, and so is its bf16.
+__device__ __forceinline__ void bytes_bf16(unsigned v, unsigned& b0, unsigned& b1) {
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[i] = __fsub_rn(__uint_as_float(__byte_perm(v, 0x4B000000u, 0x7440 + i)), 8388608.0f);
+  }
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(b0) : "f"(f[1]), "f"(f[0]));
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(b1) : "f"(f[3]), "f"(f[2]));
+}
+
+// The bf16 body's rows pass, as rows_mma: a unit is 16 output columns x 8
+// rows; A (row g of the 16 output columns, k-step s of 16 window bytes) is
+// read from the table copy of the lane's parity, B from 4 staged bytes a
+// lane. kFramed: the assembled form's staged byte b is window byte b +
+// delta (its window starts at the frame's tile column), so B is read delta
+// bytes to the left, as two aligned words and a funnel shift.
+template <bool kFramed>
+__device__ __forceinline__ void rows_bf16_mma(const TcSmem& s, const TcLayout& L, int tw,
+                                              const unsigned char* st, int nr, int m0,
+                                              int ring, unsigned char* plane) {
+  constexpr int kNb = 4;  // n-blocks a warp at once
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  // A: row m = g, k-step s: the pairs of taps 16 s + 4 tig - g - delta (+0,
+  // -8, +2, -6 for the four registers), word (that + 32 + delta) / 2 of the
+  // copy of its parity
+  const int base = 4 * tig - g + 32;
+  const unsigned* q = s.rq + (base & 1) * L.rwords + (base >> 1);
+  const int mbs = tw >> 4;  // 2, 4 or 8: a divisor of kWarps
+  const int mb = warp % mbs, nstride = kWarps / mbs;
+  const int nbs = nr >> 3;
+  const int rbase = ring ? m0 % ring : m0;
+  const int back = kFramed ? (-L.delta) & ~3 : 0;  // aligned word at or before the bytes
+  const int shift = kFramed ? 8 * ((-L.delta) & 3) : 0;
+  const unsigned char* xb = st + g * L.sp + 16 * mb + 4 * tig + back;
+  for (int nb0 = warp / mbs; nb0 < nbs; nb0 += kNb * nstride) {
+    float acc[kNb][4];
+#pragma unroll
+    for (int k = 0; k < kNb; ++k) {
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[k][v] = 0.0f;
+    }
+    for (int st16 = 0; st16 < L.rsteps; ++st16) {
+      const unsigned* q8 = q + 8 * st16;
+      const unsigned a[4] = {q8[0], q8[-4], q8[1], q8[-3]};
+#pragma unroll
+      for (int k = 0; k < kNb; ++k) {
+        const int nb = nb0 + k * nstride;
+        if (nb < nbs) {
+          const unsigned* w = reinterpret_cast<const unsigned*>(xb + 8 * nb * L.sp + 16 * st16);
+          const unsigned v = kFramed ? __funnelshift_r(w[0], w[1], shift) : w[0];
+          unsigned b0, b1;
+          bytes_bf16(v, b0, b1);
+          mma_bf16(acc[k], a, b0, b1);
+        }
+      }
+    }
+    // accumulator v: output column 16 mb + g + 8 (v >> 1), staged row 8 nb
+    // + 2 tig + (v & 1), as rows_mma's
+#pragma unroll
+    for (int n = 0; n < kNb; ++n) {
+      const int nb = nb0 + n * nstride;
+      if (nb >= nbs) break;
+      int m = rbase + 8 * nb + 2 * tig;
+      if (ring && m >= ring) m -= ring;
+#pragma unroll
+      for (int hv = 0; hv < 2; ++hv) {
+        unsigned short* y =
+            reinterpret_cast<unsigned short*>(plane + m * L.cs) + 16 * mb + g + 8 * hv;
+        y[0] = to_bf16(acc[n][2 * hv]);
+        y[L.cs >> 1] = to_bf16(acc[n][2 * hv + 1]);
+      }
+    }
+  }
 }
 
 // Rows pass of staged rows [0, nr) (nr a multiple of 8; pitch L.sp, window
@@ -543,11 +555,16 @@ __device__ __forceinline__ TcSmem tc_carve(unsigned char* smem, const TcLayout& 
 // multiple of 8), which goes to plane row (m0 + rr) mod ring (ring 0: no
 // ring). A unit is 16 output columns x 8 rows (one n-block); a warp keeps
 // one 16-column block and takes up to four n-blocks at once, which share
-// each step's A fragments.
-template <int B>
+// each step's A fragments. kFramed: the assembled forms' stage (the bf16
+// body reads it delta bytes to the left).
+template <int B, bool kFramed = false>
 __device__ __forceinline__ void rows_mma(const TcSmem& s, const TcLayout& L, int tw,
                                          int rows_shift, const unsigned char* st, int nr,
                                          int m0, int ring, unsigned char* plane) {
+  if constexpr (B == kBf16) {
+    rows_bf16_mma<kFramed>(s, L, tw, st, nr, m0, ring, plane);
+    return;
+  }
   constexpr int kNb = 4;  // n-blocks a warp at once
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, tig = lane & 3;
@@ -787,7 +804,7 @@ __host__ __device__ inline int hybrid_col_units(int th, int tw) {
   return ((th + 127) / 128) * 8 * ((tw / 16 + kHybCb - 1) / kHybCb);
 }
 
-// Hybrid cols pass and store of units [u_begin, u_end) of the tile at (i0,
+// Hybrid (and bf16) cols pass and store of units [u_begin, u_end) of the tile at (i0,
 // j0), whose output row 0 reads from plane row b0 (modulo ring). Fragment
 // f of a 128-row block holds its output rows f + 16 n (n = 0..7); at step s
 // it reads plane rows f + 16 s + (0..15) (A) against the taps of group s -
@@ -796,7 +813,7 @@ __host__ __device__ inline int hybrid_col_units(int th, int tw) {
 // of those 16 rows a step: X_j = rows f + 8 j + (0..7), f takes X_2s and
 // X_2s+1, f + 8 takes X_2s+1 and X_2s+2 (the next step's X_2s); and up to
 // kHybCb 16-column blocks, which share the step's B fragment.
-template <bool kOutU8>
+template <int B, bool kOutU8>
 __device__ __forceinline__ void cols_hybrid_mma(const TcSmem& s, const TcLayout& L,
                                                 const K1Params& p, const unsigned char* plane,
                                                 int u_begin, int u_end, int b0, int ring,
@@ -864,7 +881,9 @@ __device__ __forceinline__ void cols_hybrid_mma(const TcSmem& s, const TcLayout&
           const int ii = rb + 8 * fi + 16 * (2 * tig + (v & 1));
           const int gi = i0 + ii, gj = j0 + 16 * (cb0 + c) + g + 8 * (v >> 1);
           if (ii >= p.th || gi >= p.h || gj >= p.w) continue;
-          const float y = __fmaf_rn(acc[c][fi][v], p.scale, 128.0f);
+          // hybrid: the scale and the recentring; bf16: the sum itself
+          const float y =
+              B == kBf16 ? acc[c][fi][v] : __fmaf_rn(acc[c][fi][v], p.scale, 128.0f);
           const size_t o = out_off + static_cast<size_t>(gi) * p.w + gj;
           if (kOutU8) {
             static_cast<uint8_t*>(p.out)[o] = store_u8(y);
@@ -884,7 +903,7 @@ __device__ __forceinline__ void cols_mma(const TcSmem& s, const TcLayout& L, con
   if (B == kInt8) {
     cols_int8_mma<kOutU8>(s, L, p, plane, u_begin, u_end, b0, ring, i0, j0);
   } else {
-    cols_hybrid_mma<kOutU8>(s, L, p, plane, u_begin, u_end, b0, ring, i0, j0);
+    cols_hybrid_mma<B, kOutU8>(s, L, p, plane, u_begin, u_end, b0, ring, i0, j0);
   }
 }
 
@@ -928,7 +947,7 @@ __device__ __forceinline__ bool vec_planes(const K1Params& p) {
   return ((reinterpret_cast<uintptr_t>(p.x) | static_cast<uintptr_t>(p.w)) & 15) == 0;
 }
 
-// ---- the forms (int8, hybrid) ----
+// ---- the forms ----
 
 template <int B, bool kOutU8>
 __global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_direct(K1Params p) {
@@ -1021,8 +1040,8 @@ __global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_assembled(K1Params 
     }
     __syncthreads();  // group t landed; the next slot and the plane are free
     issue(t + p.slots - 1);
-    rows_mma<B>(s, L, p.tw, p.rows_shift, s.stage + (t % p.slots) * L.g * L.sp,
-                min(L.g, L.rows - r0), r0, kNoRing, s.plane[kPipe ? (win & 1) : 0]);
+    rows_mma<B, true>(s, L, p.tw, p.rows_shift, s.stage + (t % p.slots) * L.g * L.sp,
+                      min(L.g, L.rows - r0), r0, kNoRing, s.plane[kPipe ? (win & 1) : 0]);
     const int j0 = (jw0 + win) * p.tw;
     if (kPipe) {
       // a slice of the previous window's cols pass beside this group's rows
@@ -1064,246 +1083,21 @@ __global__ void __launch_bounds__(kThreads, kTcBlocks<B>) k1_resident(K1Params p
   }
 }
 
-// ---- the bf16 body (FMA units) ----
-
-// eight consecutive bf16 values, two 8-byte words, as f32 (element 0 is the
-// low half of a.x)
-__device__ __forceinline__ void unpack8(uint2 a, uint2 b, float v[8]) {
-  v[0] = __uint_as_float(a.x << 16);
-  v[1] = __uint_as_float(a.x & 0xffff0000u);
-  v[2] = __uint_as_float(a.y << 16);
-  v[3] = __uint_as_float(a.y & 0xffff0000u);
-  v[4] = __uint_as_float(b.x << 16);
-  v[5] = __uint_as_float(b.x & 0xffff0000u);
-  v[6] = __uint_as_float(b.y << 16);
-  v[7] = __uint_as_float(b.y & 0xffff0000u);
-}
-
-// acc[s] += t[u] * v[u + s], taps u in ascending order: 4 outputs, 4 taps
-__device__ __forceinline__ void fma_window(const float4 t, const float v[8], float acc[4]) {
-  const float tq[4] = {t.x, t.y, t.z, t.w};
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-#pragma unroll
-    for (int s = 0; s < 4; ++s) acc[s] = __fmaf_rn(tq[u], v[u + s], acc[s]);
-  }
-}
-
-struct Bf16Smem {
-  const float* rt;  // row taps
-  const float* ct;  // column taps
-  unsigned char* plane;
-  unsigned char* stage;
-  unsigned char* raw;
-};
-
-__device__ __forceinline__ Bf16Smem bf16_carve(unsigned char* smem, const Bf16Layout& L,
-                                               const K1Params& p) {
-  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  Bf16Smem s;
-  float* ct = reinterpret_cast<float*>(smem);
-  float* rt = ct + t4h;
-  for (int k = threadIdx.x; k < t4h; k += kThreads) ct[k] = p.taps_f[k];
-  for (int k = threadIdx.x; k < t4w; k += kThreads) {
-    rt[k] = reinterpret_cast<const float*>(p.taps_i)[k];
-  }
-  s.rt = rt;
-  s.ct = ct;
-  s.plane = smem + L.taps;
-  s.stage = s.plane + L.plane;
-  s.raw = smem + L.raw_off;
-  return s;
-}
-
-// Rows pass of nr staged rows (stride sw elements), staged row rr being
-// rows-output row m0 + rr: 4 outputs of one row an item.
-__device__ __forceinline__ void bf16_rows_pass(const unsigned char* stage, int sw, int nr, int m0,
-                                               int tw, int nqw, const Bf16Smem& s, int cs) {
-  const int ngrp = tw >> 2;  // 4-column output groups per row
-  for (int k = threadIdx.x; k < nr * ngrp; k += kThreads) {
-    const int rr = k / ngrp;
-    const int c0 = (k - rr * ngrp) << 2;
-    const int m = m0 + rr;
-    const uint2* xw = reinterpret_cast<const uint2*>(
-        reinterpret_cast<const unsigned short*>(stage) + rr * sw + c0);
-    const float4* rt = reinterpret_cast<const float4*>(s.rt);
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    uint2 cur = xw[0];
-    for (int q = 0; q < nqw; ++q) {
-      const uint2 nxt = xw[q + 1];
-      float v[8];
-      unpack8(cur, nxt, v);
-      fma_window(rt[q], v, acc);
-      cur = nxt;
-    }
-    unsigned short* y = reinterpret_cast<unsigned short*>(s.plane);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) y[(c0 + u) * cs + m] = to_bf16(acc[u]);
-  }
-}
-
-// Cols pass and store of a th x tw tile at (i0, j0): 4 output rows of one
-// column an item.
-template <bool kOutU8>
-__device__ __forceinline__ void bf16_cols_pass(int cs, int nqh, const Bf16Smem& s,
-                                               const K1Params& p, int i0, int j0) {
-  const int tw = p.tw;
-  const size_t plane_off = static_cast<size_t>(blockIdx.y) * p.h * p.w;
-  for (int k = threadIdx.x; k < (p.th >> 2) * tw; k += kThreads) {
-    const int a = k / tw;
-    const int j = k - a * tw;
-    const int ii = a << 2;
-    const int gj = j0 + j;
-    if (gj >= p.w || i0 + ii >= p.h) continue;
-    const float4* ct = reinterpret_cast<const float4*>(s.ct);
-    const uint2* d = reinterpret_cast<const uint2*>(
-        reinterpret_cast<const unsigned short*>(s.plane) + j * cs + ii);
-    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    uint2 cur = d[0];
-    for (int q = 0; q < nqh; ++q) {
-      const uint2 nxt = d[q + 1];
-      float v[8];
-      unpack8(cur, nxt, v);
-      fma_window(ct[q], v, acc);
-      cur = nxt;
-    }
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int gi = i0 + ii + u;
-      if (gi >= p.h) break;
-      const size_t o = plane_off + static_cast<size_t>(gi) * p.w + gj;
-      if (kOutU8) {
-        static_cast<uint8_t*>(p.out)[o] = store_u8(acc[u]);
-      } else {
-        static_cast<float*>(p.out)[o] = acc[u];
-      }
-    }
-  }
-}
-
-template <bool kOutU8>
-__global__ void __launch_bounds__(kThreads) k1_bf16_direct(K1Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Bf16Layout L = bf16_layout(kDirect, p.th, p.tw, p.rh, p.rw, 0);
-  const Bf16Smem s = bf16_carve(smem, L, p);
-  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int hp = p.th + t4h, sw = p.tw + t4w, g = kThreads / (p.tw >> 2);
-  const int i0 = (blockIdx.x / p.nbw) * p.th;
-  const int j0 = (blockIdx.x % p.nbw) * p.tw;
-  const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
-  for (int r0 = 0; r0 < hp; r0 += g) {
-    const int nr = min(g, hp - r0);
-    __syncthreads();  // the previous group is done with the stage
-    load_rows(s.stage, sw, xp, p.h, p.w, i0 - p.rh + r0, j0 - p.rw, nr, 0, sw);
-    __syncthreads();
-    bf16_rows_pass(s.stage, sw, nr, r0, p.tw, t4w >> 2, s, L.cs);
-  }
-  __syncthreads();
-  bf16_cols_pass<kOutU8>(L.cs, t4h >> 2, s, p, i0, j0);
-}
-
-template <bool kOutU8>
-__global__ void __launch_bounds__(kThreads) k1_bf16_strip(K1Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Bf16Layout L = bf16_layout(kStrip, p.th, p.tw, p.rh, p.rw, 0);
-  const Bf16Smem s = bf16_carve(smem, L, p);
-  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int hp = p.th + t4h, sw = p.tw + t4w;
-  const int row_words = sw / 2, tw_words = p.tw / 2;
-  const int i0 = blockIdx.x * p.th;
-  const uint8_t* xp = p.x + static_cast<size_t>(blockIdx.y) * p.h * p.w;
-  int* sw4 = reinterpret_cast<int*>(s.stage);
-  for (int jw = 0; jw < p.nbw; ++jw) {
-    const int j0 = jw * p.tw;
-    if (jw == 0) {
-      load_rows(s.stage, sw, xp, p.h, p.w, i0 - p.rh, j0 - p.rw, hp, 0, sw);
-    } else {
-      // carry the window's last t4w columns to its front, tw columns at a
-      // time in ascending order (source and target of one move are apart
-      // by tw, so they never overlap)
-      for (int c = 0; c < t4w; c += p.tw) {
-        const int n = min(p.tw, t4w - c) / 2;
-        const int cw = c / 2;
-        for (int e = threadIdx.x; e < hp * n; e += kThreads) {
-          const int rr = e / n;
-          const int q = cw + e - rr * n;
-          sw4[rr * row_words + q] = sw4[rr * row_words + q + tw_words];
-        }
-        __syncthreads();
-      }
-      load_columns(s.stage, sw, xp, p.h, p.w, i0 - p.rh, j0 - p.rw, hp, t4w, p.tw);
-    }
-    __syncthreads();  // the window is staged; the last cols pass is done
-    bf16_rows_pass(s.stage, sw, hp, 0, p.tw, t4w >> 2, s, L.cs);
-    __syncthreads();
-    bf16_cols_pass<kOutU8>(L.cs, t4h >> 2, s, p, i0, j0);
-  }
-}
-
-template <bool kOutU8>
-__global__ void __launch_bounds__(kThreads) k1_bf16_assembled(K1Params p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Bf16Layout L = bf16_layout(kAssembled, p.th, p.tw, p.rh, p.rw, p.slots);
-  const Bf16Smem s = bf16_carve(smem, L, p);
-  const int t4w = round4(2 * p.rw + 1), t4h = round4(2 * p.rh + 1);
-  const int hp = p.th + t4h, sw = p.tw + t4w, swa = round16(sw);
-  const int g = kThreads / (p.tw >> 2);
-  const int ngr = (hp + g - 1) / g;  // row groups of the window
-  const int i0 = (blockIdx.x / p.nseg) * p.th;
-  const int jw0 = blockIdx.x % p.nseg;
-  const uint8_t* fp = p.x + static_cast<size_t>(blockIdx.y) * p.xh * p.xw;
-
-  auto issue = [&](int t) {
-    issue_group(s.raw, fp, p.xw, i0, jw0, p.tw, hp, g, swa, ngr, ngr, p.slots, t);
-  };
-
-  for (int t = 0; t < p.slots - 1; ++t) issue(t);
-  for (int t = 0; t < ngr; ++t) {
-    const int r0 = t * g;
-    const int nr = min(g, hp - r0);
-    if (p.slots == 3) {
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // group t landed; the stage and the next slot are free
-    issue(t + p.slots - 1);
-    convert(s.raw + (t % p.slots) * g * swa, swa, s.stage, sw, nr);
-    __syncthreads();
-    bf16_rows_pass(s.stage, sw, nr, r0, p.tw, t4w >> 2, s, L.cs);
-  }
-  __syncthreads();
-  bf16_cols_pass<kOutU8>(L.cs, t4h >> 2, s, p, i0, jw0 * p.tw);
-  cp_async_wait<0>();
-}
-
 template <int B, bool kOutU8>
 int launch(int form, const K1Params& p, int planes, int smem, cudaStream_t stream) {
   void (*kernel)(K1Params) = nullptr;
   dim3 grid(1, planes);
   switch (form) {
     case kDirect:
-      if constexpr (B == kBf16) {
-        kernel = k1_bf16_direct<kOutU8>;
-      } else {
-        kernel = k1_direct<B, kOutU8>;
-      }
+      kernel = k1_direct<B, kOutU8>;
       grid.x = p.nbh * p.nbw;
       break;
     case kStrip:
-      if constexpr (B == kBf16) {
-        kernel = k1_bf16_strip<kOutU8>;
-      } else {
-        kernel = k1_strip<B, kOutU8>;
-      }
+      kernel = k1_strip<B, kOutU8>;
       grid.x = p.nbh;
       break;
     case kAssembled:
-      if constexpr (B == kBf16) {
-        kernel = k1_bf16_assembled<kOutU8>;
-      } else {
-        kernel = k1_assembled<B, kOutU8, false>;
-      }
+      kernel = k1_assembled<B, kOutU8, false>;
       grid.x = p.nbh * p.nseg;
       break;
     case kPipelined:
@@ -1421,43 +1215,39 @@ int smem_limit(int* limit) {
 // 4 resident) with one of its bodies (0 int8, 1 hybrid, 2 bf16), uint8
 // planes -> uint8 (out_u8 = 1) or float, the epilogue's value before the
 // uint8 store (int8: p1*c1 + p23*c2 + p4*c3 + 128).
-// taps_i: int8 and hybrid, the tap tables of tc_carve (tc_layout's `taps`
-// bytes, built by cuda_kernels/fused_dma.py tc_tables for this body and
-// form family: the assembled forms' rows copies take no leading zeros);
-// bf16, float [t4w] row taps. taps_f: bf16, float [t4h] column taps, both
-// zero-padded to a multiple of 4.
-// (th, tw): the tile (tw 32, 64 or 128; th a multiple of 16 for int8 and
-// hybrid, of 4 for bf16); seg, slots: windows per block and raw row-group
+// taps_i: the tap tables of tc_carve (tc_layout's `taps` bytes, built by
+// cuda_kernels/fused_dma.py tc_tables for this body and form family: the
+// int8 and hybrid assembled forms' rows copies take no leading zeros);
+// taps_f: unused (the bf16 body's column taps before its tables; pass NULL).
+// (th, tw): the tile (tw 32, 64 or 128; th a multiple of 16); seg, slots:
+// windows per block and raw row-group
 // buffers (2 or 3) of the assembled forms. (xh, xw): the planes' rows and
 // row length (the padded frame's for the assembled forms: the plane at
 // (rh, rw), xw a multiple of 16). smem: the wrapper's shared-memory bytes,
-// which must equal this file's layout (tc_layout, bf16_layout).
+// which must equal this file's layout (tc_layout).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, void* out,
                                 const void* taps_i, const void* taps_f, int planes, int h,
                                 int w, int rh, int rw, int th, int tw, int seg, int slots,
                                 int xh, int xw, int smem, int rows_shift, float c1, float c2,
                                 float c3, float scale, void* stream) {
+  (void)taps_f;
   const bool tw_ok = tw == 32 || tw == 64 || tw == 128;
-  const bool tc = body == kInt8 || body == kHybrid;
   if (form < kDirect || form > kResident || body < kInt8 || body > kBf16 || !tw_ok ||
-      th < 4 || th % (tc ? 16 : 4) || seg < 1 || planes < 1 || planes > 65535 || rh < 1 ||
-      rw < 1) {
+      th < 16 || th % 16 || seg < 1 || planes < 1 || planes > 65535 || rh < 1 || rw < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool asm_form = form == kAssembled || form == kPipelined;
   if (asm_form && slots != 2 && slots != 3) return static_cast<int>(cudaErrorInvalidValue);
   const TcLayout T = tc_layout(form, body, th, tw, rh, rw, asm_form ? slots : 0);
-  const int total = tc ? T.total : bf16_layout(form, th, tw, rh, rw, slots).total;
   int limit = 0;
   const int lerr = smem_limit(&limit);
   if (lerr) return lerr;
-  if (total != smem || smem > limit) return static_cast<int>(cudaErrorInvalidValue);
+  if (T.total != smem || smem > limit) return static_cast<int>(cudaErrorInvalidValue);
   K1Params p;
   p.x = static_cast<const uint8_t*>(x);
   p.out = out;
   p.taps_i = static_cast<const int*>(taps_i);
-  p.taps_f = static_cast<const float*>(taps_f);
   p.h = h;
   p.w = w;
   p.rh = rh;
@@ -1473,11 +1263,9 @@ extern "C" int blur_fused_u8_k1(int form, int body, int out_u8, const void* x, v
   p.xw = w;
   if (asm_form) {
     // the frame must hold every window the blocks read
-    const int t4w = round4(2 * rw + 1), t4h = round4(2 * rh + 1);
-    const int rows = tc ? (p.nbh - 1) * th + T.rows : p.nbh * th + t4h;
-    const int cols = tc ? (p.nbw - 1) * tw + T.sw : (p.nbw - 1) * tw + round16(tw + t4w);
-    if (xh < rows || xw % 16 || xw < cols || (form == kPipelined && seg < 2) ||
-        (form == kAssembled && !tc && seg != 1)) {
+    const int rows = (p.nbh - 1) * th + T.rows;
+    const int cols = (p.nbw - 1) * tw + T.sw;
+    if (xh < rows || xw % 16 || xw < cols || (form == kPipelined && seg < 2)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
     p.xh = xh;

@@ -5,10 +5,9 @@ The port of the JAX package's ``pallas_kernels/fused_dma.py``:
 ``_blur_fused_dma_impl`` there runs one of its Pallas kernels with one of
 its tile bodies; here ``blur_fused_u8_dma`` does the same with the kernels
 of ``csrc/fused_dma.cu`` on a CUDA tensor, and runs the body's plain
-PyTorch version on a CPU tensor. The int8 and hybrid bodies are band
-products on the tensor cores, as the JAX bodies are band matmuls on the
-MXU (``tc_layout`` sizes their blocks); the bf16 body runs on the FMA
-units. The bodies:
+PyTorch version on a CPU tensor. The three bodies are band products on
+the tensor cores, as the JAX bodies are band matmuls on the MXU
+(``tc_layout`` sizes their blocks). The bodies:
 
 - int8 (``_rows_int8`` / ``_cols_int8``), plain version
   ``blur_fused_u8_dma_ref``. Both compute the JAX kernel's integers
@@ -31,8 +30,12 @@ units. The bodies:
   call, and all within 2e-2 at 0..255 scale (f32 store) and 1 count
   (uint8 store) of the plain version.
 - bf16 (``_tile_bf16``): ``y = bf16(sum bf16(r_t) * x)``, then ``sum
-  bf16(c_t) * y``, both f32 sums in ascending tap order, no epilogue;
-  plain version ``blur_fused_u8_bf16_ref``, bit-equal.
+  bf16(c_t) * y``, no epilogue; plain version ``blur_fused_u8_bf16_ref``
+  (both f32 sums in ascending tap order). The kernel takes both sums on
+  bf16 tensor cores, the rows sum in k-steps of 16 window bytes aligned to
+  the image row, the column sum as the hybrid's: its forms are
+  bit-identical to each other, and within ``bf16_bound`` of the plain
+  version (derived at ``blur_fused_u8_bf16``).
 
 The forms (``k1_geometry`` sizes each; one wrapper and launch count each):
 
@@ -54,11 +57,10 @@ The forms (``k1_geometry`` sizes each; one wrapper and launch count each):
 Every form computes K1's function from the same terms, grouped the same
 way, so the forms are bit-identical to the direct form (as in the JAX
 package, where each is bit-identical to ``_kernel_direct``), and the int8
-and bf16 bodies to their plain versions. A bf16 product is exact in f32,
-so a sum taken in the same order is the same number: the bf16 plain
-version equals the JAX body in interpret mode wherever XLA's CPU dot sums
-in ascending order (short contractions; past those, one rounding of the
-sum may differ).
+body to its plain version. A bf16 product is exact in f32, so a sum taken
+in the same order is the same number: the bf16 plain version equals the
+JAX body in interpret mode wherever XLA's CPU dot sums in ascending order
+(short contractions; past those, one rounding of the sum may differ).
 
 The JAX kernel contracts every window with band matrices. Every column of a
 band matrix holds the same tap vector, shifted, so the band dots are 1-D
@@ -107,6 +109,8 @@ __all__ = [
     "K1Geometry",
     "RUNGS",
     "TcLayout",
+    "bf16_bound",
+    "bf16_bound_padded",
     "bf16_operands",
     "blur_fused_u8_assembled",
     "blur_fused_u8_bf16",
@@ -396,6 +400,59 @@ def blur_fused_u8_bf16_ref(planar_u8: torch.Tensor, plan: BlurPlan,
     return out.reshape(planar_u8.shape)
 
 
+COLS_TOL = 2e-2  # the tensor cores' grouped column sum against an ascending one, 0..255
+
+
+def _correlate64(y: torch.Tensor, taps: np.ndarray, n: int, axis: int) -> torch.Tensor:
+    """``sum_t taps[t] * y[t : t + n]`` along ``axis`` in float64."""
+    acc = torch.zeros((*y.shape[:axis % y.ndim], n, *y.shape[axis % y.ndim + 1:]),
+                      dtype=torch.float64, device=y.device)
+    for t, c in enumerate(taps.tolist()):
+        if c:
+            acc.add_(y.narrow(axis, t, n), alpha=c)
+    return acc
+
+
+def _bf16_bound(xp: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
+    """``bf16_bound`` on padded planes ``xp`` (``(n, H + 2rh, W + 2rw)``
+    uint8) -> ``(n, H, W)``."""
+    h, w = plan.shape
+    ops = bf16_operands(plan)
+    xp = xp.to(torch.float64)
+    exact = _correlate64(xp, ops.c_row, w, -1)
+    mass = exact if (ops.c_row >= 0).all() else _correlate64(xp, np.abs(ops.c_row), w, -1)
+    del xp
+    eps = mass * (2.0 ** -21 * ops.c_row.size)
+    del mass
+    step = (bf16_round_ref((exact + eps).to(torch.float32))
+            - bf16_round_ref((exact - eps).to(torch.float32))).to(torch.float64)
+    del exact, eps
+    return _correlate64(step, np.abs(ops.c_col), h, -2).add_(COLS_TOL)
+
+
+def bf16_bound(planar_u8: torch.Tensor, plan: BlurPlan) -> torch.Tensor:
+    """float64 ``(..., H, W)``: how far K1's bf16 body may lie from its
+    plain version ``blur_fused_u8_bf16_ref`` on the f32 store (derived at
+    ``blur_fused_u8_bf16``): ``COLS_TOL`` plus, for each output, the sum
+    over its column taps of ``|c_t|`` times the bf16 step that the rows
+    value it reads can take. That step is ``bf16(E + eps) - bf16(E - eps)``,
+    E the exact rows sum (float64: bf16 taps times bytes, exact) and eps =
+    2^-21 (2 rw + 1) sum_t |r_t| x[t], a bound on either f32 sum's distance
+    from E: 0 unless E lies within eps of a bf16 rounding boundary. Runs
+    on whatever device the input lies on."""
+    _check_rung(planar_u8, plan, "bf16")
+    return _bf16_bound(_reflect_planes(planar_u8, plan), plan).reshape(planar_u8.shape)
+
+
+def bf16_bound_padded(xp: torch.Tensor, plan: BlurPlan, orh: int, orw: int) -> torch.Tensor:
+    """``bf16_bound`` for K1's assembled form on a frame ``xp`` holding the
+    planes at ``(orh, orw)`` (as ``blur_fused_u8_padded_ref`` takes it)."""
+    h, w = plan.shape
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    x = xp.reshape(-1, *xp.shape[-2:])[:, orh - rh : orh + h + rh, orw - rw : orw + w + rw]
+    return _bf16_bound(x, plan).reshape(*xp.shape[:-2], h, w)
+
+
 def int8_rows_ref(xp: torch.Tensor, q_row: np.ndarray, w: int) -> torch.Tensor:
     """The exact int8 rows pass on column-padded uint8 ``xp`` (``(n, m, w +
     2rw)``): ``R = sum_t q[t] * (x - 128)`` in int32, tap by tap."""
@@ -480,8 +537,7 @@ def _tap_groups(c: np.ndarray, groups: int) -> np.ndarray:
     (zero outside the taps), word q < 8 of a group the bf16 pair of its taps
     2q, 2q + 1 (the low half first), words 8..11 zero (12 words a group put
     a load's 8 lanes on 8 banks)."""
-    bits = torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(torch.bfloat16)
-    bits = bits.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+    bits = _bf16_bits(c)
     t = 16 * (np.arange(groups + 14)[:, None] - 7) + 2 * np.arange(8)[None, :]
 
     def at(i):
@@ -492,45 +548,68 @@ def _tap_groups(c: np.ndarray, groups: int) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=64)
-def tc_tables(plan: BlurPlan, precision: str, framed: bool,
-              device: torch.device | str = "cpu") -> torch.Tensor:
-    """The tap tables of K1's int8 or hybrid body, int32 words in the order
-    ``tc_carve`` of ``csrc/fused_dma.cu`` copies them into shared memory
-    (``tc_layout(...).taps`` bytes): ``[qoff, 0, 0, 0]`` (``128 * Q``, Q =
-    128 sum q_hi + sum q_lo, the raw-byte rows product's recentring, modulo
-    2^32), the rows taps' copies (``_tap_copies``, after (-rw) mod 16 leading
-    zeros, none in the ``framed`` assembled forms), then the column taps'
-    copies (int8) or groups (hybrid, ``_tap_groups``). Built once a plan,
-    rung and form family on the host, so no block builds them."""
-    rh, rw = plan.col.support_radius, plan.row.support_radius
-    lay = tc_layout("assembled" if framed else "direct", precision, 16, 64, rh, rw, 2)
-    ops = int8_operands(plan)
-    q = ops.q_row.astype(np.int64)
-    qoff = (128 * (128 * int((q >> 7).sum()) + int((q & 127).sum()))) % (1 << 32)
-    cols = (_tap_copies(ops.q_col.astype(np.int64), 0, lay.cwords) if precision == "int8"
-            else _tap_groups(hybrid_operands(plan).c_col, lay.groups))
-    words = np.zeros(lay.taps // 4, np.uint32)
-    body = np.concatenate([np.array([qoff, 0, 0, 0], np.uint32),
-                           _tap_copies(q, lay.delta, lay.rwords).ravel(), cols.ravel()])
-    words[: body.size] = body
-    return torch.from_numpy(words.view(np.int32)).to(device)
-
-
 def _padded_f32(taps: np.ndarray) -> np.ndarray:
     out = np.zeros(-(-taps.size // 4) * 4, dtype=np.float32)
     out[: taps.size] = taps
     return out
 
 
+def _bf16_bits(c: np.ndarray) -> np.ndarray:
+    """bf16 values (as float32) -> their 16-bit patterns, as uint32."""
+    bits = torch.from_numpy(np.ascontiguousarray(c, np.float32)).to(torch.bfloat16)
+    return bits.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+
+
+def _bf16_pair_copies(c: np.ndarray, delta: int, words: int) -> np.ndarray:
+    """``(2, words)`` uint32: the bf16 row taps ``c`` in two copies, word i
+    of copy p the bf16 pair of taps ``2i + p - 32 - delta`` (low half) and
+    the next (high half), zero outside the taps: what a lane of the bf16
+    rows pass (``rows_bf16_mma``) reads as one aligned word for each A
+    register."""
+    bits = _bf16_bits(c)
+    out = np.zeros((2, words), np.uint32)
+    for par in range(2):
+        t = 2 * np.arange(words) + par - 32 - delta
+
+        def at(i):
+            return np.where((i >= 0) & (i < c.size), bits[np.clip(i, 0, c.size - 1)], 0)
+
+        out[par] = at(t) | (at(t + 1) << 16)
+    return out
+
+
 @functools.lru_cache(maxsize=64)
-def _bf16_taps_device(plan: BlurPlan,
-                      device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 body's (row taps, column taps) as float32, each zero-padded
-    to a multiple of 4."""
-    ops = bf16_operands(plan)
-    return (torch.from_numpy(_padded_f32(ops.c_row)).to(device),
-            torch.from_numpy(_padded_f32(ops.c_col)).to(device))
+def tc_tables(plan: BlurPlan, precision: str, framed: bool,
+              device: torch.device | str = "cpu") -> torch.Tensor:
+    """The tap tables of K1's ``precision`` body, int32 words in the order
+    ``tc_carve`` of ``csrc/fused_dma.cu`` copies them into shared memory
+    (``tc_layout(...).taps`` bytes): ``[qoff, 0, 0, 0]`` (``128 * Q``, Q =
+    128 sum q_hi + sum q_lo, the raw-byte rows product's recentring, modulo
+    2^32; 0 for bf16), the rows taps' copies (int8 and hybrid:
+    ``_tap_copies``, after (-rw) mod 16 leading zeros, none in the ``framed``
+    assembled forms; bf16: ``_bf16_pair_copies`` after (-rw) mod 16 in every
+    form), then the column taps' copies (int8) or groups (hybrid and bf16,
+    ``_tap_groups``). Built once a plan, rung and form family on the host,
+    so no block builds them."""
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    lay = tc_layout("assembled" if framed else "direct", precision, 16, 64, rh, rw, 2)
+    if precision == "bf16":
+        ops = bf16_operands(plan)
+        head = np.zeros(4, np.uint32)
+        rows = _bf16_pair_copies(ops.c_row, lay.delta, lay.rwords)
+        cols = _tap_groups(ops.c_col, lay.groups)
+    else:
+        ops = int8_operands(plan)
+        q = ops.q_row.astype(np.int64)
+        qoff = (128 * (128 * int((q >> 7).sum()) + int((q & 127).sum()))) % (1 << 32)
+        head = np.array([qoff, 0, 0, 0], np.uint32)
+        rows = _tap_copies(q, lay.delta, lay.rwords)
+        cols = (_tap_copies(ops.q_col.astype(np.int64), 0, lay.cwords) if precision == "int8"
+                else _tap_groups(hybrid_operands(plan).c_col, lay.groups))
+    words = np.zeros(lay.taps // 4, np.uint32)
+    body = np.concatenate([head, rows.ravel(), cols.ravel()])
+    words[: body.size] = body
+    return torch.from_numpy(words.view(np.int32)).to(device)
 
 
 def _check_body(plan: BlurPlan, precision: str, out_u8: bool) -> None:
@@ -554,7 +633,6 @@ def _check_body(plan: BlurPlan, precision: str, out_u8: bool) -> None:
 
 RUNGS = ("int8", "hybrid", "bf16")
 FORMS = ("direct", "strip", "assembled", "pipelined", "resident")
-_THREADS = 256  # csrc/fused_dma.cu kThreads
 # The H100's dynamic shared memory per block and its SM count: what the
 # forms are sized by where the tensor's device reports neither (the CPU).
 HOPPER_SMEM_OPTIN = 232448
@@ -562,16 +640,8 @@ HOPPER_SMS = 132
 PIPELINE_SEG = 4  # windows per block of the pipelined variant
 
 
-def _r4(n: int) -> int:
-    return (n + 3) & ~3
-
-
 def _r16(n: int) -> int:
     return (n + 15) & ~15
-
-
-def _odd_words(rows: int) -> int:
-    return rows if (rows >> 2) & 1 else rows + 4
 
 
 def _odd16(n: int) -> int:
@@ -584,6 +654,12 @@ def _odd16(n: int) -> int:
 def _copy_words(steps: int) -> int:
     need = 8 * steps + 4
     return need + (8 - need) % 32
+
+
+def _bf16_words(steps: int) -> int:
+    """Words of each of the bf16 rows taps' two copies (``bf16_words``)."""
+    need = 8 * steps + 16
+    return need + (16 - need) % 32
 
 
 STAGE_BUDGET = 48 * 1024  # csrc/fused_dma.cu kStageBudget
@@ -601,12 +677,12 @@ def stage_rows(tw: int, sp: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class TcLayout:
-    """The block of K1's int8 and hybrid bodies in one form (``tc_layout``
-    of ``csrc/fused_dma.cu``): the rows pass's k-steps over ``delta``
-    leading zero taps, the staged window (``sw`` bytes a row at pitch
-    ``sp``, ``g`` rows a group), the ``rows`` window rows the rows pass
-    computes (K1r's ring), the ``pr`` plane rows the cols pass reads, and
-    the byte counts."""
+    """The block of one of K1's bodies in one form (``tc_layout`` of
+    ``csrc/fused_dma.cu``): the rows pass's k-steps (of 32 window bytes; of
+    16 for bf16) over ``delta`` leading zero taps, the staged window (``sw``
+    bytes a row at pitch ``sp``, ``g`` rows a group), the ``rows`` window
+    rows the rows pass computes (K1r's ring), the ``pr`` plane rows the cols
+    pass reads, and the byte counts."""
 
     delta: int
     rsteps: int
@@ -629,13 +705,18 @@ class TcLayout:
 
 def tc_layout(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
               slots: int = 0) -> TcLayout:
-    """K1's int8 or hybrid block in ``form`` (see ``TcLayout``)."""
+    """K1's ``precision`` block in ``form`` (see ``TcLayout``). The bf16
+    body's rows taps take (-rw) mod 16 leading zeros in every form: its k
+    steps group the taps by the image column, so that its f32 rows sums are
+    the same in every form."""
     framed = form in ("assembled", "pipelined")
-    delta = 0 if framed else (16 - rw % 16) % 16
-    rsteps = (delta + 2 * rw + 1 + 15 + 31) // 32
+    bf16 = precision == "bf16"
+    delta = 0 if framed and not bf16 else (16 - rw % 16) % 16
+    rsteps = ((delta + 2 * rw + 1 + 15 + 15) // 16 if bf16
+              else (delta + 2 * rw + 1 + 15 + 31) // 32)
     csteps = (2 * rh + 1 + 15 + 31) // 32
     groups = (2 * rh + 1 + 15) // 16
-    sw = tw - 16 + 32 * rsteps
+    sw = tw - 16 + (16 if bf16 else 32) * rsteps
     sp = _odd16(sw)
     g = stage_rows(tw, sp)
     rows = _r16(th + 2 * rh)
@@ -653,9 +734,10 @@ def tc_layout(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
         plane = pr * cs
     nplanes = 2 if form == "pipelined" else 1
     stage = rows * sp if form == "strip" else (slots if framed else 2) * g * sp
-    rwords = _copy_words(rsteps)
+    rwords = _bf16_words(rsteps) if bf16 else _copy_words(rsteps)
     cwords = _copy_words(csteps) if precision == "int8" else 12 * (groups + 14)
-    taps = _r16(16 + 4 * (8 * rwords + (8 * cwords if precision == "int8" else cwords)))
+    taps = _r16(16 + 4 * ((2 if bf16 else 8) * rwords
+                          + (8 * cwords if precision == "int8" else cwords)))
     return TcLayout(delta, rsteps, csteps, groups, sw, sp, g, rows, pr, cs, plane, nplanes,
                     stage, rwords, cwords, taps, nplanes * plane + stage + taps)
 
@@ -663,18 +745,9 @@ def tc_layout(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
 def layout_bytes(form: str, precision: str, th: int, tw: int, rh: int, rw: int,
                  slots: int = 0) -> int:
     """Shared memory of one block of ``form`` with K1's ``precision`` body:
-    ``tc_layout`` (int8, hybrid) or ``bf16_layout`` (bf16) of
-    ``csrc/fused_dma.cu``, which checks the launch against it. The bf16
-    body's: taps, the rows-output plane, the staged bf16 input, and the
-    assembled form's ``slots`` cp.async buffers of a row group."""
-    if precision != "bf16":
-        return tc_layout(form, precision, th, tw, rh, rw, slots).total
-    t4w, t4h = _r4(2 * rw + 1), _r4(2 * rh + 1)
-    g = _THREADS // (tw // 4)
-    sw = tw + t4w
-    end = 4 * t4h + 4 * t4w + 2 * tw * _odd_words(th + t4h) + (
-        th + t4h if form == "strip" else g) * sw * 2
-    return _r16(end) + slots * g * _r16(sw) if form == "assembled" else end
+    ``tc_layout`` of ``csrc/fused_dma.cu``, which checks the launch against
+    it."""
+    return tc_layout(form, precision, th, tw, rh, rw, slots).total
 
 
 @dataclasses.dataclass(frozen=True)
@@ -700,13 +773,13 @@ def k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int = 1,
     """The launch of K1's ``precision`` body in ``form`` on ``planes``
     planes of the plan's shape, or None where the form does not serve it.
 
-    Tiles as K1's direct policy: columns for the int8 and hybrid bodies 64
-    to rw 100, 128 to 200, 64 to 400, else 32 (the fastest measured at r
-    9..598; narrower where a 32-row block does not fit), for bf16 64 to rw
-    100, else 32; 256, 512 or 1024 rows by rh, halved until
-    the block fits the device's shared memory, then balanced over the frame
-    (rounded up to 16 rows for the int8 and hybrid bodies, whose fragments
-    are 16 or 8 rows, to 4 for bf16); the strip form halves its rows further while the frame has fewer
+    Tiles as K1's direct policy: columns 64 to rw 100, 128 to 200, 64 to
+    400, else 32 (the fastest measured at r 9..598 for the int8 and hybrid
+    bodies, which the bf16 body's blocks share; narrower where a 32-row
+    block does not fit); 256, 512 or 1024 rows by rh, halved until the block
+    fits the device's shared memory, then balanced over the frame (rounded
+    up to 16 rows, the fragments being 16 or 8 rows); the strip form halves
+    its rows further while the frame has fewer
     than two strips per SM, since it runs one block per strip; the resident
     form steps 64 rows (int8, halved to fit) or 128 (hybrid: one block of
     its cols fragments, rows 16 apart): its rows work does not depend on
@@ -733,15 +806,13 @@ def _k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int, tile,
     sms = spec.sm_count or HOPPER_SMS
     h, w = plan.shape
     rh, rw = plan.col.support_radius, plan.row.support_radius
-    gran = 4 if precision == "bf16" else 16
+    gran = 16
     th_pin, tw_pin = tile or (0, 0)
     if (tw_pin and tw_pin not in (32, 64, 128)) or th_pin % gran or th_pin < 0:
         raise ValueError(f"tile {tile}: rows a multiple of {gran}, columns 32, 64 or 128")
     raw = form in ("assembled", "pipelined")
     if tw_pin:
         tw = tw_pin
-    elif precision == "bf16":
-        tw = 64 if rw <= 100 else 32
     else:
         # the fastest measured columns by row radius (probes/k1_tc_ablation.py
         # on an H100: 64 at r 9..99, 128 at r 165, 64 at r 332, 32 at r 598),
@@ -781,13 +852,9 @@ def _k1_geometry(form: str, precision: str, plan: BlurPlan, planes: int, tile,
     if raw:
         slots = 3 if fits(th, 3) else 2
         nbh = -(-h // th)
-        if precision == "bf16":
-            hp = nbh * th + _r4(2 * rh + 1)
-            wp = _r16((nbw - 1) * tw + _r16(tw + _r4(2 * rw + 1)))
-        else:
-            lay = tc_layout(form, precision, th, tw, rh, rw, slots)
-            hp = (nbh - 1) * th + lay.rows
-            wp = _r16((nbw - 1) * tw + lay.sw)
+        lay = tc_layout(form, precision, th, tw, rh, rw, slots)
+        hp = (nbh - 1) * th + lay.rows
+        wp = _r16((nbw - 1) * tw + lay.sw)
     return K1Geometry(form, th, tw, seg, layout_bytes(form, precision, th, tw, rh, rw, slots),
                       slots, hp, wp)
 
@@ -868,22 +935,18 @@ def _launch(fn, geo: K1Geometry, x: torch.Tensor, plan: BlurPlan, precision: str
                       device=x.device)
     if x.shape[0] == 0:
         return out
-    shift, consts, scale, taps_f = 0, (0.0, 0.0, 0.0), 1.0, None
-    if precision == "bf16":
-        taps_i, taps_f = _bf16_taps_device(plan, x.device)
-    else:
-        taps_i = tc_tables(plan, precision, geo.form in ("assembled", "pipelined"), x.device)
-        if precision == "int8":
-            ops = int8_operands(plan)
-            shift, consts = ops.rows_shift, ops.epilogue_constants()
-        else:
-            scale = float(hybrid_operands(plan).scale)
+    shift, consts, scale = 0, (0.0, 0.0, 0.0), 1.0
+    taps_i = tc_tables(plan, precision, geo.form in ("assembled", "pipelined"), x.device)
+    if precision == "int8":
+        ops = int8_operands(plan)
+        shift, consts = ops.rows_shift, ops.epilogue_constants()
+    elif precision == "hybrid":
+        scale = float(hybrid_operands(plan).scale)
     lib = load_library()
     with torch.cuda.device(x.device):
         rc = lib.blur_fused_u8_k1(
             FORMS.index(geo.form), RUNGS.index(precision), int(out_u8),
-            x.data_ptr(), out.data_ptr(), taps_i.data_ptr(),
-            None if taps_f is None else taps_f.data_ptr(),
+            x.data_ptr(), out.data_ptr(), taps_i.data_ptr(), None,
             x.shape[0], h, w, plan.col.support_radius, plan.row.support_radius,
             geo.th, geo.tw, geo.seg, geo.slots, x.shape[1], x.shape[2], geo.smem, shift,
             *map(float, consts), scale, torch.cuda.current_stream(x.device).cuda_stream,
@@ -1014,9 +1077,31 @@ blur_fused_u8_hybrid.launches = 0
 def blur_fused_u8_bf16(planar_u8: torch.Tensor, plan: BlurPlan, out_u8: bool = True,
                        tile: tuple[int, int] | None = None) -> torch.Tensor:
     """uint8 planar ``(..., H, W)`` -> uint8 (or float32 with ``out_u8=False``),
-    K1's bf16 body in the direct form: one bf16 dot per axis; otherwise as
-    ``blur_fused_u8_hybrid``. ``blur_fused_u8_bf16.launches`` counts kernel
-    launches."""
+    K1's bf16 body in the direct form: one bf16 dot per axis on the tensor
+    cores; otherwise as ``blur_fused_u8_hybrid``.
+    ``blur_fused_u8_bf16.launches`` counts kernel launches.
+
+    Accuracy against the plain version (``blur_fused_u8_bf16_ref``, which
+    sums tap by tap in ascending order with one f32 rounding a tap). Every
+    product bf16(r_t) x and bf16(c_t) y is exact in f32; the kernel sums the
+    same products in another order and grouping (k-steps of 16 on the
+    tensor cores). (1) Rows: each f32 sum lies within eps = 2^-21 (2 rw + 1)
+    sum_t |r_t| x[t] of the exact sum E (a k-step's sum and the running sum
+    each lose at most 2^-22 of the sum of magnitudes so far, with room for
+    truncating adds), so both round to bf16 within [bf16(E - eps), bf16(E +
+    eps)]: equal, unless E lies within eps of a rounding boundary, where
+    they may take the two neighbours, one bf16 step apart (1.0 for y in
+    [128, 256)). (2) Columns: a step d_t in the y that output i reads at tap
+    t moves it by |c_t| d_t; the two column sums of the same y agree within
+    ``COLS_TOL`` = 2e-2 at 0..255 scale (the hybrid body's contract, the same
+    instruction and grouping). So |got - want| <= 2e-2 + sum_t |c_t| d_t
+    (``bf16_bound``), which is 2e-2 where no y an output reads is that close
+    to a boundary, and 2e-2 + |c_t| where one is (at most 2e-2 + max |c|
+    with one such y, the usual case at the card's sizes). On the uint8
+    store that is within 1 count. The forms are bit-identical to each other:
+    a k-step of the rows sum is 16 bytes aligned to the image row in every
+    form, and the column sum is the hybrid's, grouped by each output's own
+    tap index."""
     return _run_form(blur_fused_u8_bf16, "direct", planar_u8, plan, "bf16", out_u8, tile)
 
 

@@ -167,13 +167,15 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _declare_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.mma_rate_blocks_per_sm.argtypes = [i, i, i, i, ctypes.POINTER(i)]
-    lib.mma_rate_blocks_per_sm.restype = i
+    lib.mma_rate_clusters.argtypes = [i, i, i, i, i, ctypes.POINTER(i)]
+    lib.mma_rate_clusters.restype = i
+    lib.mma_rate_maps.argtypes = [vp, vp, i, i, i, vp]  # a, bt, rows, kb, np, maps
+    lib.mma_rate_maps.restype = i
     lib.mma_rate_chain.argtypes = [
         i, i, i,  # wgmma, bf16, resident
-        vp, vp, vp, vp,  # a, bt, out, scratch
-        i, i, i, i, i,  # m, k, kb, np, kkb
-        i, i, i, i,  # panels, inner, steps, grid
+        vp, vp,  # maps, out
+        i, i, i, i, i,  # m, k, kb, np, kk
+        i, i, i, i, i,  # panels, inner, steps, cluster, grid
         vp,  # stream
     ]
     lib.mma_rate_chain.restype = i

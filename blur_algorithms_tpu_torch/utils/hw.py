@@ -98,8 +98,16 @@ _MEASURED_SPLIT_MIN_U8: dict[str, int] = {
 # faster than int8 at every radius under the uint8 split radius (0.3297 vs
 # 0.3686 ms at r 6, 0.4412 vs 0.5192 at r 32, 0.6662 vs 0.6999 at r 64;
 # past it, where AUTO runs the split, 1.1212 vs 1.0450 at r 104 and 31.58
-# vs 20.30 at r 597), bf16 slower at every one (1.41 ms at r 32), the
-# hybrid pass 2 faster than the int8 one (1.40 vs 2.29 ms at r 831). The
+# vs 20.30 at r 597), the hybrid pass 2 faster than the int8 one (1.40 vs
+# 2.29 ms at r 831). bf16 on the tensor cores too, with the same
+# certified floor (12; max 2 at r 5 and 9 and box support 2 again): faster
+# than int8 at r 6, 16 and 32 (0.3572 vs 0.3744, 0.3968 vs 0.4462, 0.4858
+# vs 0.5173 ms) and slower from r 64 (0.8613 vs 0.6981), so it routes from
+# no radius; slower than hybrid at every radius K1 serves (under the split
+# radius: 0.3572 vs 0.3374 ms at r 6, 0.4858 vs 0.4416 at r 32, 0.8613 vs
+# 0.6693 at r 64) and past it to r 331, faster only at r 597 (29.97 vs
+# 31.53), where AUTO runs the split (before, on the FMA units, 1.41 ms at
+# r 32). The
 # split's pass 2 sweep starts under the hybrid floors (column radius 1, box
 # support 2): the split runs from r 82 here, and at any column radius on an
 # anisotropic plan.

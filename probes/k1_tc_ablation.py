@@ -12,10 +12,10 @@ remains runs as it does in K1. With ``--earlier`` (a
 ``fused_dma.cu``, e.g. the parent commit's, put into ``build/`` with ``git
 show``) that source is built and timed too. Then, on 4 RGB 2160x3840
 frames, times in turns (each library's mean of two medians of 20
-CUDA-event timings): K1 hybrid and int8 direct at sigma 10, and K1a hybrid
+CUDA-event timings): K1 hybrid, int8 and bf16 direct at sigma 10, and K1a hybrid
 and int8 on A4's frame of a dp 2 x sp 2 shard at sigma 9 (the sharded
 step); the full build's results are held against the plain versions (int8
-``torch.equal``, hybrid within 2e-2 / 1 count), and each call is also timed
+``torch.equal``, hybrid and bf16 within 1 count), and each call is also timed
 as a CUDA graph replay (the kernel without the wrapper's host time). Then the hybrid and int8
 direct forms at the policy's tile and at 128, 240 and 480 rows x 32, 64 and
 128 columns where the block fits, at r 9, 32, 65, 99, 165, 332 and 598
@@ -53,7 +53,8 @@ ENTRIES = ("blur_fused_u8_k1", "assemble_padded_u8", "assemble_padded_prepad_u8"
 # the call sites each part of the int8 and hybrid forms runs through
 PARTS = {
     "loader": ("load_window(s.stage + (t & 1)", "load_rect(s.stage + (t % p.slots)"),
-    "rows": ("rows_mma<B>(s, L, p.tw, p.rows_shift, s.stage + (t",),
+    "rows": ("rows_mma<B>(s, L, p.tw, p.rows_shift, s.stage + (t",
+             "rows_mma<B, true>(s, L, p.tw, p.rows_shift, s.stage + (t"),
     "cols": ("cols_mma<B, kOutU8>(s, L, p, s.plane[0], 0, col_units<B>(p.th, p.tw)",
              "cols_mma<B, kOutU8>(s, L, p, s.plane[0], 0, units"),
 }
@@ -172,6 +173,8 @@ def main() -> int:
             "K1 hybrid direct sigma 10": lambda: mod.blur_fused_u8_dma(
                 x, plan, precision="hybrid", direct=True),
             "K1 int8 direct sigma 10": lambda: mod.blur_fused_u8_dma(x, plan, direct=True),
+            "K1 bf16 direct sigma 10": lambda: mod.blur_fused_u8_dma(
+                x, plan, precision="bf16", direct=True),
             "K1a hybrid on caller rows sigma 9": lambda: mod.blur_fused_u8_assembled(
                 frames["hybrid"], local, "hybrid"),
             "K1a int8 on caller rows sigma 9": lambda: mod.blur_fused_u8_assembled(
@@ -184,7 +187,7 @@ def main() -> int:
     for label, call in now.items():
         with _serving(libs["current"]):
             got = call()
-        rung = "hybrid" if "hybrid" in label else "int8"
+        rung = next(r for r in ("hybrid", "bf16", "int8") if r in label)
         if "K1a" in label:
             want = fused_dma.blur_fused_u8_padded_ref(frames[rung], local, rh, rw, rung)
         else:

@@ -337,12 +337,14 @@ def test_slice_4_paths_on_the_card_match_the_cpu(cuda_device):
 
 
 # ---------------------------------------------------------------------------
-# K1's bf16 body sums in its plain version's ascending order, so it is
-# bit-equal for f32 and uint8 out. K1's hybrid body and the split's hybrid
-# pass 2 sum on the tensor cores in aligned groups of 16 taps: within 2e-2
-# at 0..255 scale of their plain versions (ascending order) on the f32
-# store, 1 count on the uint8 store, and bit-equal to themselves over any
-# tiling of the rows (K1's: in every form).
+# K1's hybrid body and the split's hybrid pass 2 sum on the tensor cores in
+# aligned groups of 16 taps: within 2e-2 at 0..255 scale of their plain
+# versions (ascending order) on the f32 store, 1 count on the uint8 store,
+# and bit-equal to themselves over any tiling of the rows (K1's: in every
+# form). K1's bf16 body sums both axes on the tensor cores: within
+# fused_dma.bf16_bound of its plain version on the f32 store (2e-2 plus a
+# bf16 step of each rows value near a rounding boundary, times its tap), 1
+# count on the uint8 store, and bit-equal across its forms.
 
 HYBRID_TOL = 2e-2
 
@@ -366,8 +368,9 @@ def test_k1_rungs_equal_plain_versions_on_the_card(cuda_device, shape, sigma, ru
         torch.cuda.synchronize()
         assert fn.launches == before + 1
         assert got.dtype == want.dtype and got.shape == want.shape
-        if rung == "bf16":
-            assert torch.equal(got, want)
+        if rung == "bf16" and not out_u8:
+            bound = fused_dma.bf16_bound(x, plan)
+            assert bool(((got.double() - want.double()).abs() <= bound).all())
         else:
             d = float((got.double() - want.double()).abs().max())
             assert d <= (1 if out_u8 else HYBRID_TOL)
@@ -437,7 +440,7 @@ def test_auto_on_the_card_runs_the_certified_rung(cuda_device):
     ref = {"int8": fused_dma.blur_fused_u8_dma_ref, "hybrid": fused_dma.blur_fused_u8_hybrid_ref,
            "bf16": fused_dma.blur_fused_u8_bf16_ref}[rung]
     want = from_planar(ref(planar, plan))
-    if rung == "hybrid":  # tensor-core groups of 16 taps: within 1 count
+    if rung in ("hybrid", "bf16"):  # tensor-core groups of 16 taps: within 1 count
         assert int((got.cpu().int() - want.int()).abs().max()) <= 1
     else:
         assert torch.equal(got.cpu(), want)
@@ -457,8 +460,9 @@ def test_hybrid_pin_on_the_card_matches_the_cpu(cuda_device):
 # ---------------------------------------------------------------------------
 # K1's staging forms (strip, assembled with A5, pipelined, resident): each
 # computes K1's function from the same terms, so each equals K1 direct bit
-# for bit, and the int8 and bf16 bodies' plain versions too (the hybrid
-# one's within 2e-2 / 1 count); a form that does not fit raises.
+# for bit, and the int8 body's plain version too (the hybrid one's within
+# 2e-2 / 1 count, the bf16 one's within its bound / 1 count); a form that
+# does not fit raises.
 
 _FORM_KW = {"strip": {"strip": True}, "assembled": {"direct": False},
             "pipelined": {"pipelined": True}, "resident": {"resident": True}}
@@ -507,9 +511,11 @@ def test_k1_forms_equal_plain_versions_on_the_card(cuda_device, shape, sigma, fo
         assert counter.launches == before + 1
         assert assemble.assemble_padded.launches == a5 + (form in ("assembled", "pipelined"))
         assert torch.equal(got, direct)
-        if rung == "hybrid":
-            d = float((got.double() - want.double()).abs().max())
-            assert d <= (1 if out_u8 else HYBRID_TOL)
+        d = (got.double() - want.double()).abs()
+        if rung == "hybrid" or (rung == "bf16" and out_u8):
+            assert float(d.max()) <= (1 if out_u8 else HYBRID_TOL)
+        elif rung == "bf16":
+            assert bool((d <= fused_dma.bf16_bound(x, plan)).all())
         else:
             assert torch.equal(got, want)
 
@@ -587,9 +593,15 @@ def test_haloed_dma_equals_plain_version_on_the_card(cuda_device, shape, sigma, 
         assert assemble.assemble_padded_prepad.launches == a4 + 1
         assert fused_dma.blur_fused_u8_assembled.launches == k1a + 1
         want = fused_dma.blur_fused_haloed_dma(x, plan, rung, out_u8=out_u8)
-        if rung == "hybrid":  # the CPU's plain version sums tap by tap
-            d = float((got.cpu().double() - want.double()).abs().max())
-            assert d <= (1 if out_u8 else HYBRID_TOL)
+        d = (got.cpu().double() - want.double()).abs()
+        if rung == "hybrid" or (rung == "bf16" and out_u8):  # tap by tap on the CPU
+            assert float(d.max()) <= (1 if out_u8 else HYBRID_TOL)
+        elif rung == "bf16":
+            geo = fused_dma.k1_geometry("assembled", rung, plan, 3)
+            frame = assemble.assemble_padded_prepad_ref(x, plan.row.support_radius,
+                                                        plan.row.support_radius, geo.hp, geo.wp)
+            bound = fused_dma.bf16_bound_padded(frame, plan, rh, plan.row.support_radius)
+            assert bool((d <= bound).all())
         else:
             assert torch.equal(got.cpu(), want)
 
@@ -742,23 +754,84 @@ def test_b1_chain_equals_plain_version_on_the_card(cuda_device, path, m, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["mma_sync", "wgmma"])
-@pytest.mark.parametrize("resident", [False, True])
-def test_b1_card_filling_launches_equal_plain_version(cuda_device, path, resident):
-    """The launches the rates time: one block for each the card holds, the
-    rhs streamed, or resident (against the plain chain on resident_rhs)."""
+@pytest.mark.parametrize("m, k, n, cluster, grid", [
+    (1024, 1024, 1024, 8, 128), (2048, 1408, 384, 4, 128), (240, 1264, 384, 4, 16),
+])
+def test_b1_one_chain_is_a_cluster_launch_on_the_card(cuda_device, path, m, k, n, cluster,
+                                                      grid):
+    """One chain: one cluster a 64-row panel, a CTA a 128-column tile (16
+    panels x 8 CTAs at the cube), streamed and resident, int8 equal to the
+    plain chain and bf16 within its bound."""
     from blur_algorithms_tpu_torch.benchmarks import mxu_dot_rate as b1
 
-    a, b = (t.to(cuda_device) for t in b1.operands(120, 1144, 384, "int8", seed=3))
-    rhs = b1.resident_rhs(b) if resident else b
-    got = b1.chain(a, b, 3, 2, path=path, resident=resident, copies=True)
-    torch.cuda.synchronize()
-    assert torch.equal(got, b1.chain_ref(a, rhs, 3))
-    a, b = (t.to(cuda_device) for t in b1.operands(120, 1144, 384, "bf16", seed=3))
-    rhs = b1.resident_rhs(b) if resident else b
-    got = b1.chain(a, b, 1, path=path, resident=resident, copies=True)
-    want = b1.chain_ref(a, rhs, 1)
-    torch.cuda.synchronize()
-    assert ((got.double() - want.double()).abs() <= b1.bf16_bound(a, rhs, want)).all()
+    for dtype in ("int8", "bf16"):
+        a, b = (t.to(cuda_device) for t in b1.operands(m, k, n, dtype, seed=7))
+        inner = 3 if dtype == "int8" else 1
+        for resident in (False, True):
+            launch = b1.prepare(a, b, inner, 2, path=path, resident=resident, copies=False)
+            assert (launch.cluster, launch.grid) == (cluster, grid)
+            rhs = b1.resident_rhs(b) if resident else b
+            got, want = launch(), b1.chain_ref(a, rhs, inner)
+            torch.cuda.synchronize()
+            if dtype == "int8":
+                assert torch.equal(got, want)
+            else:
+                d = (got.double() - want.double()).abs()
+                assert bool((d <= b1.bf16_bound(a, rhs, want)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, sigma", [((1080, 1920), 10.0), ((1001, 1777), (5.0, 11.0)),
+                                          ((541, 963), 150.0), ((40, 2000), (1.0, 60.0))])
+def test_k1_bf16_forms_equal_each_other_and_hold_the_bound_on_the_card(cuda_device, shape,
+                                                                      sigma):
+    """K1's bf16 body on the tensor cores in its three forms: bit-equal to
+    each other (each rows k-step 16 bytes aligned to the image row in every
+    form), within bf16_bound of the plain version on the f32 store and 1
+    count on the uint8 store."""
+    plan = make_plan(shape, sigma)
+    x = _planes((3, *shape), seed=48).to(cuda_device)
+    bound = fused_dma.bf16_bound(x, plan)
+    for out_u8 in (True, False):
+        want = fused_dma.blur_fused_u8_bf16_ref(x, plan, out_u8)
+        outs = []
+        for form, kw in (("direct", {"direct": True}), ("strip", {"strip": True}),
+                         ("assembled", {"direct": False})):
+            if fused_dma.k1_geometry(form, "bf16", plan, 3, device=cuda_device) is None:
+                continue
+            outs.append(fused_dma.blur_fused_u8_dma(x, plan, precision="bf16",
+                                                    out_u8=out_u8, **kw))
+        torch.cuda.synchronize()
+        assert len(outs) >= 2
+        for got in outs:
+            assert torch.equal(got, outs[0])
+            d = (got.double() - want.double()).abs()
+            assert bool((d <= (1 if out_u8 else bound)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["mma_sync", "wgmma"])
+@pytest.mark.parametrize("resident", [False, True])
+@pytest.mark.parametrize("m, k, n", [(120, 1144, 384), (1024, 1024, 1024)])
+def test_b1_card_filling_launches_equal_plain_version(cuda_device, path, resident, m, k, n):
+    """The launches the rates time: clusters of one CTA that computes every
+    tile of its panel (8 at the cube), as many as the card holds, the rhs
+    streamed, or resident (against the plain chain on resident_rhs)."""
+    from blur_algorithms_tpu_torch.benchmarks import mxu_dot_rate as b1
+
+    for dtype in ("int8", "bf16"):
+        a, b = (t.to(cuda_device) for t in b1.operands(m, k, n, dtype, seed=3))
+        rhs = b1.resident_rhs(b) if resident else b
+        inner = 3 if dtype == "int8" else 1
+        launch = b1.prepare(a, b, inner, 2, path=path, resident=resident, copies=True)
+        assert launch.cluster == 1 and launch.grid >= launch.panels
+        got, want = launch(), b1.chain_ref(a, rhs, inner)
+        torch.cuda.synchronize()
+        if dtype == "int8":
+            assert torch.equal(got, want)
+        else:
+            d = (got.double() - want.double()).abs()
+            assert bool((d <= b1.bf16_bound(a, rhs, want)).all())
 
 
 @pytest.mark.cuda

@@ -563,3 +563,161 @@ def test_direct_form_serves_every_radius():
             plan = make_plan(shape, (r / 3.32, r / 3.32))
             for rung in ("int8", "hybrid"):
                 assert t_dma.k1_geometry("direct", rung, plan, 12) is not None, (shape, r)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 body on the tensor cores: its rows tap table, its B bytes, and
+# its grouping (rows_bf16_mma, then cols_hybrid_mma with no epilogue)
+
+
+def _pi(k):
+    """The window byte of k-step position k (0..15) a lane's B fragment
+    reads: k = 2 tig + e from byte 4 tig + e, k = 2 tig + 8 + e from byte 4
+    tig + 2 + e."""
+    k = np.asarray(k)
+    j = k % 8
+    return 4 * (j >> 1) + (j & 1) + 2 * (k >= 8)
+
+
+def _bf16_a_fragments(copies, steps):
+    """``(step, 16, 16)``: the A matrices the lanes' four registers hold
+    (m16n8k16 bf16: register j of lane (g, tig) holds row g (+8 for j odd),
+    columns 2 tig (+8 for j >= 2) and + 1), read where ``rows_bf16_mma``
+    reads them: copy (4 tig - g + 32) & 1, words 8 s + (4 tig - g + 32) >> 1
+    + (0, -4, 1, -3), the low half first."""
+    a = np.zeros((steps, 16, 16), np.float64)
+    s = np.arange(steps)
+    for lane in range(32):
+        g, tig = lane >> 2, lane & 3
+        base = 4 * tig - g + 32
+        for m, k0, dw in ((g, 2 * tig, 0), (g + 8, 2 * tig, -4),
+                          (g, 2 * tig + 8, 1), (g + 8, 2 * tig + 8, -3)):
+            words = copies[base & 1, (base >> 1) + 8 * s + dw].astype(np.uint32)
+            for i in range(2):
+                bits = ((words >> np.uint32(16 * i)) & np.uint32(0xFFFF)) << np.uint32(16)
+                a[:, m, k0 + i] = bits.view(np.float32)
+    return a
+
+
+@pytest.mark.parametrize("sigma", [0.6, 2.1, 3.0, 9.7, 30.0, 90.0])  # rw 1..299
+@pytest.mark.parametrize("form", ["direct", "assembled"])
+def test_bf16_rows_table_is_the_band_of_the_bf16_taps(sigma, form):
+    """The bf16 rows table (``tc_tables(..., "bf16", ...)``) holds the row
+    taps rounded to bf16 (``_bf16_taps`` of the plan's taps): each lane's A
+    registers hold the band ``c[16 s + pi(k) - m - delta]`` for the window
+    byte ``pi(k)`` its B fragment reads at position k, with (-rw) mod 16
+    leading zeros in every form (the assembled form's too); the header is
+    zero (no recentring), and the column part is the hybrid's tap groups of
+    the same bf16 column taps."""
+    plan = make_plan((64, 2000), (2.0, sigma))
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    framed = form == "assembled"
+    lay = t_dma.tc_layout(form, "bf16", 16, 64, rh, rw, 2)
+    assert lay.delta == (16 - rw % 16) % 16
+    assert lay.rsteps == -(-(lay.delta + 2 * rw + 16) // 16) and lay.sw == 64 - 16 + 16 * lay.rsteps
+    words = t_dma.tc_tables(plan, "bf16", framed).numpy().view(np.uint32)
+    assert words.size * 4 == lay.taps and not words[:4].any()
+    copies = words[4 : 4 + 2 * lay.rwords].reshape(2, lay.rwords)
+    c = t_dma._bf16_taps(plan.row.taps).astype(np.float64)
+    assert np.array_equal(c, t_dma.bf16_operands(plan).c_row)
+    a = _bf16_a_fragments(copies, lay.rsteps)
+    s, m, k = np.ogrid[:lay.rsteps, :16, :16]
+    t = 16 * s + _pi(k) - m - lay.delta
+    want = np.where((t >= 0) & (t < c.size), c[np.clip(t, 0, c.size - 1)], 0.0)
+    assert np.array_equal(a, want)
+    # every tap of every output column once: the band covers 2rw + 1 taps
+    assert np.array_equal(np.count_nonzero((t >= 0) & (t < c.size), axis=(0, 2)).ravel(),
+                          np.full(16, c.size))
+    cols = words[4 + 2 * lay.rwords : 4 + 2 * lay.rwords + 12 * (lay.groups + 14)]
+    ops = t_dma.bf16_operands(plan)
+    assert np.array_equal(cols, t_dma._tap_groups(ops.c_col, lay.groups).ravel())
+
+
+@pytest.mark.parametrize("byte", [0, 1, 127, 128, 200, 255])
+def test_bf16_b_fragments_are_the_raw_bytes(byte):
+    """``bytes_bf16``: 2^23 + byte as an f32, less 2^23, rounded to bf16, is
+    the byte (every value 0..255 is exact in bf16); the four bytes of a
+    lane's word go to k = 2 tig, 2 tig + 1 (b0) and 2 tig + 8, + 9 (b1)."""
+    f = np.float32(np.uint32(0x4B000000 | byte).view(np.float32)) - np.float32(2.0 ** 23)
+    assert f == byte
+    assert torch.tensor(float(f)).to(torch.bfloat16).item() == byte
+    assert list(_pi(np.arange(16))) == [0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15]
+
+
+def _bf16_rows_grouped(xp, c, w):
+    """float64 model of the bf16 rows pass: output column j's taps grouped
+    into k-steps by the 16-aligned run of image columns they read (window
+    byte j - rw + t, the same in every form), each step's products summed
+    exactly, the running f32 sum rounded once a step, then bf16."""
+    rw = (c.size - 1) // 2
+    cf = c.astype(np.float64)
+    n, rows, _ = xp.shape
+    acc = np.zeros((n, rows, w), np.float32)
+    j = np.arange(w)
+    # group of tap t for column j: floor((j - rw + t) / 16), relative to
+    # the first group column j reads
+    first = np.floor_divide(j - rw, 16)
+    last = np.floor_divide(j + rw, 16)
+    for step in range(int((last - first).max()) + 1):
+        part = np.zeros((n, rows, w), np.float64)
+        for t in range(c.size):
+            inside = np.floor_divide(j - rw + t, 16) - first == step
+            if cf[t] and inside.any():
+                part[:, :, inside] += cf[t] * xp[:, :, t : t + w][:, :, inside]
+        acc = (acc.astype(np.float64) + part).astype(np.float32)
+    return t_dma.bf16_round_ref(torch.from_numpy(acc)).numpy()
+
+
+BF16_CASES = [((64, 96), 1.0), ((96, 128), 3.0), ((80, 300), 10.0), ((96, 160), (12.0, 2.0)),
+              ((40, 260), (2.0, 30.0))]
+
+
+@pytest.mark.parametrize("shape, sigma", BF16_CASES)
+def test_bf16_grouped_model_is_within_the_bound_of_the_plain_version(shape, sigma):
+    """A CPU model of K1's bf16 body as the card runs it (rows in k-steps of
+    16 image-aligned window bytes, columns in aligned groups of 16 of each
+    output's own tap index, both f32 sums rounded once a step) against
+    ``blur_fused_u8_bf16_ref`` (tap by tap, ascending): within
+    ``bf16_bound`` on the f32 store and 1 count on the uint8 store; the
+    bound is COLS_TOL where no rows value lies near a bf16 rounding
+    boundary and never below it."""
+    h, w = shape
+    plan = make_plan(shape, sigma)
+    rh, rw = plan.col.support_radius, plan.row.support_radius
+    ops = t_dma.bf16_operands(plan)
+    x = _frames(2, shape, seed=h + 3 * w)
+    xt = torch.from_numpy(x)
+    xp = reflect_101(xt, [(rh, rh), (rw, rw)]).numpy().astype(np.float64)
+    y = _bf16_rows_grouped(xp, ops.c_row, w)
+    model = torch.stack([torch.from_numpy(_hybrid_grouped(y[p], ops.c_col, h))
+                         for p in range(2)])
+    plain = t_dma.blur_fused_u8_bf16_ref(xt, plan, out_u8=False)
+    bound = t_dma.bf16_bound(xt, plan)
+    assert bound.shape == plain.shape and float(bound.min()) >= t_dma.COLS_TOL
+    d = (model.double() - plain.double()).abs()
+    assert bool((d <= bound).all()), float((d - bound).max())
+    model8 = t_dma.store_u8_ref(model)
+    plain8 = t_dma.blur_fused_u8_bf16_ref(xt, plan)
+    assert int((model8.int() - plain8.int()).abs().max()) <= 1
+
+
+def test_bf16_bound_counts_each_rows_value_near_a_rounding_boundary():
+    """``bf16_bound``: COLS_TOL alone where every rows sum is a bf16 value
+    (a constant frame), and COLS_TOL + sum |c_t| where every rows sum is a
+    rounding boundary: columns alternating 128 and 129 under row taps (1/4,
+    1/2, 1/4) sum to 128.5 everywhere, half way between the bf16 neighbours
+    128 and 129, so each rows value may take either and every output reads
+    a step of 1.0 at each of its column taps."""
+    from blur_algorithms_tpu_torch import make_custom_plan
+
+    taps = np.array([0.25, 0.5, 0.25], np.float32)
+    plan = make_custom_plan((40, 64), taps, np.array([0.125, 0.75, 0.125], np.float32))
+    flat = torch.full((1, 40, 64), 200, dtype=torch.uint8)
+    assert torch.equal(t_dma.bf16_bound(flat, plan),
+                       torch.full((1, 40, 64), t_dma.COLS_TOL, dtype=torch.float64))
+    stripes = torch.from_numpy(np.tile(np.array([128, 129], np.uint8), (1, 40, 32)))
+    got = t_dma.bf16_bound(stripes, plan)
+    assert torch.equal(got, torch.full((1, 40, 64), t_dma.COLS_TOL + 1.0, dtype=torch.float64))
+    # and the plain version and the model agree within it
+    plain = t_dma.blur_fused_u8_bf16_ref(stripes, plan, out_u8=False)
+    assert float((plain.double() - 128.5).abs().max()) <= 0.5 + t_dma.COLS_TOL

@@ -129,27 +129,111 @@ def test_shapes_operands_and_sizing_are_the_jax_probes():
 
 
 @pytest.mark.parametrize("dtype, k, n", [
-    ("int8", 1144, 384),   # nine stages of K, three tiles, K padded
-    ("int8", 200, 100),    # two stages, one tile narrower than 128
-    ("bf16", 1264, 384),   # 64 elements of K a stage
-    ("bf16", 60, 130),     # one stage, two tiles
+    ("int8", 1144, 384),   # eighteen stages of K, three tiles, K padded
+    ("int8", 200, 100),    # four stages, one tile narrower than 128
+    ("bf16", 1264, 384),   # 32 elements of K a stage
+    ("bf16", 60, 130),     # two stages, two tiles
 ])
 def test_resident_rhs_is_the_first_two_stages_of_the_first_tile(dtype, k, n):
-    """A resident launch loads stages 0 and 1 of tile 0 (128 columns, 128
-    bytes of K each) once and reads stage kc & 1 for K stage kc of every
-    tile: the rhs it multiplies by, restated from those stages."""
+    """A resident launch loads stages 0 .. STAGES - 1 of tile 0 (128
+    columns, 64 bytes of K each) once and reads stage kc mod STAGES for K
+    stage kc of every tile: the rhs it multiplies by, restated from those
+    stages."""
     _, b = b1.operands(8, k, n, dtype, seed=4)
-    per = 128 // b.element_size()
+    per = 64 // b.element_size()
+    assert b1.STAGES == 4
     got = b1.resident_rhs(b)
     assert got.shape == b.shape and got.dtype == b.dtype
-    stages = torch.zeros((2 * per, 128), dtype=b.dtype)
-    stages[:min(k, 2 * per), :min(n, 128)] = b[:2 * per, :128]
+    stages = torch.zeros((b1.STAGES * per, 128), dtype=b.dtype)
+    stages[:min(k, b1.STAGES * per), :min(n, 128)] = b[:b1.STAGES * per, :128]
     for kc in range(-(-k // per)):
         for t in range(-(-n // 128)):
             rows, cols = slice(kc * per, (kc + 1) * per), slice(t * 128, (t + 1) * 128)
             block = got[rows, cols]
-            want = stages[(kc & 1) * per:(kc & 1) * per + block.shape[0], :block.shape[1]]
+            s0 = (kc % b1.STAGES) * per
+            want = stages[s0:s0 + block.shape[0], :block.shape[1]]
             assert torch.equal(block, want), (kc, t)
+
+
+# (panels, cluster) of each of the nine shapes, int8 and bf16 alike
+GEOMETRY = [(16, 8), (32, 1), (32, 2), (32, 4), (32, 4), (2, 4), (4, 4), (6, 4), (8, 4)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("shape, want", zip(b1.SHAPES, GEOMETRY), ids=[s[3] for s in b1.SHAPES])
+@pytest.mark.parametrize("es", [1, 2], ids=["int8", "bf16"])
+def test_launch_geometry_of_the_nine_shapes(shape, want, es):
+    """The clusters ``prepare`` launches for one chain: 64-row panels, one
+    CTA a 128-column tile (the cluster the least power of two that holds
+    them, at most the portable 8), K padded to 64 bytes; one chain's grid
+    fits the H100's 132 SMs, and at the cube it is 16 panels x 8 CTAs = 128,
+    where one block a panel gave 16."""
+    m, k, n, _ = shape
+    geo = b1.launch_geometry(m, k, n, es)
+    assert (geo.panels, geo.cluster) == want
+    assert geo.panels == -(-m // 64) and geo.ntile == -(-n // 128) <= geo.cluster
+    assert geo.cluster in (1, 2, 4, 8) and geo.cluster < 2 * geo.ntile and geo.tiles == 1
+    assert geo.kb % 64 == 0 and 0 <= geo.kb - k * es < 64 and geo.np == 128 * geo.ntile
+    assert geo.grid(geo.panels) == geo.panels * geo.cluster <= H100_SMS
+    assert geo.grid(3 * geo.panels) == 3 * geo.panels * geo.cluster  # copies
+    assert geo.grid(1) == geo.grid(geo.panels)  # never fewer than a cluster a panel
+    if (m, k, n) == (1024, 1024, 1024):
+        assert geo.grid(geo.panels) == 128
+
+
+@pytest.mark.parametrize("shape", b1.SHAPES, ids=[s[3] for s in b1.SHAPES])
+@pytest.mark.parametrize("es", [1, 2], ids=["int8", "bf16"])
+def test_card_filling_launch_is_clusters_of_one_cta_on_every_tile(shape, es):
+    """The launch the rates time: clusters of one CTA, which computes every
+    tile of its panel one after another and exchanges nothing, as many as
+    the card holds (132 on the H100: one CTA an SM), at least one a panel;
+    the same panels, padding and tiles as one chain."""
+    m, k, n, _ = shape
+    geo, one = b1.launch_geometry(m, k, n, es, copies=True), b1.launch_geometry(m, k, n, es)
+    assert geo.cluster == 1 and geo.tiles == geo.ntile == one.ntile <= b1.MAX_TILES
+    assert geo.owned(0) == list(range(geo.ntile))
+    assert (geo.panels, geo.kb, geo.np, geo.exchanged) == (one.panels, one.kb, one.np,
+                                                           one.exchanged)
+    assert geo.grid(H100_SMS) == max(H100_SMS, geo.panels)
+
+
+@pytest.mark.parametrize("copies", [False, True], ids=["one-chain", "filling"])
+@pytest.mark.parametrize("m, k, n", [*((m, k, n) for m, k, n, _ in b1.SHAPES), *SHAPES,
+                                     (64, 256, 1024), (64, 2048, 1000)])
+def test_every_tile_has_one_owner_and_the_exchange_is_the_next_lhs(m, k, n, copies):
+    """Each 128-column tile of the padded rhs is owned by exactly one CTA
+    of its cluster (CTA r, tiles r, r + C, ...; CTAs past the tiles own
+    none), the exchanged columns are [0, min(n, k)), and the CTAs' runs of
+    exchanged columns tile them without overlap (what each sends its
+    peers, or writes into its own panel where the cluster is one CTA)."""
+    geo = b1.launch_geometry(m, k, n, 1, copies)
+
+    def owned(rank):  # csrc/probes/mma_rate.cu: own, and tile rank + C j
+        own = (geo.ntile - rank + geo.cluster - 1) // geo.cluster if rank < geo.ntile else 0
+        return [rank + geo.cluster * j for j in range(own)]
+
+    owners = {}
+    for r in range(geo.cluster):
+        assert owned(r) == geo.owned(r) and len(owned(r)) <= geo.tiles
+        for t in owned(r):
+            assert t not in owners
+            owners[t] = r
+    assert sorted(owners) == list(range(geo.np // 128))
+    assert geo.exchanged == (0, min(n, k))
+    covered = []
+    for t in sorted(owners):
+        # xbytes: the tile's columns below kk, 64 rows
+        sent = max(0, min(128, geo.exchanged[1] - 128 * t))
+        covered.extend(range(128 * t, 128 * t + sent))
+    assert covered == list(range(min(n, k)))
+
+
+def test_a_rhs_past_eight_tiles_is_refused():
+    assert b1.launch_geometry(64, 64, 1024, 1).cluster == b1.MAX_CLUSTER == 8
+    assert b1.launch_geometry(64, 64, 1024, 1, copies=True).tiles == b1.MAX_TILES == 8
+    for copies in (False, True):
+        with pytest.raises(ValueError, match="at most 8 tiles"):
+            b1.launch_geometry(64, 64, 1025, 1, copies)
 
 
 def test_resident_chain_on_the_cpu_is_the_plain_chain_on_resident_rhs():
