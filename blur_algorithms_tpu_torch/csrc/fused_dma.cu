@@ -9,7 +9,8 @@
 // form K1r), with their tile bodies _rows_int8 (1200), _cols_int8 (1262),
 // _tile_hybrid (1306) and _tile_bf16 (1415); and the assembly kernels A5
 // and A4 that feed K1a (_assemble_padded and _assemble_padded_prepad, at
-// the end of this file). K1a on A4's frame is the JAX rows_prepadded mode
+// the end of this file; A4 reads the shard's rows in place, from up to
+// three row segments). K1a on A4's frame is the JAX rows_prepadded mode
 // (blur_fused_haloed_dma, 2589): the caller's halo rows sit where A5 puts
 // reflected rows, so the kernel is the same.
 //
@@ -148,6 +149,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -1143,12 +1145,6 @@ int launch(int form, const K1Params& p, int planes, int smem, cudaStream_t strea
 // chunks that meet the edge strips or the slack gather their bytes one by
 // one through reflect-101.
 //
-// A4 (assemble_padded_prepad_u8 below) replaces the same file's
-// _assemble_padded_prepad (1738) -> _assemble_kernel4 (1708), four copies
-// per plane for a shard whose row halos the caller supplied: the same
-// function with no row border, so it is this kernel launched with rh = 0
-// and orh = 0 (rows [0, hs) read as they are, the rest zero).
-//
 // What bounds it on an H100: bytes. It reads each input byte about once
 // (the edge strips again, a few percent at r 32 on 4K) and writes hp x wp
 // bytes per plane: at the copy's 3.35 TB/s a 4K batch of 12 planes is
@@ -1194,6 +1190,144 @@ assemble_padded_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ v, i
       }
     }
     vp[e] = val;
+  }
+}
+
+// ---- A4 ----
+//
+// The frame K1a reads for a shard whose row halos the caller supplied.
+//
+// Replaces: blur_algorithms_tpu/pallas_kernels/fused_dma.py:
+// _assemble_padded_prepad (1738) -> _assemble_kernel4 (1708), four HBM->HBM
+// copies per plane of ONE rows-prepadded buffer, which shard_map hands the
+// TPU kernel after jnp.concatenate([top, block, bot]) (the JAX
+// parallel/sharded.py).
+//
+// Writes (planes, hp, wp): frame row r < hs (hs the segments' rows
+// together) is source row r of the concatenation of up to three row
+// segments, read where they lie, with reflect-101 columns of min(rw, w - 1)
+// at column orw and zeros elsewhere; rows [hs, hp) are zero. A segment is a
+// base pointer, a plane stride and a row stride (bytes, as 64-bit integers),
+// its rows and a reversed flag: a reversed segment's row i is its source row
+// rows - 1 - i (the reflect-101 halo at the frame's top or bottom edge, the
+// shard's own rows 1..r or lo..lo+r, which PyTorch cannot view with a
+// negative stride). So the sharded path hands over its block and its
+// neighbours' edge rows as views and neither cuts nor concatenates.
+//
+// Mapping: a 2-D grid, planes in y and groups of kA4Warps frame rows in x;
+// a warp takes one frame row, its lanes the row's 16-byte output chunks
+// (lane, lane + 32, ...), kA4Unroll of them at a time with every load
+// issued before the first store. A row's segment is two comparisons,
+// uniform across the warp; no division anywhere. Every output chunk is one
+// coalesced 16-byte store. Source column j0 = 16 k - orw of chunk k sits at a byte
+// offset s = (row - orw) mod 16 from a 16-byte boundary, the same for the
+// whole row: where the aligned granules [j0 - s, j0 - s + 32) lie inside the
+// row (16 bytes where s = 0), the chunk is two aligned 16-byte loads
+// funnel-shifted by s with __byte_perm (neighbouring lanes read
+// neighbouring granules, so a warp reads each granule from memory once and
+// its second use from L1); the few chunks left at each edge (the reflected
+// columns, and the head and tail that no whole granule covers) gather byte
+// by byte through reflect101; chunks wholly in the slack store zeros and
+// read nothing. Every read lies inside a source row.
+//
+// What bounds it on an H100: bytes, each source byte read once and each
+// frame byte written once; on a dp 2 x sp 2 shard of the 4K batch (6 planes
+// of 1138 x 3840 -> 1184 x 3920) about 54 MB, 0.016 ms at 3.35 TB/s. Its
+// device time is set by the bytes in flight: a lane's kA4Unroll chunks
+// load together (a warp 2 KB, a CTA of 8 warps 16 KB), 888 CTAs there.
+
+constexpr int kA4Warps = 8;
+constexpr int kA4Unroll = 4;
+
+struct A4Segment {
+  const uint8_t* x;
+  long long plane_stride;
+  long long row_stride;
+  int rows;
+  int reversed;
+};
+
+struct A4Params {
+  A4Segment seg[3];
+  uint8_t* out;
+  int end0, end1;  // frame rows [0, end0) from segment 0, [end0, end1) from 1, [end1, hs) from 2
+  int hs, w, rcb, orw, hp, wp;
+};
+
+// bytes [s, s + 16) of the 32 bytes a, b (s in [0, 16))
+__device__ __forceinline__ uint4 funnel16(uint4 a, uint4 b, int s) {
+  const int sel = 0x3210 + 0x1111 * (s & 3);
+  unsigned w0, w1, w2, w3, w4;
+  switch (s >> 2) {
+    case 0: w0 = a.x; w1 = a.y; w2 = a.z; w3 = a.w; w4 = b.x; break;
+    case 1: w0 = a.y; w1 = a.z; w2 = a.w; w3 = b.x; w4 = b.y; break;
+    case 2: w0 = a.z; w1 = a.w; w2 = b.x; w3 = b.y; w4 = b.z; break;
+    default: w0 = a.w; w1 = b.x; w2 = b.y; w3 = b.z; w4 = b.w; break;
+  }
+  return make_uint4(__byte_perm(w0, w1, sel), __byte_perm(w1, w2, sel),
+                    __byte_perm(w2, w3, sel), __byte_perm(w3, w4, sel));
+}
+
+__global__ void __launch_bounds__(kA4Warps * 32) assemble_rows_kernel(const A4Params p) {
+  const int r = blockIdx.x * kA4Warps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (r >= p.hp) return;
+  const int chunks = p.wp >> 4;
+  uint4* dst = reinterpret_cast<uint4*>(p.out) +
+               (static_cast<size_t>(blockIdx.y) * p.hp + r) * chunks;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  if (r >= p.hs) {
+    for (int k = lane; k < chunks; k += 32) dst[k] = zero;
+    return;
+  }
+  const int g = (r >= p.end0) + (r >= p.end1);
+  const A4Segment s0 = p.seg[0], s1 = p.seg[1], s2 = p.seg[2];
+  const uint8_t* x = g == 0 ? s0.x : g == 1 ? s1.x : s2.x;
+  const long long ps = g == 0 ? s0.plane_stride : g == 1 ? s1.plane_stride : s2.plane_stride;
+  const long long rs = g == 0 ? s0.row_stride : g == 1 ? s1.row_stride : s2.row_stride;
+  const int rows = g == 0 ? s0.rows : g == 1 ? s1.rows : s2.rows;
+  const int rev = g == 0 ? s0.reversed : g == 1 ? s1.reversed : s2.reversed;
+  const int i = r - (g == 0 ? 0 : g == 1 ? p.end0 : p.end1);
+  const uint8_t* row = x + static_cast<long long>(blockIdx.y) * ps +
+                       static_cast<long long>(rev ? rows - 1 - i : i) * rs;
+  const int w = p.w, rcb = p.rcb, orw = p.orw;
+  const int sh = static_cast<int>((reinterpret_cast<uintptr_t>(row) - orw) & 15);
+  const int span = sh ? 32 : 16;
+  // kA4Unroll chunks a lane at a time: their granule loads all issued
+  // before the first store, so a warp keeps kA4Unroll x 512 bytes in flight
+  for (int k0 = lane; k0 < chunks; k0 += 32 * kA4Unroll) {
+    uint4 lo[kA4Unroll], hi[kA4Unroll];
+#pragma unroll
+    for (int u = 0; u < kA4Unroll; ++u) {
+      const int j0 = ((k0 + 32 * u) << 4) - orw;  // source column of the chunk's first byte
+      lo[u] = hi[u] = zero;
+      if (k0 + 32 * u < chunks && j0 >= sh && j0 - sh + span <= w) {
+        const uint4* a = reinterpret_cast<const uint4*>(row + j0 - sh);
+        lo[u] = a[0];
+        if (sh) hi[u] = a[1];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kA4Unroll; ++u) {
+      const int k = k0 + 32 * u;
+      if (k >= chunks) break;
+      const int j0 = (k << 4) - orw;
+      uint4 val = zero;
+      if (j0 >= sh && j0 - sh + span <= w) {
+        val = sh ? funnel16(lo[u], hi[u], sh) : lo[u];
+      } else if (j0 + 16 > -rcb && j0 < w + rcb) {
+        unsigned q[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+        for (int b = 0; b < 16; ++b) {
+          const int c = j0 + b;
+          if (c >= -rcb && c < w + rcb) {
+            q[b >> 2] |= static_cast<unsigned>(row[reflect101(c, w)]) << (8 * (b & 3));
+          }
+        }
+        val = make_uint4(q[0], q[1], q[2], q[3]);
+      }
+      dst[k] = val;
+    }
   }
 }
 
@@ -1310,15 +1444,73 @@ extern "C" int assemble_padded_u8(const void* x, void* out, int planes, int h, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// A4: uint8 rows-prepadded shards (planes, hs, w), whose hs rows already
-// carry the caller's row halos, -> (planes, hp, wp) with the shard at (0,
-// orw), reflect-101 columns and zero slack: A5's kernel with no row border
-// (rh = 0, orh = 0), where its row reflection is the identity (0 <= r < hs).
-// wp a multiple of 16, orw >= min(rw, w - 1). Returns the cudaError_t of the
-// launch (0 = launched).
+// A4: a shard's rows, whose hs rows already carry the caller's row halos,
+// given as nseg (1 to 3) uint8 row segments of w bytes a row, `segs` 5
+// int64 a segment (address, plane stride, row stride, rows, reversed), ->
+// (planes, hp, wp) with the rows in segment order from (0, orw), reflect-101
+// columns and zero slack, launched on `stream` of card `device` (made
+// current for the launch where it is not). wp a multiple of 16, orw >=
+// min(rw, w - 1). Returns the cudaError_t of the launch (0 = launched).
+extern "C" int assemble_padded_prepad_rows_u8(void* out, int planes, int nseg,
+                                              const void* segs, int w, int rw, int orw,
+                                              int hp, int wp, int device, void* stream) {
+  A4Params p;
+  if (nseg < 1 || nseg > 3 || segs == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  long long seg[15];  // copied out: the caller's table need not be 8-byte aligned
+  memcpy(seg, segs, sizeof(long long) * 5 * nseg);
+  long long hs = 0;
+  for (int k = 0; k < 3; ++k) {
+    const long long* s = seg + 5 * (k < nseg ? k : 0);
+    const bool used = k < nseg;
+    if (used && (s[0] == 0 || s[3] < 0 || s[3] > (1 << 30))) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    p.seg[k].x = reinterpret_cast<const uint8_t*>(s[0]);
+    p.seg[k].plane_stride = used ? s[1] : 0;
+    p.seg[k].row_stride = used ? s[2] : 0;
+    p.seg[k].rows = used ? static_cast<int>(s[3]) : 0;
+    p.seg[k].reversed = used && s[4];
+    hs += p.seg[k].rows;
+  }
+  const int rcb = rw < w - 1 ? rw : w - 1;
+  if (planes < 1 || planes > 65535 || hs < 1 || hs > (1 << 30) || w < 1 || rw < 0 ||
+      wp % 16 || wp < 16 || hp < 1 || orw < rcb) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.out = static_cast<uint8_t*>(out);
+  p.end0 = p.seg[0].rows;
+  p.end1 = p.end0 + p.seg[1].rows;
+  p.hs = static_cast<int>(hs);
+  p.w = w;
+  p.rcb = rcb;
+  p.orw = orw;
+  p.hp = hp;
+  p.wp = wp;
+  int current = 0;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((hp + kA4Warps - 1) / kA4Warps, planes);
+  assemble_rows_kernel<<<grid, kA4Warps * 32, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  err = cudaGetLastError();
+  if (current != device) {
+    const cudaError_t back = cudaSetDevice(current);
+    if (err == cudaSuccess) err = back;
+  }
+  return static_cast<int>(err);
+}
+
+// A4 on one contiguous rows-prepadded buffer (planes, hs, w) on the current
+// card: the one-segment case of assemble_padded_prepad_rows_u8.
 extern "C" int assemble_padded_prepad_u8(const void* x, void* out, int planes, int hs, int w,
                                          int rw, int orw, int hp, int wp, void* stream) {
-  return assemble_padded_u8(x, out, planes, hs, w, 0, rw, 0, orw, hp, wp, stream);
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long seg[5] = {static_cast<long long>(reinterpret_cast<uintptr_t>(x)),
+                            static_cast<long long>(hs) * w, w, hs, 0};
+  return assemble_padded_prepad_rows_u8(out, planes, 1, seg, w, rw, orw, hp, wp, device,
+                                        stream);
 }
 
 extern "C" const char* blur_cuda_error_string(int code) {

@@ -717,24 +717,26 @@ def haloed_fused_feasible(plan: BlurPlan, in_bytes: int = 1, precision=None,
             <= device_spec(device).split_hbm_budget)
 
 
-def blur_fused_haloed(planar: torch.Tensor, plan: BlurPlan, precision="bf16x3",
+def blur_fused_haloed(planar, plan: BlurPlan, precision="bf16x3",
                       out_u8: bool = False) -> torch.Tensor:
     """Fused blur of ``(..., H + 2 rh, W)`` whose extra rows are the
     caller's halo rows (another shard's, ``parallel/sharded.py``) ->
     ``(..., H, W)``; the columns still reflect. uint8 (``out_u8``) or
-    float32.
+    float32. ``planar`` is one tensor, or an ``assemble.HaloedRows``, the
+    block and its halo rows where they lie.
 
-    The JAX function of the same name, which takes ``"int8"`` and
-    ``"bf16x3"``; here ``precision`` is any of ``blur_fused_u8``'s rungs
-    and routes as it does, so a shard runs what one device would run on
-    its frame: ``"int8"`` needs ``int8_applicable`` (else ``"bf16x3"``);
-    the haloed split where ``_split_wins`` (int8 end to end where
-    ``e32_split_applicable``, ``"hybrid"`` and ``"bf16"`` running it as
-    ``"int8"``); else K1's body of that rung on A4's frame
-    (``fused_dma.blur_fused_haloed_dma``) where ``dma_form_applicable``
-    holds and K1a's block fits, then K1's int8 body under the same test
-    (the port's single int8 kernel, as in ``blur_fused_u8``); else K2 with
-    ``pre_padded_col``."""
+    The JAX function of the same name, which takes one tensor and
+    ``"int8"`` or ``"bf16x3"``; here ``precision`` is any of
+    ``blur_fused_u8``'s rungs and routes as it does, so a shard runs what
+    one device would run on its frame: ``"int8"`` needs ``int8_applicable``
+    (else ``"bf16x3"``); the haloed split where ``_split_wins`` (int8 end to
+    end where ``e32_split_applicable``, ``"hybrid"`` and ``"bf16"`` running
+    it as ``"int8"``); else K1's body of that rung on A4's frame
+    (``fused_dma.blur_fused_haloed_dma``, which reads a ``HaloedRows`` in
+    place) where ``dma_form_applicable`` holds and K1a's block fits, then
+    K1's int8 body under the same test (the port's single int8 kernel, as in
+    ``blur_fused_u8``); else K2 with ``pre_padded_col``. The split and K2
+    take a ``HaloedRows`` as its ``cat()``, one copy."""
     if precision not in ("int8", "hybrid", "bf16", "bf16x3"):
         raise ValueError("precision must be 'int8', 'hybrid', 'bf16' or "
                          f"'bf16x3', got {precision!r}")
@@ -743,7 +745,7 @@ def blur_fused_haloed(planar: torch.Tensor, plan: BlurPlan, precision="bf16x3",
     is_u8 = planar.dtype == torch.uint8
     blocked = "bf16x3" if precision == "bf16x3" else "int8"
     if _split_wins(plan, 1 if is_u8 else 4, blocked, planar.device):
-        return _blur_fused_haloed_split(planar, plan, blocked, out_u8)
+        return _blur_fused_haloed_split(_one_tensor(planar), plan, blocked, out_u8)
     if precision != "bf16x3":
         from blur_algorithms_tpu_torch.cuda_kernels import fused_dma
 
@@ -753,4 +755,9 @@ def blur_fused_haloed(planar: torch.Tensor, plan: BlurPlan, precision="bf16x3",
                     and fused_dma.k1_geometry("assembled", rung, plan, planes,
                                               device=planar.device) is not None):
                 return fused_dma.blur_fused_haloed_dma(planar, plan, rung, out_u8=out_u8)
-    return blur_fused_f32(planar, plan, out_u8=out_u8, pre_padded_col=True)
+    return blur_fused_f32(_one_tensor(planar), plan, out_u8=out_u8, pre_padded_col=True)
+
+
+def _one_tensor(planar) -> torch.Tensor:
+    """A ``HaloedRows``' rows as one tensor (its ``cat()``); a tensor as it is."""
+    return planar if isinstance(planar, torch.Tensor) else planar.cat()

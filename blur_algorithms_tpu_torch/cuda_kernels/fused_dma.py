@@ -84,10 +84,12 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
 
+from blur_algorithms_tpu_torch.cuda_kernels.assemble import HaloedRows, assemble_padded_prepad
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
     MAX_RADIUS,
     _quantize_band_int8,
@@ -1169,14 +1171,16 @@ def blur_fused_u8_pipelined(frame: torch.Tensor, plan: BlurPlan, out_u8: bool = 
 blur_fused_u8_pipelined.launches = 0
 
 
-def blur_fused_haloed_dma(planar: torch.Tensor, plan: BlurPlan, precision: str = "int8",
+def blur_fused_haloed_dma(planar, plan: BlurPlan, precision: str = "int8",
                           out_u8: bool = False,
                           tile: tuple[int, int] | None = None) -> torch.Tensor:
     """K1a on rows that carry the caller's halo rows (the JAX function of the
     same name, ``_blur_fused_dma_impl``'s ``rows_prepadded`` mode): uint8
     ``(..., H + 2rh, W)``, the extra rows another shard's
     (``parallel/sharded.py``) -> ``(..., H, W)``, float32 (the JAX default)
-    or uint8 (``out_u8``), with K1's ``precision`` body.
+    or uint8 (``out_u8``), with K1's ``precision`` body. ``planar`` is one
+    tensor, as in the JAX package, or an ``assemble.HaloedRows``: the
+    shard's block and halo rows where they lie.
 
     A4 (``assemble.assemble_padded_prepad``) builds the frame that
     ``k1_geometry("assembled", ...)`` sizes, with the caller's rows from its
@@ -1184,10 +1188,10 @@ def blur_fused_haloed_dma(planar: torch.Tensor, plan: BlurPlan, precision: str =
     (``blur_fused_u8_assembled``) runs on it unchanged. As in the JAX
     package, no other form and no form rule is consulted for such rows.
     ``tile`` pins K1a's ``(th, tw)`` tile; it is kept to match the JAX
-    signature, and the sharded path leaves it to ``k1_geometry``. A CPU
-    tensor runs A4's plain version and ``blur_fused_u8_padded_ref``; any
-    other device, a non-contiguous CUDA tensor, or a plan outside the body's
-    domain raises."""
+    signature, and the sharded path leaves it to ``k1_geometry``. CPU rows
+    run A4's plain version and ``blur_fused_u8_padded_ref``; any other
+    device, a non-contiguous CUDA tensor, rows A4 cannot read in place, or
+    a plan outside the body's domain raises."""
     if precision not in RUNGS:
         raise ValueError(f"K1's bodies are {RUNGS}, not {precision!r}")
     if planar.dtype != torch.uint8:
@@ -1195,17 +1199,16 @@ def blur_fused_haloed_dma(planar: torch.Tensor, plan: BlurPlan, precision: str =
     _check_body(plan, precision, out_u8)
     h, w = plan.shape
     rh, rw = plan.col.support_radius, plan.row.support_radius
-    if planar.ndim < 2 or tuple(planar.shape[-2:]) != (h + 2 * rh, w):
-        raise ValueError(f"planes of shape {tuple(planar.shape)} do not carry {rh} halo "
+    shape = planar.shape
+    if len(shape) < 2 or tuple(shape[-2:]) != (h + 2 * rh, w):
+        raise ValueError(f"planes of shape {tuple(shape)} do not carry {rh} halo "
                          f"rows each side of the plan's {plan.shape}")
     if planar.device.type == "cuda":
-        _check_cuda("K1a", planar)
+        if not isinstance(planar, HaloedRows):
+            _check_cuda("K1a", planar)
     elif planar.device.type != "cpu":
         raise ValueError(f"K1 runs on CUDA or CPU tensors, not {planar.device}")
-    from blur_algorithms_tpu_torch.cuda_kernels.assemble import assemble_padded_prepad
-
-    x = planar.reshape(-1, h + 2 * rh, w)
-    geo = _form_geometry("assembled", precision, plan, x.shape[0], tile, x.device)
-    frame = assemble_padded_prepad(x, rw, rw, geo.hp, geo.wp)
-    out = blur_fused_u8_assembled(frame, plan, precision, out_u8, tile)
-    return out.reshape(*planar.shape[:-2], h, w)
+    geo = _form_geometry("assembled", precision, plan, math.prod(shape[:-2]), tile,
+                         planar.device)
+    frame = assemble_padded_prepad(planar, rw, rw, geo.hp, geo.wp)
+    return blur_fused_u8_assembled(frame, plan, precision, out_u8, tile)

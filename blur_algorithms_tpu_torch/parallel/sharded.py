@@ -17,10 +17,15 @@ distributed work is the halo exchange before it: ``r`` rows per shard
 boundary (``ppermute``), or whole blocks from ``ceil(r / h_loc)`` neighbours
 where the kernel is wider than a shard, indexed with reflect-101 arithmetic
 against the true height, so the sharded result equals the single-device
-one. Past the device's fused/FFT crossover, where no fused form serves, or
-where the gather would copy most of the frame to every shard, the call
-goes to ``blur_fft_sharded``: the rows pass on H-sharded blocks, one
-``all_to_all`` to W-sharded blocks, the columns pass, and back.
+one. Where a shard's device is the input's, the cut and the single-hop
+halos are views of the input (``assemble.HaloedRows``: the block, the
+neighbours' edge rows, the frame's own edge rows read in reverse for the
+reflect-101 halo), and K1a's A4 reads them in place: that route neither
+cuts nor concatenates. The split and K2 routes concatenate them once.
+Past the device's fused/FFT crossover, where no fused form serves, or where
+the gather would copy most of the frame to every shard, the call goes to
+``blur_fft_sharded``: the rows pass on H-sharded blocks, one ``all_to_all``
+to W-sharded blocks, the columns pass, and back.
 
 The JAX path runs ``shard_map`` in one process; so does this one, with the
 shards' steps in turn and ``ppermute`` / ``all_to_all`` as explicit copies
@@ -39,11 +44,11 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from blur_algorithms_tpu_torch.cuda_kernels.assemble import HaloedRows
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
     blur_fused_haloed,
     haloed_fused_feasible,
 )
-from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 from blur_algorithms_tpu_torch.parallel.mesh import Mesh
 from blur_algorithms_tpu_torch.utils.hw import device_spec
@@ -107,13 +112,33 @@ def _check(planar: torch.Tensor, plan: BlurPlan, mesh: Mesh) -> None:
                          f"{sorted(kinds)} devices")
 
 
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` name one device (a CUDA index of None: the
+    current card)."""
+    def index(d):
+        return torch.cuda.current_device() if d.index is None else d.index
+
+    return a.type == b.type and (a.type != "cuda" or index(a) == index(b))
+
+
 def _blocks(planar: torch.Tensor, mesh: Mesh) -> list[list[torch.Tensor]]:
-    """Block ``(i, j)`` of the ``(dp, sp)`` cut, contiguous, on its device."""
+    """Block ``(i, j)`` of the ``(dp, sp)`` cut on its device: a view of a
+    contiguous ``planar`` where the block's device is ``planar``'s, else a
+    contiguous copy (as the cut to another card must be). No caller writes
+    into a block or needs it contiguous."""
+    views = planar.is_contiguous()
     n_dp, n_sp = mesh.shape["dp"], mesh.shape["sp"]
     bl, hl = planar.shape[0] // n_dp, planar.shape[2] // n_sp
-    return [[planar[i * bl:(i + 1) * bl, :, j * hl:(j + 1) * hl, :]
-             .to(mesh.devices[i][j]).contiguous() for j in range(n_sp)]
-            for i in range(n_dp)]
+    out = []
+    for i in range(n_dp):
+        row = []
+        for j in range(n_sp):
+            blk = planar[i * bl:(i + 1) * bl, :, j * hl:(j + 1) * hl, :]
+            dev = mesh.devices[i][j]
+            row.append(blk if views and _same_device(dev, planar.device)
+                       else blk.to(dev).contiguous())
+        out.append(row)
+    return out
 
 
 def _gather(outs: list[list[torch.Tensor]], device: torch.device) -> torch.Tensor:
@@ -122,15 +147,23 @@ def _gather(outs: list[list[torch.Tensor]], device: torch.device) -> torch.Tenso
 
 
 def _haloed_row(blocks: list[torch.Tensor], devices, r: int, h_loc: int, pad_h: int,
-                h: int) -> list[torch.Tensor]:
+                h: int) -> list[torch.Tensor | HaloedRows]:
     """One dp row's sp blocks with ``r`` halo rows each side: from the
     neighbours, reflect-101 at the frame's top and bottom (the JAX
-    ``shard_map`` body's three cases)."""
+    ``shard_map`` body's three cases).
+
+    On the single-hop path (``r + 2 pad_h + 1 <= h_loc``) each shard's rows
+    are a ``HaloedRows`` of views, with nothing copied on one device: the
+    block; the neighbours' edge rows, moved to its device (a peer copy of
+    ``r`` rows between cards, no copy on the same one); at the frame's top
+    and bottom the block's own rows ``1..r`` and ``lo..lo + r`` marked
+    reversed. An indivisible height makes one copy there, the bottom block
+    with its pad rows filled; the other parts stay views. A4 reads them in
+    place; the other per-shard kernels take their ``cat()``. The multi-hop
+    gather copies, and returns one tensor a shard."""
     n_sp = len(blocks)
     if r == 0:
-        return blocks
-    if n_sp == 1:
-        return [reflect_101(blocks[0], [(r, r)], axes=[-2])]
+        return [HaloedRows(None, b, None) for b in blocks]
     if r + 2 * pad_h + 1 <= h_loc:
         if pad_h:
             # indivisible height: the bottom shard's zero-pad rows get the
@@ -139,19 +172,19 @@ def _haloed_row(blocks: list[torch.Tensor], devices, r: int, h_loc: int, pad_h: 
             last = blocks[-1]
             fill = last[..., h_loc - 2 * pad_h - 1 : h_loc - pad_h - 1, :].flip(-2)
             blocks = [*blocks[:-1], torch.cat([last[..., : h_loc - pad_h, :], fill], dim=-2)]
-        # interior halos: my edge rows -> my neighbours
-        from_above = ppermute([b[..., -r:, :] for b in blocks],
-                              [(i, i + 1) for i in range(n_sp - 1)], devices)
-        from_below = ppermute([b[..., :r, :] for b in blocks],
-                              [(i + 1, i) for i in range(n_sp - 1)], devices)
-        # global borders: reflect-101; the bottom mirror continues past the
-        # filled pad rows, hence the 2*pad_h shift of its source window
+        # global borders: reflect-101 of the shard's own rows; the bottom
+        # mirror continues past the filled pad rows, hence the 2*pad_h shift
+        # of its source window. Interior halos: the neighbours' edge rows
+        # (ppermute's (j - 1, j) and (j + 1, j) pairs)
         lo = h_loc - 1 - 2 * pad_h - r
         out = []
         for j, blk in enumerate(blocks):
-            top = blk[..., 1 : r + 1, :].flip(-2) if j == 0 else from_above[j]
-            bot = blk[..., lo : lo + r, :].flip(-2) if j == n_sp - 1 else from_below[j]
-            out.append(torch.cat([top, blk, bot], dim=-2))
+            top = (blk[..., 1 : r + 1, :] if j == 0
+                   else blocks[j - 1][..., -r:, :].to(devices[j]))
+            bot = (blk[..., lo : lo + r, :] if j == n_sp - 1
+                   else blocks[j + 1][..., :r, :].to(devices[j]))
+            out.append(HaloedRows(top, blk, bot, top_reversed=j == 0,
+                                  bot_reversed=j == n_sp - 1))
         return out
     # kernel wider than a shard (or a padded height the fill cannot serve):
     # whole blocks from the k nearest neighbours each way (absent sources

@@ -98,6 +98,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.assemble_padded_prepad_u8.restype = i
+    lib.assemble_padded_prepad_rows_u8.argtypes = [
+        vp, i, i,  # out, planes, nseg
+        ctypes.c_char_p,  # the segments: 5 int64 each (x, plane stride, row stride, rows, reversed)
+        i, i, i, i, i,  # w, rw, orw, hp, wp
+        i, vp,  # device, stream
+    ]
+    lib.assemble_padded_prepad_rows_u8.restype = i
     lib.blur_fused_f32.argtypes = [
         vp, vp, vp, vp,  # x, out, taps_row, taps_col
         i, i, i,  # in_u8, out_u8, pre_padded_col

@@ -159,7 +159,9 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    with and without A5, A5 alone, the pipelined variant against K1a, the
    plain versions, the ``F.pad`` yardstick and the bytes bounds;
 16. the sharded path (``parallel/``) on meshes of the one card repeated:
-   A4 at column radius 1, 32, 332 and 598, K1a on A4's frame (int8, hybrid
+   A4 at column radius 1, 32, 332 and 598 and on the timed shard's row
+   segments in three layouts (the top and bottom shards of dp 2 x sp 2 and
+   an interior block, as ``HaloedRows`` views), K1a on A4's frame (int8, hybrid
    and bf16, uint8 and f32 out), K2 with ``pre_padded_col`` (2-D at r
    2..598; single-axis at column radius 960 and 3994) and the split's int8
    and hybrid pass 2 on pre-padded ``E`` against their plain versions
@@ -182,9 +184,13 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    ``blur_fft_sharded_u8`` at sigma 250, both within 1 count of the
    oracle; the haloed int8 split (hybrid, then int8 pass 2) at sigma 250
    under the card's crossover; times of each kernel on a dp 2
-   x sp 2 shard at sigma 9 (K2 pre-padded at 5), the plain versions, the ``F.pad`` and ``conv2d``
+   x sp 2 shard at sigma 9 (K2 pre-padded at 5; A4 per call and as CUDA
+   graph replays in turns with the parent's launch, A5's kernel with no row
+   border), the plain versions, the ``F.pad`` and ``conv2d``
    yardsticks, the sharded calls against the single-card ones in turns,
-   and ``blur_sharded_u8``'s time in parts;
+   and ``blur_sharded_u8``'s time in parts (the cut, the halo exchange
+   and the steps each in turns with the parent's copies: the cut copied,
+   the halos concatenated, the steps on one buffer a shard);
 17. the probes B1-B3 (the JAX package's ``benchmarks/`` kernels; their
    library, ``csrc/probes/``, built beside phase 1's, its ptxas lines
    printed here, each mask-0 ablation kernel held to its K3/K3f twin's
@@ -1376,6 +1382,20 @@ def _in_turns(label: str, fns: dict, *args) -> dict:
     for name in (*fns, *reversed(fns)):
         t[name].append(_time(fns[name], *args, name=f"{label} {name}").median_ms)
     return {k: float(np.mean(v)) for k, v in t.items()}
+
+
+def _graph(fn, calls: int = 1):
+    """``calls`` calls of ``fn`` captured in one CUDA graph: its replay, the
+    device's time with no host work between launches. The replay holds
+    ``fn`` and the tensors it reads (entering a capture empties the
+    allocator's cache)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    return lambda graph=graph, fn=fn: graph.replay()
 
 
 def _sweeps(frames) -> dict:
@@ -2949,20 +2969,51 @@ def _slice7(frames, want0) -> list[dict]:
     def haloed(r):  # the top shard with its r halo rows each side
         return reflect_101(top, [(r, r)], axes=[-2]).contiguous()
 
-    hx = haloed(rh)  # (2, 3, 1144, 3840)
+    # the main path's shard as A4 gets it: the top shard of dp 2 x sp 2 as
+    # views (its top halo the block's rows 1..r reversed, its bottom halo
+    # the next shard's first r rows); the bottom shard; an interior block of
+    # the same height between two neighbours' rows
+    mesh22 = make_mesh(dp=2, sp=2, devices=[x.device] * 4)
+    halo0 = sharded._haloed_row(sharded._blocks(planar, mesh22)[0],
+                                mesh22.devices[0], rh, H // 2, 0, H)
+    q = H // 4
+    layouts = {"top": halo0[0], "bottom": halo0[1],
+               "interior": assemble.HaloedRows(planar[: BATCH // 2, :, q - rh : q],
+                                               planar[: BATCH // 2, :, q : q + H // 2],
+                                               planar[: BATCH // 2, :, q + H // 2 :
+                                                      q + H // 2 + rh])}
+    hx = layouts["top"].cat()  # (2, 3, 1138, 3840), the rows as one buffer
     planes, hs = hx.shape[0] * hx.shape[1], hx.shape[2]
     geo = fused_dma.k1_geometry("assembled", rung, local, planes, device=x.device)
-    frame = assemble.assemble_padded_prepad(hx, rw, rw, geo.hp, geo.wp)
+    frame = assemble.assemble_padded_prepad(layouts["top"], rw, rw, geo.hp, geo.wp)
+    for name, rows in layouts.items():
+        got = assemble.assemble_padded_prepad(rows, rw, rw, geo.hp, geo.wp)
+        want = assemble.assemble_padded_prepad_rows_ref(rows, rw, rw, geo.hp, geo.wp)
+        torch.cuda.synchronize()
+        equal = torch.equal(got, want)
+        print(f"phase 16 A4 on the {name} shard's row segments {tuple(rows.shape)} -> "
+              f"({geo.hp}, {geo.wp}) vs plain: equal={equal}", flush=True)
+        if not equal:
+            raise RuntimeError(f"A4 differs from its plain version on the {name} shard")
+        del got, want
+    # A4 against the parent's launch (A5's kernel with no row border, on the
+    # rows as one buffer), per call and as CUDA graph replays, in turns
+    top_rows = layouts["top"]
+    a4_fns = {"parent": lambda: assemble.assemble_padded(hx, 0, rw, 0, rw, geo.hp, geo.wp),
+              "a4": lambda: assemble.assemble_padded_prepad(top_rows, rw, rw, geo.hp, geo.wp)}
+    a4_call = _in_turns("A4 per call on the dp 2 x sp 2 shard", a4_fns)
+    a4_graph = _in_turns("A4 as a CUDA graph replay", {k: _graph(f) for k, f in a4_fns.items()})
     t = {
-        "a4": _time(assemble.assemble_padded_prepad, hx, rw, rw, geo.hp, geo.wp,
-                    name="A4 on a dp 2 x sp 2 shard").median_ms,
+        "a4": a4_call["a4"],
         "k1a": _time(fused_dma.blur_fused_u8_assembled, frame, local, rung,
                      name=f"K1a {rung} on A4's frame").median_ms,
-        "a4_plain": _time(assemble.assemble_padded_prepad_ref, hx, rw, rw, geo.hp, geo.wp,
-                          name="A4 plain version").median_ms,
+        "a4_plain": _time(assemble.assemble_padded_prepad_rows_ref, top_rows, rw, rw, geo.hp,
+                          geo.wp, name="A4 plain version").median_ms,
         "k1a_plain": _time(fused_dma.blur_fused_u8_padded_ref, frame, local, rh, rw, rung,
                            name=f"K1a {rung} plain version on A4's frame").median_ms,
     }
+    print(f"phase 16 A4 (ms, in turns with the parent's launch): per call {a4_call}, as "
+          f"CUDA graph replays {a4_graph}", flush=True)
     pad_w, pad_h = geo.wp - W - 2 * rw, geo.hp - hs
     try:  # the yardstick: F.pad's reflect on the columns, then a zero pad
         t["a4_lib"] = _time(lambda u: F.pad(F.pad(u, (rw, rw, 0, 0), mode="reflect"),
@@ -3000,10 +3051,9 @@ def _slice7(frames, want0) -> list[dict]:
     del frame
     meshes = {(dp, sp): make_mesh(dp=dp, sp=sp, devices=[x.device] * (dp * sp))
               for dp, sp in (*SHARD_MESHES, (1, GATHER_SP))}
-    mesh22 = meshes[2, 2]
     t_path = _in_turns(f"blur_u8 vs blur_sharded_u8 dp 2 x sp 2 sigma={SIGMA_SHARD_K1}", {
         "single": lambda u: blur_u8(u, SIGMA_SHARD_K1),
-        "sharded": lambda u: blur_sharded_u8(u, plan, mesh22)}, x)
+        "sharded": lambda u: blur_sharded_u8(u, plan, meshes[2, 2])}, x)
     t_path["sharded_dp1_sp4"] = _time(lambda u: blur_sharded_u8(u, plan, meshes[1, 4]), x,
                                       name=f"blur_sharded_u8 dp 1 x sp 4 "
                                       f"sigma={SIGMA_SHARD_K1}").median_ms
@@ -3016,27 +3066,43 @@ def _slice7(frames, want0) -> list[dict]:
         "single": lambda u: blur(u, SIGMA_SHARD_K2),
         "sharded": lambda u: blur_sharded(u, plan2, mesh22)}, planar.float())
     # where blur_sharded_u8's time goes on dp 2 x sp 2: the layout copies,
-    # the cut into blocks, the halo exchange, the shards' steps, the gather
+    # the cut into blocks (views), the halo exchange (views), the shards'
+    # steps (A4 reading the views, K1a), the gather; beside them, in turns,
+    # the parent's way: the cut copied, the halos concatenated, the steps
+    # on one buffer a shard
     blocks = sharded._blocks(planar, mesh22)
     halo = [sharded._haloed_row(row, mesh22.devices[i], rh, H // 2, 0, H)
             for i, row in enumerate(blocks)]
+
+    def halo_cat(bl):
+        return [[u.cat() for u in sharded._haloed_row(row, mesh22.devices[i], rh, H // 2, 0, H)]
+                for i, row in enumerate(bl)]
 
     def steps(rows):
         return [[fused_blur.blur_fused_haloed(u, local, rung, out_u8=True) for u in row]
                 for row in rows]
 
+    def cut_copied():  # the parent's cut: each block a contiguous copy
+        return [[b.contiguous() for b in row] for row in sharded._blocks(planar, mesh22)]
+
     outs = steps(halo)
+    copied = cut_copied()
+    catted = halo_cat(copied)
     t_parts = {
         "layout": _time(lambda u: u.movedim(-1, -3).contiguous().movedim(-3, -1).contiguous(),
                         x, name="the two layout copies").median_ms,
-        "cut": _time(sharded._blocks, planar, mesh22, name="cut into 2 x 2 blocks").median_ms,
-        "halo": _time(lambda bl: [sharded._haloed_row(row, mesh22.devices[i], rh, H // 2, 0, H)
-                                  for i, row in enumerate(bl)], blocks,
-                      name="halo exchange").median_ms,
-        "steps": _time(steps, halo, name="the four shards' A4 + K1a").median_ms,
+        **{f"cut{k}": v for k, v in _in_turns("cut into 2 x 2 blocks", {
+            "": lambda: sharded._blocks(planar, mesh22), "_copied": cut_copied}).items()},
+        **{f"halo{k}": v for k, v in _in_turns("halo exchange", {
+            "": lambda: [sharded._haloed_row(row, mesh22.devices[i], rh, H // 2, 0, H)
+                         for i, row in enumerate(blocks)],
+            "_concatenated": lambda: halo_cat(copied)}).items()},
+        **{f"steps{k}": v for k, v in _in_turns("the four shards' A4 + K1a", {
+            "": lambda: steps(halo), "_on_one_buffer": lambda: steps(catted)}).items()},
         "gather": _time(sharded._gather, outs, x.device, name="gather").median_ms,
     }
-    del blocks, halo, outs
+    del copied, catted
+    del blocks, halo, outs, layouts, top_rows, halo0, a4_fns
 
     # K2 pre-padded on the float shard at sigma 5; its yardstick: reflect
     # the columns, two depthwise conv2d (TF32 off), rows valid
@@ -3153,7 +3219,10 @@ def _slice7(frames, want0) -> list[dict]:
     return [
         entry("assemble_prepad", "fused_dma.cu", "fused_dma.py:1708",
               launched.get("assemble_padded_prepad", 0), t["a4"], t["a4_plain"], b_a4,
-              errs["a4"], t["a4_lib"], at=shard, kernel="assemble_padded_kernel (A5's)"),
+              errs["a4"], t["a4_lib"], at=f"{shard}, the top shard's row segments",
+              kernel="assemble_rows_kernel", graph_ms=a4_graph["a4"],
+              parent_launch_ms_in_turns=a4_call["parent"],
+              parent_launch_graph_ms_in_turns=a4_graph["parent"]),
         entry("fused_dma_assembled_prepadded", "fused_dma.cu", "fused_dma.py:223",
               launched.get("blur_fused_u8_assembled", 0), t["k1a"], t["k1a_plain"], b_k1a,
               errs["k1a"], None, at=shard, rung=rung,
@@ -3370,12 +3439,7 @@ def _b1_phase(dev) -> list[dict]:
         """The call captured in a CUDA graph and replayed: the device's time
         with no host work between launches (the per-call times include the
         wrapper's, which at ~0.04 ms is most of them here)."""
-        fn()
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            fn()
-        return timing.time_cuda(graph.replay, iters=ITERS, warmup=2).median_ms
+        return timing.time_cuda(_graph(fn), iters=ITERS, warmup=2).median_ms
 
     m, k, n, label = b1.SHAPES[0]
     a, b = (t.to(dev) for t in b1.operands(m, k, n, "int8"))

@@ -576,6 +576,112 @@ def test_a4_equals_plain_version_on_the_card(cuda_device, hs, w, rw, hp, wp):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("w, shift, rw, top, bot", [
+    (3840, 0, 29, "rev", "nb"), (3840, 0, 29, "nb", "rev"), (3840, 0, 32, "nb", "nb"),
+    (1777, 0, 33, "rev", "rev"), (1777, 5, 598, "nb", "rev"), (3840, 3, 29, "rev", "nb"),
+    (250, 0, 3, "nb", "nb"), (256, 7, 1, "rev", "rev"),
+])
+def test_a4_reads_row_segments_in_place_on_the_card(cuda_device, w, shift, rw, top, bot):
+    """A4 on a ``HaloedRows`` of strided views of a batch (rows ``shift``
+    bytes into a wider frame, so unaligned where ``shift`` or ``w`` is not a
+    multiple of 16), each halo a neighbour's rows or the block's own rows
+    reversed: ``torch.equal`` to its plain version, one launch a call."""
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+
+    r, o, hb = 13, 40, 200
+    wide = _planes((2, 3, 300, w + shift), seed=49)
+
+    def layout(frame):
+        frame = frame[..., shift:]
+        blk = frame[..., o : o + hb, :]
+        t = frame[..., o - r : o, :] if top == "nb" else blk[..., 1 : r + 1, :]
+        b = frame[..., o + hb : o + hb + r, :] if bot == "nb" else blk[..., hb - 1 - r : hb - 1, :]
+        return assemble.HaloedRows(t, blk, b, top == "rev", bot == "rev")
+
+    hs = hb + 2 * r
+    hp, wp = -(-(hs + 1) // 8) * 8 + 8, -(-(w + 2 * rw) // 16) * 16
+    rows = layout(wide.to(cuda_device))
+    before = assemble.assemble_padded_prepad.launches
+    got = assemble.assemble_padded_prepad(rows, rw, rw, hp, wp)
+    torch.cuda.synchronize()
+    assert assemble.assemble_padded_prepad.launches == before + 1
+    want = assemble.assemble_padded_prepad_rows_ref(layout(wide), rw, rw, hp, wp)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp, sp", [(2, 2), (1, 4)])
+def test_sharded_u8_at_sigma_9_equals_blur_u8_on_the_card(cuda_device, dp, sp):
+    """The K1a route on a mesh of the card repeated: each shard's rows reach
+    A4 as views (one A4 launch a shard), and the result is ``torch.equal``
+    to ``blur_u8`` on the rung the shards run."""
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+    from blur_algorithms_tpu_torch.parallel import blur_sharded_u8, make_mesh
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    mesh = make_mesh(dp=dp, sp=sp, devices=[cuda_device] * (dp * sp))
+    img = _planes((4, 1080, 1920, 3), seed=50).to(cuda_device)
+    plan = make_plan((1080, 1920), 9.0)
+    rung = _u8_dma_precision(_local_plan(plan, 1080 // sp, 1920), device_spec(cuda_device))
+    a4, k1a = assemble.assemble_padded_prepad.launches, fused_dma.blur_fused_u8_assembled.launches
+    got = blur_sharded_u8(img, plan, mesh)
+    torch.cuda.synchronize()
+    assert assemble.assemble_padded_prepad.launches == a4 + dp * sp
+    assert fused_dma.blur_fused_u8_assembled.launches == k1a + dp * sp
+    assert torch.equal(got, blur_u8(img, 9.0, precision=rung))
+
+
+@pytest.mark.cuda
+def test_a4_launches_on_the_card_its_rows_are_on(cuda_device):
+    """A4 on rows that lie on another card than the current one: the frame
+    is made and written there, on that card's current stream, and the
+    current card is the same after. Needs two cards."""
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    other = torch.device("cuda", (torch.cuda.current_device() + 1) % torch.cuda.device_count())
+    frame = _planes((2, 3, 300, 3840), seed=53)
+    blk = frame[..., 40:240, :]
+    rows = assemble.HaloedRows(frame[..., 27:40, :], blk, blk[..., 186:199, :],
+                               bot_reversed=True)
+    on_other = assemble.HaloedRows(*(t.to(other) for t in rows[:3]), *rows[3:])
+    current = torch.cuda.current_device()
+    got = assemble.assemble_padded_prepad(on_other, 29, 29, 240, 3904)
+    torch.cuda.synchronize(other)
+    assert torch.cuda.current_device() == current and got.device == other
+    assert torch.equal(got.cpu(), assemble.assemble_padded_prepad_rows_ref(rows, 29, 29, 240,
+                                                                           3904))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dp, sp", [(2, 2), (1, 4)])
+def test_sharded_u8_across_cards_equals_blur_u8(cuda_device, dp, sp):
+    """The K1a route on a mesh of distinct cards: the halo rows cross between
+    cards, each shard's A4 launches on its own card, and the result is
+    ``torch.equal`` to ``blur_u8`` on one card. Needs a card a shard."""
+    from blur_algorithms_tpu_torch.api import _u8_dma_precision
+    from blur_algorithms_tpu_torch.cuda_kernels import assemble
+    from blur_algorithms_tpu_torch.parallel import blur_sharded_u8, make_mesh
+    from blur_algorithms_tpu_torch.parallel.sharded import _local_plan
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    if torch.cuda.device_count() < dp * sp:
+        pytest.skip(f"needs {dp * sp} cards")
+    mesh = make_mesh(dp=dp, sp=sp, devices=[torch.device("cuda", k) for k in range(dp * sp)])
+    img = _planes((4, 1080, 1920, 3), seed=54).to(cuda_device)
+    plan = make_plan((1080, 1920), 9.0)
+    rung = _u8_dma_precision(_local_plan(plan, 1080 // sp, 1920), device_spec(cuda_device))
+    a4 = assemble.assemble_padded_prepad.launches
+    got = blur_sharded_u8(img, plan, mesh)
+    torch.cuda.synchronize()
+    assert assemble.assemble_padded_prepad.launches == a4 + dp * sp
+    assert torch.equal(got, blur_u8(img, 9.0, precision=rung))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("shape, sigma", [((540, 1920), 10.0), ((135, 3840), 50.0),
                                           ((251, 777), (5.0, 11.0))])
 @pytest.mark.parametrize("rung", ["int8", "hybrid", "bf16"])

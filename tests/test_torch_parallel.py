@@ -125,6 +125,28 @@ def test_multi_hop_gather_against_jax(jax_dma, sigma, sp):
     assert torch.equal(got, blur(torch.from_numpy(x), sigma))
 
 
+@pytest.mark.parametrize("dp, sp", [(2, 2), (1, 4), (2, 1)])
+def test_k1a_route_takes_haloed_rows_and_equals_jax(jax_dma, monkeypatch, dp, sp):
+    """On the single-hop path each shard's K1a step gets its rows as views
+    (``assemble.HaloedRows``: no cut, no concatenation) and A4's plain
+    version runs on them; the result still equals the JAX package."""
+    from blur_algorithms_tpu_torch.cuda_kernels.assemble import HaloedRows
+
+    seen = []
+    real = t_dma.blur_fused_haloed_dma
+    monkeypatch.setattr(t_dma, "blur_fused_haloed_dma",
+                        lambda rows, *a, **k: (seen.append(rows), real(rows, *a, **k))[1])
+    img = _u8((4, 96, 80, 3), seed=8)
+    plan = make_plan((96, 80), 2.0)
+    got, want = _sharded_u8_both(img, 2.0, dp, sp)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert _rung(plan, 96 // sp) == "int8"
+    assert len(seen) == dp * sp and all(isinstance(s, HaloedRows) for s in seen)
+    # every shard's parts are views of one planar frame
+    assert len({t.untyped_storage().data_ptr() for s in seen for t, _ in s.parts()}) == 1
+    assert torch.equal(got, blur_u8(torch.from_numpy(img), 2.0))
+
+
 def test_multi_hop_u8_equals_jax(jax_dma):
     img = _u8((2, 45, 64, 3), seed=4)  # indivisible height and a radius past it
     plan = make_plan((45, 64), 12.0)
