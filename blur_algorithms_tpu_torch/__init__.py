@@ -6,8 +6,10 @@ against. The port goes one slice at a time (ROADMAP.md); it now serves
 on float planar ``(..., H, W)`` data (differentiable), ``convolve_separable``
 and ``box_blur``, through the fused engine (with its two-pass split to
 support radius 4096), the band, FFT, box-scan and cascade engines, and
-``dft_spectrum``: hand-written Hopper kernels on a CUDA tensor and their
-plain PyTorch versions on a CPU tensor. ``blur_algorithms_tpu_torch.parallel``
+``dft_spectrum``, the strip-streamed ``"fft_stream"`` engine and FFT_MXU past
+its byte budget (``ops/streamed``), ``blur_multi_sigma(_u8)`` (a sigma sweep
+in one call) and ``models.wiener_deconvolve``: hand-written Hopper kernels on
+a CUDA tensor and their plain PyTorch versions on a CPU tensor. ``blur_algorithms_tpu_torch.parallel``
 (imported on its own, as in the JAX package) shards frames and rows over a
 mesh of devices.
 """
@@ -21,6 +23,7 @@ from blur_algorithms_tpu_torch.api import (
     dft_spectrum,
     gaussian_blur,
 )
+from blur_algorithms_tpu_torch.ops.multi_sigma import blur_multi_sigma, blur_multi_sigma_u8
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
 
 __version__ = "0.1.0"
@@ -29,6 +32,8 @@ __all__ = [
     "BlurPlan",
     "Engine",
     "blur",
+    "blur_multi_sigma",
+    "blur_multi_sigma_u8",
     "blur_u8",
     "box_blur",
     "convolve_separable",

@@ -29,12 +29,18 @@ engines:
   and ``box_blur`` on both layouts, ``dft_spectrum`` (the reference's
   ``DFT_image`` mode).
 
-AUTO covers every support radius up to FFT_MXU's byte budget
-(``DeviceSpec.fft_mxu_byte_budget``) and transform length (16384), and
-past either runs the fused engine's split where it fits its own budget
-(``DeviceSpec.split_hbm_budget``, r <= 4096). Beyond that a frame needs
-strip streaming (``ops/streamed``, not ported) and raises, as do the
-``"fft_stream"``, ``"conv"`` and ``"deriche"`` engines. The device is the
+AUTO follows the JAX rule: the fused engine up to the device's fused/FFT
+crossover where it serves the frame (its single kernels to r 600, the
+two-pass split to r 4096 within ``DeviceSpec.split_hbm_budget``), FFT_MXU
+past it; where FFT_MXU's whole-frame intermediates exceed
+``DeviceSpec.fft_mxu_byte_budget`` it strip-streams
+(``ops/streamed.blur_fft_mxu_streamed(_u8)``) and AUTO reads the streamed
+crossover (``auto_fused_max_radius_*_streamed``) in its place, whether it
+lies above or below (JAX reads it only above). K3/K3f take transforms to
+131072 (the cluster form past 16384); past that AUTO keeps the fused engine
+where it serves the frame. ``"fft_stream"`` runs the
+strip-streamed ``torch.fft`` tiles. The ``"conv"`` and ``"deriche"``
+engines raise. The device is the
 input's: a CUDA tensor runs the CUDA kernels, a CPU tensor their plain
 PyTorch versions. Where more than one card is visible, AUTO shards a batch
 (or a frame past ``DeviceSpec.auto_sp_min_px``) over them through
@@ -80,6 +86,12 @@ from blur_algorithms_tpu_torch.ops.fft_mxu import estimate_bytes, transform_leng
 from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
 from blur_algorithms_tpu_torch.ops.spectrum import dft_spectrum_planar
+from blur_algorithms_tpu_torch.ops.streamed import (
+    blur_fft_mxu_streamed,
+    blur_fft_mxu_streamed_u8,
+    blur_fft_tiles_streamed,
+    blur_fft_tiles_streamed_u8,
+)
 from blur_algorithms_tpu_torch.utils.hw import DeviceSpec, device_spec
 
 __all__ = [
@@ -95,8 +107,8 @@ __all__ = [
 
 class Engine(str, enum.Enum):
     """The JAX package's engine names. Ported: AUTO, FUSED, BAND, FFT2,
-    FFT_TILES, PFFFT, FFT_MXU, BOX, BOX_SCAN and CASCADE; the others raise
-    ``NotImplementedError`` naming their ROADMAP.md item."""
+    FFT_TILES, PFFFT, FFT_MXU, FFT_STREAM, BOX, BOX_SCAN and CASCADE; the
+    others raise ``NotImplementedError`` naming their ROADMAP.md item."""
 
     FFT2 = "fft2"
     FFT_TILES = "fft_tiles"
@@ -113,21 +125,21 @@ class Engine(str, enum.Enum):
     AUTO = "auto"
 
 
-def _fft_mxu_refusal(plan: BlurPlan, lead: int, spec: DeviceSpec) -> str | None:
-    """Why FFT_MXU cannot serve this plan on this device, or None."""
-    need = estimate_bytes(plan, max(1, lead))
-    if need > spec.fft_mxu_byte_budget:
-        return (
-            f"FFT_MXU needs ~{need} bytes of whole-frame intermediates, past "
-            f"the device's budget of {spec.fft_mxu_byte_budget}: strip "
-            "streaming (ROADMAP.md Queue 1 item 7, ops/streamed)"
-        )
+def _fft_mxu_streams(plan: BlurPlan, lead: int, spec: DeviceSpec) -> bool:
+    """Whether FFT_MXU strip-streams this frame: its whole-frame
+    intermediates (``estimate_bytes`` over ``lead`` planes) exceed the
+    device's byte budget (the JAX rule)."""
+    return estimate_bytes(plan, max(1, lead)) > spec.fft_mxu_byte_budget
+
+
+def _fft_mxu_refusal(plan: BlurPlan) -> str | None:
+    """Why FFT_MXU cannot serve this plan, or None: a transform past
+    K3/K3f's longest (a strip transforms a whole axis too)."""
     n = max(transform_length(plan.row), transform_length(plan.col))
     if n > MAX_N:
         return (
-            f"FFT_MXU transform length {n} > {MAX_N}: K3 staged through "
-            "device memory or strip streaming (ROADMAP.md Queue 1 item 7, "
-            "ops/streamed)"
+            f"FFT_MXU transform length {n} > {MAX_N}: clusters past 8 CTAs or a "
+            "pass staged through device memory (ROADMAP.md Queue 1 item 11)"
         )
     return None
 
@@ -146,16 +158,15 @@ def _fused_refusal(plan: BlurPlan, in_bytes: int, spec: DeviceSpec,
     if not split_feasible(plan, in_bytes):
         return (
             f"the fused engine's two-pass split reaches support radius "
-            f"{SPLIT_MAX_RADIUS}, not {r}: strip streaming (ROADMAP.md Queue 1 "
-            "item 7, ops/streamed)"
+            f"{SPLIT_MAX_RADIUS}, not {r}: no fused tile serves it; use the "
+            "fft_mxu, fft_stream or cascade engine"
         )
     prec = "int8" if in_bytes == 1 and int8_applicable(plan, torch.uint8) else None
     need = split_hbm_bytes(plan, in_bytes, prec) * max(1, lead) // 3
     if need > spec.split_hbm_budget:
         return (
             f"the two-pass split needs ~{need} bytes, past the device's budget "
-            f"of {spec.split_hbm_budget}: strip streaming (ROADMAP.md Queue 1 "
-            "item 7, ops/streamed)"
+            f"of {spec.split_hbm_budget}: use the fft_mxu or fft_stream engine"
         )
     return None
 
@@ -166,26 +177,32 @@ def _resolve_with_spec(engine: Engine | str, plan: BlurPlan, in_bytes: int,
     if engine is not Engine.AUTO:
         return engine
     r = max(plan.col.support_radius, plan.row.support_radius)
-    crossover = (spec.auto_fused_max_radius_u8 if in_bytes == 1
-                 else spec.auto_fused_max_radius_f32)
-    if r <= crossover:
-        return Engine.FUSED
-    if (_fft_mxu_refusal(plan, lead, spec) is not None
-            and _fused_refusal(plan, in_bytes, spec, lead) is None):
+    u8 = in_bytes == 1
+    if _fft_mxu_streams(plan, lead, spec):
+        # the FFT side would strip-stream: the crossover measured against
+        # the streamer, above or below the whole-frame one
+        crossover = (spec.auto_fused_max_radius_u8_streamed if u8
+                     else spec.auto_fused_max_radius_f32_streamed)
+    else:
+        crossover = (spec.auto_fused_max_radius_u8 if u8
+                     else spec.auto_fused_max_radius_f32)
+    if _fused_refusal(plan, in_bytes, spec, lead) is None and (
+            r <= crossover or _fft_mxu_refusal(plan) is not None):
+        # past K3/K3f's longest transform the split serves what it reaches
         return Engine.FUSED
     return Engine.FFT_MXU
 
 
 def _resolve_engine(engine: Engine | str, plan: BlurPlan, in_bytes: int = 1,
                     device: torch.device | str = "cpu", lead: int = 3) -> Engine:
-    """AUTO -> FUSED up to the device's fused/FFT crossover, FFT_MXU past it.
+    """AUTO -> FUSED up to the device's fused/FFT crossover where the fused
+    engine serves the frame, FFT_MXU otherwise (the JAX ``_resolve_engine``).
 
     ``in_bytes`` is 1 for uint8 frames and 4 for floats (their crossovers
-    differ), ``lead`` the number of planes. Where FFT_MXU cannot serve the
-    frame (past its byte budget or transform length) the fused engine keeps
-    the frame while it can (its single kernels to r 600, the two-pass split
-    past it), as the JAX package keeps the banded path where its FFT would
-    have to strip-stream."""
+    differ), ``lead`` the number of planes. Where FFT_MXU would strip-stream
+    (past its byte budget) the crossover is the device's streamed one; where
+    FFT_MXU's transform would pass ``MAX_N`` the fused engine serves the
+    frame wherever it can."""
     return _resolve_with_spec(engine, plan, in_bytes, device_spec(device), lead)
 
 
@@ -204,7 +221,7 @@ def _box_engine(plan: BlurPlan, in_bytes: int, spec: DeviceSpec, lead: int) -> E
 
 
 # the ROADMAP.md Queue 1 item that ports each engine not ported yet
-_ENGINE_ITEMS = {Engine.FFT_STREAM: 7, Engine.CONV: 9, Engine.DERICHE: 9}
+_ENGINE_ITEMS = {Engine.CONV: 9, Engine.DERICHE: 9}
 
 
 def _route(engine: Engine | str, plan: BlurPlan, in_bytes: int,
@@ -218,13 +235,11 @@ def _route(engine: Engine | str, plan: BlurPlan, in_bytes: int,
             f"engine {eng.value!r} is not ported yet "
             f"(ROADMAP.md Queue 1 item {_ENGINE_ITEMS[eng]})"
         )
-    refusal = None
-    if eng is Engine.FFT_MXU:
-        refusal = _fft_mxu_refusal(plan, lead, spec)
-    elif eng is Engine.FUSED:
-        refusal = _fused_refusal(plan, in_bytes, spec, lead)
-    if refusal is not None:
+    if eng is Engine.FFT_MXU and (refusal := _fft_mxu_refusal(plan)) is not None:
         raise NotImplementedError(refusal)
+    if eng is Engine.FUSED and (refusal := _fused_refusal(plan, in_bytes, spec, lead)):
+        # past the split's reach or budget, as the JAX ``_pick_tile`` refuses
+        raise ValueError(refusal)
     return eng
 
 
@@ -244,6 +259,18 @@ def _box_radius(nsmooth, engine: Engine) -> int:
     return int(s * s)
 
 
+def _streamer(engine: Engine, plan: BlurPlan, lead: int, device: torch.device, *,
+              u8: bool):
+    """The strip streamer that serves ``engine`` on ``lead`` planes, or None
+    for the whole-frame path: FFT_STREAM always, FFT_MXU past the device's
+    byte budget (``_fft_mxu_streams``); the uint8 forms take uint8 planes."""
+    if engine is Engine.FFT_STREAM:
+        return blur_fft_tiles_streamed_u8 if u8 else blur_fft_tiles_streamed
+    if engine is Engine.FFT_MXU and _fft_mxu_streams(plan, lead, device_spec(device)):
+        return blur_fft_mxu_streamed_u8 if u8 else blur_fft_mxu_streamed
+    return None
+
+
 def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
     """Float planar ``(..., H, W)`` through a ported engine -> float32."""
     if engine is Engine.FUSED:
@@ -252,6 +279,9 @@ def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tenso
         if plan.kernel != "box_fast":
             raise ValueError("box_scan engine requires a box_fast plan")
         return box_blur_scan(x, int(plan.sigma), plan.box_passes)
+    if (streamer := _streamer(engine, plan, math.prod(x.shape[:-2]), x.device,
+                              u8=False)) is not None:
+        return streamer(x, plan)
     if engine is Engine.FFT_MXU:
         return blur_fft_mxu_cuda(x, plan)
     if engine is Engine.FFT2:
@@ -390,7 +420,13 @@ def _u8_lead(img: torch.Tensor) -> int:
 
 def _through_planar_u8(img: torch.Tensor, plan: BlurPlan, eng: Engine) -> torch.Tensor:
     """uint8 (..., H, W, C) -> planar float32 -> ``eng`` -> uint8 with the
-    reference's +0.5 rounding (the JAX package's generic uint8 path)."""
+    reference's +0.5 rounding (the JAX package's generic uint8 path); the
+    streamed engines (FFT_STREAM, and FFT_MXU past its byte budget) take
+    the uint8 planes and convert and round each strip (JAX ``api.py``
+    ``_compiled_u8``)."""
+    streamer = _streamer(eng, plan, _u8_lead(img), img.device, u8=True)
+    if streamer is not None:
+        return from_planar(streamer(to_planar(img, torch.uint8), plan))
     return from_planar(_blur_planar(to_planar(img), plan, eng))
 
 
@@ -411,8 +447,11 @@ def blur_u8(
     ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. ``engine`` AUTO
     runs the fused kernels up to the device's fused/FFT crossover and
     FFT_MXU past it; ``"fused"`` serves support radii up to 600 in one
-    kernel and to 4096 through the two-pass split; ``"fft_mxu"``,
-    ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and ``"band"`` run those
+    kernel and to 4096 through the two-pass split (past that it raises
+    ``ValueError``); ``"fft_mxu"`` (strip-streamed from uint8 planes past
+    its byte budget) and ``"fft_stream"`` (strip-streamed ``torch.fft``)
+    convert and round strip by strip; ``"fft2"``, ``"fft_tiles"``,
+    ``"pffft"`` and ``"band"`` run those
     engines on planar float32 and round back; ``"box"`` and ``"box_scan"``
     run the FastBoxBlur box (radius ``nsmooth**2``, 2 passes, as
     ``box_blur``); ``"cascade"`` composes fused blurs with float
@@ -505,9 +544,10 @@ def blur(
 
     ``nsmooth`` is sigma, or a ``(sigma_y, sigma_x)`` pair. AUTO runs K2 up
     to the device's fused/FFT crossover and FFT_MXU (K3f/K3) past it, both
-    differentiable (the backward pass is the blur's adjoint); ``"fused"``
-    serves support radii up to 600 in one kernel and to 4096 through the
-    f32 two-pass split; ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and
+    differentiable (the backward pass is the blur's adjoint; FFT_MXU
+    strip-streams past its byte budget, as ``"fft_stream"`` always does);
+    ``"fused"`` serves support radii up to 600 in one kernel and to 4096
+    through the f32 two-pass split; ``"fft2"``, ``"fft_tiles"``, ``"pffft"`` and
     ``"band"`` run those engines (differentiable through ``torch.fft`` and
     ``torch.matmul``); ``"box"`` / ``"box_scan"`` the FastBoxBlur box
     (radius ``nsmooth**2``, 2 passes) and ``"cascade"`` composed fused

@@ -22,7 +22,8 @@
 //
 // The design: one block per pair of rows, n / 32 threads, the FFT as a few
 // high-radix passes held in registers, shared memory only between passes.
-// The kernel is a template on n (17 lengths) and on whether it frames the
+// The kernel is a template on n (17 lengths, 3 more in the cluster form
+// below) and on whether it frames the
 // rows (K3f) or reads them as they are (K3), so every stride, count and
 // twiddle step is a constant and shared addresses fold into immediates.
 //   n = Q * P: Q the odd part (1, 3, 5, ..., 15: the lengths are powers of
@@ -82,6 +83,21 @@
 //      stage through shared memory.
 //   5. The spectrum multiply happens in registers between the last forward
 //      and the first inverse pass (item 1), H read as 16-byte loads.
+// Past n 16384 (n = 32768, 65536, 131072: what transform_length plans past
+// 16384 and the adjoint pads rows to), a complex row no longer fits one
+// block's shared memory (256 KB at 32768). The cluster form
+// (fft_conv_rows_cluster_kernel) takes a thread-block cluster of C = n / 16384
+// CTAs (2, 4 or 8; 8 is the portable limit) per pair of rows: a first
+// radix-C pass over stride 16384 reads the rows from device memory (framing
+// them for K3f) and sends each output to the shared memory of the CTA owning
+// its segment over distributed shared memory; each CTA then runs the
+// length-16384 body above unchanged on its segment (passes, H, inverse
+// passes) and leaves the result in its shared memory; the last inverse pass
+// (radix C) reads its C values from the CTAs' segments and stores the rows.
+// Cluster barriers stand between the three steps and before any CTA exits.
+// Device-memory traffic stays one read and one write of the rows; each CTA
+// holds what the n-16384 block holds, 9 KB more for the cluster pass's
+// W_n tables (128 + n / 128 entries, as Tlo / Thi above).
 // Tensor cores: not used. f32 accuracy would need 3xTF32 (~165 TFLOP/s of
 // useful rate) or bf16x3 splits, and a dense pass as a matrix product costs
 // 8 R flops a point against ~5 log2 R for the butterflies: radix-16 passes
@@ -101,6 +117,7 @@
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -426,47 +443,33 @@ __device__ __forceinline__ void middle_pass(const Smem& sm, const float* __restr
 template <int N>
 constexpr int kMinBlocks = N >= 1024 ? kMaxThreads / (N / kE) : 16;
 
-// The kernel's body with the stages of kMask left out (0: all of them).
-// One block per complex row c: real rows c and c + half (a zero row rides
-// along where c + half == rows). Rows in and out have length dim.
-template <int N, bool kFramed, int kMask>
-__device__ __forceinline__ void conv_rows(const float* __restrict__ x, float* __restrict__ out,
-                                          const float2* __restrict__ tw,
-                                          const float* __restrict__ h, int complex_h, int rows,
-                                          int half, int dim, int pad) {
+// The passes of one length-N transform, from the first forward pass to the
+// last inverse pass, with the stages of kMask left out (0: all of them).
+// kRows: the first forward pass reads the rows and the last inverse pass
+// stores them (one block a pair of rows); else both stay in shared memory
+// (a segment of the cluster form, below).
+template <int N, bool kFramed, int kMask, bool kRows>
+__device__ __forceinline__ void passes(const Smem& sm, const Rows& io,
+                                       const float* __restrict__ h, int complex_h) {
   using P = Plan<N>;
   constexpr int T = P::T, Q = P::Q, R0 = P::R0, kP = P::kP;
   constexpr bool kQ = P::kQ, kR = P::kR, kA = P::kA;
-  extern __shared__ __align__(16) float2 smem2[];
-  float2* tab = smem2 + N + N / 32;
-  for (int k = threadIdx.x; k < kTable; k += T) tab[k] = tw[k];
-  const Smem sm{smem2, tab, tab + kLo, tab + 2 * kLo, tab + kTable};
-  if constexpr (kA) {
-    __syncthreads();
-    for (int k = threadIdx.x; k < 1024; k += T) tab[kTable + k] = twiddle(sm, k * (N / 1024));
-  }
-  const int ra = blockIdx.x;
-  const int rb = blockIdx.x + half;
-  const bool has_b = rb < rows;
-  const Rows io{x + static_cast<size_t>(ra) * dim, x + static_cast<size_t>(rb) * dim,
-                out + static_cast<size_t>(ra) * dim, out + static_cast<size_t>(rb) * dim,
-                has_b, dim, pad};
-  __syncthreads();
-
   // forward: the first pass reads the rows
   constexpr int M = (kMask & kIoOnly) != 0 ? kAllStages : kMask;
   constexpr bool kSync = (M & kNoExchanges) == 0, kMid = (kMask & kIoOnly) == 0;
   float2 carry = make_float2(0.0f, 0.0f);
   if constexpr (kQ) {
-    fft_pass<Q, false, true, false, kP, 1, N / Q, T, kFramed, M>(sm, io, carry);
+    fft_pass<Q, false, kRows, false, kP, 1, N / Q, T, kFramed, M>(sm, io, carry);
     if constexpr (kSync) __syncthreads();
   }
   if constexpr (kR && (kMid || !kQ)) {
-    fft_pass<R0, false, !kQ, false, kP - P::R0Log2, Q, N / R0, T, kFramed, M>(sm, io, carry);
+    fft_pass<R0, false, !kQ && kRows, false, kP - P::R0Log2, Q, N / R0, T, kFramed, M>(
+        sm, io, carry);
     if constexpr (kSync) __syncthreads();
   }
   if constexpr (kA && (kMid || (!kQ && !kR))) {
-    fft_pass<kE, false, !kQ && !kR, false, 5, N / 1024, N / kE, T, kFramed, M>(sm, io, carry);
+    fft_pass<kE, false, !kQ && !kR && kRows, false, 5, N / 1024, N / kE, T, kFramed, M>(
+        sm, io, carry);
     if constexpr (kSync) __syncthreads();
   }
   if constexpr (kMid) {
@@ -475,14 +478,51 @@ __device__ __forceinline__ void conv_rows(const float* __restrict__ x, float* __
   }
   // inverse, in reverse order: the last pass stores the rows
   if constexpr (kA && (kMid || (!kQ && !kR))) {
-    fft_pass<kE, true, false, !kQ && !kR, 5, N / 1024, N / kE, T, kFramed, M>(sm, io, carry);
+    fft_pass<kE, true, false, !kQ && !kR && kRows, 5, N / 1024, N / kE, T, kFramed, M>(
+        sm, io, carry);
     if constexpr ((kQ || kR) && kSync) __syncthreads();
   }
   if constexpr (kR && (kMid || !kQ)) {
-    fft_pass<R0, true, false, !kQ, kP - P::R0Log2, Q, N / R0, T, kFramed, M>(sm, io, carry);
+    fft_pass<R0, true, false, !kQ && kRows, kP - P::R0Log2, Q, N / R0, T, kFramed, M>(
+        sm, io, carry);
     if constexpr (kQ && kSync) __syncthreads();
   }
-  if constexpr (kQ) fft_pass<Q, true, false, true, kP, 1, N / Q, T, kFramed, M>(sm, io, carry);
+  if constexpr (kQ) fft_pass<Q, true, false, kRows, kP, 1, N / Q, T, kFramed, M>(sm, io, carry);
+}
+
+// The block's twiddle tables in shared memory after the padded row: the
+// host's kTable entries, then (n / 32 >= 1024) W_1024^x filled from them.
+template <int N>
+__device__ __forceinline__ Smem load_tables(float2* smem2, const float2* __restrict__ tw) {
+  constexpr int T = Plan<N>::T;
+  float2* tab = smem2 + N + N / 32;
+  for (int k = threadIdx.x; k < kTable; k += T) tab[k] = tw[k];
+  const Smem sm{smem2, tab, tab + kLo, tab + 2 * kLo, tab + kTable};
+  if constexpr (Plan<N>::kA) {
+    __syncthreads();
+    for (int k = threadIdx.x; k < 1024; k += T) tab[kTable + k] = twiddle(sm, k * (N / 1024));
+  }
+  return sm;
+}
+
+// The kernel's body with the stages of kMask left out (0: all of them).
+// One block per complex row c: real rows c and c + half (a zero row rides
+// along where c + half == rows). Rows in and out have length dim.
+template <int N, bool kFramed, int kMask>
+__device__ __forceinline__ void conv_rows(const float* __restrict__ x, float* __restrict__ out,
+                                          const float2* __restrict__ tw,
+                                          const float* __restrict__ h, int complex_h, int rows,
+                                          int half, int dim, int pad) {
+  extern __shared__ __align__(16) float2 smem2[];
+  const Smem sm = load_tables<N>(smem2, tw);
+  const int ra = blockIdx.x;
+  const int rb = blockIdx.x + half;
+  const bool has_b = rb < rows;
+  const Rows io{x + static_cast<size_t>(ra) * dim, x + static_cast<size_t>(rb) * dim,
+                out + static_cast<size_t>(ra) * dim, out + static_cast<size_t>(rb) * dim,
+                has_b, dim, pad};
+  __syncthreads();
+  passes<N, kFramed, kMask, true>(sm, io, h, complex_h);
 }
 
 template <int N, bool kFramed>
@@ -492,6 +532,110 @@ fft_conv_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
                      const float* __restrict__ h, int complex_h, int rows,
                      int half, int dim, int pad) {
   conv_rows<N, kFramed, 0>(x, out, tw, h, complex_h, rows, half, dim, pad);
+}
+
+// ---- the cluster form: n = C * kMaxN, C in {2, 4, 8} ----
+
+// Shared memory of a CTA of the cluster form: the length-kMaxN body's, then
+// the cluster pass's two tables (W_n^l, l < 128; W_n^(128 h), h < n / 128).
+template <int C>
+constexpr int kClusterSmem = Plan<kMaxN>::kSmem + 8 * (kLo + C * kMaxN / kLo);
+
+// Butterflies a thread of the cluster pass loads at once: 2 C values each
+// (rows a and b), 16 loads in flight.
+template <int C>
+constexpr int kClusterUnroll = C >= 8 ? 1 : 8 / C;
+
+// A cluster of C CTAs per pair of rows, CTA q owning segment q (positions
+// [q M, (q + 1) M), M = kMaxN) of the transform in its shared memory.
+// Forward: one radix-C pass over stride M reads the rows (framing them for
+// K3f) and sends output q of butterfly j, times W_n^(q j), to position j of
+// CTA q's segment over distributed shared memory; then each CTA runs the
+// length-M body (passes<kMaxN, ..., false>) on its segment, multiplying by
+// H's segment q (the host's bin order has the cluster digit first), and
+// leaves the inverse in its shared memory; the inverse radix-C pass gathers
+// position j of every CTA's segment, multiplies by conj(W_n^(q j)), runs the
+// conjugate C-point DFT and stores the rows. The CTAs split each radix-C
+// pass's M butterflies evenly. Device-memory traffic stays one read and one
+// write of the rows.
+template <int C, bool kFramed>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fft_conv_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
+                             const float2* __restrict__ tw,
+                             const float* __restrict__ h, int complex_h, int rows,
+                             int half, int dim, int pad) {
+  namespace cg = cooperative_groups;
+  constexpr int M = kMaxN, T = kMaxThreads, N = C * M, B = M / C, U = kClusterUnroll<C>;
+  static_assert(B % (T * U) == 0, "the cluster pass splits evenly");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ __align__(16) float2 smem2[];
+  const Smem sm = load_tables<M>(smem2, tw);
+  // the cluster pass's tables, after the body's and the W_1024 table
+  float2* ctab = smem2 + M + M / 32 + kTable + 1024;
+  for (int k = threadIdx.x; k < kLo + N / kLo; k += T) ctab[k] = tw[kTable + k];
+  const int ra = blockIdx.x / C;
+  const int rb = ra + half;
+  const bool has_b = rb < rows;
+  const Rows io{x + static_cast<size_t>(ra) * dim, x + static_cast<size_t>(rb) * dim,
+                out + static_cast<size_t>(ra) * dim, out + static_cast<size_t>(rb) * dim,
+                has_b, dim, pad};
+  // every CTA of the cluster has started and filled its tables before any
+  // CTA writes into its segment
+  cluster.sync();
+
+  // forward radix-C pass: rows -> the C segments
+#pragma unroll 1
+  for (int k = 0; k < B / (T * U); ++k) {
+    float2 a[U][C];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = rank * B + threadIdx.x + (k * U + u) * T;
+#pragma unroll
+      for (int m = 0; m < C; ++m) a[u][m] = load_row<kFramed>(io, j + m * M);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = rank * B + threadIdx.x + (k * U + u) * T;
+      dft<C, false>(a[u], nullptr);
+      const int s = sidx(j);
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const int e = q * j;  // < N
+        const float2 v = q ? cmul(a[u][q], cmul(ctab[kLo + (e >> 7)], ctab[e & (kLo - 1)]))
+                           : a[u][0];
+        cluster.map_shared_rank(smem2, q)[s] = v;
+      }
+    }
+  }
+  cluster.sync();
+
+  // the length-M body on this CTA's segment, H's segment `rank`
+  passes<M, kFramed, 0, false>(sm, io, h + static_cast<size_t>(complex_h ? 2 : 1) * rank * M,
+                               complex_h);
+  cluster.sync();
+
+  // inverse radix-C pass: the C segments -> rows
+#pragma unroll 1
+  for (int k = 0; k < B / (T * U); ++k) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = rank * B + threadIdx.x + (k * U + u) * T;
+      const int s = sidx(j);
+      float2 a[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        const float2 v = cluster.map_shared_rank(smem2, q)[s];
+        const int e = q * j;
+        a[q] = q ? cmulc(v, cmul(ctab[kLo + (e >> 7)], ctab[e & (kLo - 1)])) : v;
+      }
+      dft<C, true>(a, nullptr);
+#pragma unroll
+      for (int m = 0; m < C; ++m) store_row<kFramed>(io, j + m * M, a[m]);
+    }
+  }
+  // no CTA leaves while another still reads its segment
+  cluster.sync();
 }
 
 }  // namespace
@@ -513,8 +657,35 @@ int launch_n(const float* x, float* out, const float2* tw, const float* h, int c
   return static_cast<int>(cudaGetLastError());
 }
 
-// the lengths the kernel takes: powers of two 256..16384, and 1024 k for
-// k = 5..16
+// The cluster form at n = C * kMaxN: clusters of C CTAs, one a pair of rows.
+// A cluster that cannot be placed fails the launch (the error is returned).
+template <int C, bool kFramed>
+int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
+                   int complex_h, int rows, int dim, int pad, cudaStream_t stream) {
+  auto kernel = fft_conv_rows_cluster_kernel<C, kFramed>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem<C>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int half = (rows + 1) / 2;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = C;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(half) * C);
+  cfg.blockDim = dim3(kMaxThreads);
+  cfg.dynamicSmemBytes = kClusterSmem<C>;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, x, out, tw, h, complex_h, rows, half, dim, pad);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the lengths the kernel takes: powers of two 256..16384, 1024 k for
+// k = 5..16, and the cluster form's 32768, 65536 and 131072
 int launch(const void* x, void* out, const void* tw, const void* h,
            int complex_h, int rows, int n, int dim, int pad, bool framed,
            cudaStream_t stream) {
@@ -534,6 +705,13 @@ int launch(const void* x, void* out, const void* tw, const void* h,
     K3_CASE(5120) K3_CASE(6144) K3_CASE(7168) K3_CASE(9216) K3_CASE(10240)
     K3_CASE(11264) K3_CASE(12288) K3_CASE(13312) K3_CASE(14336) K3_CASE(15360)
 #undef K3_CASE
+#define K3_CLUSTER(C) \
+  case C * kMaxN:                                                                         \
+    return framed                                                                         \
+        ? launch_cluster<C, true>(xs, os, t, hs, complex_h, rows, dim, pad, stream)      \
+        : launch_cluster<C, false>(xs, os, t, hs, complex_h, rows, dim, pad, stream);
+    K3_CLUSTER(2) K3_CLUSTER(4) K3_CLUSTER(8)
+#undef K3_CLUSTER
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -543,7 +721,9 @@ int launch(const void* x, void* out, const void* tw, const void* h,
 // K3: rows x n floats already framed to the transform length -> rows x n.
 // tw: the twiddle tables, 272 interleaved complex values: Tlo (W_n^l,
 // l < 128), Thi (W_n^(128 h), h < n / 128, zero past it), W_Q^k (k < Q,
-// zero past it); h: the spectrum in the kernel's bin order, scaled by 1/n
+// zero past it); past n 16384 those of the body's length 16384, then the
+// cluster pass's W_n^l (l < 128) and W_n^(128 h) (h < n / 128), 128 + n / 128
+// more; h: the spectrum in the kernel's bin order, scaled by 1/n
 // (n floats, or 2n interleaved when complex_h). Returns the cudaError_t of
 // the launch (0 = launched).
 extern "C" int fft_conv_rows(const void* x, void* out, const void* tw,

@@ -18,8 +18,11 @@ The port of the JAX package's ``pallas_kernels/fft4step.py``:
 Both kernels are the one CUDA source ``csrc/fft4step.cu`` (two C entries).
 A CUDA tensor launches it; a CPU tensor runs the plain version, the
 full-float32 einsum four-step ``ops.fft_mxu._conv_rows_einsum`` under the
-same framing. The kernel takes ``n`` up to ``MAX_N``: past it a complex row
-no longer fits one block's shared memory, and the wrappers raise.
+same framing. Up to ``BODY_N`` (16384) one block holds a pair of rows; past
+it (32768, 65536, 131072) a thread-block cluster of ``n / BODY_N`` CTAs
+does, each on a segment of ``BODY_N`` (the cluster form: a radix-``C`` pass
+first and last, over distributed shared memory). Past ``MAX_N`` the
+wrappers raise.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 
 __all__ = [
+    "BODY_N",
     "MAX_N",
     "blur_fft_mxu_cuda",
     "conv_axis_framed",
@@ -48,14 +52,17 @@ __all__ = [
     "kernel_length",
 ]
 
-# Longest transform K3/K3f take: a complex row of 16384 f32 pairs is 128 KB
-# of one block's shared memory (of 227 KB on an H100).
-MAX_N = 16384
+# Longest transform one block holds: a complex row of 16384 f32 pairs is
+# 128 KB of its shared memory (of 227 KB on an H100). Past it the cluster
+# form splits the row into segments of this length, one a CTA.
+BODY_N = 16384
+# Longest transform K3/K3f take: a cluster of 8 CTAs (the portable limit).
+MAX_N = 8 * BODY_N
 
 # ROADMAP.md item naming the lengths past MAX_N
 _PAST_MAX_N = (
-    "transform lengths past 16384 need K3 staged through device memory or "
-    "strip streaming (ROADMAP.md Queue 1 item 7, ops/streamed)"
+    f"transform lengths past {MAX_N} need clusters past the portable 8 CTAs or "
+    "a pass staged through device memory (ROADMAP.md Queue 1 item 11)"
 )
 
 
@@ -70,16 +77,19 @@ def kernel_length(n: int) -> bool:
     ``1024 k`` for k = 5..16 (what ``transform_length`` and the adjoint
     plan)."""
     return (256 <= n <= MAX_N and n & (n - 1) == 0) or (
-        4096 < n <= MAX_N and n % 1024 == 0)
+        4096 < n <= BODY_N and n % 1024 == 0)
 
 
 def _radices(n: int) -> list[int]:
-    """The kernel's forward passes, in order: radix Q, the odd part of
-    ``n`` (when > 1), radix R0 (when > 1), then ``a`` radix-32 passes, with
-    ``n = Q * R0 * 32**a`` and ``a = 2`` from ``n / Q = 1024`` on
-    (``csrc/fft4step.cu``: ``launch``)."""
+    """The kernel's forward passes, in order: past ``BODY_N`` the cluster
+    pass (radix ``n / BODY_N``) and then the passes of ``BODY_N``; else
+    radix Q, the odd part of ``n`` (when > 1), radix R0 (when > 1), then
+    ``a`` radix-32 passes, with ``n = Q * R0 * 32**a`` and ``a = 2`` from
+    ``n / Q = 1024`` on (``csrc/fft4step.cu``: ``launch``)."""
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
+    if n > BODY_N:
+        return [n // BODY_N] + _radices(BODY_N)
     q, p = n, 0
     while q % 2 == 0:
         q //= 2
@@ -113,7 +123,14 @@ def _twiddle_tables(n: int) -> np.ndarray:
     W_n^l`` (l < 128), ``Thi[h] = W_n^(128 h)`` (h < n / 128, zero past
     it), ``W_Q^k`` (k < Q, zero past it), each ``exp(-2 pi i x / n)`` in
     float64 rounded to float32. The kernel takes ``W_n^e = Thi[e >> 7] *
-    Tlo[e & 127]``."""
+    Tlo[e & 127]``. Past ``BODY_N``: the tables of ``BODY_N`` (the segments'
+    body), then the cluster pass's ``W_n^l`` (l < 128) and ``W_n^(128 h)``
+    (h < n / 128), (400 + n / 128, 2) in all."""
+    if n > BODY_N:
+        ang = -2.0 * np.pi * np.concatenate(
+            [np.arange(_LO), _LO * np.arange(n // _LO)]) / n
+        cluster = np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+        return np.concatenate([_twiddle_tables(BODY_N), cluster])
     q = n
     while q % 2 == 0:
         q //= 2
@@ -192,17 +209,20 @@ def fft_conv_rows(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
     circularly correlated by the axis taps (K3).
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
-    ``fft_conv_rows.launches`` counts kernel launches.
+    ``fft_conv_rows.launches`` counts kernel launches, ``.cluster_launches``
+    those of the cluster form (``n > BODY_N``).
     """
     _check_rows(rows, n, "K3")
     if rows.device.type == "cpu":
         return _conv_rows_einsum(rows, n, axis_plan)
     out = _launch("fft_conv_rows", rows, n, axis_plan)
     fft_conv_rows.launches += 1
+    fft_conv_rows.cluster_launches += n > BODY_N
     return out
 
 
 fft_conv_rows.launches = 0
+fft_conv_rows.cluster_launches = 0
 
 
 def fft_conv_rows_framed_ref(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
@@ -216,7 +236,8 @@ def fft_conv_rows_framed(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
     cropped in the kernel (K3f); ``n`` is ``transform_length(axis_plan)``.
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
-    ``fft_conv_rows_framed.launches`` counts kernel launches.
+    ``fft_conv_rows_framed.launches`` counts kernel launches,
+    ``.cluster_launches`` those of the cluster form (``n > BODY_N``).
     """
     dim, pad = axis_plan.dim, axis_plan.pad
     _check_rows(rows, dim, "K3f")
@@ -226,10 +247,12 @@ def fft_conv_rows_framed(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
         return fft_conv_rows_framed_ref(rows, n, axis_plan)
     out = _launch("fft_conv_rows_framed", rows, n, axis_plan, dim, pad)
     fft_conv_rows_framed.launches += 1
+    fft_conv_rows_framed.cluster_launches += n > BODY_N
     return out
 
 
 fft_conv_rows_framed.launches = 0
+fft_conv_rows_framed.cluster_launches = 0
 
 
 def conv_axis_framed(x: torch.Tensor, axis_plan, axis: int) -> torch.Tensor:

@@ -42,8 +42,9 @@ The port of the JAX package's ``pallas_kernels/fused_blur.py``:
   split past ``MAX_RADIUS`` and, where the device measured it faster, from
   ``DeviceSpec.fused_split_min_radius`` (``fused_split_min_radius_u8`` on
   K1's uint8 path); it reaches ``SPLIT_MAX_RADIUS``.
-  Past that, strip streaming (``ops/streamed``) is not ported and every
-  entry raises.
+  Past that every entry raises ``ValueError``, as the JAX ``_pick_tile``
+  does: the FFT engines (``fft_mxu``, ``fft_stream``, strip-streamed past
+  their byte budget, ``ops/streamed``) and the cascade serve such radii.
 - The haloed entry points (``blur_fused_haloed``, ``_blur_fused_haloed_split``,
   ``haloed_fused_feasible``; ``fused_blur.py:1047-1190``): the sharded
   path's per-shard step on ``(..., H + 2 rh, W)`` rows whose extra rows
@@ -93,7 +94,8 @@ MAX_RADIUS = 600
 # and above the cascade engine's step limit of 4000.
 SPLIT_MAX_RADIUS = 4096
 
-_STREAMED = "strip streaming (ROADMAP.md Queue 1 item 7, ops/streamed)"
+# past the split's reach: the JAX ``_pick_tile_wide`` refusal, a ValueError
+_PAST_SPLIT = "no fused tile serves it; use the fft_mxu, fft_stream or cascade engine"
 
 # Fixed-point scale for the int8 path: taps quantized to q = round(t * S).
 # S = 127 * 128 keeps q = 128*q_hi + q_lo with both planes <= 127 (int8) for
@@ -191,9 +193,7 @@ def _check_planes(planar: torch.Tensor, plan: BlurPlan,
             + (f" with {rh} halo rows each side (pre_padded_col)" if pre_padded_col else "")
         )
     if max(rh, rw) > SPLIT_MAX_RADIUS:
-        raise NotImplementedError(
-            f"support radius {max(rh, rw)} > {SPLIT_MAX_RADIUS}: {_STREAMED}"
-        )
+        raise ValueError(f"support radius {max(rh, rw)} > {SPLIT_MAX_RADIUS}: {_PAST_SPLIT}")
     if min(rh, rw) > 0 and max(rh, rw) > MAX_RADIUS:
         raise NotImplementedError(
             f"support radius {max(rh, rw)} > {MAX_RADIUS} on two axes is past "
@@ -553,7 +553,7 @@ def _blur_fused_split(planar: torch.Tensor, plan: BlurPlan, precision,
     memory; the JAX ``_blur_fused_split`` pass for pass."""
     if not split_feasible(plan):
         r = max(plan.col.support_radius, plan.row.support_radius)
-        raise NotImplementedError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_STREAMED}")
+        raise ValueError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_PAST_SPLIT}")
     from blur_algorithms_tpu_torch.cuda_kernels import fused_split
 
     rows_plan, cols_plan = _split_plans(plan)
@@ -681,7 +681,7 @@ def _blur_fused_haloed_split(planar: torch.Tensor, plan: BlurPlan, precision,
     ``_blur_fused_split``'s precision rule."""
     if not split_feasible(plan):
         r = max(plan.col.support_radius, plan.row.support_radius)
-        raise NotImplementedError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_STREAMED}")
+        raise ValueError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_PAST_SPLIT}")
     from blur_algorithms_tpu_torch.cuda_kernels import fused_split
 
     rows_plan_h = _haloed_rows_plan(plan)

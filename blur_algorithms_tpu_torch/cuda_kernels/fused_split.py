@@ -45,7 +45,7 @@ import torch
 
 from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
     _INT8_SCALE,
-    _STREAMED,
+    _PAST_SPLIT,
     SPLIT_MAX_RADIUS,
     pick_int8_scale,
 )
@@ -180,7 +180,7 @@ def _check(planar: torch.Tensor, plan: BlurPlan, dtype: torch.dtype, axis: str,
     if other != 0 or r == 0:
         raise ValueError(f"the {axis}-only split pass takes a plan with only a {axis} radius")
     if r > SPLIT_MAX_RADIUS:
-        raise NotImplementedError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_STREAMED}")
+        raise ValueError(f"support radius {r} > {SPLIT_MAX_RADIUS}: {_PAST_SPLIT}")
     taps = plan.row.taps if axis == "rows" else plan.col.taps
     if float(np.min(taps)) < 0.0 or abs(float(np.sum(taps)) - 1.0) >= 1e-5:
         raise ValueError("the int8 split takes non-negative unit-sum taps")

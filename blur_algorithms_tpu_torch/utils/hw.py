@@ -12,8 +12,9 @@ always-exact int8 rung there.
 The routing radii are per device name, from the interleaved sweeps of
 ``chip_smoke.py`` (phase 10: fused against FFT_MXU; phase 13: box scan
 against the fused engine, and the two-pass split against the single
-kernel; phase 15: K1's staging forms against its direct form) recorded in
-PERF.md. A device that was not measured keeps the
+kernel; phase 15: K1's staging forms against its direct form) and of
+``probes/streamed_crossover.py`` (the split against strip-streamed FFT_MXU
+on giant frames) recorded in PERF.md. A device that was not measured keeps the
 fused engine up to its single-kernel domain (support radius 600), runs
 FFT_MXU past it, runs the box scan only past 600 and the split only where
 the single kernels cannot serve (past 600).
@@ -45,6 +46,23 @@ CPU_SPLIT_HBM_BUDGET = 4 << 30
 # cores 2.3999 vs 3.0173 ms at r 119, 3.3431 vs 3.0985 at r 165.
 _MEASURED_CROSSOVERS: dict[str, tuple[int, int]] = {
     "NVIDIA H100 80GB HBM3": (1920, 119),
+}
+
+# The same crossover where FFT_MXU would have to strip-stream (its
+# whole-frame intermediates past ``fft_mxu_byte_budget``: ``ops/streamed``),
+# (uint8, float) by device name: the largest swept support radius up to which
+# the fused engine as routed is at least as fast as streamed FFT_MXU at every
+# swept radius, from the in-turns sweep of ``probes/streamed_crossover.py``
+# (uint8 on 4 RGB 24000x14500 frames from r 332, float on 4 such frames as
+# planes from r 119 and 2 at r 997; PERF.md, "Routing sweeps"). AUTO reads it
+# wherever FFT_MXU streams, below the whole-frame crossover as well as above.
+# Absent: the whole-frame crossover (no TPU value carries over). NVIDIA H100
+# 80GB HBM3 at 700 W: uint8 271.19 vs 279.90 ms at r 1397, 291.83 vs 279.78
+# at r 1530 (the split slower than the streamer from there: under the
+# whole-frame 1920); float 180.77 vs 189.73 at r 232, 223.35 vs 191.85 at
+# r 282 (over the whole-frame 119).
+_MEASURED_STREAMED_CROSSOVERS: dict[str, tuple[int, int]] = {
+    "NVIDIA H100 80GB HBM3": (1397, 232),
 }
 
 # Largest swept box support radius at which a box on the fused engine is
@@ -179,14 +197,19 @@ class DeviceSpec:
     sm_count: int  # 0 on the CPU
     smem_optin_bytes: int  # largest dynamic shared memory per block; 0 on the CPU
     # Whole-frame FFT_MXU intermediates (``ops.fft_mxu.estimate_bytes``)
-    # past which the engine would have to strip-stream (not ported): 10/16
-    # of the card's memory, as the JAX field of the same name.
+    # past which the engine strip-streams (``ops/streamed``): 10/16 of the
+    # card's memory, as the JAX field of the same name.
     fft_mxu_byte_budget: int = CPU_FFT_MXU_BYTE_BUDGET
     # AUTO keeps the fused engine up to this support radius and runs
     # FFT_MXU past it (the JAX fields of the same meaning), for uint8 and
     # float inputs.
     auto_fused_max_radius_u8: int = 600
     auto_fused_max_radius_f32: int = 600
+    # The same where FFT_MXU would strip-stream (the JAX fields of the same
+    # names, read here below the whole-frame values too); unmeasured, the
+    # whole-frame values.
+    auto_fused_max_radius_u8_streamed: int = 600
+    auto_fused_max_radius_f32_streamed: int = 600
     # The certified precision ladder (the JAX DeviceSpec fields of the same
     # names). ``*_cert_min_radius``: smallest support radius from which the
     # rung holds the <=1-count oracle gate on this device, per tap family
@@ -283,6 +306,7 @@ def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
     """The spec of a CUDA device of this name and memory, with the routing
     radii measured for that name (or the unmeasured defaults)."""
     u8, f32 = _MEASURED_CROSSOVERS.get(name, (600, 600))
+    u8_streamed, f32_streamed = _MEASURED_STREAMED_CROSSOVERS.get(name, (u8, f32))
     return DeviceSpec(
         name=name,
         sm_count=sm_count,
@@ -290,6 +314,8 @@ def spec_for(name: str, sm_count: int, smem_optin_bytes: int,
         fft_mxu_byte_budget=total_memory * 10 // 16,
         auto_fused_max_radius_u8=u8,
         auto_fused_max_radius_f32=f32,
+        auto_fused_max_radius_u8_streamed=u8_streamed,
+        auto_fused_max_radius_f32_streamed=f32_streamed,
         box_scan_crossover_radius=_MEASURED_BOX_SCAN.get(name, 600),
         split_hbm_budget=total_memory * 11 // 16,
         fused_split_min_radius=_MEASURED_SPLIT_MIN.get(name),

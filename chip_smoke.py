@@ -91,8 +91,8 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    its forward against the plain version and its backward at HD against
    ``blur_adjoint``; ``blur_u8(engine="fused")`` at sigma 250 runs the two
    int8 split forms, frame 0 within 1 count of the oracle; ``blur_u8`` AUTO
-   on a 2160x15360 panorama at sigma 250 (FFT_MXU cannot serve it) runs
-   the split, three full-height patches of 512 columns within 1 count of
+   on a 2160x15360 panorama at sigma 250 (r 831, under the card's uint8
+   crossover) runs the split, three full-height patches of 512 columns within 1 count of
    the oracle on their crops; ``blur(engine="fused")`` at sigma 400 runs
    the f32 split forward (plane 0 within 2e-2 of FFT_MXU) and the adjoint
    backward; ``blur_u8(engine="cascade")`` at sigma 400 within 1 count;
@@ -217,7 +217,26 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    published peaks) and B2's ms per mode; B3's GB/s fetched, frame GB/s
    and read amplification beside a ``copy_`` of the frame. No route of the
    blur runs a probe: their counts, set to 0 before phase 3, are still 0
-   before phase 17.
+   before phase 17;
+18. K3 and K3f's cluster form (n 32768, 65536, 131072: a thread-block
+   cluster of n / 16384 CTAs a pair of rows) against the plain version,
+   symmetric and asymmetric taps, odd row counts, within 2e-2 at 0..255
+   scale, with ptxas's registers and spills; then, counts set to 0 before
+   each call (launches and ``cluster_launches``): ``blur`` AUTO forward +
+   backward on the (4, 3, 2160, 15360) panorama at sigma 400 (K3f's
+   cluster form on the rows forward, K3's in the adjoint; ``x.grad`` equal
+   to ``blur_adjoint(g)``, the adjoint identity to 1e-5 relative);
+   ``blur_u8(engine="fft_mxu")`` on one 24000x14500 RGB frame (made on the
+   card, ``utils/frames.make_frames_on``) at sigma 900 (K3f's cluster form
+   on both axes, within 1 count of ``"fft_tiles"``); ``blur_u8`` AUTO on 4
+   such frames at sigma 1500 (r 4992: past the split's reach and FFT_MXU's
+   byte budget, so the MXU streamer, one K3f launch a strip at n 32768 and
+   65536, never the whole-frame path; frame 0 within 1 count of the
+   single-frame ``"fft_mxu"``) and ``"fft_stream"`` on one frame against
+   ``"fft_tiles"``; times (CUDA events, median of 5): K3's cluster form on
+   the panorama's adjoint rows and K3f's on the giant frame's 72000 rows of
+   14500 (n 32768) beside their plain versions, bounds and cuFFT, the
+   three calls, and AUTO against ``"fused"`` on the sigma 900 frame.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -263,7 +282,10 @@ SWEEP_SIGMAS = (10.0, 25.0, 36.0, 50.0, 64.0, 80.0, 100.0, 120.0, 180.0)
 # 1164, 1330, 1497, 1663, 1830 and 1920 (the plan's limit on 3840 columns)
 SWEEP_SIGMAS_U8_WIDE = (200.0, 250.0, 300.0, 350.0, 400.0, 450.0, 500.0, 550.0, 600.0)
 BOX_NSMOOTH = 20.0  # phase 12: box_blur radius 400, support radius 800
-PANO_H, PANO_W = 2160, 15360  # phase 12: a panorama FFT_MXU cannot serve
+# phase 12: a panorama AUTO keeps on the split at sigma 250 (r 831, under the
+# card's uint8 crossover; FFT_MXU would take K3f's cluster form, n 32768);
+# phase 18: its float backward
+PANO_H, PANO_W = 2160, 15360
 SIGMA_CASCADE = 400.0  # phase 12: one cascade step at r 1330
 # phase 13 sweeps: box radius per pass (2 passes: support 2..338), and the
 # split against the single kernels (r 2, 4, 7, 10, 12, 15, 19, 24, 29, 32,
@@ -753,7 +775,8 @@ def _fft_yardstick(rows: torch.Tensor, axis_plan, n: int, framed: bool):
     return rows.contiguous(), lambda t: torch.fft.irfft(torch.fft.rfft(t) * half, n=n)
 
 
-def _kernel_times(entry, rows, n, axis_plan, framed: bool, label: str) -> dict:
+def _kernel_times(entry, rows, n, axis_plan, framed: bool, label: str,
+                  phase: int = 10) -> dict:
     """One K3/K3f launch: its time, its plain version's time and error,
     the cuFFT yardstick and the bound."""
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
@@ -771,10 +794,10 @@ def _kernel_times(entry, rows, n, axis_plan, framed: bool, label: str) -> dict:
     t_l = _time(lib, framed_rows, name=f"{label} cuFFT rfft -> multiply -> irfft")
     del framed_rows
     for res in (t_k, t_p, t_l):
-        print(f"phase 10 time: {res}", flush=True)
+        print(f"phase {phase} time: {res}", flush=True)
     nbytes, ops = _fft_work(rows.shape[0], n, 4 * rows.shape[1], not axis_plan.symmetric)
     bound, by = _bound_ms(nbytes, ops, F32_FLOP_PER_S)
-    print(f"phase 10 {label}: {rows.shape[0]} rows x {rows.shape[1]}, n={n}, "
+    print(f"phase {phase} {label}: {rows.shape[0]} rows x {rows.shape[1]}, n={n}, "
           f"vs plain max_abs_err={err:.3e}; bound {bound:.4f} ms ({by}: "
           f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)", flush=True)
     return {"ms": t_k.median_ms, "plain_ms": t_p.median_ms, "library_ms": t_l.median_ms,
@@ -3614,6 +3637,272 @@ def _slice11(probe_build) -> list[dict]:
     return entries
 
 
+# phase 18: K3/K3f's cluster form (n 32768, 65536, 131072) against the plain
+# version, then the slice's paths on giant frames (the JAX benchmarks'
+# 24000x14500) and the panorama's backward
+CLUSTER_CASES = ((32768, 801), (65536, 2661), (131072, 8001))  # (n, taps)
+GIANT_H, GIANT_W = 24000, 14500
+SIGMA_GIANT, SIGMA_STREAMED = 900.0, 1500.0  # r 2995 (n 32768); r 4992 (n 32768, 65536)
+GIANT_ITERS = 5
+
+
+def _cluster_counts(fft4step) -> dict:
+    return {f"{c.__name__}{tag}": getattr(c, attr)
+            for c in (fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed)
+            for tag, attr in (("", "launches"), (" cluster", "cluster_launches"))}
+
+
+def _zero_cluster_counts(fft4step) -> None:
+    for c in (fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed):
+        c.launches = c.cluster_launches = 0
+
+
+def _phase18_kernels() -> dict:
+    """(a) K3 and K3f's cluster form against the plain version at n 32768,
+    65536 and 131072: symmetric and asymmetric taps, odd row counts."""
+    from blur_algorithms_tpu_torch import make_custom_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum, transform_length
+
+    errs = {"K3": 0.0, "K3f": 0.0}
+    for n, width in CLUSTER_CASES:
+        dim = n // 2 + 1001  # K3f: dim + 2 pad past n / 2, so the transform is n
+        for asym in (False, True):
+            plan = make_custom_plan((8, n), _wide_taps(width, asym), [1.0])
+            rows = torch.from_numpy(
+                (np.random.default_rng(n).random((9, n)) * 255).astype(np.float32)).cuda()
+            got = fft4step.fft_conv_rows(rows, n, plan.row)
+            want = _conv_rows_einsum(rows, n, plan.row)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["K3"] = max(errs["K3"], err)
+            print(f"phase 18 K3 cluster form vs plain: 9 rows n={n} (C={n // 16384}) "
+                  f"taps={width} {'asymmetric' if asym else 'symmetric'} "
+                  f"max_abs_err={err:.3e} limit={FFT_TOL}", flush=True)
+            if not err <= FFT_TOL:
+                raise RuntimeError(f"K3's cluster form disagrees with its plain version at {n}")
+            plan = make_custom_plan((8, dim), _wide_taps(width, asym), [1.0])
+            nf = transform_length(plan.row)
+            rows = torch.from_numpy(
+                (np.random.default_rng(dim).random((7, dim)) * 255).astype(np.float32)).cuda()
+            got = fft4step.fft_conv_rows_framed(rows, nf, plan.row)
+            want = fft4step.fft_conv_rows_framed_ref(rows, nf, plan.row)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["K3f"] = max(errs["K3f"], err)
+            print(f"phase 18 K3f cluster form vs plain: 7 rows dim={dim} n={nf} taps={width} "
+                  f"{'asymmetric' if asym else 'symmetric'} max_abs_err={err:.3e} "
+                  f"limit={FFT_TOL}", flush=True)
+            if nf != n or not err <= FFT_TOL:
+                raise RuntimeError(f"K3f's cluster form at {nf} (want {n}) disagrees with "
+                                   "its plain version")
+    for name, line in _ptxas_lines(("fft_conv_rows_cluster_kernel",)):
+        print(f"phase 18 ptxas {name}: {line}", flush=True)
+    print(f"phase 18 worst: K3 cluster form max_abs_err={errs['K3']:.3e}, K3f "
+          f"{errs['K3f']:.3e} (limit {FFT_TOL})", flush=True)
+    return errs
+
+
+def _giant_u8(batch: int) -> torch.Tensor:
+    """(batch, GIANT_H, GIANT_W, 3) uint8 frames made on the card."""
+    from blur_algorithms_tpu_torch.utils.frames import make_frames_on
+
+    return make_frames_on("cuda", batch, GIANT_H, GIANT_W).movedim(1, -1).contiguous()
+
+
+def _slice16() -> list[dict]:
+    """Phase 18; returns the kernels-line entries of K3's and K3f's cluster
+    form."""
+    from blur_algorithms_tpu_torch import api, blur, blur_u8, make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+    from blur_algorithms_tpu_torch.utils import timing
+    from blur_algorithms_tpu_torch.utils.frames import make_frames_on
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    k3, k3f = fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed
+    errs = _phase18_kernels()
+    launched = {"K3": 0, "K3f": 0}
+
+    # (b) the panorama's backward: blur AUTO forward + backward at sigma 400
+    x = make_frames_on("cuda", BATCH, PANO_H, PANO_W).float()
+    plan = make_plan((PANO_H, PANO_W), SIGMA_F32_WIDE)
+    g = torch.rand(x.shape, generator=torch.Generator(x.device).manual_seed(18),
+                   device=x.device)
+    xg = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    _zero_cluster_counts(fft4step)
+    y = blur(xg, SIGMA_F32_WIDE)
+    torch.cuda.synchronize()
+    fwd = _cluster_counts(fft4step)
+    _zero_cluster_counts(fft4step)
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    bwd = _cluster_counts(fft4step)
+    launched["K3"] += bwd["fft_conv_rows cluster"]
+    launched["K3f"] += fwd["fft_conv_rows_framed cluster"]
+    want = blur_adjoint(g, plan)  # a check: its launches are not the path's
+    torch.cuda.synchronize()
+    gerr = float((xg.grad - want).abs().max())
+    lhs = float((y.detach().double() * g.double()).sum())
+    rhs = float((x.double() * xg.grad.double()).sum())
+    rel = abs(lhs - rhs) / abs(lhs)
+    r = plan.row.support_radius
+    n_adj = max(256, 1 << (PANO_W + 4 * r - 1).bit_length())  # the adjoint's rows
+    print(f"phase 18 main path: blur AUTO forward + backward {tuple(x.shape)} f32 "
+          f"sigma={SIGMA_F32_WIDE} r={r} (rows n {transform_length(plan.row)}; adjoint "
+          f"rows n {n_adj}): forward launches "
+          f"{fwd}, backward {bwd}; x.grad vs blur_adjoint(g) max={gerr:.3e}; adjoint "
+          f"identity <Ax, g> {lhs:.9e} vs <x, A^T g> {rhs:.9e}, relative {rel:.3e} "
+          "limit 1e-5", flush=True)
+    if (fwd["fft_conv_rows_framed"] != 2 or fwd["fft_conv_rows_framed cluster"] != 1
+            or fwd["fft_conv_rows"] or bwd["fft_conv_rows"] != 2
+            or bwd["fft_conv_rows cluster"] != 1 or bwd["fft_conv_rows_framed"]):
+        raise RuntimeError(f"the panorama's blur launched {fwd} forward, {bwd} backward")
+    if not gerr <= 1e-6 * float(want.abs().max()) or not rel <= 1e-5:
+        raise RuntimeError(f"x.grad differs from blur_adjoint(g) by {gerr}, or the adjoint "
+                           f"identity is off by {rel}")
+    del y, g, want
+
+    def pano_fwd_bwd(t):
+        t = t.detach().requires_grad_()
+        blur(t, SIGMA_F32_WIDE).backward(torch.ones_like(t))
+        return t.grad
+
+    t_pano = timing.time_cuda(pano_fwd_bwd, x, iters=GIANT_ITERS, warmup=1,
+                              name=f"blur AUTO forward + backward panorama sigma={SIGMA_F32_WIDE}",
+                              megapixels=BATCH * PANO_H * PANO_W / 1e6)
+    # K3's cluster form alone on the adjoint's rows (12 planes x 15360 + 4 r
+    # -> 32768)
+    padded = torch.nn.functional.pad(x.reshape(-1, PANO_W), (2 * r, n_adj - PANO_W - 2 * r))
+    del xg, x
+    torch.cuda.empty_cache()
+    k3_d = _kernel_times(k3, padded.contiguous(), n_adj, plan.row, False,
+                         f"K3 cluster form adjoint rows sigma={SIGMA_F32_WIDE}", 18)
+    del padded
+    torch.cuda.empty_cache()
+
+    # (c) the main path: blur_u8 fft_mxu on one giant frame at sigma 900
+    img = _giant_u8(1)
+    plan = make_plan((GIANT_H, GIANT_W), SIGMA_GIANT)
+    torch.cuda.synchronize()
+    _zero_cluster_counts(fft4step)
+    out = blur_u8(img, SIGMA_GIANT, engine="fft_mxu")
+    torch.cuda.synchronize()
+    ran = _cluster_counts(fft4step)
+    launched["K3f"] += ran["fft_conv_rows_framed cluster"]
+    ref = blur_u8(img, SIGMA_GIANT, engine="fft_tiles")
+    d = (out.int() - ref.int()).abs()
+    dmax, exact = int(d.max()), float((d == 0).float().mean())
+    print(f"phase 18 main path: blur_u8 engine=fft_mxu {tuple(img.shape)} sigma={SIGMA_GIANT} "
+          f"r={plan.row.support_radius} (n {transform_length(plan.row)}, "
+          f"{transform_length(plan.col)}): launches {ran}; vs fft_tiles (torch.fft) "
+          f"max={dmax} exact={exact}", flush=True)
+    if ran["fft_conv_rows_framed cluster"] != 2 or ran["fft_conv_rows_framed"] != 2 or dmax > 1:
+        raise RuntimeError(f"blur_u8 fft_mxu at sigma {SIGMA_GIANT}: {ran}, {dmax} counts "
+                           "from fft_tiles")
+    del out, ref, d
+    eng = api._resolve_engine("auto", plan, 1, img.device, 3)
+    t_giant = {
+        "fft_mxu": timing.time_cuda(blur_u8, img, SIGMA_GIANT, "fft_mxu", iters=GIANT_ITERS,
+                                    warmup=1, name=f"blur_u8 fft_mxu giant sigma={SIGMA_GIANT}",
+                                    megapixels=GIANT_H * GIANT_W / 1e6),
+        "auto": timing.time_cuda(blur_u8, img, SIGMA_GIANT, iters=GIANT_ITERS, warmup=1,
+                                 name=f"blur_u8 AUTO ({eng.value}) giant sigma={SIGMA_GIANT}",
+                                 megapixels=GIANT_H * GIANT_W / 1e6),
+        "fused": timing.time_cuda(blur_u8, img, SIGMA_GIANT, "fused", iters=GIANT_ITERS,
+                                  warmup=1, name=f"blur_u8 fused giant sigma={SIGMA_GIANT}",
+                                  megapixels=GIANT_H * GIANT_W / 1e6),
+    }
+    # K3f's cluster form alone on the giant frame's row axis: 72000 rows of
+    # 14500, n 32768
+    rows = img[0].movedim(-1, 0).reshape(-1, GIANT_W).float()
+    del img
+    torch.cuda.empty_cache()
+    k3f_d = _kernel_times(k3f, rows, transform_length(plan.row), plan.row, True,
+                          f"K3f cluster form giant rows sigma={SIGMA_GIANT}", 18)
+    del rows
+    torch.cuda.empty_cache()
+
+    # (d) the streamed path: blur_u8 AUTO on 4 giant frames at sigma 1500
+    img = _giant_u8(BATCH)
+    plan = make_plan((GIANT_H, GIANT_W), SIGMA_STREAMED)
+    spec = api.device_spec(img.device)
+    eng = api._resolve_engine("auto", plan, 1, img.device, BATCH * 3)
+    streams = api._fft_mxu_streams(plan, BATCH * 3, spec)
+    lengths, whole = [], []
+    launch_n, whole_fn = fft4step._launch, api.blur_fft_mxu_cuda
+    fft4step._launch = lambda entry, rows, n, *a: lengths.append(n) or launch_n(entry, rows, n, *a)
+    api.blur_fft_mxu_cuda = lambda *a: whole.append(1) or whole_fn(*a)
+    try:
+        torch.cuda.synchronize()
+        _zero_cluster_counts(fft4step)
+        out = blur_u8(img, SIGMA_STREAMED)
+        torch.cuda.synchronize()
+        ran = _cluster_counts(fft4step)
+    finally:
+        fft4step._launch, api.blur_fft_mxu_cuda = launch_n, whole_fn
+    launched["K3f"] += ran["fft_conv_rows_framed cluster"]
+    strips = -(-GIANT_H // 1024) + -(-GIANT_W // 1024)
+    tally = {n: lengths.count(n) for n in sorted(set(lengths))}
+    one = blur_u8(img[:1], SIGMA_STREAMED, engine="fft_mxu")  # one frame: whole-frame
+    d = (out[:1].int() - one.int()).abs()
+    dmax, exact = int(d.max()), float((d == 0).float().mean())
+    del one, d
+    print(f"phase 18 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STREAMED} "
+          f"r={plan.col.support_radius} -> {eng.value} (streams: {streams}, whole-frame "
+          f"estimate {transform_length(plan.row)}/{transform_length(plan.col)}"
+          f" lengths, {api.estimate_bytes(plan, BATCH * 3)} bytes against the budget "
+          f"{spec.fft_mxu_byte_budget}); launches {ran}, by length {tally}, whole-frame "
+          f"calls {len(whole)}; frame 0 vs single-frame fft_mxu max={dmax} exact={exact}",
+          flush=True)
+    if (eng is not api.Engine.FFT_MXU or not streams or whole
+            or ran["fft_conv_rows_framed cluster"] != strips or ran["fft_conv_rows"]
+            or set(tally) != {transform_length(plan.row), transform_length(plan.col)}
+            or dmax > 1):
+        raise RuntimeError(f"blur_u8 AUTO at sigma {SIGMA_STREAMED} did not stream through "
+                           f"K3f's cluster form within 1 count: {ran}, {tally}, {len(whole)}")
+    del out
+    t_streamed = timing.time_cuda(blur_u8, img, SIGMA_STREAMED, iters=GIANT_ITERS, warmup=1,
+                                  name=f"blur_u8 AUTO streamed 4 giant frames sigma={SIGMA_STREAMED}",
+                                  megapixels=BATCH * GIANT_H * GIANT_W / 1e6)
+    one = img[:1]
+    del img
+    torch.cuda.empty_cache()
+    out = blur_u8(one, SIGMA_GIANT, engine="fft_stream")
+    ref = blur_u8(one, SIGMA_GIANT, engine="fft_tiles")
+    d = (out.int() - ref.int()).abs()
+    print(f"phase 18 main path: blur_u8 engine=fft_stream {tuple(one.shape)} "
+          f"sigma={SIGMA_GIANT} vs fft_tiles max={int(d.max())} "
+          f"exact={float((d == 0).float().mean())}", flush=True)
+    if int(d.max()) > 1:
+        raise RuntimeError("the fft_stream engine is past 1 count of fft_tiles")
+    del out, ref, d, one
+    torch.cuda.empty_cache()
+
+    for res in (t_pano, *t_giant.values(), t_streamed):
+        print(f"phase 18 time: {res}", flush=True)
+    print(f"phase 18 launches of the cluster form on the slice's paths: {launched}; "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, n in launched.items():
+        if n < 1:
+            raise RuntimeError(f"{name}'s cluster form was not launched on the main path")
+    entry = lambda name, line, n, d, err: {  # noqa: E731
+        "name": name, "route": "cuda", "source": "blur_algorithms_tpu_torch/csrc/fft4step.cu",
+        "replaces": line, "launches": n, "max_abs_err": err, "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": d["library_ms"],
+    }
+    return [
+        entry("fft4step_cluster", "blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
+              launched["K3"], k3_d, max(errs["K3"], k3_d["err"])),
+        entry("fft4step_framed_cluster", "blur_algorithms_tpu/pallas_kernels/fft4step.py:157",
+              launched["K3f"], k3f_d, max(errs["K3f"], k3f_d["err"])),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -3762,6 +4051,7 @@ def main() -> int:
     if any(on_blur.values()):
         raise RuntimeError(f"a route of the blur launched a probe's kernel: {on_blur}")
     slice11_kernels = _slice11(probe_build)
+    slice16_kernels = _slice16()
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -3789,7 +4079,7 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
     }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels,
-        *slice7_kernels, *slice11_kernels]}), flush=True)
+        *slice7_kernels, *slice11_kernels, *slice16_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,8 @@ custom taps, box blur, precision pins) is tested in
 ``test_torch_fft_mxu.py`` and ``test_torch_fft_conv.py``.
 """
 
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -26,7 +28,7 @@ from blur_algorithms_tpu.pallas_kernels import fused_dma as j_dma  # noqa: E402
 from blur_algorithms_tpu_torch import api  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fused_dma as t_dma  # noqa: E402
 from blur_algorithms_tpu_torch.utils.frames import make_frames  # noqa: E402
-from blur_algorithms_tpu_torch.utils.hw import device_spec  # noqa: E402
+from blur_algorithms_tpu_torch.utils.hw import DeviceSpec, device_spec  # noqa: E402
 
 
 def _frames(shape, seed):
@@ -96,7 +98,8 @@ def _served_split_u8(x):
 
 
 def _served_split_f32(x):
-    # an FFT_MXU transform past 16384 on a frame the split serves
+    # an FFT_MXU transform past 16384: K3f's cluster form (its plain
+    # version here) since it was ported, the split before
     out = api.blur(torch.zeros(()).expand(1, 8, 20000), 200.0)
     assert out.shape == (1, 8, 20000) and not bool(out.abs().max())
 
@@ -115,19 +118,58 @@ def _served_hybrid_pin(x):
     assert bool((out == 9).all())
 
 
-_SERVED = (_served_split_u8, _served_split_f32, _served_box_scan, _served_hybrid_pin)
+def _past_both_budgets(device):
+    """A spec whose FFT_MXU and split budgets the thin frames below exceed."""
+    return DeviceSpec(name="cpu", sm_count=0, smem_optin_bytes=0,
+                      fft_mxu_byte_budget=1 << 16, split_hbm_budget=1 << 16)
+
+
+def _served_streamed_u8(x):
+    # AUTO past r 600 and past both budgets: strip-streamed FFT_MXU (the
+    # plain version of K3f here), within 1 count of the oracle
+    img = torch.from_numpy(_frames((1, 24, 1300, 3), seed=12))
+    ran, real = [], api.blur_fft_mxu_streamed_u8
+    with mock.patch.object(api, "device_spec", _past_both_budgets), mock.patch.object(
+            api, "blur_fft_mxu_streamed_u8", lambda *a: ran.append(1) or real(*a)):
+        assert api._resolve_engine("auto", port.make_plan((24, 1300), 200.0), 1, "cpu",
+                                   3) is api.Engine.FFT_MXU
+        got = port.blur_u8(img, 200.0)
+    assert ran == [1]
+    want = oracle.blur_u8(img[0].numpy(), 200.0)
+    assert np.abs(got[0].numpy().astype(int) - want.astype(int)).max() <= 1
+
+
+def _served_streamed_f32(x):
+    # the same on float planes: within 2e-2 of the whole-frame FFT_MXU
+    planes = torch.from_numpy(_frames((1, 24, 1300, 3), seed=13)[0]).movedim(-1, 0).float()
+    ran, real = [], api.blur_fft_mxu_streamed
+    with mock.patch.object(api, "device_spec", _past_both_budgets), mock.patch.object(
+            api, "blur_fft_mxu_streamed", lambda *a: ran.append(1) or real(*a)):
+        got = api.blur(planes, 200.0)
+    assert ran == [1]
+    want = api.blur(planes, 200.0, engine="fft_mxu")  # not past the CPU's budget
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
+
+
+_SERVED = (_served_split_u8, _served_split_f32, _served_box_scan, _served_hybrid_pin,
+           _served_streamed_u8, _served_streamed_f32)
 
 
 @pytest.mark.parametrize("call", [
-    # AUTO past radius 600 and past FFT_MXU's byte budget and the split's
-    # (expanded: no memory)
-    lambda x: port.blur_u8(x.expand(400, -1, -1, -1), 200.0),
+    # AUTO past radius 600 and past FFT_MXU's byte budget and the split's:
+    # strip-streamed FFT_MXU since ops/streamed was ported (these cases keep
+    # their ids and hold the result, on thin frames under patched budgets)
+    pytest.param(_served_streamed_u8, id="<lambda>0"),
     pytest.param(_served_split_u8, id="<lambda>1"),
     pytest.param(_served_split_f32, id="<lambda>2"),
     pytest.param(_served_hybrid_pin, id="<lambda>3"),
     # float past radius 600 and past both budgets
-    lambda x: api.blur(x[..., 0].float().expand(2000, -1, -1), 200.0),
+    pytest.param(_served_streamed_f32, id="<lambda>4"),
     pytest.param(_served_box_scan, id="<lambda>5"),
+    # past K3/K3f's longest transform: still refused (ROADMAP.md Queue 1
+    # item 11)
+    pytest.param(lambda x: api.blur(torch.zeros(()).expand(1, 8, 140000), 3.0,
+                                    engine="fft_mxu"), id="<lambda>6"),
 ])
 def test_outside_the_domain_raises(call):
     """Calls outside the port's domain raise; the cases that later slices
@@ -142,6 +184,7 @@ def test_outside_the_domain_raises(call):
 
 
 _PORTED_BY_SLICE_4 = {api.Engine.BOX, api.Engine.BOX_SCAN, api.Engine.CASCADE}
+_PORTED_BY_SLICE_16 = {api.Engine.FFT_STREAM}
 
 
 @pytest.mark.parametrize("engine", [
@@ -149,10 +192,10 @@ _PORTED_BY_SLICE_4 = {api.Engine.BOX, api.Engine.BOX_SCAN, api.Engine.CASCADE}
     api.Engine.CASCADE, api.Engine.DERICHE,
 ])
 def test_unported_engines_raise(engine):
-    """The engines not ported raise naming themselves; box, box_scan and
-    cascade are ported and return a blurred frame."""
+    """The engines not ported raise naming themselves; box, box_scan,
+    cascade and fft_stream are ported and return a blurred frame."""
     x = torch.zeros((20, 30, 3), dtype=torch.uint8)
-    if engine in _PORTED_BY_SLICE_4:
+    if engine in _PORTED_BY_SLICE_4 | _PORTED_BY_SLICE_16:
         out = port.blur_u8(x + 7, 2.0, engine=engine)
         assert out.shape == x.shape and bool((out == 7).all())
         return

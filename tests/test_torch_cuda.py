@@ -6,6 +6,8 @@ jax, so it also runs where jax is not installed; on the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -200,6 +202,48 @@ def test_k3f_against_plain_version_on_the_card(cuda_device, dim, width, asymmetr
     torch.cuda.synchronize()
     assert fft4step.fft_conv_rows_framed.launches == before + 1
     assert float((got.cpu() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32768, 65536, 131072])
+@pytest.mark.parametrize("framed", [False, True])
+def test_k3_cluster_form_against_plain_version_on_the_card(cuda_device, n, framed):
+    """K3/K3f past 16384: a thread-block cluster of n / 16384 CTAs a pair of
+    rows (odd row counts: a zero row rides along)."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+
+    fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
+    dim = n // 2 + 1001 if framed else n
+    plan = _k3_plan(801, framed, dim)
+    if framed:
+        assert transform_length(plan.row) == n
+    rows = _f32_planes((5, dim), seed=20).to(cuda_device)
+    before = (fn.launches, fn.cluster_launches)
+    got = fn(rows, n, plan.row)
+    want = fn(rows.cpu(), n, plan.row)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.cluster_launches) == (before[0] + 1, before[1] + 1)
+    assert float((got.cpu() - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_streamed_fft_mxu_on_the_card_equals_the_whole_frame(cuda_device, monkeypatch):
+    """FFT_MXU past a (patched) byte budget streams strips through K3f's
+    cluster form: equal within 1 count to the whole-frame call."""
+    from blur_algorithms_tpu_torch import api
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    img = _planes((1, 300, 17000, 3), seed=21).to(cuda_device)
+    whole = blur_u8(img, 40.0, engine="fft_mxu")
+    spec = api.device_spec(cuda_device)
+    monkeypatch.setattr(api, "device_spec",
+                        lambda device: dataclasses.replace(spec, fft_mxu_byte_budget=1 << 20))
+    before = fft4step.fft_conv_rows_framed.cluster_launches
+    got = blur_u8(img, 40.0, engine="fft_mxu")
+    torch.cuda.synchronize()
+    assert fft4step.fft_conv_rows_framed.cluster_launches > before
+    assert int((got.int() - whole.int()).abs().max()) <= 1
 
 
 @pytest.mark.cuda

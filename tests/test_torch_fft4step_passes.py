@@ -7,9 +7,13 @@ inverse pass. A NumPy model of those passes, fed the host's tables
 (``_twiddle_tables``, ``_kernel_spectrum`` in ``_kernel_bin_order``),
 reproduces the plain version ``_conv_rows_einsum`` (which
 ``tests/test_torch_fft_mxu.py`` holds against the JAX package) within 1e-3
-at 0..255 scale. A model of the kernel's thread mapping checks that every
+at 0..255 scale, the cluster form's lengths (32768, 65536, 131072: a
+radix-C pass with the cluster pass's own W_n tables, then the length-16384
+body with its tables on each segment) included, and ``np.fft`` at those
+lengths. A model of the kernel's thread mapping checks that every
 pass touches each position once, with no shared-memory bank conflict, and
-that the twiddle exponents stay below n. The two-level table's f32 product
+that the twiddle exponents stay below n; the cluster pass's mapping over
+the cluster's CTAs likewise. The two-level table's f32 product
 stays within 4 * 2^-24 of the float64 root (the bound the source note
 states). K5's grid and its head / pairs / tail split cover every value of
 every plane once, with 16-byte-aligned pairs.
@@ -26,21 +30,37 @@ from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum  # noqa: E40
 from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel  # noqa: E402
 from blur_algorithms_tpu_torch.ops.plan import make_custom_plan  # noqa: E402
 
-LENGTHS = [256, 4096, 5120, 6144, 7168, 8192, 11264, 15360, 16384]
+CLUSTER_LENGTHS = [32768, 65536, 131072]
+LENGTHS = [256, 4096, 5120, 6144, 7168, 8192, 11264, 15360, 16384] + CLUSTER_LENGTHS
 TWIDDLE_BOUND = 4 * 2.0 ** -24
 
 
 def _tables(n):
-    """(Tlo, Thi, W_Q) of ``_twiddle_tables`` as complex64."""
+    """(Tlo, Thi, W_Q) of ``_twiddle_tables`` as complex64; past
+    ``BODY_N`` the cluster pass's (W_n^l, W_n^(128 h), None)."""
     tab = k3._twiddle_tables(n)
     c = (tab[:, 0] + 1j * tab[:, 1]).astype(np.complex64)
+    if n > k3.BODY_N:
+        return c[272:400], c[400:], None
     return c[:128], c[128:256], c[256:]
 
 
 def _twiddle(n, e):
-    """W_n^e as the kernel forms it: Thi[e >> 7] * Tlo[e & 127] in f32."""
+    """W_n^e as the kernel forms it: Thi[e >> 7] * Tlo[e & 127] in f32 (the
+    cluster pass's tables past ``BODY_N``)."""
     lo, hi, _ = _tables(n)
     return hi[e >> 7] * lo[e & 127]
+
+
+def _pass_twiddle(n, span, qj):
+    """W_span^(q j) as the pass over spans ``span`` of a length-n transform
+    forms it: the cluster pass (span n past ``BODY_N``) from its own
+    tables, every other pass from the tables of the block's length (n, or
+    ``BODY_N`` on a segment of the cluster form)."""
+    if span == n:
+        return _twiddle(n, qj)
+    nb = min(n, k3.BODY_N)
+    return _twiddle(nb, qj * (nb // span))
 
 
 def _schedule(n):
@@ -92,13 +112,13 @@ def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
     half = (r + 1) // 2
     z = rows[:half].astype(np.complex128)
     z[: r - half] += 1j * rows[half:]
-    _, _, wq = _tables(n)
+    _, _, wq = _tables(min(n, k3.BODY_N))
     spans = []
     span = n
     for radix in k3._radices(n):
         s = span // radix
-        e = np.outer(np.arange(radix), np.arange(s)) * (n // span)
-        spans.append((radix, span, s, _twiddle(n, e).astype(np.complex128)))
+        qj = np.outer(np.arange(radix), np.arange(s))
+        spans.append((radix, span, s, _pass_twiddle(n, span, qj).astype(np.complex128)))
         cube = z.reshape(half, n // span, radix, s)
         cube = np.einsum("qm,bkms->bkqs", _dft(radix, wq), cube)
         z = (cube * spans[-1][3]).reshape(half, n)
@@ -130,19 +150,38 @@ def test_model_of_the_passes_reproduces_the_plain_version(n, asymmetric):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_model_of_the_cluster_form_reproduces_numpy_fft(n):
+    """The model's forward passes alone (the cluster pass, then a
+    segment's body) leave frequency ``_kernel_bin_order(n)[p]`` at position
+    p, to f32 twiddle rounding, and its inverse passes undo them."""
+    z = np.array([1, 1j]) @ np.random.default_rng(n).standard_normal((2, n))
+    x = z[None].copy()
+    span = n
+    _, _, wq = _tables(k3.BODY_N)
+    for radix in k3._radices(n):
+        s = span // radix
+        tw = _pass_twiddle(n, span, np.outer(np.arange(radix), np.arange(s)))
+        cube = np.einsum("qm,bkms->bkqs", _dft(radix, wq), x.reshape(1, n // span, radix, s))
+        x = (cube * tw).reshape(1, n)
+        span = s
+    want = np.fft.fft(z)[k3._kernel_bin_order(n)]
+    assert np.abs(x[0] - want).max() <= 1e-5 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("n", LENGTHS)
 def test_two_level_twiddles_within_the_stated_bound(n):
     e = np.arange(n)
     exact = np.exp(-2j * np.pi * e / n)
     assert np.abs(_twiddle(n, e) - exact).max() <= TWIDDLE_BOUND
-    _, _, wq = _tables(n)
+    _, _, wq = _tables(min(n, k3.BODY_N))
     q = n // (n & -n)
     assert np.abs(wq[:q] - np.exp(-2j * np.pi * np.arange(q) / q)).max() <= 2.0 ** -24
     assert not wq[q:].any()
 
 
-@pytest.mark.parametrize("n", LENGTHS + [512, 1024, 2048, 9216, 10240, 12288, 13312,
-                                         14336])
+@pytest.mark.parametrize("n", [m for m in LENGTHS if m <= 16384]
+                         + [512, 1024, 2048, 9216, 10240, 12288, 13312, 14336])
 def test_thread_mapping_covers_each_position_once_without_conflicts(n):
     threads = n // 32
     sched = _schedule(n)
@@ -167,6 +206,34 @@ def test_thread_mapping_covers_each_position_once_without_conflicts(n):
                         assert len(set(lanes[:, m])) == 32, (radix, warp, m)
 
 
+@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
+def test_cluster_pass_mapping_covers_each_position_once(n):
+    """``fft_conv_rows_cluster_kernel``'s radix-C passes: CTA c's thread t
+    takes butterflies j = c B + t + (k U + u) T (B = M / C, T = 512 threads,
+    U butterflies at once, M = 16384): over the cluster every j < M once, so
+    every position j + m M of the transform once; a warp's 32 lanes take 32
+    consecutive j, whose segment positions i + (i >> 5) fall in distinct
+    banks; the twiddle exponents q j stay below n."""
+    m_len, threads = k3.BODY_N, k3.BODY_N // 32
+    c = n // m_len
+    assert c in (2, 4, 8) and c * m_len == n and k3._radices(n)[0] == c
+    b = m_len // c
+    u = 1 if c >= 8 else 8 // c  # kClusterUnroll
+    assert b % (threads * u) == 0
+    seen = np.zeros(n, int)
+    for rank in range(c):
+        for k in range(b // (threads * u)):
+            for uu in range(u):
+                j = rank * b + np.arange(threads) + (k * u + uu) * threads
+                assert ((c - 1) * j < n).all()
+                for warp in j.reshape(-1, 32):
+                    assert (np.diff(warp) == 1).all() and warp[0] % 32 == 0
+                    assert len(set((warp + (warp >> 5)) % 32)) == 32
+                for m in range(c):
+                    seen[j + m * m_len] += 1
+    assert (seen == 1).all()
+
+
 def test_kernel_lengths_are_the_planned_ones():
     from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
 
@@ -179,6 +246,13 @@ def test_kernel_lengths_are_the_planned_ones():
         assert k3.kernel_length(transform_length(plan.row))
     with pytest.raises(ValueError):
         k3._radices(3072)
+    # past 16384 the powers of two the cluster form takes, and nothing else
+    assert {n for n in range(16385, k3.MAX_N + 1) if k3.kernel_length(n)} == set(
+        CLUSTER_LENGTHS)
+    for need in (16385, 20000, 33000, 70000, 131072):
+        taps = gaussian_kernel(30.0, 201)
+        plan = make_custom_plan((9, need - 200), taps, [1.0])
+        assert k3.kernel_length(transform_length(plan.row))
 
 
 def _plane_split(plane: int, h: int, wf: int, odd_base: int) -> tuple[int, int, int]:

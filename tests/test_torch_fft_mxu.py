@@ -119,10 +119,11 @@ def test_framed_applicable_equals_jax(n):
     assert t_k3.framed_applicable(n) == j_k3.framed_applicable(n)
 
 
-@pytest.mark.parametrize("n", [256, 512, 2048, 6144, 7168, 11264, 15360, 16384])
+@pytest.mark.parametrize("n", [256, 512, 2048, 6144, 7168, 11264, 15360, 16384, 32768, 65536])
 def test_kernel_bin_order_is_the_digit_reversed_dif_output(n):
     """A NumPy model of the kernel's forward passes (``csrc/fft4step.cu``:
-    decimation in frequency, radix Q, then radix R0, then radix-32 passes,
+    decimation in frequency, past 16384 the cluster pass's radix C first,
+    radix Q, then radix R0, then radix-32 passes,
     each leaving digit q of its R-point DFT at base + q s) leaves frequency
     ``_kernel_bin_order(n)[p]`` at position p."""
     radices = t_k3._radices(n)
@@ -195,8 +196,16 @@ def test_k3_wrappers_on_cpu_count_no_launch_and_reject_bad_inputs():
         t_k3.fft_conv_rows_framed(rows, 8192, plan.row)  # not the axis length
     with pytest.raises(ValueError):  # neither CUDA nor CPU: no silent move
         t_k3.fft_conv_rows(torch.zeros((3, 256), device="meta"), 256, plan.row)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+    # the cluster form's lengths: the plain version on the CPU, no launch;
+    # past MAX_N a raise naming the ROADMAP.md item
+    counts = (t_k3.fft_conv_rows.cluster_launches, t_k3.fft_conv_rows_framed.cluster_launches)
+    t_k3.fft_conv_rows(torch.zeros((3, 32768)), 32768, plan.row)
+    assert (t_k3.fft_conv_rows.launches, t_k3.fft_conv_rows.cluster_launches,
+            t_k3.fft_conv_rows_framed.cluster_launches) == (k3, *counts)
+    with pytest.raises(ValueError, match="CUDA or CPU"):
         t_k3.fft_conv_rows(torch.zeros((3, 32768), device="meta"), 32768, plan.row)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 11"):
+        t_k3.fft_conv_rows(torch.zeros((3, 262144), device="meta"), 262144, plan.row)
 
 
 # ---------------------------------------------------------------------------
@@ -301,28 +310,65 @@ def test_resolve_engine_on_the_cpu_keeps_the_fused_domain():
     assert api._resolve_engine("auto", wide, 4) is api.Engine.FFT_MXU
 
 
+def _tiny_budget(device):
+    return DeviceSpec(name="cpu", sm_count=0, smem_optin_bytes=0, fft_mxu_byte_budget=1 << 16)
+
+
+def _streamed(monkeypatch, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` under a byte budget the frame exceeds; the
+    streamer's calls counted."""
+    ran = []
+    for name in ("blur_fft_mxu_streamed", "blur_fft_mxu_streamed_u8"):
+        real = getattr(api, name)
+        monkeypatch.setattr(api, name, lambda *a, _real=real, _n=name: ran.append(_n)
+                            or _real(*a))
+    monkeypatch.setattr(api, "device_spec", _tiny_budget)
+    return fn(*args, **kwargs), ran
+
+
+def _served_u8_auto(monkeypatch):
+    img = _frames((2, 24, 1300, 3), seed=14)  # r 665 on the rows
+    out, ran = _streamed(monkeypatch, port.blur_u8, torch.from_numpy(img), 200.0)
+    assert ran == ["blur_fft_mxu_streamed_u8"]
+    for b in range(2):
+        want = oracle.blur_u8(img[b], 200.0).astype(int)
+        assert np.abs(out[b].numpy().astype(int) - want).max() <= 1
+
+
+def _served_f32(monkeypatch, sigma, engine):
+    x = _planar((2, 3, 24, 1300), seed=15)
+    jplan = j_plan.make_plan((24, 1300), sigma)
+    out, ran = _streamed(monkeypatch, port.blur, torch.from_numpy(x), sigma, engine=engine)
+    assert ran == ["blur_fft_mxu_streamed"]
+    want = np.asarray(j_fft.blur_fft_mxu(jnp.asarray(x), jplan, precision=HIGHEST))
+    np.testing.assert_allclose(out.numpy(), want, rtol=0, atol=2e-2)
+
+
 @pytest.mark.parametrize("call, match", [
-    # past the byte budget (an expanded tensor: no memory behind it)
-    (lambda: port.blur_u8(torch.zeros((), dtype=torch.uint8).expand(64, 2000, 2000, 3),
-                          250.0), "ops/streamed"),
-    (lambda: port.blur(torch.zeros(()).expand(64, 3, 2000, 2000), 250.0), "budget"),
-    (lambda: port.blur(torch.zeros(()).expand(64, 3, 2000, 2000), 5.0,
-                       engine="fft_mxu"), "budget"),
-    # a transform past 16384: AUTO hands the frame to the fused engine's
-    # two-pass split (served since it was ported, so this case holds the
-    # result); a pinned FFT_MXU raises
-    pytest.param(lambda: port.blur(torch.zeros(()).expand(1, 8, 20000), 200.0), None,
+    # past the byte budget: strip-streamed since ops/streamed was ported
+    # (these cases keep their ids and hold the result, on thin frames under a
+    # patched budget); AUTO uint8, AUTO float, pinned FFT_MXU
+    pytest.param(_served_u8_auto, None, id="<lambda>-ops/streamed"),
+    pytest.param(lambda mp: _served_f32(mp, 200.0, "auto"), None, id="<lambda>-budget0"),
+    pytest.param(lambda mp: _served_f32(mp, 5.0, "fft_mxu"), None, id="<lambda>-budget1"),
+    # a transform past 16384: K3/K3f's cluster form since it was ported
+    # (its plain version here), through AUTO and pinned
+    pytest.param(lambda mp: port.blur(torch.zeros(()).expand(1, 8, 20000), 200.0), None,
                  id="<lambda>-16384_0"),
-    pytest.param(lambda: port.blur(torch.zeros(()).expand(1, 8, 20000), 3.0,
-                                   engine="fft_mxu"), "16384", id="<lambda>-16384_1"),
+    pytest.param(lambda mp: port.blur(torch.zeros(()).expand(1, 8, 20000), 3.0,
+                                      engine="fft_mxu"), None, id="<lambda>-16384_1"),
+    # past the cluster form's longest transform: still refused
+    pytest.param(lambda mp: port.blur(torch.zeros(()).expand(1, 8, 140000), 3.0,
+                                      engine="fft_mxu"), "item 11", id="<lambda>-item 11"),
 ])
-def test_fft_mxu_refuses_what_it_cannot_serve(call, match):
+def test_fft_mxu_refuses_what_it_cannot_serve(monkeypatch, call, match):
     if match is None:
-        out = call()
-        assert out.shape == (1, 8, 20000) and not bool(out.abs().max())
+        out = call(monkeypatch)
+        if out is not None:  # the 20000-wide zero rows
+            assert out.shape == (1, 8, 20000) and not bool(out.abs().max())
         return
     with pytest.raises(NotImplementedError, match=match):
-        call()
+        call(monkeypatch)
 
 
 def test_auto_past_radius_600_runs_fft_mxu_on_the_cpu():

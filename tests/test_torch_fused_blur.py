@@ -35,6 +35,7 @@ from blur_algorithms_tpu.ops import plan as j_plan  # noqa: E402
 from blur_algorithms_tpu.pallas_kernels import fused_blur as j_fused  # noqa: E402
 from blur_algorithms_tpu.pallas_kernels import fused_dma as j_dma  # noqa: E402
 from blur_algorithms_tpu_torch import oracle  # noqa: E402
+from blur_algorithms_tpu_torch.cuda_kernels import fft4step as t_k3  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fused_blur as t_fused  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fused_dma as t_dma  # noqa: E402
 from blur_algorithms_tpu_torch.ops import adjoint as t_adjoint  # noqa: E402
@@ -263,13 +264,22 @@ def test_adjoint_identity_in_float64(spec):
 
 
 def test_adjoint_past_radius_1024_raises():
-    """Past support radius 1024 a symmetric axis runs through K3, which
-    takes transforms up to 16384: a longer row raises on a device tensor (a
-    meta tensor here: no memory, no card) rather than falling back. The
-    wide branch's values are held against JAX in test_torch_fft_mxu.py."""
+    """Past support radius 1024 a symmetric axis runs through K3; a row
+    padded past 16384 takes K3's cluster form on a card, its plain version
+    here (it raised before the cluster form was ported: the case keeps its
+    name and holds the result). The wide branch at width 12400 (12400 + 4r
+    -> 32768) against the JAX adjoint, which runs the HIGHEST einsum off a
+    TPU."""
     taps = np.full(2051, 1.0 / 2051, np.float32)  # row radius 1025
-    plan = t_plan.make_custom_plan((4, 12400), taps, [1.0])  # 12400 + 4r -> 32768
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    plan = t_plan.make_custom_plan((4, 12400), taps, [1.0])
+    jplan = j_plan.make_custom_plan((4, 12400), taps, [1.0])
+    ct = np.random.default_rng(11).standard_normal((4, 12400)).astype(np.float32)
+    before = t_k3.fft_conv_rows.launches
+    got = t_adjoint.blur_adjoint(torch.from_numpy(ct), plan).numpy()
+    assert t_k3.fft_conv_rows.launches == before  # the plain version on the CPU
+    want = np.asarray(j_adjoint.blur_adjoint(jnp.asarray(ct), jplan))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="CUDA or CPU"):  # no silent move
         t_adjoint.blur_adjoint(torch.zeros((4, 12400), device="meta"), plan)
 
 

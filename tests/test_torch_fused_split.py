@@ -225,7 +225,9 @@ def test_split_refuses_what_it_does_not_serve():
         signed = t_plan.make_custom_plan((24, 40), SHARPEN5, [1.0])
         t_split.fused_split_rows_int8(torch.zeros((1, 24, 40), dtype=torch.uint8), signed)
     huge = t_plan.make_plan((8, 30000), 1300.0)  # row support radius 4329
-    with pytest.raises(NotImplementedError, match="ops/streamed"):
+    # past the split's reach: a ValueError naming the engines that serve it,
+    # as the JAX ``_pick_tile``
+    with pytest.raises(ValueError, match="fft_stream"):
         t_fused._blur_fused_split(torch.zeros((1, 8, 30000)), huge, "bf16x3", False)
-    with pytest.raises(NotImplementedError, match="ops/streamed"):
+    with pytest.raises(ValueError, match="fft_stream"):
         t_fused.blur_fused(torch.zeros((1, 8, 30000)), huge)
