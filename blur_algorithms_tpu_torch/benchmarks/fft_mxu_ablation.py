@@ -18,6 +18,15 @@ version, K3's (``ops.fft_mxu._conv_rows_einsum``) or K3f's
 (``cuda_kernels.fft4step.fft_conv_rows_framed_ref``), and refuses the
 other modes.
 
+Past 16384 (the cluster form), ``cluster_ablation`` runs PR 16's design of
+the cluster form, the yardstick the current one is timed against in turns
+(``probes/k3_cluster_variants.py``, ``chip_smoke.py`` phase 18), whole
+(``pr16``) or with the parts of ``CLUSTER_VARIANTS`` left out: the
+exchanges through the CTA's own shared memory, the cluster barriers after
+the first, everything but the radix-C pass's reads and the last stores, or
+everything but the length-16384 body. ``cluster_cells`` are the shapes it
+is timed at.
+
 Run: ``python -m blur_algorithms_tpu_torch.benchmarks.fft_mxu_ablation``
 (``--rows``/``--n`` as the JAX probe: 8192 rows of n 16384 by default; the
 4K shapes of ``chip_smoke.py`` with ``--cells``). Prints one JSON line per
@@ -39,8 +48,9 @@ from blur_algorithms_tpu_torch.benchmarks._common import (
     emit,
 )
 
-__all__ = ["MODES", "ONE_DOT", "PORT_MODES", "STAGES", "cells", "conv_rows_ablation",
-           "jax_default", "mask_keeps"]
+__all__ = ["CLUSTER_VARIANTS", "CURRENT_VARIANTS", "MODES", "ONE_DOT", "OTHER_SEGMENT",
+           "PORT_MODES", "STAGES", "cells", "cluster_ablation", "cluster_cells",
+           "conv_rows_ablation", "jax_default", "mask_keeps"]
 
 # the stages a mask leaves out (csrc/fft4step.cu: Ablate)
 NO_BUTTERFLIES, NO_TWIDDLES, NO_EXCHANGES, NO_SPECTRUM, IO_ONLY = 1, 2, 4, 8, 16
@@ -61,6 +71,21 @@ ONE_DOT = ("no counterpart: 1dot runs one bf16 dot in place of the three of the 
            "bf16x3 split; the H100 kernel's FFT is f32 on the CUDA cores, with no split dots")
 # modes of the port alone: the product by H, and the reads and stores alone
 PORT_MODES = {"noh": NO_SPECTRUM, "io_only": IO_ONLY}
+
+# PR 16's cluster form whole, and its variants (csrc/probes/fft_ablation.cu:
+# ClusterVariant): exchanges to the CTA's own shared memory (1), no cluster
+# barrier after the first (2), the radix-C reads and last stores alone (4),
+# the length-16384 body alone (8)
+CLUSTER_VARIANTS = {"pr16": 0, "local": 1, "no_barriers": 2, "local_no_barriers": 3,
+                    "io_only": 4, "body_only": 8}
+# the current cluster form with the other segment length (8192 at n 32768
+# for K3 and K3f, 16384 at 65536 for K3f): a design tried, not kept
+OTHER_SEGMENT = "other_segment"
+# the current cluster form with its pushes ended by cluster barriers in
+# place of the receivers' transaction counts (16), with its exchanges to the
+# CTA's own shared memory too (17), and with those barriers as the CTA's (19)
+CURRENT_VARIANTS = {"current_push_barriers": 16, "current_local": 17,
+                    "current_local_cta_barriers": 19}
 
 
 def mask_keeps(mask: int) -> dict[str, bool]:
@@ -119,6 +144,87 @@ def conv_rows_ablation(rows: torch.Tensor, n: int, axis_plan, mode: str = "full"
 
 
 conv_rows_ablation.launches = 0
+
+
+def cluster_ablation(rows: torch.Tensor, n: int, axis_plan, variant: str = "pr16",
+                     framed: bool = False) -> torch.Tensor:
+    """PR 16's cluster form of K3 (rows framed to ``n``) or K3f (``framed``)
+    at n 32768, 65536 or 131072 with ``variant``'s parts left out. A CUDA
+    tensor launches the probe's kernel (every variant at C 2, and for K3f at
+    C 4; ``pr16`` at every length; ``OTHER_SEGMENT``, the current kernel with
+    the segment length it does not take, at n 32768, and for K3f at 65536;
+    ``CURRENT_VARIANTS``, the current kernel with its pushes ended by
+    cluster barriers, its exchanges kept in the CTA and its barriers made
+    the CTA's, there too), the spectrum in its bin order; a CPU tensor runs
+    ``pr16``'s plain version.
+    ``cluster_ablation.launches`` counts."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    names = [*CLUSTER_VARIANTS, OTHER_SEGMENT, *CURRENT_VARIANTS]
+    if variant not in names:
+        raise ValueError(f"the variants are {names}, not {variant!r}")
+    if n <= fft4step.BODY_N or not fft4step.kernel_length(n):
+        raise ValueError(f"n = {n} is not a length of the cluster form")
+    dim, pad = (axis_plan.dim, axis_plan.pad) if framed else (n, 0)
+    if rows.dtype != torch.float32 or rows.ndim != 2 or rows.shape[1] != dim:
+        raise ValueError(f"takes (R, {dim}) float32 rows, got {tuple(rows.shape)} {rows.dtype}")
+    if rows.device.type == "cpu":
+        if variant != "pr16":
+            raise ValueError(f"variant {variant!r} is for timing on the card: only 'pr16' has "
+                             "a plain version")
+        plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+        return plain(rows, n, axis_plan)
+    if rows.device.type != "cuda" or not rows.is_contiguous():
+        raise ValueError(f"takes contiguous CUDA or CPU rows, not {rows.device}")
+    from blur_algorithms_tpu_torch.utils.build import load_probe_library
+
+    out = torch.empty_like(rows)
+    tw = fft4step._twiddles(n, rows.device)
+    segment = fft4step.BODY_N  # PR 16's bin order
+    if variant in CURRENT_VARIANTS:
+        segment = fft4step.cluster_segment(n)
+    if variant == OTHER_SEGMENT:
+        segment = 8192 if fft4step.cluster_segment(n) == fft4step.BODY_N else fft4step.BODY_N
+    h, complex_h = fft4step._kernel_spectrum(axis_plan, n, rows.device, segment)
+    lib = load_probe_library()
+    args = (rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(), int(complex_h),
+            rows.shape[0], n, dim, pad, torch.cuda.current_stream(rows.device).cuda_stream)
+    if variant == OTHER_SEGMENT:
+        rc = lib.fft_cluster_other_segment(int(framed), *args)
+    elif variant in CURRENT_VARIANTS:
+        rc = lib.fft_cluster_current_ablation(CURRENT_VARIANTS[variant], int(framed), *args)
+    else:
+        rc = lib.fft_cluster_ablation(CLUSTER_VARIANTS[variant], int(framed), *args)
+    check_launch(rc, "fft_cluster_ablation")
+    cluster_ablation.launches += 1
+    return out
+
+
+cluster_ablation.launches = 0
+
+
+def cluster_cells() -> list[tuple[str, int, int, object, bool]]:
+    """(label, rows, n, axis plan, framed): the cluster form's timed shapes.
+    K3 on the adjoint's rows of ``blur`` fwd + bwd on a 4 x 3 x 2160 x 15360
+    panorama at sigma 400 (n 32768, C 2); K3f on a 24000x14500 RGB frame's
+    rows at sigma 900 (n 32768, C 2); K3f on one streamed column strip of 4
+    such frames at sigma 1500 (1024 columns a plane, n 65536)."""
+    from blur_algorithms_tpu_torch import make_plan
+
+    pano = make_plan((2160, 15360), 400.0).row
+    r = pano.support_radius
+    n_adj = max(256, 1 << (pano.dim + 4 * r - 1).bit_length())
+    giant = make_plan((24000, 14500), 900.0).row
+    strip = make_plan((24000, 14500), 1500.0).col
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+
+    return [
+        ("K3 adjoint rows panorama sigma=400", 4 * 3 * 2160, n_adj, pano, False),
+        ("K3f giant rows sigma=900", 3 * 24000, transform_length(giant), giant, True),
+        ("K3f streamed column strip sigma=1500", 4 * 3 * 1024, transform_length(strip), strip,
+         True),
+    ]
 
 
 def cells(batch: int = 4, h: int = 2160, w: int = 3840) -> list[tuple[str, int, int, object, bool]]:

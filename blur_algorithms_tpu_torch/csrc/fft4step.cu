@@ -22,8 +22,8 @@
 //
 // The design: one block per pair of rows, n / 32 threads, the FFT as a few
 // high-radix passes held in registers, shared memory only between passes.
-// The kernel is a template on n (17 lengths, 3 more in the cluster form
-// below) and on whether it frames the
+// The kernel is a template on n (17 lengths; the cluster form below takes
+// 3 more) and on whether it frames the
 // rows (K3f) or reads them as they are (K3), so every stride, count and
 // twiddle step is a constant and shared addresses fold into immediates.
 //   n = Q * P: Q the odd part (1, 3, 5, ..., 15: the lengths are powers of
@@ -86,18 +86,50 @@
 // Past n 16384 (n = 32768, 65536, 131072: what transform_length plans past
 // 16384 and the adjoint pads rows to), a complex row no longer fits one
 // block's shared memory (256 KB at 32768). The cluster form
-// (fft_conv_rows_cluster_kernel) takes a thread-block cluster of C = n / 16384
-// CTAs (2, 4 or 8; 8 is the portable limit) per pair of rows: a first
-// radix-C pass over stride 16384 reads the rows from device memory (framing
-// them for K3f) and sends each output to the shared memory of the CTA owning
-// its segment over distributed shared memory; each CTA then runs the
-// length-16384 body above unchanged on its segment (passes, H, inverse
-// passes) and leaves the result in its shared memory; the last inverse pass
-// (radix C) reads its C values from the CTAs' segments and stores the rows.
-// Cluster barriers stand between the three steps and before any CTA exits.
-// Device-memory traffic stays one read and one write of the rows; each CTA
-// holds what the n-16384 block holds, 9 KB more for the cluster pass's
-// W_n tables (128 + n / 128 entries, as Tlo / Thi above).
+// (fft_conv_rows_cluster_kernel) splits the transform over a thread-block
+// cluster of C CTAs, CTA q holding segment q of M = n / C points
+// (cluster_segment: 16384 at n 32768 and 131072, 8192 at 65536). Its design
+// follows an ablation of PR 16's form (a radix-C pass over stride 16384
+// into the segments over distributed shared memory, the whole 16384 body on
+// each, a radix-C pass back by remote loads; probes/k3_cluster_variants.py,
+// PERF.md): that form's body alone took 0.14 us a CTA on the card, about
+// what the one-block 16384 form takes for everything, its cluster barriers
+// 6-9% and its remote accesses 6-8%, with one CTA an SM to hide neither.
+//   1. No pass of its own: the cluster's exchange is the first pass of the
+//      transform, radix n / 1024 over stride 1024, which reads the rows
+//      (framing them for K3f) and stores each output straight into its
+//      segment's CTA; the segments run the body's radix-32 passes and the
+//      middle pass, and the last inverse pass mirrors the first. Four
+//      exchanges a point, as in the one-block form. A lane holds 32 values
+//      of the first pass: at radix 64 and 128 a butterfly is split over 2
+//      or 4 lanes of a warp that trade their radix-C outputs by shuffles
+//      (cluster_forward, below).
+//   2. Remote traffic only as stores: the inverse radix-32 pass keeps its
+//      outputs in registers, waits until their slabs' readers are done
+//      (item 3) and stores them straight into the slabs of the CTA that
+//      runs their last pass, so no CTA loads from another, and none waits
+//      for the others before it exits.
+//   3. Receivers count their data: a remote store carries its 8 bytes to
+//      the receiver's mbarrier (st.async ... complete_tx), which expects the
+//      bytes its peers send, so a warp waits for its own sub-block of 1024
+//      and the last pass for its slabs, not for every CTA of the cluster.
+//      Between the exchanges a warp's passes touch its own sub-block only
+//      (__syncwarp), and the slabs a CTA receives from the peers' warps k
+//      lie in its own sub-block k, so before those warps store there they
+//      wait for this CTA's warp k alone to have read it (one remote arrival
+//      a peer on a per-sub-block mbarrier). One cluster barrier is left
+//      (every CTA has started and set up its mbarriers), split: arrived at
+//      early, waited on after the first pass's loads and DFTs.
+//   4. The framed loads of the first pass hold no predicate (load_folded):
+//      64 loads a thread are in flight, and per-load predicates spilled.
+// Persistent clusters (each walking pairs of rows, tables loaded once)
+// spilled 330-950 bytes a thread and ran 1.3-1.5x slower; a first pass that
+// read the rows through L2 once a CTA (no forward exchange) ran 1.1-1.6x
+// slower: neither is kept. Device-memory traffic stays one read and one
+// write of the rows; a CTA holds its padded segment, the body's tables, the
+// W_1024 table and the first pass's W_n tables (128 + n / 128 entries, as
+// Tlo / Thi above; entry 8 e of the high one is W_(n/1024)^e), ~81 KB at M
+// 8192 (two CTAs an SM) and ~155 KB at 16384.
 // Tensor cores: not used. f32 accuracy would need 3xTF32 (~165 TFLOP/s of
 // useful rate) or bf16x3 splits, and a dense pass as a matrix product costs
 // 8 R flops a point against ~5 log2 R for the butterflies: radix-16 passes
@@ -110,14 +142,14 @@
 // template on a mask of stages to leave out (Ablate, below). The kernels of
 // this file are the body with mask 0, where every `if constexpr` on the mask
 // keeps the stage, so they compile to the code they were without it. The
-// probe includes this file with FFT4STEP_KERNELS_ONLY defined (no launch
-// code, no C entries, no instantiation here) and instantiates the other
-// masks at the lengths it runs.
+// probe includes this file with FFT4STEP_KERNELS_ONLY defined (no C
+// entries, no instantiation here; the cluster form's launch templates stay,
+// for the probe's segment variant) and instantiates the other masks at the
+// lengths it runs, and PR 16's cluster form with its parts left out.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -142,6 +174,19 @@ enum Ablate {
   kIoOnly = 16,        // reads and stores: no other pass, no other stage
 };
 constexpr int kAllStages = kNoButterflies | kNoTwiddles | kNoExchanges | kNoSpectrum;
+
+// What the ablation of the cluster form leaves out (timing only: any
+// variant but 0 gives a wrong result; probes/fft_ablation.cu runs them).
+enum ClusterVariant {
+  kVLocal = 1,       // the exchanges go to this CTA's own shared memory (same pattern)
+  kVNoBarriers = 2,  // the cluster barriers become this CTA's barriers (with kVLocal:
+                     // no CTA then touches another's memory); PR 16's kernel: none
+                     // after the first but the one before exit, unless kVLocal
+  kVIoOnly = 4,      // PR 16's kernel: the radix-C pass's reads and the last stores alone
+  kVBodyOnly = 8,    // PR 16's kernel: the length-16384 body alone, no radix-C pass, no rows
+  kVPushBarriers = 16,  // the current kernel's pushes end at cluster barriers, not at the
+                        // receivers' transaction counts
+};
 
 __host__ __device__ constexpr int ilog2(int v) {
   int l = 0;
@@ -534,108 +579,496 @@ fft_conv_rows_kernel(const float* __restrict__ x, float* __restrict__ out,
   conv_rows<N, kFramed, 0>(x, out, tw, h, complex_h, rows, half, dim, pad);
 }
 
-// ---- the cluster form: n = C * kMaxN, C in {2, 4, 8} ----
+// ---- the cluster form: n = C * M, M = cluster_segment(n) ----
 
-// Shared memory of a CTA of the cluster form: the length-kMaxN body's, then
-// the cluster pass's two tables (W_n^l, l < 128; W_n^(128 h), h < n / 128).
-template <int C>
-constexpr int kClusterSmem = Plan<kMaxN>::kSmem + 8 * (kLo + C * kMaxN / kLo);
+// The segment length of the cluster form at transform length n, the faster
+// of the two on the card (probes/k3_cluster_variants.py): 16384 at n 32768
+// and 131072 (clusters of 2 and 8, one CTA an SM), 8192 at 65536 (clusters
+// of 8, two CTAs an SM; at 131072 that would take 16, past the portable
+// cluster size).
+__host__ __device__ constexpr int cluster_segment(int n) { return n == 65536 ? 8192 : kMaxN; }
 
-// Butterflies a thread of the cluster pass loads at once: 2 C values each
-// (rows a and b), 16 loads in flight.
-template <int C>
-constexpr int kClusterUnroll = C >= 8 ? 1 : 8 / C;
+// Shared memory of a CTA of the cluster form: its padded segment, the
+// length-16384 body's tables (kTable entries), the W_1024 table, the first
+// pass's W_n tables (W_n^l, l < 128; W_n^(128 h), h < n / 128), then the
+// mbarriers (a sub-block of 1024's data and its peers' reads of theirs,
+// and the slabs' data).
+template <int M, int C>
+constexpr int kClusterSmem =
+    8 * (M + M / 32) + 8 * kTable + 8 * 1024 + 8 * (kLo + C * M / kLo) + 8 * (2 * M / 1024 + 1);
+
+// The cluster's own barrier, split: every thread of every CTA arrives, then
+// waits. arrive_release orders this thread's earlier shared-memory accesses
+// (local and remote) before any thread's return from the matching wait.
+__device__ __forceinline__ void cluster_arrive_release() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ int cluster_rank() {
+  int r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The shared-memory address `addr` of this CTA in CTA `rank` of the cluster,
+// and a store there (distributed shared memory; rank may be this CTA's).
+__device__ __forceinline__ uint32_t dsmem_map(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void dsmem_store(uint32_t addr, float2 v) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(v.x), "f"(v.y)
+               : "memory");
+}
+
+// One-shot mbarriers in shared memory (each completes one phase, parity 0)
+// and the stores that complete their transactions from another CTA: the
+// receiver expects the bytes its CTA's peers store into it, and a wait
+// returns once they have all landed (acquire at cluster scope).
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("{\n .reg .b64 st;\n mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+// Waits until the phase completes; a wait that outlasts any correct run
+// (2^22 polls) traps, so a lost transaction fails the launch, not the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar) {
+  uint32_t done = 0;
+  for (int spins = 0; !done; ++spins) {
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], 0;\n"
+                 " selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(bar) : "memory");
+    if (spins > (1 << 22)) __trap();
+  }
+}
+// An arrival on another CTA's mbarrier, releasing this thread's earlier
+// accesses (and, after a __syncwarp, its warp's) at cluster scope.
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void dsmem_store_tx(uint32_t addr, float2 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.f32 [%0], {%1, %2}, [%3];\n"
+      ::"r"(addr), "f"(v.x), "f"(v.y), "r"(bar) : "memory");
+}
+
+// The cluster barrier's halves and the map to another CTA's shared memory as
+// a variant of the ablation has them: kVNoBarriers waits on this CTA's
+// barrier in place of the cluster's (its arrive is nothing), kVLocal maps
+// every CTA to this one.
+template <int kVar>
+__device__ __forceinline__ void cluster_sync_arrive() {
+  if constexpr ((kVar & kVNoBarriers) == 0) cluster_arrive_release();
+}
+template <int kVar>
+__device__ __forceinline__ void cluster_sync_wait() {
+  if constexpr ((kVar & kVNoBarriers) == 0)
+    cluster_wait();
+  else
+    __syncthreads();
+}
+template <int kVar>
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, int rank) {
+  if constexpr ((kVar & kVLocal) != 0)
+    return addr;
+  else
+    return dsmem_map(addr, rank);
+}
+
+// v * (-i)^k, k < 4 known at run time: exact (swaps and sign changes)
+__device__ __forceinline__ float2 quarter_turns(float2 v, int k) {
+  const float2 r = (k & 1) ? make_float2(v.y, -v.x) : v;
+  return (k & 2) ? make_float2(-r.x, -r.y) : r;
+}
+
+// Where the cluster form keeps what. A pair of rows is one transform of
+// n = C M; position p = j + 1024 K (j < 1024, K < C R0 with R0 = M / 1024,
+// K = m + R0 c: m < R0, c < C the segment). The transform's first pass is
+// radix Rf = n / 1024 over stride 1024; its output (q, k) (the DFT's bin
+// kk = q + C k, k < R0) lives at j + 1024 k of segment q. The first pass
+// and the last (its adjoint) are split over a group of G = Rf / 32 lanes of
+// one warp a butterfly j, so that a lane holds 32 values: lane `g` of the
+// group takes m in [g MG, (g + 1) MG) (MG = R0 / G) for every c and the
+// outputs q = QG g + e (QG = C / G), trading values with the group's other
+// lanes by shuffles between its radix-C and its radix-R0 DFTs. CTA r's
+// M / 32 threads take j in [r J, (r + 1) J), J = 1024 / C: thread t is
+// warp w = t / 32, lane l, g = l / (32 / G), j = r J + w (32 / G) + l % (32 / G).
+template <int M, int C>
+struct ClusterMap {
+  static constexpr int N = C * M, R0 = M / 1024, G = N / 32768, MG = R0 / G, QG = C / G;
+  static constexpr int LG = 32 / G, J = 1024 / C, T = M / kE;
+  static_assert(G * 32768 == N && MG * G == R0 && QG * G == C && C * MG == 32,
+                "a lane holds 32 values of the first pass");
+};
+
+// The segments' slabs for the last inverse pass: CTA r holds, for each
+// source segment q and output k, its J values j in [r J, (r + 1) J) as
+// slab (q, k), at jl = j - r J of the q-th J values of its own sub-block k
+// (positions k 1024 .. k 1024 + 1023: C J = 1024), so that only this CTA's
+// warp k reads what a slab overwrites. Padded as sidx; free of bank
+// conflicts both ways (tests/test_torch_fft4step_passes.py).
+template <int M, int C>
+__device__ __forceinline__ int slab_index(int q, int k, int jl) {
+  return sidx(k * 1024 + q * ClusterMap<M, C>::J + jl);
+}
+
+// Position pos of the transform from the rows, as load_row, with no
+// predicate held across the load (the cluster form's first pass issues 64
+// loads a thread at once, and per-load predicates spilled): K3f's source
+// column is folded into the row (reflect-101 at 0 and at dim - 1, then
+// clamped at 0 past the reflected edge) and the zero tail is applied after
+// the load as a factor 0 or 1 (a row holding a NaN or an infinity gives a
+// transform of NaNs either way).
+template <bool kFramed>
+__device__ __forceinline__ float2 load_folded(const Rows& io, int pos) {
+  if constexpr (!kFramed) {
+    return load_row<false>(io, pos);
+  } else {
+    const int a = abs(pos - io.pad);
+    const int src = max(0, (io.dim - 1) - abs((io.dim - 1) - a));
+    const int inside = min(max(io.dim + 2 * io.pad - pos, 0), 1);
+    const float keep = __int_as_float(inside * 0x3f800000);  // 1.0f or 0.0f
+    return make_float2(__ldg(io.xa + src) * keep, io.has_b ? __ldg(io.xb + src) * keep : 0.0f);
+  }
+}
+
+// The first forward pass of the cluster form (the note above): rows -> the
+// C segments. The value of output (q, k) is the radix-Rf DFT's bin
+// kk = q + C k times W_n^(kk j); lane g's radix-C DFTs take their input
+// times W_G^(g c) so that its own outputs q = QG g + e come out at slots e
+// (slot s holds q = (s + QG g) mod C), and its radix-R0 DFTs see m rotated
+// by g MG (slot t holds m = (t + g MG) mod R0), which the outer twiddle
+// undoes by W_G^(k g) (exponent k g n / G). It waits on the cluster barrier
+// (every CTA has started and set up its mbarriers) only after its loads,
+// radix-C DFTs and shuffles.
+template <int M, int C, bool kFramed, int kVar>
+__device__ __forceinline__ void cluster_forward(const float2* ctab, float2* buf, uint32_t seg,
+                                                uint32_t bars, const Rows& io, int j, int g,
+                                                int lane, int rank) {
+  using CM = ClusterMap<M, C>;
+  constexpr int G = CM::G, MG = CM::MG, QG = CM::QG, R0 = CM::R0, N = CM::N;
+  float2 a[C][MG];
+#pragma unroll
+  for (int mi = 0; mi < MG; ++mi)
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      a[c][mi] = load_folded<kFramed>(io, j + 1024 * (g * MG + mi) + M * c);
+  // radix C over c; then W_Rf^(q m) = W_n^(1024 q m) = Thi[8 q m]
+#pragma unroll
+  for (int mi = 0; mi < MG; ++mi) {
+    float2 v[C];
+#pragma unroll
+    for (int c = 0; c < C; ++c) v[c] = quarter_turns(a[c][mi], (g * c * (4 / G)) & 3);
+    dft<C, false>(v, nullptr);
+    const int m = g * MG + mi;
+#pragma unroll
+    for (int s = 0; s < C; ++s)
+      a[s][mi] = cmul(v[s], ctab[kLo + 8 * ((s + QG * g) & (C - 1)) * m]);
+  }
+  // lane g takes slot t = d MG + mi of each of its outputs q = QG g + e from
+  // lane (g + d) mod G, whose slot (e - QG d) mod C holds that q
+  float2 w[QG][R0];
+#pragma unroll
+  for (int d = 0; d < G; ++d)
+#pragma unroll
+    for (int e = 0; e < QG; ++e)
+#pragma unroll
+      for (int mi = 0; mi < MG; ++mi) {
+        const float2 v = a[(e - QG * d + C) & (C - 1)][mi];
+        w[e][d * MG + mi] =
+            d == 0 ? v
+                   : make_float2(__shfl_sync(0xffffffffu, v.x, (lane + d * CM::LG) & 31),
+                                 __shfl_sync(0xffffffffu, v.y, (lane + d * CM::LG) & 31));
+      }
+  cluster_sync_wait<kVar>();
+  const int step = (C * j + g * (N / G)) & (N - 1);
+#pragma unroll
+  for (int e = 0; e < QG; ++e) {
+    const int q = QG * g + e;
+    dft<R0, false>(w[e], nullptr);
+    // sidx(j + 1024 k) = sidx(j) + 1056 k; sub-block k's mbarrier is bars + 8 k
+    const bool tx = (kVar & kVPushBarriers) == 0 && q != rank;
+    const uint32_t dst = cluster_map<kVar>(seg, q) + 8 * sidx(j);
+    const uint32_t bar = tx ? dsmem_map(bars, q) : 0;
+#pragma unroll
+    for (int k = 0; k < R0; ++k) {
+      const int x = (q * j + k * step) & (N - 1);
+      const float2 v = cmul(w[e][k], cmul(ctab[kLo + (x >> 7)], ctab[x & (kLo - 1)]));
+      if constexpr ((kVar & kVPushBarriers) != 0)
+        dsmem_store(dst + 8 * (1024 + 32) * k, v);
+      else if (tx)
+        dsmem_store_tx(dst + 8 * (1024 + 32) * k, v, bar + 8 * k);
+      else
+        buf[sidx(j) + (1024 + 32) * k] = v;
+    }
+  }
+}
+
+// The last inverse pass, the adjoint of the first: CTA r's slabs -> rows.
+// Lane g conjugate-twiddles and inverse-DFTs (radix R0) its outputs
+// q = QG g + e, which leaves slot t holding m = (t + g MG) mod R0 where the
+// outer twiddle carries W_G^(-k g) (exponent k g n / G) besides W_n^(-kk j);
+// the shuffles hand slot t = d MG + mi to lane (g + d) mod G as its slot
+// (e - QG d) mod C (slot s holds q = (s + QG g) mod C); the inverse radix-C
+// DFT over those slots, then W_G^(-g c), gives x at j + 1024 m + M c.
+template <int M, int C, bool kFramed>
+__device__ __forceinline__ void cluster_inverse(const float2* ctab, const float2* buf,
+                                                const Rows& io, int j, int jl, int g, int lane) {
+  using CM = ClusterMap<M, C>;
+  constexpr int G = CM::G, MG = CM::MG, QG = CM::QG, R0 = CM::R0, N = CM::N;
+  float2 w[QG][R0];
+#pragma unroll
+  for (int e = 0; e < QG; ++e)
+#pragma unroll
+    for (int k = 0; k < R0; ++k) w[e][k] = buf[slab_index<M, C>(QG * g + e, k, jl)];
+  const int step = (C * j + g * (N / G)) & (N - 1);
+#pragma unroll
+  for (int e = 0; e < QG; ++e) {
+    const int q = QG * g + e;
+#pragma unroll
+    for (int k = 0; k < R0; ++k) {
+      const int x = (q * j + k * step) & (N - 1);
+      w[e][k] = cmulc(w[e][k], cmul(ctab[kLo + (x >> 7)], ctab[x & (kLo - 1)]));
+    }
+    dft<R0, true>(w[e], nullptr);
+  }
+  // slot t = d MG + mi of output q = QG g + e goes back to lane (g + d) mod
+  // G, as its slot (e - QG d) mod C: lane g takes it from lane (g - d) mod G
+  float2 a[C][MG];
+#pragma unroll
+  for (int d = 0; d < G; ++d)
+#pragma unroll
+    for (int e = 0; e < QG; ++e)
+#pragma unroll
+      for (int mi = 0; mi < MG; ++mi) {
+        const float2 v = w[e][d * MG + mi];
+        a[(e - QG * d + C) & (C - 1)][mi] =
+            d == 0 ? v
+                   : make_float2(
+                         __shfl_sync(0xffffffffu, v.x, (lane - d * CM::LG + 32) & 31),
+                         __shfl_sync(0xffffffffu, v.y, (lane - d * CM::LG + 32) & 31));
+      }
+#pragma unroll
+  for (int mi = 0; mi < MG; ++mi) {
+    const int m = g * MG + mi;
+    float2 v[C];
+#pragma unroll
+    for (int s = 0; s < C; ++s)
+      v[s] = cmulc(a[s][mi], ctab[kLo + 8 * ((s + QG * g) & (C - 1)) * m]);
+    dft<C, true>(v, nullptr);
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      store_row<kFramed>(io, j + 1024 * m + M * c,
+                         quarter_turns(v[c], (4 - ((g * c * (4 / G)) & 3)) & 3));
+  }
+}
 
 // A cluster of C CTAs per pair of rows, CTA q owning segment q (positions
-// [q M, (q + 1) M), M = kMaxN) of the transform in its shared memory.
-// Forward: one radix-C pass over stride M reads the rows (framing them for
-// K3f) and sends output q of butterfly j, times W_n^(q j), to position j of
-// CTA q's segment over distributed shared memory; then each CTA runs the
-// length-M body (passes<kMaxN, ..., false>) on its segment, multiplying by
-// H's segment q (the host's bin order has the cluster digit first), and
-// leaves the inverse in its shared memory; the inverse radix-C pass gathers
-// position j of every CTA's segment, multiplies by conj(W_n^(q j)), runs the
-// conjugate C-point DFT and stores the rows. The CTAs split each radix-C
-// pass's M butterflies evenly. Device-memory traffic stays one read and one
-// write of the rows.
-template <int C, bool kFramed>
-__global__ void __launch_bounds__(kMaxThreads, 1)
+// [q M, (q + 1) M)) of the transform after the first pass:
+//   1. the first pass (cluster_forward) reads the rows, framing them for
+//      K3f, and stores each output into its segment's CTA (distributed
+//      shared memory);
+//   2. warp k, once its sub-block k is complete, runs the segment's own
+//      passes there (radix 32 over spans of 1024, the middle pass with H's
+//      segment q, the inverse radix-32 pass into registers);
+//   3. once the peers' warps k have read their sub-blocks k (each tells
+//      this CTA's warp k by a remote arrival before its inverse pass's
+//      DFTs, which hide the wait), warp k stores its inverse pass's outputs
+//      straight into the slabs of the CTA whose j they are;
+//   4. the last pass (cluster_inverse) waits for its slabs, reads them and
+//      stores the rows. Every transfer into a CTA ends at one of its own
+//      waits, so none waits for the others before it exits.
+// The data's completion is counted on mbarriers (the ablation's variants,
+// kVPushBarriers: by cluster barriers after the pushes, the slab stores
+// after a cluster barrier). At M 8192 two CTAs (of different clusters)
+// share an SM; at 16384 one fills it.
+template <int M, int C, bool kFramed, int kVar = 0>
+__global__ void __launch_bounds__(M / kE, kMaxN / M)
 fft_conv_rows_cluster_kernel(const float* __restrict__ x, float* __restrict__ out,
                              const float2* __restrict__ tw,
                              const float* __restrict__ h, int complex_h, int rows,
                              int half, int dim, int pad) {
-  namespace cg = cooperative_groups;
-  constexpr int M = kMaxN, T = kMaxThreads, N = C * M, B = M / C, U = kClusterUnroll<C>;
-  static_assert(B % (T * U) == 0, "the cluster pass splits evenly");
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());
+  static_assert((kVar & ~(kVLocal | kVNoBarriers | kVPushBarriers)) == 0 &&
+                    ((kVar & (kVLocal | kVNoBarriers)) == 0 || (kVar & kVPushBarriers) != 0) &&
+                    ((kVar & kVNoBarriers) == 0 || (kVar & kVLocal) != 0),
+                "the current kernel's variants: 16, 17, 19");
+  constexpr bool kTx = (kVar & kVPushBarriers) == 0;
+  using CM = ClusterMap<M, C>;
+  constexpr int T = CM::T, J = CM::J;
+  const int rank = cluster_rank();
   extern __shared__ __align__(16) float2 smem2[];
-  const Smem sm = load_tables<M>(smem2, tw);
-  // the cluster pass's tables, after the body's and the W_1024 table
-  float2* ctab = smem2 + M + M / 32 + kTable + 1024;
-  for (int k = threadIdx.x; k < kLo + N / kLo; k += T) ctab[k] = tw[kTable + k];
-  const int ra = blockIdx.x / C;
+  // the body's tables of length 16384 (the host's layout), W_1024 filled
+  // from them, then W_n's
+  float2* tab = smem2 + M + M / 32;
+  for (int k = threadIdx.x; k < kTable; k += T) tab[k] = tw[k];
+  const Smem sm{smem2, tab, tab + kLo, tab + 2 * kLo, tab + kTable};
+  float2* ctab = tab + kTable + 1024;
+  for (int k = threadIdx.x; k < kLo + CM::N / kLo; k += T) ctab[k] = tw[kTable + k];
+  __syncthreads();
+  for (int k = threadIdx.x; k < 1024; k += T) tab[kTable + k] = twiddle(sm, k * (kMaxN / 1024));
+  // the mbarriers: sub-block k's data expects the 1024 - J values the other
+  // CTAs store into it; its peers' reads, the C - 1 other CTAs' warps k
+  // (one arrival each, once they have read their sub-block k); the slabs'
+  // data, the (C - 1) R0 J values the other CTAs store there
+  const uint32_t seg = static_cast<uint32_t>(__cvta_generic_to_shared(smem2));
+  const uint32_t bars = static_cast<uint32_t>(__cvta_generic_to_shared(ctab + kLo + CM::N / kLo));
+  const uint32_t read_bars = bars + 8 * CM::R0, slab_bar = bars + 16 * CM::R0;
+  if (kTx && threadIdx.x == 0) {
+    for (int k = 0; k < CM::R0; ++k) {
+      mbar_init(bars + 8 * k, 1);
+      mbar_init(read_bars + 8 * k, C - 1);
+    }
+    mbar_init(slab_bar, 1);
+    mbar_init_fence();
+    for (int k = 0; k < CM::R0; ++k) mbar_expect_tx(bars + 8 * k, 8 * (1024 - J));
+    mbar_expect_tx(slab_bar, 8 * (C - 1) * CM::R0 * J);
+  }
+  __syncthreads();
+  if constexpr ((kVar & kVNoBarriers) == 0)
+    cluster_arrive_release();  // this CTA has started: its segment may be written
+  const int ra = static_cast<int>(blockIdx.x) / C;
   const int rb = ra + half;
-  const bool has_b = rb < rows;
   const Rows io{x + static_cast<size_t>(ra) * dim, x + static_cast<size_t>(rb) * dim,
                 out + static_cast<size_t>(ra) * dim, out + static_cast<size_t>(rb) * dim,
-                has_b, dim, pad};
-  // every CTA of the cluster has started and filled its tables before any
-  // CTA writes into its segment
-  cluster.sync();
+                rb < rows, dim, pad};
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane / CM::LG;
+  const int jl = warp * CM::LG + lane % CM::LG;
+  const int j = rank * J + jl;
 
-  // forward radix-C pass: rows -> the C segments
-#pragma unroll 1
-  for (int k = 0; k < B / (T * U); ++k) {
-    float2 a[U][C];
+  cluster_forward<M, C, kFramed, kVar>(ctab, smem2, seg, bars, io, j, g, lane, rank);
+  if constexpr (kTx) {
+    __syncthreads();         // this CTA's own stores
+    mbar_wait(bars + 8 * warp);  // the others' into sub-block `warp`, all this warp reads
+    __syncwarp();
+  } else {
+    cluster_sync_arrive<kVar>();
+    cluster_sync_wait<kVar>();
+  }
+
+  // warp w's passes read and write sub-block w alone (positions w 1024 ..
+  // w 1024 + 1023): the radix-32 pass's butterflies w 32 + lane, the middle
+  // pass's rows 32 t .. 32 t + 31, the inverse pass's butterflies
+  float2 carry = make_float2(0.0f, 0.0f);
+  fft_pass<kE, false, false, false, 5, M / 1024, M / kE, T, kFramed, 0>(sm, io, carry);
+  __syncwarp();
+  middle_pass<0>(sm, h + static_cast<size_t>(complex_h ? 2 : 1) * rank * M, complex_h, carry);
+  __syncwarp();
+
+  // the inverse radix-32 pass over spans of 1024: butterfly t of sub-block
+  // k = warp, j32 = lane; output m is position k 1024 + lane + 32 m, whose
+  // j = lane + 32 m belongs to CTA m / (32 / C)
+  {
+    const float2* b = sm.buf + sidx(warp * 1024 + lane);
+    float2 v[kE];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = rank * B + threadIdx.x + (k * U + u) * T;
-#pragma unroll
-      for (int m = 0; m < C; ++m) a[u][m] = load_row<kFramed>(io, j + m * M);
+    for (int m = 0; m < kE; ++m) v[m] = b[m * (kE + 1)];
+    // this warp has read its sub-block: tell the peers' warps `warp`, whose
+    // slabs go there (the ablation's variants: every CTA's reads, by the
+    // cluster barrier)
+    if constexpr (kTx) {
+      __syncwarp();
+      if (lane < C && lane != rank) mbar_arrive_remote(dsmem_map(read_bars + 8 * warp, lane));
+    } else {
+      cluster_sync_arrive<kVar>();
     }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = rank * B + threadIdx.x + (k * U + u) * T;
-      dft<C, false>(a[u], nullptr);
-      const int s = sidx(j);
+    for (int q = 1; q < kE; ++q) v[q] = cmulc(v[q], sm.t1k[q * lane]);
+    dft<kE, true>(v, nullptr);
+    // the peers' warps `warp` have read their sub-blocks: the slabs may go
+    if constexpr (kTx) {
+      mbar_wait(read_bars + 8 * warp);
+      __syncwarp();
+    } else {
+      cluster_sync_wait<kVar>();
+    }
 #pragma unroll
-      for (int q = 0; q < C; ++q) {
-        const int e = q * j;  // < N
-        const float2 v = q ? cmul(a[u][q], cmul(ctab[kLo + (e >> 7)], ctab[e & (kLo - 1)]))
-                           : a[u][0];
-        cluster.map_shared_rank(smem2, q)[s] = v;
+    for (int r = 0; r < C; ++r) {
+      if (kTx && r != rank) {
+        const uint32_t dst = dsmem_map(seg, r), bar = dsmem_map(slab_bar, r);
+#pragma unroll
+        for (int mm = 0; mm < kE / C; ++mm)
+          dsmem_store_tx(dst + 8 * slab_index<M, C>(rank, warp, lane + 32 * mm),
+                         v[r * (kE / C) + mm], bar);
+      } else if (kTx) {
+#pragma unroll
+        for (int mm = 0; mm < kE / C; ++mm)
+          smem2[slab_index<M, C>(rank, warp, lane + 32 * mm)] = v[r * (kE / C) + mm];
+      } else {
+        const uint32_t dst = cluster_map<kVar>(seg, r);
+#pragma unroll
+        for (int mm = 0; mm < kE / C; ++mm)
+          dsmem_store(dst + 8 * slab_index<M, C>(rank, warp, lane + 32 * mm),
+                      v[r * (kE / C) + mm]);
       }
     }
   }
-  cluster.sync();
-
-  // the length-M body on this CTA's segment, H's segment `rank`
-  passes<M, kFramed, 0, false>(sm, io, h + static_cast<size_t>(complex_h ? 2 : 1) * rank * M,
-                               complex_h);
-  cluster.sync();
-
-  // inverse radix-C pass: the C segments -> rows
-#pragma unroll 1
-  for (int k = 0; k < B / (T * U); ++k) {
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int j = rank * B + threadIdx.x + (k * U + u) * T;
-      const int s = sidx(j);
-      float2 a[C];
-#pragma unroll
-      for (int q = 0; q < C; ++q) {
-        const float2 v = cluster.map_shared_rank(smem2, q)[s];
-        const int e = q * j;
-        a[q] = q ? cmulc(v, cmul(ctab[kLo + (e >> 7)], ctab[e & (kLo - 1)])) : v;
-      }
-      dft<C, true>(a, nullptr);
-#pragma unroll
-      for (int m = 0; m < C; ++m) store_row<kFramed>(io, j + m * M, a[m]);
-    }
+  if constexpr (kTx) {
+    __syncthreads();  // this CTA's own slabs
+    mbar_wait(slab_bar);  // and the others'
+    __syncwarp();
+  } else {
+    cluster_sync_arrive<kVar>();
+    cluster_sync_wait<kVar>();
   }
-  // no CTA leaves while another still reads its segment
-  cluster.sync();
+
+  cluster_inverse<M, C, kFramed>(ctab, smem2, io, j, jl, g, lane);
+}
+
+// The launch configuration of a cluster kernel: `blocks` CTAs in clusters
+// of `c`, `threads` each, `smem` bytes of dynamic shared memory.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int c, int blocks, int threads, int smem, cudaStream_t stream) : attr{}, cfg{} {
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = c;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cfg.gridDim = dim3(static_cast<unsigned>(blocks));
+    cfg.blockDim = dim3(threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+  }
+};
+
+// How many clusters of the cluster form at segment M and C CTAs the card
+// holds at once (cudaOccupancyMaxActiveClusters), into *clusters.
+template <int M, int C, bool kFramed>
+int cluster_occupancy(int* clusters) {
+  auto kernel = fft_conv_rows_cluster_kernel<M, C, kFramed>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem<M, C>);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch l(C, C, M / kE, kClusterSmem<M, C>, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg));
+}
+
+// The cluster form at segment M: a cluster of C CTAs a pair of rows. A
+// cluster that cannot be placed fails the launch (the error is returned).
+template <int M, int C, bool kFramed, int kVar = 0>
+int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
+                   int complex_h, int rows, int dim, int pad, cudaStream_t stream) {
+  auto kernel = fft_conv_rows_cluster_kernel<M, C, kFramed, kVar>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kClusterSmem<M, C>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int half = (rows + 1) / 2;
+  ClusterLaunch l(C, half * C, M / kE, kClusterSmem<M, C>, stream);
+  e = cudaLaunchKernelEx(&l.cfg, kernel, x, out, tw, h, complex_h, rows, half, dim, pad);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -654,33 +1087,6 @@ int launch_n(const float* x, float* out, const float2* tw, const float* h, int c
   const int half = (rows + 1) / 2;
   kernel<<<half, Plan<N>::T, Plan<N>::kSmem, stream>>>(x, out, tw, h, complex_h, rows,
                                                         half, dim, pad);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The cluster form at n = C * kMaxN: clusters of C CTAs, one a pair of rows.
-// A cluster that cannot be placed fails the launch (the error is returned).
-template <int C, bool kFramed>
-int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
-                   int complex_h, int rows, int dim, int pad, cudaStream_t stream) {
-  auto kernel = fft_conv_rows_cluster_kernel<C, kFramed>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kClusterSmem<C>);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int half = (rows + 1) / 2;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = C;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(half) * C);
-  cfg.blockDim = dim3(kMaxThreads);
-  cfg.dynamicSmemBytes = kClusterSmem<C>;
-  cfg.stream = stream;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, x, out, tw, h, complex_h, rows, half, dim, pad);
-  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -705,12 +1111,13 @@ int launch(const void* x, void* out, const void* tw, const void* h,
     K3_CASE(5120) K3_CASE(6144) K3_CASE(7168) K3_CASE(9216) K3_CASE(10240)
     K3_CASE(11264) K3_CASE(12288) K3_CASE(13312) K3_CASE(14336) K3_CASE(15360)
 #undef K3_CASE
-#define K3_CLUSTER(C) \
-  case C * kMaxN:                                                                         \
-    return framed                                                                         \
-        ? launch_cluster<C, true>(xs, os, t, hs, complex_h, rows, dim, pad, stream)      \
-        : launch_cluster<C, false>(xs, os, t, hs, complex_h, rows, dim, pad, stream);
-    K3_CLUSTER(2) K3_CLUSTER(4) K3_CLUSTER(8)
+#define K3_CLUSTER(NN)                                                                    \
+  case NN:                                                                                \
+    return framed ? launch_cluster<cluster_segment(NN), NN / cluster_segment(NN), true>(   \
+                        xs, os, t, hs, complex_h, rows, dim, pad, stream)                 \
+                  : launch_cluster<cluster_segment(NN), NN / cluster_segment(NN), false>( \
+                        xs, os, t, hs, complex_h, rows, dim, pad, stream);
+    K3_CLUSTER(32768) K3_CLUSTER(65536) K3_CLUSTER(131072)
 #undef K3_CLUSTER
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -731,6 +1138,22 @@ extern "C" int fft_conv_rows(const void* x, void* out, const void* tw,
                              void* stream) {
   return launch(x, out, tw, h, complex_h, rows, n, n, 0, false,
                 static_cast<cudaStream_t>(stream));
+}
+
+// The clusters of the cluster form at transform length n (32768, 65536 or
+// 131072; framed: K3f's instantiation) the card holds at once, into
+// *clusters. Returns the cudaError_t of the query.
+extern "C" int fft_conv_rows_cluster_occupancy(int n, int framed, int* clusters) {
+  switch (n) {
+#define K3_OCC(NN)                                                                       \
+  case NN:                                                                               \
+    return framed                                                                        \
+        ? cluster_occupancy<cluster_segment(NN), NN / cluster_segment(NN), true>(clusters) \
+        : cluster_occupancy<cluster_segment(NN), NN / cluster_segment(NN), false>(clusters);
+    K3_OCC(32768) K3_OCC(65536) K3_OCC(131072)
+#undef K3_OCC
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // K3f: rows x dim unpadded floats -> rows x dim, framed in the kernel with

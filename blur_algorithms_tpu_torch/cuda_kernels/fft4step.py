@@ -19,10 +19,14 @@ Both kernels are the one CUDA source ``csrc/fft4step.cu`` (two C entries).
 A CUDA tensor launches it; a CPU tensor runs the plain version, the
 full-float32 einsum four-step ``ops.fft_mxu._conv_rows_einsum`` under the
 same framing. Up to ``BODY_N`` (16384) one block holds a pair of rows; past
-it (32768, 65536, 131072) a thread-block cluster of ``n / BODY_N`` CTAs
-does, each on a segment of ``BODY_N`` (the cluster form: a radix-``C`` pass
-first and last, over distributed shared memory). Past ``MAX_N`` the
-wrappers raise.
+it (32768, 65536, 131072) a thread-block cluster does, CTA q on segment q
+of ``cluster_segment(n)`` points (the cluster form): the transform's first
+pass (radix ``n / 1024``) reads the rows and stores each output into its
+segment's CTA over distributed shared memory, the segments run the body's
+radix-32 passes, and the last pass, the first's adjoint, runs where the
+segments push its inputs. ``_radices`` past ``BODY_N`` names the first
+pass's two digits (``C``, then ``segment / 1024``), which set the bin order
+H is kept in. Past ``MAX_N`` the wrappers raise.
 """
 
 from __future__ import annotations
@@ -45,6 +49,8 @@ __all__ = [
     "BODY_N",
     "MAX_N",
     "blur_fft_mxu_cuda",
+    "cluster_occupancy",
+    "cluster_segment",
     "conv_axis_framed",
     "fft_conv_rows",
     "fft_conv_rows_framed",
@@ -56,7 +62,8 @@ __all__ = [
 # 128 KB of its shared memory (of 227 KB on an H100). Past it the cluster
 # form splits the row into segments of this length, one a CTA.
 BODY_N = 16384
-# Longest transform K3/K3f take: a cluster of 8 CTAs (the portable limit).
+# Longest transform K3/K3f take: a cluster of 8 CTAs of BODY_N (the portable
+# cluster size).
 MAX_N = 8 * BODY_N
 
 # ROADMAP.md item naming the lengths past MAX_N
@@ -80,16 +87,28 @@ def kernel_length(n: int) -> bool:
         4096 < n <= BODY_N and n % 1024 == 0)
 
 
-def _radices(n: int) -> list[int]:
-    """The kernel's forward passes, in order: past ``BODY_N`` the cluster
-    pass (radix ``n / BODY_N``) and then the passes of ``BODY_N``; else
-    radix Q, the odd part of ``n`` (when > 1), radix R0 (when > 1), then
-    ``a`` radix-32 passes, with ``n = Q * R0 * 32**a`` and ``a = 2`` from
+def cluster_segment(n: int) -> int:
+    """The segment a CTA of the cluster form holds at transform length
+    ``n`` past ``BODY_N``: 8192 at 65536 (clusters of 8, two CTAs an SM),
+    ``BODY_N`` at 32768 and 131072 (clusters of 2 and 8), the faster on the
+    card (``csrc/fft4step.cu``: ``cluster_segment``)."""
+    return 8192 if n == 65536 else BODY_N
+
+
+def _radices(n: int, segment: int | None = None) -> list[int]:
+    """The kernel's forward passes, in order: past ``BODY_N`` the two
+    digits of the cluster form's first pass (radix ``C = n / segment`` over
+    the segments, then radix ``segment / 1024``: one pass of radix
+    ``n / 1024`` in the kernel) and then the segment's radix-32 passes
+    (``segment``: ``cluster_segment(n)``, or a probe variant's); else radix
+    Q, the odd part of ``n`` (when > 1), radix R0 (when > 1), then ``a``
+    radix-32 passes, with ``n = Q * R0 * 32**a`` and ``a = 2`` from
     ``n / Q = 1024`` on (``csrc/fft4step.cu``: ``launch``)."""
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
     if n > BODY_N:
-        return [n // BODY_N] + _radices(BODY_N)
+        seg = segment or cluster_segment(n)
+        return [n // seg] + _radices(seg)
     q, p = n, 0
     while q % 2 == 0:
         q //= 2
@@ -99,14 +118,14 @@ def _radices(n: int) -> list[int]:
     return [r for r in (q, r0) if r > 1] + [32] * a
 
 
-def _kernel_bin_order(n: int) -> np.ndarray:
+def _kernel_bin_order(n: int, segment: int | None = None) -> np.ndarray:
     """Natural frequency held at each position of the kernel's forward
     spectrum (digit-reversed: the first pass's digit is the position's
     most significant and the frequency's least significant)."""
     rem = np.arange(n, dtype=np.int64)
     k = np.zeros(n, dtype=np.int64)
     span, mult = n, 1
-    for r in _radices(n):
+    for r in _radices(n, segment):
         span //= r
         k += (rem // span) * mult
         rem = rem % span
@@ -123,9 +142,10 @@ def _twiddle_tables(n: int) -> np.ndarray:
     W_n^l`` (l < 128), ``Thi[h] = W_n^(128 h)`` (h < n / 128, zero past
     it), ``W_Q^k`` (k < Q, zero past it), each ``exp(-2 pi i x / n)`` in
     float64 rounded to float32. The kernel takes ``W_n^e = Thi[e >> 7] *
-    Tlo[e & 127]``. Past ``BODY_N``: the tables of ``BODY_N`` (the segments'
-    body), then the cluster pass's ``W_n^l`` (l < 128) and ``W_n^(128 h)``
-    (h < n / 128), (400 + n / 128, 2) in all."""
+    Tlo[e & 127]``. Past ``BODY_N``: the tables of ``BODY_N`` (each CTA
+    fills its W_1024 table from them, at either segment length), then the
+    first pass's ``W_n^l`` (l < 128) and ``W_n^(128 h)`` (h < n / 128, whose
+    entries 8 e are its W_(n/1024)^e), (400 + n / 128, 2) in all."""
     if n > BODY_N:
         ang = -2.0 * np.pi * np.concatenate(
             [np.arange(_LO), _LO * np.arange(n // _LO)]) / n
@@ -153,12 +173,14 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=128)
-def _kernel_spectrum(axis_plan, n: int, device: torch.device) -> tuple[torch.Tensor, bool]:
+def _kernel_spectrum(axis_plan, n: int, device: torch.device,
+                     segment: int | None = None) -> tuple[torch.Tensor, bool]:
     """The correlation spectrum conj(fft(wrap_centered(taps, n))) / n in the
-    kernel's bin order: n floats (symmetric taps) or (n, 2) interleaved
-    complex, and whether it is complex."""
+    kernel's bin order (of ``segment``'s cluster form past ``BODY_N``): n
+    floats (symmetric taps) or (n, 2) interleaved complex, and whether it
+    is complex."""
     full = np.conj(np.fft.fft(wrap_centered(axis_plan.taps, n).astype(np.float64))) / n
-    full = full[_kernel_bin_order(n)]
+    full = full[_kernel_bin_order(n, segment)]
     if axis_plan.symmetric:
         return torch.from_numpy(full.real.astype(np.float32)).to(device), False
     h = np.stack([full.real, full.imag], axis=-1).astype(np.float32)
@@ -202,6 +224,25 @@ def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
     return out
+
+
+def cluster_occupancy(n: int, framed: bool = False) -> int:
+    """How many clusters of the cluster form's kernel at transform length
+    ``n`` (K3f's where ``framed``) the current CUDA card holds at once
+    (``cudaOccupancyMaxActiveClusters``); raises on a failed query."""
+    import ctypes
+
+    from blur_algorithms_tpu_torch.utils.build import load_library
+
+    if n <= BODY_N or not kernel_length(n):
+        raise ValueError(f"n = {n} is not a length of the cluster form")
+    lib = load_library()
+    out = ctypes.c_int(0)
+    rc = lib.fft_conv_rows_cluster_occupancy(n, int(framed), ctypes.byref(out))
+    if rc:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA error {rc} "
+                           f"({lib.blur_cuda_error_string(rc).decode()})")
+    return out.value
 
 
 def fft_conv_rows(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:

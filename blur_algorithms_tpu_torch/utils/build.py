@@ -160,6 +160,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.fft_conv_rows_framed.restype = i
+    lib.fft_conv_rows_cluster_occupancy.argtypes = [i, i, ctypes.POINTER(i)]  # n, framed
+    lib.fft_conv_rows_cluster_occupancy.restype = i
     lib.spectral_multiply_2d.argtypes = [
         vp, vp, vp, vp,  # spec, out, col, row
         f, i, i, i,  # scale, planes, h, wf
@@ -193,6 +195,27 @@ def _declare_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.fft_conv_rows_ablation.restype = i
+    lib.fft_cluster_ablation.argtypes = [
+        i, i,  # variant, framed
+        vp, vp, vp, vp,  # x, out, twiddle tables, spectrum
+        i, i, i, i, i,  # complex_h, rows, n, dim, pad
+        vp,  # stream
+    ]
+    lib.fft_cluster_ablation.restype = i
+    lib.fft_cluster_current_ablation.argtypes = [
+        i, i, vp, vp, vp, vp,  # variant, framed, x, out, twiddle tables, spectrum
+        i, i, i, i, i,  # complex_h, rows, n, dim, pad
+        vp,  # stream
+    ]
+    lib.fft_cluster_current_ablation.restype = i
+    lib.fft_cluster_other_segment.argtypes = [
+        i, vp, vp, vp, vp,  # framed, x, out, twiddle tables, spectrum
+        i, i, i, i, i,  # complex_h, rows, n, dim, pad
+        vp,  # stream
+    ]
+    lib.fft_cluster_other_segment.restype = i
+    lib.fft_cluster_ablation_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
+    lib.fft_cluster_ablation_occupancy.restype = i  # variant, n, framed, clusters
     lib.fetch_windows.argtypes = [
         i, vp, vp,  # tma, x, out
         i, i, i, i, i, i, i, i, i,  # planes, hp, pitch, width, stride, nwin, chunk_rows, g, smem

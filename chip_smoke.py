@@ -219,9 +219,11 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    blur runs a probe: their counts, set to 0 before phase 3, are still 0
    before phase 17;
 18. K3 and K3f's cluster form (n 32768, 65536, 131072: a thread-block
-   cluster of n / 16384 CTAs a pair of rows) against the plain version,
+   cluster of n / cluster_segment(n) CTAs a pair of rows) against the plain version,
    symmetric and asymmetric taps, odd row counts, within 2e-2 at 0..255
-   scale, with ptxas's registers and spills; then, counts set to 0 before
+   scale, with ptxas's registers and spills (PR 16's design of it too, the
+   yardstick in the probes' library) and ``cudaOccupancyMaxActiveClusters``
+   for each C; then, counts set to 0 before
    each call (launches and ``cluster_launches``): ``blur`` AUTO forward +
    backward on the (4, 3, 2160, 15360) panorama at sigma 400 (K3f's
    cluster form on the rows forward, K3's in the adjoint; ``x.grad`` equal
@@ -234,9 +236,11 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    65536, never the whole-frame path; frame 0 within 1 count of the
    single-frame ``"fft_mxu"``) and ``"fft_stream"`` on one frame against
    ``"fft_tiles"``; times (CUDA events, median of 5): K3's cluster form on
-   the panorama's adjoint rows and K3f's on the giant frame's 72000 rows of
-   14500 (n 32768) beside their plain versions, bounds and cuFFT, the
-   three calls, and AUTO against ``"fused"`` on the sigma 900 frame.
+   the panorama's adjoint rows, K3f's on the giant frame's 72000 rows of
+   14500 (n 32768) and on one streamed column strip (12288 rows of 24000,
+   n 65536: clusters of 8) beside their plain versions, bounds and cuFFT, each also
+   in turns with PR 16's design of the cluster form (median of 20 a turn),
+   the three calls, and AUTO against ``"fused"`` on the sigma 900 frame.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -249,6 +253,7 @@ It exits non-zero, printing no result, where no CUDA device is available.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import json
@@ -3676,7 +3681,8 @@ def _phase18_kernels() -> dict:
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
             errs["K3"] = max(errs["K3"], err)
-            print(f"phase 18 K3 cluster form vs plain: 9 rows n={n} (C={n // 16384}) "
+            print(f"phase 18 K3 cluster form vs plain: 9 rows n={n} "
+                  f"(C={n // fft4step.cluster_segment(n)}) "
                   f"taps={width} {'asymmetric' if asym else 'symmetric'} "
                   f"max_abs_err={err:.3e} limit={FFT_TOL}", flush=True)
             if not err <= FFT_TOL:
@@ -3696,11 +3702,52 @@ def _phase18_kernels() -> dict:
             if nf != n or not err <= FFT_TOL:
                 raise RuntimeError(f"K3f's cluster form at {nf} (want {n}) disagrees with "
                                    "its plain version")
-    for name, line in _ptxas_lines(("fft_conv_rows_cluster_kernel",)):
+    from blur_algorithms_tpu_torch.utils import build
+
+    # registers and spills of every instantiation, the current kernel's and
+    # PR 16's (the yardstick in the probes' library, built for phase 17)
+    for name, line in (_ptxas_lines(("fft_conv_rows_cluster_kernel",))
+                       + _ptxas_lines(("fft_cluster_pr16_kernel",),
+                                      build.last_probe_build.get("log", ""))):
         print(f"phase 18 ptxas {name}: {line}", flush=True)
+    plib = build.load_probe_library()
+    for n, _ in CLUSTER_CASES:
+        for framed in (False, True):
+            old = ctypes.c_int(-1)
+            rc = plib.fft_cluster_ablation_occupancy(0, n, int(framed), ctypes.byref(old))
+            if rc:
+                raise RuntimeError(f"PR 16's occupancy query failed: CUDA error {rc}")
+            cur = fft4step.cluster_occupancy(n, framed)
+            c, c16 = n // fft4step.cluster_segment(n), n // fft4step.BODY_N
+            print(f"phase 18 cudaOccupancyMaxActiveClusters n={n} {'K3f' if framed else 'K3'}: "
+                  f"{cur} clusters of {c} ({cur * c} CTAs of "
+                  f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs); PR 16's "
+                  f"kernel {old.value} of {c16}", flush=True)
     print(f"phase 18 worst: K3 cluster form max_abs_err={errs['K3']:.3e}, K3f "
           f"{errs['K3f']:.3e} (limit {FFT_TOL})", flush=True)
     return errs
+
+
+def _against_pr16(entry, rows, n, axis_plan, framed: bool, label: str) -> dict:
+    """The cluster form against PR 16's design of it (B2's yardstick, never
+    a path), in turns on the same rows: the two outputs' largest difference
+    and each one's time."""
+    from blur_algorithms_tpu_torch.benchmarks import fft_mxu_ablation as b2
+
+    got = entry(rows, n, axis_plan)
+    old = b2.cluster_ablation(rows, n, axis_plan, "pr16", framed)
+    torch.cuda.synchronize()
+    diff = float((got - old).abs().max())
+    del got, old
+    t = _in_turns(label, {"current": lambda: entry(rows, n, axis_plan),
+                          "pr16": lambda: b2.cluster_ablation(rows, n, axis_plan, "pr16",
+                                                              framed)})
+    print(f"phase 18 {label} in turns with PR 16's kernel: current {t['current']:.4f} ms, "
+          f"PR 16 {t['pr16']:.4f} ms ({t['current'] / t['pr16']:.3f}x); outputs differ by "
+          f"{diff:.3e} (limit {FFT_TOL})", flush=True)
+    if not diff <= FFT_TOL:
+        raise RuntimeError(f"the cluster form and PR 16's differ by {diff} at {label}")
+    return {"current_ms": t["current"], "pr16_ms": t["pr16"]}
 
 
 def _giant_u8(batch: int) -> torch.Tensor:
@@ -3779,8 +3826,11 @@ def _slice16() -> list[dict]:
     padded = torch.nn.functional.pad(x.reshape(-1, PANO_W), (2 * r, n_adj - PANO_W - 2 * r))
     del xg, x
     torch.cuda.empty_cache()
-    k3_d = _kernel_times(k3, padded.contiguous(), n_adj, plan.row, False,
+    padded = padded.contiguous()
+    k3_d = _kernel_times(k3, padded, n_adj, plan.row, False,
                          f"K3 cluster form adjoint rows sigma={SIGMA_F32_WIDE}", 18)
+    k3_d["in_turns"] = _against_pr16(k3, padded, n_adj, plan.row, False,
+                                     f"K3 cluster form adjoint rows sigma={SIGMA_F32_WIDE}")
     del padded
     torch.cuda.empty_cache()
 
@@ -3823,6 +3873,8 @@ def _slice16() -> list[dict]:
     torch.cuda.empty_cache()
     k3f_d = _kernel_times(k3f, rows, transform_length(plan.row), plan.row, True,
                           f"K3f cluster form giant rows sigma={SIGMA_GIANT}", 18)
+    k3f_d["in_turns"] = _against_pr16(k3f, rows, transform_length(plan.row), plan.row, True,
+                                      f"K3f cluster form giant rows sigma={SIGMA_GIANT}")
     del rows
     torch.cuda.empty_cache()
 
@@ -3868,6 +3920,16 @@ def _slice16() -> list[dict]:
     t_streamed = timing.time_cuda(blur_u8, img, SIGMA_STREAMED, iters=GIANT_ITERS, warmup=1,
                                   name=f"blur_u8 AUTO streamed 4 giant frames sigma={SIGMA_STREAMED}",
                                   megapixels=BATCH * GIANT_H * GIANT_W / 1e6)
+    # K3f's cluster form alone on one column strip of the streamer (1024
+    # columns of each of the 12 planes: 12288 rows of 24000, n 65536; clusters of
+    # 8 CTAs of 8192, PR 16's kernel 4 of 16384)
+    rows = img[:, :, :1024, :].permute(0, 3, 2, 1).reshape(-1, GIANT_H).float().contiguous()
+    nc = transform_length(plan.col)
+    label = f"K3f cluster form streamed column strip sigma={SIGMA_STREAMED}"
+    strip_d = _kernel_times(k3f, rows, nc, plan.col, True, label, 18)
+    strip_d["in_turns"] = _against_pr16(k3f, rows, nc, plan.col, True, label)
+    del rows
+    torch.cuda.empty_cache()
     one = img[:1]
     del img
     torch.cuda.empty_cache()
@@ -3889,17 +3951,20 @@ def _slice16() -> list[dict]:
     for name, n in launched.items():
         if n < 1:
             raise RuntimeError(f"{name}'s cluster form was not launched on the main path")
-    entry = lambda name, line, n, d, err: {  # noqa: E731
+    entry = lambda name, line, n, d, err, **more: {  # noqa: E731
         "name": name, "route": "cuda", "source": "blur_algorithms_tpu_torch/csrc/fft4step.cu",
         "replaces": line, "launches": n, "max_abs_err": err, "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-        "library_ms": d["library_ms"],
+        "library_ms": d["library_ms"], "in_turns_with_pr16": d["in_turns"], **more,
     }
+    strip = {k: strip_d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                     "in_turns")}
     return [
         entry("fft4step_cluster", "blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
               launched["K3"], k3_d, max(errs["K3"], k3_d["err"])),
         entry("fft4step_framed_cluster", "blur_algorithms_tpu/pallas_kernels/fft4step.py:157",
-              launched["K3f"], k3f_d, max(errs["K3f"], k3f_d["err"])),
+              launched["K3f"], k3f_d, max(errs["K3f"], k3f_d["err"], strip_d["err"]),
+              column_strip_c4=strip),
     ]
 
 

@@ -208,8 +208,8 @@ def test_k3f_against_plain_version_on_the_card(cuda_device, dim, width, asymmetr
 @pytest.mark.parametrize("n", [32768, 65536, 131072])
 @pytest.mark.parametrize("framed", [False, True])
 def test_k3_cluster_form_against_plain_version_on_the_card(cuda_device, n, framed):
-    """K3/K3f past 16384: a thread-block cluster of n / 16384 CTAs a pair of
-    rows (odd row counts: a zero row rides along)."""
+    """K3/K3f past 16384: a thread-block cluster of n / cluster_segment(n)
+    CTAs a pair of rows (odd row counts: a zero row rides along)."""
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
 

@@ -7,15 +7,21 @@ inverse pass. A NumPy model of those passes, fed the host's tables
 (``_twiddle_tables``, ``_kernel_spectrum`` in ``_kernel_bin_order``),
 reproduces the plain version ``_conv_rows_einsum`` (which
 ``tests/test_torch_fft_mxu.py`` holds against the JAX package) within 1e-3
-at 0..255 scale, the cluster form's lengths (32768, 65536, 131072: a
-radix-C pass with the cluster pass's own W_n tables, then the length-16384
-body with its tables on each segment) included, and ``np.fft`` at those
-lengths. A model of the kernel's thread mapping checks that every
-pass touches each position once, with no shared-memory bank conflict, and
-that the twiddle exponents stay below n; the cluster pass's mapping over
-the cluster's CTAs likewise. The two-level table's f32 product
-stays within 4 * 2^-24 of the float64 root (the bound the source note
-states). K5's grid and its head / pairs / tail split cover every value of
+at 0..255 scale, the cluster form's lengths (32768, 65536, 131072) included,
+and ``np.fft`` at those lengths. The cluster form is modelled as
+``fft_conv_rows_cluster_kernel`` runs it, lane group by lane group: the
+first pass (radix n / 1024 over stride 1024: radix-C DFTs with rotated
+outputs, the W_(n/1024) table entries, the shuffles between a group's
+G = n / 32768 lanes, radix-R0 DFTs, the outer W_n twiddles with the
+rotation's correction), the segments' radix-32 passes, and the last pass
+as its adjoint. A model of the
+kernel's thread mapping checks that every pass touches each position once,
+with no shared-memory bank conflict, and that the twiddle exponents stay
+below n; the cluster form's mapping over the cluster's CTAs likewise (each
+position loaded, stored, pushed and read back once, shuffle partners in
+one warp, the slabs read without bank conflicts). The two-level table's
+f32 product stays within 4 * 2^-24 of the float64 root (the bound the
+source note states). K5's grid and its head / pairs / tail split cover every value of
 every plane once, with 16-byte-aligned pairs.
 """
 
@@ -104,18 +110,109 @@ def _dft(radix, wq):
     return wq[m].astype(np.complex128)
 
 
+def _cluster_geometry(n, segment=None):
+    """(M, C, G, MG, QG, J) of the cluster form at n (``csrc/fft4step.cu``:
+    ``ClusterMap``): the segment, CTAs a cluster, lanes a group, m values a
+    lane, outputs q a lane, j values a CTA."""
+    m_len = segment or k3.cluster_segment(n)
+    c, grp = n // m_len, n // 32768
+    return m_len, c, grp, m_len // 1024 // grp, c // grp, 1024 // c
+
+
+def _quarter_turns(k):
+    """(-i)^k, the kernel's ``quarter_turns``."""
+    return (-1j) ** (np.asarray(k) % 4)
+
+
+def _outer_twiddle(n, q, k, j, g, segment=None):
+    """The first and last pass's outer twiddle of output (q, k) at butterfly
+    j in lane g: W_n^(kk j) (kk = q + C k) times the lane's rotation
+    W_G^(k g), as the kernel forms its exponent and the product of its two
+    W_n tables (f32)."""
+    _, c, grp, _, _, _ = _cluster_geometry(n, segment)
+    step = (c * j + g * (n // grp)) % n
+    return _twiddle(n, (q * j + k * step) % n).astype(np.complex128)
+
+
+def _inner_twiddle(n, q, m):
+    """W_(n/1024)^(q m), the W_n^(128 h) table's entry 8 q m."""
+    return _tables(n)[1][8 * q * m].astype(np.complex128)
+
+
+def _cluster_forward(z, n, segment=None):
+    """``cluster_forward`` over every butterfly j and lane g: (half, n) rows
+    -> (half, n) segments, segment q at [q M, (q + 1) M)."""
+    m_len, c, grp, mg, qg, _ = _cluster_geometry(n, segment)
+    r0 = m_len // 1024
+    j = np.arange(1024)
+    seg = np.zeros_like(z)
+    a = {}
+    for g in range(grp):  # the loads, radix-C DFTs and inner twiddles
+        a[g] = [[z[:, j + 1024 * (g * mg + mi) + m_len * cc] for mi in range(mg)]
+                for cc in range(c)]
+        for mi in range(mg):
+            v = np.einsum("sc,cbj->sbj", _dft(c, None), np.array(
+                [a[g][cc][mi] * _quarter_turns(g * cc * (4 // grp)) for cc in range(c)]))
+            m = g * mg + mi
+            for s in range(c):
+                a[g][s][mi] = v[s] * _inner_twiddle(n, (s + qg * g) % c, m)
+    for g in range(grp):  # the shuffles, radix-R0 DFTs, outer twiddles, stores
+        for e in range(qg):
+            w = np.array([a[(g + d) % grp][(e - qg * d) % c][mi]
+                          for d in range(grp) for mi in range(mg)])
+            y = np.einsum("kt,tbj->kbj", _dft(r0, None), w)
+            q = qg * g + e
+            for k in range(r0):
+                seg[:, m_len * q + j + 1024 * k] = y[k] * _outer_twiddle(n, q, k, j, g, segment)
+    return seg
+
+
+def _cluster_inverse(seg, n, segment=None):
+    """``cluster_inverse`` over every j and g: segments -> rows."""
+    m_len, c, grp, mg, qg, _ = _cluster_geometry(n, segment)
+    r0 = m_len // 1024
+    j = np.arange(1024)
+    out = np.zeros_like(seg)
+    w = {}
+    for g in range(grp):
+        for e in range(qg):
+            q = qg * g + e
+            t = np.array([seg[:, m_len * q + j + 1024 * k]
+                          * np.conj(_outer_twiddle(n, q, k, j, g, segment)) for k in range(r0)])
+            w[g, e] = np.einsum("tk,kbj->tbj", np.conj(_dft(r0, None)), t)
+    for g in range(grp):
+        a = {}
+        for d in range(grp):
+            for e in range(qg):
+                for mi in range(mg):
+                    a[(e - qg * d) % c, mi] = w[(g - d) % grp, e][d * mg + mi]
+        for mi in range(mg):
+            m = g * mg + mi
+            v = np.array([a[s, mi] * np.conj(_inner_twiddle(n, (s + qg * g) % c, m))
+                          for s in range(c)])
+            v = np.einsum("cs,sbj->cbj", np.conj(_dft(c, None)), v)
+            for cc in range(c):
+                out[:, j + 1024 * m + m_len * cc] = v[cc] * np.conj(
+                    _quarter_turns(g * cc * (4 // grp)))
+    return out
+
+
 def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
     """NumPy model of the kernel: pairs (c, c + half) packed as z = a + ib,
     the forward passes (DFT, then twiddles), H in the kernel's bin order,
-    the inverse passes (conjugate twiddles, then the conjugate DFT)."""
+    the inverse passes (conjugate twiddles, then the conjugate DFT); past
+    ``BODY_N`` the cluster form's first and last pass, and the segments'
+    radix-32 passes between them."""
     r = rows.shape[0]
     half = (r + 1) // 2
     z = rows[:half].astype(np.complex128)
     z[: r - half] += 1j * rows[half:]
     _, _, wq = _tables(min(n, k3.BODY_N))
+    radices, span = k3._radices(n), n
+    if n > k3.BODY_N:
+        z, radices, span = _cluster_forward(z, n), radices[2:], 1024
     spans = []
-    span = n
-    for radix in k3._radices(n):
+    for radix in radices:
         s = span // radix
         qj = np.outer(np.arange(radix), np.arange(s))
         spans.append((radix, span, s, _pass_twiddle(n, span, qj).astype(np.complex128)))
@@ -130,6 +227,8 @@ def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
         cube = z.reshape(half, n // span, radix, s) * np.conj(tw)
         cube = np.einsum("mq,bkqs->bkms", np.conj(_dft(radix, wq)), cube)
         z = cube.reshape(half, n)
+    if n > k3.BODY_N:
+        z = _cluster_inverse(z, n)
     return np.concatenate([z.real, z.imag])[:r]
 
 
@@ -150,23 +249,33 @@ def test_model_of_the_passes_reproduces_the_plain_version(n, asymmetric):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
 
 
-@pytest.mark.parametrize("n", CLUSTER_LENGTHS)
-def test_model_of_the_cluster_form_reproduces_numpy_fft(n):
-    """The model's forward passes alone (the cluster pass, then a
-    segment's body) leave frequency ``_kernel_bin_order(n)[p]`` at position
-    p, to f32 twiddle rounding, and its inverse passes undo them."""
+@pytest.mark.parametrize("n, segment", [(32768, 16384), (65536, 8192), (131072, 16384),
+                                        (32768, 8192), (65536, 16384)])
+def test_model_of_the_cluster_form_reproduces_numpy_fft(n, segment):
+    """The model's forward passes alone (the cluster form's first pass, then
+    a segment's radix-32 passes) leave frequency ``_kernel_bin_order(n)[p]``
+    at position p, to f32 twiddle rounding, and the adjoint passes undo
+    them (times n); with the kernels' segments and with the probe's other
+    segment lengths."""
     z = np.array([1, 1j]) @ np.random.default_rng(n).standard_normal((2, n))
-    x = z[None].copy()
-    span = n
+    x = _cluster_forward(z[None], n, segment)
+    span = 1024
     _, _, wq = _tables(k3.BODY_N)
-    for radix in k3._radices(n):
+    spans = []
+    for radix in k3._radices(n, segment)[2:]:
         s = span // radix
         tw = _pass_twiddle(n, span, np.outer(np.arange(radix), np.arange(s)))
+        spans.append((radix, span, s, tw))
         cube = np.einsum("qm,bkms->bkqs", _dft(radix, wq), x.reshape(1, n // span, radix, s))
         x = (cube * tw).reshape(1, n)
         span = s
-    want = np.fft.fft(z)[k3._kernel_bin_order(n)]
+    want = np.fft.fft(z)[k3._kernel_bin_order(n, segment)]
     assert np.abs(x[0] - want).max() <= 1e-5 * np.abs(want).max()
+    for radix, span, s, tw in reversed(spans):
+        cube = x.reshape(1, n // span, radix, s) * np.conj(tw)
+        x = np.einsum("mq,bkqs->bkms", np.conj(_dft(radix, wq)), cube).reshape(1, n)
+    back = _cluster_inverse(x, n, segment)[0] / n
+    assert np.abs(back - z).max() <= 1e-5 * np.abs(z).max()
 
 
 @pytest.mark.parametrize("n", LENGTHS)
@@ -206,32 +315,133 @@ def test_thread_mapping_covers_each_position_once_without_conflicts(n):
                         assert len(set(lanes[:, m])) == 32, (radix, warp, m)
 
 
+def _slab_index(n, q, k, jl, segment=None):
+    """``slab_index<M, C>``: slab (q, k) of a CTA's slabs, inside its own
+    sub-block k, padded as ``sidx``."""
+    _, _, _, _, _, jj = _cluster_geometry(n, segment)
+    i = k * 1024 + q * jj + jl
+    return i + (i >> 5)
+
+
+def _half_warps_conflict_free(slots):
+    """An 8-byte access by a warp's 32 lanes runs as two half-warps; each is
+    free of bank conflicts when its 16 slots fall in distinct bank pairs."""
+    slots = np.asarray(slots)
+    return all(len(set(slots[h:h + 16] % 16)) == 16 for h in (0, 16))
+
+
+# (n, segment): the kernels' (``cluster_segment``) and the other segment
+# lengths that probes/k3_cluster_variants.py times beside them
+CLUSTER_CASES = [(32768, 16384), (65536, 8192), (131072, 16384), (32768, 8192),
+                 (65536, 16384)]
+SM_SHARED = 233472  # bytes of shared memory an H100 SM gives its CTAs
+CTA_RESERVED = 1024  # and keeps for each CTA
+
+
+def _cluster_smem(m_len, c):
+    """``kClusterSmem<M, C>``: the padded segment, the body's tables, the
+    W_1024 table, the first pass's W_n tables and the mbarriers, 8 bytes an
+    entry."""
+    return (8 * (m_len + m_len // 32) + 8 * 272 + 8 * 1024 + 8 * (128 + c * m_len // 128)
+            + 8 * (2 * m_len // 1024 + 1))
+
+
+@pytest.mark.parametrize("n, segment", CLUSTER_CASES)
+def test_cluster_pass_mapping_covers_each_position_once(n, segment):
+    """``fft_conv_rows_cluster_kernel``'s mapping: CTA r's thread t is warp
+    w, lane l, group lane g = l / (32 / G), j = r J + w (32 / G) + l % (32 /
+    G). Over the cluster: the first pass loads every position of the row
+    once; a shuffle's source lane is in the same warp, on the same j, at
+    group lane (g + d) mod G; the first pass's stores fill every segment
+    position of every CTA once (a warp's lanes bound for one CTA on
+    consecutive positions); the inverse radix-32 pass pushes every slab slot
+    of every CTA once and the last pass reads each once, both free of bank
+    conflicts; the last pass stores every position once. The twiddle
+    exponents stay below 2^31 before their mask and the W_(n/1024) entries
+    inside the table. Each sub-block's and the slabs' mbarrier sees exactly
+    the values it expects arrive from the other CTAs. CTAs an SM: two at
+    segments of 8192 (shared memory and 128 registers a thread), one at
+    16384."""
+    m_len, c, grp, mg, qg, jj = _cluster_geometry(n, segment)
+    r0, threads, lg = m_len // 1024, m_len // 32, 32 // grp
+    assert c in (2, 4, 8) and c * m_len == n and k3._radices(n, segment)[:2] == [c, r0]
+    assert c * mg == 32 and qg * r0 == 32 and threads // 32 == r0
+    resident = k3.BODY_N // m_len
+    assert resident * (_cluster_smem(m_len, c) + CTA_RESERVED) <= SM_SHARED
+    assert resident * threads * 128 <= 65536
+    loads, stores = np.zeros(n, int), np.zeros(n, int)
+    segs = np.zeros((c, m_len), int)
+    # values each CTA's mbarriers see arrive from the other CTAs: sub-block
+    # k's (the first pass) and the slabs' (the inverse radix-32 pass)
+    remote_sub, remote_slab = np.zeros((c, r0), int), np.zeros(c, int)
+    pushed, read = np.zeros((c, m_len + m_len // 32), int), np.zeros((c, m_len + m_len // 32), int)
+    assert 8 * (c - 1) * (r0 - 1) < n // 128  # the W_(n/1024) entries
+    for r in range(c):
+        t = np.arange(threads)
+        warp, lane = t >> 5, t & 31
+        g, jl = lane // lg, (t >> 5) * lg + lane % lg
+        j = r * jj + jl
+        assert (jl < jj).all()
+        for mi in range(mg):
+            for cc in range(c):
+                np.add.at(loads, j + 1024 * (g * mg + mi) + m_len * cc, 1)
+                np.add.at(stores, j + 1024 * (g * mg + mi) + m_len * cc, 1)
+        for d in range(1, grp):
+            src = (lane + d * lg) & 31
+            assert (g[warp * 32 + src] == (g + d) % grp).all()
+            assert (j[warp * 32 + src] == j).all()
+        for e in range(qg):
+            q = qg * g + e
+            step = (c * j + g * (n // grp)) % n
+            for k in range(r0):
+                assert (q * j + k * step < 2**31).all()  # no int overflow before the mask
+                np.add.at(segs, (q, j + 1024 * k), 1)
+                np.add.at(remote_sub, (q[q != r], k), 1)
+                for w in range(threads // 32):
+                    lanes = slice(32 * w, 32 * w + 32)
+                    for dst in set(q[lanes]):
+                        pos = (j + 1024 * k)[lanes][q[lanes] == dst]
+                        assert (np.diff(pos) == 1).all()
+                slots = _slab_index(n, q, k, jl, segment)
+                np.add.at(read, (r, slots), 1)
+                for w in range(threads // 32):
+                    assert _half_warps_conflict_free(slots[32 * w:32 * w + 32])
+        # the inverse radix-32 pass of CTA r: sub-block k = warp, output m of
+        # j = lane + 32 m goes to CTA m / (32 / C)
+        for m in range(32):
+            dst, jl_dst = m // (32 // c), lane + 32 * (m % (32 // c))
+            assert (dst * jj + jl_dst == lane + 32 * m).all()
+            slots = _slab_index(n, r, warp, jl_dst, segment)
+            # a slab lands in the receiver's sub-block `warp` alone: only
+            # the receiver's warp `warp` reads there first
+            assert ((slots >= (1024 + 32) * warp) & (slots < (1024 + 32) * (warp + 1))).all()
+            np.add.at(pushed, (dst, slots), 1)
+            remote_slab[dst] += threads if dst != r else 0
+            for w in range(threads // 32):
+                assert _half_warps_conflict_free(slots[32 * w:32 * w + 32])
+    assert (loads == 1).all() and (stores == 1).all() and (segs == 1).all()
+    assert (pushed == read).all() and pushed.sum() == c * m_len and pushed.max() == 1
+    # what the kernel's mbarriers expect (mbar_expect_tx, 8 bytes a value):
+    # a wrong count would leave a wait unfinished
+    assert (remote_sub == 1024 - jj).all()
+    assert (remote_slab == (c - 1) * r0 * jj).all()
+    assert 8 * (c - 1) * r0 * jj < 2**20  # an mbarrier's transaction count
+
+
+@pytest.mark.parametrize("n", LENGTHS)
+def test_kernel_bin_order_is_a_permutation(n):
+    order = k3._kernel_bin_order(n)
+    assert order.shape == (n,) and (np.sort(order) == np.arange(n)).all()
+
+
 @pytest.mark.parametrize("n", CLUSTER_LENGTHS)
-def test_cluster_pass_mapping_covers_each_position_once(n):
-    """``fft_conv_rows_cluster_kernel``'s radix-C passes: CTA c's thread t
-    takes butterflies j = c B + t + (k U + u) T (B = M / C, T = 512 threads,
-    U butterflies at once, M = 16384): over the cluster every j < M once, so
-    every position j + m M of the transform once; a warp's 32 lanes take 32
-    consecutive j, whose segment positions i + (i >> 5) fall in distinct
-    banks; the twiddle exponents q j stay below n."""
-    m_len, threads = k3.BODY_N, k3.BODY_N // 32
-    c = n // m_len
-    assert c in (2, 4, 8) and c * m_len == n and k3._radices(n)[0] == c
-    b = m_len // c
-    u = 1 if c >= 8 else 8 // c  # kClusterUnroll
-    assert b % (threads * u) == 0
-    seen = np.zeros(n, int)
-    for rank in range(c):
-        for k in range(b // (threads * u)):
-            for uu in range(u):
-                j = rank * b + np.arange(threads) + (k * u + uu) * threads
-                assert ((c - 1) * j < n).all()
-                for warp in j.reshape(-1, 32):
-                    assert (np.diff(warp) == 1).all() and warp[0] % 32 == 0
-                    assert len(set((warp + (warp >> 5)) % 32)) == 32
-                for m in range(c):
-                    seen[j + m * m_len] += 1
-    assert (seen == 1).all()
+def test_cluster_inner_twiddles_are_rounded_roots(n):
+    """The first pass's W_(n/1024)^e, e < n / 1024, are the W_n^(128 h)
+    table's entries 8 e: each one float64 root rounded to f32 (within
+    2^-24)."""
+    e = np.arange(n // 1024)
+    got = _tables(n)[1][8 * e]
+    assert np.abs(got - np.exp(-2j * np.pi * e / (n // 1024))).max() <= 2.0 ** -24
 
 
 def test_kernel_lengths_are_the_planned_ones():

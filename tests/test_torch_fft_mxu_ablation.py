@@ -7,7 +7,11 @@ other modes are for timing on the card, as in the JAX probe
 phase 17, ``tests/test_torch_cuda.py``). Here: the mode table against the
 JAX probe's modes, the Python mirror of the mask against the enum in
 ``csrc/fft4step.cu`` and the instantiations in
-``csrc/probes/fft_ablation.cu``, and a model of what each mask keeps.
+``csrc/probes/fft_ablation.cu``, and a model of what each mask keeps. Past
+16384 the probe runs PR 16's cluster form (the yardstick the current one is
+timed against) and both designs with parts left out: the variant numbers
+against ``enum ClusterVariant``, the variants each C entry dispatches,
+``pr16``'s plain version on the CPU, and the timed shapes.
 """
 
 import ast
@@ -115,3 +119,84 @@ def test_full_mode_on_the_cpu_is_k3s_plain_version(framed, shape, sigma):
     assert b2.conv_rows_ablation.launches == before
     with pytest.raises(ValueError, match="timing on the card"):
         b2.conv_rows_ablation(x, n, ax, "nodot", framed)
+
+
+def _cluster_enum():
+    src = (_CSRC / "fft4step.cu").read_text()
+    body = re.search(r"enum ClusterVariant \{(.*?)\};", src, re.S).group(1)
+    return {k: int(v) for k, v in re.findall(r"(kV\w+) = (\d+)", body)}
+
+
+def test_cluster_variant_numbers_are_the_sources():
+    enum = _cluster_enum()
+    assert enum == {"kVLocal": 1, "kVNoBarriers": 2, "kVIoOnly": 4, "kVBodyOnly": 8,
+                    "kVPushBarriers": 16}
+    assert b2.CLUSTER_VARIANTS == {
+        "pr16": 0, "local": enum["kVLocal"], "no_barriers": enum["kVNoBarriers"],
+        "local_no_barriers": enum["kVLocal"] | enum["kVNoBarriers"],
+        "io_only": enum["kVIoOnly"], "body_only": enum["kVBodyOnly"]}
+    push = enum["kVPushBarriers"]
+    assert b2.CURRENT_VARIANTS == {
+        "current_push_barriers": push, "current_local": push | enum["kVLocal"],
+        "current_local_cta_barriers": push | enum["kVLocal"] | enum["kVNoBarriers"]}
+
+
+def _c_function(src, name):
+    """The body of the C entry ``name`` in ``src`` (to the next entry)."""
+    start = src.index(f'extern "C" int {name}(')
+    nxt = src.find('extern "C"', start + 1)
+    return src[start:nxt if nxt > 0 else len(src)]
+
+
+@pytest.mark.parametrize("entry, cases", [
+    ("fft_cluster_ablation", ["kVLocal", "kVNoBarriers", "kVLocal | kVNoBarriers", "kVIoOnly",
+                              "kVBodyOnly"]),
+    ("fft_cluster_current_ablation", ["kVPushBarriers", "kVPushBarriers | kVLocal",
+                                      "kVPushBarriers | kVLocal | kVNoBarriers"]),
+])
+def test_the_probe_dispatches_every_cluster_variant(entry, cases):
+    src = (_CSRC / "probes" / "fft_ablation.cu").read_text()
+    enum = _cluster_enum()
+    if entry == "fft_cluster_ablation":  # PR 16's: its dispatch template, CLUSTER_VARIANT(...)
+        found = re.findall(r"CLUSTER_VARIANT\(([^)\\]+)\)\n", src)
+        want = {b2.CLUSTER_VARIANTS[k] for k in b2.CLUSTER_VARIANTS if k != "pr16"}
+    else:
+        found = re.findall(r"case (kV[^:]+):", _c_function(src, entry))
+        want = set(b2.CURRENT_VARIANTS.values())
+    got = {sum(enum[t.strip()] for t in c.split("|")) for c in found}
+    assert [c.strip() for c in found] == cases and got == want
+
+
+@pytest.mark.parametrize("framed", [False, True])
+def test_cluster_ablation_on_the_cpu_is_the_plain_version(framed):
+    """``pr16`` on CPU rows runs K3's or K3f's plain version at n 32768 and
+    counts no launch; every other variant is for timing on the card."""
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+
+    ax = make_plan((8, 16800), 400.0).row
+    n = transform_length(ax) if framed else 32768
+    assert n == 32768
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, ax.dim if framed else n), dtype=np.float32))
+    want = fft4step.fft_conv_rows_framed_ref(x, n, ax) if framed else _conv_rows_einsum(x, n, ax)
+    before = b2.cluster_ablation.launches
+    assert torch.equal(b2.cluster_ablation(x, n, ax, "pr16", framed), want)
+    assert b2.cluster_ablation.launches == before
+    for variant in [*b2.CLUSTER_VARIANTS, b2.OTHER_SEGMENT, *b2.CURRENT_VARIANTS]:
+        if variant != "pr16":
+            with pytest.raises(ValueError, match="timing on the card"):
+                b2.cluster_ablation(x, n, ax, variant, framed)
+    with pytest.raises(ValueError, match="the variants are"):
+        b2.cluster_ablation(x, n, ax, "no_such_variant", framed)
+    with pytest.raises(ValueError, match="not a length of the cluster form"):
+        b2.cluster_ablation(x[:, :16384], 16384, make_plan((8, 16384), 10.0).row)
+
+
+def test_cluster_cells_are_the_timed_shapes():
+    """K3 on the panorama's adjoint rows (C 2), K3f on a giant frame's rows
+    (C 2) and on a streamed column strip (n 65536)."""
+    cells = b2.cluster_cells()
+    assert [(rows, n, framed) for _, rows, n, _, framed in cells] == [
+        (25920, 32768, False), (72000, 32768, True), (12288, 65536, True)]
+    assert [ax.dim for *_, ax, _ in cells] == [15360, 14500, 24000]
+    assert all(fft4step.kernel_length(n) and n > fft4step.BODY_N for _, _, n, *_ in cells)
