@@ -39,8 +39,12 @@ crossover (``auto_fused_max_radius_*_streamed``) in its place, whether it
 lies above or below (JAX reads it only above). K3/K3f take transforms to
 131072 (the cluster form past 16384); past that AUTO keeps the fused engine
 where it serves the frame. ``"fft_stream"`` runs the
-strip-streamed ``torch.fft`` tiles. The ``"conv"`` and ``"deriche"``
-engines raise. The device is the
+strip-streamed ``torch.fft`` tiles. ``"conv"`` runs ``F.conv1d``
+(``ops/direct_conv``, the JAX engine is XLA's convolution) and
+``"deriche"`` the recursive Gaussian (``ops/deriche``: K2's single-axis
+form for its 511-tap bands, torch ops for the tails); AUTO routes neither,
+as in JAX. ``FLAG_TO_ENGINE`` maps the reference CLI's flags 1-5 to
+engines. The device is the
 input's: a CUDA tensor runs the CUDA kernels, a CPU tensor their plain
 PyTorch versions. Where more than one card is visible, AUTO shards a batch
 (or a frame past ``DeviceSpec.auto_sp_min_px``) over them through
@@ -82,6 +86,8 @@ from blur_algorithms_tpu_torch.cuda_kernels.fused_blur import (
 from blur_algorithms_tpu_torch.ops import fft_conv
 from blur_algorithms_tpu_torch.ops.cascade import blur_cascade, blur_cascade_u8
 from blur_algorithms_tpu_torch.ops.band_matmul import blur_band_matmul
+from blur_algorithms_tpu_torch.ops.deriche import blur_deriche, blur_deriche_u8
+from blur_algorithms_tpu_torch.ops.direct_conv import blur_conv
 from blur_algorithms_tpu_torch.ops.fft_mxu import estimate_bytes, transform_length
 from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
@@ -96,6 +102,7 @@ from blur_algorithms_tpu_torch.utils.hw import DeviceSpec, device_spec
 
 __all__ = [
     "Engine",
+    "FLAG_TO_ENGINE",
     "blur",
     "blur_u8",
     "box_blur",
@@ -106,9 +113,7 @@ __all__ = [
 
 
 class Engine(str, enum.Enum):
-    """The JAX package's engine names. Ported: AUTO, FUSED, BAND, FFT2,
-    FFT_TILES, PFFFT, FFT_MXU, FFT_STREAM, BOX, BOX_SCAN and CASCADE; the
-    others raise ``NotImplementedError`` naming their ROADMAP.md item."""
+    """The JAX package's engine names, every one of them ported."""
 
     FFT2 = "fft2"
     FFT_TILES = "fft_tiles"
@@ -123,6 +128,18 @@ class Engine(str, enum.Enum):
     CASCADE = "cascade"
     DERICHE = "deriche"
     AUTO = "auto"
+
+
+# the reference CLI's flags (``Source.cpp:574-608``), as in the JAX package:
+# 5 pocketfft_1D tiles, 4 FastBoxBlur, 3 pffft tiles, 2 pocketfft_2D,
+# 1 the cv::GaussianBlur baseline
+FLAG_TO_ENGINE = {
+    5: Engine.FFT_TILES,
+    4: Engine.BOX,
+    3: Engine.FFT_TILES,
+    2: Engine.FFT2,
+    1: Engine.CONV,
+}
 
 
 def _fft_mxu_streams(plan: BlurPlan, lead: int, spec: DeviceSpec) -> bool:
@@ -220,21 +237,14 @@ def _box_engine(plan: BlurPlan, in_bytes: int, spec: DeviceSpec, lead: int) -> E
     return eng
 
 
-# the ROADMAP.md Queue 1 item that ports each engine not ported yet
-_ENGINE_ITEMS = {Engine.CONV: 9, Engine.DERICHE: 9}
-
-
 def _route(engine: Engine | str, plan: BlurPlan, in_bytes: int,
            device: torch.device, lead: int) -> Engine:
-    """Resolve ``engine`` and raise where it is not ported or cannot serve
-    the call, before any data is converted."""
+    """Resolve ``engine`` and raise where it cannot serve the call, before
+    any data is converted."""
     spec = device_spec(device)
     eng = _resolve_with_spec(engine, plan, in_bytes, spec, lead)
-    if eng in _ENGINE_ITEMS:
-        raise NotImplementedError(
-            f"engine {eng.value!r} is not ported yet "
-            f"(ROADMAP.md Queue 1 item {_ENGINE_ITEMS[eng]})"
-        )
+    if eng is Engine.DERICHE and (plan.kernel != "gaussian" or plan.sigma_x is not None):
+        raise ValueError("deriche engine approximates isotropic gaussian kernels only")
     if eng is Engine.FFT_MXU and (refusal := _fft_mxu_refusal(plan)) is not None:
         raise NotImplementedError(refusal)
     if eng is Engine.FUSED and (refusal := _fused_refusal(plan, in_bytes, spec, lead)):
@@ -292,6 +302,10 @@ def _blur_planar(x: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tenso
         return fft_conv.blur_fft_tiles(x, plan, pffft_quirk=True)
     if engine is Engine.BAND:
         return blur_band_matmul(x, plan)
+    if engine is Engine.CONV:
+        return blur_conv(x, plan)
+    if engine is Engine.DERICHE:
+        return blur_deriche(x, plan.sigma)
     raise ValueError(f"engine {engine} is not a planar blur engine")
 
 
@@ -455,7 +469,11 @@ def blur_u8(
     engines on planar float32 and round back; ``"box"`` and ``"box_scan"``
     run the FastBoxBlur box (radius ``nsmooth**2``, 2 passes, as
     ``box_blur``); ``"cascade"`` composes fused blurs with float
-    intermediates and one rounding. ``precision`` pins a rung of the fused
+    intermediates and one rounding; ``"conv"`` runs the direct convolution
+    (``ops/direct_conv``) on planar float32 and rounds back; ``"deriche"``
+    the recursive Gaussian (``ops/deriche``, isotropic gaussian only, sigma
+    >= 16 on frames that hold its 4.75 sigma reflect pad; else
+    ``ValueError``) with one rounding. ``precision`` pins a rung of the fused
     engine: ``"int8"`` (K1, falling back to ``"bf16x3"`` where the exact
     int8 path does not apply), ``"hybrid"`` (K1's hybrid body, support radii
     1..600 and non-negative unit-sum taps; elsewhere it raises
@@ -508,6 +526,9 @@ def blur_u8(
     eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
         return _fused_u8_interleaved(img, plan, precision)
+    if eng is Engine.DERICHE:
+        # uint8 planes straight into the rows band; one rounding at the end
+        return from_planar(blur_deriche_u8(to_planar(img, torch.uint8), plan.sigma))
     return _through_planar_u8(img, plan, eng)
 
 
@@ -551,7 +572,8 @@ def blur(
     ``"band"`` run those engines (differentiable through ``torch.fft`` and
     ``torch.matmul``); ``"box"`` / ``"box_scan"`` the FastBoxBlur box
     (radius ``nsmooth**2``, 2 passes) and ``"cascade"`` composed fused
-    blurs, both differentiable.
+    blurs, ``"conv"`` the direct convolution and ``"deriche"`` the
+    recursive Gaussian, all differentiable.
     """
     if not isinstance(planar, torch.Tensor):
         raise TypeError(f"blur expects a torch.Tensor, got {type(planar)}")

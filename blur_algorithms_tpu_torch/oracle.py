@@ -2,7 +2,7 @@
 
 A copy of the JAX package's ``oracle.py`` (``reflect_101_np``,
 ``blur_planar_fft2``, ``blur_u8``, ``blur_planar_pffft``, ``blur_u8_pffft``,
-``blur_direct``, ``dft_spectrum_np``), so that the port is
+``blur_direct``, ``dft_spectrum_np``, ``crc32c``), so that the port is
 checked against the same oracle without importing jax. ``np.fft`` *is*
 pocketfft, so this reproduces the reference flag-2 path
 (``Source.cpp:143-277``) with the same FFT library and float32 math:
@@ -28,6 +28,7 @@ __all__ = [
     "blur_direct",
     "box_blur_u8",
     "dft_spectrum_np",
+    "crc32c",
 ]
 
 
@@ -214,3 +215,27 @@ def box_blur_u8(img_hwc: np.ndarray, radius: int, passes: int = 2) -> np.ndarray
         out = box1(out, -1)
         out = box1(out, -2)
     return np.clip(np.floor(np.moveaxis(out, 0, -1) + 0.5), 0, 255).astype(np.uint8)
+
+
+_CRC_TABLE: np.ndarray | None = None
+
+
+def crc32c(*buffers: np.ndarray) -> int:
+    """CRC-32 (poly 0xEDB88320) over buffers — reference ``Source.cpp:15-56``
+    (the NumPy path of ``utils/native.crc32``)."""
+    global _CRC_TABLE
+    if _CRC_TABLE is None:
+        table = np.zeros(256, dtype=np.uint32)
+        for i in range(256):
+            r = np.uint32(i)
+            for _ in range(8):
+                r = (r >> np.uint32(1)) ^ (
+                    np.uint32(0xEDB88320) if r & np.uint32(1) else np.uint32(0)
+                )
+            table[i] = r
+        _CRC_TABLE = table
+    crc = np.uint32(0xFFFFFFFF)
+    for buf in buffers:
+        for b in np.ascontiguousarray(buf).view(np.uint8).ravel():
+            crc = _CRC_TABLE[(crc ^ b) & np.uint32(0xFF)] ^ (crc >> np.uint32(8))
+    return int(crc ^ np.uint32(0xFFFFFFFF))

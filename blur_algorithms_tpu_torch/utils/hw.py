@@ -27,7 +27,7 @@ import functools
 
 import torch
 
-__all__ = ["DeviceSpec", "device_spec", "spec_for"]
+__all__ = ["DeviceSpec", "device_spec", "entry_device", "spec_for"]
 
 # Whole-frame FFT_MXU intermediates on the CPU: a fixed budget, since the
 # host's free memory is no property of the tensor's device.
@@ -343,3 +343,20 @@ def device_spec(device: torch.device | str) -> DeviceSpec:
         return DeviceSpec(name=device.type, sm_count=0, smem_optin_bytes=0)
     index = device.index if device.index is not None else torch.cuda.current_device()
     return _cuda_spec(index)
+
+
+def entry_device(device: torch.device | str = "cuda") -> torch.device:
+    """The device an entry point (``models.BlurPipeline``,
+    ``SpectrumAnalyzer``, ``channel_smooth``, the CLI, the server) runs on:
+    ``device`` as given, which defaults to the card. A CUDA device with no
+    card visible raises ``RuntimeError``: nothing carries on on the CPU
+    unless the caller asks for ``"cpu"``."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} asked for, but no CUDA device is available; "
+            "pass device='cpu' (--device cpu) to run the plain versions on the CPU"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"the port runs on 'cuda' or 'cpu', not {str(device)!r}")
+    return device

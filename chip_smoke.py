@@ -240,7 +240,24 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    14500 (n 32768) and on one streamed column strip (12288 rows of 24000,
    n 65536: clusters of 8) beside their plain versions, bounds and cuFFT, each also
    in turns with PR 16's design of the cluster form (median of 20 a turn),
-   the three calls, and AUTO against ``"fused"`` on the sigma 900 frame.
+   the three calls, and AUTO against ``"fused"`` on the sigma 900 frame;
+19. the front end on 4K frames (frame 0 of ``make_frames`` as a 2160x3840
+   PPM), counts set to 0 first: the CLI (``cli.main``, as ``python -m
+   blur_algorithms_tpu_torch`` runs it) with ``auto 10`` (K1), ``4 6``
+   (the box, K4), ``deriche 40`` (K2's single-axis form on its 511-tap
+   bands) and ``1 10`` (conv, cuDNN), each output file within 1 count of
+   ``oracle.blur_u8`` or the box oracle; ``BlurPipeline.stream`` over four
+   PPM paths of 2160x3840, 1997x3001, 1080x1920 and 720x1280 (bucketed,
+   padded on the host, copied from page-locked memory on a side stream),
+   twice, each output ``torch.equal`` to the exact-shape ``blur_u8`` where
+   both shapes route alike, frames/s and buckets; the HTTP server
+   (``examples/serve.py``, ``serve(port=0)`` warmed up at 4K) answering 8
+   POSTs of the PPM at sigma 10 from 2 client threads, a box request and a
+   Deriche request, each within 1 count of its oracle, with the p50 / max
+   request ms and ``/healthz``; ``unsharp_mask`` on the 4 RGB 4K frames at
+   sigma 2 and ``channel_smooth`` rgb (5, 5, 7) against K2's plain version
+   on the card, within 1 count. K1, K2, K2's single-axis form and K4 must
+   each have launched over the phase.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -3968,6 +3985,206 @@ def _slice16() -> list[dict]:
     ]
 
 
+# phase 19: the front end (CLI, directory streaming, server, filters) on 4K
+STREAM_SHAPES = ((2160, 3840), (1997, 3001), (1080, 1920), (720, 1280))
+CLI_CASES = (("auto", "10"), ("4", "6"), ("deriche", "40"), ("1", "10"))
+SERVE_POSTS, SERVE_CLIENTS = 8, 2
+
+
+def _counts_k1_k2_k4() -> dict:
+    """Phase 19's launch counts: K1 (any body), K2, its single-axis form, K4."""
+    from blur_algorithms_tpu_torch.cuda_kernels import box_blur, fused_blur
+
+    return {"K1": sum(b.launches for b, _ in _k1_bodies().values()),
+            "K2": fused_blur.blur_fused_f32.launches,
+            "K2 single-axis": fused_blur.blur_fused_axis_f32.launches,
+            "K4": box_blur.box_blur_scan_axis.launches}
+
+
+def _vs(got: np.ndarray, want: np.ndarray, label: str, smi: str, limit: int = 1) -> None:
+    d = np.abs(got.astype(int) - want.astype(int))
+    print(f"phase 19 {label}: max {int(d.max())} counts, exact fraction "
+          f"{float((d == 0).mean())} ({smi})", flush=True)
+    if got.shape != want.shape or d.max() > limit:
+        raise RuntimeError(f"{label}: {int(d.max())} counts from its reference "
+                           f"(shape {got.shape} vs {want.shape})")
+
+
+def _sync(dev: torch.device) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _slice18(smi: str, device: str = "cuda") -> None:
+    """Phase 19: the CLI, directory streaming, the HTTP server and the
+    filters on the card at 4K, each output against the oracle or the plain
+    version; K1, K2 (and its single-axis form) and K4 must each launch.
+    (``device="cpu"`` with smaller ``H``, ``W`` and ``STREAM_SHAPES``
+    rehearses the phase on the plain versions, where nothing launches.)"""
+    import statistics
+    import tempfile
+    import threading
+    import urllib.request
+
+    from blur_algorithms_tpu_torch import blur_u8, cli, make_plan, oracle
+    from blur_algorithms_tpu_torch.api import _route, _u8_dma_precision, _plan_for
+    from blur_algorithms_tpu_torch.cuda_kernels import fused_blur
+    from blur_algorithms_tpu_torch.examples import serve as serve_mod
+    from blur_algorithms_tpu_torch.models import BlurPipeline, channel_smooth, unsharp_mask
+    from blur_algorithms_tpu_torch.ops.layout import round_to_u8
+    from blur_algorithms_tpu_torch.utils import io
+    from blur_algorithms_tpu_torch.utils.frames import make_frames
+    from blur_algorithms_tpu_torch.utils.hw import device_spec
+
+    t_phase = time.perf_counter()
+    dev = torch.device(device)
+    _sync(dev)
+    for c in (*_counters(), *(b for b, _ in _k1_bodies().values())):
+        c.launches = 0
+    frames = make_frames(BATCH, H, W)
+    img = np.ascontiguousarray(np.moveaxis(frames[0], 0, -1))
+    want = {"10": oracle.blur_u8(img, 10.0), "40": oracle.blur_u8(img, 40.0),
+            "box": oracle.box_blur_u8(img, 36)}
+    with tempfile.TemporaryDirectory() as tmp:
+        src = f"{tmp}/frame.ppm"
+        io.write_image(src, img)
+        # ---- the CLI, as ``python -m blur_algorithms_tpu_torch`` runs it ----
+        for engine, nsmooth in CLI_CASES:
+            out = f"{tmp}/cli_{engine}.ppm"
+            before = _counts_k1_k2_k4()
+            t0 = time.perf_counter()
+            if cli.main([engine, nsmooth, src, "-o", out, "--device", device]) != 0:
+                raise RuntimeError(f"the CLI failed on {engine} {nsmooth}")
+            ms = (time.perf_counter() - t0) * 1e3
+            ran = {k: v - before[k] for k, v in _counts_k1_k2_k4().items()}
+            ref = want["box"] if engine == "4" else want[nsmooth]
+            _vs(io.read_image(out), ref, f"CLI {engine} {nsmooth} ({H}x{W} PPM, "
+                f"{ms:.1f} ms with the file I/O; launches {ran})", smi)
+
+        # ---- directory streaming: BlurPipeline.stream over image paths ----
+        paths, exact = [], []
+        for k, (h, w) in enumerate(STREAM_SHAPES):
+            f = img if (h, w) == (H, W) else np.ascontiguousarray(
+                np.moveaxis(make_frames(1, h, w)[0], 0, -1))
+            paths.append(f"{tmp}/s{k}_{h}x{w}.ppm")
+            io.write_image(paths[-1], f)
+            exact.append(f)
+        pipe = BlurPipeline(SIGMA, device=dev)
+        for sweep in ("first", "warm"):
+            _sync(dev)
+            t0 = time.perf_counter()
+            outs = list(pipe.stream(paths))
+            _sync(dev)
+            dt = time.perf_counter() - t0
+            print(f"phase 19 stream ({sweep} pass): {len(outs)} frames "
+                  f"{list(STREAM_SHAPES)} in {dt * 1e3:.1f} ms = {len(outs) / dt:.2f} "
+                  f"frames/s with reading and decoding, sigma={SIGMA}, stats {pipe.stats} "
+                  f"({smi})", flush=True)
+        if [k for k, _ in outs] != paths:
+            raise RuntimeError("stream yielded its frames out of order")
+        spec = device_spec(dev)
+        for (key, got), f in zip(outs, exact):
+            h, w = f.shape[:2]
+            x = torch.from_numpy(f).to(dev)
+            ref = blur_u8(x, SIGMA)
+            bh, bw = pipe._bucketed(h, w)
+            routes = []
+            for sh, sw in ((h, w), (bh, bw)):
+                plan = _plan_for(sh, sw, SIGMA, "gaussian", "auto")
+                eng = _route("auto", plan, 1, dev, 3)
+                routes.append((eng.value, _u8_dma_precision(plan, spec),
+                               fused_blur._split_wins(plan, 1, "int8", dev)))
+            same = routes[0] == routes[1]
+            equal = torch.equal(got, ref)
+            d = int((got.int() - ref.int()).abs().max())
+            print(f"phase 19 stream {h}x{w} (bucket {bh}x{bw}, routes {routes}): "
+                  f"torch.equal to exact-shape blur_u8 {equal}, max {d}", flush=True)
+            if (same and not equal) or d > 1:
+                raise RuntimeError(f"streamed {h}x{w} differs from blur_u8 by {d}")
+        _vs(outs[0][1].cpu().numpy(), want["10"], f"stream {H}x{W} vs oracle", smi)
+
+    # ---- the HTTP server: 8 POSTs of the 4K PPM from 2 clients, box, deriche ----
+    started = threading.Event()
+    t0 = time.perf_counter()
+    httpd = serve_mod.serve(port=0, warmup=[f"{H}x{W}"], started=started, device=device)
+    warm_s = time.perf_counter() - t0
+    server = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server.start()
+    started.wait(30)
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    body = io.encode_image(img, "ppm")
+    times, errors = [], []
+
+    def post(query: str) -> tuple[np.ndarray, float]:
+        t = time.perf_counter()
+        req = urllib.request.Request(f"{url}/blur?{query}&format=ppm", data=body,
+                                     method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            got = io.decode_image(resp.read(), "ppm")
+        return got, (time.perf_counter() - t) * 1e3
+
+    def client(n: int) -> None:
+        try:
+            for _ in range(n):
+                got, ms = post("sigma=10")
+                times.append(ms)
+                d = np.abs(got.astype(int) - want["10"].astype(int))
+                errors.append(int(d.max()))
+        except Exception as e:  # noqa: BLE001 — re-raised below
+            errors.append(repr(e))
+
+    try:
+        clients = [threading.Thread(target=client, args=(SERVE_POSTS // SERVE_CLIENTS,))
+                   for _ in range(SERVE_CLIENTS)]
+        t0 = time.perf_counter()
+        for c in clients:
+            c.start()
+        for c in clients:
+            c.join()
+        wall = time.perf_counter() - t0
+        if len(times) != SERVE_POSTS or any(not isinstance(e, int) or e > 1 for e in errors):
+            raise RuntimeError(f"the server's sigma 10 answers: {errors}")
+        print(f"phase 19 server: warmup {H}x{W} {warm_s:.2f} s; {SERVE_POSTS} POSTs of a "
+              f"{H}x{W} PPM at sigma 10 from {SERVE_CLIENTS} clients in {wall * 1e3:.1f} ms, "
+              f"round-trip request ms p50 {statistics.median(times):.1f} max {max(times):.1f}, "
+              f"max {max(errors)} counts from the oracle ({smi})", flush=True)
+        for query, ref, label in (("sigma=6&engine=box", want["box"], "box nsmooth 6"),
+                                  ("sigma=40&engine=deriche", want["40"], "deriche sigma 40")):
+            got, ms = post(query)
+            _vs(got, ref, f"server {label} ({ms:.1f} ms a request)", smi)
+        with urllib.request.urlopen(f"{url}/healthz", timeout=30) as resp:
+            print(f"phase 19 server /healthz: {resp.read().decode()}", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(30)
+
+    # ---- filters on K2 against K2's plain version on the card ----
+    batch = torch.from_numpy(np.ascontiguousarray(np.moveaxis(frames, 1, -1))).to(dev)
+    got = unsharp_mask(batch, 2.0)
+    planar = batch.movedim(-1, -3).contiguous()
+    plan = make_plan((H, W), 2.0)
+    xf = planar.float()
+    plain = round_to_u8(xf + (xf - fused_blur.blur_fused_f32_ref(planar, plan)))
+    _vs(got.cpu().numpy(), plain.movedim(-3, -1).cpu().numpy(),
+        f"unsharp_mask {tuple(batch.shape)} sigma 2 vs K2's plain version", smi)
+    sigmas = (5.0, 5.0, 7.0)
+    got = channel_smooth(img, sigmas, device=device)
+    ref = np.stack([
+        round_to_u8(fused_blur.blur_fused_f32_ref(
+            torch.from_numpy(np.ascontiguousarray(img[..., c])).to(dev).float(),
+            make_plan((H, W), s))).cpu().numpy()
+        for c, s in enumerate(sigmas)], axis=-1)
+    _vs(got, ref, f"channel_smooth rgb {sigmas} {H}x{W} vs K2's plain version", smi)
+
+    _sync(dev)
+    counts = _counts_k1_k2_k4()
+    print(f"phase 19 launches over the phase: {counts}; {time.perf_counter() - t_phase:.1f} s "
+          f"({smi})", flush=True)
+    if not all(counts.values()):
+        raise RuntimeError(f"phase 19 did not launch every kernel of its path: {counts}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -4117,6 +4334,7 @@ def main() -> int:
         raise RuntimeError(f"a route of the blur launched a probe's kernel: {on_blur}")
     slice11_kernels = _slice11(probe_build)
     slice16_kernels = _slice16()
+    _slice18(smi)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1

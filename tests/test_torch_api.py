@@ -183,25 +183,24 @@ def test_outside_the_domain_raises(call):
         call(x)
 
 
-_PORTED_BY_SLICE_4 = {api.Engine.BOX, api.Engine.BOX_SCAN, api.Engine.CASCADE}
-_PORTED_BY_SLICE_16 = {api.Engine.FFT_STREAM}
-
-
 @pytest.mark.parametrize("engine", [
     api.Engine.FFT_STREAM, api.Engine.BOX, api.Engine.BOX_SCAN, api.Engine.CONV,
     api.Engine.CASCADE, api.Engine.DERICHE,
 ])
 def test_unported_engines_raise(engine):
-    """The engines not ported raise naming themselves; box, box_scan,
-    cascade and fft_stream are ported and return a blurred frame."""
+    """Every engine of this list raised once; each is ported now and keeps
+    a constant frame constant (deriche at its smallest sigma, 16, on a
+    frame that holds its reflect pad)."""
     x = torch.zeros((20, 30, 3), dtype=torch.uint8)
-    if engine in _PORTED_BY_SLICE_4 | _PORTED_BY_SLICE_16:
-        out = port.blur_u8(x + 7, 2.0, engine=engine)
-        assert out.shape == x.shape and bool((out == 7).all())
-        return
-    assert engine in api._ENGINE_ITEMS
-    with pytest.raises(NotImplementedError, match=engine.value):
-        port.blur_u8(x, 2.0, engine=engine)
+    sigma = 2.0
+    if engine is api.Engine.DERICHE:
+        x, sigma = torch.zeros((80, 90, 3), dtype=torch.uint8), 16.0
+        # the engine names its domain where the frame cannot hold the pad
+        with pytest.raises(ValueError, match="deriche"):
+            port.blur_u8(x + 7, sigma, engine=engine)
+        x = torch.zeros((260, 270, 3), dtype=torch.uint8)
+    out = port.blur_u8(x + 7, sigma, engine=engine)
+    assert out.shape == x.shape and bool((out == 7).all())
 
 
 def test_blur_u8_rejects_bad_inputs():

@@ -1016,3 +1016,63 @@ def test_b3_stores_equal_their_plain_versions(cuda_device):
                   if lo.slots else None)
         assert torch.equal(b3.fetch_k1(planar, lo, padded),
                            b3.fetch_k1_ref(planar, lo, padded))
+
+
+@pytest.mark.cuda
+def test_conv_engine_on_the_card_is_full_float32(cuda_device):
+    """cuDNN without TF32 (which would be ~1e-3 relative from the CPU)."""
+    from blur_algorithms_tpu_torch.ops.direct_conv import blur_conv
+
+    plan = make_plan((541, 963), 10.0)
+    x = torch.from_numpy((np.random.default_rng(11).random((3, 541, 963)) * 255)
+                         .astype(np.float32))
+    tf32 = torch.backends.cudnn.allow_tf32
+    got = blur_conv(x.to(cuda_device), plan).cpu()
+    torch.testing.assert_close(got, blur_conv(x, plan), rtol=0, atol=1e-4)
+    assert torch.backends.cudnn.allow_tf32 == tf32  # the process's flag is untouched
+
+
+@pytest.mark.cuda
+def test_deriche_on_the_card_runs_k2s_single_axis_form(cuda_device):
+    from blur_algorithms_tpu_torch.ops import deriche
+
+    x = _planes((3, 600, 700), seed=12)
+    before = fused_blur.blur_fused_axis_f32.launches
+    got = deriche.blur_deriche_u8(x.to(cuda_device), 40.0)
+    torch.cuda.synchronize()
+    assert fused_blur.blur_fused_axis_f32.launches == before + 2
+    d = (got.cpu().int() - deriche.blur_deriche_u8(x, 40.0).int()).abs()
+    assert int(d.max()) <= 1
+    xf = x.float().to(cuda_device).requires_grad_()
+    deriche.blur_deriche(xf, 40.0).square().mean().backward()
+    assert bool(torch.isfinite(xf.grad).all())
+
+
+@pytest.mark.cuda
+def test_pipeline_stream_on_the_card_equals_blur_u8(cuda_device):
+    from blur_algorithms_tpu_torch.models import BlurPipeline
+
+    rng = np.random.default_rng(13)
+    frames = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((720, 1280), (501, 777), (720, 1280))]
+    pipe = BlurPipeline(10.0, device=cuda_device)
+    outs = list(pipe.stream(frames))
+    assert [k for k, _ in outs] == [0, 1, 2]
+    for (_, got), f in zip(outs, frames):
+        assert got.device.type == "cuda"
+        assert torch.equal(got, blur_u8(torch.from_numpy(f).to(cuda_device), 10.0))
+    assert pipe.stats["distinct_buckets"] == 2
+
+
+@pytest.mark.cuda
+def test_filters_on_the_card_match_the_cpu(cuda_device):
+    from blur_algorithms_tpu_torch.models import channel_smooth, high_pass, unsharp_mask
+
+    img = _planes((2, 300, 400, 3), seed=14)
+    d = (unsharp_mask(img.to(cuda_device), 2.0).cpu().int() - unsharp_mask(img, 2.0).int())
+    assert int(d.abs().max()) <= 1
+    torch.testing.assert_close(high_pass(img.to(cuda_device), 3.0).cpu(), high_pass(img, 3.0),
+                               rtol=0, atol=2e-3)
+    a = channel_smooth(img[0].numpy(), (5.0, 5.0, 7.0), device=cuda_device)
+    b = channel_smooth(img[0].numpy(), (5.0, 5.0, 7.0), device="cpu")
+    assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
