@@ -36,9 +36,10 @@ past it; where FFT_MXU's whole-frame intermediates exceed
 ``DeviceSpec.fft_mxu_byte_budget`` it strip-streams
 (``ops/streamed.blur_fft_mxu_streamed(_u8)``) and AUTO reads the streamed
 crossover (``auto_fused_max_radius_*_streamed``) in its place, whether it
-lies above or below (JAX reads it only above). K3/K3f take transforms to
-131072 (the cluster form past 16384); past that AUTO keeps the fused engine
-where it serves the frame. ``"fft_stream"`` runs the
+lies above or below (JAX reads it only above). K3/K3f take every transform
+length the JAX package plans (the cluster form past 16384, the staged form
+past 131072), so FFT_MXU, its streamer and AUTO serve every axis length.
+``"fft_stream"`` runs the
 strip-streamed ``torch.fft`` tiles. ``"conv"`` runs ``F.conv1d``
 (``ops/direct_conv``, the JAX engine is XLA's convolution) and
 ``"deriche"`` the recursive Gaussian (``ops/deriche``: K2's single-axis
@@ -69,7 +70,7 @@ from blur_algorithms_tpu_torch.cuda_kernels.box_blur import (
     box_blur_scan,
     box_blur_scan_u8,
 )
-from blur_algorithms_tpu_torch.cuda_kernels.fft4step import MAX_N, blur_fft_mxu_cuda
+from blur_algorithms_tpu_torch.cuda_kernels.fft4step import blur_fft_mxu_cuda
 from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
     blur_fused_u8_dma,
     dma_form_applicable,
@@ -88,7 +89,7 @@ from blur_algorithms_tpu_torch.ops.cascade import blur_cascade, blur_cascade_u8
 from blur_algorithms_tpu_torch.ops.band_matmul import blur_band_matmul
 from blur_algorithms_tpu_torch.ops.deriche import blur_deriche, blur_deriche_u8
 from blur_algorithms_tpu_torch.ops.direct_conv import blur_conv
-from blur_algorithms_tpu_torch.ops.fft_mxu import estimate_bytes, transform_length
+from blur_algorithms_tpu_torch.ops.fft_mxu import estimate_bytes
 from blur_algorithms_tpu_torch.ops.layout import from_planar, to_planar
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_custom_plan, make_plan
 from blur_algorithms_tpu_torch.ops.spectrum import dft_spectrum_planar
@@ -149,18 +150,6 @@ def _fft_mxu_streams(plan: BlurPlan, lead: int, spec: DeviceSpec) -> bool:
     return estimate_bytes(plan, max(1, lead)) > spec.fft_mxu_byte_budget
 
 
-def _fft_mxu_refusal(plan: BlurPlan) -> str | None:
-    """Why FFT_MXU cannot serve this plan, or None: a transform past
-    K3/K3f's longest (a strip transforms a whole axis too)."""
-    n = max(transform_length(plan.row), transform_length(plan.col))
-    if n > MAX_N:
-        return (
-            f"FFT_MXU transform length {n} > {MAX_N}: clusters past 8 CTAs or a "
-            "pass staged through device memory (ROADMAP.md Queue 1 item 11)"
-        )
-    return None
-
-
 def _fused_refusal(plan: BlurPlan, in_bytes: int, spec: DeviceSpec,
                    lead: int) -> str | None:
     """Why the fused engine cannot serve this plan on this device, or None.
@@ -203,9 +192,7 @@ def _resolve_with_spec(engine: Engine | str, plan: BlurPlan, in_bytes: int,
     else:
         crossover = (spec.auto_fused_max_radius_u8 if u8
                      else spec.auto_fused_max_radius_f32)
-    if _fused_refusal(plan, in_bytes, spec, lead) is None and (
-            r <= crossover or _fft_mxu_refusal(plan) is not None):
-        # past K3/K3f's longest transform the split serves what it reaches
+    if r <= crossover and _fused_refusal(plan, in_bytes, spec, lead) is None:
         return Engine.FUSED
     return Engine.FFT_MXU
 
@@ -217,9 +204,8 @@ def _resolve_engine(engine: Engine | str, plan: BlurPlan, in_bytes: int = 1,
 
     ``in_bytes`` is 1 for uint8 frames and 4 for floats (their crossovers
     differ), ``lead`` the number of planes. Where FFT_MXU would strip-stream
-    (past its byte budget) the crossover is the device's streamed one; where
-    FFT_MXU's transform would pass ``MAX_N`` the fused engine serves the
-    frame wherever it can."""
+    (past its byte budget) the crossover is the device's streamed one.
+    FFT_MXU serves every transform length, as in JAX."""
     return _resolve_with_spec(engine, plan, in_bytes, device_spec(device), lead)
 
 
@@ -245,8 +231,6 @@ def _route(engine: Engine | str, plan: BlurPlan, in_bytes: int,
     eng = _resolve_with_spec(engine, plan, in_bytes, spec, lead)
     if eng is Engine.DERICHE and (plan.kernel != "gaussian" or plan.sigma_x is not None):
         raise ValueError("deriche engine approximates isotropic gaussian kernels only")
-    if eng is Engine.FFT_MXU and (refusal := _fft_mxu_refusal(plan)) is not None:
-        raise NotImplementedError(refusal)
     if eng is Engine.FUSED and (refusal := _fused_refusal(plan, in_bytes, spec, lead)):
         # past the split's reach or budget, as the JAX ``_pick_tile`` refuses
         raise ValueError(refusal)

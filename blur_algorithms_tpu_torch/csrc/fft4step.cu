@@ -23,7 +23,8 @@
 // The design: one block per pair of rows, n / 32 threads, the FFT as a few
 // high-radix passes held in registers, shared memory only between passes.
 // The kernel is a template on n (17 lengths; the cluster form below takes
-// 3 more) and on whether it frames the
+// 3 more, the staged form every power of two past them) and on whether it
+// frames the
 // rows (K3f) or reads them as they are (K3), so every stride, count and
 // twiddle step is a constant and shared addresses fold into immediates.
 //   n = Q * P: Q the odd part (1, 3, 5, ..., 15: the lengths are powers of
@@ -130,6 +131,12 @@
 // W_1024 table and the first pass's W_n tables (128 + n / 128 entries, as
 // Tlo / Thi above; entry 8 e of the high one is W_(n/1024)^e), ~81 KB at M
 // 8192 (two CTAs an SM) and ~155 KB at 16384.
+// Past n 131072 (what a cluster of the portable 8 CTAs holds) the staged
+// form (fft_conv_rows_staged_*, below) keeps the transform in a complex
+// scratch buffer in device memory: radix-8/16/32 passes over the segments
+// of 16384, a thread a butterfly; each segment through the one-block body;
+// the passes' adjoints back to the rows. No length cap but the C entries'
+// int (2^30).
 // Tensor cores: not used. f32 accuracy would need 3xTF32 (~165 TFLOP/s of
 // useful rate) or bf16x3 splits, and a dense pass as a matrix product costs
 // 8 R flops a point against ~5 log2 R for the butterflies: radix-16 passes
@@ -1071,6 +1078,168 @@ int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the staged form: n = P * M past 131072, M = kMaxN ----
+//
+// Past the portable cluster of 8 CTAs a pair of rows no longer fits the
+// shared memory a cluster can join, so the transform is staged through a
+// complex scratch buffer in device memory (n float2 a pair of rows, that
+// is rows x n x 4 bytes, allocated by the wrapper):
+//   1. the first passes: radix-R decimation-in-frequency passes over the P
+//      segments, P = n / M = R_1 ... R_t, each R_i in {8, 16, 32}
+//      (staged_digits: t = ceil(log2(P) / 5) digits, the first ones the
+//      larger), a thread a butterfly, its R values in registers. The first
+//      reads the rows (K3f framing them on the way, no load of the zero
+//      tail) and writes scratch; each later one reads and writes scratch at
+//      the same places. Output q of butterfly j of a pass over spans L is
+//      multiplied by W_L^(q j) = W_n^(q j n / L);
+//   2. the segment pass: each M-point segment of scratch through the
+//      one-block body of length M (its radix-16 and radix-32 passes, H's
+//      segment in the middle pass, the inverse passes), a block a segment,
+//      loaded into and stored from its padded shared row;
+//   3. the last passes: the first passes' adjoints in reverse order
+//      (conjugate twiddles, then the conjugate DFT); the last stores Re to
+//      row a and Im to row b (K3f: the interior [pad, pad + dim) alone).
+// The spectrum is left in the digit-reversed order of the digits R_1 ..
+// R_t, then the body's (cuda_kernels/fft4step.py:_radices), and H is stored
+// in it. Positions inside a row are int (n <= 2^30, the C entries' int);
+// offsets of a pair's row and scratch, and thread indices, are 64-bit.
+// Twiddles: W_n^e = Thi[e >> 7] * Tlo[e & 127] read through the read-only
+// cache from the host's tables (128 + n / 128 entries: 8320 at n 2^20), the
+// same 4 * 2^-24 bound as the body's for any n (two table roundings and
+// the product's two).
+// What bounds it: device memory. Each digit's pass reads and writes the
+// scratch once each way (a forward and an inverse pass per digit), the
+// segment pass once more: ~(16 (t + 1) + 8) n bytes a pair of rows against
+// the 16 n of one read and one write of the rows, 2.5x at one digit. This
+// is the first, correct form: keeping a digit's pass in the segment
+// pass's blocks (a cluster or a persistent grid per pair), TMA and
+// pipelining across the stages are later work.
+
+constexpr int kStagedThreads = 256;  // threads a block of a staged pass
+
+// What a staged pass reads or writes besides scratch: the rows as they are
+// (K3) or framed (K3f).
+enum StagedIo { kScratchIo = 0, kRowsIo = 1, kFramedIo = 2 };
+
+__host__ __device__ constexpr int staged_digit_count(int p_log2) { return (p_log2 + 4) / 5; }
+
+// log2 of the i-th digit of P = 2^p_log2 (p_log2 >= 4): t digits of
+// p_log2 / t bits, the first p_log2 % t of them one bit more
+__host__ __device__ constexpr int staged_digit_log2(int p_log2, int i) {
+  return p_log2 / staged_digit_count(p_log2) + (i < p_log2 % staged_digit_count(p_log2) ? 1 : 0);
+}
+
+// One radix-R pass of the staged form over spans 2^span_log2 (stride S =
+// span / R) of every pair's length-n transform: thread t is butterfly
+// b = t mod (n / R) of pair t / (n / R), j = b mod S, positions base + m S
+// (base = (b / S) span + j). Forward: DFT, then W_n^(q j n / span);
+// inverse: conjugate twiddles, then the conjugate DFT. kIo: the forward
+// pass reads, the inverse pass stores, the rows in place of scratch.
+template <int R, bool kInv, int kIo>
+__global__ void __launch_bounds__(kStagedThreads)
+fft_conv_rows_staged_pass_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                 float2* __restrict__ scratch, const float2* __restrict__ tw,
+                                 int rows, int half, int dim, int pad, int n_log2, int span_log2) {
+  constexpr int kRLog2 = ilog2(R);
+  const long long t = static_cast<long long>(blockIdx.x) * kStagedThreads + threadIdx.x;
+  const int b_log2 = n_log2 - kRLog2;
+  const long long pair = t >> b_log2;
+  if (pair >= half) return;
+  const int b = static_cast<int>(t & ((1LL << b_log2) - 1));
+  const int s_log2 = span_log2 - kRLog2;
+  const int s = 1 << s_log2;
+  const int j = b & (s - 1);
+  const int base = ((b >> s_log2) << span_log2) + j;
+  const int tw_shift = n_log2 - span_log2;  // W_span^(q j) = W_n^((q j) << tw_shift)
+  float2* z = scratch + (static_cast<size_t>(pair) << n_log2);
+  const float2* tlo = tw;
+  const float2* thi = tw + kLo;
+  const int rb = static_cast<int>(pair) + half;
+  const Rows io{x + static_cast<size_t>(pair) * dim, x + static_cast<size_t>(rb) * dim,
+                out + static_cast<size_t>(pair) * dim, out + static_cast<size_t>(rb) * dim,
+                rb < rows, dim, pad};
+  float2 a[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    if constexpr (!kInv && kIo != kScratchIo)
+      a[m] = load_row<kIo == kFramedIo>(io, base + m * s);
+    else
+      a[m] = z[base + m * s];
+  }
+  if constexpr (kInv) {
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+      const int e = (q * j) << tw_shift;
+      a[q] = cmulc(a[q], cmul(__ldg(thi + (e >> 7)), __ldg(tlo + (e & (kLo - 1)))));
+    }
+  }
+  dft<R, kInv>(a, nullptr);
+  if constexpr (!kInv) {
+#pragma unroll
+    for (int q = 1; q < R; ++q) {
+      const int e = (q * j) << tw_shift;
+      a[q] = cmul(a[q], cmul(__ldg(thi + (e >> 7)), __ldg(tlo + (e & (kLo - 1)))));
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if constexpr (kInv && kIo != kScratchIo)
+      store_row<kIo == kFramedIo>(io, base + q * s, a[q]);
+    else
+      z[base + q * s] = a[q];
+  }
+}
+
+// The segment pass: block c is segment c mod P of pair c / P, its M complex
+// values loaded from scratch into the padded shared row, the body's passes
+// from the first forward to the last inverse (H's segment in the middle
+// pass), and stored back.
+template <int M>
+__global__ void __launch_bounds__(M / kE, 1)
+fft_conv_rows_staged_segment_kernel(float2* __restrict__ scratch, const float2* __restrict__ tw,
+                                    const float* __restrict__ h, int complex_h, int p_log2) {
+  extern __shared__ __align__(16) float2 smem2[];
+  const Smem sm = load_tables<M>(smem2, tw);
+  const int seg = static_cast<int>(blockIdx.x & ((1u << p_log2) - 1));
+  float2* z = scratch + static_cast<size_t>(blockIdx.x) * M;
+  for (int i = threadIdx.x; i < M; i += M / kE) sm.buf[sidx(i)] = z[i];
+  __syncthreads();
+  const Rows none{nullptr, nullptr, nullptr, nullptr, false, 0, 0};
+  passes<M, false, 0, false>(sm, none, h + static_cast<size_t>(complex_h ? 2 : 1) * seg * M,
+                             complex_h);
+  __syncthreads();
+  for (int i = threadIdx.x; i < M; i += M / kE) z[i] = sm.buf[sidx(i)];
+}
+
+template <int R, bool kInv, int kIo>
+int launch_staged_pass(const float* x, float* out, float2* scratch, const float2* tw, int rows,
+                       int half, int dim, int pad, int n_log2, int span_log2,
+                       cudaStream_t stream) {
+  const long long threads = static_cast<long long>(half) << (n_log2 - ilog2(R));
+  const long long blocks = (threads + kStagedThreads - 1) / kStagedThreads;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  fft_conv_rows_staged_pass_kernel<R, kInv, kIo>
+      <<<static_cast<unsigned>(blocks), kStagedThreads, 0, stream>>>(
+          x, out, scratch, tw, rows, half, dim, pad, n_log2, span_log2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One pass of radix 2^r_log2 (3, 4 or 5), its io as given.
+template <bool kInv, int kIo>
+int staged_pass(int r_log2, const float* x, float* out, float2* scratch, const float2* tw,
+                int rows, int half, int dim, int pad, int n_log2, int span_log2,
+                cudaStream_t stream) {
+  switch (r_log2) {
+    case 3: return launch_staged_pass<8, kInv, kIo>(x, out, scratch, tw, rows, half, dim, pad,
+                                                    n_log2, span_log2, stream);
+    case 4: return launch_staged_pass<16, kInv, kIo>(x, out, scratch, tw, rows, half, dim, pad,
+                                                     n_log2, span_log2, stream);
+    case 5: return launch_staged_pass<32, kInv, kIo>(x, out, scratch, tw, rows, half, dim, pad,
+                                                     n_log2, span_log2, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 #ifndef FFT4STEP_KERNELS_ONLY
@@ -1088,6 +1257,57 @@ int launch_n(const float* x, float* out, const float2* tw, const float* h, int c
   kernel<<<half, Plan<N>::T, Plan<N>::kSmem, stream>>>(x, out, tw, h, complex_h, rows,
                                                         half, dim, pad);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The staged form at n = 2^n_log2 > 131072: the first passes, the segment
+// pass, the last passes, in order on the stream. tw: the body's kTable
+// entries, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128).
+int launch_staged(const float* x, float* out, const float2* tw, const float* h, int complex_h,
+                  int rows, int n_log2, int dim, int pad, bool framed, float2* scratch,
+                  cudaStream_t stream) {
+  const int p_log2 = n_log2 - ilog2(kMaxN);
+  if (p_log2 < 4 || n_log2 > 30) return static_cast<int>(cudaErrorInvalidValue);
+  const int half = (rows + 1) / 2;
+  const int digits = staged_digit_count(p_log2);
+  const float2* twn = tw + kTable;
+  int span_log2 = n_log2, e = 0;
+  for (int i = 0; i < digits && !e; ++i) {
+    const int r_log2 = staged_digit_log2(p_log2, i);
+    if (i > 0)
+      e = staged_pass<false, kScratchIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
+                                         n_log2, span_log2, stream);
+    else if (framed)
+      e = staged_pass<false, kFramedIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
+                                        n_log2, span_log2, stream);
+    else
+      e = staged_pass<false, kRowsIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad, n_log2,
+                                      span_log2, stream);
+    span_log2 -= r_log2;
+  }
+  if (e) return e;
+  const long long segments = static_cast<long long>(half) << p_log2;
+  if (segments > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto segment_kernel = fft_conv_rows_staged_segment_kernel<kMaxN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      segment_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Plan<kMaxN>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  segment_kernel<<<static_cast<unsigned>(segments), kMaxThreads, Plan<kMaxN>::kSmem, stream>>>(
+      scratch, tw, h, complex_h, p_log2);
+  if ((e = static_cast<int>(cudaGetLastError()))) return e;
+  for (int i = digits - 1; i >= 0 && !e; --i) {
+    const int r_log2 = staged_digit_log2(p_log2, i);
+    span_log2 += r_log2;
+    if (i > 0)
+      e = staged_pass<true, kScratchIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
+                                        n_log2, span_log2, stream);
+    else if (framed)
+      e = staged_pass<true, kFramedIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
+                                       n_log2, span_log2, stream);
+    else
+      e = staged_pass<true, kRowsIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad, n_log2,
+                                     span_log2, stream);
+  }
+  return e;
 }
 
 // the lengths the kernel takes: powers of two 256..16384, 1024 k for
@@ -1163,6 +1383,24 @@ extern "C" int fft_conv_rows_framed(const void* x, void* out, const void* tw,
                                     int n, int dim, int pad, void* stream) {
   return launch(x, out, tw, h, complex_h, rows, n, dim, pad, true,
                 static_cast<cudaStream_t>(stream));
+}
+
+// K3 (framed 0: dim = n, pad = 0) or K3f (framed 1) in the staged form, at a
+// power of two n past 131072 (to 2^30). tw: the body's 272 table entries of
+// length 16384, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128); h: the
+// spectrum in the staged form's bin order, scaled by 1/n; scratch:
+// (rows + 1) / 2 x n float2 of device memory the launches overwrite. Returns
+// the cudaError_t of the first launch that failed (0 = every pass launched).
+extern "C" int fft_conv_rows_staged(const void* x, void* out, const void* tw, const void* h,
+                                    int complex_h, int rows, int n, int dim, int pad,
+                                    int framed, void* scratch, void* stream) {
+  if (rows < 1 || dim < 1 || pad < 0 || pad > dim - 1 || dim + 2 * pad > n ||
+      n <= 8 * kMaxN || (n & (n - 1)) != 0 || (!framed && (dim != n || pad != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_staged(static_cast<const float*>(x), static_cast<float*>(out),
+                       static_cast<const float2*>(tw), static_cast<const float*>(h), complex_h,
+                       rows, ilog2(n), dim, pad, framed != 0, static_cast<float2*>(scratch),
+                       static_cast<cudaStream_t>(stream));
 }
 
 #endif  // FFT4STEP_KERNELS_ONLY

@@ -26,7 +26,11 @@ segment's CTA over distributed shared memory, the segments run the body's
 radix-32 passes, and the last pass, the first's adjoint, runs where the
 segments push its inputs. ``_radices`` past ``BODY_N`` names the first
 pass's two digits (``C``, then ``segment / 1024``), which set the bin order
-H is kept in. Past ``MAX_N`` the wrappers raise.
+H is kept in. Past ``CLUSTER_LONGEST`` (131072) the staged form takes every
+power of two: radix-8/16/32 passes over the ``n / BODY_N`` segments
+(``staged_digits``) through a complex scratch buffer in device memory, each
+segment through the one-block body, then the passes' adjoints back to the
+rows; ``_radices`` names those digits first.
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 
 __all__ = [
     "BODY_N",
-    "MAX_N",
+    "CLUSTER_LONGEST",
     "blur_fft_mxu_cuda",
     "cluster_occupancy",
     "cluster_segment",
@@ -56,21 +60,18 @@ __all__ = [
     "fft_conv_rows_framed",
     "framed_applicable",
     "kernel_length",
+    "staged_digits",
 ]
 
 # Longest transform one block holds: a complex row of 16384 f32 pairs is
 # 128 KB of its shared memory (of 227 KB on an H100). Past it the cluster
 # form splits the row into segments of this length, one a CTA.
 BODY_N = 16384
-# Longest transform K3/K3f take: a cluster of 8 CTAs of BODY_N (the portable
-# cluster size).
-MAX_N = 8 * BODY_N
-
-# ROADMAP.md item naming the lengths past MAX_N
-_PAST_MAX_N = (
-    f"transform lengths past {MAX_N} need clusters past the portable 8 CTAs or "
-    "a pass staged through device memory (ROADMAP.md Queue 1 item 11)"
-)
+# Longest transform of the cluster form: a cluster of 8 CTAs of BODY_N (the
+# portable cluster size). Past it the staged form runs.
+CLUSTER_LONGEST = 8 * BODY_N
+# The C entries take int lengths: the longest power of two they hold.
+_INT_LONGEST = 1 << 30
 
 
 def framed_applicable(n: int) -> bool:
@@ -80,24 +81,38 @@ def framed_applicable(n: int) -> bool:
 
 
 def kernel_length(n: int) -> bool:
-    """The transform lengths K3/K3f take: powers of two 256..``MAX_N`` and
-    ``1024 k`` for k = 5..16 (what ``transform_length`` and the adjoint
-    plan)."""
-    return (256 <= n <= MAX_N and n & (n - 1) == 0) or (
+    """The transform lengths K3/K3f take: every power of two from 256 (to
+    2^30, the C entries' int) and ``1024 k`` for k = 5..16 (what
+    ``transform_length`` and the adjoint plan)."""
+    return (256 <= n <= _INT_LONGEST and n & (n - 1) == 0) or (
         4096 < n <= BODY_N and n % 1024 == 0)
+
+
+def staged_digits(n: int) -> list[int]:
+    """The radices of the staged form's first passes at a power of two
+    ``n`` past ``CLUSTER_LONGEST``: ``P = n / BODY_N`` split into
+    ``ceil(log2(P) / 5)`` digits of 8, 16 or 32, the first ones the larger
+    (``csrc/fft4step.cu``: ``staged_digit_log2``)."""
+    if not (CLUSTER_LONGEST < n <= _INT_LONGEST and n & (n - 1) == 0):
+        raise ValueError(f"n = {n} is not a length of the staged form")
+    p = (n // BODY_N).bit_length() - 1
+    t = -(-p // 5)
+    return [1 << (p // t + (i < p % t)) for i in range(t)]
 
 
 def cluster_segment(n: int) -> int:
     """The segment a CTA of the cluster form holds at transform length
-    ``n`` past ``BODY_N``: 8192 at 65536 (clusters of 8, two CTAs an SM),
-    ``BODY_N`` at 32768 and 131072 (clusters of 2 and 8), the faster on the
-    card (``csrc/fft4step.cu``: ``cluster_segment``)."""
+    ``n`` in ``BODY_N``..``CLUSTER_LONGEST``: 8192 at 65536 (clusters of 8,
+    two CTAs an SM), ``BODY_N`` at 32768 and 131072 (clusters of 2 and 8),
+    the faster on the card (``csrc/fft4step.cu``: ``cluster_segment``)."""
     return 8192 if n == 65536 else BODY_N
 
 
 def _radices(n: int, segment: int | None = None) -> list[int]:
-    """The kernel's forward passes, in order: past ``BODY_N`` the two
-    digits of the cluster form's first pass (radix ``C = n / segment`` over
+    """The kernel's forward passes, in order: past ``CLUSTER_LONGEST`` the
+    staged form's digits (``staged_digits``), then the segment's passes
+    (those of ``BODY_N``); past ``BODY_N`` the two digits of the cluster
+    form's first pass (radix ``C = n / segment`` over
     the segments, then radix ``segment / 1024``: one pass of radix
     ``n / 1024`` in the kernel) and then the segment's radix-32 passes
     (``segment``: ``cluster_segment(n)``, or a probe variant's); else radix
@@ -106,6 +121,8 @@ def _radices(n: int, segment: int | None = None) -> list[int]:
     ``n / Q = 1024`` on (``csrc/fft4step.cu``: ``launch``)."""
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
+    if n > CLUSTER_LONGEST:
+        return staged_digits(n) + _radices(BODY_N)
     if n > BODY_N:
         seg = segment or cluster_segment(n)
         return [n // seg] + _radices(seg)
@@ -143,9 +160,12 @@ def _twiddle_tables(n: int) -> np.ndarray:
     it), ``W_Q^k`` (k < Q, zero past it), each ``exp(-2 pi i x / n)`` in
     float64 rounded to float32. The kernel takes ``W_n^e = Thi[e >> 7] *
     Tlo[e & 127]``. Past ``BODY_N``: the tables of ``BODY_N`` (each CTA
-    fills its W_1024 table from them, at either segment length), then the
-    first pass's ``W_n^l`` (l < 128) and ``W_n^(128 h)`` (h < n / 128, whose
-    entries 8 e are its W_(n/1024)^e), (400 + n / 128, 2) in all."""
+    fills its W_1024 table from them, at either segment length; the staged
+    form's segment blocks likewise), then ``W_n^l`` (l < 128) and
+    ``W_n^(128 h)`` (h < n / 128) for the passes over spans past the
+    segment (the cluster form's first pass, whose W_(n/1024)^e are entries
+    8 e of the high one; the staged form's first passes), (400 + n / 128, 2)
+    in all."""
     if n > BODY_N:
         ang = -2.0 * np.pi * np.concatenate(
             [np.arange(_LO), _LO * np.arange(n // _LO)]) / n
@@ -176,7 +196,8 @@ def _twiddles(n: int, device: torch.device) -> torch.Tensor:
 def _kernel_spectrum(axis_plan, n: int, device: torch.device,
                      segment: int | None = None) -> tuple[torch.Tensor, bool]:
     """The correlation spectrum conj(fft(wrap_centered(taps, n))) / n in the
-    kernel's bin order (of ``segment``'s cluster form past ``BODY_N``): n
+    kernel's bin order (of ``segment``'s cluster form past ``BODY_N``, of
+    the staged form past ``CLUSTER_LONGEST``): n
     floats (symmetric taps) or (n, 2) interleaved complex, and whether it
     is complex."""
     full = np.conj(np.fft.fft(wrap_centered(axis_plan.taps, n).astype(np.float64))) / n
@@ -195,11 +216,11 @@ def _check_rows(rows: torch.Tensor, length: int, what: str) -> None:
 
 
 def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.Tensor:
-    """Launch a C entry of ``csrc/fft4step.cu`` on CUDA rows; raise on a
-    length past ``MAX_N``, a device that is neither CUDA nor CPU, a
+    """Launch a C entry of ``csrc/fft4step.cu`` on CUDA rows (past
+    ``CLUSTER_LONGEST`` the staged form's, ``fft_conv_rows_staged``, with a
+    scratch buffer of (R + 1) / 2 x n complex64); raise on a length the
+    kernel does not take, a device that is neither CUDA nor CPU, a
     non-contiguous tensor or a failed launch."""
-    if n > MAX_N:
-        raise NotImplementedError(f"n = {n}: {_PAST_MAX_N}")
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
     if rows.device.type != "cuda":
@@ -214,6 +235,13 @@ def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.
     tw = _twiddles(n, rows.device)
     h, complex_h = _kernel_spectrum(axis_plan, n, rows.device)
     lib = load_library()
+    if n > CLUSTER_LONGEST:
+        # K3: dim n, pad 0; the complex scratch of the staged form
+        dim_pad = extra or (n, 0)
+        scratch = torch.empty(((rows.shape[0] + 1) // 2, n, 2), dtype=torch.float32,
+                              device=rows.device)
+        extra = (*dim_pad, int(entry == "fft_conv_rows_framed"), scratch.data_ptr())
+        entry = "fft_conv_rows_staged"
     with torch.cuda.device(rows.device):
         rc = getattr(lib, entry)(
             rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
@@ -234,7 +262,7 @@ def cluster_occupancy(n: int, framed: bool = False) -> int:
 
     from blur_algorithms_tpu_torch.utils.build import load_library
 
-    if n <= BODY_N or not kernel_length(n):
+    if not (BODY_N < n <= CLUSTER_LONGEST and kernel_length(n)):
         raise ValueError(f"n = {n} is not a length of the cluster form")
     lib = load_library()
     out = ctypes.c_int(0)
@@ -245,25 +273,34 @@ def cluster_occupancy(n: int, framed: bool = False) -> int:
     return out.value
 
 
+def _count(wrapper, n: int) -> None:
+    """One launch of ``wrapper``'s kernel at length n, and of its form."""
+    wrapper.launches += 1
+    wrapper.cluster_launches += BODY_N < n <= CLUSTER_LONGEST
+    wrapper.staged_launches += n > CLUSTER_LONGEST
+
+
 def fft_conv_rows(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
     """(R, n) float32 rows framed to the transform length -> the rows
     circularly correlated by the axis taps (K3).
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
     ``fft_conv_rows.launches`` counts kernel launches, ``.cluster_launches``
-    those of the cluster form (``n > BODY_N``).
+    those of the cluster form (``BODY_N < n <= CLUSTER_LONGEST``),
+    ``.staged_launches`` those of the staged form (past it).
     """
     _check_rows(rows, n, "K3")
     if rows.device.type == "cpu":
         return _conv_rows_einsum(rows, n, axis_plan)
     out = _launch("fft_conv_rows", rows, n, axis_plan)
-    fft_conv_rows.launches += 1
-    fft_conv_rows.cluster_launches += n > BODY_N
+    if rows.shape[0]:  # no rows: nothing launched
+        _count(fft_conv_rows, n)
     return out
 
 
 fft_conv_rows.launches = 0
 fft_conv_rows.cluster_launches = 0
+fft_conv_rows.staged_launches = 0
 
 
 def fft_conv_rows_framed_ref(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
@@ -278,7 +315,8 @@ def fft_conv_rows_framed(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
     ``fft_conv_rows_framed.launches`` counts kernel launches,
-    ``.cluster_launches`` those of the cluster form (``n > BODY_N``).
+    ``.cluster_launches`` and ``.staged_launches`` those of the cluster and
+    the staged form, as ``fft_conv_rows``'s.
     """
     dim, pad = axis_plan.dim, axis_plan.pad
     _check_rows(rows, dim, "K3f")
@@ -287,13 +325,14 @@ def fft_conv_rows_framed(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
     if rows.device.type == "cpu":
         return fft_conv_rows_framed_ref(rows, n, axis_plan)
     out = _launch("fft_conv_rows_framed", rows, n, axis_plan, dim, pad)
-    fft_conv_rows_framed.launches += 1
-    fft_conv_rows_framed.cluster_launches += n > BODY_N
+    if rows.shape[0]:  # no rows: nothing launched
+        _count(fft_conv_rows_framed, n)
     return out
 
 
 fft_conv_rows_framed.launches = 0
 fft_conv_rows_framed.cluster_launches = 0
+fft_conv_rows_framed.staged_launches = 0
 
 
 def conv_axis_framed(x: torch.Tensor, axis_plan, axis: int) -> torch.Tensor:

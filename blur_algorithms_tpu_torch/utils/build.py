@@ -160,6 +160,12 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.fft_conv_rows_framed.restype = i
+    lib.fft_conv_rows_staged.argtypes = [
+        vp, vp, vp, vp,  # x, out, twiddle tables, spectrum
+        i, i, i, i, i, i,  # complex_h, rows, n, dim, pad, framed
+        vp, vp,  # scratch, stream
+    ]
+    lib.fft_conv_rows_staged.restype = i
     lib.fft_conv_rows_cluster_occupancy.argtypes = [i, i, ctypes.POINTER(i)]  # n, framed
     lib.fft_conv_rows_cluster_occupancy.restype = i
     lib.spectral_multiply_2d.argtypes = [

@@ -257,7 +257,27 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    request ms and ``/healthz``; ``unsharp_mask`` on the 4 RGB 4K frames at
    sigma 2 and ``channel_smooth`` rgb (5, 5, 7) against K2's plain version
    on the card, within 1 count. K1, K2, K2's single-axis form and K4 must
-   each have launched over the phase.
+   each have launched over the phase;
+20. K3 and K3f's staged form (n past 131072: first passes over the
+   segments of 16384 through a scratch buffer in device memory, the
+   segments through the one-block body, the passes' adjoints) against the
+   plain version at n 262144, 524288 and 1048576 (one first-pass digit of
+   16, of 32, two of 8), symmetric and asymmetric taps, odd row counts,
+   within 2e-2 at 0..255 scale (beside a float64 ``torch.fft`` correlation
+   at 1048576), with ptxas's registers and spills; then, counts set to 0
+   before each call (launches and ``staged_launches``): ``blur_u8`` AUTO on
+   one 2160x140000 RGB frame at sigma 900 (whole-frame FFT_MXU under its
+   byte budget: K3f's staged form on the rows at n 262144, the one-block
+   K3f on the columns; within 1 count of ``"fft_tiles"``), timed beside
+   ``"fused"``; AUTO on 4 such frames (the MXU streamer: one staged launch
+   a row strip, never the whole-frame path; frame 0 within 1 count of the
+   single-frame call); ``blur`` AUTO forward + backward on (1, 3, 2160,
+   131072) f32 at sigma 400 (K3f's staged form on the rows forward, K3's
+   on the adjoint's rows; ``x.grad`` equal to ``blur_adjoint(g)``, the
+   adjoint identity to 1e-5 relative); times (CUDA events, median of 5 for
+   the calls; the kernels as phase 10) of K3f's staged form on the frame's
+   6480 rows and K3's on the adjoint's rows beside their plain versions,
+   the bytes bound and cuFFT.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -819,11 +839,14 @@ def _kernel_times(entry, rows, n, axis_plan, framed: bool, label: str,
         print(f"phase {phase} time: {res}", flush=True)
     nbytes, ops = _fft_work(rows.shape[0], n, 4 * rows.shape[1], not axis_plan.symmetric)
     bound, by = _bound_ms(nbytes, ops, F32_FLOP_PER_S)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     print(f"phase {phase} {label}: {rows.shape[0]} rows x {rows.shape[1]}, n={n}, "
           f"vs plain max_abs_err={err:.3e}; bound {bound:.4f} ms ({by}: "
-          f"{nbytes / 1e9:.3f} GB, {ops / 1e9:.2f} GFLOP)", flush=True)
+          f"{nbytes / 1e9:.3f} GB, {bytes_ms:.4f} ms of bytes; {ops / 1e9:.2f} GFLOP)",
+          flush=True)
     return {"ms": t_k.median_ms, "plain_ms": t_p.median_ms, "library_ms": t_l.median_ms,
-            "bound_ms": bound, "bound_by": by, "err": err, "bytes": nbytes, "ops": ops}
+            "bound_ms": bound, "bound_by": by, "err": err, "bytes": nbytes, "ops": ops,
+            "bytes_ms": bytes_ms}
 
 
 def _sum_axes(a: dict, b: dict) -> dict:
@@ -3668,15 +3691,18 @@ SIGMA_GIANT, SIGMA_STREAMED = 900.0, 1500.0  # r 2995 (n 32768); r 4992 (n 32768
 GIANT_ITERS = 5
 
 
-def _cluster_counts(fft4step) -> dict:
+def _cluster_counts(fft4step, form: str = "cluster") -> dict:
+    """K3's and K3f's launches, and those of their ``form`` ("cluster" or
+    "staged")."""
     return {f"{c.__name__}{tag}": getattr(c, attr)
             for c in (fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed)
-            for tag, attr in (("", "launches"), (" cluster", "cluster_launches"))}
+            for tag, attr in (("", "launches"), (f" {form}", f"{form}_launches"))}
 
 
 def _zero_cluster_counts(fft4step) -> None:
+    """Every K3 / K3f count to 0, of each form."""
     for c in (fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed):
-        c.launches = c.cluster_launches = 0
+        c.launches = c.cluster_launches = c.staged_launches = 0
 
 
 def _phase18_kernels() -> dict:
@@ -4185,6 +4211,303 @@ def _slice18(smi: str, device: str = "cuda") -> None:
         raise RuntimeError(f"phase 19 did not launch every kernel of its path: {counts}")
 
 
+# phase 20: K3/K3f's staged form (n past 131072) against the plain version,
+# then the slice's paths on 2160 x 140000 RGB frames (a stitched panorama
+# strip) and a 2160 x 131072 float batch
+STAGED_CASES = ((262144, 2001), (524288, 4001), (1048576, 8001))  # (n, taps)
+BIG_ROWS = 8301  # x 262144 (K3) or 260144 (K3f): past 2^31 elements
+STRIP_H, STRIP_W = 2160, 140000
+SIGMA_STRIP = 900.0  # r 2995: rows n 262144 (the staged form), columns n 7168
+PANO_F32_W = 131072  # blur AUTO forward + backward at SIGMA_F32_WIDE: n 262144
+
+
+def _phase20_kernels() -> dict:
+    """(a) K3 and K3f's staged form against the plain version at n 262144
+    (one first-pass digit, 16), 524288 (32) and 1048576 (two, 8 and 8):
+    symmetric and asymmetric taps, odd row counts; the plain version's
+    dense stages fit the card at all three, so no float64 torch.fft
+    stand-in is needed (its error at 1048576 is printed beside). Then one
+    launch of each past 2^31 elements (64-bit offsets)."""
+    from blur_algorithms_tpu_torch import make_custom_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum, transform_length
+    from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
+
+    errs = {"K3": 0.0, "K3f": 0.0}
+    for n, width in STAGED_CASES:
+        dim = n // 2 + 1001  # K3f: dim + 2 pad past n / 2, so the transform is n
+        for asym in (False, True):
+            what = f"taps={width} {'asymmetric' if asym else 'symmetric'}"
+            plan = make_custom_plan((8, n), _wide_taps(width, asym), [1.0])
+            rows = torch.from_numpy(
+                (np.random.default_rng(n).random((9, n)) * 255).astype(np.float32)).cuda()
+            got = fft4step.fft_conv_rows(rows, n, plan.row)
+            want = _conv_rows_einsum(rows, n, plan.row)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["K3"] = max(errs["K3"], err)
+            extra = ""
+            if n == STAGED_CASES[-1][0]:
+                h = np.conj(np.fft.fft(wrap_centered(plan.row.taps, n).astype(np.float64)))
+                ref = torch.fft.ifft(torch.fft.fft(rows.double(), dim=-1)
+                                     * torch.from_numpy(h).cuda(), dim=-1).real
+                extra = (f"; vs float64 torch.fft correlation "
+                         f"{float((got.double() - ref).abs().max()):.3e}")
+                del ref
+            print(f"phase 20 K3 staged form vs plain: 9 rows n={n} (digits "
+                  f"{fft4step.staged_digits(n)}) {what} max_abs_err={err:.3e} "
+                  f"limit={FFT_TOL}{extra}", flush=True)
+            if not err <= FFT_TOL:
+                raise RuntimeError(f"K3's staged form disagrees with its plain version at {n}")
+            plan = make_custom_plan((8, dim), _wide_taps(width, asym), [1.0])
+            nf = transform_length(plan.row)
+            rows = torch.from_numpy(
+                (np.random.default_rng(dim).random((7, dim)) * 255).astype(np.float32)).cuda()
+            got = fft4step.fft_conv_rows_framed(rows, nf, plan.row)
+            want = fft4step.fft_conv_rows_framed_ref(rows, nf, plan.row)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            errs["K3f"] = max(errs["K3f"], err)
+            print(f"phase 20 K3f staged form vs plain: 7 rows dim={dim} n={nf} {what} "
+                  f"max_abs_err={err:.3e} limit={FFT_TOL}", flush=True)
+            if nf != n or not err <= FFT_TOL:
+                raise RuntimeError(f"K3f's staged form at {nf} (want {n}) disagrees with "
+                                   "its plain version")
+            del rows, got, want
+    # past 2^31 elements: K3 on BIG_ROWS rows of 262144 and K3f on as many of
+    # 260144 (pad 1000: n 262144), an odd count; rows are independent, so the
+    # plain version runs on the last rows alone (offsets past 2^31) and on
+    # the row that rides with the zero row
+    n, width = STAGED_CASES[0]
+    gen = torch.Generator("cuda").manual_seed(31)
+    for framed in (False, True):
+        dim = n - (width - 1) if framed else n
+        plan = make_custom_plan((8, dim), _wide_taps(width, framed), [1.0])
+        fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
+        plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+        rows = torch.rand((BIG_ROWS, dim), generator=gen, device="cuda").mul_(255)
+        got = fn(rows, n, plan.row)
+        pick = torch.tensor([BIG_ROWS // 2, *range(BIG_ROWS - 7, BIG_ROWS)], device="cuda")
+        want = plain(rows[pick].contiguous(), n, plan.row)
+        torch.cuda.synchronize()
+        err = float((got[pick] - want).abs().max())
+        finite = bool(torch.isfinite(got).all())
+        name = "K3f" if framed else "K3"
+        errs[name] = max(errs[name], err)
+        print(f"phase 20 {name} staged form past 2^31 elements: {BIG_ROWS} rows x {dim} "
+              f"({BIG_ROWS * dim} elements, {(BIG_ROWS + 1) // 2 * n * 2} scratch floats), "
+              f"n={n}, {'asymmetric' if framed else 'symmetric'} taps={width}: rows "
+              f"{BIG_ROWS // 2} and {BIG_ROWS - 7}..{BIG_ROWS - 1} vs plain "
+              f"max_abs_err={err:.3e} limit={FFT_TOL}; all finite {finite}", flush=True)
+        if not (err <= FFT_TOL and finite and BIG_ROWS * dim > 2**31):
+            raise RuntimeError(f"{name}'s staged form past 2^31 elements: {err}, finite "
+                               f"{finite}")
+        del rows, got, want
+        torch.cuda.empty_cache()
+    for name, line in _ptxas_lines(("fft_conv_rows_staged_pass_kernel",
+                                    "fft_conv_rows_staged_segment_kernel")):
+        print(f"phase 20 ptxas {name}: {line}", flush=True)
+    print(f"phase 20 worst: K3 staged form max_abs_err={errs['K3']:.3e}, K3f "
+          f"{errs['K3f']:.3e} (limit {FFT_TOL})", flush=True)
+    torch.cuda.empty_cache()
+    return errs
+
+
+def _staged_times(label: str, d: dict) -> None:
+    """A staged-form launch on the main path's rows (``_kernel_times``'s
+    dict): its time beside its bytes time (one read and one write of the
+    rows), its bound and cuFFT's; raise if it is off its plain version by
+    more than FFT_TOL."""
+    print(f"phase 20 {label}: {d['ms']:.4f} ms; bytes {d['bytes_ms']:.4f} ms "
+          f"({d['ms'] / d['bytes_ms']:.2f}x), bound {d['bound_ms']:.4f} ms ({d['bound_by']}); "
+          f"cuFFT rfft -> multiply -> irfft {d['library_ms']:.4f} ms "
+          f"({d['ms'] / d['library_ms']:.2f}x); plain {d['plain_ms']:.4f} ms; vs plain "
+          f"max_abs_err={d['err']:.3e} limit={FFT_TOL}", flush=True)
+    if not d["err"] <= FFT_TOL:
+        raise RuntimeError(f"{label}: {d['err']} from the plain version")
+
+
+def _slice19(smi: str) -> list[dict]:
+    """Phase 20; returns the kernels-line entries of K3's and K3f's staged
+    form."""
+    from blur_algorithms_tpu_torch import api, blur, blur_u8, make_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+    from blur_algorithms_tpu_torch.utils import timing
+    from blur_algorithms_tpu_torch.utils.frames import make_frames_on
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    k3, k3f = fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed
+    _zero_cluster_counts(fft4step)
+    errs = _phase20_kernels()
+    launched = {"K3": 0, "K3f": 0}
+    mp = STRIP_H * STRIP_W / 1e6
+
+    # (b) blur_u8 AUTO on one 2160 x 140000 RGB frame at sigma 900: whole-frame
+    # FFT_MXU, K3f's staged form on the rows, the one-block K3f on the columns
+    img = make_frames_on("cuda", 1, STRIP_H, STRIP_W).movedim(1, -1).contiguous()
+    plan = make_plan((STRIP_H, STRIP_W), SIGMA_STRIP)
+    spec = api.device_spec(img.device)
+    eng = api._resolve_engine("auto", plan, 1, img.device, 3)
+    streams = api._fft_mxu_streams(plan, 3, spec)
+    torch.cuda.synchronize()
+    _zero_cluster_counts(fft4step)
+    out = blur_u8(img, SIGMA_STRIP)
+    torch.cuda.synchronize()
+    ran = _cluster_counts(fft4step, "staged")
+    launched["K3f"] += ran["fft_conv_rows_framed staged"]
+    ref = blur_u8(img, SIGMA_STRIP, engine="fft_tiles")
+    d = (out.int() - ref.int()).abs()
+    dmax, exact = int(d.max()), float((d == 0).float().mean())
+    print(f"phase 20 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STRIP} "
+          f"r={plan.row.support_radius} -> {eng.value} (streams: {streams}; estimate "
+          f"{api.estimate_bytes(plan, 3)} bytes, budget {spec.fft_mxu_byte_budget}; n "
+          f"{transform_length(plan.row)}, {transform_length(plan.col)}): launches {ran}; vs "
+          f"fft_tiles (torch.fft) max={dmax} exact={exact}", flush=True)
+    if (eng is not api.Engine.FFT_MXU or streams or ran["fft_conv_rows_framed"] != 2
+            or ran["fft_conv_rows_framed staged"] != 1 or ran["fft_conv_rows"] or dmax > 1):
+        raise RuntimeError(f"blur_u8 AUTO at sigma {SIGMA_STRIP} on the strip: {eng}, {ran}, "
+                           f"{dmax} counts from fft_tiles")
+    del out, ref, d
+    t_strip = {
+        "auto": timing.time_cuda(blur_u8, img, SIGMA_STRIP, iters=GIANT_ITERS, warmup=1,
+                                 name=f"blur_u8 AUTO (fft_mxu) 2160x140000 sigma={SIGMA_STRIP}",
+                                 megapixels=mp),
+        "fused": timing.time_cuda(blur_u8, img, SIGMA_STRIP, "fused", iters=GIANT_ITERS,
+                                  warmup=1, name=f"blur_u8 fused 2160x140000 sigma={SIGMA_STRIP}",
+                                  megapixels=mp),
+    }
+    # K3f's staged form alone on the frame's rows: 6480 rows of 140000, n 262144
+    rows = img[0].movedim(-1, 0).reshape(-1, STRIP_W).float()
+    del img
+    torch.cuda.empty_cache()
+    label = f"K3f staged form 2160x140000 rows sigma={SIGMA_STRIP}"
+    k3f_d = _kernel_times(k3f, rows, transform_length(plan.row), plan.row, True, label, 20)
+    _staged_times(label, k3f_d)
+    del rows
+    torch.cuda.empty_cache()
+
+    # (c) the streamed path: blur_u8 AUTO on four such frames
+    img = make_frames_on("cuda", BATCH, STRIP_H, STRIP_W).movedim(1, -1).contiguous()
+    eng = api._resolve_engine("auto", plan, 1, img.device, BATCH * 3)
+    streams = api._fft_mxu_streams(plan, BATCH * 3, spec)
+    whole, whole_fn = [], api.blur_fft_mxu_cuda
+    api.blur_fft_mxu_cuda = lambda *a: whole.append(1) or whole_fn(*a)
+    try:
+        torch.cuda.synchronize()
+        _zero_cluster_counts(fft4step)
+        out = blur_u8(img, SIGMA_STRIP)
+        torch.cuda.synchronize()
+        ran = _cluster_counts(fft4step, "staged")
+    finally:
+        api.blur_fft_mxu_cuda = whole_fn
+    launched["K3f"] += ran["fft_conv_rows_framed staged"]
+    row_strips = -(-STRIP_H // 1024)
+    single = blur_u8(img[:1], SIGMA_STRIP)  # one frame: whole-frame, as (b)
+    d = (out[:1].int() - single.int()).abs()
+    dmax, exact = int(d.max()), float((d == 0).float().mean())
+    del single, d
+    print(f"phase 20 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STRIP} -> "
+          f"{eng.value} (streams: {streams}, estimate {api.estimate_bytes(plan, BATCH * 3)} "
+          f"bytes); launches {ran}, whole-frame calls {len(whole)}; frame 0 vs the "
+          f"single-frame call max={dmax} exact={exact}", flush=True)
+    if (eng is not api.Engine.FFT_MXU or not streams or whole
+            or ran["fft_conv_rows_framed staged"] != row_strips or ran["fft_conv_rows"]
+            or dmax > 1):
+        raise RuntimeError(f"blur_u8 AUTO on 4 strips did not stream through K3f's staged "
+                           f"form within 1 count: {ran}, {len(whole)}, {dmax}")
+    del out
+    t_streamed = timing.time_cuda(blur_u8, img, SIGMA_STRIP, iters=GIANT_ITERS, warmup=1,
+                                  name=f"blur_u8 AUTO streamed 4x2160x140000 sigma={SIGMA_STRIP}",
+                                  megapixels=BATCH * mp)
+    del img
+    torch.cuda.empty_cache()
+
+    # (d) blur AUTO forward + backward on (1, 3, 2160, 131072) f32 at sigma
+    # 400: K3f's staged form on the rows forward, K3's on the adjoint's rows
+    x = make_frames_on("cuda", 1, STRIP_H, PANO_F32_W).float()
+    plan = make_plan((STRIP_H, PANO_F32_W), SIGMA_F32_WIDE)
+    g = torch.rand(x.shape, generator=torch.Generator(x.device).manual_seed(20),
+                   device=x.device)
+    xg = x.clone().requires_grad_()
+    torch.cuda.synchronize()
+    _zero_cluster_counts(fft4step)
+    y = blur(xg, SIGMA_F32_WIDE)
+    torch.cuda.synchronize()
+    fwd = _cluster_counts(fft4step, "staged")
+    _zero_cluster_counts(fft4step)
+    (y * g).sum().backward()
+    torch.cuda.synchronize()
+    bwd = _cluster_counts(fft4step, "staged")
+    launched["K3"] += bwd["fft_conv_rows staged"]
+    launched["K3f"] += fwd["fft_conv_rows_framed staged"]
+    want = blur_adjoint(g, plan)  # a check: its launches are not the path's
+    torch.cuda.synchronize()
+    gerr = float((xg.grad - want).abs().max())
+    lhs = float((y.detach().double() * g.double()).sum())
+    rhs = float((x.double() * xg.grad.double()).sum())
+    rel = abs(lhs - rhs) / abs(lhs)
+    r = plan.row.support_radius
+    n_adj = max(256, 1 << (PANO_F32_W + 4 * r - 1).bit_length())  # the adjoint's rows
+    print(f"phase 20 main path: blur AUTO forward + backward {tuple(x.shape)} f32 "
+          f"sigma={SIGMA_F32_WIDE} r={r} (rows n {transform_length(plan.row)}; adjoint rows n "
+          f"{n_adj}): forward launches {fwd}, backward {bwd}; x.grad vs blur_adjoint(g) "
+          f"max={gerr:.3e}; adjoint identity <Ax, g> {lhs:.9e} vs <x, A^T g> {rhs:.9e}, "
+          f"relative {rel:.3e} limit 1e-5", flush=True)
+    if (fwd["fft_conv_rows_framed"] != 2 or fwd["fft_conv_rows_framed staged"] != 1
+            or fwd["fft_conv_rows"] or bwd["fft_conv_rows"] != 2
+            or bwd["fft_conv_rows staged"] != 1 or bwd["fft_conv_rows_framed"]):
+        raise RuntimeError(f"the f32 blur launched {fwd} forward, {bwd} backward")
+    if not gerr <= 1e-6 * float(want.abs().max()) or not rel <= 1e-5:
+        raise RuntimeError(f"x.grad differs from blur_adjoint(g) by {gerr}, or the adjoint "
+                           f"identity is off by {rel}")
+    del y, g, want, xg
+    torch.cuda.empty_cache()
+
+    def fwd_bwd(t):
+        t = t.detach().requires_grad_()
+        blur(t, SIGMA_F32_WIDE).backward(torch.ones_like(t))
+        return t.grad
+
+    t_f32 = timing.time_cuda(fwd_bwd, x, iters=GIANT_ITERS, warmup=1,
+                             name=f"blur AUTO forward + backward 3x2160x{PANO_F32_W} "
+                                  f"sigma={SIGMA_F32_WIDE}",
+                             megapixels=3 * STRIP_H * PANO_F32_W / 1e6)
+    # K3's staged form alone on the adjoint's rows (6480 rows of 131072 + 4 r
+    # -> 262144)
+    padded = torch.nn.functional.pad(x.reshape(-1, PANO_F32_W),
+                                     (2 * r, n_adj - PANO_F32_W - 2 * r)).contiguous()
+    del x
+    torch.cuda.empty_cache()
+    label = f"K3 staged form adjoint rows sigma={SIGMA_F32_WIDE}"
+    k3_d = _kernel_times(k3, padded, n_adj, plan.row, False, label, 20)
+    _staged_times(label, k3_d)
+    del padded
+    torch.cuda.empty_cache()
+
+    for res in (*t_strip.values(), t_streamed, t_f32):
+        print(f"phase 20 time: {res}", flush=True)
+    print(f"phase 20 launches of the staged form on the slice's paths: {launched}; "
+          f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
+    for name, n in launched.items():
+        if n < 1:
+            raise RuntimeError(f"{name}'s staged form was not launched on the main path")
+    entry = lambda name, line, n, d, err: {  # noqa: E731
+        "name": name, "route": "cuda", "source": "blur_algorithms_tpu_torch/csrc/fft4step.cu",
+        "replaces": line, "launches": n, "max_abs_err": err, "ms": d["ms"],
+        "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
+        "library_ms": d["library_ms"],
+    }
+    return [
+        entry("fft4step_staged", "blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
+              launched["K3"], k3_d, max(errs["K3"], k3_d["err"])),
+        entry("fft4step_framed_staged", "blur_algorithms_tpu/pallas_kernels/fft4step.py:157",
+              launched["K3f"], k3f_d, max(errs["K3f"], k3f_d["err"])),
+    ]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -4335,6 +4658,7 @@ def main() -> int:
     slice11_kernels = _slice11(probe_build)
     slice16_kernels = _slice16()
     _slice18(smi)
+    slice19_kernels = _slice19(smi)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -4362,7 +4686,7 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
     }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels,
-        *slice7_kernels, *slice11_kernels, *slice16_kernels]}), flush=True)
+        *slice7_kernels, *slice11_kernels, *slice16_kernels, *slice19_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -151,8 +151,14 @@ def _served_streamed_f32(x):
     torch.testing.assert_close(got, want, rtol=0, atol=2e-2)
 
 
+def _served_past_the_cluster_form(x):
+    # rows of 140000 at sigma 3 (n 262144): zero rows blur to zeros
+    out = api.blur(torch.zeros(()).expand(1, 2, 140000), 3.0, engine="fft_mxu")
+    assert out.shape == (1, 2, 140000) and not bool(out.abs().max())
+
+
 _SERVED = (_served_split_u8, _served_split_f32, _served_box_scan, _served_hybrid_pin,
-           _served_streamed_u8, _served_streamed_f32)
+           _served_streamed_u8, _served_streamed_f32, _served_past_the_cluster_form)
 
 
 @pytest.mark.parametrize("call", [
@@ -166,10 +172,9 @@ _SERVED = (_served_split_u8, _served_split_f32, _served_box_scan, _served_hybrid
     # float past radius 600 and past both budgets
     pytest.param(_served_streamed_f32, id="<lambda>4"),
     pytest.param(_served_box_scan, id="<lambda>5"),
-    # past K3/K3f's longest transform: still refused (ROADMAP.md Queue 1
-    # item 11)
-    pytest.param(lambda x: api.blur(torch.zeros(()).expand(1, 8, 140000), 3.0,
-                                    engine="fft_mxu"), id="<lambda>6"),
+    # past the cluster form's longest transform: K3f's staged form since it
+    # was ported (its plain version here)
+    pytest.param(_served_past_the_cluster_form, id="<lambda>6"),
 ])
 def test_outside_the_domain_raises(call):
     """Calls outside the port's domain raise; the cases that later slices

@@ -228,6 +228,51 @@ def test_k3_cluster_form_against_plain_version_on_the_card(cuda_device, n, frame
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [262144, 524288])
+@pytest.mark.parametrize("framed", [False, True])
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_k3_staged_form_against_plain_version_on_the_card(cuda_device, n, framed, asymmetric):
+    """K3/K3f past 131072: the staged form (first passes, segment pass, last
+    passes through a scratch buffer in device memory) against the plain
+    version on the card (odd row counts: a zero row rides along)."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum, transform_length
+
+    fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
+    dim = n // 2 + 1001 if framed else n
+    plan = _k3_plan(2001, asymmetric, dim)
+    if framed:
+        assert transform_length(plan.row) == n
+    rows = _f32_planes((5, dim), seed=22).to(cuda_device)
+    before = (fn.launches, fn.cluster_launches, fn.staged_launches)
+    got = fn(rows, n, plan.row)
+    plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+    want = plain(rows, n, plan.row)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.cluster_launches, fn.staged_launches) == (
+        before[0] + 1, before[1], before[2] + 1)
+    assert float((got - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("framed", [False, True])
+def test_k3_staged_form_takes_zero_rows_on_the_card(cuda_device, framed):
+    """No rows at a length of the staged form (n 262144): a (0, dim) result
+    on the card and no launch counted."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    n = 262144
+    fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
+    dim = n // 2 + 1001 if framed else n
+    plan = _k3_plan(2001, False, dim)
+    before = (fn.launches, fn.cluster_launches, fn.staged_launches)
+    got = fn(torch.zeros((0, dim), device=cuda_device), n, plan.row)
+    torch.cuda.synchronize()
+    assert got.shape == (0, dim) and got.device.type == "cuda"
+    assert (fn.launches, fn.cluster_launches, fn.staged_launches) == before
+
+
+@pytest.mark.cuda
 def test_streamed_fft_mxu_on_the_card_equals_the_whole_frame(cuda_device, monkeypatch):
     """FFT_MXU past a (patched) byte budget streams strips through K3f's
     cluster form: equal within 1 count to the whole-frame call."""

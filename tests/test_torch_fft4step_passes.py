@@ -14,7 +14,14 @@ first pass (radix n / 1024 over stride 1024: radix-C DFTs with rotated
 outputs, the W_(n/1024) table entries, the shuffles between a group's
 G = n / 32768 lanes, radix-R0 DFTs, the outer W_n twiddles with the
 rotation's correction), the segments' radix-32 passes, and the last pass
-as its adjoint. A model of the
+as its adjoint. The staged form (past 131072: 262144, and 1048576, the
+shortest length with two first-pass digits) is modelled pass by pass as
+its kernels index it (a thread a butterfly, twiddles ``(q j) << shift``
+from the W_n tables), each segment through the body's passes, and held
+against ``np.fft`` in the host's bin order and against a float64
+correlation; its mapping touches each position once, its twiddle
+exponents stay below n, and its row and scratch offsets, which pass 2^31
+at the frames it serves, are int64. A model of the
 kernel's thread mapping checks that every pass touches each position once,
 with no shared-memory bank conflict, and that the twiddle exponents stay
 below n; the cluster form's mapping over the cluster's CTAs likewise (each
@@ -33,10 +40,12 @@ torch = pytest.importorskip("torch")
 from blur_algorithms_tpu_torch.cuda_kernels import fft4step as k3  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import spectral_multiply as k5  # noqa: E402
 from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum  # noqa: E402
-from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel  # noqa: E402
+from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel, wrap_centered  # noqa: E402
 from blur_algorithms_tpu_torch.ops.plan import make_custom_plan  # noqa: E402
 
 CLUSTER_LENGTHS = [32768, 65536, 131072]
+# the staged form's: one first-pass digit (16), two (8, 8)
+STAGED_LENGTHS = [262144, 1048576]
 LENGTHS = [256, 4096, 5120, 6144, 7168, 8192, 11264, 15360, 16384] + CLUSTER_LENGTHS
 TWIDDLE_BOUND = 4 * 2.0 ** -24
 
@@ -60,11 +69,12 @@ def _twiddle(n, e):
 
 def _pass_twiddle(n, span, qj):
     """W_span^(q j) as the pass over spans ``span`` of a length-n transform
-    forms it: the cluster pass (span n past ``BODY_N``) from its own
-    tables, every other pass from the tables of the block's length (n, or
-    ``BODY_N`` on a segment of the cluster form)."""
-    if span == n:
-        return _twiddle(n, qj)
+    forms it: the cluster pass (span n past ``BODY_N``) and the staged
+    form's first passes (spans past ``BODY_N``) from the W_n tables, every
+    other pass from the tables of the block's length (n, or ``BODY_N`` on
+    a segment of the cluster or the staged form)."""
+    if span == n or span > k3.BODY_N:
+        return _twiddle(n, qj * (n // span))
     nb = min(n, k3.BODY_N)
     return _twiddle(nb, qj * (nb // span))
 
@@ -197,19 +207,63 @@ def _cluster_inverse(seg, n, segment=None):
     return out
 
 
+def _staged_butterflies(n, radix, span):
+    """The butterflies of a staged pass as ``fft_conv_rows_staged_pass_kernel``
+    indexes them: b < n / radix (t mod (n / radix) of a pair), stride
+    s = span / radix, j = b mod s, base = (b / s) span + j; returns j and the
+    (n / radix, radix) positions base + m s."""
+    s_log2 = (span // radix).bit_length() - 1
+    b = np.arange(n // radix, dtype=np.int64)
+    j = b & ((1 << s_log2) - 1)
+    base = ((b >> s_log2) << (span.bit_length() - 1)) + j
+    return j, base[:, None] + (np.arange(radix, dtype=np.int64) << s_log2)[None, :]
+
+
+def _staged_exponents(n, radix, span):
+    """Twiddle exponents (q j) << (log2 n - log2 span) of a staged pass, per
+    butterfly and output q: (n / radix, radix)."""
+    j, _ = _staged_butterflies(n, radix, span)
+    shift = (n.bit_length() - 1) - (span.bit_length() - 1)
+    return (j[:, None] * np.arange(radix)[None, :]) << shift
+
+
+def _staged_pass(z, n, radix, span, inverse):
+    """One staged pass over spans ``span`` of (half, n) complex rows, as the
+    kernel runs it: forward the radix-R DFT of x[base + m s], then output q
+    times W_n^e (the f32 table product) at base + q s; inverse conjugate
+    twiddles, then the conjugate DFT."""
+    _, pos = _staged_butterflies(n, radix, span)
+    tw = _twiddle(n, _staged_exponents(n, radix, span)).astype(np.complex128)
+    d = _dft(radix, None)
+    a = z[:, pos]
+    if inverse:
+        y = np.einsum("mq,bjq->bjm", np.conj(d), a * np.conj(tw))
+    else:
+        y = np.einsum("qm,bjm->bjq", d, a) * tw
+    out = np.empty_like(z)
+    out[:, pos] = y
+    return out
+
+
 def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
     """NumPy model of the kernel: pairs (c, c + half) packed as z = a + ib,
     the forward passes (DFT, then twiddles), H in the kernel's bin order,
     the inverse passes (conjugate twiddles, then the conjugate DFT); past
     ``BODY_N`` the cluster form's first and last pass, and the segments'
-    radix-32 passes between them."""
+    radix-32 passes between them; past ``CLUSTER_LONGEST`` the staged form's
+    first passes and their adjoints around the segments' body passes."""
     r = rows.shape[0]
     half = (r + 1) // 2
     z = rows[:half].astype(np.complex128)
     z[: r - half] += 1j * rows[half:]
     _, _, wq = _tables(min(n, k3.BODY_N))
     radices, span = k3._radices(n), n
-    if n > k3.BODY_N:
+    digits = k3.staged_digits(n) if n > k3.CLUSTER_LONGEST else []
+    for radix in digits:
+        z = _staged_pass(z, n, radix, span, inverse=False)
+        span //= radix
+    radices = radices[len(digits):]
+    if k3.BODY_N < n <= k3.CLUSTER_LONGEST:
         z, radices, span = _cluster_forward(z, n), radices[2:], 1024
     spans = []
     for radix in radices:
@@ -227,8 +281,12 @@ def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
         cube = z.reshape(half, n // span, radix, s) * np.conj(tw)
         cube = np.einsum("mq,bkqs->bkms", np.conj(_dft(radix, wq)), cube)
         z = cube.reshape(half, n)
-    if n > k3.BODY_N:
+    if k3.BODY_N < n <= k3.CLUSTER_LONGEST:
         z = _cluster_inverse(z, n)
+    span = k3.BODY_N
+    for radix in reversed(digits):
+        span *= radix
+        z = _staged_pass(z, n, radix, span, inverse=True)
     return np.concatenate([z.real, z.imag])[:r]
 
 
@@ -278,7 +336,99 @@ def test_model_of_the_cluster_form_reproduces_numpy_fft(n, segment):
     assert np.abs(back - z).max() <= 1e-5 * np.abs(z).max()
 
 
-@pytest.mark.parametrize("n", LENGTHS)
+def _correlation64(rows, n, axis_plan):
+    """Float64 circular correlation of (R, n) rows by the axis taps."""
+    h = np.conj(np.fft.fft(wrap_centered(axis_plan.taps, n).astype(np.float64)))
+    return np.fft.ifft(np.fft.fft(rows.astype(np.float64), axis=-1) * h, axis=-1).real
+
+
+@pytest.mark.parametrize("n", STAGED_LENGTHS)
+def test_model_of_the_staged_form_reproduces_numpy_fft(n):
+    """The staged form's first passes, then a segment's body passes, leave
+    frequency ``_kernel_bin_order(n)[p]`` at position p (to f32 twiddle
+    rounding); the adjoint passes undo them (times n)."""
+    z = (np.array([1, 1j]) @ np.random.default_rng(n).standard_normal((2, n)))[None]
+    _, _, wq = _tables(k3.BODY_N)
+    span, x, spans = n, z, []
+    for radix in k3._radices(n):
+        if span > k3.BODY_N:
+            x = _staged_pass(x, n, radix, span, inverse=False)
+        else:
+            s = span // radix
+            tw = _pass_twiddle(n, span, np.outer(np.arange(radix), np.arange(s)))
+            spans.append((radix, span, s, tw))
+            cube = np.einsum("qm,bkms->bkqs", _dft(radix, wq), x.reshape(1, n // span, radix, s))
+            x = (cube * tw).reshape(1, n)
+        span //= radix
+    want = np.fft.fft(z[0])[k3._kernel_bin_order(n)]
+    assert np.abs(x[0] - want).max() <= 1e-5 * np.abs(want).max()
+    for radix, span, s, tw in reversed(spans):
+        cube = x.reshape(1, n // span, radix, s) * np.conj(tw)
+        x = np.einsum("mq,bkqs->bkms", np.conj(_dft(radix, wq)), cube).reshape(1, n)
+    span = k3.BODY_N
+    for radix in reversed(k3.staged_digits(n)):
+        span *= radix
+        x = _staged_pass(x, n, radix, span, inverse=True)
+    assert np.abs(x[0] / n - z[0]).max() <= 1e-5 * np.abs(z).max()
+
+
+@pytest.mark.parametrize("n, asymmetric, rows", [
+    (262144, False, 3), (262144, True, 3), (1048576, True, 1)])
+def test_model_of_the_staged_form_against_a_float64_correlation(n, asymmetric, rows):
+    """The whole staged kernel (odd row counts: a zero row rides along)
+    with the host's H in its bin order, within 1e-3 at 0..255 scale of the
+    float64 ``np.fft`` correlation."""
+    plan = _plan(asymmetric)
+    rows = (np.random.default_rng(n + asymmetric).random((rows, n)) * 255).astype(np.float32)
+    got = _model_conv(rows, n, plan.row)
+    np.testing.assert_allclose(got, _correlation64(rows, n, plan.row), rtol=0, atol=1e-3)
+
+
+# rows of the frames the staged form serves: the 2160 x 140000 RGB frame's
+# 6480 rows (n 262144), 16384 rows of 262144 (48 GB of rows, output and
+# scratch) and 8192 rows of 2^20
+STAGED_ROWS = [(262144, 6480), (262144, 16384), (1048576, 8192)]
+
+
+@pytest.mark.parametrize("n, rows", STAGED_ROWS)
+def test_staged_mapping_covers_each_position_once(n, rows):
+    """``fft_conv_rows_staged_pass_kernel``'s butterflies touch every
+    position of a pair's transform once a pass; the twiddle exponents stay
+    below n (the high table's index below n / 128); the digits multiply to
+    n / ``BODY_N`` and leave segments of ``BODY_N``. Offsets: positions in a
+    row stay int (below 2^31), while a pair's scratch offset (pair n +
+    position) and a row's (row dim) pass 2^31 at the larger row counts, so
+    the kernel takes them, and its thread index, as 64-bit (int64 here);
+    the grids fit (blocks under 2^31, the segment pass's (R + 1) / 2 x P
+    blocks too)."""
+    digits = k3.staged_digits(n)
+    assert np.prod(digits) == n // k3.BODY_N and set(digits) <= {8, 16, 32}
+    assert k3._radices(n)[:len(digits)] == digits
+    half, span = (rows + 1) // 2, n
+    for radix in digits:
+        j, pos = _staged_butterflies(n, radix, span)
+        seen = np.zeros(n, np.int64)
+        np.add.at(seen, pos.ravel(), 1)
+        assert (seen == 1).all(), (n, radix, span)
+        e = _staged_exponents(n, radix, span)
+        assert e.max() < n and (e >> 7).max() < n // 128
+        assert pos.max() < 2**31 and (np.arange(radix) * j.max()).max() < span
+        threads = half * (n // radix)
+        assert -(-threads // 256) < 2**31
+        # the last thread's pair, and its scratch offset in float2
+        pair = np.int64(threads - 1) // (n // radix)
+        assert pair == half - 1
+        assert pair * n + pos.max() == half * n - 1
+        span //= radix
+    assert span == k3.BODY_N
+    assert half * (n // k3.BODY_N) < 2**31
+    last_row = np.int64(rows - 1) * n  # K3: dim n
+    if rows * n > 2**31:  # an int32 offset would wrap here: the kernel's are 64-bit
+        assert last_row >= 2**31 and last_row.astype(np.int32) != last_row
+    assert np.int64(half) * n * 8 < 2**63
+
+
+@pytest.mark.parametrize("n", LENGTHS + STAGED_LENGTHS)
 def test_two_level_twiddles_within_the_stated_bound(n):
     e = np.arange(n)
     exact = np.exp(-2j * np.pi * e / n)
@@ -428,7 +578,7 @@ def test_cluster_pass_mapping_covers_each_position_once(n, segment):
     assert 8 * (c - 1) * r0 * jj < 2**20  # an mbarrier's transaction count
 
 
-@pytest.mark.parametrize("n", LENGTHS)
+@pytest.mark.parametrize("n", LENGTHS + STAGED_LENGTHS)
 def test_kernel_bin_order_is_a_permutation(n):
     order = k3._kernel_bin_order(n)
     assert order.shape == (n,) and (np.sort(order) == np.arange(n)).all()
@@ -456,10 +606,16 @@ def test_kernel_lengths_are_the_planned_ones():
         assert k3.kernel_length(transform_length(plan.row))
     with pytest.raises(ValueError):
         k3._radices(3072)
-    # past 16384 the powers of two the cluster form takes, and nothing else
-    assert {n for n in range(16385, k3.MAX_N + 1) if k3.kernel_length(n)} == set(
+    # past 16384 the powers of two the cluster form takes, then the staged
+    # form's, and nothing else
+    assert {n for n in range(16385, k3.CLUSTER_LONGEST + 1) if k3.kernel_length(n)} == set(
         CLUSTER_LENGTHS)
-    for need in (16385, 20000, 33000, 70000, 131072):
+    assert {n for n in range(k3.CLUSTER_LONGEST + 1, (1 << 20) + 1)
+            if k3.kernel_length(n)} == {1 << 18, 1 << 19, 1 << 20}
+    assert k3.kernel_length(1 << 30) and not k3.kernel_length(1 << 31)
+    with pytest.raises(ValueError):
+        k3.staged_digits(k3.CLUSTER_LONGEST)
+    for need in (16385, 20000, 33000, 70000, 131072, 140000, 300000, 600000):
         taps = gaussian_kernel(30.0, 201)
         plan = make_custom_plan((9, need - 200), taps, [1.0])
         assert k3.kernel_length(transform_length(plan.row))

@@ -34,6 +34,7 @@ from blur_algorithms_tpu_torch import api  # noqa: E402
 from blur_algorithms_tpu_torch.cuda_kernels import fft4step as t_k3  # noqa: E402
 from blur_algorithms_tpu_torch.ops import plan as t_plan  # noqa: E402
 from blur_algorithms_tpu_torch.ops import streamed as t_streamed  # noqa: E402
+from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length  # noqa: E402
 from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel  # noqa: E402
 from blur_algorithms_tpu_torch.utils.hw import DeviceSpec, spec_for  # noqa: E402
 
@@ -169,6 +170,7 @@ _ROUTES = [
     ((200, 1300), 200.0, 600, 600, (700, 700), 1 << 16),  # streams, under its crossover
     ((200, 1300), 200.0, 600, 600, (640, 640), 1 << 16),  # streams, past it
     ((200, 1300), 200.0, 600, 600, (700, 700), 80 << 30),  # no stream: its crossover unread
+    ((2, 140000), 200.0, 600, 600, (600, 600), 80 << 30),  # rows past n 131072: FFT_MXU
 ]
 
 
@@ -228,16 +230,26 @@ def test_streamed_crossovers_by_device_name():
         other.auto_fused_max_radius_u8, other.auto_fused_max_radius_f32)
 
 
-def test_auto_past_the_longest_transform_takes_the_split():
-    """Where FFT_MXU's transform would pass ``MAX_N`` (a row of 140000 at r
-    665: n 262144) AUTO keeps the split, which serves the frame, within
-    2e-2 of ``torch.fft`` (the fft_tiles engine)."""
+def test_auto_past_the_longest_transform_takes_the_split(monkeypatch):
+    """AUTO past transform length 131072 takes FFT_MXU, as the JAX
+    ``_resolve_engine`` does (a row of 140000 at r 665: n 262144, K3f's
+    staged form; JAX's rule under the CPU spec's crossovers and budgets),
+    within 2e-2 of ``torch.fft`` (the fft_tiles engine)."""
     x = torch.from_numpy(_planar((1, 2, 140000), seed=21))
-    plan = t_plan.make_plan((2, 140000), 200.0)
-    assert api._fft_mxu_refusal(plan) is not None
-    assert api._resolve_engine("auto", plan, 4, "cpu", 2) is api.Engine.FUSED
-    ran, real = [], api.blur_fused
-    with mock.patch.object(api, "blur_fused", lambda *a: ran.append(1) or real(*a)):
+    plan, jplan = _plans(((2, 140000), 200.0))
+    assert t_k3.kernel_length(262144) and transform_length(plan.row) == 262144
+    spec = api.device_spec("cpu")
+    base = j_hw.spec_for_kind("TPU v5 lite")
+    monkeypatch.setattr(j_hw, "budgets", lambda: _Budgets(base, **{
+        f: getattr(spec, f) for f in (
+            "auto_fused_max_radius_u8", "auto_fused_max_radius_f32",
+            "auto_fused_max_radius_u8_streamed", "auto_fused_max_radius_f32_streamed",
+            "fft_mxu_byte_budget", "split_hbm_budget")}))
+    got_engine = api._resolve_engine("auto", plan, 4, "cpu", 3)
+    assert got_engine is api.Engine.FFT_MXU
+    assert j_api._resolve_engine(JEngine.AUTO, jplan, 4).value == got_engine.value
+    ran, real = [], api.blur_fft_mxu_cuda
+    with mock.patch.object(api, "blur_fft_mxu_cuda", lambda *a: ran.append(1) or real(*a)):
         got = port.blur(x, 200.0)
     assert ran == [1]
     want = port.blur(x, 200.0, engine="fft_tiles")
