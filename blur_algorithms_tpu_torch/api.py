@@ -37,8 +37,8 @@ past it; where FFT_MXU's whole-frame intermediates exceed
 (``ops/streamed.blur_fft_mxu_streamed(_u8)``) and AUTO reads the streamed
 crossover (``auto_fused_max_radius_*_streamed``) in its place, whether it
 lies above or below (JAX reads it only above). K3/K3f take every transform
-length the JAX package plans (the cluster form past 16384, the staged form
-past 131072), so FFT_MXU, its streamer and AUTO serve every axis length.
+length the JAX package plans (the cluster form past 16384, on 16 CTAs at
+262144; the staged form past 262144), so FFT_MXU, its streamer and AUTO serve every axis length.
 ``"fft_stream"`` runs the
 strip-streamed ``torch.fft`` tiles. ``"conv"`` runs ``F.conv1d``
 (``ops/direct_conv``, the JAX engine is XLA's convolution) and

@@ -25,7 +25,8 @@ the cluster form, the yardstick the current one is timed against in turns
 exchanges through the CTA's own shared memory, the cluster barriers after
 the first, everything but the radix-C pass's reads and the last stores, or
 everything but the length-16384 body. ``cluster_cells`` are the shapes it
-is timed at.
+is timed at. From 262144, ``staged_yardstick`` runs the copying staged form
+(``chip_smoke.py`` phase 20 times the wide cluster form in turns with it).
 
 Run: ``python -m blur_algorithms_tpu_torch.benchmarks.fft_mxu_ablation``
 (``--rows``/``--n`` as the JAX probe: 8192 rows of n 16384 by default; the
@@ -50,7 +51,7 @@ from blur_algorithms_tpu_torch.benchmarks._common import (
 
 __all__ = ["CLUSTER_VARIANTS", "CURRENT_VARIANTS", "MODES", "ONE_DOT", "OTHER_SEGMENT",
            "PORT_MODES", "STAGES", "cells", "cluster_ablation", "cluster_cells",
-           "conv_rows_ablation", "jax_default", "mask_keeps"]
+           "conv_rows_ablation", "jax_default", "mask_keeps", "staged_yardstick"]
 
 # the stages a mask leaves out (csrc/fft4step.cu: Ablate)
 NO_BUTTERFLIES, NO_TWIDDLES, NO_EXCHANGES, NO_SPECTRUM, IO_ONLY = 1, 2, 4, 8, 16
@@ -202,6 +203,47 @@ def cluster_ablation(rows: torch.Tensor, n: int, axis_plan, variant: str = "pr16
 
 
 cluster_ablation.launches = 0
+
+
+def staged_yardstick(rows: torch.Tensor, n: int, axis_plan, framed: bool = False) -> torch.Tensor:
+    """The copying staged form of K3 (rows framed to ``n``) or K3f
+    (``framed``) at a power of two n from 262144 (where the wide cluster form
+    now serves, and past it): a scratch buffer of (R + 1) / 2 x n complex64
+    in device memory and a segment pass that copies each segment into shared
+    memory and back, the yardstick the package's forms are timed against;
+    never a path. A CUDA tensor launches the probe's entry,
+    the spectrum in the bin order both forms share; a CPU tensor runs the
+    plain version. ``staged_yardstick.launches`` counts."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    if not (16 * fft4step.BODY_N <= n <= 1 << 30 and n & (n - 1) == 0):
+        raise ValueError(f"n = {n} is not a length of the copying staged form")
+    dim, pad = (axis_plan.dim, axis_plan.pad) if framed else (n, 0)
+    if rows.dtype != torch.float32 or rows.ndim != 2 or rows.shape[1] != dim:
+        raise ValueError(f"takes (R, {dim}) float32 rows, got {tuple(rows.shape)} {rows.dtype}")
+    if rows.device.type == "cpu":
+        plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+        return plain(rows, n, axis_plan)
+    if rows.device.type != "cuda" or not rows.is_contiguous():
+        raise ValueError(f"takes contiguous CUDA or CPU rows, not {rows.device}")
+    from blur_algorithms_tpu_torch.utils.build import load_probe_library
+
+    out = torch.empty_like(rows)
+    tw = fft4step._twiddles(n, rows.device)
+    h, complex_h = fft4step._kernel_spectrum(axis_plan, n, rows.device)
+    scratch = torch.empty(((rows.shape[0] + 1) // 2, n, 2), dtype=torch.float32,
+                          device=rows.device)
+    rc = load_probe_library().fft_staged_yardstick(
+        int(framed), rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
+        int(complex_h), rows.shape[0], n, dim, pad, scratch.data_ptr(),
+        torch.cuda.current_stream(rows.device).cuda_stream)
+    check_launch(rc, "fft_staged_yardstick")
+    staged_yardstick.launches += 1
+    return out
+
+
+staged_yardstick.launches = 0
 
 
 def cluster_cells() -> list[tuple[str, int, int, object, bool]]:

@@ -22,11 +22,10 @@
 //
 // The design: one block per pair of rows, n / 32 threads, the FFT as a few
 // high-radix passes held in registers, shared memory only between passes.
-// The kernel is a template on n (17 lengths; the cluster form below takes
-// 3 more, the staged form every power of two past them) and on whether it
-// frames the
-// rows (K3f) or reads them as they are (K3), so every stride, count and
-// twiddle step is a constant and shared addresses fold into immediates.
+// The kernel is a template on n (17 lengths; the cluster forms below take
+// 4 more, the staged form every power of two past them) and on whether it
+// frames the rows (K3f) or reads them as they are (K3), so every stride,
+// count and twiddle step is a constant and shared addresses fold into immediates.
 //   n = Q * P: Q the odd part (1, 3, 5, ..., 15: the lengths are powers of
 //   two 256..16384 and 1024 k for k = 5..16), P = R0 * 32^a, R0 in
 //   {1, 2, 4, 8, 16}, a in {1, 2}. Forward passes, decimation in frequency:
@@ -131,10 +130,12 @@
 // W_1024 table and the first pass's W_n tables (128 + n / 128 entries, as
 // Tlo / Thi above; entry 8 e of the high one is W_(n/1024)^e), ~81 KB at M
 // 8192 (two CTAs an SM) and ~155 KB at 16384.
-// Past n 131072 (what a cluster of the portable 8 CTAs holds) the staged
-// form (fft_conv_rows_staged_*, below) keeps the transform in a complex
-// scratch buffer in device memory: radix-8/16/32 passes over the segments
-// of 16384, a thread a butterfly; each segment through the one-block body;
+// At n 262144 the wide cluster form (fft_conv_rows_wide_kernel, below): 16
+// CTAs of 16384, a radix-16 pass into the segments and back, the whole
+// one-block body on each, on persistent clusters; one read and one write
+// of the rows. Past it the staged form (fft_conv_rows_staged_*, below):
+// radix-8/16/32 passes over the segments of 16384 through a complex
+// scratch buffer in device memory, each segment through the one-block body,
 // the passes' adjoints back to the rows. No length cap but the C entries'
 // int (2^30).
 // Tensor cores: not used. f32 accuracy would need 3xTF32 (~165 TFLOP/s of
@@ -181,6 +182,10 @@ enum Ablate {
   kIoOnly = 16,        // reads and stores: no other pass, no other stage
 };
 constexpr int kAllStages = kNoButterflies | kNoTwiddles | kNoExchanges | kNoSpectrum;
+// Not a stage left out: the first pass reads, and the last pass stores, one
+// complex row (Rows::z) in place of the pair of real rows (the staged
+// form's segment pass on its segment of scratch).
+constexpr int kComplexIo = 32;
 
 // What the ablation of the cluster form leaves out (timing only: any
 // variant but 0 gives a wrong result; probes/fft_ablation.cu runs them).
@@ -316,6 +321,7 @@ struct Rows {
   bool has_b;
   int dim;
   int pad;
+  float2* z;  // kComplexIo: the complex row read and stored in place
 };
 
 // W_n^e, 0 <= e < n
@@ -389,7 +395,9 @@ __device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b,
   float2 a[R];
 #pragma unroll
   for (int m = 0; m < R; ++m) {
-    if constexpr (kIn)
+    if constexpr (kIn && (kMask & kComplexIo) != 0)
+      a[m] = io.z[base + m * S];
+    else if constexpr (kIn)
       a[m] = load_row<kFramed>(io, base + m * S);
     else if constexpr ((kMask & kNoExchanges) != 0)
       a[m] = make_float2(carry.x + m, carry.y);
@@ -411,7 +419,9 @@ __device__ __forceinline__ void butterfly(const Smem& sm, const Rows& io, int b,
   }
 #pragma unroll
   for (int q = 0; q < R; ++q) {
-    if constexpr (kOut)
+    if constexpr (kOut && (kMask & kComplexIo) != 0)
+      io.z[base + q * S] = a[q];
+    else if constexpr (kOut)
       store_row<kFramed>(io, base + q * S, a[q]);
     else if constexpr ((kMask & kNoExchanges) != 0)
       carry = cadd(carry, a[q]);
@@ -1063,7 +1073,8 @@ int cluster_occupancy(int* clusters) {
 }
 
 // The cluster form at segment M: a cluster of C CTAs a pair of rows. A
-// cluster that cannot be placed fails the launch (the error is returned).
+// cluster that cannot be placed fails the launch (the error is returned;
+// nothing falls back to another form).
 template <int M, int C, bool kFramed, int kVar = 0>
 int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
                    int complex_h, int rows, int dim, int pad, cudaStream_t stream) {
@@ -1078,11 +1089,181 @@ int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the staged form: n = P * M past 131072, M = kMaxN ----
+// ---- the wide cluster form: n = 16 M = 262144, M = kMaxN ----
 //
-// Past the portable cluster of 8 CTAs a pair of rows no longer fits the
-// shared memory a cluster can join, so the transform is staged through a
-// complex scratch buffer in device memory (n float2 a pair of rows, that
+// A pair of rows on a cluster of 16 CTAs (past the portable 8: a size the
+// H100 places 7 at once, one on each GPC of 16 or more SMs, so 112 of its
+// 132 SMs work), CTA q holding segment q of M = 16384 points; nothing in
+// device memory but one read and one write of the rows. It replaces the
+// staged form (below) at this length, whose scratch buffer took 48 n bytes a
+// pair of rows through device memory and whose segment pass ran at 2.75x
+// its bytes (probes/k3_staged_variants.py). The cluster form above makes
+// its first pass the exchange; at C 16 that takes G = 8 lanes a butterfly
+// (4 consecutive j a lane group: 16-byte pieces of a row a load, 32-byte
+// pieces a remote store), spilled 124-136 bytes a thread and ran 1.27x
+// slower than the staged form. This form takes the split design instead:
+//   1. a radix-16 pass over stride M: thread t of CTA r takes j = r B + t
+//      + u T (B = M / 16 = 1024, T = 512, u < 2, one after the other),
+//      loads x[j + m M] (m < 16; K3f framing the rows), runs the DFT and
+//      stores output q times W_n^(q j) at position j of CTA q's segment,
+//      lanes on consecutive j: 128 contiguous bytes of a row a load, 256 of
+//      one CTA a remote store;
+//   2. the body's passes of length M on each segment (H's segment q in the
+//      middle pass);
+//   3. the adjoint of the first pass: CTA r reads position j of every
+//      segment (remote loads), conjugate-twiddles, runs the conjugate DFT
+//      and stores the rows.
+// What bounds it: the body, one 16384-point segment an SM at the one-block
+// kernel's rate (~19 us, 7.5 ms of the adjoint's 6480 rows on 132 SMs), on
+// 112 SMs, then the two exchanges over distributed shared memory (15/16 of
+// the data each way) and the cluster barriers between the steps. Cluster
+// barriers order the steps; the one at a pair's start is split, so that
+// the pair's first loads and DFT run before the wait for the peers to have
+// read the last pair's segments. The clusters are persistent: as many as
+// the card places at once (cudaOccupancyMaxActiveClusters), each taking
+// pairs c, c + clusters, ...; a cluster of 16 starts only on a GPC whose 16
+// SMs are all free, and the tables load once. On the adjoint's rows one
+// cluster a pair took 16.1 ms, persistent clusters 15.8, with the split
+// barrier 15.3 (the copying staged form 20.2).
+
+constexpr int kWideC = 16;  // CTAs of the wide cluster form
+// its shared memory: the padded segment, the body's tables, the W_1024
+// table and the first pass's W_n tables (128 + n / 128 entries)
+constexpr int kWideSmem =
+    8 * (kMaxN + kMaxN / 32) + 8 * kTable + 8 * 1024 + 8 * (kLo + kWideC * kMaxN / kLo);
+
+__device__ __forceinline__ float2 dsmem_load(uint32_t addr) {
+  float2 v;
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(addr) : "memory");
+  return v;
+}
+
+template <bool kFramed>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+fft_conv_rows_wide_kernel(const float* __restrict__ x, float* __restrict__ out,
+                          const float2* __restrict__ tw, const float* __restrict__ h,
+                          int complex_h, int rows, int half, int dim, int pad) {
+  constexpr int M = kMaxN, C = kWideC, N = C * M, T = kMaxThreads, B = M / C;
+  static_assert(B == 2 * T, "a thread takes two positions j of its CTA");
+  const int rank = cluster_rank();
+  extern __shared__ __align__(16) float2 smem2[];
+  float2* ctab = smem2 + M + M / 32 + kTable + 1024;
+  for (int k = threadIdx.x; k < kLo + N / kLo; k += T) ctab[k] = tw[kTable + k];
+  const Smem sm = load_tables<M>(smem2, tw);
+  __syncthreads();
+  const uint32_t seg = static_cast<uint32_t>(__cvta_generic_to_shared(smem2));
+  const int clusters = static_cast<int>(gridDim.x) / C;
+  const int j0 = rank * B + static_cast<int>(threadIdx.x);
+  // the cluster's barrier at a pair's start, split: arrived at once a CTA
+  // has read the last pair's segments, waited on after the next pair's
+  // first loads and DFT
+  cluster_arrive_release();  // this CTA has started
+#pragma unroll 1
+  for (int ra = static_cast<int>(blockIdx.x) / C; ra < half; ra += clusters) {
+    const int rb = ra + half;
+    const Rows io{x + static_cast<size_t>(ra) * dim, x + static_cast<size_t>(rb) * dim,
+                  out + static_cast<size_t>(ra) * dim, out + static_cast<size_t>(rb) * dim,
+                  rb < rows, dim, pad};
+    // 1. rows -> the 16 segments, one position j of the thread at a time
+#pragma unroll 1
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u * T;
+      float2 a[C];
+#pragma unroll
+      for (int m = 0; m < C; ++m) a[m] = load_row<kFramed>(io, j + m * M);
+      dft<C, false>(a, nullptr);
+#pragma unroll
+      for (int q = 1; q < C; ++q) {
+        const int e = q * j;  // < N
+        a[q] = cmul(a[q], cmul(ctab[kLo + (e >> 7)], ctab[e & (kLo - 1)]));
+      }
+      if (u == 0) cluster_wait();  // every CTA has started, or read the last pair
+#pragma unroll
+      for (int q = 0; q < C; ++q) {
+        if (q == rank)
+          smem2[sidx(j)] = a[q];
+        else
+          dsmem_store(dsmem_map(seg, q) + 8 * sidx(j), a[q]);
+      }
+    }
+    cluster_arrive_release();
+    cluster_wait();
+    // 2. the segment's body of length M
+    passes<M, kFramed, 0, false>(sm, io, h + static_cast<size_t>(complex_h ? 2 : 1) * rank * M,
+                                 complex_h);
+    cluster_arrive_release();
+    cluster_wait();
+    // 3. the 16 segments -> rows
+#pragma unroll 1
+    for (int u = 0; u < 2; ++u) {
+      const int j = j0 + u * T;
+      float2 a[C];
+#pragma unroll
+      for (int q = 0; q < C; ++q)
+        a[q] = q == rank ? smem2[sidx(j)] : dsmem_load(dsmem_map(seg, q) + 8 * sidx(j));
+      if (u == 1) cluster_arrive_release();  // this CTA has read the pair's segments
+#pragma unroll
+      for (int q = 1; q < C; ++q) {
+        const int e = q * j;
+        a[q] = cmulc(a[q], cmul(ctab[kLo + (e >> 7)], ctab[e & (kLo - 1)]));
+      }
+      dft<C, true>(a, nullptr);
+#pragma unroll
+      for (int m = 0; m < C; ++m) store_row<kFramed>(io, j + m * M, a[m]);
+    }
+  }
+  cluster_wait();  // no CTA exits while a peer may still read its segment
+}
+
+// The wide form's kernel attributes: its shared memory and leave to place a
+// cluster of 16.
+template <bool kFramed>
+cudaError_t wide_attributes() {
+  auto kernel = fft_conv_rows_wide_kernel<kFramed>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWideSmem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  return e;
+}
+
+// How many clusters of the wide form the current card holds at once
+// (cudaOccupancyMaxActiveClusters), into *clusters.
+template <bool kFramed>
+int wide_occupancy(int* clusters) {
+  auto kernel = fft_conv_rows_wide_kernel<kFramed>;
+  cudaError_t err = wide_attributes<kFramed>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ClusterLaunch l(kWideC, kWideC, kMaxThreads, kWideSmem, nullptr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(clusters, kernel, &l.cfg));
+}
+
+// The wide cluster form at n 262144: min(pairs, the clusters the card holds
+// at once) persistent clusters of 16 CTAs. A card that places none fails
+// the launch (the error is returned; nothing falls back to another form).
+template <bool kFramed>
+int launch_wide(const float* x, float* out, const float2* tw, const float* h, int complex_h,
+                int rows, int dim, int pad, cudaStream_t stream) {
+  int fit = 0;
+  int e = wide_occupancy<kFramed>(&fit);
+  if (e) return e;
+  if (fit < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int half = (rows + 1) / 2;
+  const int clusters = fit < half ? fit : half;
+  auto kernel = fft_conv_rows_wide_kernel<kFramed>;
+  ClusterLaunch l(kWideC, clusters * kWideC, kMaxThreads, kWideSmem, stream);
+  e = static_cast<int>(
+      cudaLaunchKernelEx(&l.cfg, kernel, x, out, tw, h, complex_h, rows, half, dim, pad));
+  if (e) return e;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- the staged form: n = P * M past 262144, M = kMaxN ----
+//
+// Past the 16 CTAs of the wide cluster form a pair of rows no longer fits
+// the shared memory a cluster can join, so the transform is staged through
+// a complex scratch buffer in device memory (n float2 a pair of rows, that
 // is rows x n x 4 bytes, allocated by the wrapper):
 //   1. the first passes: radix-R decimation-in-frequency passes over the P
 //      segments, P = n / M = R_1 ... R_t, each R_i in {8, 16, 32}
@@ -1095,7 +1276,8 @@ int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
 //   2. the segment pass: each M-point segment of scratch through the
 //      one-block body of length M (its radix-16 and radix-32 passes, H's
 //      segment in the middle pass, the inverse passes), a block a segment,
-//      loaded into and stored from its padded shared row;
+//      the body's first pass reading the segment from scratch into its
+//      registers and its last pass storing it back (kComplexIo);
 //   3. the last passes: the first passes' adjoints in reverse order
 //      (conjugate twiddles, then the conjugate DFT); the last stores Re to
 //      row a and Im to row b (K3f: the interior [pad, pad + dim) alone).
@@ -1107,13 +1289,21 @@ int launch_cluster(const float* x, float* out, const float2* tw, const float* h,
 // cache from the host's tables (128 + n / 128 entries: 8320 at n 2^20), the
 // same 4 * 2^-24 bound as the body's for any n (two table roundings and
 // the product's two).
-// What bounds it: device memory. Each digit's pass reads and writes the
-// scratch once each way (a forward and an inverse pass per digit), the
-// segment pass once more: ~(16 (t + 1) + 8) n bytes a pair of rows against
-// the 16 n of one read and one write of the rows, 2.5x at one digit. This
-// is the first, correct form: keeping a digit's pass in the segment
-// pass's blocks (a cluster or a persistent grid per pair), TMA and
-// pipelining across the stages are later work.
+// The traffic: at t digits a pair of rows takes (32 t + 16) n bytes through
+// scratch and rows: each digit's forward and inverse pass read and write n
+// float2 each (the first digit's the rows on one side), the segment pass
+// reads and writes scratch once more; 48 n at one digit, 3x the 16 n of one
+// read and one write of the rows. On the H100 the radix-16 and radix-32
+// passes run at 1.1-1.6x their bytes; the segment pass bounds the form: one
+// block an SM (128 KB of shared memory, 512 threads of 128 registers), so
+// nothing overlaps a block's memory traffic with its compute. The first
+// segment pass copied its segment in, computed, and copied it out (2.75x
+// its bytes, 11.2 of 20.2 ms on 6480 rows of 262144); this one reads and
+// stores scratch from the body's first and last passes (kComplexIo), as the
+// one-block kernel does its rows: 1.85x (7.5 ms). Waves of pairs sharing
+// an L2-sized scratch buffer (8-64 MB) were slower at every size, their
+// kernel boundaries costing more than L2 saved (probes/k3_staged_variants.py
+// times both).
 
 constexpr int kStagedThreads = 256;  // threads a block of a staged pass
 
@@ -1190,10 +1380,11 @@ fft_conv_rows_staged_pass_kernel(const float* __restrict__ x, float* __restrict_
   }
 }
 
-// The segment pass: block c is segment c mod P of pair c / P, its M complex
-// values loaded from scratch into the padded shared row, the body's passes
-// from the first forward to the last inverse (H's segment in the middle
-// pass), and stored back.
+// The segment pass: block c is segment c mod P of pair c / P, the body's
+// passes from the first forward to the last inverse (H's segment in the
+// middle pass) on it, the first pass reading its M complex values straight
+// from scratch into registers and the last storing them back in place
+// (kComplexIo), as the one-block kernel reads and stores its rows.
 template <int M>
 __global__ void __launch_bounds__(M / kE, 1)
 fft_conv_rows_staged_segment_kernel(float2* __restrict__ scratch, const float2* __restrict__ tw,
@@ -1201,14 +1392,11 @@ fft_conv_rows_staged_segment_kernel(float2* __restrict__ scratch, const float2* 
   extern __shared__ __align__(16) float2 smem2[];
   const Smem sm = load_tables<M>(smem2, tw);
   const int seg = static_cast<int>(blockIdx.x & ((1u << p_log2) - 1));
-  float2* z = scratch + static_cast<size_t>(blockIdx.x) * M;
-  for (int i = threadIdx.x; i < M; i += M / kE) sm.buf[sidx(i)] = z[i];
+  Rows io{};
+  io.z = scratch + static_cast<size_t>(blockIdx.x) * M;
   __syncthreads();
-  const Rows none{nullptr, nullptr, nullptr, nullptr, false, 0, 0};
-  passes<M, false, 0, false>(sm, none, h + static_cast<size_t>(complex_h ? 2 : 1) * seg * M,
-                             complex_h);
-  __syncthreads();
-  for (int i = threadIdx.x; i < M; i += M / kE) z[i] = sm.buf[sidx(i)];
+  passes<M, false, kComplexIo, true>(sm, io, h + static_cast<size_t>(complex_h ? 2 : 1) * seg * M,
+                                     complex_h);
 }
 
 template <int R, bool kInv, int kIo>
@@ -1240,6 +1428,34 @@ int staged_pass(int r_log2, const float* x, float* out, float2* scratch, const f
   }
 }
 
+// The staged form's first passes (forward, digit 0 first) or last passes
+// (kInv: their adjoints, the last digit first) at n = 2^n_log2, p_log2 =
+// n_log2 - log2(M); digit 0's pass reads or stores the rows. twn: W_n^l
+// (l < 128), then W_n^(128 h) (h < n / 128).
+template <bool kInv>
+int staged_passes(bool framed, const float* x, float* out, float2* scratch, const float2* twn,
+                  int rows, int n_log2, int p_log2, int dim, int pad, cudaStream_t stream) {
+  const int half = (rows + 1) / 2;
+  const int digits = staged_digit_count(p_log2);
+  int span_log2 = kInv ? n_log2 - p_log2 : n_log2, e = 0;
+  for (int k = 0; k < digits && !e; ++k) {
+    const int i = kInv ? digits - 1 - k : k;
+    const int r_log2 = staged_digit_log2(p_log2, i);
+    if (kInv) span_log2 += r_log2;
+    if (i > 0)
+      e = staged_pass<kInv, kScratchIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
+                                        n_log2, span_log2, stream);
+    else if (framed)
+      e = staged_pass<kInv, kFramedIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
+                                       n_log2, span_log2, stream);
+    else
+      e = staged_pass<kInv, kRowsIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad, n_log2,
+                                     span_log2, stream);
+    if (!kInv) span_log2 -= r_log2;
+  }
+  return e;
+}
+
 }  // namespace
 
 #ifndef FFT4STEP_KERNELS_ONLY
@@ -1259,33 +1475,19 @@ int launch_n(const float* x, float* out, const float2* tw, const float* h, int c
   return static_cast<int>(cudaGetLastError());
 }
 
-// The staged form at n = 2^n_log2 > 131072: the first passes, the segment
-// pass, the last passes, in order on the stream. tw: the body's kTable
-// entries, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128).
+// The staged form at n = 2^n_log2 past 262144: the first passes, the
+// segment pass, the last passes, in order on the stream. tw: the body's
+// kTable entries, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128).
 int launch_staged(const float* x, float* out, const float2* tw, const float* h, int complex_h,
                   int rows, int n_log2, int dim, int pad, bool framed, float2* scratch,
                   cudaStream_t stream) {
   const int p_log2 = n_log2 - ilog2(kMaxN);
   if (p_log2 < 4 || n_log2 > 30) return static_cast<int>(cudaErrorInvalidValue);
-  const int half = (rows + 1) / 2;
-  const int digits = staged_digit_count(p_log2);
   const float2* twn = tw + kTable;
-  int span_log2 = n_log2, e = 0;
-  for (int i = 0; i < digits && !e; ++i) {
-    const int r_log2 = staged_digit_log2(p_log2, i);
-    if (i > 0)
-      e = staged_pass<false, kScratchIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
-                                         n_log2, span_log2, stream);
-    else if (framed)
-      e = staged_pass<false, kFramedIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
-                                        n_log2, span_log2, stream);
-    else
-      e = staged_pass<false, kRowsIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad, n_log2,
-                                      span_log2, stream);
-    span_log2 -= r_log2;
-  }
+  int e = staged_passes<false>(framed, x, out, scratch, twn, rows, n_log2, p_log2, dim, pad,
+                               stream);
   if (e) return e;
-  const long long segments = static_cast<long long>(half) << p_log2;
+  const long long segments = static_cast<long long>((rows + 1) / 2) << p_log2;
   if (segments > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
   auto segment_kernel = fft_conv_rows_staged_segment_kernel<kMaxN>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1294,24 +1496,13 @@ int launch_staged(const float* x, float* out, const float2* tw, const float* h, 
   segment_kernel<<<static_cast<unsigned>(segments), kMaxThreads, Plan<kMaxN>::kSmem, stream>>>(
       scratch, tw, h, complex_h, p_log2);
   if ((e = static_cast<int>(cudaGetLastError()))) return e;
-  for (int i = digits - 1; i >= 0 && !e; --i) {
-    const int r_log2 = staged_digit_log2(p_log2, i);
-    span_log2 += r_log2;
-    if (i > 0)
-      e = staged_pass<true, kScratchIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
-                                        n_log2, span_log2, stream);
-    else if (framed)
-      e = staged_pass<true, kFramedIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad,
-                                       n_log2, span_log2, stream);
-    else
-      e = staged_pass<true, kRowsIo>(r_log2, x, out, scratch, twn, rows, half, dim, pad, n_log2,
-                                     span_log2, stream);
-  }
-  return e;
+  return staged_passes<true>(framed, x, out, scratch, twn, rows, n_log2, p_log2, dim, pad,
+                             stream);
 }
 
 // the lengths the kernel takes: powers of two 256..16384, 1024 k for
-// k = 5..16, and the cluster form's 32768, 65536 and 131072
+// k = 5..16, the cluster form's 32768, 65536 and 131072, and the wide
+// cluster form's 262144
 int launch(const void* x, void* out, const void* tw, const void* h,
            int complex_h, int rows, int n, int dim, int pad, bool framed,
            cudaStream_t stream) {
@@ -1339,6 +1530,9 @@ int launch(const void* x, void* out, const void* tw, const void* h,
                         xs, os, t, hs, complex_h, rows, dim, pad, stream);
     K3_CLUSTER(32768) K3_CLUSTER(65536) K3_CLUSTER(131072)
 #undef K3_CLUSTER
+    case kWideC * kMaxN:
+      return framed ? launch_wide<true>(xs, os, t, hs, complex_h, rows, dim, pad, stream)
+                    : launch_wide<false>(xs, os, t, hs, complex_h, rows, dim, pad, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1360,9 +1554,9 @@ extern "C" int fft_conv_rows(const void* x, void* out, const void* tw,
                 static_cast<cudaStream_t>(stream));
 }
 
-// The clusters of the cluster form at transform length n (32768, 65536 or
-// 131072; framed: K3f's instantiation) the card holds at once, into
-// *clusters. Returns the cudaError_t of the query.
+// The clusters of the cluster form at transform length n (32768, 65536,
+// 131072, or the wide form's 262144; framed: K3f's instantiation) the card
+// holds at once, into *clusters. Returns the cudaError_t of the query.
 extern "C" int fft_conv_rows_cluster_occupancy(int n, int framed, int* clusters) {
   switch (n) {
 #define K3_OCC(NN)                                                                       \
@@ -1372,6 +1566,8 @@ extern "C" int fft_conv_rows_cluster_occupancy(int n, int framed, int* clusters)
         : cluster_occupancy<cluster_segment(NN), NN / cluster_segment(NN), false>(clusters);
     K3_OCC(32768) K3_OCC(65536) K3_OCC(131072)
 #undef K3_OCC
+    case kWideC * kMaxN:
+      return framed ? wide_occupancy<true>(clusters) : wide_occupancy<false>(clusters);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1386,7 +1582,7 @@ extern "C" int fft_conv_rows_framed(const void* x, void* out, const void* tw,
 }
 
 // K3 (framed 0: dim = n, pad = 0) or K3f (framed 1) in the staged form, at a
-// power of two n past 131072 (to 2^30). tw: the body's 272 table entries of
+// power of two n past 262144 (to 2^30). tw: the body's 272 table entries of
 // length 16384, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128); h: the
 // spectrum in the staged form's bin order, scaled by 1/n; scratch:
 // (rows + 1) / 2 x n float2 of device memory the launches overwrite. Returns
@@ -1395,7 +1591,7 @@ extern "C" int fft_conv_rows_staged(const void* x, void* out, const void* tw, co
                                     int complex_h, int rows, int n, int dim, int pad,
                                     int framed, void* scratch, void* stream) {
   if (rows < 1 || dim < 1 || pad < 0 || pad > dim - 1 || dim + 2 * pad > n ||
-      n <= 8 * kMaxN || (n & (n - 1)) != 0 || (!framed && (dim != n || pad != 0)))
+      n <= kWideC * kMaxN || (n & (n - 1)) != 0 || (!framed && (dim != n || pad != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_staged(static_cast<const float*>(x), static_cast<float*>(out),
                        static_cast<const float2*>(tw), static_cast<const float*>(h), complex_h,

@@ -33,6 +33,12 @@
 // a wrong result), no cluster barriers after the first, the radix-C
 // pass's reads and the last stores alone, the body alone.
 //
+// The wide cluster form (n 262144) and the staged form past it have the
+// copying staged form as their yardstick (fft_staged_yardstick below, never
+// on a path): a scratch buffer of every pair in device memory and a
+// segment pass that copies each segment into shared memory and back, as
+// the staged form first ran at every length past 131072.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -c
 //        -Xcompiler -fPIC --fmad=false   (blur_algorithms_tpu_torch/utils/build.py)
 
@@ -376,4 +382,62 @@ extern "C" int fft_conv_rows_ablation(int mask, int framed, const void* x, void*
   if (framed && n == 4096)
     return launch_length<4096, true>(mask, xs, os, t, hs, complex_h, rows, dim, pad, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+namespace {
+
+// The copying segment pass, the yardstick's: each segment copied from scratch
+// into the padded shared row, the body's passes, and copied back (the
+// package's kernel reads and stores it from the body's first and last
+// passes).
+template <int M>
+__global__ void __launch_bounds__(M / kE, 1)
+fft_staged_segment_copy_kernel(float2* __restrict__ scratch, const float2* __restrict__ tw,
+                               const float* __restrict__ h, int complex_h, int p_log2) {
+  extern __shared__ __align__(16) float2 smem2[];
+  const Smem sm = load_tables<M>(smem2, tw);
+  const int seg = static_cast<int>(blockIdx.x & ((1u << p_log2) - 1));
+  float2* z = scratch + static_cast<size_t>(blockIdx.x) * M;
+  for (int i = threadIdx.x; i < M; i += M / kE) sm.buf[sidx(i)] = z[i];
+  __syncthreads();
+  const Rows none{};
+  passes<M, false, 0, false>(sm, none, h + static_cast<size_t>(complex_h ? 2 : 1) * seg * M,
+                             complex_h);
+  __syncthreads();
+  for (int i = threadIdx.x; i < M; i += M / kE) z[i] = sm.buf[sidx(i)];
+}
+
+}  // namespace
+
+// The copying staged form of K3 (framed 0) or K3f (framed 1) at a power of two n
+// past 131072: fft4step.cu's first passes, the copying segment pass, its last
+// passes, through a full-size scratch buffer ((rows + 1) / 2 x n float2); the
+// other arguments as fft_conv_rows_staged's. Returns the cudaError_t of the
+// first launch that failed.
+extern "C" int fft_staged_yardstick(int framed, const void* x, void* out, const void* tw,
+                                    const void* h, int complex_h, int rows, int n, int dim,
+                                    int pad, void* scratch, void* stream) {
+  if (rows < 1 || dim < 1 || pad < 0 || pad > dim - 1 || dim + 2 * pad > n ||
+      n <= 8 * kMaxN || (n & (n - 1)) != 0 || (!framed && (dim != n || pad != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int n_log2 = ilog2(n), p_log2 = n_log2 - ilog2(kMaxN);
+  auto* xs = static_cast<const float*>(x);
+  auto* os = static_cast<float*>(out);
+  auto* t = static_cast<const float2*>(tw);
+  auto* z = static_cast<float2*>(scratch);
+  auto st = static_cast<cudaStream_t>(stream);
+  int e = staged_passes<false>(framed != 0, xs, os, z, t + kTable, rows, n_log2, p_log2, dim,
+                               pad, st);
+  if (e) return e;
+  const long long segments = static_cast<long long>((rows + 1) / 2) << p_log2;
+  if (segments > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  auto segment = fft_staged_segment_copy_kernel<kMaxN>;
+  cudaError_t err = cudaFuncSetAttribute(segment, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Plan<kMaxN>::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  segment<<<static_cast<unsigned>(segments), kMaxThreads, Plan<kMaxN>::kSmem, st>>>(
+      z, t, static_cast<const float*>(h), complex_h, p_log2);
+  if ((e = static_cast<int>(cudaGetLastError()))) return e;
+  return staged_passes<true>(framed != 0, xs, os, z, t + kTable, rows, n_log2, p_log2, dim, pad,
+                             st);
 }

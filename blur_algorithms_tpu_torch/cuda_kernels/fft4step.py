@@ -24,13 +24,18 @@ of ``cluster_segment(n)`` points (the cluster form): the transform's first
 pass (radix ``n / 1024``) reads the rows and stores each output into its
 segment's CTA over distributed shared memory, the segments run the body's
 radix-32 passes, and the last pass, the first's adjoint, runs where the
-segments push its inputs. ``_radices`` past ``BODY_N`` names the first
-pass's two digits (``C``, then ``segment / 1024``), which set the bin order
-H is kept in. Past ``CLUSTER_LONGEST`` (131072) the staged form takes every
-power of two: radix-8/16/32 passes over the ``n / BODY_N`` segments
+segments push its inputs. At 262144 (``CLUSTER_LONGEST``) a cluster of 16
+CTAs does, in the wide cluster form: a radix-16 pass over stride
+``BODY_N`` into the segments, the whole one-block body on each, the
+adjoint pass back by remote loads, on persistent clusters; no scratch, one
+read and one write of the rows. ``_radices`` past ``BODY_N`` names the
+first pass's two digits (``C``, then ``segment / 1024``), which set the
+bin order H is kept in. Past ``CLUSTER_LONGEST`` the staged form takes
+every power of two: radix-8/16/32 passes over the ``n / BODY_N`` segments
 (``staged_digits``) through a complex scratch buffer in device memory, each
-segment through the one-block body, then the passes' adjoints back to the
-rows; ``_radices`` names those digits first.
+segment through the one-block body (its first and last passes reading and
+storing scratch), then the passes' adjoints back to the rows; ``_radices``
+names those digits first.
 """
 
 from __future__ import annotations
@@ -67,9 +72,10 @@ __all__ = [
 # 128 KB of its shared memory (of 227 KB on an H100). Past it the cluster
 # form splits the row into segments of this length, one a CTA.
 BODY_N = 16384
-# Longest transform of the cluster form: a cluster of 8 CTAs of BODY_N (the
-# portable cluster size). Past it the staged form runs.
-CLUSTER_LONGEST = 8 * BODY_N
+# Longest transform of the cluster form: a cluster of 16 CTAs of BODY_N (the
+# wide cluster form; past the portable 8, a size the H100 places). Past it
+# the staged form runs.
+CLUSTER_LONGEST = 16 * BODY_N
 # The C entries take int lengths: the longest power of two they hold.
 _INT_LONGEST = 1 << 30
 
@@ -104,7 +110,8 @@ def cluster_segment(n: int) -> int:
     """The segment a CTA of the cluster form holds at transform length
     ``n`` in ``BODY_N``..``CLUSTER_LONGEST``: 8192 at 65536 (clusters of 8,
     two CTAs an SM), ``BODY_N`` at 32768 and 131072 (clusters of 2 and 8),
-    the faster on the card (``csrc/fft4step.cu``: ``cluster_segment``)."""
+    the faster on the card (``csrc/fft4step.cu``: ``cluster_segment``), and
+    at 262144 (the wide form's 16)."""
     return 8192 if n == 65536 else BODY_N
 
 
@@ -115,7 +122,9 @@ def _radices(n: int, segment: int | None = None) -> list[int]:
     form's first pass (radix ``C = n / segment`` over
     the segments, then radix ``segment / 1024``: one pass of radix
     ``n / 1024`` in the kernel) and then the segment's radix-32 passes
-    (``segment``: ``cluster_segment(n)``, or a probe variant's); else radix
+    (``segment``: ``cluster_segment(n)``, or a probe variant's; at 262144
+    the wide form's radix-16 pass, then the segment's three, the same
+    digits); else radix
     Q, the odd part of ``n`` (when > 1), radix R0 (when > 1), then ``a``
     radix-32 passes, with ``n = Q * R0 * 32**a`` and ``a = 2`` from
     ``n / Q = 1024`` on (``csrc/fft4step.cu``: ``launch``)."""
@@ -218,9 +227,10 @@ def _check_rows(rows: torch.Tensor, length: int, what: str) -> None:
 def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.Tensor:
     """Launch a C entry of ``csrc/fft4step.cu`` on CUDA rows (past
     ``CLUSTER_LONGEST`` the staged form's, ``fft_conv_rows_staged``, with a
-    scratch buffer of (R + 1) / 2 x n complex64); raise on a length the
-    kernel does not take, a device that is neither CUDA nor CPU, a
-    non-contiguous tensor or a failed launch."""
+    scratch buffer of (R + 1) / 2 x n complex64; up to it nothing but the
+    output is allocated); raise on a length the kernel does not take, a
+    device that is neither CUDA nor CPU, a non-contiguous tensor or a
+    failed launch (a cluster of 16 the card does not place included)."""
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
     if rows.device.type != "cuda":

@@ -14,8 +14,8 @@ adjoint per axis is ``ReflectPad101^T . ValidCorr(taps)^T``:
 Past support radius 1024 a symmetric axis runs its ``ValidCorr^T`` as a
 circular FFT convolution instead (``_valid_conv_wide``, as the JAX package
 does): K3 on a CUDA tensor (its cluster form where the padded rows pass
-16384, its staged form past 131072), its plain einsum version on a CPU
-tensor.
+16384, on 16 CTAs at 262144; its staged form past 262144), its plain
+einsum version on a CPU tensor.
 """
 
 from __future__ import annotations

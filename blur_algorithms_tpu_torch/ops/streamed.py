@@ -23,7 +23,8 @@ Two engines: ``blur_fft_tiles_streamed(_u8)`` transform each strip with
 ``cuda_kernels/fft4step.conv_axis_framed``), as the JAX ``_mxu_blur_chunk``
 runs the four-step kernel: the CUDA kernels on a CUDA tensor, their plain
 version on a CPU tensor. A strip transforms a whole axis, so past 16384 the
-strips run K3/K3f's cluster form, and past 131072 their staged form. The float forms are differentiable: their
+strips run K3/K3f's cluster form (at 262144 the wide one, on 16 CTAs),
+and past 262144 their staged form. The float forms are differentiable: their
 backward pass is the blur's adjoint (``ops/adjoint.blur_adjoint``, whole
 frame), as the JAX ``_streamed_bwd``.
 """

@@ -222,6 +222,12 @@ def _declare_probes(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.fft_cluster_other_segment.restype = i
     lib.fft_cluster_ablation_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
     lib.fft_cluster_ablation_occupancy.restype = i  # variant, n, framed, clusters
+    lib.fft_staged_yardstick.argtypes = [
+        i, vp, vp, vp, vp,  # framed, x, out, twiddle tables, spectrum
+        i, i, i, i, i,  # complex_h, rows, n, dim, pad
+        vp, vp,  # scratch, stream
+    ]
+    lib.fft_staged_yardstick.restype = i
     lib.fetch_windows.argtypes = [
         i, vp, vp,  # tma, x, out
         i, i, i, i, i, i, i, i, i,  # planes, hp, pitch, width, stride, nwin, chunk_rows, g, smem

@@ -258,26 +258,35 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    sigma 2 and ``channel_smooth`` rgb (5, 5, 7) against K2's plain version
    on the card, within 1 count. K1, K2, K2's single-axis form and K4 must
    each have launched over the phase;
-20. K3 and K3f's staged form (n past 131072: first passes over the
-   segments of 16384 through a scratch buffer in device memory, the
-   segments through the one-block body, the passes' adjoints) against the
-   plain version at n 262144, 524288 and 1048576 (one first-pass digit of
-   16, of 32, two of 8), symmetric and asymmetric taps, odd row counts,
-   within 2e-2 at 0..255 scale (beside a float64 ``torch.fft`` correlation
-   at 1048576), with ptxas's registers and spills; then, counts set to 0
-   before each call (launches and ``staged_launches``): ``blur_u8`` AUTO on
-   one 2160x140000 RGB frame at sigma 900 (whole-frame FFT_MXU under its
-   byte budget: K3f's staged form on the rows at n 262144, the one-block
-   K3f on the columns; within 1 count of ``"fft_tiles"``), timed beside
-   ``"fused"``; AUTO on 4 such frames (the MXU streamer: one staged launch
-   a row strip, never the whole-frame path; frame 0 within 1 count of the
-   single-frame call); ``blur`` AUTO forward + backward on (1, 3, 2160,
-   131072) f32 at sigma 400 (K3f's staged form on the rows forward, K3's
-   on the adjoint's rows; ``x.grad`` equal to ``blur_adjoint(g)``, the
-   adjoint identity to 1e-5 relative); times (CUDA events, median of 5 for
-   the calls; the kernels as phase 10) of K3f's staged form on the frame's
-   6480 rows and K3's on the adjoint's rows beside their plain versions,
-   the bytes bound and cuFFT.
+20. K3 and K3f past transform length 131072: the wide cluster form at n
+   262144 (persistent clusters of 16 CTAs, a non-portable size: a radix-16
+   pass over stride 16384 into the segments over distributed shared
+   memory, the one-block body on each, the adjoint pass back; one read and
+   one write of the rows, no scratch) and the staged form past it (first
+   passes over the segments of 16384 through a scratch buffer in device
+   memory, the segments through the one-block body, the passes' adjoints)
+   against the plain version at n 262144, 524288 and 1048576 (the staged
+   form's one first-pass digit of 32, two of 8), symmetric and asymmetric
+   taps, odd row counts, within 2e-2 at 0..255 scale (beside a float64
+   ``torch.fft`` correlation at 1048576), each form past 2^31 elements,
+   with ptxas's registers and spills and the clusters of 16 the card
+   places at once (``cudaOccupancyMaxActiveClusters``); then, counts set to
+   0 before each call (launches, ``cluster_launches``, ``staged_launches``):
+   ``blur_u8`` AUTO on one 2160x140000 RGB frame at sigma 900 (whole-frame
+   FFT_MXU under its byte budget: K3f's wide form on the rows at n 262144,
+   the one-block K3f on the columns; within 1 count of ``"fft_tiles"``),
+   timed beside ``"fused"``; AUTO on 4 such frames (the MXU streamer: one
+   cluster launch a row strip, never the whole-frame path; frame 0 within 1
+   count of the single-frame call); ``blur`` AUTO forward + backward on (1,
+   3, 2160, 131072) f32 at sigma 400 (K3f's wide form on the rows forward,
+   K3's on the adjoint's rows) and on one 1400x262000 plane (the staged
+   form: K3f on the rows forward, K3 on the adjoint's rows, both n
+   524288); ``x.grad`` equal to ``blur_adjoint(g)``, the adjoint identity
+   to 1e-5 relative; times (CUDA events, median of 5 for the calls; the
+   kernels as phase 10) of K3f's wide form on the frame's 6480 rows and
+   K3's on the adjoint's rows, each also in turns with the copying staged form
+   there (B2's ``staged_yardstick``), and of the staged form on the 1400
+   rows, beside their plain versions, the bytes bound and cuFFT.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -4211,113 +4220,157 @@ def _slice18(smi: str, device: str = "cuda") -> None:
         raise RuntimeError(f"phase 19 did not launch every kernel of its path: {counts}")
 
 
-# phase 20: K3/K3f's staged form (n past 131072) against the plain version,
+# phase 20: K3/K3f past transform length 131072 (the wide cluster form on
+# 16 CTAs at n 262144, the staged form past it) against the plain version,
 # then the slice's paths on 2160 x 140000 RGB frames (a stitched panorama
-# strip) and a 2160 x 131072 float batch
-STAGED_CASES = ((262144, 2001), (524288, 4001), (1048576, 8001))  # (n, taps)
+# strip), a 2160 x 131072 float batch and a 1400 x 262000 float plane
+WIDE_CASE = (262144, 2001)  # (n, taps): the wide cluster form on 16 CTAs
+STAGED_CASES = ((524288, 4001), (1048576, 8001))  # the staged form: digits 32; 8 x 8
 BIG_ROWS = 8301  # x 262144 (K3) or 260144 (K3f): past 2^31 elements
+BIG_ROWS_STAGED = 4151  # x 524288 (K3) or 520288 (K3f): past 2^31 elements
 STRIP_H, STRIP_W = 2160, 140000
-SIGMA_STRIP = 900.0  # r 2995: rows n 262144 (the staged form), columns n 7168
+SIGMA_STRIP = 900.0  # r 2995: rows n 262144 (a cluster of 16), columns n 7168
 PANO_F32_W = 131072  # blur AUTO forward + backward at SIGMA_F32_WIDE: n 262144
+WIDE_H, WIDE_W = 1400, 262000  # at SIGMA_F32_WIDE: rows and adjoint rows n 524288
 
 
-def _phase20_kernels() -> dict:
-    """(a) K3 and K3f's staged form against the plain version at n 262144
-    (one first-pass digit, 16), 524288 (32) and 1048576 (two, 8 and 8):
-    symmetric and asymmetric taps, odd row counts; the plain version's
-    dense stages fit the card at all three, so no float64 torch.fft
-    stand-in is needed (its error at 1048576 is printed beside). Then one
-    launch of each past 2^31 elements (64-bit offsets)."""
+def _k3_counts(fft4step) -> dict:
+    """K3's and K3f's launches, and those of each form past 16384."""
+    return {**_cluster_counts(fft4step, "cluster"), **_cluster_counts(fft4step, "staged")}
+
+
+def _forms_vs_plain(n: int, width: int, form: str) -> dict:
+    """K3 (9 rows of n) and K3f (7 rows of n / 2 + 1001, framed to n)
+    against their plain versions, symmetric and asymmetric taps; each call
+    must launch ``form`` ("cluster" or "staged") once: the errors."""
     from blur_algorithms_tpu_torch import make_custom_plan
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum, transform_length
     from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
 
     errs = {"K3": 0.0, "K3f": 0.0}
-    for n, width in STAGED_CASES:
-        dim = n // 2 + 1001  # K3f: dim + 2 pad past n / 2, so the transform is n
-        for asym in (False, True):
-            what = f"taps={width} {'asymmetric' if asym else 'symmetric'}"
-            plan = make_custom_plan((8, n), _wide_taps(width, asym), [1.0])
-            rows = torch.from_numpy(
-                (np.random.default_rng(n).random((9, n)) * 255).astype(np.float32)).cuda()
-            got = fft4step.fft_conv_rows(rows, n, plan.row)
-            want = _conv_rows_einsum(rows, n, plan.row)
+    dim = n // 2 + 1001  # K3f: dim + 2 pad past n / 2, so the transform is n
+    for asym in (False, True):
+        what = f"taps={width} {'asymmetric' if asym else 'symmetric'}"
+        for name, fn, plain, nrows, length in (
+                ("K3", fft4step.fft_conv_rows, _conv_rows_einsum, 9, n),
+                ("K3f", fft4step.fft_conv_rows_framed, fft4step.fft_conv_rows_framed_ref, 7,
+                 dim)):
+            plan = make_custom_plan((8, length), _wide_taps(width, asym), [1.0])
+            rows = torch.from_numpy((np.random.default_rng(length).random((nrows, length))
+                                     * 255).astype(np.float32)).cuda()
+            before = (fn.launches, getattr(fn, f"{form}_launches"))
+            got = fn(rows, n, plan.row)
+            want = plain(rows, n, plan.row)
             torch.cuda.synchronize()
+            ran = (fn.launches - before[0], getattr(fn, f"{form}_launches") - before[1])
             err = float((got - want).abs().max())
-            errs["K3"] = max(errs["K3"], err)
+            errs[name] = max(errs[name], err)
             extra = ""
-            if n == STAGED_CASES[-1][0]:
+            if name == "K3" and n == STAGED_CASES[-1][0]:
                 h = np.conj(np.fft.fft(wrap_centered(plan.row.taps, n).astype(np.float64)))
                 ref = torch.fft.ifft(torch.fft.fft(rows.double(), dim=-1)
                                      * torch.from_numpy(h).cuda(), dim=-1).real
                 extra = (f"; vs float64 torch.fft correlation "
                          f"{float((got.double() - ref).abs().max()):.3e}")
                 del ref
-            print(f"phase 20 K3 staged form vs plain: 9 rows n={n} (digits "
-                  f"{fft4step.staged_digits(n)}) {what} max_abs_err={err:.3e} "
-                  f"limit={FFT_TOL}{extra}", flush=True)
-            if not err <= FFT_TOL:
-                raise RuntimeError(f"K3's staged form disagrees with its plain version at {n}")
-            plan = make_custom_plan((8, dim), _wide_taps(width, asym), [1.0])
-            nf = transform_length(plan.row)
-            rows = torch.from_numpy(
-                (np.random.default_rng(dim).random((7, dim)) * 255).astype(np.float32)).cuda()
-            got = fft4step.fft_conv_rows_framed(rows, nf, plan.row)
-            want = fft4step.fft_conv_rows_framed_ref(rows, nf, plan.row)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            errs["K3f"] = max(errs["K3f"], err)
-            print(f"phase 20 K3f staged form vs plain: 7 rows dim={dim} n={nf} {what} "
-                  f"max_abs_err={err:.3e} limit={FFT_TOL}", flush=True)
-            if nf != n or not err <= FFT_TOL:
-                raise RuntimeError(f"K3f's staged form at {nf} (want {n}) disagrees with "
-                                   "its plain version")
+            shape = f"{nrows} rows n={n}" if name == "K3" else f"{nrows} rows dim={dim} n={n}"
+            digits = f" (digits {fft4step.staged_digits(n)})" if form == "staged" else (
+                f" (C={n // fft4step.cluster_segment(n)})")
+            print(f"phase 20 {name} {form} form vs plain: {shape}{digits} {what} "
+                  f"max_abs_err={err:.3e} limit={FFT_TOL}{extra}", flush=True)
+            if (ran != (1, 1) or not err <= FFT_TOL
+                    or (name == "K3f" and transform_length(plan.row) != n)):
+                raise RuntimeError(f"{name}'s {form} form at {n}: launches {ran}, "
+                                   f"{err} from its plain version")
             del rows, got, want
-    # past 2^31 elements: K3 on BIG_ROWS rows of 262144 and K3f on as many of
-    # 260144 (pad 1000: n 262144), an odd count; rows are independent, so the
-    # plain version runs on the last rows alone (offsets past 2^31) and on
-    # the row that rides with the zero row
-    n, width = STAGED_CASES[0]
+    return errs
+
+
+def _past_2_31(n: int, width: int, nrows: int, form: str) -> dict:
+    """One launch each of K3 on ``nrows`` rows of n and K3f on as many of
+    n - (width - 1) (pad (width - 1) / 2: n), an odd count past 2^31
+    elements (64-bit offsets); rows are independent, so the plain version
+    runs on the last rows alone (offsets past 2^31) and on the row that
+    rides with the zero row."""
+    from blur_algorithms_tpu_torch import make_custom_plan
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    errs = {}
     gen = torch.Generator("cuda").manual_seed(31)
     for framed in (False, True):
         dim = n - (width - 1) if framed else n
         plan = make_custom_plan((8, dim), _wide_taps(width, framed), [1.0])
         fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
         plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
-        rows = torch.rand((BIG_ROWS, dim), generator=gen, device="cuda").mul_(255)
+        rows = torch.rand((nrows, dim), generator=gen, device="cuda").mul_(255)
+        before = getattr(fn, f"{form}_launches")
         got = fn(rows, n, plan.row)
-        pick = torch.tensor([BIG_ROWS // 2, *range(BIG_ROWS - 7, BIG_ROWS)], device="cuda")
+        pick = torch.tensor([nrows // 2, *range(nrows - 7, nrows)], device="cuda")
         want = plain(rows[pick].contiguous(), n, plan.row)
         torch.cuda.synchronize()
         err = float((got[pick] - want).abs().max())
         finite = bool(torch.isfinite(got).all())
         name = "K3f" if framed else "K3"
-        errs[name] = max(errs[name], err)
-        print(f"phase 20 {name} staged form past 2^31 elements: {BIG_ROWS} rows x {dim} "
-              f"({BIG_ROWS * dim} elements, {(BIG_ROWS + 1) // 2 * n * 2} scratch floats), "
-              f"n={n}, {'asymmetric' if framed else 'symmetric'} taps={width}: rows "
-              f"{BIG_ROWS // 2} and {BIG_ROWS - 7}..{BIG_ROWS - 1} vs plain "
-              f"max_abs_err={err:.3e} limit={FFT_TOL}; all finite {finite}", flush=True)
-        if not (err <= FFT_TOL and finite and BIG_ROWS * dim > 2**31):
-            raise RuntimeError(f"{name}'s staged form past 2^31 elements: {err}, finite "
+        errs[name] = err
+        scratch = (f"{(nrows + 1) // 2 * n * 2} scratch floats" if form == "staged"
+                   else "no scratch")
+        print(f"phase 20 {name} {form} form past 2^31 elements: {nrows} rows x {dim} "
+              f"({nrows * dim} elements, {scratch}), n={n}, "
+              f"{'asymmetric' if framed else 'symmetric'} taps={width}: rows {nrows // 2} and "
+              f"{nrows - 7}..{nrows - 1} vs plain max_abs_err={err:.3e} limit={FFT_TOL}; "
+              f"all finite {finite}", flush=True)
+        if not (err <= FFT_TOL and finite and nrows * dim > 2**31
+                and getattr(fn, f"{form}_launches") == before + 1):
+            raise RuntimeError(f"{name}'s {form} form past 2^31 elements: {err}, finite "
                                f"{finite}")
         del rows, got, want
         torch.cuda.empty_cache()
-    for name, line in _ptxas_lines(("fft_conv_rows_staged_pass_kernel",
+    return errs
+
+
+def _phase20_kernels() -> dict:
+    """(a) The wide cluster form at n 262144 and the staged form at
+    524288 (one first-pass digit, 32) and 1048576 (two, 8 and 8) against
+    the plain version: symmetric and asymmetric taps, odd row counts; the
+    plain version's dense stages fit the card at all three, so no float64
+    torch.fft stand-in is needed (its error at 1048576 is printed beside).
+    Then one launch of each past 2^31 elements (64-bit offsets), the
+    ptxas lines and the card's clusters of 16 at once."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    errs = {f"{k} {form}": 0.0 for k in ("K3", "K3f") for form in ("cluster", "staged")}
+    cases = [(*WIDE_CASE, "cluster"), *((n, w, "staged") for n, w in STAGED_CASES)]
+    for n, width, form in cases:
+        for k, e in _forms_vs_plain(n, width, form).items():
+            errs[f"{k} {form}"] = max(errs[f"{k} {form}"], e)
+    for (n, width), nrows, form in ((WIDE_CASE, BIG_ROWS, "cluster"),
+                                    (STAGED_CASES[0], BIG_ROWS_STAGED, "staged")):
+        for k, e in _past_2_31(n, width, nrows, form).items():
+            errs[f"{k} {form}"] = max(errs[f"{k} {form}"], e)
+    for name, line in _ptxas_lines(("fft_conv_rows_wide_kernel",
+                                    "fft_conv_rows_staged_pass_kernel",
                                     "fft_conv_rows_staged_segment_kernel")):
         print(f"phase 20 ptxas {name}: {line}", flush=True)
-    print(f"phase 20 worst: K3 staged form max_abs_err={errs['K3']:.3e}, K3f "
-          f"{errs['K3f']:.3e} (limit {FFT_TOL})", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for framed in (False, True):
+        c = fft4step.cluster_occupancy(fft4step.CLUSTER_LONGEST, framed)
+        print(f"phase 20 cudaOccupancyMaxActiveClusters n={fft4step.CLUSTER_LONGEST} "
+              f"{'K3f' if framed else 'K3'}: {c} clusters of 16 ({16 * c} CTAs of {sms} SMs)",
+              flush=True)
+        if c < 1:
+            raise RuntimeError("the card places no cluster of 16")
+    print(f"phase 20 worst max_abs_err: {errs} (limit {FFT_TOL})", flush=True)
     torch.cuda.empty_cache()
     return errs
 
 
-def _staged_times(label: str, d: dict) -> None:
-    """A staged-form launch on the main path's rows (``_kernel_times``'s
-    dict): its time beside its bytes time (one read and one write of the
-    rows), its bound and cuFFT's; raise if it is off its plain version by
-    more than FFT_TOL."""
+def _form_times(label: str, d: dict) -> None:
+    """A launch of K3/K3f past 131072 on the main path's rows
+    (``_kernel_times``'s dict): its time beside its bytes time (one read
+    and one write of the rows), its bound and cuFFT's; raise if it is off
+    its plain version by more than FFT_TOL."""
     print(f"phase 20 {label}: {d['ms']:.4f} ms; bytes {d['bytes_ms']:.4f} ms "
           f"({d['ms'] / d['bytes_ms']:.2f}x), bound {d['bound_ms']:.4f} ms ({d['bound_by']}); "
           f"cuFFT rfft -> multiply -> irfft {d['library_ms']:.4f} ms "
@@ -4327,9 +4380,32 @@ def _staged_times(label: str, d: dict) -> None:
         raise RuntimeError(f"{label}: {d['err']} from the plain version")
 
 
+def _against_staged(entry, rows, n, axis_plan, framed: bool, label: str) -> dict:
+    """The wide cluster form against the copying staged form at n 262144 (B2's
+    yardstick, never a path), in turns on the same rows: the two outputs'
+    largest difference and each one's time."""
+    from blur_algorithms_tpu_torch.benchmarks import fft_mxu_ablation as b2
+
+    got = entry(rows, n, axis_plan)
+    old = b2.staged_yardstick(rows, n, axis_plan, framed)
+    torch.cuda.synchronize()
+    diff = float((got - old).abs().max())
+    del got, old
+    t = _in_turns(label, {"current": lambda: entry(rows, n, axis_plan),
+                          "staged": lambda: b2.staged_yardstick(rows, n, axis_plan, framed)})
+    print(f"phase 20 {label} in turns with the copying staged form: current "
+          f"{t['current']:.4f} ms, staged {t['staged']:.4f} ms "
+          f"({t['current'] / t['staged']:.3f}x); outputs differ by {diff:.3e} "
+          f"(limit {FFT_TOL})", flush=True)
+    if not diff <= FFT_TOL:
+        raise RuntimeError(f"the wide form and the copying staged form differ by {diff} at "
+                           f"{label}")
+    return {"current_ms": t["current"], "staged_ms": t["staged"]}
+
+
 def _slice19(smi: str) -> list[dict]:
-    """Phase 20; returns the kernels-line entries of K3's and K3f's staged
-    form."""
+    """Phase 20; returns the kernels-line entries of K3's and K3f's wide
+    cluster form and of their staged form."""
     from blur_algorithms_tpu_torch import api, blur, blur_u8, make_plan
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
@@ -4342,11 +4418,14 @@ def _slice19(smi: str) -> list[dict]:
     k3, k3f = fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed
     _zero_cluster_counts(fft4step)
     errs = _phase20_kernels()
-    launched = {"K3": 0, "K3f": 0}
+    # launches on the slice's paths: of the cluster form at n 262144 (every
+    # cluster launch of these paths; their other axes are one-block) and of
+    # the staged form
+    launched = {"K3 cluster": 0, "K3f cluster": 0, "K3 staged": 0, "K3f staged": 0}
     mp = STRIP_H * STRIP_W / 1e6
 
     # (b) blur_u8 AUTO on one 2160 x 140000 RGB frame at sigma 900: whole-frame
-    # FFT_MXU, K3f's staged form on the rows, the one-block K3f on the columns
+    # FFT_MXU, K3f's wide form on the rows, the one-block K3f on the columns
     img = make_frames_on("cuda", 1, STRIP_H, STRIP_W).movedim(1, -1).contiguous()
     plan = make_plan((STRIP_H, STRIP_W), SIGMA_STRIP)
     spec = api.device_spec(img.device)
@@ -4356,8 +4435,8 @@ def _slice19(smi: str) -> list[dict]:
     _zero_cluster_counts(fft4step)
     out = blur_u8(img, SIGMA_STRIP)
     torch.cuda.synchronize()
-    ran = _cluster_counts(fft4step, "staged")
-    launched["K3f"] += ran["fft_conv_rows_framed staged"]
+    ran = _k3_counts(fft4step)
+    launched["K3f cluster"] += ran["fft_conv_rows_framed cluster"]
     ref = blur_u8(img, SIGMA_STRIP, engine="fft_tiles")
     d = (out.int() - ref.int()).abs()
     dmax, exact = int(d.max()), float((d == 0).float().mean())
@@ -4367,7 +4446,8 @@ def _slice19(smi: str) -> list[dict]:
           f"{transform_length(plan.row)}, {transform_length(plan.col)}): launches {ran}; vs "
           f"fft_tiles (torch.fft) max={dmax} exact={exact}", flush=True)
     if (eng is not api.Engine.FFT_MXU or streams or ran["fft_conv_rows_framed"] != 2
-            or ran["fft_conv_rows_framed staged"] != 1 or ran["fft_conv_rows"] or dmax > 1):
+            or ran["fft_conv_rows_framed cluster"] != 1 or ran["fft_conv_rows_framed staged"]
+            or ran["fft_conv_rows"] or dmax > 1):
         raise RuntimeError(f"blur_u8 AUTO at sigma {SIGMA_STRIP} on the strip: {eng}, {ran}, "
                            f"{dmax} counts from fft_tiles")
     del out, ref, d
@@ -4379,13 +4459,16 @@ def _slice19(smi: str) -> list[dict]:
                                   warmup=1, name=f"blur_u8 fused 2160x140000 sigma={SIGMA_STRIP}",
                                   megapixels=mp),
     }
-    # K3f's staged form alone on the frame's rows: 6480 rows of 140000, n 262144
+    # K3f's wide cluster form alone on the frame's rows: 6480 rows of 140000,
+    # n 262144; in turns with the copying staged form there
     rows = img[0].movedim(-1, 0).reshape(-1, STRIP_W).float()
     del img
     torch.cuda.empty_cache()
-    label = f"K3f staged form 2160x140000 rows sigma={SIGMA_STRIP}"
+    label = f"K3f wide cluster form 2160x140000 rows sigma={SIGMA_STRIP}"
     k3f_d = _kernel_times(k3f, rows, transform_length(plan.row), plan.row, True, label, 20)
-    _staged_times(label, k3f_d)
+    _form_times(label, k3f_d)
+    k3f_d["in_turns"] = _against_staged(k3f, rows, transform_length(plan.row), plan.row, True,
+                                        label)
     del rows
     torch.cuda.empty_cache()
 
@@ -4400,10 +4483,10 @@ def _slice19(smi: str) -> list[dict]:
         _zero_cluster_counts(fft4step)
         out = blur_u8(img, SIGMA_STRIP)
         torch.cuda.synchronize()
-        ran = _cluster_counts(fft4step, "staged")
+        ran = _k3_counts(fft4step)
     finally:
         api.blur_fft_mxu_cuda = whole_fn
-    launched["K3f"] += ran["fft_conv_rows_framed staged"]
+    launched["K3f cluster"] += ran["fft_conv_rows_framed cluster"]
     row_strips = -(-STRIP_H // 1024)
     single = blur_u8(img[:1], SIGMA_STRIP)  # one frame: whole-frame, as (b)
     d = (out[:1].int() - single.int()).abs()
@@ -4414,9 +4497,9 @@ def _slice19(smi: str) -> list[dict]:
           f"bytes); launches {ran}, whole-frame calls {len(whole)}; frame 0 vs the "
           f"single-frame call max={dmax} exact={exact}", flush=True)
     if (eng is not api.Engine.FFT_MXU or not streams or whole
-            or ran["fft_conv_rows_framed staged"] != row_strips or ran["fft_conv_rows"]
-            or dmax > 1):
-        raise RuntimeError(f"blur_u8 AUTO on 4 strips did not stream through K3f's staged "
+            or ran["fft_conv_rows_framed cluster"] != row_strips
+            or ran["fft_conv_rows_framed staged"] or ran["fft_conv_rows"] or dmax > 1):
+        raise RuntimeError(f"blur_u8 AUTO on 4 strips did not stream through K3f's wide "
                            f"form within 1 count: {ran}, {len(whole)}, {dmax}")
     del out
     t_streamed = timing.time_cuda(blur_u8, img, SIGMA_STRIP, iters=GIANT_ITERS, warmup=1,
@@ -4425,46 +4508,55 @@ def _slice19(smi: str) -> list[dict]:
     del img
     torch.cuda.empty_cache()
 
+    def fwd_bwd_checked(shape, planes: int, seed: int, what: str) -> tuple:
+        """blur AUTO forward + backward at SIGMA_F32_WIDE on ``planes`` float
+        planes of ``shape``: the counts of each direction, x.grad against
+        blur_adjoint(g) and the adjoint identity; returns (x, plan, fwd,
+        bwd, the adjoint rows' n)."""
+        x = make_frames_on("cuda", 1, *shape)[:, :planes].float().contiguous()
+        fplan = make_plan(shape, SIGMA_F32_WIDE)
+        g = torch.rand(x.shape, generator=torch.Generator(x.device).manual_seed(seed),
+                       device=x.device)
+        xg = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        _zero_cluster_counts(fft4step)
+        y = blur(xg, SIGMA_F32_WIDE)
+        torch.cuda.synchronize()
+        fwd = _k3_counts(fft4step)
+        _zero_cluster_counts(fft4step)
+        (y * g).sum().backward()
+        torch.cuda.synchronize()
+        bwd = _k3_counts(fft4step)
+        want = blur_adjoint(g, fplan)  # a check: its launches are not the path's
+        torch.cuda.synchronize()
+        gerr = float((xg.grad - want).abs().max())
+        lhs = float((y.detach().double() * g.double()).sum())
+        rhs = float((x.double() * xg.grad.double()).sum())
+        rel = abs(lhs - rhs) / abs(lhs)
+        r = fplan.row.support_radius
+        n_adj = max(256, 1 << (shape[1] + 4 * r - 1).bit_length())  # the adjoint's rows
+        print(f"phase 20 main path: blur AUTO forward + backward {tuple(x.shape)} f32 "
+              f"sigma={SIGMA_F32_WIDE} r={r} (rows n {transform_length(fplan.row)}; adjoint "
+              f"rows n {n_adj}; {what}): forward launches {fwd}, backward {bwd}; x.grad vs "
+              f"blur_adjoint(g) max={gerr:.3e}; adjoint identity <Ax, g> {lhs:.9e} vs "
+              f"<x, A^T g> {rhs:.9e}, relative {rel:.3e} limit 1e-5", flush=True)
+        if not gerr <= 1e-6 * float(want.abs().max()) or not rel <= 1e-5:
+            raise RuntimeError(f"x.grad differs from blur_adjoint(g) by {gerr}, or the adjoint "
+                               f"identity is off by {rel}")
+        del y, g, want, xg
+        torch.cuda.empty_cache()
+        return x, fplan, fwd, bwd, n_adj
+
     # (d) blur AUTO forward + backward on (1, 3, 2160, 131072) f32 at sigma
-    # 400: K3f's staged form on the rows forward, K3's on the adjoint's rows
-    x = make_frames_on("cuda", 1, STRIP_H, PANO_F32_W).float()
-    plan = make_plan((STRIP_H, PANO_F32_W), SIGMA_F32_WIDE)
-    g = torch.rand(x.shape, generator=torch.Generator(x.device).manual_seed(20),
-                   device=x.device)
-    xg = x.clone().requires_grad_()
-    torch.cuda.synchronize()
-    _zero_cluster_counts(fft4step)
-    y = blur(xg, SIGMA_F32_WIDE)
-    torch.cuda.synchronize()
-    fwd = _cluster_counts(fft4step, "staged")
-    _zero_cluster_counts(fft4step)
-    (y * g).sum().backward()
-    torch.cuda.synchronize()
-    bwd = _cluster_counts(fft4step, "staged")
-    launched["K3"] += bwd["fft_conv_rows staged"]
-    launched["K3f"] += fwd["fft_conv_rows_framed staged"]
-    want = blur_adjoint(g, plan)  # a check: its launches are not the path's
-    torch.cuda.synchronize()
-    gerr = float((xg.grad - want).abs().max())
-    lhs = float((y.detach().double() * g.double()).sum())
-    rhs = float((x.double() * xg.grad.double()).sum())
-    rel = abs(lhs - rhs) / abs(lhs)
-    r = plan.row.support_radius
-    n_adj = max(256, 1 << (PANO_F32_W + 4 * r - 1).bit_length())  # the adjoint's rows
-    print(f"phase 20 main path: blur AUTO forward + backward {tuple(x.shape)} f32 "
-          f"sigma={SIGMA_F32_WIDE} r={r} (rows n {transform_length(plan.row)}; adjoint rows n "
-          f"{n_adj}): forward launches {fwd}, backward {bwd}; x.grad vs blur_adjoint(g) "
-          f"max={gerr:.3e}; adjoint identity <Ax, g> {lhs:.9e} vs <x, A^T g> {rhs:.9e}, "
-          f"relative {rel:.3e} limit 1e-5", flush=True)
-    if (fwd["fft_conv_rows_framed"] != 2 or fwd["fft_conv_rows_framed staged"] != 1
+    # 400: K3f's wide form on the rows forward, K3's on the adjoint's rows
+    x, plan, fwd, bwd, n_adj = fwd_bwd_checked((STRIP_H, PANO_F32_W), 3, 20, "clusters of 16")
+    launched["K3 cluster"] += bwd["fft_conv_rows cluster"]
+    launched["K3f cluster"] += fwd["fft_conv_rows_framed cluster"]
+    if (fwd["fft_conv_rows_framed"] != 2 or fwd["fft_conv_rows_framed cluster"] != 1
             or fwd["fft_conv_rows"] or bwd["fft_conv_rows"] != 2
-            or bwd["fft_conv_rows staged"] != 1 or bwd["fft_conv_rows_framed"]):
+            or bwd["fft_conv_rows cluster"] != 1 or bwd["fft_conv_rows_framed"]
+            or fwd["fft_conv_rows_framed staged"] or bwd["fft_conv_rows staged"]):
         raise RuntimeError(f"the f32 blur launched {fwd} forward, {bwd} backward")
-    if not gerr <= 1e-6 * float(want.abs().max()) or not rel <= 1e-5:
-        raise RuntimeError(f"x.grad differs from blur_adjoint(g) by {gerr}, or the adjoint "
-                           f"identity is off by {rel}")
-    del y, g, want, xg
-    torch.cuda.empty_cache()
 
     def fwd_bwd(t):
         t = t.detach().requires_grad_()
@@ -4475,36 +4567,68 @@ def _slice19(smi: str) -> list[dict]:
                              name=f"blur AUTO forward + backward 3x2160x{PANO_F32_W} "
                                   f"sigma={SIGMA_F32_WIDE}",
                              megapixels=3 * STRIP_H * PANO_F32_W / 1e6)
-    # K3's staged form alone on the adjoint's rows (6480 rows of 131072 + 4 r
-    # -> 262144)
+    # K3's wide cluster form alone on the adjoint's rows (6480 rows of 131072
+    # + 4 r -> 262144); in turns with the copying staged form there
+    r = plan.row.support_radius
     padded = torch.nn.functional.pad(x.reshape(-1, PANO_F32_W),
                                      (2 * r, n_adj - PANO_F32_W - 2 * r)).contiguous()
     del x
     torch.cuda.empty_cache()
-    label = f"K3 staged form adjoint rows sigma={SIGMA_F32_WIDE}"
+    label = f"K3 wide cluster form adjoint rows sigma={SIGMA_F32_WIDE}"
     k3_d = _kernel_times(k3, padded, n_adj, plan.row, False, label, 20)
-    _staged_times(label, k3_d)
+    _form_times(label, k3_d)
+    k3_d["in_turns"] = _against_staged(k3, padded, n_adj, plan.row, False, label)
+    del padded
+    torch.cuda.empty_cache()
+
+    # (e) the staged form on a path: blur AUTO forward + backward on one
+    # 1400 x 262000 f32 plane at sigma 400 (rows n 524288 forward, K3f; the
+    # adjoint's rows 262000 + 4 r -> 524288, K3)
+    x, plan, fwd, bwd, n_adj = fwd_bwd_checked((WIDE_H, WIDE_W), 1, 21, "the staged form")
+    launched["K3 staged"] += bwd["fft_conv_rows staged"]
+    launched["K3f staged"] += fwd["fft_conv_rows_framed staged"]
+    if (fwd["fft_conv_rows_framed staged"] != 1 or bwd["fft_conv_rows staged"] != 1
+            or fwd["fft_conv_rows_framed cluster"] or bwd["fft_conv_rows cluster"]
+            or transform_length(plan.row) != 524288 or n_adj != 524288):
+        raise RuntimeError(f"the 1400 x 262000 blur launched {fwd} forward, {bwd} backward")
+    label = f"K3f staged form 1400x{WIDE_W} rows sigma={SIGMA_F32_WIDE}"
+    staged_f = _kernel_times(k3f, x.reshape(-1, WIDE_W), 524288, plan.row, True, label, 20)
+    _form_times(label, staged_f)
+    r = plan.row.support_radius
+    padded = torch.nn.functional.pad(x.reshape(-1, WIDE_W),
+                                     (2 * r, n_adj - WIDE_W - 2 * r)).contiguous()
+    del x
+    torch.cuda.empty_cache()
+    label = f"K3 staged form adjoint rows 1400x{WIDE_W} sigma={SIGMA_F32_WIDE}"
+    staged_k = _kernel_times(k3, padded, n_adj, plan.row, False, label, 20)
+    _form_times(label, staged_k)
     del padded
     torch.cuda.empty_cache()
 
     for res in (*t_strip.values(), t_streamed, t_f32):
         print(f"phase 20 time: {res}", flush=True)
-    print(f"phase 20 launches of the staged form on the slice's paths: {launched}; "
+    print(f"phase 20 launches past 131072 on the slice's paths: {launched}; "
           f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
     for name, n in launched.items():
         if n < 1:
-            raise RuntimeError(f"{name}'s staged form was not launched on the main path")
-    entry = lambda name, line, n, d, err: {  # noqa: E731
+            raise RuntimeError(f"{name} form was not launched on the main path")
+    entry = lambda name, line, n, d, err, **more: {  # noqa: E731
         "name": name, "route": "cuda", "source": "blur_algorithms_tpu_torch/csrc/fft4step.cu",
         "replaces": line, "launches": n, "max_abs_err": err, "ms": d["ms"],
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
-        "library_ms": d["library_ms"],
+        "library_ms": d["library_ms"], **more,
     }
+    k3_line, k3f_line = ("blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
+                         "blur_algorithms_tpu/pallas_kernels/fft4step.py:157")
     return [
-        entry("fft4step_staged", "blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
-              launched["K3"], k3_d, max(errs["K3"], k3_d["err"])),
-        entry("fft4step_framed_staged", "blur_algorithms_tpu/pallas_kernels/fft4step.py:157",
-              launched["K3f"], k3f_d, max(errs["K3f"], k3f_d["err"])),
+        entry("fft4step_wide", k3_line, launched["K3 cluster"], k3_d,
+              max(errs["K3 cluster"], k3_d["err"]), in_turns_with_staged=k3_d["in_turns"]),
+        entry("fft4step_framed_wide", k3f_line, launched["K3f cluster"], k3f_d,
+              max(errs["K3f cluster"], k3f_d["err"]), in_turns_with_staged=k3f_d["in_turns"]),
+        entry("fft4step_staged", k3_line, launched["K3 staged"], staged_k,
+              max(errs["K3 staged"], staged_k["err"])),
+        entry("fft4step_framed_staged", k3f_line, launched["K3f staged"], staged_f,
+              max(errs["K3f staged"], staged_f["err"])),
     ]
 
 

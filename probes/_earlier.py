@@ -8,6 +8,7 @@ flags into ``build/probe/<name>.so``; the caller declares the entries it
 calls. ``in_turns`` times each function in the order given, then in the
 reverse order, and reports the mean of its two medians of CUDA-event
 timings, so that a drift of the card's clocks falls on both alike.
+``ptxas`` picks one kernel's register and spill lines out of a build's log.
 """
 
 from __future__ import annotations
@@ -43,3 +44,17 @@ def in_turns(label: str, fns: dict, iters: int = ITERS) -> dict:
     for k in (*fns, *reversed(fns)):
         t[k].append(timing.time_cuda(fns[k], iters=iters, name=f"{label} {k}").median_ms)
     return {k: float(np.mean(v)) for k, v in t.items()}
+
+
+def ptxas(log: str, name: str) -> list[str]:
+    """``Compiling entry function`` lines of ``name`` with their register /
+    spill lines, from a build's ``-Xptxas -v`` output."""
+    out, on = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            on = name in ln
+            if on:
+                out.append(ln.split("'")[1] if "'" in ln else ln)
+        elif on and ("Used" in ln or "spill" in ln):
+            out[-1] += " | " + ln.replace("ptxas info    :", "").strip()
+    return out

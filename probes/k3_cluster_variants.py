@@ -48,7 +48,7 @@ from blur_algorithms_tpu_torch.cuda_kernels import fft4step  # noqa: E402
 from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum  # noqa: E402
 from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel  # noqa: E402
 from blur_algorithms_tpu_torch.utils import build  # noqa: E402
-from _earlier import in_turns  # noqa: E402
+from _earlier import in_turns, ptxas  # noqa: E402
 
 FFT_TOL = 2e-2  # chip_smoke.py's FFT_TOL, 0..255 scale
 LENGTHS = (32768, 65536, 131072)
@@ -60,20 +60,6 @@ def _taps(width: int, asymmetric: bool) -> np.ndarray:
     if asymmetric:
         t *= np.linspace(0.6, 1.4, width)
     return (t / t.sum()).astype(np.float32)
-
-
-def _ptxas(log: str, name: str) -> list[str]:
-    """``Compiling entry function`` lines of ``name`` with their register /
-    spill lines, from a build's ``-Xptxas -v`` output."""
-    out, on = [], False
-    for ln in log.splitlines():
-        if "Compiling entry function" in ln:
-            on = name in ln
-            if on:
-                out.append(ln.split("'")[1] if "'" in ln else ln)
-        elif on and ("Used" in ln or "spill" in ln):
-            out[-1] += " | " + ln.replace("ptxas info    :", "").strip()
-    return out
 
 
 def _occupancy(fn, *args) -> int:
@@ -110,10 +96,10 @@ def main(argv: list[str] | None = None) -> int:
     if failed:
         raise RuntimeError(f"the probes' library did not build: {failed[0]}") from failed[0]
     plib = build.load_probe_library()
-    for line in _ptxas(build.last_build.get("log", ""), "fft_conv_rows_cluster_kernel"):
+    for line in ptxas(build.last_build.get("log", ""), "fft_conv_rows_cluster_kernel"):
         print(f"ptxas current: {line}", flush=True)
     for name in ("fft_conv_rows_cluster_kernel", "fft_cluster_pr16_kernel"):
-        for line in _ptxas(build.last_probe_build.get("log", ""), name):
+        for line in ptxas(build.last_probe_build.get("log", ""), name):
             print(f"ptxas probe: {line}", flush=True)
     for n in LENGTHS:
         for framed in (False, True):

@@ -152,9 +152,9 @@ def _served_streamed_f32(x):
 
 
 def _served_past_the_cluster_form(x):
-    # rows of 140000 at sigma 3 (n 262144): zero rows blur to zeros
-    out = api.blur(torch.zeros(()).expand(1, 2, 140000), 3.0, engine="fft_mxu")
-    assert out.shape == (1, 2, 140000) and not bool(out.abs().max())
+    # rows of 270000 at sigma 3 (n 524288): zero rows blur to zeros
+    out = api.blur(torch.zeros(()).expand(1, 2, 270000), 3.0, engine="fft_mxu")
+    assert out.shape == (1, 2, 270000) and not bool(out.abs().max())
 
 
 _SERVED = (_served_split_u8, _served_split_f32, _served_box_scan, _served_hybrid_pin,

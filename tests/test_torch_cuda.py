@@ -205,11 +205,12 @@ def test_k3f_against_plain_version_on_the_card(cuda_device, dim, width, asymmetr
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [32768, 65536, 131072])
+@pytest.mark.parametrize("n", [32768, 65536, 131072, 262144])
 @pytest.mark.parametrize("framed", [False, True])
 def test_k3_cluster_form_against_plain_version_on_the_card(cuda_device, n, framed):
     """K3/K3f past 16384: a thread-block cluster of n / cluster_segment(n)
-    CTAs a pair of rows (odd row counts: a zero row rides along)."""
+    CTAs a pair of rows (at 262144 the wide form's 16, persistent; odd row
+    counts: a zero row rides along)."""
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
 
@@ -228,11 +229,11 @@ def test_k3_cluster_form_against_plain_version_on_the_card(cuda_device, n, frame
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [262144, 524288])
+@pytest.mark.parametrize("n", [524288, 1048576])
 @pytest.mark.parametrize("framed", [False, True])
 @pytest.mark.parametrize("asymmetric", [False, True])
 def test_k3_staged_form_against_plain_version_on_the_card(cuda_device, n, framed, asymmetric):
-    """K3/K3f past 131072: the staged form (first passes, segment pass, last
+    """K3/K3f past 262144: the staged form (first passes, segment pass, last
     passes through a scratch buffer in device memory) against the plain
     version on the card (odd row counts: a zero row rides along)."""
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
@@ -256,12 +257,38 @@ def test_k3_staged_form_against_plain_version_on_the_card(cuda_device, n, framed
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("framed", [False, True])
+def test_k3_wide_form_with_more_pairs_than_clusters_on_the_card(cuda_device, framed):
+    """n 262144: more pairs than the card holds clusters of 16 at once, so
+    each persistent cluster takes several, unevenly (an odd row count):
+    every row against the plain version."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    n = 262144
+    clusters = fft4step.cluster_occupancy(n, framed)
+    assert clusters >= 1
+    rows_n = 4 * clusters + 3  # 2 clusters' pairs each and 2 more
+    fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
+    dim = n // 2 + 1001 if framed else n
+    plan = _k3_plan(2001, framed, dim)
+    rows = _f32_planes((rows_n, dim), seed=23).to(cuda_device)
+    before = (fn.cluster_launches, fn.staged_launches)
+    got = fn(rows, n, plan.row)
+    plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+    want = plain(rows, n, plan.row)
+    torch.cuda.synchronize()
+    assert (fn.cluster_launches, fn.staged_launches) == (before[0] + 1, before[1])
+    assert float((got - want).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("framed", [False, True])
 def test_k3_staged_form_takes_zero_rows_on_the_card(cuda_device, framed):
-    """No rows at a length of the staged form (n 262144): a (0, dim) result
+    """No rows at a length of the staged form (n 524288): a (0, dim) result
     on the card and no launch counted."""
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
 
-    n = 262144
+    n = 524288
     fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
     dim = n // 2 + 1001 if framed else n
     plan = _k3_plan(2001, False, dim)

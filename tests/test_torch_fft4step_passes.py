@@ -7,15 +7,19 @@ inverse pass. A NumPy model of those passes, fed the host's tables
 (``_twiddle_tables``, ``_kernel_spectrum`` in ``_kernel_bin_order``),
 reproduces the plain version ``_conv_rows_einsum`` (which
 ``tests/test_torch_fft_mxu.py`` holds against the JAX package) within 1e-3
-at 0..255 scale, the cluster form's lengths (32768, 65536, 131072) included,
-and ``np.fft`` at those lengths. The cluster form is modelled as
+at 0..255 scale, the cluster form's lengths (32768, 65536, 131072, and the
+wide form's 262144) included, and ``np.fft`` at those lengths. The cluster
+form is modelled as
 ``fft_conv_rows_cluster_kernel`` runs it, lane group by lane group: the
 first pass (radix n / 1024 over stride 1024: radix-C DFTs with rotated
 outputs, the W_(n/1024) table entries, the shuffles between a group's
 G = n / 32768 lanes, radix-R0 DFTs, the outer W_n twiddles with the
 rotation's correction), the segments' radix-32 passes, and the last pass
-as its adjoint. The staged form (past 131072: 262144, and 1048576, the
-shortest length with two first-pass digits) is modelled pass by pass as
+as its adjoint; the wide cluster form at 262144 as a radix-16 pass over
+stride 16384 (the staged pass kernel's arithmetic, split over 16 CTAs), the
+segments' whole body, and its adjoint, with its mapping over the cluster.
+The staged form (past 262144: 524288, one first-pass digit of 32, and
+1048576, the shortest length with two) is modelled pass by pass as
 its kernels index it (a thread a butterfly, twiddles ``(q j) << shift``
 from the W_n tables), each segment through the body's passes, and held
 against ``np.fft`` in the host's bin order and against a float64
@@ -43,9 +47,10 @@ from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum  # noqa: E40
 from blur_algorithms_tpu_torch.ops.kernels import gaussian_kernel, wrap_centered  # noqa: E402
 from blur_algorithms_tpu_torch.ops.plan import make_custom_plan  # noqa: E402
 
-CLUSTER_LENGTHS = [32768, 65536, 131072]
-# the staged form's: one first-pass digit (16), two (8, 8)
-STAGED_LENGTHS = [262144, 1048576]
+CLUSTER_LENGTHS = [32768, 65536, 131072, 262144]
+WIDE_N = 16 * 16384  # the wide cluster form's length: a cluster of 16 CTAs
+# the staged form's: one first-pass digit (32), two (8, 8)
+STAGED_LENGTHS = [524288, 1048576]
 LENGTHS = [256, 4096, 5120, 6144, 7168, 8192, 11264, 15360, 16384] + CLUSTER_LENGTHS
 TWIDDLE_BOUND = 4 * 2.0 ** -24
 
@@ -245,25 +250,37 @@ def _staged_pass(z, n, radix, span, inverse):
     return out
 
 
+def _first_digits(n):
+    """The passes over spans past ``BODY_N`` that index the rows as the
+    staged pass kernel does: past ``CLUSTER_LONGEST`` the staged form's
+    digits; at ``WIDE_N`` the wide cluster form's radix-16 pass over stride
+    ``BODY_N`` (rows -> segments, output q times W_n^(q j)) and its adjoint,
+    the same arithmetic split over the cluster's CTAs."""
+    if n > k3.CLUSTER_LONGEST:
+        return k3.staged_digits(n)
+    return [16] if n == WIDE_N else []
+
+
 def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
     """NumPy model of the kernel: pairs (c, c + half) packed as z = a + ib,
     the forward passes (DFT, then twiddles), H in the kernel's bin order,
     the inverse passes (conjugate twiddles, then the conjugate DFT); past
     ``BODY_N`` the cluster form's first and last pass, and the segments'
-    radix-32 passes between them; past ``CLUSTER_LONGEST`` the staged form's
-    first passes and their adjoints around the segments' body passes."""
+    radix-32 passes between them; at ``WIDE_N`` the wide cluster form's
+    radix-16 pass and, past ``CLUSTER_LONGEST``, the staged form's first
+    passes, and their adjoints, around the segments' body passes."""
     r = rows.shape[0]
     half = (r + 1) // 2
     z = rows[:half].astype(np.complex128)
     z[: r - half] += 1j * rows[half:]
     _, _, wq = _tables(min(n, k3.BODY_N))
     radices, span = k3._radices(n), n
-    digits = k3.staged_digits(n) if n > k3.CLUSTER_LONGEST else []
+    digits = _first_digits(n)
     for radix in digits:
         z = _staged_pass(z, n, radix, span, inverse=False)
         span //= radix
     radices = radices[len(digits):]
-    if k3.BODY_N < n <= k3.CLUSTER_LONGEST:
+    if k3.BODY_N < n < WIDE_N:
         z, radices, span = _cluster_forward(z, n), radices[2:], 1024
     spans = []
     for radix in radices:
@@ -281,7 +298,7 @@ def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
         cube = z.reshape(half, n // span, radix, s) * np.conj(tw)
         cube = np.einsum("mq,bkqs->bkms", np.conj(_dft(radix, wq)), cube)
         z = cube.reshape(half, n)
-    if k3.BODY_N < n <= k3.CLUSTER_LONGEST:
+    if k3.BODY_N < n < WIDE_N:
         z = _cluster_inverse(z, n)
     span = k3.BODY_N
     for radix in reversed(digits):
@@ -342,11 +359,11 @@ def _correlation64(rows, n, axis_plan):
     return np.fft.ifft(np.fft.fft(rows.astype(np.float64), axis=-1) * h, axis=-1).real
 
 
-@pytest.mark.parametrize("n", STAGED_LENGTHS)
-def test_model_of_the_staged_form_reproduces_numpy_fft(n):
-    """The staged form's first passes, then a segment's body passes, leave
-    frequency ``_kernel_bin_order(n)[p]`` at position p (to f32 twiddle
-    rounding); the adjoint passes undo them (times n)."""
+def _first_digits_reproduce_numpy_fft(n):
+    """The first passes over spans past ``BODY_N`` (``_first_digits``),
+    then a segment's body passes, leave frequency ``_kernel_bin_order(n)[p]``
+    at position p (to f32 twiddle rounding); the adjoint passes undo them
+    (times n)."""
     z = (np.array([1, 1j]) @ np.random.default_rng(n).standard_normal((2, n)))[None]
     _, _, wq = _tables(k3.BODY_N)
     span, x, spans = n, z, []
@@ -366,14 +383,39 @@ def test_model_of_the_staged_form_reproduces_numpy_fft(n):
         cube = x.reshape(1, n // span, radix, s) * np.conj(tw)
         x = np.einsum("mq,bkqs->bkms", np.conj(_dft(radix, wq)), cube).reshape(1, n)
     span = k3.BODY_N
-    for radix in reversed(k3.staged_digits(n)):
+    for radix in reversed(_first_digits(n)):
         span *= radix
         x = _staged_pass(x, n, radix, span, inverse=True)
     assert np.abs(x[0] / n - z[0]).max() <= 1e-5 * np.abs(z).max()
 
 
+@pytest.mark.parametrize("n", STAGED_LENGTHS)
+def test_model_of_the_staged_form_reproduces_numpy_fft(n):
+    """The staged form's first passes and its segments' body passes."""
+    _first_digits_reproduce_numpy_fft(n)
+
+
+def test_model_of_the_wide_form_reproduces_numpy_fft():
+    """The wide cluster form's radix-16 pass over stride ``BODY_N`` (n
+    262144) and its segments' body passes, in the bin order the host plans
+    for the cluster form there (C 16, then the segment's digits)."""
+    assert k3._radices(WIDE_N) == [16, 16, 32, 32] and _first_digits(WIDE_N) == [16]
+    _first_digits_reproduce_numpy_fft(WIDE_N)
+
+
+@pytest.mark.parametrize("asymmetric", [False, True])
+def test_model_of_the_wide_form_against_a_float64_correlation(asymmetric):
+    """The whole wide kernel on 3 rows (a zero row rides along) with the
+    host's H in its bin order, within 1e-3 at 0..255 scale of the float64
+    ``np.fft`` correlation."""
+    plan = _plan(asymmetric)
+    rows = (np.random.default_rng(7 + asymmetric).random((3, WIDE_N)) * 255).astype(np.float32)
+    got = _model_conv(rows, WIDE_N, plan.row)
+    np.testing.assert_allclose(got, _correlation64(rows, WIDE_N, plan.row), rtol=0, atol=1e-3)
+
+
 @pytest.mark.parametrize("n, asymmetric, rows", [
-    (262144, False, 3), (262144, True, 3), (1048576, True, 1)])
+    (524288, False, 3), (524288, True, 3), (1048576, True, 1)])
 def test_model_of_the_staged_form_against_a_float64_correlation(n, asymmetric, rows):
     """The whole staged kernel (odd row counts: a zero row rides along)
     with the host's H in its bin order, within 1e-3 at 0..255 scale of the
@@ -384,10 +426,10 @@ def test_model_of_the_staged_form_against_a_float64_correlation(n, asymmetric, r
     np.testing.assert_allclose(got, _correlation64(rows, n, plan.row), rtol=0, atol=1e-3)
 
 
-# rows of the frames the staged form serves: the 2160 x 140000 RGB frame's
-# 6480 rows (n 262144), 16384 rows of 262144 (48 GB of rows, output and
-# scratch) and 8192 rows of 2^20
-STAGED_ROWS = [(262144, 6480), (262144, 16384), (1048576, 8192)]
+# rows of the frames the staged form serves: the 1400 x 262000 float
+# plane's 1400 rows (n 524288), 16384 rows of 524288 (96 GB of rows, output
+# and scratch) and 8192 rows of 2^20
+STAGED_ROWS = [(524288, 1400), (524288, 16384), (1048576, 8192)]
 
 
 @pytest.mark.parametrize("n, rows", STAGED_ROWS)
@@ -578,6 +620,62 @@ def test_cluster_pass_mapping_covers_each_position_once(n, segment):
     assert 8 * (c - 1) * r0 * jj < 2**20  # an mbarrier's transaction count
 
 
+def _sidx(i):
+    """The padded shared-memory slot of position i (``sidx``)."""
+    return np.asarray(i) + (np.asarray(i) >> 5)
+
+
+def _wide_smem():
+    """``kWideSmem``: the padded segment, the body's tables, the W_1024
+    table and the first pass's W_n tables, 8 bytes an entry."""
+    return 8 * (16384 + 16384 // 32) + 8 * 272 + 8 * 1024 + 8 * (128 + WIDE_N // 128)
+
+
+@pytest.mark.parametrize("pairs, clusters", [(3240, 7), (3, 7), (16, 7)])
+def test_wide_cluster_mapping_covers_each_position_once(pairs, clusters):
+    """``fft_conv_rows_wide_kernel``'s mapping at n 262144: 16 CTAs of 512
+    threads, thread t of CTA r on j = r B + t + u T (B 1024, T 512, u < 2).
+    The first pass loads every row position once, a warp 32 consecutive
+    positions (128 contiguous bytes of a row a load), and stores output q
+    of j at position j of CTA q's segment, each position of each segment
+    once over the cluster, a warp's store 32 consecutive slots of one CTA
+    (256 contiguous bytes, free of bank conflicts); the last pass reads
+    position j of every segment (a warp 32 consecutive slots of one CTA) and
+    stores every row position once. Twiddle exponents stay below n. One CTA
+    an SM. The persistent clusters (min(pairs, the clusters the card holds))
+    take pairs c, c + clusters, ...: each pair once, each cluster at least
+    one."""
+    c, m_len, threads = 16, k3.BODY_N, 512
+    b_len = m_len // c
+    assert c * m_len == WIDE_N == k3.CLUSTER_LONGEST and b_len == 2 * threads
+    assert k3.cluster_segment(WIDE_N) == m_len
+    assert _wide_smem() + CTA_RESERVED <= SM_SHARED < 2 * (_wide_smem() + CTA_RESERVED)
+    grid = min(pairs, clusters)
+    taken = np.zeros(pairs, int)
+    for cl in range(grid):
+        assert len(range(cl, pairs, grid)) >= 1
+        taken[cl::grid] += 1
+    assert (taken == 1).all()
+    t = np.arange(threads)
+    loads, stores = np.zeros(WIDE_N, int), np.zeros(WIDE_N, int)
+    segs, reads = np.zeros((c, m_len), int), np.zeros((c, m_len), int)
+    for r in range(c):
+        for u in range(2):
+            j = r * b_len + t + u * threads
+            for m in range(c):
+                np.add.at(loads, j + m * m_len, 1)
+                np.add.at(stores, j + m * m_len, 1)
+                assert (np.diff((j + m * m_len).reshape(-1, 32), axis=1) == 1).all()
+            for q in range(c):
+                assert (q * j < WIDE_N).all()  # W_n^(q j)
+                np.add.at(segs[q], j, 1)
+                np.add.at(reads[q], j, 1)
+                for w in range(threads // 32):
+                    assert _half_warps_conflict_free(_sidx(j[32 * w:32 * w + 32]))
+    assert (loads == 1).all() and (stores == 1).all()
+    assert (segs == 1).all() and (reads == 1).all()
+
+
 @pytest.mark.parametrize("n", LENGTHS + STAGED_LENGTHS)
 def test_kernel_bin_order_is_a_permutation(n):
     order = k3._kernel_bin_order(n)
@@ -611,7 +709,7 @@ def test_kernel_lengths_are_the_planned_ones():
     assert {n for n in range(16385, k3.CLUSTER_LONGEST + 1) if k3.kernel_length(n)} == set(
         CLUSTER_LENGTHS)
     assert {n for n in range(k3.CLUSTER_LONGEST + 1, (1 << 20) + 1)
-            if k3.kernel_length(n)} == {1 << 18, 1 << 19, 1 << 20}
+            if k3.kernel_length(n)} == {1 << 19, 1 << 20}
     assert k3.kernel_length(1 << 30) and not k3.kernel_length(1 << 31)
     with pytest.raises(ValueError):
         k3.staged_digits(k3.CLUSTER_LONGEST)

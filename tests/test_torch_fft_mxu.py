@@ -196,13 +196,15 @@ def test_k3_wrappers_on_cpu_count_no_launch_and_reject_bad_inputs():
         t_k3.fft_conv_rows_framed(rows, 8192, plan.row)  # not the axis length
     with pytest.raises(ValueError):  # neither CUDA nor CPU: no silent move
         t_k3.fft_conv_rows(torch.zeros((3, 256), device="meta"), 256, plan.row)
-    # the cluster form's lengths and, past 131072, the staged form's: the
-    # plain version on the CPU, no launch of any form
+    # the cluster form's lengths (32768 .. 262144) and, past 262144, the
+    # staged form's: the plain version on the CPU, no launch of any form
     counts = (t_k3.fft_conv_rows.cluster_launches, t_k3.fft_conv_rows_framed.cluster_launches,
               t_k3.fft_conv_rows.staged_launches, t_k3.fft_conv_rows_framed.staged_launches)
     t_k3.fft_conv_rows(torch.zeros((3, 32768)), 32768, plan.row)
     out = t_k3.fft_conv_rows(torch.zeros((3, 262144)), 262144, plan.row)
     assert out.shape == (3, 262144) and not bool(out.abs().max())
+    out = t_k3.fft_conv_rows(torch.zeros((1, 524288)), 524288, plan.row)
+    assert out.shape == (1, 524288) and not bool(out.abs().max())
     assert (t_k3.fft_conv_rows.launches, t_k3.fft_conv_rows.cluster_launches,
             t_k3.fft_conv_rows_framed.cluster_launches, t_k3.fft_conv_rows.staged_launches,
             t_k3.fft_conv_rows_framed.staged_launches) == (k3, *counts)
@@ -214,11 +216,11 @@ def test_k3_wrappers_on_cpu_count_no_launch_and_reject_bad_inputs():
 
 @pytest.mark.parametrize("framed", [False, True])
 def test_k3_staged_lengths_take_zero_rows(framed):
-    """No rows at a length of the staged form (n 262144): a (0, dim) result
+    """No rows at a length of the staged form (n 524288): a (0, dim) result
     and no launch counted; on neither CUDA nor the CPU still a raise."""
-    n = 262144
-    dim = 140000 if framed else n
-    plan = t_plan.make_plan((4, 140000), 200.0)
+    n = 524288
+    dim = 300000 if framed else n
+    plan = t_plan.make_plan((4, 300000), 200.0)
     assert t_fft.transform_length(plan.row) == n
     fn = t_k3.fft_conv_rows_framed if framed else t_k3.fft_conv_rows
     before = (fn.launches, fn.cluster_launches, fn.staged_launches)
@@ -303,20 +305,20 @@ def test_adjoint_wide_branch_against_jax():
 
 
 def test_fft_mxu_past_the_cluster_form_against_jax_and_oracle():
-    """Rows of 140000 at sigma 200 (r 665: n 262144, a length of K3f's
+    """A row of 270000 at sigma 200 (r 665: n 524288, a length of K3f's
     staged form; its plain version here): ``blur(engine="fft_mxu")``
     against the JAX API's FFT_MXU and the direct oracle within 2e-2, and
     ``blur_u8`` against the JAX ``blur_u8`` within 1 count."""
-    plan, jplan = _plans(((2, 140000), 200.0))
-    assert t_fft.transform_length(plan.row) == 262144 > t_k3.CLUSTER_LONGEST
-    x = _planar((1, 2, 140000), seed=22)
+    plan, jplan = _plans(((1, 270000), 200.0))
+    assert t_fft.transform_length(plan.row) == 524288 > t_k3.CLUSTER_LONGEST
+    x = _planar((1, 1, 270000), seed=22)
     got = port.blur(torch.from_numpy(x), 200.0, engine="fft_mxu")
     assert got.dtype == torch.float32 and got.shape == x.shape
     got = got.numpy()
     want = np.asarray(jax_pkg.blur(jnp.asarray(x), 200.0, engine="fft_mxu"))
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-2)
     np.testing.assert_allclose(got, oracle.blur_direct(x, jplan), rtol=0, atol=2e-2)
-    img = _frames((1, 2, 140000, 1), seed=23)
+    img = _frames((1, 1, 270000, 1), seed=23)
     got = port.blur_u8(torch.from_numpy(img), 200.0, engine="fft_mxu")
     assert got.dtype == torch.uint8 and got.shape == img.shape
     want = np.asarray(jax_pkg.blur_u8(jnp.asarray(img), 200.0, engine="fft_mxu"))
@@ -324,19 +326,19 @@ def test_fft_mxu_past_the_cluster_form_against_jax_and_oracle():
 
 
 def test_adjoint_wide_branch_past_the_cluster_form_against_jax(monkeypatch):
-    """The adjoint's wide branch with its padded rows past 131072: a (1, 1,
-    135000) plane at row radius 1131 (135000 + 4 r: n 262144, a length of
+    """The adjoint's wide branch with its padded rows past 262144: a (1, 1,
+    270000) plane at row radius 1131 (270000 + 4 r: n 524288, a length of
     K3's staged form; its plain version here) against the JAX
     ``blur_adjoint``."""
-    plan, jplan = _plans(((1, 135000), (1.0, 340.0)))
+    plan, jplan = _plans(((1, 270000), (1.0, 340.0)))
     r = plan.row.support_radius
     assert r > t_adjoint._ADJOINT_FFT_MIN_RADIUS and plan.row.symmetric
     lengths, real = [], t_k3.fft_conv_rows
     monkeypatch.setattr(t_k3, "fft_conv_rows", lambda rows, n, p: lengths.append(n) or real(
         rows, n, p))
-    ct = np.random.default_rng(24).standard_normal((1, 1, 135000)).astype(np.float32)
+    ct = np.random.default_rng(24).standard_normal((1, 1, 270000)).astype(np.float32)
     got = t_adjoint.blur_adjoint(torch.from_numpy(ct), plan).numpy()
-    assert lengths == [262144]
+    assert lengths == [524288]
     want = np.asarray(j_adjoint.blur_adjoint(jnp.asarray(ct), jplan))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
 
@@ -417,16 +419,16 @@ def _served_f32(monkeypatch, sigma, engine):
                  id="<lambda>-16384_0"),
     pytest.param(lambda mp: port.blur(torch.zeros(()).expand(1, 8, 20000), 3.0,
                                       engine="fft_mxu"), None, id="<lambda>-16384_1"),
-    # past the cluster form's longest transform (n 262144): K3f's staged
+    # past the cluster form's longest transform (n 524288): K3f's staged
     # form since it was ported (its plain version here)
-    pytest.param(lambda mp: port.blur(torch.zeros(()).expand(1, 8, 140000), 3.0,
+    pytest.param(lambda mp: port.blur(torch.zeros(()).expand(1, 8, 270000), 3.0,
                                       engine="fft_mxu"), None, id="<lambda>-item 11"),
 ])
 def test_fft_mxu_refuses_what_it_cannot_serve(monkeypatch, call, match):
     if match is None:
         out = call(monkeypatch)
-        if out is not None:  # the 20000- and 140000-wide zero rows
-            assert out.shape[:2] == (1, 8) and out.shape[2] in (20000, 140000)
+        if out is not None:  # the 20000- and 270000-wide zero rows
+            assert out.shape[:2] == (1, 8) and out.shape[2] in (20000, 270000)
             assert not bool(out.abs().max())
         return
     with pytest.raises(NotImplementedError, match=match):

@@ -192,6 +192,26 @@ def test_cluster_ablation_on_the_cpu_is_the_plain_version(framed):
         b2.cluster_ablation(x[:, :16384], 16384, make_plan((8, 16384), 10.0).row)
 
 
+@pytest.mark.parametrize("framed", [False, True])
+def test_staged_yardstick_on_the_cpu_is_the_plain_version(framed):
+    """The copying staged form at n 262144 (the yardstick of the wide cluster
+    form there) on CPU rows runs K3's or K3f's plain version and counts no
+    launch; a shorter length raises."""
+    from blur_algorithms_tpu_torch.ops.fft_mxu import transform_length
+
+    ax = make_plan((2, 140000), 900.0).row
+    n = transform_length(ax) if framed else 262144
+    assert n == 262144 == fft4step.CLUSTER_LONGEST
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((3, ax.dim if framed else n), dtype=np.float32))
+    want = fft4step.fft_conv_rows_framed_ref(x, n, ax) if framed else _conv_rows_einsum(x, n, ax)
+    before = b2.staged_yardstick.launches
+    assert torch.equal(b2.staged_yardstick(x, n, ax, framed), want)
+    assert b2.staged_yardstick.launches == before
+    with pytest.raises(ValueError, match="not a length of the copying staged form"):
+        b2.staged_yardstick(x, n // 2, ax, framed)
+
+
 def test_cluster_cells_are_the_timed_shapes():
     """K3 on the panorama's adjoint rows (C 2), K3f on a giant frame's rows
     (C 2) and on a streamed column strip (n 65536)."""

@@ -233,7 +233,7 @@ def test_streamed_crossovers_by_device_name():
 def test_auto_past_the_longest_transform_takes_the_split(monkeypatch):
     """AUTO past transform length 131072 takes FFT_MXU, as the JAX
     ``_resolve_engine`` does (a row of 140000 at r 665: n 262144, K3f's
-    staged form; JAX's rule under the CPU spec's crossovers and budgets),
+    wide cluster form; JAX's rule under the CPU spec's crossovers and budgets),
     within 2e-2 of ``torch.fft`` (the fft_tiles engine)."""
     x = torch.from_numpy(_planar((1, 2, 140000), seed=21))
     plan, jplan = _plans(((2, 140000), 200.0))
