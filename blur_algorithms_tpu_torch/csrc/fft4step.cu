@@ -133,7 +133,9 @@
 // At n 262144 the wide cluster form (fft_conv_rows_wide_kernel, below): 16
 // CTAs of 16384, a radix-16 pass into the segments and back, the whole
 // one-block body on each, on persistent clusters; one read and one write
-// of the rows. Past it the staged form (fft_conv_rows_staged_*, below):
+// of the rows. Past it, and at it on a card that places no cluster of 16
+// (the wrapper asks cudaOccupancyMaxActiveClusters before the launch), the
+// staged form (fft_conv_rows_staged_*, below):
 // radix-8/16/32 passes over the segments of 16384 through a complex
 // scratch buffer in device memory, each segment through the one-block body,
 // the passes' adjoints back to the rows. No length cap but the C entries'
@@ -1240,8 +1242,9 @@ int wide_occupancy(int* clusters) {
 }
 
 // The wide cluster form at n 262144: min(pairs, the clusters the card holds
-// at once) persistent clusters of 16 CTAs. A card that places none fails
-// the launch (the error is returned; nothing falls back to another form).
+// at once) persistent clusters of 16 CTAs. On a card that places none the
+// wrapper routes n 262144 to the staged form before the launch; the guard
+// below returns an error should a launch come here all the same.
 template <bool kFramed>
 int launch_wide(const float* x, float* out, const float2* tw, const float* h, int complex_h,
                 int rows, int dim, int pad, cudaStream_t stream) {
@@ -1259,10 +1262,11 @@ int launch_wide(const float* x, float* out, const float2* tw, const float* h, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- the staged form: n = P * M past 262144, M = kMaxN ----
+// ---- the staged form: n = P * M from 262144 on, M = kMaxN ----
 //
 // Past the 16 CTAs of the wide cluster form a pair of rows no longer fits
-// the shared memory a cluster can join, so the transform is staged through
+// the shared memory a cluster can join (at 262144 itself, on a card that
+// places no cluster of 16, neither does it), so the transform is staged through
 // a complex scratch buffer in device memory (n float2 a pair of rows, that
 // is rows x n x 4 bytes, allocated by the wrapper):
 //   1. the first passes: radix-R decimation-in-frequency passes over the P
@@ -1475,7 +1479,7 @@ int launch_n(const float* x, float* out, const float2* tw, const float* h, int c
   return static_cast<int>(cudaGetLastError());
 }
 
-// The staged form at n = 2^n_log2 past 262144: the first passes, the
+// The staged form at n = 2^n_log2 from 262144 on: the first passes, the
 // segment pass, the last passes, in order on the stream. tw: the body's
 // kTable entries, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128).
 int launch_staged(const float* x, float* out, const float2* tw, const float* h, int complex_h,
@@ -1582,7 +1586,7 @@ extern "C" int fft_conv_rows_framed(const void* x, void* out, const void* tw,
 }
 
 // K3 (framed 0: dim = n, pad = 0) or K3f (framed 1) in the staged form, at a
-// power of two n past 262144 (to 2^30). tw: the body's 272 table entries of
+// power of two n from 262144 on (to 2^30). tw: the body's 272 table entries of
 // length 16384, then W_n^l (l < 128) and W_n^(128 h) (h < n / 128); h: the
 // spectrum in the staged form's bin order, scaled by 1/n; scratch:
 // (rows + 1) / 2 x n float2 of device memory the launches overwrite. Returns
@@ -1591,7 +1595,7 @@ extern "C" int fft_conv_rows_staged(const void* x, void* out, const void* tw, co
                                     int complex_h, int rows, int n, int dim, int pad,
                                     int framed, void* scratch, void* stream) {
   if (rows < 1 || dim < 1 || pad < 0 || pad > dim - 1 || dim + 2 * pad > n ||
-      n <= kWideC * kMaxN || (n & (n - 1)) != 0 || (!framed && (dim != n || pad != 0)))
+      n < kWideC * kMaxN || (n & (n - 1)) != 0 || (!framed && (dim != n || pad != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_staged(static_cast<const float*>(x), static_cast<float*>(out),
                        static_cast<const float2*>(tw), static_cast<const float*>(h), complex_h,

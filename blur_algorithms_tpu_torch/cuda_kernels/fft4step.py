@@ -35,7 +35,11 @@ every power of two: radix-8/16/32 passes over the ``n / BODY_N`` segments
 (``staged_digits``) through a complex scratch buffer in device memory, each
 segment through the one-block body (its first and last passes reading and
 storing scratch), then the passes' adjoints back to the rows; ``_radices``
-names those digits first.
+names those digits first. At ``CLUSTER_LONGEST`` itself the staged form
+runs where the card places no cluster of 16 (a non-portable size: a MIG
+slice or a part with fewer free SMs in a GPC); its one digit, 16, is the
+wide form's C, so both keep H in one bin order. ``_form`` chooses the form
+before the launch, from ``cudaOccupancyMaxActiveClusters``.
 """
 
 from __future__ import annotations
@@ -73,8 +77,8 @@ __all__ = [
 # form splits the row into segments of this length, one a CTA.
 BODY_N = 16384
 # Longest transform of the cluster form: a cluster of 16 CTAs of BODY_N (the
-# wide cluster form; past the portable 8, a size the H100 places). Past it
-# the staged form runs.
+# wide cluster form; past the portable 8, a size the H100 places). Past it,
+# and at it on a card that places no cluster of 16, the staged form runs.
 CLUSTER_LONGEST = 16 * BODY_N
 # The C entries take int lengths: the longest power of two they hold.
 _INT_LONGEST = 1 << 30
@@ -96,10 +100,11 @@ def kernel_length(n: int) -> bool:
 
 def staged_digits(n: int) -> list[int]:
     """The radices of the staged form's first passes at a power of two
-    ``n`` past ``CLUSTER_LONGEST``: ``P = n / BODY_N`` split into
+    ``n`` from ``CLUSTER_LONGEST`` on: ``P = n / BODY_N`` split into
     ``ceil(log2(P) / 5)`` digits of 8, 16 or 32, the first ones the larger
-    (``csrc/fft4step.cu``: ``staged_digit_log2``)."""
-    if not (CLUSTER_LONGEST < n <= _INT_LONGEST and n & (n - 1) == 0):
+    (``csrc/fft4step.cu``: ``staged_digit_log2``); [16] at
+    ``CLUSTER_LONGEST``, the wide cluster form's C."""
+    if not (CLUSTER_LONGEST <= n <= _INT_LONGEST and n & (n - 1) == 0):
         raise ValueError(f"n = {n} is not a length of the staged form")
     p = (n // BODY_N).bit_length() - 1
     t = -(-p // 5)
@@ -124,7 +129,7 @@ def _radices(n: int, segment: int | None = None) -> list[int]:
     ``n / 1024`` in the kernel) and then the segment's radix-32 passes
     (``segment``: ``cluster_segment(n)``, or a probe variant's; at 262144
     the wide form's radix-16 pass, then the segment's three, the same
-    digits); else radix
+    digits as the staged form's there); else radix
     Q, the odd part of ``n`` (when > 1), radix R0 (when > 1), then ``a``
     radix-32 passes, with ``n = Q * R0 * 32**a`` and ``a = 2`` from
     ``n / Q = 1024`` on (``csrc/fft4step.cu``: ``launch``)."""
@@ -206,7 +211,8 @@ def _kernel_spectrum(axis_plan, n: int, device: torch.device,
                      segment: int | None = None) -> tuple[torch.Tensor, bool]:
     """The correlation spectrum conj(fft(wrap_centered(taps, n))) / n in the
     kernel's bin order (of ``segment``'s cluster form past ``BODY_N``, of
-    the staged form past ``CLUSTER_LONGEST``): n
+    the staged form from ``CLUSTER_LONGEST`` on, where both forms share
+    it): n
     floats (symmetric taps) or (n, 2) interleaved complex, and whether it
     is complex."""
     full = np.conj(np.fft.fft(wrap_centered(axis_plan.taps, n).astype(np.float64))) / n
@@ -224,13 +230,38 @@ def _check_rows(rows: torch.Tensor, length: int, what: str) -> None:
         raise ValueError(f"{what} takes (R, {length}) rows, got {tuple(rows.shape)}")
 
 
-def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.Tensor:
-    """Launch a C entry of ``csrc/fft4step.cu`` on CUDA rows (past
-    ``CLUSTER_LONGEST`` the staged form's, ``fft_conv_rows_staged``, with a
-    scratch buffer of (R + 1) / 2 x n complex64; up to it nothing but the
-    output is allocated); raise on a length the kernel does not take, a
-    device that is neither CUDA nor CPU, a non-contiguous tensor or a
-    failed launch (a cluster of 16 the card does not place included)."""
+def _form(n: int, framed: bool, device: torch.device) -> str:
+    """The form of K3 (K3f where ``framed``) that runs at transform length
+    ``n`` on ``device``, the current CUDA card: "body" (one block a pair of
+    rows) up to ``BODY_N``, "cluster" past it, "staged" past
+    ``CLUSTER_LONGEST``; at ``CLUSTER_LONGEST`` "wide" where the card places
+    a cluster of 16 CTAs of the wide form's kernel, "staged" where it places
+    none. Chosen before the launch: nothing catches a failed one."""
+    if n <= BODY_N:
+        return "body"
+    if n < CLUSTER_LONGEST:
+        return "cluster"
+    if n == CLUSTER_LONGEST and _wide_clusters(device.index, framed) >= 1:
+        return "wide"
+    return "staged"
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_clusters(index: int, framed: bool) -> int:
+    """``cluster_occupancy(CLUSTER_LONGEST, framed)`` on card ``index`` (the
+    current one), queried once a process and card."""
+    return cluster_occupancy(CLUSTER_LONGEST, framed)
+
+
+def _launch(wrapper, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.Tensor:
+    """Launch the C entry of ``csrc/fft4step.cu`` named as ``wrapper`` on
+    CUDA rows, in the form ``_form`` chooses (the staged one through
+    ``fft_conv_rows_staged``, with a scratch buffer of (R + 1) / 2 x n
+    complex64; the others allocate nothing but the output), and count the
+    launch on ``wrapper``: ``.launches``, and ``.cluster_launches`` (the
+    cluster and the wide form) or ``.staged_launches``. Raise on a length
+    the kernel does not take, a device that is neither CUDA nor CPU, a
+    non-contiguous tensor or a failed launch."""
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
     if rows.device.type != "cuda":
@@ -242,17 +273,19 @@ def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.
         return out
     from blur_algorithms_tpu_torch.utils.build import load_library
 
+    entry, framed = wrapper.__name__, wrapper is fft_conv_rows_framed
     tw = _twiddles(n, rows.device)
     h, complex_h = _kernel_spectrum(axis_plan, n, rows.device)
     lib = load_library()
-    if n > CLUSTER_LONGEST:
-        # K3: dim n, pad 0; the complex scratch of the staged form
-        dim_pad = extra or (n, 0)
-        scratch = torch.empty(((rows.shape[0] + 1) // 2, n, 2), dtype=torch.float32,
-                              device=rows.device)
-        extra = (*dim_pad, int(entry == "fft_conv_rows_framed"), scratch.data_ptr())
-        entry = "fft_conv_rows_staged"
     with torch.cuda.device(rows.device):
+        form = _form(n, framed, rows.device)
+        if form == "staged":
+            # K3: dim n, pad 0; the complex scratch of the staged form
+            dim_pad = extra or (n, 0)
+            scratch = torch.empty(((rows.shape[0] + 1) // 2, n, 2), dtype=torch.float32,
+                                  device=rows.device)
+            extra = (*dim_pad, int(framed), scratch.data_ptr())
+            entry = "fft_conv_rows_staged"
         rc = getattr(lib, entry)(
             rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
             int(complex_h), rows.shape[0], n, *extra,
@@ -261,6 +294,9 @@ def _launch(entry: str, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
+    wrapper.launches += 1
+    wrapper.cluster_launches += form in ("cluster", "wide")
+    wrapper.staged_launches += form == "staged"
     return out
 
 
@@ -283,29 +319,20 @@ def cluster_occupancy(n: int, framed: bool = False) -> int:
     return out.value
 
 
-def _count(wrapper, n: int) -> None:
-    """One launch of ``wrapper``'s kernel at length n, and of its form."""
-    wrapper.launches += 1
-    wrapper.cluster_launches += BODY_N < n <= CLUSTER_LONGEST
-    wrapper.staged_launches += n > CLUSTER_LONGEST
-
-
 def fft_conv_rows(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
     """(R, n) float32 rows framed to the transform length -> the rows
     circularly correlated by the axis taps (K3).
 
     A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
     ``fft_conv_rows.launches`` counts kernel launches, ``.cluster_launches``
-    those of the cluster form (``BODY_N < n <= CLUSTER_LONGEST``),
-    ``.staged_launches`` those of the staged form (past it).
+    those of the cluster form and the wide one (``BODY_N < n <=
+    CLUSTER_LONGEST``), ``.staged_launches`` those of the staged form (past
+    it, and at it on a card that places no cluster of 16: ``_form``).
     """
     _check_rows(rows, n, "K3")
     if rows.device.type == "cpu":
         return _conv_rows_einsum(rows, n, axis_plan)
-    out = _launch("fft_conv_rows", rows, n, axis_plan)
-    if rows.shape[0]:  # no rows: nothing launched
-        _count(fft_conv_rows, n)
-    return out
+    return _launch(fft_conv_rows, rows, n, axis_plan)
 
 
 fft_conv_rows.launches = 0
@@ -334,10 +361,7 @@ def fft_conv_rows_framed(rows: torch.Tensor, n: int, axis_plan) -> torch.Tensor:
         raise ValueError(f"n = {n} is not the axis transform length")
     if rows.device.type == "cpu":
         return fft_conv_rows_framed_ref(rows, n, axis_plan)
-    out = _launch("fft_conv_rows_framed", rows, n, axis_plan, dim, pad)
-    if rows.shape[0]:  # no rows: nothing launched
-        _count(fft_conv_rows_framed, n)
-    return out
+    return _launch(fft_conv_rows_framed, rows, n, axis_plan, dim, pad)
 
 
 fft_conv_rows_framed.launches = 0

@@ -14,8 +14,10 @@ epilogue's roundings out (``__fmaf_rn`` where XLA contracts the JAX
 kernel's expression, ``__fmul_rn`` / ``__fadd_rn`` elsewhere), so they
 round as the JAX kernels do. The library goes to ``build/`` at the repository root under
 a name keyed by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is loaded as it is. Nothing here runs at
-import time.
+rebuilt and an unchanged one is loaded as it is; nvcc's output (ptxas's
+register and spill lines) is kept beside it as ``<library>.log``, so a
+process that finds the library built reads the same lines. Nothing here
+runs at import time.
 
 The probes (``csrc/probes/*.cu``: B1-B3, the ``benchmarks`` package) build
 the same way into a second library, ``load_probe_library``, keyed by their
@@ -253,11 +255,17 @@ def _run(cmd: list[str], proc: subprocess.Popen) -> str:
     return out + err
 
 
+def _log_path(target: pathlib.Path) -> pathlib.Path:
+    """Where the build of library ``target`` keeps what nvcc printed."""
+    return target.with_suffix(".log")
+
+
 def _compile_and_link(sources: list[pathlib.Path], out_dir: pathlib.Path,
                       target: pathlib.Path) -> str:
     """One nvcc per source, all started together, then one link. Builds in
-    a private directory and renames the library into place: a concurrent
-    process sees either no library or a whole one."""
+    a private directory and renames the log (``_log_path``) and then the
+    library into place: a concurrent process sees either no library or a
+    whole one with its log."""
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
         nvcc = _nvcc()
         jobs = []
@@ -276,6 +284,8 @@ def _compile_and_link(sources: list[pathlib.Path], out_dir: pathlib.Path,
         cmd = [nvcc, *_LINK_FLAGS, "-o", lib, *(f"{tmp}/{s.stem}.o" for s in sources)]
         log += _run(cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        pathlib.Path(f"{tmp}/lib.log").write_text(log)
+        os.replace(f"{tmp}/lib.log", _log_path(target))
         os.replace(lib, target)
     return log
 
@@ -284,7 +294,8 @@ def _build_and_load(sources: list[pathlib.Path], hashed: list[pathlib.Path],
                     stem: str, record: dict) -> ctypes.CDLL:
     """Build ``sources`` into ``build/<stem>_<hash>.so`` unless a library of
     the same flags and ``hashed`` sources is there, record the build in
-    ``record`` and load it."""
+    ``record`` (its ``log`` the nvcc output kept beside the library, where
+    another process built it too) and load it."""
     if not sources:
         raise RuntimeError(f"no CUDA sources for {stem}")
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -295,10 +306,11 @@ def _build_and_load(sources: list[pathlib.Path], hashed: list[pathlib.Path],
     out_dir.mkdir(parents=True, exist_ok=True)
     target = out_dir / f"{stem}_{digest.hexdigest()[:16]}.so"
     t0 = time.perf_counter()
-    log = ""
     built = not target.exists()
     if built:
         log = _compile_and_link(sources, out_dir, target)
+    else:
+        log = _log_path(target).read_text() if _log_path(target).exists() else ""
     record.update(
         library=str(target), built=built, seconds=time.perf_counter() - t0,
         log=log,

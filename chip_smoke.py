@@ -269,8 +269,14 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    form's one first-pass digit of 32, two of 8), symmetric and asymmetric
    taps, odd row counts, within 2e-2 at 0..255 scale (beside a float64
    ``torch.fft`` correlation at 1048576), each form past 2^31 elements,
-   with ptxas's registers and spills and the clusters of 16 the card
-   places at once (``cudaOccupancyMaxActiveClusters``); then, counts set to
+   with ptxas's registers and spills and the clusters the card places at
+   once at n 32768, 65536, 131072 and 262144
+   (``cudaOccupancyMaxActiveClusters``); n 262144 also as a card that
+   places no cluster of 16 runs it (the occupancy patched to 0, so
+   ``fft4step._form`` routes it to the staged form before the launch),
+   against the plain version and the wide form on the same rows (a card
+   that places none runs the staged form on every path below, says so,
+   and checks the wide form nowhere); then, counts set to
    0 before each call (launches, ``cluster_launches``, ``staged_launches``):
    ``blur_u8`` AUTO on one 2160x140000 RGB frame at sigma 900 (whole-frame
    FFT_MXU under its byte budget: K3f's wide form on the rows at n 262144,
@@ -286,7 +292,13 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    kernels as phase 10) of K3f's wide form on the frame's 6480 rows and
    K3's on the adjoint's rows, each also in turns with the copying staged form
    there (B2's ``staged_yardstick``), and of the staged form on the 1400
-   rows, beside their plain versions, the bytes bound and cuFFT.
+   rows, beside their plain versions, the bytes bound and cuFFT. The staged
+   route at n 262144 (the occupancy patched to 0) drives ``blur_u8`` AUTO on
+   the frame and on the 4 frames (the streamer), and ``blur`` forward +
+   backward on the f32 batch, each with the staged form's launches alone at
+   262144 and within 1 count (uint8) or 2e-2 of the wide form's output;
+   K3f on the frame's rows, K3 on the adjoint's rows, the ``blur_u8`` call
+   and the ``blur`` call are timed in turns with the wide form.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -4221,7 +4233,8 @@ def _slice18(smi: str, device: str = "cuda") -> None:
 
 
 # phase 20: K3/K3f past transform length 131072 (the wide cluster form on
-# 16 CTAs at n 262144, the staged form past it) against the plain version,
+# 16 CTAs at n 262144, the staged form past it, and at 262144 on a card that
+# places no cluster of 16) against the plain version,
 # then the slice's paths on 2160 x 140000 RGB frames (a stitched panorama
 # strip), a 2160 x 131072 float batch and a 1400 x 262000 float plane
 WIDE_CASE = (262144, 2001)  # (n, taps): the wide cluster form on 16 CTAs
@@ -4239,16 +4252,57 @@ def _k3_counts(fft4step) -> dict:
     return {**_cluster_counts(fft4step, "cluster"), **_cluster_counts(fft4step, "staged")}
 
 
-def _forms_vs_plain(n: int, width: int, form: str) -> dict:
+@contextlib.contextmanager
+def _no_cluster_of_16(fft4step):
+    """This card as one that places no cluster of 16 CTAs (a MIG slice, a
+    Hopper part with fewer free SMs in a GPC): the wide form's occupancy
+    reads 0, every other length's stays the card's, and the form's cached
+    query is emptied on the way in and out, so n 262144 takes the staged
+    route (``fft4step._form``)."""
+    real = fft4step.cluster_occupancy
+    fft4step.cluster_occupancy = lambda n, framed=False: (
+        0 if n == fft4step.CLUSTER_LONGEST else real(n, framed))
+    fft4step._wide_clusters.cache_clear()
+    try:
+        yield
+    finally:
+        fft4step.cluster_occupancy = real
+        fft4step._wide_clusters.cache_clear()
+
+
+def _staged_route(fn, *args):
+    """``fn(*args)`` as on a card that places no cluster of 16."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    with _no_cluster_of_16(fft4step):
+        return fn(*args)
+
+
+def _tag(fft4step, n: int, framed: bool) -> str:
+    """The count a K3 launch (K3f's where ``framed``) at ``n`` adds to on
+    this card as it routes now: "staged", or "cluster" (the cluster and the
+    wide form)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    return "staged" if fft4step._form(n, framed, dev) == "staged" else "cluster"
+
+
+FORM_NAMES = {"cluster": "wide cluster form", "staged": "staged form"}  # at n 262144
+OTHER_FORM = {"cluster": "staged", "staged": "cluster"}
+
+
+def _forms_vs_plain(n: int, width: int, route: bool = False) -> dict:
     """K3 (9 rows of n) and K3f (7 rows of n / 2 + 1001, framed to n)
     against their plain versions, symmetric and asymmetric taps; each call
-    must launch ``form`` ("cluster" or "staged") once: the errors."""
+    must launch the form the card routes n to (``_tag``) once. ``route``:
+    as on a card that places no cluster of 16 (``_no_cluster_of_16``), and
+    held against this card's own form on the same rows where that is the
+    wide one. The worst errors, keyed by kernel and form."""
     from blur_algorithms_tpu_torch import make_custom_plan
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum, transform_length
     from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
 
-    errs = {"K3": 0.0, "K3f": 0.0}
+    errs = {}
     dim = n // 2 + 1001  # K3f: dim + 2 pad past n / 2, so the transform is n
     for asym in (False, True):
         what = f"taps={width} {'asymmetric' if asym else 'symmetric'}"
@@ -4256,16 +4310,20 @@ def _forms_vs_plain(n: int, width: int, form: str) -> dict:
                 ("K3", fft4step.fft_conv_rows, _conv_rows_einsum, 9, n),
                 ("K3f", fft4step.fft_conv_rows_framed, fft4step.fft_conv_rows_framed_ref, 7,
                  dim)):
+            framed = name == "K3f"
             plan = make_custom_plan((8, length), _wide_taps(width, asym), [1.0])
             rows = torch.from_numpy((np.random.default_rng(length).random((nrows, length))
                                      * 255).astype(np.float32)).cuda()
-            before = (fn.launches, getattr(fn, f"{form}_launches"))
-            got = fn(rows, n, plan.row)
+            with _no_cluster_of_16(fft4step) if route else contextlib.nullcontext():
+                form = _tag(fft4step, n, framed)
+                before = (fn.launches, getattr(fn, f"{form}_launches"))
+                got = fn(rows, n, plan.row)
+                torch.cuda.synchronize()
+                ran = (fn.launches - before[0], getattr(fn, f"{form}_launches") - before[1])
             want = plain(rows, n, plan.row)
             torch.cuda.synchronize()
-            ran = (fn.launches - before[0], getattr(fn, f"{form}_launches") - before[1])
             err = float((got - want).abs().max())
-            errs[name] = max(errs[name], err)
+            errs[f"{name} {form}"] = max(errs.get(f"{name} {form}", 0.0), err)
             extra = ""
             if name == "K3" and n == STAGED_CASES[-1][0]:
                 h = np.conj(np.fft.fft(wrap_centered(plan.row.taps, n).astype(np.float64)))
@@ -4274,25 +4332,35 @@ def _forms_vs_plain(n: int, width: int, form: str) -> dict:
                 extra = (f"; vs float64 torch.fft correlation "
                          f"{float((got.double() - ref).abs().max()):.3e}")
                 del ref
+            diff = 0.0
+            if route and _tag(fft4step, n, framed) == "cluster":
+                wide = fn(rows, n, plan.row)
+                torch.cuda.synchronize()
+                diff = float((got - wide).abs().max())
+                extra += (f"; vs the wide form max_abs_err={diff:.3e}, bit-equal "
+                          f"{torch.equal(got, wide)}")
+                del wide
             shape = f"{nrows} rows n={n}" if name == "K3" else f"{nrows} rows dim={dim} n={n}"
             digits = f" (digits {fft4step.staged_digits(n)})" if form == "staged" else (
                 f" (C={n // fft4step.cluster_segment(n)})")
-            print(f"phase 20 {name} {form} form vs plain: {shape}{digits} {what} "
+            how = " routed as on a card that places no cluster of 16" if route else ""
+            print(f"phase 20 {name} {form} form{how} vs plain: {shape}{digits} {what} "
                   f"max_abs_err={err:.3e} limit={FFT_TOL}{extra}", flush=True)
-            if (ran != (1, 1) or not err <= FFT_TOL
+            if (ran != (1, 1) or not err <= FFT_TOL or not diff <= FFT_TOL
+                    or (route and form != "staged")
                     or (name == "K3f" and transform_length(plan.row) != n)):
                 raise RuntimeError(f"{name}'s {form} form at {n}: launches {ran}, "
-                                   f"{err} from its plain version")
+                                   f"{err} from its plain version, {diff} from the wide form")
             del rows, got, want
     return errs
 
 
-def _past_2_31(n: int, width: int, nrows: int, form: str) -> dict:
+def _past_2_31(n: int, width: int, nrows: int) -> dict:
     """One launch each of K3 on ``nrows`` rows of n and K3f on as many of
     n - (width - 1) (pad (width - 1) / 2: n), an odd count past 2^31
-    elements (64-bit offsets); rows are independent, so the plain version
-    runs on the last rows alone (offsets past 2^31) and on the row that
-    rides with the zero row."""
+    elements (64-bit offsets), in the form the card routes n to; rows are
+    independent, so the plain version runs on the last rows alone (offsets
+    past 2^31) and on the row that rides with the zero row."""
     from blur_algorithms_tpu_torch import make_custom_plan
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
@@ -4305,6 +4373,7 @@ def _past_2_31(n: int, width: int, nrows: int, form: str) -> dict:
         fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
         plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
         rows = torch.rand((nrows, dim), generator=gen, device="cuda").mul_(255)
+        form = _tag(fft4step, n, framed)
         before = getattr(fn, f"{form}_launches")
         got = fn(rows, n, plan.row)
         pick = torch.tensor([nrows // 2, *range(nrows - 7, nrows)], device="cuda")
@@ -4313,7 +4382,7 @@ def _past_2_31(n: int, width: int, nrows: int, form: str) -> dict:
         err = float((got[pick] - want).abs().max())
         finite = bool(torch.isfinite(got).all())
         name = "K3f" if framed else "K3"
-        errs[name] = err
+        errs[f"{name} {form}"] = err
         scratch = (f"{(nrows + 1) // 2 * n * 2} scratch floats" if form == "staged"
                    else "no scratch")
         print(f"phase 20 {name} {form} form past 2^31 elements: {nrows} rows x {dim} "
@@ -4331,36 +4400,47 @@ def _past_2_31(n: int, width: int, nrows: int, form: str) -> dict:
 
 
 def _phase20_kernels() -> dict:
-    """(a) The wide cluster form at n 262144 and the staged form at
-    524288 (one first-pass digit, 32) and 1048576 (two, 8 and 8) against
-    the plain version: symmetric and asymmetric taps, odd row counts; the
-    plain version's dense stages fit the card at all three, so no float64
-    torch.fft stand-in is needed (its error at 1048576 is printed beside).
-    Then one launch of each past 2^31 elements (64-bit offsets), the
-    ptxas lines and the card's clusters of 16 at once."""
+    """(a) K3/K3f at n 262144 in the form this card routes it to (the wide
+    cluster form where it places a cluster of 16), then as a card that
+    places none routes it (the staged form, also held against the wide
+    form), and the staged form at 524288 (one first-pass digit, 32) and
+    1048576 (two, 8 and 8), against the plain version: symmetric and
+    asymmetric taps, odd row counts; the plain version's dense stages fit
+    the card at all three, so no float64 torch.fft stand-in is needed (its
+    error at 1048576 is printed beside). Then one launch of each length's
+    own form past 2^31 elements (64-bit offsets), the ptxas lines and the
+    clusters the card places at once at each cluster form's length."""
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
 
     errs = {f"{k} {form}": 0.0 for k in ("K3", "K3f") for form in ("cluster", "staged")}
-    cases = [(*WIDE_CASE, "cluster"), *((n, w, "staged") for n, w in STAGED_CASES)]
-    for n, width, form in cases:
-        for k, e in _forms_vs_plain(n, width, form).items():
-            errs[f"{k} {form}"] = max(errs[f"{k} {form}"], e)
-    for (n, width), nrows, form in ((WIDE_CASE, BIG_ROWS, "cluster"),
-                                    (STAGED_CASES[0], BIG_ROWS_STAGED, "staged")):
-        for k, e in _past_2_31(n, width, nrows, form).items():
-            errs[f"{k} {form}"] = max(errs[f"{k} {form}"], e)
+
+    def worst(found: dict) -> None:
+        for k, e in found.items():
+            errs[k] = max(errs[k], e)
+
+    worst(_forms_vs_plain(*WIDE_CASE))
+    worst(_forms_vs_plain(*WIDE_CASE, route=True))
+    for n, width in STAGED_CASES:
+        worst(_forms_vs_plain(n, width))
+    for (n, width), nrows in ((WIDE_CASE, BIG_ROWS), (STAGED_CASES[0], BIG_ROWS_STAGED)):
+        worst(_past_2_31(n, width, nrows))
     for name, line in _ptxas_lines(("fft_conv_rows_wide_kernel",
                                     "fft_conv_rows_staged_pass_kernel",
                                     "fft_conv_rows_staged_segment_kernel")):
         print(f"phase 20 ptxas {name}: {line}", flush=True)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for framed in (False, True):
-        c = fft4step.cluster_occupancy(fft4step.CLUSTER_LONGEST, framed)
-        print(f"phase 20 cudaOccupancyMaxActiveClusters n={fft4step.CLUSTER_LONGEST} "
-              f"{'K3f' if framed else 'K3'}: {c} clusters of 16 ({16 * c} CTAs of {sms} SMs)",
-              flush=True)
-        if c < 1:
-            raise RuntimeError("the card places no cluster of 16")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n in (32768, 65536, 131072, fft4step.CLUSTER_LONGEST):
+        size = n // fft4step.cluster_segment(n)
+        for framed in (False, True):
+            c = fft4step.cluster_occupancy(n, framed)
+            print(f"phase 20 cudaOccupancyMaxActiveClusters n={n} {'K3f' if framed else 'K3'}: "
+                  f"{c} clusters of {size} ({size * c} CTAs of {sms} SMs); the form that runs: "
+                  f"{fft4step._form(n, framed, dev)}", flush=True)
+            if n == fft4step.CLUSTER_LONGEST and c < 1:
+                print(f"phase 20 the card places no cluster of 16: "
+                      f"{'K3f' if framed else 'K3'} at n {n} runs the staged form on its paths",
+                      flush=True)
     print(f"phase 20 worst max_abs_err: {errs} (limit {FFT_TOL})", flush=True)
     torch.cuda.empty_cache()
     return errs
@@ -4403,9 +4483,43 @@ def _against_staged(entry, rows, n, axis_plan, framed: bool, label: str) -> dict
     return {"current_ms": t["current"], "staged_ms": t["staged"]}
 
 
+def _route_in_turns(entry, rows, n, axis_plan, framed: bool, label: str) -> dict:
+    """n 262144 on the main path's ``rows`` as a card that places no cluster
+    of 16 runs it (the staged form) against the plain version and this
+    card's wide form on the same rows, then the two timed in turns."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+    before = (entry.cluster_launches, entry.staged_launches)
+    staged = _staged_route(entry, rows, n, axis_plan)
+    torch.cuda.synchronize()
+    ran = (entry.cluster_launches - before[0], entry.staged_launches - before[1])
+    wide = entry(rows, n, axis_plan)
+    torch.cuda.synchronize()
+    diff, equal = float((staged - wide).abs().max()), bool(torch.equal(staged, wide))
+    del wide
+    err = float((staged - plain(rows, n, axis_plan)).abs().max())
+    del staged
+    torch.cuda.empty_cache()
+    t = _in_turns(label, {"wide": lambda: entry(rows, n, axis_plan),
+                          "staged": lambda: _staged_route(entry, rows, n, axis_plan)})
+    print(f"phase 20 {label} through the staged route (as on a card that places no cluster of "
+          f"16; launches {ran}) in turns with the wide form: staged {t['staged']:.4f} ms, wide "
+          f"{t['wide']:.4f} ms ({t['staged'] / t['wide']:.3f}x); staged vs plain "
+          f"max_abs_err={err:.3e}, vs the wide form {diff:.3e} (bit-equal {equal}); limit "
+          f"{FFT_TOL}", flush=True)
+    if ran != (0, 1) or not err <= FFT_TOL or not diff <= FFT_TOL:
+        raise RuntimeError(f"the staged route at {label}: launches {ran}, {err} from the plain "
+                           f"version, {diff} from the wide form")
+    return {"staged_ms": t["staged"], "wide_ms": t["wide"], "err": err,
+            "vs_wide_max_abs_err": diff, "bit_equal_to_wide": equal}
+
+
 def _slice19(smi: str) -> list[dict]:
     """Phase 20; returns the kernels-line entries of K3's and K3f's wide
-    cluster form and of their staged form."""
+    cluster form (where the card places a cluster of 16) and of their
+    staged form, with its route at n 262144."""
     from blur_algorithms_tpu_torch import api, blur, blur_u8, make_plan
     from blur_algorithms_tpu_torch.cuda_kernels import fft4step
     from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
@@ -4418,14 +4532,27 @@ def _slice19(smi: str) -> list[dict]:
     k3, k3f = fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed
     _zero_cluster_counts(fft4step)
     errs = _phase20_kernels()
+    # the form this card runs at n 262144: "cluster" (the wide form) where
+    # it places a cluster of 16, else "staged"; the route as on a card that
+    # places none is then driven beside it
+    at = {"K3": _tag(fft4step, fft4step.CLUSTER_LONGEST, False),
+          "K3f": _tag(fft4step, fft4step.CLUSTER_LONGEST, True)}
+    wide = {k: f == "cluster" for k, f in at.items()}
     # launches on the slice's paths: of the cluster form at n 262144 (every
     # cluster launch of these paths; their other axes are one-block) and of
-    # the staged form
+    # the staged form (past it, and on the route at it)
     launched = {"K3 cluster": 0, "K3f cluster": 0, "K3 staged": 0, "K3f staged": 0}
     mp = STRIP_H * STRIP_W / 1e6
 
+    def strip_counts_ok(ran: dict, form: str) -> bool:
+        """One frame's K3f launches at n 262144 on the rows (``form``) and
+        the columns' one-block launch, no K3."""
+        return (ran["fft_conv_rows_framed"] == 2 and ran[f"fft_conv_rows_framed {form}"] == 1
+                and not ran[f"fft_conv_rows_framed {OTHER_FORM[form]}"]
+                and not ran["fft_conv_rows"])
+
     # (b) blur_u8 AUTO on one 2160 x 140000 RGB frame at sigma 900: whole-frame
-    # FFT_MXU, K3f's wide form on the rows, the one-block K3f on the columns
+    # FFT_MXU, K3f at n 262144 on the rows, the one-block K3f on the columns
     img = make_frames_on("cuda", 1, STRIP_H, STRIP_W).movedim(1, -1).contiguous()
     plan = make_plan((STRIP_H, STRIP_W), SIGMA_STRIP)
     spec = api.device_spec(img.device)
@@ -4436,20 +4563,47 @@ def _slice19(smi: str) -> list[dict]:
     out = blur_u8(img, SIGMA_STRIP)
     torch.cuda.synchronize()
     ran = _k3_counts(fft4step)
-    launched["K3f cluster"] += ran["fft_conv_rows_framed cluster"]
+    launched[f"K3f {at['K3f']}"] += ran[f"fft_conv_rows_framed {at['K3f']}"]
     ref = blur_u8(img, SIGMA_STRIP, engine="fft_tiles")
     d = (out.int() - ref.int()).abs()
     dmax, exact = int(d.max()), float((d == 0).float().mean())
     print(f"phase 20 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STRIP} "
           f"r={plan.row.support_radius} -> {eng.value} (streams: {streams}; estimate "
           f"{api.estimate_bytes(plan, 3)} bytes, budget {spec.fft_mxu_byte_budget}; n "
-          f"{transform_length(plan.row)}, {transform_length(plan.col)}): launches {ran}; vs "
-          f"fft_tiles (torch.fft) max={dmax} exact={exact}", flush=True)
-    if (eng is not api.Engine.FFT_MXU or streams or ran["fft_conv_rows_framed"] != 2
-            or ran["fft_conv_rows_framed cluster"] != 1 or ran["fft_conv_rows_framed staged"]
-            or ran["fft_conv_rows"] or dmax > 1):
+          f"{transform_length(plan.row)}, {transform_length(plan.col)}; K3f's "
+          f"{FORM_NAMES[at['K3f']]}): launches {ran}; vs fft_tiles (torch.fft) max={dmax} "
+          f"exact={exact}", flush=True)
+    if (eng is not api.Engine.FFT_MXU or streams or not strip_counts_ok(ran, at["K3f"])
+            or dmax > 1):
         raise RuntimeError(f"blur_u8 AUTO at sigma {SIGMA_STRIP} on the strip: {eng}, {ran}, "
                            f"{dmax} counts from fft_tiles")
+    t_route_u8 = None
+    if wide["K3f"]:
+        # (b') the same call as on a card that places no cluster of 16
+        torch.cuda.synchronize()
+        _zero_cluster_counts(fft4step)
+        routed = _staged_route(blur_u8, img, SIGMA_STRIP)
+        torch.cuda.synchronize()
+        ran = _k3_counts(fft4step)
+        launched["K3f staged"] += ran["fft_conv_rows_framed staged"]
+        d = (routed.int() - ref.int()).abs()
+        dmax = int(d.max())
+        dwide = int((routed.int() - out.int()).abs().max())
+        print(f"phase 20 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STRIP} "
+              f"routed as on a card that places no cluster of 16 (K3f's staged form at n "
+              f"{transform_length(plan.row)}): launches {ran}; vs fft_tiles max={dmax} exact="
+              f"{float((d == 0).float().mean())}; vs the wide form's output max={dwide}, "
+              f"equal {torch.equal(routed, out)}", flush=True)
+        if not strip_counts_ok(ran, "staged") or dmax > 1 or dwide > 1:
+            raise RuntimeError(f"blur_u8 AUTO on the strip through the staged route: {ran}, "
+                               f"{dmax} counts from fft_tiles, {dwide} from the wide form")
+        del routed
+        t_route_u8 = _in_turns(f"blur_u8 AUTO 2160x140000 sigma={SIGMA_STRIP}",
+                               {"wide": lambda: blur_u8(img, SIGMA_STRIP),
+                                "staged": lambda: _staged_route(blur_u8, img, SIGMA_STRIP)})
+        print(f"phase 20 blur_u8 AUTO 2160x140000 sigma={SIGMA_STRIP} in turns: staged route "
+              f"{t_route_u8['staged']:.4f} ms, wide form {t_route_u8['wide']:.4f} ms "
+              f"({t_route_u8['staged'] / t_route_u8['wide']:.3f}x)", flush=True)
     del out, ref, d
     t_strip = {
         "auto": timing.time_cuda(blur_u8, img, SIGMA_STRIP, iters=GIANT_ITERS, warmup=1,
@@ -4459,58 +4613,73 @@ def _slice19(smi: str) -> list[dict]:
                                   warmup=1, name=f"blur_u8 fused 2160x140000 sigma={SIGMA_STRIP}",
                                   megapixels=mp),
     }
-    # K3f's wide cluster form alone on the frame's rows: 6480 rows of 140000,
-    # n 262144; in turns with the copying staged form there
+    # K3f alone on the frame's rows: 6480 rows of 140000, n 262144; in turns
+    # with the copying staged form there, and with the staged route
     rows = img[0].movedim(-1, 0).reshape(-1, STRIP_W).float()
     del img
     torch.cuda.empty_cache()
-    label = f"K3f wide cluster form 2160x140000 rows sigma={SIGMA_STRIP}"
+    label = f"K3f {FORM_NAMES[at['K3f']]} 2160x140000 rows sigma={SIGMA_STRIP}"
     k3f_d = _kernel_times(k3f, rows, transform_length(plan.row), plan.row, True, label, 20)
     _form_times(label, k3f_d)
     k3f_d["in_turns"] = _against_staged(k3f, rows, transform_length(plan.row), plan.row, True,
                                         label)
+    k3f_route = (_route_in_turns(k3f, rows, transform_length(plan.row), plan.row, True, label)
+                 if wide["K3f"] else None)
     del rows
     torch.cuda.empty_cache()
 
-    # (c) the streamed path: blur_u8 AUTO on four such frames
+    # (c) the streamed path: blur_u8 AUTO on four such frames, on this card's
+    # route and on the staged route
     img = make_frames_on("cuda", BATCH, STRIP_H, STRIP_W).movedim(1, -1).contiguous()
     eng = api._resolve_engine("auto", plan, 1, img.device, BATCH * 3)
     streams = api._fft_mxu_streams(plan, BATCH * 3, spec)
-    whole, whole_fn = [], api.blur_fft_mxu_cuda
-    api.blur_fft_mxu_cuda = lambda *a: whole.append(1) or whole_fn(*a)
-    try:
-        torch.cuda.synchronize()
-        _zero_cluster_counts(fft4step)
-        out = blur_u8(img, SIGMA_STRIP)
-        torch.cuda.synchronize()
-        ran = _k3_counts(fft4step)
-    finally:
-        api.blur_fft_mxu_cuda = whole_fn
-    launched["K3f cluster"] += ran["fft_conv_rows_framed cluster"]
     row_strips = -(-STRIP_H // 1024)
-    single = blur_u8(img[:1], SIGMA_STRIP)  # one frame: whole-frame, as (b)
-    d = (out[:1].int() - single.int()).abs()
-    dmax, exact = int(d.max()), float((d == 0).float().mean())
-    del single, d
-    print(f"phase 20 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STRIP} -> "
-          f"{eng.value} (streams: {streams}, estimate {api.estimate_bytes(plan, BATCH * 3)} "
-          f"bytes); launches {ran}, whole-frame calls {len(whole)}; frame 0 vs the "
-          f"single-frame call max={dmax} exact={exact}", flush=True)
-    if (eng is not api.Engine.FFT_MXU or not streams or whole
-            or ran["fft_conv_rows_framed cluster"] != row_strips
-            or ran["fft_conv_rows_framed staged"] or ran["fft_conv_rows"] or dmax > 1):
-        raise RuntimeError(f"blur_u8 AUTO on 4 strips did not stream through K3f's wide "
-                           f"form within 1 count: {ran}, {len(whole)}, {dmax}")
-    del out
+    outs = {}
+    for form in ("card", "staged") if wide["K3f"] else ("card",):
+        whole, whole_fn = [], api.blur_fft_mxu_cuda
+        api.blur_fft_mxu_cuda = lambda *a: whole.append(1) or whole_fn(*a)
+        try:
+            torch.cuda.synchronize()
+            _zero_cluster_counts(fft4step)
+            outs[form] = (_staged_route(blur_u8, img, SIGMA_STRIP) if form == "staged"
+                          else blur_u8(img, SIGMA_STRIP))
+            torch.cuda.synchronize()
+            ran = _k3_counts(fft4step)
+        finally:
+            api.blur_fft_mxu_cuda = whole_fn
+        ran_form = at["K3f"] if form == "card" else "staged"
+        launched[f"K3f {ran_form}"] += ran[f"fft_conv_rows_framed {ran_form}"]
+        single = blur_u8(img[:1], SIGMA_STRIP)  # one frame: whole-frame, as (b)
+        d = (outs[form][:1].int() - single.int()).abs()
+        dmax, exact = int(d.max()), float((d == 0).float().mean())
+        del single, d
+        dcard = int((outs[form].int() - outs["card"].int()).abs().max())
+        how = (f"K3f's {FORM_NAMES[ran_form]}" if form == "card" else
+               "routed as on a card that places no cluster of 16")
+        print(f"phase 20 main path: blur_u8 AUTO {tuple(img.shape)} sigma={SIGMA_STRIP} -> "
+              f"{eng.value} (streams: {streams}, estimate {api.estimate_bytes(plan, BATCH * 3)} "
+              f"bytes; {how}); launches {ran}, whole-frame calls {len(whole)}; frame 0 vs the "
+              f"single-frame call max={dmax} exact={exact}; vs this card's route max={dcard}",
+              flush=True)
+        if (eng is not api.Engine.FFT_MXU or not streams or whole
+                or ran[f"fft_conv_rows_framed {ran_form}"] != row_strips
+                or ran[f"fft_conv_rows_framed {OTHER_FORM[ran_form]}"] or ran["fft_conv_rows"]
+                or dmax > 1 or dcard > 1):
+            raise RuntimeError(f"blur_u8 AUTO on 4 strips did not stream through K3f's "
+                               f"{FORM_NAMES[ran_form]} within 1 count: {ran}, {len(whole)}, "
+                               f"{dmax}, {dcard}")
+    del outs
     t_streamed = timing.time_cuda(blur_u8, img, SIGMA_STRIP, iters=GIANT_ITERS, warmup=1,
                                   name=f"blur_u8 AUTO streamed 4x2160x140000 sigma={SIGMA_STRIP}",
                                   megapixels=BATCH * mp)
     del img
     torch.cuda.empty_cache()
 
-    def fwd_bwd_checked(shape, planes: int, seed: int, what: str) -> tuple:
+    def fwd_bwd_checked(shape, planes: int, seed: int, what: str,
+                        route: bool = False) -> tuple:
         """blur AUTO forward + backward at SIGMA_F32_WIDE on ``planes`` float
-        planes of ``shape``: the counts of each direction, x.grad against
+        planes of ``shape`` (``route``: as on a card that places no cluster
+        of 16): the counts of each direction, x.grad against
         blur_adjoint(g) and the adjoint identity; returns (x, plan, fwd,
         bwd, the adjoint rows' n)."""
         x = make_frames_on("cuda", 1, *shape)[:, :planes].float().contiguous()
@@ -4518,16 +4687,17 @@ def _slice19(smi: str) -> list[dict]:
         g = torch.rand(x.shape, generator=torch.Generator(x.device).manual_seed(seed),
                        device=x.device)
         xg = x.clone().requires_grad_()
-        torch.cuda.synchronize()
-        _zero_cluster_counts(fft4step)
-        y = blur(xg, SIGMA_F32_WIDE)
-        torch.cuda.synchronize()
-        fwd = _k3_counts(fft4step)
-        _zero_cluster_counts(fft4step)
-        (y * g).sum().backward()
-        torch.cuda.synchronize()
-        bwd = _k3_counts(fft4step)
-        want = blur_adjoint(g, fplan)  # a check: its launches are not the path's
+        with _no_cluster_of_16(fft4step) if route else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            _zero_cluster_counts(fft4step)
+            y = blur(xg, SIGMA_F32_WIDE)
+            torch.cuda.synchronize()
+            fwd = _k3_counts(fft4step)
+            _zero_cluster_counts(fft4step)
+            (y * g).sum().backward()
+            torch.cuda.synchronize()
+            bwd = _k3_counts(fft4step)
+            want = blur_adjoint(g, fplan)  # a check: its launches are not the path's
         torch.cuda.synchronize()
         gerr = float((xg.grad - want).abs().max())
         lhs = float((y.detach().double() * g.double()).sum())
@@ -4547,37 +4717,75 @@ def _slice19(smi: str) -> list[dict]:
         torch.cuda.empty_cache()
         return x, fplan, fwd, bwd, n_adj
 
-    # (d) blur AUTO forward + backward on (1, 3, 2160, 131072) f32 at sigma
-    # 400: K3f's wide form on the rows forward, K3's on the adjoint's rows
-    x, plan, fwd, bwd, n_adj = fwd_bwd_checked((STRIP_H, PANO_F32_W), 3, 20, "clusters of 16")
-    launched["K3 cluster"] += bwd["fft_conv_rows cluster"]
-    launched["K3f cluster"] += fwd["fft_conv_rows_framed cluster"]
-    if (fwd["fft_conv_rows_framed"] != 2 or fwd["fft_conv_rows_framed cluster"] != 1
-            or fwd["fft_conv_rows"] or bwd["fft_conv_rows"] != 2
-            or bwd["fft_conv_rows cluster"] != 1 or bwd["fft_conv_rows_framed"]
-            or fwd["fft_conv_rows_framed staged"] or bwd["fft_conv_rows staged"]):
-        raise RuntimeError(f"the f32 blur launched {fwd} forward, {bwd} backward")
+    def f32_counts_ok(fwd: dict, bwd: dict, f3: str, f3f: str) -> bool:
+        """K3f at n 262144 on the rows forward (``f3f``) and the one-block
+        K3f on the columns; K3 at 262144 on the adjoint's rows backward
+        (``f3``) and the one-block K3 on its columns."""
+        return (fwd["fft_conv_rows_framed"] == 2 and fwd[f"fft_conv_rows_framed {f3f}"] == 1
+                and not fwd[f"fft_conv_rows_framed {OTHER_FORM[f3f]}"]
+                and not fwd["fft_conv_rows"] and bwd["fft_conv_rows"] == 2
+                and bwd[f"fft_conv_rows {f3}"] == 1 and not bwd[f"fft_conv_rows {OTHER_FORM[f3]}"]
+                and not bwd["fft_conv_rows_framed"])
 
     def fwd_bwd(t):
         t = t.detach().requires_grad_()
         blur(t, SIGMA_F32_WIDE).backward(torch.ones_like(t))
         return t.grad
 
+    # (d) blur AUTO forward + backward on (1, 3, 2160, 131072) f32 at sigma
+    # 400: K3f at n 262144 on the rows forward, K3 on the adjoint's rows
+    x, plan, fwd, bwd, n_adj = fwd_bwd_checked(
+        (STRIP_H, PANO_F32_W), 3, 20, f"K3/K3f's {FORM_NAMES[at['K3']]}")
+    launched[f"K3 {at['K3']}"] += bwd[f"fft_conv_rows {at['K3']}"]
+    launched[f"K3f {at['K3f']}"] += fwd[f"fft_conv_rows_framed {at['K3f']}"]
+    if not f32_counts_ok(fwd, bwd, at["K3"], at["K3f"]):
+        raise RuntimeError(f"the f32 blur launched {fwd} forward, {bwd} backward")
     t_f32 = timing.time_cuda(fwd_bwd, x, iters=GIANT_ITERS, warmup=1,
                              name=f"blur AUTO forward + backward 3x2160x{PANO_F32_W} "
                                   f"sigma={SIGMA_F32_WIDE}",
                              megapixels=3 * STRIP_H * PANO_F32_W / 1e6)
-    # K3's wide cluster form alone on the adjoint's rows (6480 rows of 131072
-    # + 4 r -> 262144); in turns with the copying staged form there
+    t_route_f32 = None
+    if wide["K3"] and wide["K3f"]:
+        # (d') the same call as on a card that places no cluster of 16
+        xs, _, fwd, bwd, _ = fwd_bwd_checked((STRIP_H, PANO_F32_W), 3, 20,
+                                             "routed as on a card that places no cluster of 16",
+                                             route=True)
+        del xs
+        launched["K3 staged"] += bwd["fft_conv_rows staged"]
+        launched["K3f staged"] += fwd["fft_conv_rows_framed staged"]
+        if not f32_counts_ok(fwd, bwd, "staged", "staged"):
+            raise RuntimeError(f"the f32 blur's staged route launched {fwd} forward, {bwd} "
+                               f"backward")
+        routed, own = _staged_route(fwd_bwd, x), fwd_bwd(x)
+        torch.cuda.synchronize()
+        dgrad = float((routed - own).abs().max())
+        print(f"phase 20 main path: blur AUTO forward + backward x.grad, the staged route vs "
+              f"the wide form: max={dgrad:.3e} (limit {FFT_TOL}), equal "
+              f"{torch.equal(routed, own)}", flush=True)
+        del routed, own
+        if not dgrad <= FFT_TOL:
+            raise RuntimeError(f"the f32 blur's gradient through the staged route is {dgrad} "
+                               f"from the wide form's")
+        t_route_f32 = _in_turns(f"blur AUTO forward + backward 3x2160x{PANO_F32_W}",
+                                {"wide": lambda: fwd_bwd(x),
+                                 "staged": lambda: _staged_route(fwd_bwd, x)})
+        print(f"phase 20 blur AUTO forward + backward 3x2160x{PANO_F32_W} sigma="
+              f"{SIGMA_F32_WIDE} in turns: staged route {t_route_f32['staged']:.4f} ms, wide "
+              f"form {t_route_f32['wide']:.4f} ms "
+              f"({t_route_f32['staged'] / t_route_f32['wide']:.3f}x)", flush=True)
+    # K3 alone on the adjoint's rows (6480 rows of 131072 + 4 r -> 262144); in
+    # turns with the copying staged form there, and with the staged route
     r = plan.row.support_radius
     padded = torch.nn.functional.pad(x.reshape(-1, PANO_F32_W),
                                      (2 * r, n_adj - PANO_F32_W - 2 * r)).contiguous()
     del x
     torch.cuda.empty_cache()
-    label = f"K3 wide cluster form adjoint rows sigma={SIGMA_F32_WIDE}"
+    label = f"K3 {FORM_NAMES[at['K3']]} adjoint rows sigma={SIGMA_F32_WIDE}"
     k3_d = _kernel_times(k3, padded, n_adj, plan.row, False, label, 20)
     _form_times(label, k3_d)
     k3_d["in_turns"] = _against_staged(k3, padded, n_adj, plan.row, False, label)
+    k3_route = (_route_in_turns(k3, padded, n_adj, plan.row, False, label)
+                if wide["K3"] else None)
     del padded
     torch.cuda.empty_cache()
 
@@ -4610,7 +4818,8 @@ def _slice19(smi: str) -> list[dict]:
     print(f"phase 20 launches past 131072 on the slice's paths: {launched}; "
           f"{time.perf_counter() - t0:.1f} s ({smi})", flush=True)
     for name, n in launched.items():
-        if n < 1:
+        kernel, form = name.split()
+        if n < 1 and (form == "staged" or wide[kernel]):
             raise RuntimeError(f"{name} form was not launched on the main path")
     entry = lambda name, line, n, d, err, **more: {  # noqa: E731
         "name": name, "route": "cuda", "source": "blur_algorithms_tpu_torch/csrc/fft4step.cu",
@@ -4618,17 +4827,40 @@ def _slice19(smi: str) -> list[dict]:
         "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "library_ms": d["library_ms"], **more,
     }
+
+    def at_262144(d: dict, route: dict | None, calls: dict | None) -> dict:
+        """The staged form at n 262144, the route of a card that places no
+        cluster of 16: its time on the main path's rows (in turns with the
+        wide form where this card has it), beside the same work's bound,
+        plain version and cuFFT (``d``), and the calls in turns."""
+        if route is None:  # this card routes 262144 to the staged form: d timed it
+            return {"ms": d["ms"], "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                    "library_ms": d["library_ms"], "max_abs_err": d["err"]}
+        return {"ms": route["staged_ms"], "wide_ms": route["wide_ms"],
+                "plain_ms": d["plain_ms"], "bound_ms": d["bound_ms"],
+                "library_ms": d["library_ms"], "max_abs_err": route["err"],
+                "vs_wide_max_abs_err": route["vs_wide_max_abs_err"],
+                "bit_equal_to_wide": route["bit_equal_to_wide"],
+                "call_in_turns_ms": calls}
+
+    routes = ["n 262144 where the card places no cluster of 16 CTAs", "every power of two "
+              "past 262144"]
     k3_line, k3f_line = ("blur_algorithms_tpu/pallas_kernels/fft4step.py:138",
                          "blur_algorithms_tpu/pallas_kernels/fft4step.py:157")
-    return [
+    wide_entries = [
         entry("fft4step_wide", k3_line, launched["K3 cluster"], k3_d,
               max(errs["K3 cluster"], k3_d["err"]), in_turns_with_staged=k3_d["in_turns"]),
         entry("fft4step_framed_wide", k3f_line, launched["K3f cluster"], k3f_d,
               max(errs["K3f cluster"], k3f_d["err"]), in_turns_with_staged=k3f_d["in_turns"]),
+    ]
+    return [
+        *(e for e, kernel in zip(wide_entries, ("K3", "K3f")) if wide[kernel]),
         entry("fft4step_staged", k3_line, launched["K3 staged"], staged_k,
-              max(errs["K3 staged"], staged_k["err"])),
+              max(errs["K3 staged"], staged_k["err"]), routes=routes,
+              at_262144=at_262144(k3_d, k3_route, t_route_f32)),
         entry("fft4step_framed_staged", k3f_line, launched["K3f staged"], staged_f,
-              max(errs["K3f staged"], staged_f["err"])),
+              max(errs["K3f staged"], staged_f["err"]), routes=routes,
+              at_262144=at_262144(k3f_d, k3f_route, t_route_u8)),
     ]
 
 

@@ -6,6 +6,7 @@ jax, so it also runs where jax is not installed; on the card:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -279,6 +280,88 @@ def test_k3_wide_form_with_more_pairs_than_clusters_on_the_card(cuda_device, fra
     torch.cuda.synchronize()
     assert (fn.cluster_launches, fn.staged_launches) == (before[0] + 1, before[1])
     assert float((got - want).abs().max()) <= 2e-2
+
+
+@contextlib.contextmanager
+def _no_cluster_of_16(fft4step):
+    """The card as one that places no cluster of 16 CTAs: the occupancy of
+    the wide form's kernel reads 0 (every other length's stays the card's),
+    the form's cached query emptied on the way in and out."""
+    real = fft4step.cluster_occupancy
+    fft4step.cluster_occupancy = lambda n, framed=False: (
+        0 if n == fft4step.CLUSTER_LONGEST else real(n, framed))
+    fft4step._wide_clusters.cache_clear()
+    try:
+        yield
+    finally:
+        fft4step.cluster_occupancy = real
+        fft4step._wide_clusters.cache_clear()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("framed", [False, True])
+@pytest.mark.parametrize("asymmetric", [False, True])
+@pytest.mark.parametrize("rows_n", [5, 31])
+def test_k3_staged_route_at_262144_on_the_card(cuda_device, framed, asymmetric, rows_n):
+    """n 262144 on a card that places no cluster of 16 (the occupancy
+    patched to 0): one launch of the staged form, none of a cluster form,
+    within 2e-2 of the plain version and of the wide form on the same rows
+    where the card places a cluster of 16 (odd row counts: a zero row rides
+    along)."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+    from blur_algorithms_tpu_torch.ops.fft_mxu import _conv_rows_einsum
+
+    n = fft4step.CLUSTER_LONGEST
+    fn = fft4step.fft_conv_rows_framed if framed else fft4step.fft_conv_rows
+    dim = n // 2 + 1001 if framed else n
+    plan = _k3_plan(2001, asymmetric, dim)
+    rows = _f32_planes((rows_n, dim), seed=24 + rows_n).to(cuda_device)
+    with _no_cluster_of_16(fft4step):
+        assert fft4step._form(n, framed, rows.device) == "staged"
+        before = (fn.launches, fn.cluster_launches, fn.staged_launches)
+        got = fn(rows, n, plan.row)
+        torch.cuda.synchronize()
+        assert (fn.launches, fn.cluster_launches, fn.staged_launches) == (
+            before[0] + 1, before[1], before[2] + 1)
+    plain = fft4step.fft_conv_rows_framed_ref if framed else _conv_rows_einsum
+    assert float((got - plain(rows, n, plan.row)).abs().max()) <= 2e-2
+    if fft4step.cluster_occupancy(n, framed) >= 1:
+        assert fft4step._form(n, framed, rows.device) == "wide"
+        before = (fn.cluster_launches, fn.staged_launches)
+        wide = fn(rows, n, plan.row)
+        torch.cuda.synchronize()
+        assert (fn.cluster_launches, fn.staged_launches) == (before[0] + 1, before[1])
+        assert float((got - wide).abs().max()) <= 2e-2
+
+
+@pytest.mark.cuda
+def test_blur_at_262144_routes_to_the_staged_form_on_the_card(cuda_device):
+    """``blur`` (FFT_MXU) forward + backward on rows of transform length
+    262144, on a card that places no cluster of 16: K3f's staged form on
+    the rows forward, K3's on the adjoint's rows backward, no cluster
+    launch; output and gradient within 2e-2 of the card's own route."""
+    from blur_algorithms_tpu_torch.cuda_kernels import fft4step
+
+    x = _f32_planes((1, 9, 131072), seed=25).to(cuda_device)
+    g = _f32_planes((1, 9, 131072), seed=26).to(cuda_device) / 255
+
+    def fwd_bwd():
+        t = x.clone().requires_grad_()
+        y = blur(t, 400.0, engine="fft_mxu")
+        y.backward(g)
+        torch.cuda.synchronize()
+        return y.detach(), t.grad
+
+    k3, k3f = fft4step.fft_conv_rows, fft4step.fft_conv_rows_framed
+    with _no_cluster_of_16(fft4step):
+        before = [(c.cluster_launches, c.staged_launches) for c in (k3, k3f)]
+        y, dx = fwd_bwd()
+        ran = [(c.cluster_launches - b[0], c.staged_launches - b[1])
+               for c, b in zip((k3, k3f), before)]
+    assert ran == [(0, 1), (0, 1)]
+    y_card, dx_card = fwd_bwd()
+    assert float((y - y_card).abs().max()) <= 2e-2
+    assert float((dx - dx_card).abs().max()) <= 2e-2
 
 
 @pytest.mark.cuda

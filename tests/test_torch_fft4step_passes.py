@@ -252,13 +252,12 @@ def _staged_pass(z, n, radix, span, inverse):
 
 def _first_digits(n):
     """The passes over spans past ``BODY_N`` that index the rows as the
-    staged pass kernel does: past ``CLUSTER_LONGEST`` the staged form's
-    digits; at ``WIDE_N`` the wide cluster form's radix-16 pass over stride
-    ``BODY_N`` (rows -> segments, output q times W_n^(q j)) and its adjoint,
-    the same arithmetic split over the cluster's CTAs."""
-    if n > k3.CLUSTER_LONGEST:
-        return k3.staged_digits(n)
-    return [16] if n == WIDE_N else []
+    staged pass kernel does: from ``CLUSTER_LONGEST`` on the staged form's
+    digits; at ``WIDE_N`` (16, the staged form's one digit there) also the
+    wide cluster form's radix-16 pass over stride ``BODY_N`` (rows ->
+    segments, output q times W_n^(q j)) and its adjoint, the same arithmetic
+    split over the cluster's CTAs."""
+    return k3.staged_digits(n) if n >= k3.CLUSTER_LONGEST else []
 
 
 def _model_conv(rows: np.ndarray, n: int, axis_plan) -> np.ndarray:
@@ -711,8 +710,11 @@ def test_kernel_lengths_are_the_planned_ones():
     assert {n for n in range(k3.CLUSTER_LONGEST + 1, (1 << 20) + 1)
             if k3.kernel_length(n)} == {1 << 19, 1 << 20}
     assert k3.kernel_length(1 << 30) and not k3.kernel_length(1 << 31)
+    # the staged form also takes 262144 (on a card that places no cluster of
+    # 16), with the wide cluster form's one digit; not below it
+    assert k3.staged_digits(k3.CLUSTER_LONGEST) == [16]
     with pytest.raises(ValueError):
-        k3.staged_digits(k3.CLUSTER_LONGEST)
+        k3.staged_digits(k3.CLUSTER_LONGEST // 2)
     for need in (16385, 20000, 33000, 70000, 131072, 140000, 300000, 600000):
         taps = gaussian_kernel(30.0, 201)
         plan = make_custom_plan((9, need - 200), taps, [1.0])
