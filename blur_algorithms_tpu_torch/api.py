@@ -100,6 +100,7 @@ from blur_algorithms_tpu_torch.ops.streamed import (
     blur_fft_tiles_streamed_u8,
 )
 from blur_algorithms_tpu_torch.utils.hw import DeviceSpec, device_spec
+from blur_algorithms_tpu_torch.utils.trace import span
 
 __all__ = [
     "Engine",
@@ -312,22 +313,37 @@ def _u8_dma_precision(plan: BlurPlan, spec: DeviceSpec) -> str:
     return "int8" if int8_applicable(plan, torch.uint8) else "bf16x3"
 
 
+def _u8_rung(plan: BlurPlan, precision: str | None,
+             device: torch.device) -> tuple[str, bool]:
+    """The fused engine's rung for uint8 frames, and whether K1 serves it
+    directly (``blur_fused_u8_dma``) rather than through ``blur_fused_u8``:
+    the rung AUTO routes (``_u8_dma_precision``), or a pinned rung. The
+    ``"hybrid"`` pin runs K1's hybrid body (in the form the device's rule
+    picks) whatever the split radius, and the ``"int8"`` pin K1's exact int8
+    body wherever ``dma_form_applicable`` holds (past it,
+    ``blur_fused_u8``'s blocked rule), as the JAX pins run only K1 where it
+    applies: exactness is the point of the pin, so the split's hybrid pass 2
+    never serves it."""
+    direct = precision == "hybrid" or (precision == "int8"
+                                       and dma_form_applicable(torch.uint8, plan, "int8"))
+    return precision or _u8_dma_precision(plan, device_spec(device)), direct
+
+
+def _fused_u8_on_rung(img: torch.Tensor, plan: BlurPlan, rung: str,
+                      direct: bool) -> torch.Tensor:
+    """uint8 (..., H, W, C) -> uint8 via the fused engine on the rung
+    ``_u8_rung`` gives."""
+    planar = to_planar(img, torch.uint8)
+    if direct:
+        return from_planar(blur_fused_u8_dma(planar, plan, precision=rung))
+    return from_planar(blur_fused_u8(planar, plan, rung))
+
+
 def _fused_u8_interleaved(img: torch.Tensor, plan: BlurPlan,
                           precision: str | None = None) -> torch.Tensor:
     """uint8 (..., H, W, C) -> uint8 via the fused engine: the rung AUTO
-    routes (``_u8_dma_precision``) through ``blur_fused_u8``, or a pinned
-    rung. The ``"hybrid"`` pin runs K1's hybrid body (in the form the
-    device's rule picks, ``blur_fused_u8_dma``) whatever the split radius,
-    and the ``"int8"`` pin K1's exact int8 body wherever
-    ``dma_form_applicable`` holds (past it, ``blur_fused_u8``'s blocked
-    rule), as the JAX pins run only K1 where it applies: exactness is the
-    point of the pin, so the split's hybrid pass 2 never serves it."""
-    planar = to_planar(img, torch.uint8)
-    if precision == "hybrid" or (precision == "int8"
-                                 and dma_form_applicable(torch.uint8, plan, "int8")):
-        return from_planar(blur_fused_u8_dma(planar, plan, precision=precision))
-    prec = precision or _u8_dma_precision(plan, device_spec(img.device))
-    return from_planar(blur_fused_u8(planar, plan, prec))
+    routes, or the pinned ``precision`` (``_u8_rung``)."""
+    return _fused_u8_on_rung(img, plan, *_u8_rung(plan, precision, img.device))
 
 
 def _auto_sp_min_px(device: torch.device | str) -> int:
@@ -463,7 +479,18 @@ def blur_u8(
     1..600 and non-negative unit-sum taps; elsewhere it raises
     ``ValueError``, as the JAX pin does) or ``"bf16x3"`` (K2). AUTO routes
     the hybrid and bf16 rungs only inside the device's certified floors.
+    The call runs in the span ``api.blur_u8``, its checks and routing in
+    ``api.route`` (``utils/trace.py``).
     """
+    with span("api.blur_u8"):
+        with span("api.route"):
+            run, args = _route_u8(img, nsmooth, engine, kernel, size_mode, precision)
+        return run(img, *args)
+
+
+def _route_u8(img, nsmooth, engine, kernel: str, size_mode: str, precision):
+    """``blur_u8``'s checks and routing, before any data is touched: the
+    function that blurs ``img`` and its further arguments."""
     if not isinstance(img, torch.Tensor):
         raise TypeError(f"blur_u8 expects a torch.Tensor, got {type(img)}")
     if img.dtype != torch.uint8:
@@ -485,11 +512,9 @@ def blur_u8(
     nsmooth = _norm_nsmooth(nsmooth)
     h, w = img.shape[-3], img.shape[-2]
     if engine is Engine.CASCADE:
-        sigma = _scalar(nsmooth, engine)
-        return from_planar(blur_cascade_u8(to_planar(img, torch.uint8), sigma, size_mode))
+        return _cascade_u8, (_scalar(nsmooth, engine), size_mode)
     if engine in (Engine.BOX, Engine.BOX_SCAN):
-        plan = _box_plan(h, w, _box_radius(nsmooth, engine), 2, size_mode)
-        return _box_u8(img, plan, engine)
+        return _box_u8, (_box_plan(h, w, _box_radius(nsmooth, engine), 2, size_mode), engine)
     plan = _plan_for(h, w, nsmooth, kernel, size_mode)
     if precision == "hybrid" and not dma_form_applicable(torch.uint8, plan, "hybrid"):
         # the rung exists only as K1's body: raise rather than substitute
@@ -506,14 +531,22 @@ def blur_u8(
         # shard where they serve and the distributed FFT past them
         fn_sharded = _auto_sharded_fn(tuple(img.shape), plan, True, img.device)
         if fn_sharded is not None:
-            return fn_sharded(img)
+            return fn_sharded, ()
     eng = _route(engine, plan, 1, img.device, _u8_lead(img))
     if eng is Engine.FUSED:
-        return _fused_u8_interleaved(img, plan, precision)
+        return _fused_u8_on_rung, (plan, *_u8_rung(plan, precision, img.device))
     if eng is Engine.DERICHE:
-        # uint8 planes straight into the rows band; one rounding at the end
-        return from_planar(blur_deriche_u8(to_planar(img, torch.uint8), plan.sigma))
-    return _through_planar_u8(img, plan, eng)
+        return _deriche_u8, (plan.sigma,)
+    return _through_planar_u8, (plan, eng)
+
+
+def _cascade_u8(img: torch.Tensor, sigma: float, size_mode: str) -> torch.Tensor:
+    return from_planar(blur_cascade_u8(to_planar(img, torch.uint8), sigma, size_mode))
+
+
+def _deriche_u8(img: torch.Tensor, sigma: float) -> torch.Tensor:
+    # uint8 planes straight into the rows band; one rounding at the end
+    return from_planar(blur_deriche_u8(to_planar(img, torch.uint8), sigma))
 
 
 def _box_u8(img: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
@@ -557,8 +590,19 @@ def blur(
     ``torch.matmul``); ``"box"`` / ``"box_scan"`` the FastBoxBlur box
     (radius ``nsmooth**2``, 2 passes) and ``"cascade"`` composed fused
     blurs, ``"conv"`` the direct convolution and ``"deriche"`` the
-    recursive Gaussian, all differentiable.
+    recursive Gaussian, all differentiable. The call runs in the span
+    ``api.blur``, its checks and routing in ``api.route``
+    (``utils/trace.py``).
     """
+    with span("api.blur"):
+        with span("api.route"):
+            run, args = _route_planar(planar, nsmooth, engine, kernel, size_mode)
+        return run(planar, *args)
+
+
+def _route_planar(planar, nsmooth, engine, kernel: str, size_mode: str):
+    """``blur``'s checks and routing, before any data is touched: the
+    function that blurs ``planar`` and its further arguments."""
     if not isinstance(planar, torch.Tensor):
         raise TypeError(f"blur expects a torch.Tensor, got {type(planar)}")
     if planar.ndim < 2:
@@ -567,7 +611,7 @@ def blur(
     h, w = planar.shape[-2], planar.shape[-1]
     lead = math.prod(planar.shape[:-2])
     if engine is Engine.CASCADE:
-        return blur_cascade(planar.to(torch.float32), _scalar(nsmooth, engine), size_mode)
+        return _cascade_f32, (_scalar(nsmooth, engine), size_mode)
     if engine in (Engine.BOX, Engine.BOX_SCAN):
         plan = _box_plan(h, w, _box_radius(nsmooth, engine), 2, size_mode)
         if engine is Engine.BOX:
@@ -581,9 +625,16 @@ def blur(
             # stays on one device, where the engines have their adjoint
             fn_sharded = _auto_sharded_fn(tuple(planar.shape), plan, False, planar.device)
             if fn_sharded is not None:
-                return fn_sharded(planar)
-    eng = _route(engine, plan, 4, planar.device, lead)
-    return _blur_planar(planar.to(torch.float32), plan, eng)
+                return fn_sharded, ()
+    return _blur_f32, (plan, _route(engine, plan, 4, planar.device, lead))
+
+
+def _cascade_f32(planar: torch.Tensor, sigma: float, size_mode: str) -> torch.Tensor:
+    return blur_cascade(planar.to(torch.float32), sigma, size_mode)
+
+
+def _blur_f32(planar: torch.Tensor, plan: BlurPlan, engine: Engine) -> torch.Tensor:
+    return _blur_planar(planar.to(torch.float32), plan, engine)
 
 
 def box_blur(img: torch.Tensor, nsmooth: float, passes: int = 2,

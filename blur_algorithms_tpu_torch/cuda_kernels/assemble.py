@@ -35,6 +35,7 @@ from typing import NamedTuple
 import torch
 
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
+from blur_algorithms_tpu_torch.utils import trace
 
 __all__ = [
     "HaloedRows",
@@ -91,21 +92,22 @@ def assemble_padded(x: torch.Tensor, rh: int, rw: int, orh: int, orw: int,
                          f"multiple of 16 (got {x.dtype}, wp {wp})")
     from blur_algorithms_tpu_torch.utils.build import load_library
 
-    h, w = x.shape[-2:]
-    planes = x.reshape(-1, h, w)
-    if planes.shape[0] > 65535:
-        raise ValueError(f"A5 takes at most 65535 planes, got {planes.shape[0]}")
-    out = torch.empty((planes.shape[0], hp, wp), dtype=torch.uint8, device=x.device)
-    if planes.shape[0]:
-        lib = load_library()
-        with torch.cuda.device(x.device):
-            rc = lib.assemble_padded_u8(
-                planes.data_ptr(), out.data_ptr(), planes.shape[0], h, w, rh, rw, orh, orw,
-                hp, wp, torch.cuda.current_stream(x.device).cuda_stream)
-        if rc:
-            msg = lib.blur_cuda_error_string(rc).decode()
-            raise RuntimeError(f"A5 launch failed: CUDA error {rc} ({msg})")
-        assemble_padded.launches += 1
+    with trace.span("launch.assemble_padded_u8"):
+        h, w = x.shape[-2:]
+        planes = x.reshape(-1, h, w)
+        if planes.shape[0] > 65535:
+            raise ValueError(f"A5 takes at most 65535 planes, got {planes.shape[0]}")
+        out = torch.empty((planes.shape[0], hp, wp), dtype=torch.uint8, device=x.device)
+        if planes.shape[0]:
+            lib = load_library()
+            with torch.cuda.device(x.device):
+                rc = lib.assemble_padded_u8(
+                    planes.data_ptr(), out.data_ptr(), planes.shape[0], h, w, rh, rw, orh,
+                    orw, hp, wp, torch.cuda.current_stream(x.device).cuda_stream)
+            if rc:
+                msg = lib.blur_cuda_error_string(rc).decode()
+                raise RuntimeError(f"A5 launch failed: CUDA error {rc} ({msg})")
+            trace.launched(assemble_padded, "assemble_padded_u8", trace.nbytes(planes, out))
     return out.reshape(*x.shape[:-2], hp, wp)
 
 
@@ -284,9 +286,12 @@ def assemble_padded_prepad(x: torch.Tensor | HaloedRows, rw: int, orw: int, hp: 
         from blur_algorithms_tpu_torch.utils.build import load_library
 
         _entry = load_library().assemble_padded_prepad_rows_u8
-    out = _launch(_entry, x.parts() if given else [(x, False)], rw, orw, hp, wp)
+    parts = x.parts() if given else [(x, False)]
+    with trace.span("launch.assemble_padded_prepad_rows_u8"):
+        out = _launch(_entry, parts, rw, orw, hp, wp)
     if out.numel():
-        assemble_padded_prepad.launches += 1
+        trace.launched(assemble_padded_prepad, "assemble_padded_prepad_rows_u8",
+                       trace.nbytes(out, *(t for t, _ in parts)))
     return out
 
 

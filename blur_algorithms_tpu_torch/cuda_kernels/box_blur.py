@@ -33,6 +33,7 @@ from blur_algorithms_tpu_torch.ops.layout import round_to_u8
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan, make_plan
 from blur_algorithms_tpu_torch.utils.hw import device_spec
+from blur_algorithms_tpu_torch.utils import trace
 
 __all__ = [
     "box_blur_scan",
@@ -173,34 +174,35 @@ def box_blur_scan_axis(planar: torch.Tensor, r: int, passes: int = 2,
 
     h, w = planar.shape[-2:]
     x = planar.reshape(-1, h, w)
-    out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=x.device)
-    if x.shape[0] == 0:
-        return out.reshape(planar.shape)
-    n, pad = (w, h)[axis == -2], passes * eff
-    tile = 0
-    if axis == -1:
-        tile = _rows_tile(n, pad, device_spec(x.device).smem_optin_bytes)
-    scratch_len = n + 2 * pad - 2 * eff  # the first pass's output
-    scratch = [None, None]
-    if tile == 0 and passes > 1:
-        for k in range(min(passes - 1, 2)):
-            scratch[k] = torch.empty(x.shape[0] * (w if axis == -2 else h)
-                                     * scratch_len, dtype=torch.float32,
-                                     device=x.device)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.box_scan_axis(
-            x.data_ptr(), out.data_ptr(),
-            *(s.data_ptr() if s is not None else None for s in scratch),
-            int(x.dtype == torch.uint8), int(out_u8), x.shape[0], h, w,
-            int(axis == -1), eff, passes, tile, scratch_len,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    with trace.span("launch.box_scan_axis"):
+        out = torch.empty(x.shape, dtype=torch.uint8 if out_u8 else torch.float32,
+                          device=x.device)
+        if x.shape[0] == 0:
+            return out.reshape(planar.shape)
+        n, pad = (w, h)[axis == -2], passes * eff
+        tile = 0
+        if axis == -1:
+            tile = _rows_tile(n, pad, device_spec(x.device).smem_optin_bytes)
+        scratch_len = n + 2 * pad - 2 * eff  # the first pass's output
+        scratch = [None, None]
+        if tile == 0 and passes > 1:
+            for k in range(min(passes - 1, 2)):
+                scratch[k] = torch.empty(x.shape[0] * (w if axis == -2 else h)
+                                         * scratch_len, dtype=torch.float32,
+                                         device=x.device)
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            rc = lib.box_scan_axis(
+                x.data_ptr(), out.data_ptr(),
+                *(s.data_ptr() if s is not None else None for s in scratch),
+                int(x.dtype == torch.uint8), int(out_u8), x.shape[0], h, w,
+                int(axis == -1), eff, passes, tile, scratch_len,
+                torch.cuda.current_stream(x.device).cuda_stream,
+            )
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"K4 launch failed: CUDA error {rc} ({msg})")
-    box_blur_scan_axis.launches += 1
+    trace.launched(box_blur_scan_axis, "box_scan_axis", trace.nbytes(x, out, *scratch))
     return out.reshape(planar.shape)
 
 

@@ -57,6 +57,7 @@ from blur_algorithms_tpu_torch.ops.fft_mxu import (
 )
 from blur_algorithms_tpu_torch.ops.kernels import wrap_centered
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
+from blur_algorithms_tpu_torch.utils import trace
 
 __all__ = [
     "BODY_N",
@@ -257,47 +258,54 @@ def _launch(wrapper, rows: torch.Tensor, n: int, axis_plan, *extra) -> torch.Ten
     """Launch the C entry of ``csrc/fft4step.cu`` named as ``wrapper`` on
     CUDA rows, in the form ``_form`` chooses (the staged one through
     ``fft_conv_rows_staged``, with a scratch buffer of (R + 1) / 2 x n
-    complex64; the others allocate nothing but the output), and count the
-    launch on ``wrapper``: ``.launches``, and ``.cluster_launches`` (the
-    cluster and the wide form) or ``.staged_launches``. Raise on a length
-    the kernel does not take, a device that is neither CUDA nor CPU, a
-    non-contiguous tensor or a failed launch."""
+    complex64; the others allocate nothing but the output), in the span
+    ``launch.<C entry>``, and count the launch on ``wrapper``
+    (``utils.trace.launched``): ``.launches``, and ``.cluster_launches``
+    (the cluster and the wide form) or ``.staged_launches``. Raise on a
+    length the kernel does not take, a device that is neither CUDA nor CPU,
+    a non-contiguous tensor or a failed launch."""
     if not kernel_length(n):
         raise ValueError(f"n = {n} is not a K3 transform length")
     if rows.device.type != "cuda":
         raise ValueError(f"K3 runs on CUDA or CPU tensors, not {rows.device}")
     if not rows.is_contiguous():
         raise ValueError("K3 needs contiguous rows")
-    out = torch.empty_like(rows)
     if rows.shape[0] == 0:
-        return out
+        return torch.empty_like(rows)
     from blur_algorithms_tpu_torch.utils.build import load_library
 
-    entry, framed = wrapper.__name__, wrapper is fft_conv_rows_framed
-    tw = _twiddles(n, rows.device)
-    h, complex_h = _kernel_spectrum(axis_plan, n, rows.device)
-    lib = load_library()
+    framed = wrapper is fft_conv_rows_framed
     with torch.cuda.device(rows.device):
         form = _form(n, framed, rows.device)
-        if form == "staged":
-            # K3: dim n, pad 0; the complex scratch of the staged form
-            dim_pad = extra or (n, 0)
-            scratch = torch.empty(((rows.shape[0] + 1) // 2, n, 2), dtype=torch.float32,
-                                  device=rows.device)
-            extra = (*dim_pad, int(framed), scratch.data_ptr())
-            entry = "fft_conv_rows_staged"
-        rc = getattr(lib, entry)(
-            rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
-            int(complex_h), rows.shape[0], n, *extra,
-            torch.cuda.current_stream(rows.device).cuda_stream,
-        )
+        entry = "fft_conv_rows_staged" if form == "staged" else wrapper.__name__
+        with trace.span(f"launch.{entry}"):
+            out = torch.empty_like(rows)
+            tw = _twiddles(n, rows.device)
+            h, complex_h = _kernel_spectrum(axis_plan, n, rows.device)
+            lib = load_library()
+            scratch = None
+            if form == "staged":
+                # K3: dim n, pad 0; the complex scratch of the staged form
+                dim_pad = extra or (n, 0)
+                scratch = torch.empty(((rows.shape[0] + 1) // 2, n, 2),
+                                      dtype=torch.float32, device=rows.device)
+                extra = (*dim_pad, int(framed), scratch.data_ptr())
+            rc = getattr(lib, entry)(
+                rows.data_ptr(), out.data_ptr(), tw.data_ptr(), h.data_ptr(),
+                int(complex_h), rows.shape[0], n, *extra,
+                torch.cuda.current_stream(rows.device).cuda_stream,
+            )
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc} ({msg})")
-    wrapper.launches += 1
-    wrapper.cluster_launches += form in ("cluster", "wide")
-    wrapper.staged_launches += form == "staged"
+    trace.launched(wrapper, entry, trace.nbytes(rows, out, tw, h, scratch),
+                   _FORM_COUNTS.get(form))
     return out
+
+
+# the wrapper's own count of each form's launches, beside ``.launches``
+_FORM_COUNTS = {"cluster": "cluster_launches", "wide": "cluster_launches",
+                "staged": "staged_launches"}
 
 
 def cluster_occupancy(n: int, framed: bool = False) -> int:

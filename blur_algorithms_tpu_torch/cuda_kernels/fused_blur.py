@@ -66,6 +66,7 @@ from blur_algorithms_tpu_torch.ops.adjoint import blur_adjoint
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 from blur_algorithms_tpu_torch.utils.hw import device_spec
+from blur_algorithms_tpu_torch.utils import trace
 
 __all__ = [
     "MAX_RADIUS",
@@ -369,22 +370,24 @@ def blur_fused_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = False,
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     h, w = plan.shape
-    out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=x.device)
-    if x.shape[0]:
-        taps_row, taps_col = _device_tables(plan, x.device)
-        lib = load_library()
-        with torch.cuda.device(x.device):
-            rc = lib.blur_fused_f32(
-                x.data_ptr(), out.data_ptr(), taps_row.data_ptr(),
-                taps_col.data_ptr(), int(x.dtype == torch.uint8), int(out_u8),
-                int(pre_padded_col), x.shape[0], h, w, plan.col.support_radius,
-                plan.row.support_radius, torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        if rc:
-            msg = lib.blur_cuda_error_string(rc).decode()
-            raise RuntimeError(f"K2 launch failed: CUDA error {rc} ({msg})")
-        blur_fused_f32.launches += 1
+    with trace.span("launch.blur_fused_f32"):
+        out = torch.empty((x.shape[0], h, w),
+                          dtype=torch.uint8 if out_u8 else torch.float32, device=x.device)
+        if x.shape[0]:
+            taps_row, taps_col = _device_tables(plan, x.device)
+            lib = load_library()
+            with torch.cuda.device(x.device):
+                rc = lib.blur_fused_f32(
+                    x.data_ptr(), out.data_ptr(), taps_row.data_ptr(),
+                    taps_col.data_ptr(), int(x.dtype == torch.uint8), int(out_u8),
+                    int(pre_padded_col), x.shape[0], h, w, plan.col.support_radius,
+                    plan.row.support_radius, torch.cuda.current_stream(x.device).cuda_stream,
+                )
+            if rc:
+                msg = lib.blur_cuda_error_string(rc).decode()
+                raise RuntimeError(f"K2 launch failed: CUDA error {rc} ({msg})")
+            trace.launched(blur_fused_f32, "blur_fused_f32",
+                           trace.nbytes(x, out, taps_row, taps_col))
     return out.reshape(*planar.shape[:-2], h, w)
 
 
@@ -432,22 +435,23 @@ def blur_fused_axis_f32(planar: torch.Tensor, plan: BlurPlan, out_u8: bool = Fal
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     h, w = plan.shape
-    out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=x.device)
-    if x.shape[0]:
-        taps = _device_tables(plan, x.device)[0 if rw else 1]
-        lib = load_library()
-        with torch.cuda.device(x.device):
-            rc = lib.blur_fused_axis_f32(
-                x.data_ptr(), out.data_ptr(), taps.data_ptr(),
-                int(x.dtype == torch.uint8), int(out_u8), int(pre_padded_col), x.shape[0],
-                h, w, int(rw > 0), max(rh, rw),
-                torch.cuda.current_stream(x.device).cuda_stream,
-            )
-        if rc:
-            msg = lib.blur_cuda_error_string(rc).decode()
-            raise RuntimeError(f"K2's single-axis form failed: CUDA error {rc} ({msg})")
-        blur_fused_axis_f32.launches += 1
+    with trace.span("launch.blur_fused_axis_f32"):
+        out = torch.empty((x.shape[0], h, w),
+                          dtype=torch.uint8 if out_u8 else torch.float32, device=x.device)
+        if x.shape[0]:
+            taps = _device_tables(plan, x.device)[0 if rw else 1]
+            lib = load_library()
+            with torch.cuda.device(x.device):
+                rc = lib.blur_fused_axis_f32(
+                    x.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                    int(x.dtype == torch.uint8), int(out_u8), int(pre_padded_col),
+                    x.shape[0], h, w, int(rw > 0), max(rh, rw),
+                    torch.cuda.current_stream(x.device).cuda_stream,
+                )
+            if rc:
+                msg = lib.blur_cuda_error_string(rc).decode()
+                raise RuntimeError(f"K2's single-axis form failed: CUDA error {rc} ({msg})")
+            trace.launched(blur_fused_axis_f32, "blur_fused_axis_f32", trace.nbytes(x, out, taps))
     return out.reshape(*planar.shape[:-2], h, w)
 
 

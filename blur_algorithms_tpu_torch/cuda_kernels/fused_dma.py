@@ -100,6 +100,7 @@ from blur_algorithms_tpu_torch.ops.band_matmul import band_block_matrix
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
 from blur_algorithms_tpu_torch.utils.hw import device_spec
+from blur_algorithms_tpu_torch.utils import trace
 
 __all__ = [
     "Bf16Operands",
@@ -926,37 +927,39 @@ def _launch(fn, geo: K1Geometry, x: torch.Tensor, plan: BlurPlan, precision: str
             out_u8: bool) -> torch.Tensor:
     """One launch of ``blur_fused_u8_k1`` on contiguous CUDA planes ``x``
     (``(n, H, W)``, or the padded frames ``(n, hp, wp)`` of the assembled
-    forms) -> ``(n, H, W)``; adds one to ``fn.launches``."""
+    forms) -> ``(n, H, W)``, in the span ``launch.blur_fused_u8_k1``;
+    counted on ``fn`` (``utils.trace.launched``)."""
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     name = f"K1 {geo.form} {precision}"
-    if x.shape[0] > 65535:
-        raise ValueError(f"{name} takes at most 65535 planes, got {x.shape[0]}")
-    h, w = plan.shape
-    out = torch.empty((x.shape[0], h, w), dtype=torch.uint8 if out_u8 else torch.float32,
-                      device=x.device)
-    if x.shape[0] == 0:
-        return out
-    shift, consts, scale = 0, (0.0, 0.0, 0.0), 1.0
-    taps_i = tc_tables(plan, precision, geo.form in ("assembled", "pipelined"), x.device)
-    if precision == "int8":
-        ops = int8_operands(plan)
-        shift, consts = ops.rows_shift, ops.epilogue_constants()
-    elif precision == "hybrid":
-        scale = float(hybrid_operands(plan).scale)
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        rc = lib.blur_fused_u8_k1(
-            FORMS.index(geo.form), RUNGS.index(precision), int(out_u8),
-            x.data_ptr(), out.data_ptr(), taps_i.data_ptr(), None,
-            x.shape[0], h, w, plan.col.support_radius, plan.row.support_radius,
-            geo.th, geo.tw, geo.seg, geo.slots, x.shape[1], x.shape[2], geo.smem, shift,
-            *map(float, consts), scale, torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    with trace.span("launch.blur_fused_u8_k1"):
+        if x.shape[0] > 65535:
+            raise ValueError(f"{name} takes at most 65535 planes, got {x.shape[0]}")
+        h, w = plan.shape
+        out = torch.empty((x.shape[0], h, w),
+                          dtype=torch.uint8 if out_u8 else torch.float32, device=x.device)
+        if x.shape[0] == 0:
+            return out
+        shift, consts, scale = 0, (0.0, 0.0, 0.0), 1.0
+        taps_i = tc_tables(plan, precision, geo.form in ("assembled", "pipelined"), x.device)
+        if precision == "int8":
+            ops = int8_operands(plan)
+            shift, consts = ops.rows_shift, ops.epilogue_constants()
+        elif precision == "hybrid":
+            scale = float(hybrid_operands(plan).scale)
+        lib = load_library()
+        with torch.cuda.device(x.device):
+            rc = lib.blur_fused_u8_k1(
+                FORMS.index(geo.form), RUNGS.index(precision), int(out_u8),
+                x.data_ptr(), out.data_ptr(), taps_i.data_ptr(), None,
+                x.shape[0], h, w, plan.col.support_radius, plan.row.support_radius,
+                geo.th, geo.tw, geo.seg, geo.slots, x.shape[1], x.shape[2], geo.smem, shift,
+                *map(float, consts), scale, torch.cuda.current_stream(x.device).cuda_stream,
+            )
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    fn.launches += 1
+    trace.launched(fn, "blur_fused_u8_k1", trace.nbytes(x, out, taps_i))
     return out
 
 

@@ -64,6 +64,7 @@ from blur_algorithms_tpu_torch.cuda_kernels.fused_dma import (
 )
 from blur_algorithms_tpu_torch.ops.pad import reflect_101
 from blur_algorithms_tpu_torch.ops.plan import BlurPlan
+from blur_algorithms_tpu_torch.utils import trace
 
 __all__ = [
     "cols_geometry",
@@ -267,8 +268,9 @@ def _device_taps(q: bytes, device: torch.device) -> torch.Tensor:
 
 def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor,
             taps: torch.Tensor, *args) -> None:
-    """One launch of ``name`` over ``x`` (``(n, ., W)``) into ``out`` (``(n,
-    H, W)``), which gives the kernel its ``H``; adds one to ``fn.launches``."""
+    """One launch of the C entry ``name`` over ``x`` (``(n, ., W)``) into
+    ``out`` (``(n, H, W)``), which gives the kernel its ``H``; counted on
+    ``fn`` (``utils.trace.launched``)."""
     from blur_algorithms_tpu_torch.utils.build import load_library
 
     if x.shape[0] > 65535:
@@ -283,7 +285,7 @@ def _launch(name: str, fn, x: torch.Tensor, out: torch.Tensor,
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
-    fn.launches += 1
+    trace.launched(fn, name, trace.nbytes(x, out, taps))
 
 
 def _int8_taps(q: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -309,16 +311,17 @@ def fused_split_rows_int8(planar_u8: torch.Tensor, plan: BlurPlan,
     _check(planar_u8, plan, torch.uint8, "rows")
     if not _on_cuda(planar_u8, "fused_split_rows_int8"):
         return fused_split_rows_int8_ref(planar_u8, plan, out_e32)
-    h, w = plan.shape
-    x = planar_u8.reshape(-1, h, w)
-    out = torch.empty(x.shape, dtype=torch.int16 if out_e32 else torch.float32,
-                      device=x.device)
-    if x.shape[0]:
-        q, scale, shift = rows_operands(plan, out_e32)
-        _launch("fused_split_rows_int8", fused_split_rows_int8, x, out,
-                _int8_taps(q, x.device),
-                plan.row.support_radius, int(out_e32), shift,
-                float(np.float32(1.0 / scale)))
+    with trace.span("launch.fused_split_rows_int8"):
+        h, w = plan.shape
+        x = planar_u8.reshape(-1, h, w)
+        out = torch.empty(x.shape, dtype=torch.int16 if out_e32 else torch.float32,
+                          device=x.device)
+        if x.shape[0]:
+            q, scale, shift = rows_operands(plan, out_e32)
+            _launch("fused_split_rows_int8", fused_split_rows_int8, x, out,
+                    _int8_taps(q, x.device),
+                    plan.row.support_radius, int(out_e32), shift,
+                    float(np.float32(1.0 / scale)))
     return out.reshape(planar_u8.shape)
 
 
@@ -344,12 +347,13 @@ def fused_split_cols_int8(e16: torch.Tensor, plan: BlurPlan, out_u8: bool = True
     _check(e16, plan, torch.int16, "cols", pre_padded_col)
     if not _on_cuda(e16, "fused_split_cols_int8"):
         return fused_split_cols_int8_ref(e16, plan, out_u8, pre_padded_col)
-    x, out = _cols_launch_shapes(e16, plan, out_u8)
-    if x.shape[0]:
-        q, constants = cols_operands(plan)
-        _launch("fused_split_cols_int8", fused_split_cols_int8, x, out,
-                _int8_taps(q, x.device), plan.col.support_radius, int(out_u8),
-                int(pre_padded_col), *map(float, constants))
+    with trace.span("launch.fused_split_cols_int8"):
+        x, out = _cols_launch_shapes(e16, plan, out_u8)
+        if x.shape[0]:
+            q, constants = cols_operands(plan)
+            _launch("fused_split_cols_int8", fused_split_cols_int8, x, out,
+                    _int8_taps(q, x.device), plan.col.support_radius, int(out_u8),
+                    int(pre_padded_col), *map(float, constants))
     return out.reshape(_out_shape(e16, plan))
 
 
@@ -366,11 +370,12 @@ def fused_split_cols_hybrid(e16: torch.Tensor, plan: BlurPlan, out_u8: bool = Tr
     _check(e16, plan, torch.int16, "cols", pre_padded_col)
     if not _on_cuda(e16, "fused_split_cols_hybrid"):
         return fused_split_cols_hybrid_ref(e16, plan, out_u8, pre_padded_col)
-    x, out = _cols_launch_shapes(e16, plan, out_u8)
-    if x.shape[0]:
-        _launch("fused_split_cols_hybrid", fused_split_cols_hybrid, x, out,
-                _device_f32_taps(plan, x.device), plan.col.support_radius,
-                int(out_u8), int(pre_padded_col), float(_HYBRID_SCALE))
+    with trace.span("launch.fused_split_cols_hybrid"):
+        x, out = _cols_launch_shapes(e16, plan, out_u8)
+        if x.shape[0]:
+            _launch("fused_split_cols_hybrid", fused_split_cols_hybrid, x, out,
+                    _device_f32_taps(plan, x.device), plan.col.support_radius,
+                    int(out_u8), int(pre_padded_col), float(_HYBRID_SCALE))
     return out.reshape(_out_shape(e16, plan))
 
 

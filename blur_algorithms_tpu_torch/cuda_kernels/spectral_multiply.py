@@ -17,6 +17,8 @@ import functools
 import numpy as np
 import torch
 
+from blur_algorithms_tpu_torch.utils import trace
+
 __all__ = [
     "launch_geometry",
     "spectral_multiply_2d",
@@ -95,23 +97,25 @@ def spectral_multiply_2d(spec: torch.Tensor, col_re, row_re,
         raise ValueError("K5 takes planes of fewer than 2**31 values")
     if planes == 0:
         return torch.empty_like(spec)
-    # out at the same offset from a 16-byte boundary as spec (the kernel's
-    # 16-byte accesses pair the same values in both)
-    odd = spec.data_ptr() % 16 // 8
-    out = torch.empty(spec.numel() + odd, dtype=spec.dtype,
-                      device=spec.device)[odd:].view(spec.shape)
-    col_t, row_t = _device_factors(col.tobytes(), row.tobytes(), spec.device)
-    lib = load_library()
-    with torch.cuda.device(spec.device):
-        rc = lib.spectral_multiply_2d(
-            spec.data_ptr(), out.data_ptr(), col_t.data_ptr(), row_t.data_ptr(),
-            float(s), planes, h, wf, *launch_geometry(planes, h, wf),
-            torch.cuda.current_stream(spec.device).cuda_stream,
-        )
+    with trace.span("launch.spectral_multiply_2d"):
+        # out at the same offset from a 16-byte boundary as spec (the kernel's
+        # 16-byte accesses pair the same values in both)
+        odd = spec.data_ptr() % 16 // 8
+        out = torch.empty(spec.numel() + odd, dtype=spec.dtype,
+                          device=spec.device)[odd:].view(spec.shape)
+        col_t, row_t = _device_factors(col.tobytes(), row.tobytes(), spec.device)
+        lib = load_library()
+        with torch.cuda.device(spec.device):
+            rc = lib.spectral_multiply_2d(
+                spec.data_ptr(), out.data_ptr(), col_t.data_ptr(), row_t.data_ptr(),
+                float(s), planes, h, wf, *launch_geometry(planes, h, wf),
+                torch.cuda.current_stream(spec.device).cuda_stream,
+            )
     if rc:
         msg = lib.blur_cuda_error_string(rc).decode()
         raise RuntimeError(f"K5 launch failed: CUDA error {rc} ({msg})")
-    spectral_multiply_2d.launches += 1
+    trace.launched(spectral_multiply_2d, "spectral_multiply_2d",
+                   trace.nbytes(spec, out, col_t, row_t))
     return out
 
 

@@ -6,12 +6,15 @@ adding ``+0.5`` exactly when converting float -> integral (round-half-up via
 C truncation, ``Utils.hpp:163,189``). Values outside [0, 255] are clipped.
 
 Every function keeps its input's device; the layout copies are
-``movedim(...).contiguous()``.
+``movedim(...).contiguous()``, dispatched in the spans ``layout.to_planar``
+and ``layout.from_planar`` (``utils/trace.py``).
 """
 
 from __future__ import annotations
 
 import torch
+
+from blur_algorithms_tpu_torch.utils.trace import span
 
 __all__ = ["to_planar", "from_planar", "round_to_u8"]
 
@@ -19,7 +22,8 @@ __all__ = ["to_planar", "from_planar", "round_to_u8"]
 def to_planar(interleaved: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     """(..., H, W, C) interleaved -> (..., C, H, W) planar, cast to ``dtype``
     (contiguous)."""
-    return interleaved.movedim(-1, -3).to(dtype).contiguous()
+    with span("layout.to_planar"):
+        return interleaved.movedim(-1, -3).to(dtype).contiguous()
 
 
 def round_to_u8(x: torch.Tensor) -> torch.Tensor:
@@ -33,7 +37,8 @@ def from_planar(planar: torch.Tensor, dtype=torch.uint8) -> torch.Tensor:
     A float input bound for uint8 gets the +0.5 round-half-up of
     ``Utils.hpp:189,204-206``; a uint8 input is only moved.
     """
-    interleaved = planar.movedim(-3, -1)
-    if dtype == torch.uint8 and planar.dtype != torch.uint8:
-        interleaved = round_to_u8(interleaved)
-    return interleaved.to(dtype).contiguous()
+    with span("layout.from_planar"):
+        interleaved = planar.movedim(-3, -1)
+        if dtype == torch.uint8 and planar.dtype != torch.uint8:
+            interleaved = round_to_u8(interleaved)
+        return interleaved.to(dtype).contiguous()
