@@ -177,6 +177,13 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
         vp,  # stream
     ]
     lib.spectral_multiply_2d.restype = i
+    for layout in (lib.layout_to_planar_u8, lib.layout_from_planar_u8):
+        layout.argtypes = [
+            vp, vp,  # in, out
+            i, ctypes.POINTER(ctypes.c_int64),  # nlead; leading sizes, strides, the frame
+            i, vp,  # device, stream
+        ]
+        layout.restype = i
     lib.blur_cuda_error_string.argtypes = [i]
     lib.blur_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -16,8 +16,10 @@ The spans:
 - ``api.blur_u8`` and ``api.blur``: the whole call of the public entry;
 - ``api.route``: its checks and routing (plan, engine, sharding, the fused
   engine's rung), everything before the first data is touched;
-- ``layout.to_planar`` and ``layout.from_planar``: the dispatch of the
-  layout copies (``ops/layout.py``);
+- ``layout.to_planar`` and ``layout.from_planar``: the layout moves
+  (``ops/layout.py``): the launch of the port's kernel for a uint8 RGB
+  move on the card (a ``launch.layout_*`` span inside), else the dispatch
+  of PyTorch's copy;
 - ``launch.<C entry>``: each launch of a kernel of the library: the
   wrapper's work on the CUDA path (checks, tap tables, the output's
   allocation) up to the return of the C entry.

@@ -299,6 +299,17 @@ Drives the port's main path on one CUDA card and fails loudly on any fault:
    262144 and within 1 count (uint8) or 2e-2 of the wide form's output;
    K3f on the frame's rows, K3 on the adjoint's rows, the ``blur_u8`` call
    and the ``blur`` call are timed in turns with the wide form.
+21. the uint8 layout moves (``csrc/layout.cu``: interleaved <-> planar RGB,
+   the two moves around every uint8 route's kernels): phase 3's AUTO
+   ``blur_u8`` call, its counts set to 0 before it, launches each exactly
+   once (the kernels-line ``launches``); ptxas's registers and spills; each
+   move ``torch.equal`` to ``movedim(...).contiguous()`` and the round trip
+   to its input, on 4 and 32 RGB 4K frames, the 24000x14500 photo, 3 ragged
+   1001x1777 frames, a crop of 4 4K frames (2080x3640 of each, read by its
+   strides), 4 4K frames one byte past a 16-byte boundary and 3 photos
+   (3.13 GB a tensor, past 2^31 bytes); times at the first five beside the
+   bytes bound, the torch expression and a contiguous ``copy_`` of the same
+   bytes.
 
 The line before the last is a JSON object describing each kernel; the last
 is ``{"ok": true, "device": {...}}``. Run from the repository root:
@@ -4864,6 +4875,119 @@ def _slice19(smi: str) -> list[dict]:
     ]
 
 
+# phase 21: the layout moves' shapes, (shape, the input's offset in bytes
+# from a 16-byte boundary, the crop of each frame or None); "past_2_31":
+# three photos, 3.13 GB a tensor; "crop_4k": a view of 4 4K frames, rows
+# and columns cut, which the strided path reads by its strides
+LAYOUT_CASES = {
+    "4k_b4": ((BATCH, H, W, 3), 0, None),
+    "4k_b32": ((32, H, W, 3), 0, None),
+    "photo": ((1, 14500, 24000, 3), 0, None),
+    "ragged": ((3, 1001, 1777, 3), 0, None),
+    "crop_4k": ((BATCH, H, W, 3), 0, (slice(37, 2117), slice(101, 3741))),
+    "misaligned": ((BATCH, H, W, 3), 1, None),
+    "past_2_31": ((3, 14500, 24000, 3), 0, None),
+}
+LAYOUT_TIMED = ("4k_b4", "4k_b32", "photo", "ragged", "crop_4k")
+
+
+def _u8_with_offset(shape, offset: int, gen) -> torch.Tensor:
+    """Random uint8 values of ``shape`` on the card, a contiguous view
+    ``offset`` bytes into a fresh buffer."""
+    n = int(np.prod(shape))
+    buf = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, device="cuda", generator=gen)
+    return buf[offset:].view(shape)
+
+
+def _layout_on_path(moves, what: str) -> dict[str, int]:
+    """The layout moves' launches since their counts were set to 0, one
+    call of the main path: exactly one each, or raise."""
+    got = {fn.__name__: fn.launches for fn in moves}
+    if any(n != 1 for n in got.values()):
+        raise RuntimeError(f"{what} launched the layout moves {got} times, not once each")
+    return got
+
+
+def _slice25(smi: str, main_launches: dict[str, int]) -> list[dict]:
+    """Phase 21: the uint8 layout moves (``csrc/layout.cu``, through
+    ``cuda_kernels/layout.py``) ``torch.equal`` to ``movedim(...).contiguous()``
+    both ways at every ``LAYOUT_CASES`` shape and back to the input; the
+    launches the blur's paths made since phase 3's AUTO call; ptxas's
+    registers; then times (median of 20, CUDA events) at ``LAYOUT_TIMED``
+    beside the bytes bound, the torch expression (the plain version) and a
+    contiguous ``copy_`` of the same bytes (the yardstick). Returns the
+    kernels-line entries of both moves, their launches those of phase 3's
+    AUTO call (``main_launches``)."""
+    from blur_algorithms_tpu_torch.cuda_kernels import layout
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    moves = {"to_planar": (layout.to_planar_u8, layout.to_planar_u8_ref),
+             "from_planar": (layout.from_planar_u8, layout.from_planar_u8_ref)}
+    since = {k: fn.launches for k, (fn, _) in moves.items()}
+    print(f"phase 21 layout launches: phase 3's blur_u8 AUTO {main_launches}; the blur's paths "
+          f"from that call through phase 20 {since}", flush=True)
+    for name, regs in _ptxas_lines(["layout_u8_groups_kernel", "layout_u8_strided_kernel"]):
+        print(f"phase 21 ptxas {name}: {regs}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    times = {k: {} for k in moves}
+    for label, (shape, offset, crop) in LAYOUT_CASES.items():
+        x = _u8_with_offset(shape, offset, gen)
+        planes = _u8_with_offset((*shape[:-3], 3, *shape[-3:-1]), offset, gen)
+        if crop is not None:
+            x, planes = x[..., crop[0], crop[1], :], planes[..., crop[0], crop[1]]
+        planar = layout.to_planar_u8(x)
+        want = layout.to_planar_u8_ref(x)
+        torch.cuda.synchronize()
+        if not torch.equal(planar, want):
+            raise RuntimeError(f"layout to_planar differs from the expression at {label}")
+        del want
+        back = layout.from_planar_u8(planes)
+        want = layout.from_planar_u8_ref(planes)
+        torch.cuda.synchronize()
+        if not torch.equal(back, want):
+            raise RuntimeError(f"layout from_planar differs from the expression at {label}")
+        del back, want
+        if not torch.equal(layout.from_planar_u8(planar), x):
+            raise RuntimeError(f"layout moves do not return {label} to itself")
+        print(f"phase 21 layout {label} {tuple(x.shape)} offset {offset} strides "
+              f"{x.stride()} / {planes.stride()}: both moves equal, round trip equal "
+              f"({x.numel()} bytes a tensor)", flush=True)
+        if label in LAYOUT_TIMED:
+            for k, (fn, ref) in moves.items():
+                src = x if k == "to_planar" else planes
+                dst = torch.empty(src.shape, dtype=src.dtype, device=src.device)
+                got = {"ms": _time(fn, src, name=f"{k} kernel"),
+                       "plain_ms": _time(ref, src, name=f"{k} torch expression"),
+                       "library_ms": _time(dst.copy_, src, name=f"{k} copy_")}
+                got = {kk: v.median_ms for kk, v in got.items()}
+                got["bound_ms"] = 1e3 * 2 * src.numel() / HBM_BYTES_PER_S
+                got["tb_per_s"] = 2 * src.numel() / (got["ms"] * 1e-3) / 1e12
+                times[k][label] = got
+                print(f"phase 21 layout {k} {label}: kernel {got['ms']:.4f} ms "
+                      f"({got['tb_per_s']:.3f} TB/s), bound {got['bound_ms']:.4f}, "
+                      f"torch expression {got['plain_ms']:.4f}, copy_ {got['library_ms']:.4f} "
+                      f"({smi})", flush=True)
+                del dst
+        del x, planar, planes
+        torch.cuda.empty_cache()
+    print(f"phase 21 layout moves: {time.perf_counter() - t0:.1f} s", flush=True)
+    return [{
+        "name": f"layout_{k}_u8",
+        "route": "cuda",
+        "source": "blur_algorithms_tpu_torch/csrc/layout.cu",
+        "replaces": None,
+        "launches": main_launches[fn.__name__],
+        "max_abs_err": 0,
+        "ms": times[k]["4k_b4"]["ms"],
+        "plain_ms": times[k]["4k_b4"]["plain_ms"],
+        "bound_ms": times[k]["4k_b4"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": times[k]["4k_b4"]["library_ms"],
+        "shapes": times[k],
+    } for k, (fn, _) in moves.items()]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke.py needs a CUDA device; none is available")
@@ -4871,6 +4995,7 @@ def main() -> int:
     from blur_algorithms_tpu_torch import blur_u8, make_plan, oracle
     from blur_algorithms_tpu_torch.api import _u8_dma_precision
     from blur_algorithms_tpu_torch.cuda_kernels import fused_blur, fused_dma
+    from blur_algorithms_tpu_torch.cuda_kernels import layout as layout_u8
     from blur_algorithms_tpu_torch.utils import build, timing
     from blur_algorithms_tpu_torch.utils.frames import make_frames
     from blur_algorithms_tpu_torch.utils.hw import device_spec
@@ -4928,15 +5053,21 @@ def main() -> int:
     # int8 pin is K1 int8's path
     split_at_sigma = fused_blur._split_wins(plan, 1, "int8", x.device)
     launched = {}
+    # the layout moves' launches on the main path: each call's own, counted
+    # from 0 (phase 21's kernels-line entries)
+    moves = (layout_u8.to_planar_u8, layout_u8.from_planar_u8)
     for prec in dict.fromkeys((rung, "int8")):
         body, ref_fn = bodies[prec]
         torch.cuda.synchronize()
-        for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32):
+        for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32, *moves):
             c.launches = 0
         auto = prec == rung and not split_at_sigma
         out = blur_u8(x, SIGMA) if auto else blur_u8(x, SIGMA, precision=prec)
         torch.cuda.synchronize()
         launched[prec] = body.launches
+        layout_launches = _layout_on_path(moves, f"blur_u8 ({prec})")
+        if auto:
+            main_layout = layout_launches
         others = {b.__name__: b.launches for b, _ in bodies.values() if b is not body}
         if body.launches < 1 or any(others.values()) or fused_blur.blur_fused_f32.launches:
             raise RuntimeError(f"blur_u8 ({prec}) launched {body.__name__} {body.launches} "
@@ -4971,10 +5102,11 @@ def main() -> int:
         split = (fused_split.fused_split_rows_int8, fused_split.fused_split_cols_hybrid,
                  fused_split.fused_split_cols_int8)
         torch.cuda.synchronize()
-        for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32, *split):
+        for c in (*(b for b, _ in bodies.values()), fused_blur.blur_fused_f32, *split, *moves):
             c.launches = 0
         out = blur_u8(x, SIGMA)
         torch.cuda.synchronize()
+        main_layout = _layout_on_path(moves, "blur_u8 AUTO")
         ran = {c.__name__: c.launches for c in (*(b for b, _ in bodies.values()),
                                                 fused_blur.blur_fused_f32, *split)}
         d = np.abs(out[0].cpu().numpy().astype(int) - want0.astype(int))
@@ -5015,6 +5147,7 @@ def main() -> int:
     slice16_kernels = _slice16()
     _slice18(smi)
     slice19_kernels = _slice19(smi)
+    slice25_kernels = _slice25(smi, main_layout)
 
     outputs = BATCH * 3 * H * W
     taps = 2 * plan.col.support_radius + 1 + 2 * plan.row.support_radius + 1
@@ -5042,7 +5175,8 @@ def main() -> int:
         "bound_by": k1_by,
         "library_ms": None,
     }, k2, *fft_kernels, *slice4_kernels, *slice5_kernels, *slice6_kernels,
-        *slice7_kernels, *slice11_kernels, *slice16_kernels, *slice19_kernels]}), flush=True)
+        *slice7_kernels, *slice11_kernels, *slice16_kernels, *slice19_kernels,
+        *slice25_kernels]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

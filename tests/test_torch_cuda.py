@@ -1231,3 +1231,105 @@ def test_filters_on_the_card_match_the_cpu(cuda_device):
     a = channel_smooth(img[0].numpy(), (5.0, 5.0, 7.0), device=cuda_device)
     b = channel_smooth(img[0].numpy(), (5.0, 5.0, 7.0), device="cpu")
     assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+
+def _u8_on_card(shape, seed, device, offset=0):
+    """Random uint8 values of ``shape`` made on the card, a contiguous view
+    ``offset`` bytes into its buffer."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = int(np.prod(shape))
+    buf = torch.randint(0, 256, (n + offset,), dtype=torch.uint8, device=device, generator=g)
+    return buf[offset:].view(shape)
+
+
+# views of channel-last frames; planes take the same view of their
+# channel-last form
+_LAYOUT_VIEWS = {
+    "crop": lambda x: x[..., 37:2117, 101:3741, :],  # 2080x3640 of each 4K frame
+    "every_other": lambda x: x[::2],
+    "expanded": lambda x: x[:1].expand(3, *x.shape[1:]),
+    "six_leading": lambda x: x[(slice(0, 2),) * 6],  # four launches
+    "rgba": lambda x: x[..., :3],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, offset, view", [
+    ((2, 2160, 3840, 3), 0, None),  # the 4K cells' frames, batch 2
+    ((14500, 24000, 3), 0, None),  # the photo cell's frame
+    ((1001, 1777, 3), 0, None),  # ragged: the strided path
+    ((5, 120, 200, 3), 0, None),  # an odd batch
+    ((3, 216, 384, 3), 1, None),  # a base one byte in: the strided path
+    ((2, 1001, 1777, 3), 7, None),
+    ((4, 2160, 3840, 3), 0, "crop"),  # a cropped 4K view
+    ((4, 216, 384, 3), 0, "every_other"),
+    ((2, 216, 384, 3), 0, "expanded"),
+    ((3,) * 6 + (20, 30, 3), 0, "six_leading"),
+    ((2, 216, 384, 4), 0, "rgba"),
+])
+def test_layout_kernels_equal_the_torch_expression_on_the_card(cuda_device, shape, offset,
+                                                              view):
+    from blur_algorithms_tpu_torch.cuda_kernels import layout
+
+    cut = _LAYOUT_VIEWS.get(view, lambda t: t)
+    x = cut(_u8_on_card(shape, 15, cuda_device, offset))
+    planes = cut(_u8_on_card((*shape[:-3], shape[-1], *shape[-3:-1]), 16, cuda_device,
+                             offset).movedim(-3, -1)).movedim(-1, -3)
+    assert x.is_contiguous() == (view is None)
+    before = (layout.to_planar_u8.launches, layout.from_planar_u8.launches)
+    planar = layout.to_planar_u8(x)
+    torch.cuda.synchronize()
+    assert planar.shape == (*x.shape[:-3], 3, *x.shape[-3:-1]) and planar.is_contiguous()
+    assert torch.equal(planar, x.movedim(-1, -3).contiguous())
+    back = layout.from_planar_u8(planes)
+    torch.cuda.synchronize()
+    assert torch.equal(back, planes.movedim(-3, -1).contiguous())
+    assert torch.equal(layout.from_planar_u8(planar), x)  # the round trip
+    torch.cuda.synchronize()
+    n = len(layout.launches(x, -1))
+    assert n == len(layout.launches(planes, -3)) == (4 if view == "six_leading" else 1)
+    # from_planar: the planes, then the round trip's contiguous planar in one
+    assert (layout.to_planar_u8.launches, layout.from_planar_u8.launches) == (
+        before[0] + n, before[1] + n + 1)
+
+
+@pytest.mark.cuda
+def test_blur_u8_on_a_cropped_view_moves_it_by_the_kernel(cuda_device):
+    from blur_algorithms_tpu_torch.utils import trace
+
+    crop = _u8_on_card((2, 2160, 3840, 3), 18, cuda_device)[:, 37:2117, 101:3741]
+    want = blur_u8(crop.contiguous(), 10.0)
+    torch.cuda.synchronize()
+    trace.reset_counters()
+    got = blur_u8(crop, 10.0)
+    torch.cuda.synchronize()
+    counts = trace.counters()
+    for entry in ("layout_to_planar_u8", "layout_from_planar_u8"):
+        assert counts[entry] == {"launches": 1, "bytes": 2 * crop.numel()}
+    assert torch.equal(got, want)
+    trace.reset_counters()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sigma", [10.0, 62.0])  # K1 hybrid; the split
+def test_blur_u8_moves_its_layout_by_the_kernels(cuda_device, monkeypatch, sigma):
+    from blur_algorithms_tpu_torch.ops import layout
+    from blur_algorithms_tpu_torch.utils import trace
+
+    img = _u8_on_card((2, 2160, 3840, 3), 17, cuda_device)
+    blur_u8(img, sigma)
+    torch.cuda.synchronize()
+    trace.reset_counters()
+    got = blur_u8(img, sigma)
+    torch.cuda.synchronize()
+    counts = trace.counters()
+    for entry in ("layout_to_planar_u8", "layout_from_planar_u8"):
+        assert counts[entry] == {"launches": 1, "bytes": 2 * img.numel()}
+    # the torch expression's moves around the same kernels: the same bytes
+    monkeypatch.setattr(layout, "_takes_kernel", lambda *args: False)
+    trace.reset_counters()
+    want = blur_u8(img, sigma)
+    torch.cuda.synchronize()
+    assert not any(name.startswith("layout_") for name in trace.counters())
+    assert torch.equal(got, want)
+    trace.reset_counters()

@@ -148,7 +148,7 @@ def test_kernel_sources_are_built_from_csrc():
 
     sources = sorted(p.name for p in (build._CSRC).glob("*.cu"))
     assert sources == ["box_scan.cu", "fft4step.cu", "fused_blur.cu", "fused_dma.cu",
-                       "fused_split.cu", "spectral_multiply.cu"]
+                       "fused_split.cu", "layout.cu", "spectral_multiply.cu"]
     assert "--fmad=false" in build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     assert build.build_dir().name == "build"
@@ -163,6 +163,10 @@ def test_kernel_sources_are_built_from_csrc():
     assert "fft4step.py:_kernel" in text and ":_kernel_framed" in text
     text = (build._CSRC / "spectral_multiply.cu").read_text()
     assert "spectral_multiply.py:_kernel" in text
+    # or that it replaces none, why it was added, and its bound
+    text = (build._CSRC / "layout.cu").read_text()
+    assert "Replaces no TPU kernel" in text and "ops/layout.py" in text
+    assert "device memory alone" in text
 
 
 def test_port_imports_no_jax():

@@ -117,7 +117,7 @@ def test_nbytes_counts_each_tensor_once():
     (10.0, {"blur_fused_u8_k1": 2}),  # K1: uint8 in, uint8 out
     # the split: uint8 in, int16 E out; E in, uint8 out
     (62.0, {"fused_split_rows_int8": 3, "fused_split_cols_hybrid": 3}),
-])
+])  # and the layout moves around them: uint8 in, uint8 out, no tables
 def test_one_call_on_the_card_counts_its_launches_and_bytes(clean_counters, tmp_path, sigma,
                                                            bytes_per_value):
     from portbench import program_trace, trace as bench_trace
@@ -137,11 +137,14 @@ def test_one_call_on_the_card_counts_its_launches_and_bytes(clean_counters, tmp_
             blur_u8(img, sigma)
             torch.cuda.synchronize()
     got = trace.counters()
-    assert set(got) == set(bytes_per_value)
+    layout = {"layout_to_planar_u8": 2, "layout_from_planar_u8": 2}
+    assert set(got) == set(bytes_per_value) | set(layout)
     for name, per_value in bytes_per_value.items():
         assert got[name]["launches"] == 1
         tables = got[name]["bytes"] - per_value * img.numel()
         assert 0 < tables < 1 << 20, (name, tables)  # the tap tables
+    for name, per_value in layout.items():
+        assert got[name] == {"launches": 1, "bytes": per_value * img.numel()}
 
     path = tmp_path / "trace.json"
     prof.export_chrome_trace(str(path))
@@ -150,6 +153,7 @@ def test_one_call_on_the_card_counts_its_launches_and_bytes(clean_counters, tmp_
         bench_trace.kernel_names(ROOT / "blur_algorithms_tpu_torch" / "csrc"))
     ours = [op for op in program.ops if bench_trace.is_port_kernel(op[0], pattern)]
     assert len(ours) == sum(c["launches"] for c in got.values())
-    assert {op[2] for op in ours} == {f"launch.{name}" for name in bytes_per_value}
+    assert {op[2] for op in ours} == {f"launch.{name}" for name in got}
     assert all(op[3] in ("correlation", "order") for op in ours)
-    assert program.device_in("layout.") > 0  # the two layout copies
+    # the two layout moves: the port's kernels, launched inside layout.*
+    assert program.device_in("launch.layout_") > 0
