@@ -1,17 +1,25 @@
 """One run of one cell: set-up, the measured window, the traced part of it,
 and the judgement of the sampled answers.
 
-The loop is closed: one client, one call in flight. Each call is
-``blur_u8(frames, sigma, engine=...)`` on the next tensor of a pool made on
-the device from the seed, and the client waits for its result
-(``torch.cuda.synchronize()``) before it sends the next. Set-up loads the
-built library, makes the pool and makes the warm-up calls at the cell's own
-shape; nothing else.
+The loop is closed: one client, one call in flight. The traffic's ``entry``
+says what a call is, on the next tensor of a pool made on the device from the
+seed:
+
+- ``blur_u8`` (the default): ``blur_u8(frames, sigma, engine=...)`` on uint8
+  ``(B, H, W, C)`` frames;
+- ``blur``: ``y = blur(planes, sigma, engine=...)`` on float32 ``(B, C, H, W)``
+  planes and, with ``"backward": true``, ``torch.autograd.grad(y, planes, g)``
+  with a cotangent ``g`` of the pool's, in the same call.
+
+The client waits for its result (``torch.cuda.synchronize()``) before it
+sends the next. Set-up loads the built library, makes the pool and makes the
+warm-up calls at the cell's own shape; nothing else.
 
 A reservoir drawn from the seed keeps a few of the window's answers alive
-(their bytes are taken off the window's peak for ``peak_mem_gib``). Once the window has closed and
-its peak has been read, the plain reference (``reference.py``) judges each
-kept answer against the exact blur of the input that produced it.
+(their bytes are taken off the window's peak for ``peak_mem_gib``). Once the
+window has closed and its peak has been read, the plain reference
+(``reference.py``) judges each kept answer against the exact blur (and
+adjoint) of the input that produced it.
 """
 
 from __future__ import annotations
@@ -29,10 +37,11 @@ import time
 import torch
 
 from portbench import frames as frames_mod
-from portbench import reference, trace as trace_mod
+from portbench import program_trace, reference, trace as trace_mod
 from portbench.manifest import Cell, Manifest
 
-__all__ = ["Call", "Context", "Window", "p95", "run_cell", "sigma_of"]
+__all__ = ["ENTRIES", "Call", "Context", "Window", "entry_name", "make_entry", "p95",
+           "port_function", "run_cell", "sigma_of"]
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 CSRC = ROOT / "blur_algorithms_tpu_torch" / "csrc"
@@ -41,7 +50,7 @@ CSRC = ROOT / "blur_algorithms_tpu_torch" / "csrc"
 @dataclasses.dataclass
 class Call:
     t_enter: float  # host clock, seconds
-    t_return: float  # blur_u8 returned
+    t_return: float  # the entry (and, with a backward, the gradient) returned
     t_done: float  # the synchronize returned
     ok: bool
     profiled: bool = False
@@ -63,13 +72,15 @@ class Window:
 
 @dataclasses.dataclass
 class Context:
-    """What a metric reader takes: the cell, its window, and the reduced
-    trace of its traced part (None in a run without ``--trace 1``)."""
+    """What a metric reader takes: the cell, its window, the reduced trace of
+    its traced part and the port's spans in it (both None in a run without
+    ``--trace 1``)."""
 
     cell: Cell
     sigma: float
     window: Window
     trace: trace_mod.Trace | None
+    program: program_trace.Program | None = None
 
     @property
     def pixels_per_call(self) -> int:
@@ -123,41 +134,142 @@ class _Reservoir:
                 self.kept[j] = (index, out)
 
 
+class _U8Entry:
+    """``blur_u8`` on a pool of uint8 ``(B, H, W, C)`` frames."""
+
+    def __init__(self, cell: Cell, sigma: float, engine: str, seed: int, device, fn) -> None:
+        cfg = cell.config
+        self.sigma, self.engine, self.fn = sigma, engine, fn
+        self.pool = [frames_mod.make_frames(device, cfg["batch"], cfg["height"], cfg["width"],
+                                            cfg["channels"], frames_mod.frame_seed(seed, k))
+                     for k in range(int(cell.traffic["pool"]))]
+
+    def call(self, i: int):
+        return self.fn(self.pool[i % len(self.pool)], self.sigma, engine=self.engine)
+
+    @staticmethod
+    def kept_bytes(out) -> int:
+        return _allocated_bytes(out)
+
+    def judge(self, kept) -> tuple[int, dict]:
+        """The values judged and the numbers of the kept ``(index, answer)``."""
+        h, w = self.pool[0].shape[1:3]
+        ops = reference.Operators(h, w, self.sigma, self.pool[0].device)
+        judgement = reference.Judgement()
+        for index, out in kept:
+            reference.judge(out, self.pool[index % len(self.pool)], self.sigma, judgement, ops)
+        return judgement.values, judgement.numbers()
+
+
+class _FloatEntry:
+    """``blur`` on a pool of float32 ``(B, C, H, W)`` planes; with a
+    backward, each pool tensor has a cotangent of its own, and the answer of
+    a call is ``(y, gx)``, else ``(y,)``."""
+
+    def __init__(self, cell: Cell, sigma: float, engine: str, seed: int, device, fn) -> None:
+        cfg = cell.config
+        if cfg.get("layout") != "BCHW" or cfg.get("dtype") != "float32":
+            raise ValueError("the blur entry takes a float32 BCHW configuration")
+        self.sigma, self.engine, self.fn = sigma, engine, fn
+        self.backward = bool(cell.traffic.get("backward", False))
+        shape = (cfg["batch"], cfg["channels"], cfg["height"], cfg["width"])
+        n = int(cell.traffic["pool"])
+        self.pool = [frames_mod.make_planes(device, shape[0], shape[2], shape[3], shape[1],
+                                            frames_mod.frame_seed(seed, k)) for k in range(n)]
+        self.cotangents = [frames_mod.make_cotangent(device, shape,
+                                                     frames_mod.frame_seed(seed, _COT + k))
+                           for k in range(n)] if self.backward else [None] * n
+        if self.backward:
+            for x in self.pool:
+                x.requires_grad_(True)
+
+    def call(self, i: int):
+        k = i % len(self.pool)
+        x = self.pool[k]
+        y = self.fn(x, self.sigma, engine=self.engine)
+        if not self.backward:
+            return (y,)
+        (gx,) = torch.autograd.grad(y, x, self.cotangents[k])
+        return (y.detach(), gx)
+
+    @staticmethod
+    def kept_bytes(answer) -> int:
+        return sum(_allocated_bytes(t) for t in answer)
+
+    def judge(self, kept) -> tuple[int, dict]:
+        h, w = self.pool[0].shape[-2:]
+        ops = reference.Operators(h, w, self.sigma, self.pool[0].device)
+        judgement = reference.FloatJudgement(self.backward)
+        for index, answer in kept:
+            k = index % len(self.pool)
+            reference.judge_float(answer, self.pool[k].detach(), self.cotangents[k], self.sigma,
+                                  judgement, ops)
+        return judgement.values, judgement.numbers()
+
+
+# the traffic's entry (the port's function of that name) -> its pool and call
+ENTRIES = {"blur_u8": _U8Entry, "blur": _FloatEntry}
+# the cotangents' generator seeds: frame_seed(seed, _COT + k), apart from the pool's
+_COT = 1 << 21
+
+
+def entry_name(traffic: dict) -> str:
+    name = traffic.get("entry", "blur_u8")
+    if name not in ENTRIES:
+        raise ValueError(f"unknown entry {name!r}: the harness drives {', '.join(ENTRIES)}")
+    return name
+
+
+def make_entry(cell: Cell, seed: int, device, fn=None):
+    """The cell's entry with its pool made from ``seed`` on ``device``;
+    ``fn`` in the port's function's place (the port's where None)."""
+    name = entry_name(cell.traffic)
+    return ENTRIES[name](cell, sigma_of(cell.traffic, cell.config),
+                         cell.traffic.get("engine", "auto"), seed, device,
+                         fn or port_function(name, torch.device(device).type == "cuda"))
+
+
+def port_function(name: str, on_cuda: bool):
+    """The port's public function ``name``, its library loaded first on a
+    CUDA device."""
+    if on_cuda:
+        from blur_algorithms_tpu_torch.utils import build
+
+        build.load_library()
+    from blur_algorithms_tpu_torch import api
+
+    return getattr(api, name)
+
+
 def run_cell(manifest: Manifest, cell: Cell, seed: int, seconds: float, trace: bool,
-             device: str, t_process_start: float, blur_u8=None) -> tuple[dict, list]:
-    """Run ``cell`` once. Returns the result (without the ``checks`` key)
-    and the numbers compared as ``(name, value, limit, passed)``."""
-    cfg, traffic = cell.config, cell.traffic
-    bsz, h, w, ch = cfg["batch"], cfg["height"], cfg["width"], cfg["channels"]
-    sigma = sigma_of(traffic, cfg)
-    engine = traffic.get("engine", "auto")
+             device: str, t_process_start: float, fn=None) -> tuple[dict, list]:
+    """Run ``cell`` once, with ``fn`` in the place of the port's function
+    that the traffic's entry names, where given. Returns the result (without
+    the ``checks`` key) and the numbers compared as ``(name, value, limit,
+    passed)``."""
+    traffic = cell.traffic
+    sigma = sigma_of(traffic, cell.config)
     on_cuda = torch.device(device).type == "cuda"
-    if traffic.get("entry", "blur_u8") != "blur_u8" or traffic.get("loop", "closed") != "closed" \
-            or int(traffic.get("clients", 1)) != 1:
-        raise ValueError("this harness drives blur_u8 in a closed loop of one client")
+    if traffic.get("loop", "closed") != "closed" or int(traffic.get("clients", 1)) != 1:
+        raise ValueError("this harness drives a closed loop of one client")
     parts = {}  # where set-up goes, in seconds (reported beside the metrics)
     t_part = time.perf_counter()
-    if blur_u8 is None:
-        if on_cuda:
-            from blur_algorithms_tpu_torch.utils import build
-
-            build.load_library()
-        from blur_algorithms_tpu_torch.api import blur_u8
+    fn = fn or port_function(entry_name(traffic), on_cuda)
     parts["library_s"] = time.perf_counter() - t_part
 
     t_part = time.perf_counter()
-    pool = [frames_mod.make_frames(device, bsz, h, w, ch, frames_mod.frame_seed(seed, k))
-            for k in range(int(traffic["pool"]))]
+    entry = make_entry(cell, seed, device, fn)
     _sync(device)
     parts["pool_s"] = time.perf_counter() - t_part  # the first device work: CUDA's context too
     warm_s = []
     for k in range(int(traffic["warmup_calls"])):
         t0 = time.perf_counter()
-        out = blur_u8(pool[k % len(pool)], sigma, engine=engine)
+        out = entry.call(k)
         _sync(device)
         warm_s.append(time.perf_counter() - t0)
     del out
     parts["warmup_s"] = sum(warm_s)
+    parts["warmup_calls_s"] = warm_s
 
     reservoir = _Reservoir(int(traffic["samples"]), frames_mod.frame_seed(seed, 1 << 20))
     trace_dir = tempfile.mkdtemp(prefix="portbench-trace-") if trace else None
@@ -186,13 +298,12 @@ def run_cell(manifest: Manifest, cell: Cell, seed: int, seconds: float, trace: b
             # the first profiled call warms the profiler up and carries no
             # span: the traced window starts at the second
             span = torch.profiler.record_function if profiled and steps else _no_span
-            x = pool[i % len(pool)]
             t0 = time.perf_counter()
             ok, out = True, None
             with span(trace_mod.CALL):
                 try:
                     with span(trace_mod.BLUR):
-                        out = blur_u8(x, sigma, engine=engine)
+                        out = entry.call(i)
                     t1 = time.perf_counter()
                     with span(trace_mod.SYNC):
                         _sync(device)
@@ -215,18 +326,19 @@ def run_cell(manifest: Manifest, cell: Cell, seed: int, seconds: float, trace: b
                 break
         peak = torch.cuda.max_memory_allocated() if on_cuda else 0
         window = Window(calls, t_start, calls[-1].t_done, peak, setup_s,
-                        sum(_allocated_bytes(out) for _, out in reservoir.kept))
-        reduced = None
+                        sum(entry.kept_bytes(out) for _, out in reservoir.kept))
+        reduced = program = None
         if chrome:
             pattern = trace_mod.port_kernel_pattern(trace_mod.kernel_names(CSRC))
             reduced = trace_mod.reduce_chrome(chrome[0], pattern)
+            program = program_trace.reduce(chrome[0])
     finally:
         if prof is not None:
             prof.__exit__(None, None, None)
         if trace_dir:
             shutil.rmtree(trace_dir, ignore_errors=True)
 
-    ctx = Context(cell, sigma, window, reduced)
+    ctx = Context(cell, sigma, window, reduced, program)
     metrics = {}
     for m in (cell.per_layer if trace else cell.end_to_end):
         value = manifest.reader(m["name"])(ctx)
@@ -237,11 +349,7 @@ def run_cell(manifest: Manifest, cell: Cell, seed: int, seconds: float, trace: b
     # memory is freed first, the kept answers and their inputs stay
     if on_cuda:
         torch.cuda.empty_cache()
-    ops = reference.Operators(h, w, sigma, pool[0].device)
-    judgement = reference.Judgement()
-    for index, out in reservoir.kept:
-        reference.judge(out, pool[index % len(pool)], sigma, judgement, ops)
-    numbers = judgement.numbers()
+    values, numbers = entry.judge(reservoir.kept)
     compared = [(name, numbers[name], float(c["limit"]), numbers[name] <= float(c["limit"]))
                 for name, c in cell.checks.items()]
     compared.append(("failed_calls", failed, 0, failed == 0))
@@ -252,8 +360,7 @@ def run_cell(manifest: Manifest, cell: Cell, seed: int, seconds: float, trace: b
         "metrics": metrics,
         "device": {"platform": "gpu" if on_cuda else "cpu", "count": cell.chips,
                    "memory_peak_bytes": int(window.peak_bytes)},
-        "judged": {"calls": len(reservoir.kept), "values": judgement.values, "sigma": sigma,
-                   **numbers},
+        "judged": {"calls": len(reservoir.kept), "values": values, "sigma": sigma, **numbers},
         "setup_parts": parts,
     }
     if trace:

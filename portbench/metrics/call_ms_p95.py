@@ -1,5 +1,6 @@
 """The 95th percentile of every call's time in the window, from entering
-``blur_u8`` to the end of its synchronize (host clock), in ms."""
+the timed call (``blur_u8``, or ``blur`` and its backward) to the end of its
+synchronize (host clock), in ms."""
 
 from portbench.harness import p95
 

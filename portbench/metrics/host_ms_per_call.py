@@ -1,7 +1,7 @@
-"""Mean host time inside ``blur_u8`` until it returns (routing, plans,
-wrappers, launches), in ms, from the benchmark's own span around the call;
-over the traced run's calls outside the profiled part, whose host time the
-profiler inflates."""
+"""Mean host time inside the timed call until it returns (``blur_u8``, or
+``blur`` and its backward: routing, plans, wrappers, launches), in ms, from
+the benchmark's own span around the call; over the traced run's calls
+outside the profiled part, whose host time the profiler inflates."""
 
 
 def read(ctx):

@@ -13,6 +13,7 @@ __all__ = [
     "HBM_BYTES_PER_S",
     "INT8_OP_PER_S",
     "TF32_FLOP_PER_S",
+    "blur_f32_least_bytes",
     "blur_u8_least_bytes",
     "bound_s",
 ]
@@ -36,3 +37,10 @@ def blur_u8_least_bytes(values: int) -> int:
     input value read once and each output value written once, whatever
     kernels implement it."""
     return 2 * int(values)
+
+
+def blur_f32_least_bytes(values: int, backward: bool) -> int:
+    """The float32 blur's least device traffic on ``values`` values: the
+    input read and the output written, 8 bytes a value; with the backward
+    also the cotangent read and the gradient written, 16 a value."""
+    return (16 if backward else 8) * int(values)

@@ -17,9 +17,11 @@ call's thread, and gives:
 - the host seconds inside each span name;
 - each device op (kernel, copy, set) put down to the innermost span of the
   port's that launched it: by the ``correlation`` of its CUDA runtime or
-  driver launch event; a kernel with no such event, by launch order within
-  its call (one stream): the k-th such kernel of a call goes to the k-th
-  ``launch.*`` span of the call that no correlated op claimed;
+  driver launch event (one on another thread than the call's, such as
+  autograd's device thread running a backward, is outside the port's spans);
+  a kernel with no such event, by launch order within its call (one
+  stream): the k-th such kernel of a call goes to the k-th ``launch.*`` span
+  of the call that no correlated op claimed;
 - each idle gap of the device put down to the innermost span of the port's
   that the host was in.
 
@@ -136,19 +138,21 @@ def reduce(trace) -> Program | None:
              and str(e.get("name", "")).startswith(PREFIXES)]
     pieces = _pieces(spans)
     starts = [p[0] for p in pieces]
-    launch_ts = {e["args"]["correlation"]: float(e["ts"]) for e in events
-                 if e.get("cat") in LAUNCH_CATS and e.get("tid") == tid
-                 and "correlation" in e.get("args", {})}
+    # correlation -> launch time on the call's thread, or None on another
+    launch_ts = {e["args"]["correlation"]: float(e["ts"]) if e.get("tid") == tid else None
+                 for e in events
+                 if e.get("cat") in LAUNCH_CATS and "correlation" in e.get("args", {})}
     dev = sorted((e for e in events if e.get("cat") in DEVICE_CATS and w0 <= float(e["ts"]) < w1),
                  key=lambda e: float(e["ts"]))
 
     ops, claimed, unmatched = [], set(), []
     for e in dev:
-        t = launch_ts.get(e.get("args", {}).get("correlation"))
+        corr = e.get("args", {}).get("correlation")
+        t = launch_ts.get(corr)
         k = None if t is None else _innermost(pieces, starts, t)
         ops.append([e["name"], float(e["dur"]) * 1e-6, OUTSIDE if k is None else spans[k][0],
-                    None if t is None else "correlation"])
-        if t is None and e["cat"] == "kernel":
+                    "correlation" if corr in launch_ts else None])
+        if corr not in launch_ts and e["cat"] == "kernel":
             unmatched.append((float(e["ts"]), len(ops) - 1))
         claimed.add(k)
     for _, c0, c1 in calls:

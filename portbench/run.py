@@ -20,6 +20,7 @@ _T0 = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import math  # noqa: E402
 import os  # noqa: E402
 import pathlib  # noqa: E402
 import subprocess  # noqa: E402
@@ -86,6 +87,12 @@ def power_limit_w(torch) -> float | None:
     return None
 
 
+def plain(value):
+    """``value`` as strict JSON holds it: a float that is not finite (a
+    missing answer reads ``inf``) as its name."""
+    return repr(value) if isinstance(value, float) and not math.isfinite(value) else value
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--workload", required=True)
@@ -127,7 +134,8 @@ def main(argv=None) -> int:
         print(f"portbench: the process holds forbidden modules: {', '.join(found)}",
               file=sys.stderr)
         return 3
-    result["checks"] = {name: {"value": v, "limit": lim} for name, v, lim, _ in compared}
+    result["judged"] = {k: plain(v) for k, v in result["judged"].items()}
+    result["checks"] = {name: {"value": plain(v), "limit": lim} for name, v, lim, _ in compared}
     for name, value, limit, ok in compared:
         print(f"check {name}: {value!r} limit {limit!r} {'ok' if ok else 'FAILED'}",
               file=sys.stderr)

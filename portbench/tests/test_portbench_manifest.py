@@ -9,7 +9,7 @@ import re
 
 import pytest
 
-from portbench import manifest as manifest_mod
+from portbench import harness, manifest as manifest_mod
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 DATA = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -98,7 +98,14 @@ def test_cell_files_resolve(cell):
     for key in ("batch", "height", "width", "channels"):
         assert int(c.config[key]) >= 1
     assert c.config["reduced"] == MAN.config_entry(w["config"])["reduced"]
-    assert {"mismatch_pct", "worst_count_diff"} <= set(c.checks)
+    # the numbers the cell's entry judges (reference.Judgement, FloatJudgement)
+    if harness.entry_name(c.traffic) == "blur":
+        assert c.config["dtype"] == "float32" and c.config["layout"] == "BCHW"
+        want = {"max_abs_err"} | ({"grad_max_abs_err"} if c.traffic.get("backward") else set())
+        assert set(c.checks) == want
+    else:
+        assert c.config["dtype"] == "uint8" and c.config["layout"] == "BHWC"
+        assert {"mismatch_pct", "worst_count_diff"} <= set(c.checks)
     for check in c.checks.values():
         assert float(check["limit"]) >= 0
     # every cell reports setup_s, another end-to-end metric and a per-layer one

@@ -1,5 +1,5 @@
-"""The metric readers' arithmetic on a synthetic window and trace, and the
-reduction of a Chrome trace."""
+"""The metric readers' arithmetic on a synthetic window and trace, the
+reduction of a Chrome trace, and the port's spans reaching their readers."""
 
 from __future__ import annotations
 
@@ -9,7 +9,8 @@ import statistics
 
 import pytest
 
-from portbench import harness, manifest as manifest_mod, peaks, trace as trace_mod
+from portbench import harness, manifest as manifest_mod, peaks, program_trace
+from portbench import trace as trace_mod
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 MAN = manifest_mod.load()
@@ -26,8 +27,8 @@ def _window(times_ms, setup_s=9.0, peak=5 * 2**30, kept=0):
     return harness.Window(calls, calls[0].t_enter, calls[-1].t_done, peak, setup_s, kept)
 
 
-def _ctx(window, trace=None):
-    return harness.Context(CELL, 10.0, window, trace)
+def _ctx(window, trace=None, cell=CELL, program=None):
+    return harness.Context(cell, 10.0, window, trace, program)
 
 
 def test_mp_per_s_counts_every_call_over_the_window():
@@ -140,3 +141,95 @@ def test_kernel_names_read_from_the_port_sources():
     pattern = trace_mod.port_kernel_pattern(names)
     assert trace_mod.is_port_kernel(K1, pattern)
     assert not trace_mod.is_port_kernel(COPY, pattern)
+
+
+def test_device_bytes_of_a_float_cell_count_16_bytes_a_value_with_the_backward():
+    cell = MAN.cell("float4k-b4-s10-fwdbwd")
+    ctx = _ctx(_window([7.0, 7.0]), _trace(), cell)
+    values = 4 * 3 * 2160 * 3840
+    assert ctx.pixels_per_call == 4 * 2160 * 3840 and ctx.values_per_call == values
+    assert peaks.blur_f32_least_bytes(values, True) == 16 * values
+    assert peaks.blur_f32_least_bytes(values, False) == 8 * values
+    least = 16 * values / peaks.HBM_BYTES_PER_S
+    assert MAN.reader("device_bytes_pct")(ctx) == pytest.approx(100 * least / 0.0065)
+    fwd = dataclasses.replace(cell, traffic=dict(cell.traffic, backward=False))
+    assert MAN.reader("device_bytes_pct")(_ctx(_window([7.0, 7.0]), _trace(), fwd)) == \
+        pytest.approx(50 * least / 0.0065)
+
+
+def _x(cat, name, ts, dur, tid=1, **args):
+    return {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur, "tid": tid,
+            "args": args}
+
+
+def _port_call(t0, corr):
+    """One profiled call as the port traces it since its layout moves are
+    kernels: each move's kernel launched in ``launch.layout_*`` inside
+    ``layout.*``; then a kernel launched on another thread (a backward)."""
+    return [
+        _x("user_annotation", trace_mod.CALL, t0, 95),
+        _x("user_annotation", trace_mod.BLUR, t0 + 1, 50),
+        _x("user_annotation", "api.blur_u8", t0 + 2, 48),
+        _x("user_annotation", "api.route", t0 + 3, 7),
+        _x("user_annotation", "layout.to_planar", t0 + 10, 10),
+        _x("user_annotation", "launch.layout_to_planar_u8", t0 + 11, 8),
+        _x("cuda_runtime", "cudaLaunchKernel", t0 + 12, 2, correlation=corr),
+        _x("user_annotation", "launch.blur_fused_u8_k1", t0 + 20, 20),
+        _x("cuda_runtime", "cudaLaunchKernel", t0 + 25, 2, correlation=corr + 1),
+        _x("user_annotation", "layout.from_planar", t0 + 40, 8),
+        _x("user_annotation", "launch.layout_from_planar_u8", t0 + 41, 6),
+        _x("cuda_runtime", "cudaLaunchKernel", t0 + 42, 2, correlation=corr + 2),
+        _x("cuda_runtime", "cudaLaunchKernel", t0 + 60, 2, tid=9, correlation=corr + 3),
+        _x("kernel", "layout_u8_groups_kernel<false>", t0 + 14, 10, tid=0, correlation=corr),
+        _x("kernel", K1, t0 + 27, 30, tid=0, correlation=corr + 1),
+        _x("kernel", "layout_u8_groups_kernel<true>", t0 + 57, 12, tid=0,
+           correlation=corr + 2),
+        _x("kernel", "gemm_backward", t0 + 70, 20, tid=0, correlation=corr + 3),
+    ]
+
+
+def test_layout_reads_the_layout_kernels_and_a_backward_thread_is_outside():
+    program = program_trace.reduce({"traceEvents": _port_call(1000, 10) + _port_call(1100, 20)})
+    spans = {op[0]: op[2] for op in program.ops}
+    assert spans["layout_u8_groups_kernel<false>"] == "launch.layout_to_planar_u8"
+    assert spans["gemm_backward"] == program_trace.OUTSIDE
+    assert [op[3] for op in program.ops] == ["correlation"] * 8
+    ctx = _ctx(_window([7.0, 7.0]), _trace(), program=program)
+    assert MAN.reader("layout_device_ms_per_call")(ctx) == pytest.approx(22e-3)
+    assert MAN.reader("route_ms_per_call")(ctx) == pytest.approx(7e-3)
+    assert MAN.reader("launch_host_ms_per_call")(ctx) == pytest.approx(34e-3)
+    # a call that moves no layout (the float entry) has nothing to read there
+    no_layout = {"traceEvents": [e for e in _port_call(1000, 10)
+                                 if "layout" not in e["name"]]}
+    ctx = _ctx(_window([7.0]), _trace(), program=program_trace.reduce(no_layout))
+    assert MAN.reader("layout_device_ms_per_call")(ctx) is None
+    assert MAN.reader("route_ms_per_call")(ctx) == pytest.approx(7e-3)
+
+
+def test_a_traced_run_hands_the_port_spans_to_the_readers(monkeypatch):
+    """``run_cell`` reduces the traced window's spans into
+    ``Context.program`` before the trace is deleted, and every per-layer
+    reader sees it; an untraced run passes None."""
+    import time
+
+    import torch
+
+    seen = []
+    real = harness.Context
+
+    def spy(*args, **kwargs):
+        ctx = real(*args, **kwargs)
+        seen.append(ctx)
+        return ctx
+
+    monkeypatch.setattr(harness, "Context", spy)
+    cell = MAN.cell("rgb4k-b32-s10")
+    cell = dataclasses.replace(cell, config=dict(cell.config, batch=1, height=40, width=56),
+                               traffic=dict(cell.traffic, trace_seconds=0.02))
+    torch.set_num_threads(2)
+    for trace in (True, False):
+        harness.run_cell(MAN, cell, 3, 0.1, trace, "cpu", time.perf_counter())
+    traced, untraced = seen
+    assert isinstance(traced.program, program_trace.Program) and traced.program.calls >= 3
+    assert traced.program.host_in("api.route") > 0
+    assert untraced.program is None and untraced.trace is None

@@ -23,6 +23,9 @@ __all__ = ["DEVICE_CATS", "Trace", "is_port_kernel", "kernel_names", "port_kerne
            "reduce_chrome"]
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# BLUR spans the timed call whatever the traffic's entry (``blur_u8``, or
+# ``blur`` and its backward); the name, and the breakdown's "blur_u8", stay
+# as the first entry gave them, so that breakdowns compare across PRs
 CALL, BLUR, SYNC = "portbench.call", "portbench.blur_u8", "portbench.sync"
 _LAUNCH_BOUNDS = re.compile(r"__launch_bounds__\s*\((?:[^()]|\([^()]*\))*\)")
 _IDENT_CALL = re.compile(r"([A-Za-z_]\w*)\s*\(")
